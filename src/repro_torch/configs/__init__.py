@@ -1,0 +1,10 @@
+from repro_torch.configs.base import (  # noqa: F401
+    LayerKind,
+    LK,
+    ModelConfig,
+    SparseAttnConfig,
+    Stage,
+    get_config,
+    list_configs,
+    register,
+)

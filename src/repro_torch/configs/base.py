@@ -1,0 +1,172 @@
+"""Model / shape configuration for the PyTorch port.
+
+The port's own copy of the configuration system: ``LayerKind``/``Stage``
+patterns, ``ModelConfig`` with its derived head width and ``reduced()``
+smoke variant, and the registry.  Only the feature blocks of the families
+ported so far are present (dense decoders: attention + MLP); the MoE, SSM
+and MLA blocks arrive with the arch-zoo slice.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional, Tuple
+
+MIXERS = ("attn", "local", "mla", "mamba", "enc", "dec", "none")
+FFS = ("mlp", "moe", "none")
+
+
+@dataclasses.dataclass(frozen=True)
+class LayerKind:
+    mixer: str  # attn | local | mla | mamba | enc | dec | none
+    ff: str     # mlp | moe | none
+
+    def __post_init__(self):
+        if self.mixer not in MIXERS:
+            raise ValueError(f"unknown mixer {self.mixer!r}")
+        if self.ff not in FFS:
+            raise ValueError(f"unknown ff {self.ff!r}")
+
+    @property
+    def tag(self) -> str:
+        return f"{self.mixer}:{self.ff}"
+
+
+def LK(mixer: str, ff: str) -> LayerKind:
+    return LayerKind(mixer, ff)
+
+
+@dataclasses.dataclass(frozen=True)
+class Stage:
+    """``pattern`` is applied in order, the whole pattern repeated
+    ``repeats`` times; parameters of each pattern position are stacked on a
+    leading repeat axis.  ``stream`` selects the token stream (decoder or
+    encoder) the stage runs on."""
+
+    pattern: Tuple[LayerKind, ...]
+    repeats: int
+    stream: str = "decoder"  # decoder | encoder
+
+    @property
+    def n_layers(self) -> int:
+        return len(self.pattern) * self.repeats
+
+
+@dataclasses.dataclass(frozen=True)
+class SparseAttnConfig:
+    """Static block-sparse attention pattern (local band + sink blocks +
+    strided global blocks); ``head_sparsity`` is the fraction of heads whose
+    parameters are masked from federated communication."""
+
+    block_size: int = 128
+    local_blocks: int = 4
+    sink_blocks: int = 1
+    stride: int = 8
+    head_sparsity: float = 0.4
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelConfig:
+    name: str
+    family: str                   # dense | moe | ssm | hybrid | vlm | audio | encoder
+    d_model: int
+    n_heads: int
+    n_kv_heads: int
+    d_ff: int
+    vocab_size: int
+    stages: Tuple[Stage, ...]
+    head_dim: int = 0             # 0 → d_model // n_heads
+    window: int = 0               # sliding window for "local" mixers
+    norm: str = "rms"             # rms | ln
+    act: str = "swiglu"           # swiglu | geglu | gelu
+    pos: str = "rope"             # rope | learned
+    rope_theta: float = 10_000.0
+    norm_eps: float = 1e-5
+    tie_embeddings: bool = False
+    embed_scale: bool = False     # sqrt(d_model) embedding scale
+    max_position: int = 0         # learned-pos table size (0 → derived per run)
+    sparse_attn: Optional[SparseAttnConfig] = None
+    n_prefix_tokens: int = 0      # VLM patch-embedding positions
+    prefix_dim: int = 0
+    encoder_seq: int = 0          # audio: post-conv frames
+    n_classes: int = 0            # encoder classifier head
+    source: str = ""
+
+    @property
+    def hd(self) -> int:
+        return self.head_dim or (self.d_model // max(self.n_heads, 1))
+
+    @property
+    def n_layers(self) -> int:
+        return sum(s.n_layers for s in self.stages)
+
+    @property
+    def decoder_stages(self) -> Tuple[Stage, ...]:
+        return tuple(s for s in self.stages if s.stream == "decoder")
+
+    @property
+    def encoder_stages(self) -> Tuple[Stage, ...]:
+        return tuple(s for s in self.stages if s.stream == "encoder")
+
+    @property
+    def is_encoder_decoder(self) -> bool:
+        return bool(self.encoder_stages) and bool(self.decoder_stages)
+
+    @property
+    def is_encoder_only(self) -> bool:
+        return bool(self.encoder_stages) and not self.decoder_stages
+
+    def reduced(self, d_model: int = 256, repeats: int = 1,
+                vocab: int = 512) -> "ModelConfig":
+        """Reduced same-family variant for CPU tests: ≤2 layer kinds per
+        stage pattern, ≤4 heads, the same widths ratio."""
+        scale = d_model / self.d_model
+        n_heads = max(2, min(self.n_heads, 4))
+        n_kv = max(1, min(self.n_kv_heads, n_heads))
+        stages = tuple(Stage(s.pattern[: min(len(s.pattern), 2)],
+                             min(s.repeats, repeats), s.stream)
+                       for s in self.stages)
+        sparse = self.sparse_attn
+        if sparse is not None:
+            sparse = SparseAttnConfig(block_size=16, local_blocks=2,
+                                      sink_blocks=1, stride=4,
+                                      head_sparsity=sparse.head_sparsity)
+        return dataclasses.replace(
+            self,
+            name=self.name + "-smoke",
+            d_model=d_model,
+            n_heads=n_heads,
+            n_kv_heads=n_kv,
+            head_dim=d_model // n_heads,
+            d_ff=max(32, int(self.d_ff * scale)) if self.d_ff else 0,
+            vocab_size=vocab,
+            stages=stages,
+            window=min(self.window, 64) if self.window else 0,
+            max_position=1024,
+            sparse_attn=sparse,
+            n_prefix_tokens=min(self.n_prefix_tokens, 8),
+            prefix_dim=min(self.prefix_dim, 64) if self.prefix_dim else 0,
+            encoder_seq=min(self.encoder_seq, 16) if self.encoder_seq else 0,
+        )
+
+
+_REGISTRY = {}
+
+
+def register(cfg: ModelConfig) -> ModelConfig:
+    _REGISTRY[cfg.name] = cfg
+    return cfg
+
+
+def get_config(name: str) -> ModelConfig:
+    _load_all()
+    return _REGISTRY[name]
+
+
+def list_configs():
+    _load_all()
+    return sorted(_REGISTRY)
+
+
+def _load_all():
+    # import side effects register the configs
+    from repro_torch.configs import gpt2_small  # noqa: F401

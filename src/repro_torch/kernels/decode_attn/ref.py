@@ -1,0 +1,7 @@
+"""Plain PyTorch version of the flash-decode kernel."""
+from repro_torch.models.attention import decode_attention
+
+
+def decode_ref(q, k_cache, v_cache, cache_len: int, *, window: int = 0):
+    """q: (B,1,H,hd); caches (B,Sc,K,hd); positions < cache_len are valid."""
+    return decode_attention(q, k_cache, v_cache, cache_len, window=window)

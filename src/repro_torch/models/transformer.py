@@ -1,0 +1,213 @@
+"""Model: the stack runner over stage patterns (decoder-only serving).
+
+The port of ``repro.models.transformer.Model`` for the families ported so
+far: token + learned-position embeddings, stages of repeated layer patterns
+(parameters stacked on a leading repeat axis, walked by a Python loop where
+the JAX package ``lax.scan``s), the final norm and the (tied) LM head.
+Parameters are plain nested dicts of tensors in the JAX layout, so
+``bridge`` moves them between the two packages unchanged.
+
+Entry points used by the serving launcher:
+
+* ``prefill``     — full prompt → last-token logits and a decode cache
+* ``decode_step`` — one token against the cache (updated in place)
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, Optional
+
+import torch
+
+from repro_torch import resolve_device, trees
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models.blocks import (apply_layer_decode, apply_layer_seq,
+                                       check_kind, layer_cache_shape)
+from repro_torch.models.norms import apply_norm
+
+
+def _at(tree, r: int):
+    """One repeat's slice of a stacked (sub)tree (views, no copies)."""
+    if tree is None:
+        return None
+    if isinstance(tree, dict):
+        return {k: _at(v, r) for k, v in tree.items()}
+    return tree[r]
+
+
+class Model:
+    def __init__(self, cfg: ModelConfig, dtype=torch.float32, device=None):
+        if cfg.is_encoder_only or cfg.is_encoder_decoder:
+            raise NotImplementedError(
+                f"{cfg.name}: encoder stacks are ported with the PFTT training "
+                "slice (roberta) and the arch-zoo slice (whisper)")
+        if cfg.n_prefix_tokens:
+            raise NotImplementedError(f"{cfg.name}: VLM prefixes are ported "
+                                      "with the arch-zoo slice")
+        if cfg.pos != "learned":
+            raise NotImplementedError(f"{cfg.name}: rotary positions are "
+                                      "ported with the arch-zoo slice")
+        for stage in cfg.stages:
+            for kind in stage.pattern:
+                check_kind(kind)
+        self.cfg = cfg
+        self.dtype = dtype
+        self.device = resolve_device(device)
+
+    # ------------------------------------------------------------------ init
+    def init(self, generator: torch.Generator, max_seq: int = 0) -> Dict[str, Any]:
+        """Random parameters at the JAX package's shapes and scales, drawn
+        on the CPU from ``generator`` and moved to the model's device."""
+        cfg = self.cfg
+
+        def normal(shape, std):
+            return (torch.randn(*shape, generator=generator) * std).to(
+                device=self.device, dtype=self.dtype)
+
+        def norm(dim):
+            one = torch.ones if cfg.norm == "ln" else torch.zeros
+            p = {"scale": one(dim, device=self.device, dtype=self.dtype)}
+            if cfg.norm == "ln":
+                p["bias"] = torch.zeros(dim, device=self.device, dtype=self.dtype)
+            return p
+
+        def stacked_norm(r, dim):
+            return {k: v.expand(r, dim).clone() for k, v in norm(dim).items()}
+
+        d, h, kh, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd
+        params: Dict[str, Any] = {
+            "embed": normal((cfg.vocab_size, d), 0.02),
+            "final_norm": norm(d),
+        }
+        if not cfg.tie_embeddings:
+            params["lm_head"] = normal((d, cfg.vocab_size), 0.02)
+        params["pos_embed"] = normal((max(cfg.max_position, max_seq, 1024), d), 0.02)
+        stages = []
+        for stage in cfg.stages:
+            r = stage.repeats
+            layers = []
+            for kind in stage.pattern:
+                lp = {
+                    "norm1": stacked_norm(r, d),
+                    "mixer": {
+                        "wq": normal((r, d, h * hd), d ** -0.5),
+                        "wk": normal((r, d, kh * hd), d ** -0.5),
+                        "wv": normal((r, d, kh * hd), d ** -0.5),
+                        "wo": normal((r, h * hd, d), (h * hd) ** -0.5),
+                    },
+                }
+                if kind.ff == "mlp":
+                    lp["norm2"] = stacked_norm(r, d)
+                    lp["ff"] = {"wu": normal((r, d, cfg.d_ff), d ** -0.5),
+                                "wd": normal((r, cfg.d_ff, d), cfg.d_ff ** -0.5)}
+                    if cfg.act in ("swiglu", "geglu"):
+                        lp["ff"]["wg"] = normal((r, d, cfg.d_ff), d ** -0.5)
+                layers.append(lp)
+            stages.append({"layers": layers})
+        params["stages"] = stages
+        return params
+
+    # -------------------------------------------------------------- plumbing
+    def _embed_tokens(self, params, tokens, positions):
+        x = params["embed"][tokens].to(self.dtype)
+        if self.cfg.embed_scale:
+            x = x * self.cfg.d_model ** 0.5
+        return x + params["pos_embed"][positions].to(self.dtype)
+
+    @staticmethod
+    def _lora_stage(lora, si):
+        return None if lora is None else lora["stages"][si]
+
+    @staticmethod
+    def _check_lora(lora):
+        """Factors reach only layer-stack projections; factors mirroring any
+        other leaf (lm_head, embed, …) would be silently ignored — fail
+        loudly instead (the merged oracle ``peft.apply_lora`` takes them)."""
+        if lora is None:
+            return
+        stray = [p for p in trees.flatten(lora) if not p.startswith("stages/")]
+        if stray:
+            raise ValueError(
+                "factored LoRA execution only supports factors on stage layer "
+                f"weights; found factors at {sorted(set(stray))} — merge these "
+                "with peft.apply_lora instead")
+
+    # -------------------------------------------------------------- forward
+    def forward(self, params, tokens, *, collect_cache: bool = False, lora=None,
+                lora_scale: float = 1.0):
+        """tokens (B, S) → (hidden (B, S, d), caches).  With
+        ``collect_cache`` caches[si][pi] holds the prompt's stacked
+        {"k", "v"} (repeats, B, S, K, hd); otherwise it is None."""
+        cfg = self.cfg
+        self._check_lora(lora)
+        positions = torch.arange(tokens.shape[1], device=tokens.device)
+        x = self._embed_tokens(params, tokens, positions)
+        caches = [] if collect_cache else None
+        for si, stage in enumerate(cfg.stages):
+            sp, lsp = params["stages"][si], self._lora_stage(lora, si)
+            kv = [{"k": [], "v": []} for _ in stage.pattern]
+            for r in range(stage.repeats):
+                for pi, kind in enumerate(stage.pattern):
+                    lf = None if lsp is None else _at(lsp["layers"][pi], r)
+                    x, c = apply_layer_seq(x, _at(sp["layers"][pi], r), kind, cfg,
+                                           lora=lf, lora_scale=lora_scale)
+                    if collect_cache:
+                        kv[pi]["k"].append(c["k"])
+                        kv[pi]["v"].append(c["v"])
+            if collect_cache:
+                caches.append([{n: torch.stack(t) for n, t in e.items()} for e in kv])
+        x = apply_norm(x, params["final_norm"], cfg.norm, cfg.norm_eps)
+        return x, caches
+
+    def _lm_head(self, params):
+        return params["embed"].T if self.cfg.tie_embeddings else params["lm_head"]
+
+    def logits(self, params, hidden):
+        return (hidden @ self._lm_head(params)).float()
+
+    # ---------------------------------------------------------------- cache
+    def init_cache(self, batch: int, cache_len: int, dtype=None):
+        """{"pos": host int, "stages": [[{"k", "v"} of (repeats, B, Sc, K, hd)]]}."""
+        dtype = dtype or self.dtype
+        return {"pos": 0, "stages": [
+            [{n: torch.zeros((stage.repeats,) + shp, dtype=dtype, device=self.device)
+              for n, shp in layer_cache_shape(self.cfg, kind, batch, cache_len).items()}
+             for kind in stage.pattern]
+            for stage in self.cfg.stages]}
+
+    # -------------------------------------------------------------- prefill
+    def prefill(self, params, tokens, cache_len: int, *, lora=None,
+                lora_scale: float = 1.0):
+        """Run the prompt; return (last-token logits (B, vocab) f32, cache)."""
+        s_prompt = tokens.shape[1]
+        if s_prompt > cache_len:
+            raise ValueError(f"prompt length {s_prompt} > cache_len {cache_len}")
+        hidden, caches = self.forward(params, tokens, collect_cache=True,
+                                      lora=lora, lora_scale=lora_scale)
+        cache = self.init_cache(tokens.shape[0], cache_len)
+        for entries, got in zip(cache["stages"], caches):
+            for entry, raw in zip(entries, got):
+                for name, buf in entry.items():
+                    buf[:, :, :s_prompt] = raw[name]
+        cache["pos"] = s_prompt
+        return self.logits(params, hidden[:, -1]), cache
+
+    # ---------------------------------------------------------------- decode
+    def decode_step(self, params, cache, tokens, *, lora=None,
+                    lora_scale: float = 1.0):
+        """tokens (B, 1) → (logits (B, vocab) f32, cache).  The cache's
+        buffers are updated in place and its host ``pos`` advanced."""
+        cfg = self.cfg
+        self._check_lora(lora)
+        pos = cache["pos"]
+        x = self._embed_tokens(params, tokens, torch.full_like(tokens, pos))
+        for si, stage in enumerate(cfg.stages):
+            sp, lsp = params["stages"][si], self._lora_stage(lora, si)
+            for r in range(stage.repeats):
+                for pi, kind in enumerate(stage.pattern):
+                    lf = None if lsp is None else _at(lsp["layers"][pi], r)
+                    x = apply_layer_decode(x, _at(sp["layers"][pi], r), kind,
+                                           _at(cache["stages"][si][pi], r), pos,
+                                           cfg, lora=lf, lora_scale=lora_scale)
+        x = apply_norm(x, params["final_norm"], cfg.norm, cfg.norm_eps)
+        cache["pos"] = pos + 1
+        return self.logits(params, x[:, 0]), cache
