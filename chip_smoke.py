@@ -10,18 +10,29 @@ Phases, each reported on its own lines:
 2. build   — compiles every CUDA source of ``src/repro_torch/csrc`` with nvcc
    (one process per source, all at once) and prints the ptxas register /
    shared-memory report.
-3. kernels — calls each kernel's wrapper on the card at the serving path's
+3. kernels — calls each kernel's wrapper on the card at the serving paths'
    shapes, in f32 and bf16, and holds it against its plain PyTorch version
    (tolerances of tests/test_kernels.py); times the kernel, the plain version
    and one PyTorch library call of the same function, each on a cold L2
    (median of 30 calls).
-4. serve   — gpt2-small at full width (12 layers, d 768, vocab 50257), random
-   weights from seed 0 and nonzero rank-8 LoRA factors from a numpy seed,
-   through the port's serving entry points: batch 8, prompt 128, 64 greedy
-   decode steps, f32.  Checks every kernel's launch count against the
-   path's, then re-runs prefill and the first 8 decode steps on the CPU
-   through the plain versions (teacher-forced with the card's tokens) and
-   holds the logits to 1e-3.
+4. serve   — three serving paths through the port's entry points
+   (``launch/serve.py`` build/generate), each with random weights from seed
+   0 and nonzero rank-8 LoRA factors from a numpy seed, f32:
+   * SERVE: gpt2-small at full width (12 layers, d 768, vocab 50257),
+     batch 8, prompt 128, 64 greedy decode steps;
+   * SERVE-SPARSE: the same model with the paper's block-sparse attention
+     (``impl="sparse"``, block 128, local 4, sink 1, stride 8), batch 8,
+     prompt 896, 128 decode steps (1024 = max_position);
+   * SERVE-MAMBA: mamba2-1.3b at full width and depth (48 layers, d 2048,
+     64 heads of 64, state 128, vocab 50280), batch 4, prompt 512, 32
+     decode steps, LoRA on in_proj and out_proj.
+   Each path's kernel launch counts are set to 0 just before it runs and
+   checked against the path's just after; then prefill and the first 8
+   decode steps are re-run on the CPU through the plain versions
+   (teacher-forced with the card's tokens, on a subset of the rows) and the
+   logits are held to the path's tolerance.
+5. profile — torch.profiler over one prefill and 16 decode steps of each
+   serving path.
 
 Before the last line it prints one JSON object with a row per kernel; the
 last line is ``{"ok": true, "device": {...}}``.  Any failed check exits
@@ -39,12 +50,34 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 HBM_BYTES_PER_S = 3.35e12            # H100 SXM, NVIDIA data sheet
 PEAK_FLOPS = {"float32": 67e12,      # CUDA cores, no TF32
               "bfloat16": 989e12}    # dense tensor cores
-TOL = {("lora_fused", "float32"): 1e-4, ("lora_fused", "bfloat16"): 3e-2,
-       ("flash_attn", "float32"): 2e-5, ("flash_attn", "bfloat16"): 2e-2,
-       ("decode_attn", "float32"): 2e-5, ("decode_attn", "bfloat16"): 3e-2}
-SERVE = dict(batch=8, prompt_len=128, gen=64, rank=8)
+# (atol, rtol) of each kernel against its plain version
+TOL = {("lora_fused", "float32"): (1e-4, 1e-4), ("lora_fused", "bfloat16"): (3e-2, 3e-2),
+       ("flash_attn", "float32"): (2e-5, 2e-5), ("flash_attn", "bfloat16"): (2e-2, 2e-2),
+       ("decode_attn", "float32"): (2e-5, 2e-5), ("decode_attn", "bfloat16"): (3e-2, 3e-2),
+       ("block_sparse_attn", "float32"): (2e-5, 2e-5),
+       ("block_sparse_attn", "bfloat16"): (2e-2, 2e-2),
+       ("ssd_chunk", "float32"): (5e-4, 1e-3), ("ssd_chunk", "bfloat16"): (2e-2, 2e-2)}
+KERNELS = ("lora_fused", "flash_attn", "decode_attn", "block_sparse_attn", "ssd_chunk")
+REPLACES = {"lora_fused": "src/repro/kernels/lora_fused/kernel.py:69",
+            "flash_attn": "src/repro/kernels/flash_attn/kernel.py:85",
+            "decode_attn": "src/repro/kernels/decode_attn/kernel.py:92",
+            "block_sparse_attn": "src/repro/kernels/block_sparse_attn/kernel.py:102",
+            "ssd_chunk": "src/repro/kernels/ssd_chunk/kernel.py:76"}
+# Serving paths.  ``rows``: batch rows re-run on the CPU; ``logit_tol``:
+# the card's logits against the CPU's, absolute, times max(1, max |logit|).
+# f32 on both sides: what differs is the order of the sums (tiles, split
+# reductions), about 1e-6 relative per layer, so 1e-3 leaves two orders of
+# margin over 12 and 48 layers.
+SERVES = (
+    dict(tag="SERVE", arch="gpt2-small", impl="auto", batch=8, prompt_len=128,
+         gen=64, rank=8, rows=8, logit_tol=1e-3),
+    dict(tag="SERVE-SPARSE", arch="gpt2-small", impl="sparse", batch=8,
+         prompt_len=896, gen=128, rank=8, rows=2, logit_tol=1e-3),
+    dict(tag="SERVE-MAMBA", arch="mamba2-1.3b", impl="auto", batch=4,
+         prompt_len=512, gen=32, rank=8, rows=1, logit_tol=1e-3),
+)
 TEACHER_STEPS = 8
-LOGIT_TOL = 1e-3
+SERVING_SPARSE = dict(block_size=128, local_blocks=4, sink_blocks=1, stride=8)
 
 
 def fail(msg):
@@ -91,7 +124,7 @@ def bound(nbytes, flops, dtype):
 # ---------------------------------------------------------------- kernels
 def kernel_cases(torch):
     """(name, label, kernel call, plain call, library call, bytes, flops,
-    dtype) at the serving path's shapes plus ragged and GQA/window cases."""
+    dtype) at the serving paths' shapes plus ragged and GQA/window cases."""
     import torch.nn.functional as F
 
     from repro_torch.kernels.decode_attn.ops import decode_attention
@@ -159,6 +192,123 @@ def kernel_cases(torch):
                 nbytes=(2 * bsz * h * d + 2 * bsz * valid * kh * d) * es,
                 flops=4 * d * valid * bsz * h,
                 main=(clen == 192 and dt == torch.float32)))
+        cases += sparse_cases(torch, dt, dname, es, rn)
+        cases += ssd_cases(torch, dt, dname, es, rn)
+    # mamba2-1.3b's projections: in_proj K 2048 → N 8512 (not a multiple of
+    # 64), out_proj K 4096 → N 2048, at prefill (M 2048) and decode (M 4)
+    for m, k, n in ((2048, 2048, 8512), (4, 2048, 8512), (2048, 4096, 2048), (4, 4096, 2048)):
+        x, w = rn(m, k), rn(k, n, std=0.02)
+        a, b = rn(k, 8, std=0.02), rn(8, n, std=0.05)
+        merged = w + 2.0 * (a @ b)
+        cases.append(dict(
+            name="lora_fused", label=f"M={m} K={k} N={n} r=8 (mamba)", dtype="float32",
+            kernel=lambda x=x, w=w, a=a, b=b: lora_matmul(x, w, a, b, scale=2.0),
+            plain=lambda x=x, w=w, a=a, b=b: lora_ref(x, w, a, b, scale=2.0),
+            library=lambda x=x, mg=merged: torch.matmul(x, mg),
+            nbytes=(m * k + k * n + k * 8 + 8 * n + m * n) * 4,
+            flops=2 * m * k * n + 2 * m * k * 8 + 2 * m * 8 * n, main=False))
+    return cases
+
+
+def sparse_cases(torch, dt, dname, es, rn):
+    """block_sparse_attn at SERVE-SPARSE's prefill (plus GQA and q_offset
+    cases) and decode_attn with the sparse mask at its decode shapes.  The
+    library call is SDPA with the pattern as a boolean mask."""
+    import torch.nn.functional as F
+
+    from repro_torch.configs import SparseAttnConfig
+    from repro_torch.kernels.block_sparse_attn.ops import block_sparse_attention
+    from repro_torch.kernels.block_sparse_attn.ref import block_sparse_ref
+    from repro_torch.kernels.decode_attn.ops import decode_attention
+    from repro_torch.kernels.decode_attn.ref import decode_ref
+    from repro_torch.models.attention import sparse_block_table, sparse_position_mask
+
+    cases = []
+    serving = SparseAttnConfig(**SERVING_SPARSE)
+    for bsz, sq, sk, h, kh, d, cfg, off in (
+            (8, 896, 896, 12, 12, 64, serving, 0),
+            (2, 512, 512, 8, 2, 64, SparseAttnConfig(block_size=64, local_blocks=2,
+                                                     sink_blocks=1, stride=4), 0),
+            (2, 256, 896, 12, 12, 64, serving, 640)):
+        q, kk, vv = rn(bsz, sq, h, d, dtype=dt), rn(bsz, sk, kh, d, dtype=dt), rn(bsz, sk, kh, d, dtype=dt)
+        bs = cfg.block_size
+        idx, valid = sparse_block_table(sq // bs, sk // bs, cfg, off // bs)
+        allowed = torch.zeros(sq, sk, dtype=torch.bool, device="cuda")
+        for i in range(idx.shape[0]):
+            for j in idx[i][valid[i]]:
+                allowed[i * bs:(i + 1) * bs, j * bs:(j + 1) * bs] = True
+        qpos = off + torch.arange(sq, device="cuda")[:, None]
+        allowed &= torch.arange(sk, device="cuda")[None] <= qpos
+        pairs = int(allowed.sum())
+        qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, kk, vv))
+        cases.append(dict(
+            name="block_sparse_attn", dtype=dname,
+            label=f"B={bsz} Sq={sq} Sk={sk} H={h} K={kh} hd={d} block={bs} q_offset={off}",
+            kernel=lambda q=q, k=kk, v=vv, c=cfg, o=off: block_sparse_attention(q, k, v, c, q_offset=o),
+            plain=lambda q=q, k=kk, v=vv, c=cfg, o=off: block_sparse_ref(q, k, v, c, q_offset=o),
+            library=(None if h != kh else lambda q=qt, k=kt, v=vt, m=allowed:
+                     F.scaled_dot_product_attention(q, k, v, attn_mask=m)),
+            nbytes=(2 * bsz * sq * h * d + 2 * bsz * sk * kh * d) * es,
+            flops=4 * d * pairs * bsz * h,
+            main=(sq == 896 and dt == torch.float32)))
+    for clen in (897, 960, 1024):
+        bsz, sc, h, d = 8, 1024, 12, 64
+        q, kc, vc = rn(bsz, 1, h, d, dtype=dt), rn(bsz, sc, h, d, dtype=dt), rn(bsz, sc, h, d, dtype=dt)
+        pos = torch.arange(sc, device="cuda")
+        mask = (pos < clen) & sparse_position_mask(pos, clen, serving)
+        valid_n = int(mask.sum())
+        qt, kt, vt = q.transpose(1, 2).contiguous(), kc.transpose(1, 2).contiguous(), vc.transpose(1, 2).contiguous()
+        cases.append(dict(
+            name="decode_attn", dtype=dname,
+            label=f"B={bsz} Sc={sc} H={h} hd={d} cache_len={clen} sparse",
+            kernel=lambda q=q, k=kc, v=vc, c=clen: decode_attention(q, k, v, c, sparse=serving),
+            plain=lambda q=q, k=kc, v=vc, c=clen: decode_ref(q, k, v, c, sparse=serving),
+            library=lambda q=qt, k=kt, v=vt, m=mask[None]:
+            F.scaled_dot_product_attention(q, k, v, attn_mask=m),
+            nbytes=(2 * bsz * h * d + 2 * bsz * valid_n * h * d) * es,
+            flops=4 * d * valid_n * bsz * h, main=False))
+    return cases
+
+
+def ssd_cases(torch, dt, dname, es, rn):
+    """ssd_chunk at SERVE-MAMBA's prefill, with x, B and C strided views of
+    one conv-output row as the mixer passes them (B/C a stride-0 broadcast
+    of one group over the heads), plus a tail (S 300) and an initial-state
+    case.  No single PyTorch call computes the scan."""
+    from repro_torch.kernels.ssd_chunk.ops import ssd_scan
+    from repro_torch.kernels.ssd_chunk.ref import ssd_ref
+
+    cases = []
+    for bsz, s, h, p, n, chunk, with_h0 in ((4, 512, 64, 64, 128, 256, False),
+                                            (4, 300, 64, 64, 128, 256, False),
+                                            (4, 512, 64, 64, 128, 256, True)):
+        if dt == torch.bfloat16 and (s != 512 or with_h0):
+            continue
+        row = rn(bsz, s, h * p + 2 * n, dtype=dt)
+        row[..., h * p:] *= 0.5
+        x = row[..., :h * p].reshape(bsz, s, h, p)
+        bm = row[..., h * p:h * p + n].reshape(bsz, s, 1, n).expand(bsz, s, h, n)
+        cm = row[..., h * p + n:].reshape(bsz, s, 1, n).expand(bsz, s, h, n)
+        dts = torch.nn.functional.softplus(rn(bsz, s, h))
+        a = -torch.exp(rn(h, std=0.3))
+        h0 = rn(bsz, h, p, n, std=0.5) if with_h0 else None
+        flops = 0
+        for c0 in range(0, s, chunk):
+            lc = min(chunk, s - c0)
+            flops += lc * (lc + 1) // 2 * (2 * n + 2 * p) + 4 * lc * n * p
+        state = bsz * h * p * n * 4
+        cases.append(dict(
+            name="ssd_chunk", dtype=dname,
+            label=f"B={bsz} S={s} H={h} P={p} N={n} chunk={chunk}" + (" h0" if with_h0 else ""),
+            kernel=lambda x=x, d=dts, a=a, b=bm, c=cm, h0=h0, L=chunk:
+            ssd_scan(x, d, a, b, c, chunk=L, h0=h0),
+            plain=lambda x=x, d=dts, a=a, b=bm, c=cm, h0=h0, L=chunk:
+            ssd_ref(x, d, a, b, c, chunk=L, h0=h0),
+            library=None,
+            nbytes=(2 * bsz * s * h * p + 2 * bsz * s * n) * es + bsz * s * h * 4 + h * 4
+            + state * (2 if with_h0 else 1),
+            flops=flops * bsz * h,
+            main=(s == 512 and not with_h0 and dt == torch.float32)))
     return cases
 
 
@@ -166,23 +316,26 @@ def check_kernels(torch):
     rows = {}
     flush = torch.empty(32 * 1024 * 1024, dtype=torch.float32, device="cuda")  # 128 MB > L2
     for c in kernel_cases(torch):
-        out = c["kernel"]()
-        ref = c["plain"]()
+        outs, refs = c["kernel"](), c["plain"]()
         torch.cuda.synchronize()
-        err = (out.float() - ref.float()).abs().max().item()
-        tol = TOL[(c["name"], c["dtype"])]
-        ok = torch.allclose(out.float(), ref.float(), atol=tol, rtol=tol)
+        if torch.is_tensor(outs):
+            outs, refs = (outs,), (refs,)
+        atol, rtol = TOL[(c["name"], c["dtype"])]
+        err = max((o.float() - r.float()).abs().max().item() for o, r in zip(outs, refs))
+        ok = all(torch.allclose(o.float(), r.float(), atol=atol, rtol=rtol)
+                 for o, r in zip(outs, refs))
         ms = device_ms(c["kernel"], flush)
         plain_ms = device_ms(c["plain"], flush)
         lib_ms = device_ms(c["library"], flush) if c["library"] else None
         b_ms, b_by = bound(c["nbytes"], c["flops"], c["dtype"])
         lib_txt = f"{lib_ms:.4f}" if lib_ms is not None else "none"
         print(f"CHECK {c['name']:<11} {c['dtype']:<8} {c['label']:<48} "
-              f"max_abs_err={err:.3e} tol={tol:g} {'ok' if ok else 'MISMATCH'} "
+              f"max_abs_err={err:.3e} tol={atol:g}/{rtol:g} {'ok' if ok else 'MISMATCH'} "
               f"ms={ms:.4f} plain_ms={plain_ms:.4f} library_ms={lib_txt} "
               f"bound_ms={b_ms:.4f} ({b_by})", flush=True)
         if not ok:
-            fail(f"{c['name']} {c['dtype']} {c['label']}: max_abs_err {err:.3e} > {tol:g}")
+            fail(f"{c['name']} {c['dtype']} {c['label']}: max_abs_err {err:.3e} "
+                 f"outside atol {atol:g} rtol {rtol:g}")
         if c["main"]:
             rows[c["name"]] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
                                    bound_ms=b_ms, bound_by=b_by, max_abs_err=err,
@@ -191,87 +344,116 @@ def check_kernels(torch):
 
 
 # ---------------------------------------------------------------- serving
-def serve_full_width(torch, np):
-    from repro_torch import trees
+def wrappers():
+    from repro_torch.kernels.block_sparse_attn.ops import block_sparse_attention
     from repro_torch.kernels.decode_attn.ops import decode_attention
     from repro_torch.kernels.flash_attn.ops import flash_attention
     from repro_torch.kernels.lora_fused.ops import lora_matmul
+    from repro_torch.kernels.ssd_chunk.ops import ssd_scan
+    return dict(zip(KERNELS, (lora_matmul, flash_attention, decode_attention,
+                              block_sparse_attention, ssd_scan)))
+
+
+def expected_launches(model, lora, impl, gen):
+    """Each kernel's launches on one prefill plus ``gen`` decode steps."""
+    from repro_torch import trees
+    cfg = model.cfg
+    kinds = [k for st in cfg.stages for k in st.pattern for _ in range(st.repeats)]
+    n_attn = sum(k.mixer == "attn" for k in kinds)
+    n_mamba = sum(k.mixer == "mamba" for k in kinds)
+    n_lora = sum(v.shape[0] for p, v in trees.flatten(lora).items() if p.endswith("/a"))
+    sparse = impl == "sparse" and cfg.sparse_attn is not None
+    return {"lora_fused": n_lora * (1 + gen),
+            "flash_attn": 0 if sparse else n_attn,
+            "decode_attn": n_attn * gen,
+            "block_sparse_attn": n_attn if sparse else 0,
+            "ssd_chunk": n_mamba}
+
+
+def serve_path(torch, np, spec):
+    """One serving path at full width through ``serve.build``/``generate``:
+    launch counts against the path's, then a teacher-forced CPU re-run of
+    ``spec["rows"]`` rows through the plain versions."""
+    from repro_torch import trees
     from repro_torch.launch import serve
     from repro_torch.models.transformer import Model
 
-    args = serve.parse_args(["--arch", "gpt2-small", "--batch", str(SERVE["batch"]),
-                             "--prompt-len", str(SERVE["prompt_len"]),
-                             "--gen", str(SERVE["gen"]),
-                             "--lora-rank", str(SERVE["rank"])])
-    model, params, lora, lscale, prompts = serve.build(args)
+    tag, t_start = spec["tag"], time.perf_counter()
+    args = serve.parse_args(["--arch", spec["arch"], "--batch", str(spec["batch"]),
+                             "--prompt-len", str(spec["prompt_len"]),
+                             "--gen", str(spec["gen"]),
+                             "--lora-rank", str(spec["rank"])])
+    model, params, lora, lscale, prompts = serve.build(args, impl=spec["impl"])
     # init_lora zeros B: load nonzero A and B from a numpy seed so the
     # rank-r path does real work
     rng = np.random.RandomState(1)
     lora = trees.map_with_path(
         lambda p, v: v if p.endswith("/mask") else torch.from_numpy(
             (rng.randn(*v.shape) * 0.05).astype(np.float32)).to(v.device), lora)
-    n_lora = sum(v.shape[0] for p, v in trees.flatten(lora).items() if p.endswith("/a"))
-    n_attn = model.cfg.n_layers
+    t_built = time.perf_counter()
 
     serve.generate(model, params, prompts, 2, lora=lora, lora_scale=lscale)  # warm-up
-    wrappers = (lora_matmul, flash_attention, decode_attention)
-    for f in wrappers:
+    kernels = wrappers()
+    for f in kernels.values():
         f.launches = 0
     res = serve.generate(model, params, prompts, args.gen, lora=lora, lora_scale=lscale)
-    launches = dict(zip(("lora_fused", "flash_attn", "decode_attn"),
-                        (f.launches for f in wrappers)))
-    expected = {"lora_fused": n_lora * (1 + args.gen), "flash_attn": n_attn,
-                "decode_attn": n_attn * args.gen}
+    launches = {n: f.launches for n, f in kernels.items()}
+    expected = expected_launches(model, lora, spec["impl"], args.gen)
     tok_s = args.batch * args.gen / res["decode_s"]
-    print(f"SERVE gpt2-small full width: batch {args.batch} prompt {args.prompt_len} "
+    print(f"{tag} {spec['arch']} full width ({model.cfg.n_layers} layers, impl "
+          f"{spec['impl']}): batch {args.batch} prompt {args.prompt_len} "
           f"gen {args.gen} rank {args.lora_rank} f32  prefill_ms={res['prefill_s'] * 1e3:.3f} "
           f"decode_s={res['decode_s']:.4f} decode_tok_s={tok_s:.1f} "
           f"ms_per_decode_step={res['decode_s'] / args.gen * 1e3:.3f}", flush=True)
-    print(f"SERVE launches {launches} expected {expected}", flush=True)
+    print(f"{tag} launches {launches} expected {expected}", flush=True)
     if launches != expected:
-        fail(f"kernel launches {launches} != expected {expected}")
+        fail(f"{tag}: kernel launches {launches} != expected {expected}")
     toks = res["tokens"]
     if toks.shape != (args.batch, args.gen) or not bool(
             ((toks >= 0) & (toks < model.cfg.vocab_size)).all()):
-        fail(f"bad tokens {tuple(toks.shape)}")
+        fail(f"{tag}: bad tokens {tuple(toks.shape)}")
     if not all(bool(torch.isfinite(lg).all()) for lg in res["logits"]):
-        fail("non-finite logits")
+        fail(f"{tag}: non-finite logits")
+    t_card = time.perf_counter()
 
-    # teacher-forced CPU re-run through the plain versions
-    cpu = Model(model.cfg, device="cpu")
+    # teacher-forced CPU re-run of the first rows through the plain versions
+    rows = spec["rows"]
+    cpu = Model(model.cfg, device="cpu", impl=spec["impl"])
     p_cpu = trees.map_with_path(lambda _, v: v.cpu(), params)
     l_cpu = trees.map_with_path(lambda _, v: v.cpu(), lora)
-    t0 = time.perf_counter()
-    lg, cache = cpu.prefill(p_cpu, prompts.cpu(), prompts.shape[1] + args.gen,
+    card_logits = [lg[:rows].cpu() for lg in res["logits"][:TEACHER_STEPS + 1]]
+    lg, cache = cpu.prefill(p_cpu, prompts[:rows].cpu(), prompts.shape[1] + args.gen,
                             lora=l_cpu, lora_scale=lscale)
-    errs = [(lg - res["logits"][0].cpu()).abs().max().item()]
+    errs = [(lg - card_logits[0]).abs().max().item()]
     for t in range(TEACHER_STEPS):
-        lg, cache = cpu.decode_step(p_cpu, cache, toks[:, t:t + 1].cpu(),
+        lg, cache = cpu.decode_step(p_cpu, cache, toks[:rows, t:t + 1].cpu(),
                                     lora=l_cpu, lora_scale=lscale)
-        errs.append((lg - res["logits"][t + 1].cpu()).abs().max().item())
-    print(f"SERVE teacher-forced CPU logits max_abs_err per step "
-          f"{[f'{e:.2e}' for e in errs]} (tol {LOGIT_TOL:g}, "
-          f"CPU {time.perf_counter() - t0:.1f} s)", flush=True)
-    if max(errs) > LOGIT_TOL:
-        fail(f"card vs CPU logits differ by {max(errs):.3e} > {LOGIT_TOL:g}")
+        errs.append((lg - card_logits[t + 1]).abs().max().item())
+    scale = max(1.0, max(lg.abs().max().item() for lg in card_logits))
+    tol = spec["logit_tol"] * scale
+    t_end = time.perf_counter()
+    print(f"{tag} teacher-forced CPU logits ({rows} of {args.batch} rows) max_abs_err per step "
+          f"{[f'{e:.2e}' for e in errs]} (tol {tol:.3g} = {spec['logit_tol']:g} x "
+          f"max(1, max|logit| {scale:.3g}))", flush=True)
+    print(f"{tag} seconds: build {t_built - t_start:.1f} card {t_card - t_built:.1f} "
+          f"cpu {t_end - t_card:.1f}", flush=True)
+    if max(errs) > tol:
+        fail(f"{tag}: card vs CPU logits differ by {max(errs):.3e} > {tol:.3g}")
     return launches, res, tok_s, (model, params, lora, lscale, prompts)
 
 
-def profile_decode(torch, model, params, lora, lscale, prompts, steps=16):
-    """torch.profiler over ``steps`` decode steps of the serving path: the
-    device's busy share of the loop's wall time and the kernels that fill
-    it.  Prints 'not measured' when the trace holds no device events."""
+def profile(torch, label, run, reps):
+    """torch.profiler over ``reps`` calls of ``run``: the device's busy
+    share of the wall time and the kernels that fill it, per call.  Prints
+    'not measured' when the trace holds no device events."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile as tprofile
 
-    logits, cache = model.prefill(params, prompts, prompts.shape[1] + steps,
-                                  lora=lora, lora_scale=lscale)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with tprofile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        for _ in range(steps):
-            logits, cache = model.decode_step(params, cache, logits.argmax(-1, keepdim=True),
-                                              lora=lora, lora_scale=lscale)
+        for _ in range(reps):
+            run()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     by_name = {}
@@ -280,14 +462,31 @@ def profile_decode(torch, model, params, lora, lscale, prompts, steps=16):
             n, t = by_name.get(e.name, (0, 0.0))
             by_name[e.name] = (n + 1, t + e.time_range.elapsed_us())
     if not by_name:
-        print("PROFILE decode: no device events in the trace (not measured)")
+        print(f"PROFILE {label}: no device events in the trace (not measured)")
         return
     busy = sum(t for _, t in by_name.values())
-    print(f"PROFILE decode {steps} steps: wall_us_per_step={wall_us / steps:.1f} "
-          f"device_busy_us_per_step={busy / steps:.1f} "
+    print(f"PROFILE {label} x{reps}: wall_us_per_call={wall_us / reps:.1f} "
+          f"device_busy_us_per_call={busy / reps:.1f} "
           f"device_busy_share={busy / wall_us:.3f}")
     for name, (n, t) in sorted(by_name.items(), key=lambda kv: -kv[1][1])[:10]:
-        print(f"PROFILE   {t / steps:9.1f} us/step  {n // steps:3d} calls/step  {name[:90]}")
+        print(f"PROFILE   {t / reps:10.1f} us/call  {n / reps:6.1f} calls/call  {name[:90]}")
+
+
+def profile_path(torch, tag, model, params, lora, lscale, prompts, steps=16):
+    """One prefill, then ``steps`` decode steps, each under the profiler."""
+    state = {}
+
+    def prefill():
+        state["logits"], state["cache"] = model.prefill(
+            params, prompts, prompts.shape[1] + steps, lora=lora, lora_scale=lscale)
+
+    def decode():
+        state["logits"], state["cache"] = model.decode_step(
+            params, state["cache"], state["logits"].argmax(-1, keepdim=True),
+            lora=lora, lora_scale=lscale)
+
+    profile(torch, f"{tag} prefill", prefill, 1)
+    profile(torch, f"{tag} decode", decode, steps)
 
 
 def main():
@@ -315,22 +514,33 @@ def main():
             if "registers" in line or "spill" in line:
                 print(f"PTXAS {name}: {line.strip()}")
 
+    t0 = time.perf_counter()
     rows = check_kernels(torch)
-    launches, res, tok_s, served = serve_full_width(torch, np)
-    profile_decode(torch, *served)
+    print(f"PHASE kernels {time.perf_counter() - t0:.1f} s", flush=True)
+    launches, serve_rows = {n: 0 for n in KERNELS}, {}
+    for spec in SERVES:
+        got, res, tok_s, served = serve_path(torch, np, spec)
+        for n in KERNELS:
+            launches[n] += got[n]
+        serve_rows[spec["tag"]] = {"prefill_ms": res["prefill_s"] * 1e3,
+                                   "decode_tok_s": tok_s, "launches": got}
+        t0 = time.perf_counter()
+        profile_path(torch, spec["tag"], *served)
+        print(f"PHASE {spec['tag']} profile {time.perf_counter() - t0:.1f} s", flush=True)
+        del res, served
+        torch.cuda.empty_cache()
+    unused = [n for n in KERNELS if launches[n] == 0]
+    if unused:
+        fail(f"kernels never launched on the serving paths: {unused}")
 
-    replaces = {"lora_fused": "src/repro/kernels/lora_fused/kernel.py:69",
-                "flash_attn": "src/repro/kernels/flash_attn/kernel.py:85",
-                "decode_attn": "src/repro/kernels/decode_attn/kernel.py:92"}
     kernels = [dict(name=n, route="cuda", source=f"src/repro_torch/csrc/{n}.cu",
-                    replaces=replaces[n], launches=launches[n],
+                    replaces=REPLACES[n], launches=launches[n],
                     max_abs_err=rows[n]["max_abs_err"], ms=rows[n]["ms"],
                     plain_ms=rows[n]["plain_ms"], bound_ms=rows[n]["bound_ms"],
                     bound_by=rows[n]["bound_by"], library_ms=rows[n]["library_ms"],
                     shape=rows[n]["shape"], dtype=rows[n]["dtype"])
-               for n in ("lora_fused", "flash_attn", "decode_attn")]
-    print(json.dumps({"serve": {"prefill_ms": res["prefill_s"] * 1e3,
-                                "decode_tok_s": tok_s}}))
+               for n in KERNELS]
+    print(json.dumps({"serve": serve_rows}))
     print(json.dumps({"kernels": kernels}))
     print(smi_line(), flush=True)
     print(json.dumps({"ok": True, "device": {

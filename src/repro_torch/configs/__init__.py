@@ -3,6 +3,7 @@ from repro_torch.configs.base import (  # noqa: F401
     LK,
     ModelConfig,
     SparseAttnConfig,
+    SSMConfig,
     Stage,
     get_config,
     list_configs,

@@ -3,8 +3,9 @@
 The port's own copy of the configuration system: ``LayerKind``/``Stage``
 patterns, ``ModelConfig`` with its derived head width and ``reduced()``
 smoke variant, and the registry.  Only the feature blocks of the families
-ported so far are present (dense decoders: attention + MLP); the MoE, SSM
-and MLA blocks arrive with the arch-zoo slice.
+ported so far are present (dense decoders with dense or block-sparse
+attention, and the Mamba-2 SSM); the MoE and MLA blocks arrive with the
+arch-zoo slice.
 """
 from __future__ import annotations
 
@@ -52,6 +53,16 @@ class Stage:
 
 
 @dataclasses.dataclass(frozen=True)
+class SSMConfig:
+    state: int = 128
+    headdim: int = 64
+    expand: int = 2
+    chunk: int = 256
+    conv_width: int = 4
+    n_groups: int = 1
+
+
+@dataclasses.dataclass(frozen=True)
 class SparseAttnConfig:
     """Static block-sparse attention pattern (local band + sink blocks +
     strided global blocks); ``head_sparsity`` is the fraction of heads whose
@@ -84,6 +95,7 @@ class ModelConfig:
     tie_embeddings: bool = False
     embed_scale: bool = False     # sqrt(d_model) embedding scale
     max_position: int = 0         # learned-pos table size (0 → derived per run)
+    ssm: Optional[SSMConfig] = None
     sparse_attn: Optional[SparseAttnConfig] = None
     n_prefix_tokens: int = 0      # VLM patch-embedding positions
     prefix_dim: int = 0
@@ -115,6 +127,21 @@ class ModelConfig:
     def is_encoder_only(self) -> bool:
         return bool(self.encoder_stages) and not self.decoder_stages
 
+    @property
+    def attention_free(self) -> bool:
+        return all(k.mixer in ("mamba", "none")
+                   for s in self.stages for k in s.pattern)
+
+    @property
+    def d_inner(self) -> int:
+        assert self.ssm is not None
+        return self.ssm.expand * self.d_model
+
+    @property
+    def ssm_heads(self) -> int:
+        assert self.ssm is not None
+        return self.d_inner // self.ssm.headdim
+
     def reduced(self, d_model: int = 256, repeats: int = 1,
                 vocab: int = 512) -> "ModelConfig":
         """Reduced same-family variant for CPU tests: ≤2 layer kinds per
@@ -125,6 +152,10 @@ class ModelConfig:
         stages = tuple(Stage(s.pattern[: min(len(s.pattern), 2)],
                              min(s.repeats, repeats), s.stream)
                        for s in self.stages)
+        ssm = None
+        if self.ssm is not None:
+            ssm = SSMConfig(state=16, headdim=16, expand=self.ssm.expand,
+                            chunk=32, conv_width=self.ssm.conv_width)
         sparse = self.sparse_attn
         if sparse is not None:
             sparse = SparseAttnConfig(block_size=16, local_blocks=2,
@@ -142,6 +173,7 @@ class ModelConfig:
             stages=stages,
             window=min(self.window, 64) if self.window else 0,
             max_position=1024,
+            ssm=ssm,
             sparse_attn=sparse,
             n_prefix_tokens=min(self.n_prefix_tokens, 8),
             prefix_dim=min(self.prefix_dim, 64) if self.prefix_dim else 0,
@@ -169,4 +201,4 @@ def list_configs():
 
 def _load_all():
     # import side effects register the configs
-    from repro_torch.configs import gpt2_small  # noqa: F401
+    from repro_torch.configs import gpt2_small, mamba2_1_3b  # noqa: F401

@@ -14,36 +14,35 @@
 // Design: the TPU grid walked kv blocks in order on one core, carrying m, l
 // and acc in VMEM scratch.  CUDA blocks run in no order, so here one block
 // owns one (batch·head, 64-row q tile) and loops over the kv tiles itself,
-// keeping m, l and acc in registers.  Four threads share a query row, each
-// holding an interleaved quarter of q and acc (dims part, part + 4, ...) so
-// reads of the K/V tiles in shared memory are conflict-free, and the q·k
-// partial dots meet by warp shuffles.  Keys are taken in chunks of 16 with
-// one rescale of acc per chunk.  kv tiles wholly above the causal diagonal
+// keeping m, l and acc in registers; the per-tile step (four threads per
+// query row, one rescale per 16 keys) is attn_tile.cuh's, shared with the
+// block-sparse kernel.  kv tiles wholly above the causal diagonal
 // or left of the window are never loaded.  Ragged Sq and Sk are masked (the
 // TPU kernel required Sq % bq == 0).  q, k, v and o stay in the model layout
 // (B, S, H, hd): no transposes around the call.  Tensor cores and TMA are
 // later work.
-#include "common.cuh"
+#include "attn_tile.cuh"
 
 namespace {
 
+using repro::attend_tile;
 using repro::from_f32;
+using repro::load_kv_tile;
 using repro::NEG_INF;
 using repro::to_f32;
+using repro::TPR;
 
-constexpr int TPR = 4;                   // threads per query row
 constexpr int BQ = 64;                   // query rows per block
 constexpr int THREADS = BQ * TPR;        // 256
-constexpr int CH = 16;                   // keys per online-softmax update
 
 template <typename T, int HD>
 __global__ void __launch_bounds__(THREADS)
 flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
           const T* __restrict__ v, T* __restrict__ o, int Sq, int Sk, int H,
           int KH, int causal, int window, float scale) {
-  constexpr int BKV = 4096 / HD;         // kv rows per tile: 32 KB of K and V in f32
+  constexpr int BKV = repro::kv_tile_rows<HD>();
   constexpr int DPT = HD / TPR;          // dims per thread
-  static_assert(BKV % CH == 0, "tile must hold whole chunks");
+  static_assert(BKV % repro::CH == 0, "tile must hold whole chunks");
   __shared__ float ks[BKV][HD];
   __shared__ float vs[BKV][HD];
 
@@ -70,53 +69,13 @@ flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
 
   for (int j0 = kv_lo; j0 < kv_hi; j0 += BKV) {
     __syncthreads();  // the previous tile is consumed
-    for (int i = tid; i < BKV * HD; i += THREADS) {
-      const int jj = i / HD, d = i % HD, kp = j0 + jj;
-      const bool ok = kp < kv_hi;
-      const size_t g = kv_base + (size_t)kp * pos_stride + d;
-      ks[jj][d] = ok ? to_f32(k[g]) : 0.f;
-      vs[jj][d] = ok ? to_f32(v[g]) : 0.f;
-    }
+    load_kv_tile<T, HD, BKV, THREADS>(ks, vs, k, v, kv_base, pos_stride, j0, kv_hi, tid);
     __syncthreads();
-    const int nj = min(BKV, kv_hi - j0);
-    // every thread runs the loop (shuffles need the whole warp); rows past
-    // Sq compute on q = 0 and write nothing
-    for (int c = 0; c < nj; c += CH) {
-      float s[CH];
-      unsigned okm = 0;
-      float cmax = NEG_INF;
-#pragma unroll
-      for (int jj = 0; jj < CH; ++jj) {
-        float dot = 0.f;
-#pragma unroll
-        for (int t = 0; t < DPT; ++t) dot = fmaf(qr[t], ks[c + jj][part + TPR * t], dot);
-        dot += __shfl_xor_sync(0xffffffffu, dot, 1);
-        dot += __shfl_xor_sync(0xffffffffu, dot, 2);
-        const int kp = j0 + c + jj;
-        const bool ok = c + jj < nj && (!causal || kp <= qpos) &&
-                        (window <= 0 || kp > qpos - window);
-        okm |= (unsigned)ok << jj;
-        s[jj] = dot;
-        if (ok) cmax = fmaxf(cmax, dot);
-      }
-      const float m_new = fmaxf(m, cmax);
-      const float corr = expf(m - m_new);
-      float psum = 0.f;
-#pragma unroll
-      for (int jj = 0; jj < CH; ++jj) {
-        s[jj] = (okm >> jj) & 1u ? expf(s[jj] - m_new) : 0.f;
-        psum += s[jj];
-      }
-      l = l * corr + psum;
-#pragma unroll
-      for (int t = 0; t < DPT; ++t) {
-        float a = acc[t] * corr;
-#pragma unroll
-        for (int jj = 0; jj < CH; ++jj) a = fmaf(s[jj], vs[c + jj][part + TPR * t], a);
-        acc[t] = a;
-      }
-      m = m_new;
-    }
+    // every thread runs it (shuffles need the whole warp); rows past Sq
+    // compute on q = 0 and write nothing
+    attend_tile<HD>(ks, vs, j0, min(BKV, kv_hi - j0), part, qr, acc, m, l, [&](int kp) {
+      return (!causal || kp <= qpos) && (window <= 0 || kp > qpos - window);
+    });
   }
   if (active) {
     const float den = fmaxf(l, 1e-30f);

@@ -17,12 +17,14 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.decode_attn.ref import decode_ref
 from repro_torch.kernels.flash_attn.ops import DTYPES, check_operands
 
-_ARGTYPES = ([ctypes.c_int] + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7
+_ARGTYPES = ([ctypes.c_int] + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 11
              + [ctypes.c_float, ctypes.c_void_p])
 
 
-def decode_attention(q, k_cache, v_cache, cache_len: int, *, window: int = 0):
-    """q: (B, 1, H, hd); caches: (B, Sc, K, hd) → (B, 1, H, hd)."""
+def decode_attention(q, k_cache, v_cache, cache_len: int, *, window: int = 0,
+                     sparse=None):
+    """q: (B, 1, H, hd); caches: (B, Sc, K, hd) → (B, 1, H, hd).  ``sparse``
+    (a ``SparseAttnConfig``) masks the positions of inactive blocks."""
     check_operands("decode_attention", q, k_cache, v_cache)
     if q.shape[1] != 1:
         raise ValueError(f"decode_attention: one query token, got {tuple(q.shape)}")
@@ -30,14 +32,17 @@ def decode_attention(q, k_cache, v_cache, cache_len: int, *, window: int = 0):
     if cache_len < 1:
         raise ValueError(f"decode_attention: cache_len {cache_len} < 1")
     if q.device.type == "cpu":
-        return decode_ref(q, k_cache, v_cache, cache_len, window=window)
+        return decode_ref(q, k_cache, v_cache, cache_len, window=window,
+                          sparse=sparse)
     b, _, h, d = q.shape
     sc, kh = k_cache.shape[1], k_cache.shape[2]
+    pattern = ((sparse.block_size, sparse.sink_blocks, sparse.local_blocks,
+                sparse.stride) if sparse is not None else (0, 0, 0, 0))
     out = torch.empty_like(q)
     fn = _build.function("decode_attn", _ARGTYPES)
     rc = fn(DTYPES[q.dtype], q.data_ptr(), k_cache.data_ptr(),
             v_cache.data_ptr(), out.data_ptr(), b, sc, h, kh, d, cache_len,
-            int(window), d ** -0.5,
+            int(window), *pattern, d ** -0.5,
             torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(rc, "decode_attn")
     decode_attention.launches += 1

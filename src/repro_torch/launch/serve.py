@@ -5,7 +5,9 @@ LoRA kept unmerged (personalized serving), on the GPU by default.
         --batch 8 --prompt-len 128 --gen 64 --lora-rank 8
 
 Every projection with factors runs the fused LoRA kernel, prefill attention
-the flash kernel and decode attention the flash-decode kernel.  With
+the flash kernel (the block-sparse kernel for ``build(args, impl="sparse")``)
+and decode attention the flash-decode kernel; a Mamba-2 config
+(``--arch mamba2-1.3b``) runs its scan through the SSD chunk kernel.  With
 ``--device cpu`` the same path runs the kernels' plain PyTorch versions.
 """
 from __future__ import annotations
@@ -39,13 +41,15 @@ def parse_args(argv=None):
     return ap.parse_args(argv)
 
 
-def build(args):
-    """→ (model, params, lora, lora_scale, prompts) for the parsed args."""
+def build(args, *, impl: str = "auto"):
+    """→ (model, params, lora, lora_scale, prompts) for the parsed args;
+    ``impl`` goes to ``Model`` ("sparse": the config's block-sparse
+    attention)."""
     device = resolve_device(args.device)
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
-    model = Model(cfg, device=device)
+    model = Model(cfg, device=device, impl=impl)
     gen = torch.Generator().manual_seed(0)
     params = model.init(gen, max_seq=args.prompt_len + args.gen)
     lora, lscale = None, 1.0

@@ -3,40 +3,54 @@
 A layer is (mixer, ff) with pre-norm residual structure:
 
     x = x + mixer(norm1(x))
-    x = x + ff(norm2(x))
+    x = x + ff(norm2(x))            [if ff != none]
 
-This slice ports the ``attn`` mixer with the ``mlp`` ff (the dense decoder
-of gpt2).  Prefill attention runs the hand-written flash kernel and decode
-attention the flash-decode kernel; projections with LoRA factors run the
-fused LoRA kernel (``peft.lora_proj``).
+This port has the ``attn`` mixer (the dense decoder of gpt2) and the
+``mamba`` mixer (Mamba-2), with the ``mlp`` ff or none.  Prefill attention
+runs the hand-written flash kernel, or under ``impl="sparse"`` with a
+``cfg.sparse_attn`` pattern the block-sparse kernel; decode attention runs
+the flash-decode kernel, with the sparse position mask under
+``impl="sparse"``.  The mamba mixer's scan runs the SSD chunk kernel.
+Projections with LoRA factors run the fused LoRA kernel
+(``peft.lora_proj``).
 """
 from __future__ import annotations
 
+import torch
+
 from repro_torch.configs.base import LayerKind, ModelConfig
+from repro_torch.kernels.block_sparse_attn.ops import block_sparse_attention
 from repro_torch.kernels.decode_attn.ops import decode_attention
 from repro_torch.kernels.flash_attn.ops import flash_attention
+from repro_torch.models import ssm
 from repro_torch.models.mlp import mlp
 from repro_torch.models.norms import apply_norm
 from repro_torch.models.peft import adapter_fwd, lora_proj
 
+IMPLS = ("auto", "dense", "chunked", "sparse")
 _LATER = {
     "enc": "the PFTT training slice (roberta encoder)",
     "local": "the arch-zoo slice",
     "dec": "the arch-zoo slice (whisper)",
     "mla": "the arch-zoo slice (deepseek MLA)",
-    "mamba": "the arch-zoo slice (mamba/jamba)",
     "moe": "the arch-zoo slice (MoE)",
 }
 
 
 def check_kind(kind: LayerKind) -> None:
-    """Raise for layer kinds this slice has not ported yet."""
+    """Raise for layer kinds the port has not ported yet."""
     for part in (kind.mixer, kind.ff):
         if part in _LATER:
             raise NotImplementedError(
                 f"layer kind {kind.tag}: '{part}' is ported with {_LATER[part]}")
-    if kind.mixer != "attn" or kind.ff not in ("mlp", "none"):
+    if kind.mixer not in ("attn", "mamba") or kind.ff not in ("mlp", "none"):
         raise NotImplementedError(f"layer kind {kind.tag} is not ported")
+
+
+def _sparse(cfg: ModelConfig, impl: str):
+    """The block-sparse pattern the attention layers use, or None (every
+    other ``impl`` computes exact attention)."""
+    return cfg.sparse_attn if impl == "sparse" else None
 
 
 def _sub(lora, *keys):
@@ -66,45 +80,73 @@ def _ff_and_adapter(x, lp, kind: LayerKind, cfg: ModelConfig, lora, scale):
     return x
 
 
-def apply_layer_seq(x, lp, kind: LayerKind, cfg: ModelConfig, *, lora=None,
-                    lora_scale: float = 1.0):
-    """x: (B, S, d) → (x, {"k", "v"}): the layer output and the prompt's
-    keys and values to seed a decode cache.  ``lp``/``lora`` are one layer's
-    (unstacked) params and factor subtree."""
+def apply_layer_seq(x, lp, kind: LayerKind, cfg: ModelConfig, *,
+                    impl: str = "auto", lora=None, lora_scale: float = 1.0):
+    """x: (B, S, d) → (x, cache entry): the layer output and the state that
+    seeds a decode cache — the prompt's {"k", "v"} for attention, the final
+    SSM state and conv inputs {"h", "conv"} for mamba.  ``lp``/``lora`` are
+    one layer's (unstacked) params and factor subtree."""
     check_kind(kind)
     xn = apply_norm(x, lp["norm1"], cfg.norm, cfg.norm_eps)
     mf = _sub(lora, "mixer")
-    q, k, v = _qkv(xn, lp["mixer"], cfg, mf, lora_scale)
-    y = flash_attention(q, k, v, causal=True, window=0)
-    b, s = y.shape[:2]
-    x = x + lora_proj(y.reshape(b, s, -1), lp["mixer"]["wo"], _sub(mf, "wo"),
-                      scale=lora_scale)
+    if kind.mixer == "mamba":
+        y, (h, conv) = ssm.mamba_seq(xn, lp["mixer"], cfg.ssm, cfg.d_model,
+                                     cfg.norm_eps, lora=mf, scale=lora_scale)
+        x = x + y
+        entry = {"h": h, "conv": conv}
+    else:
+        q, k, v = _qkv(xn, lp["mixer"], cfg, mf, lora_scale)
+        sparse = _sparse(cfg, impl)
+        if sparse is not None:
+            y = block_sparse_attention(q, k, v, sparse)
+        else:
+            y = flash_attention(q, k, v, causal=True, window=0)
+        b, s = y.shape[:2]
+        x = x + lora_proj(y.reshape(b, s, -1), lp["mixer"]["wo"], _sub(mf, "wo"),
+                          scale=lora_scale)
+        entry = {"k": k, "v": v}
     x = _ff_and_adapter(x, lp, kind, cfg, lora, lora_scale)
-    return x, {"k": k, "v": v}
+    return x, entry
 
 
 def apply_layer_decode(x, lp, kind: LayerKind, cache, pos: int,
-                       cfg: ModelConfig, *, lora=None, lora_scale: float = 1.0):
-    """x: (B, 1, d), the token at position ``pos`` (host int).  Writes its
-    k/v into ``cache`` IN PLACE at slot min(pos, Sc-1) — the port updates
-    the cache buffers instead of returning new ones — and returns x."""
+                       cfg: ModelConfig, *, impl: str = "auto", lora=None,
+                       lora_scale: float = 1.0):
+    """x: (B, 1, d), the token at position ``pos`` (host int).  Updates this
+    layer's ``cache`` entry IN PLACE — attention writes the token's k/v at
+    slot min(pos, Sc-1), mamba overwrites its state and conv inputs — where
+    the JAX package returns new buffers, and returns x."""
     check_kind(kind)
     xn = apply_norm(x, lp["norm1"], cfg.norm, cfg.norm_eps)
     mf = _sub(lora, "mixer")
-    q, k, v = _qkv(xn, lp["mixer"], cfg, mf, lora_scale)
-    kc, vc = cache["k"], cache["v"]
-    slot = min(pos, kc.shape[1] - 1)
-    kc[:, slot] = k[:, 0]
-    vc[:, slot] = v[:, 0]
-    y = decode_attention(q, kc, vc, pos + 1)
-    x = x + lora_proj(y.reshape(x.shape[0], 1, -1), lp["mixer"]["wo"],
-                      _sub(mf, "wo"), scale=lora_scale)
+    if kind.mixer == "mamba":
+        y, (h, conv) = ssm.mamba_decode(xn, lp["mixer"], cfg.ssm, cfg.d_model,
+                                        cfg.norm_eps, cache["h"], cache["conv"],
+                                        lora=mf, scale=lora_scale)
+        cache["h"].copy_(h)
+        cache["conv"].copy_(conv)
+        x = x + y
+    else:
+        q, k, v = _qkv(xn, lp["mixer"], cfg, mf, lora_scale)
+        kc, vc = cache["k"], cache["v"]
+        slot = min(pos, kc.shape[1] - 1)
+        kc[:, slot] = k[:, 0]
+        vc[:, slot] = v[:, 0]
+        y = decode_attention(q, kc, vc, pos + 1, sparse=_sparse(cfg, impl))
+        x = x + lora_proj(y.reshape(x.shape[0], 1, -1), lp["mixer"]["wo"],
+                          _sub(mf, "wo"), scale=lora_scale)
     return _ff_and_adapter(x, lp, kind, cfg, lora, lora_scale)
 
 
 def layer_cache_shape(cfg: ModelConfig, kind: LayerKind, batch: int,
-                      cache_len: int):
-    """Cache entry shapes of one layer (no leading repeat axis)."""
+                      cache_len: int, dtype):
+    """Cache entry of one layer as {name: (shape, dtype)} (no leading repeat
+    axis).  The SSM state is f32 whatever the model dtype."""
     check_kind(kind)
+    if kind.mixer == "mamba":
+        s = cfg.ssm
+        conv_dim = cfg.d_inner + 2 * s.n_groups * s.state
+        return {"h": ((batch, cfg.ssm_heads, s.headdim, s.state), torch.float32),
+                "conv": ((batch, s.conv_width - 1, conv_dim), dtype)}
     shp = (batch, cache_len, cfg.n_kv_heads, cfg.hd)
-    return {"k": shp, "v": shp}
+    return {"k": (shp, dtype), "v": (shp, dtype)}

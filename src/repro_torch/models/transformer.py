@@ -1,7 +1,8 @@
 """Model: the stack runner over stage patterns (decoder-only serving).
 
 The port of ``repro.models.transformer.Model`` for the families ported so
-far: token + learned-position embeddings, stages of repeated layer patterns
+far (dense decoders, attention-free Mamba-2): token embeddings (plus
+learned positions where the config has them), stages of repeated layer patterns
 (parameters stacked on a leading repeat axis, walked by a Python loop where
 the JAX package ``lax.scan``s), the final norm and the (tied) LM head.
 Parameters are plain nested dicts of tensors in the JAX layout, so
@@ -20,8 +21,10 @@ import torch
 
 from repro_torch import resolve_device, trees
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.blocks import (apply_layer_decode, apply_layer_seq,
-                                       check_kind, layer_cache_shape)
+from repro_torch.models import ssm
+from repro_torch.models.blocks import (IMPLS, apply_layer_decode,
+                                       apply_layer_seq, check_kind,
+                                       layer_cache_shape)
 from repro_torch.models.norms import apply_norm
 
 
@@ -35,7 +38,13 @@ def _at(tree, r: int):
 
 
 class Model:
-    def __init__(self, cfg: ModelConfig, dtype=torch.float32, device=None):
+    """``impl`` picks the attention core as in the JAX package: "sparse"
+    runs the config's block-sparse pattern (prefill and decode), every other
+    value exact attention.  ``forward``, ``prefill`` and ``decode_step``
+    take an ``impl`` that overrides it for one call."""
+
+    def __init__(self, cfg: ModelConfig, dtype=torch.float32, device=None,
+                 impl: str = "auto"):
         if cfg.is_encoder_only or cfg.is_encoder_decoder:
             raise NotImplementedError(
                 f"{cfg.name}: encoder stacks are ported with the PFTT training "
@@ -43,14 +52,16 @@ class Model:
         if cfg.n_prefix_tokens:
             raise NotImplementedError(f"{cfg.name}: VLM prefixes are ported "
                                       "with the arch-zoo slice")
-        if cfg.pos != "learned":
+        if cfg.pos != "learned" and not cfg.attention_free:
             raise NotImplementedError(f"{cfg.name}: rotary positions are "
                                       "ported with the arch-zoo slice")
         for stage in cfg.stages:
             for kind in stage.pattern:
                 check_kind(kind)
+        self._check_impl(impl)
         self.cfg = cfg
         self.dtype = dtype
+        self.impl = impl
         self.device = resolve_device(device)
 
     # ------------------------------------------------------------------ init
@@ -80,21 +91,24 @@ class Model:
         }
         if not cfg.tie_embeddings:
             params["lm_head"] = normal((d, cfg.vocab_size), 0.02)
-        params["pos_embed"] = normal((max(cfg.max_position, max_seq, 1024), d), 0.02)
+        if cfg.pos == "learned":
+            params["pos_embed"] = normal((max(cfg.max_position, max_seq, 1024), d), 0.02)
         stages = []
         for stage in cfg.stages:
             r = stage.repeats
             layers = []
             for kind in stage.pattern:
-                lp = {
-                    "norm1": stacked_norm(r, d),
-                    "mixer": {
+                lp = {"norm1": stacked_norm(r, d)}
+                if kind.mixer == "mamba":
+                    lp["mixer"] = ssm.init_mamba(normal, d, cfg.ssm, self.dtype,
+                                                 self.device, lead=(r,))
+                else:
+                    lp["mixer"] = {
                         "wq": normal((r, d, h * hd), d ** -0.5),
                         "wk": normal((r, d, kh * hd), d ** -0.5),
                         "wv": normal((r, d, kh * hd), d ** -0.5),
                         "wo": normal((r, h * hd, d), (h * hd) ** -0.5),
-                    },
-                }
+                    }
                 if kind.ff == "mlp":
                     lp["norm2"] = stacked_norm(r, d)
                     lp["ff"] = {"wu": normal((r, d, cfg.d_ff), d ** -0.5),
@@ -111,7 +125,14 @@ class Model:
         x = params["embed"][tokens].to(self.dtype)
         if self.cfg.embed_scale:
             x = x * self.cfg.d_model ** 0.5
-        return x + params["pos_embed"][positions].to(self.dtype)
+        if self.cfg.pos == "learned":
+            x = x + params["pos_embed"][positions].to(self.dtype)
+        return x
+
+    @staticmethod
+    def _check_impl(impl):
+        if impl not in IMPLS:
+            raise ValueError(f"impl {impl!r} not in {IMPLS}")
 
     @staticmethod
     def _lora_stage(lora, si):
@@ -132,29 +153,32 @@ class Model:
                 "with peft.apply_lora instead")
 
     # -------------------------------------------------------------- forward
-    def forward(self, params, tokens, *, collect_cache: bool = False, lora=None,
-                lora_scale: float = 1.0):
+    def forward(self, params, tokens, *, impl: Optional[str] = None,
+                collect_cache: bool = False, lora=None, lora_scale: float = 1.0):
         """tokens (B, S) → (hidden (B, S, d), caches).  With
-        ``collect_cache`` caches[si][pi] holds the prompt's stacked
-        {"k", "v"} (repeats, B, S, K, hd); otherwise it is None."""
+        ``collect_cache`` caches[si][pi] holds each layer's cache entry
+        stacked over the repeats — {"k", "v"} (repeats, B, S, K, hd) for
+        attention, {"h", "conv"} for mamba; otherwise it is None."""
         cfg = self.cfg
+        impl = impl or self.impl
+        self._check_impl(impl)
         self._check_lora(lora)
         positions = torch.arange(tokens.shape[1], device=tokens.device)
         x = self._embed_tokens(params, tokens, positions)
         caches = [] if collect_cache else None
         for si, stage in enumerate(cfg.stages):
             sp, lsp = params["stages"][si], self._lora_stage(lora, si)
-            kv = [{"k": [], "v": []} for _ in stage.pattern]
+            got = [{} for _ in stage.pattern]
             for r in range(stage.repeats):
                 for pi, kind in enumerate(stage.pattern):
                     lf = None if lsp is None else _at(lsp["layers"][pi], r)
                     x, c = apply_layer_seq(x, _at(sp["layers"][pi], r), kind, cfg,
-                                           lora=lf, lora_scale=lora_scale)
+                                           impl=impl, lora=lf, lora_scale=lora_scale)
                     if collect_cache:
-                        kv[pi]["k"].append(c["k"])
-                        kv[pi]["v"].append(c["v"])
+                        for name, t in c.items():
+                            got[pi].setdefault(name, []).append(t)
             if collect_cache:
-                caches.append([{n: torch.stack(t) for n, t in e.items()} for e in kv])
+                caches.append([{n: torch.stack(t) for n, t in e.items()} for e in got])
         x = apply_norm(x, params["final_norm"], cfg.norm, cfg.norm_eps)
         return x, caches
 
@@ -166,37 +190,45 @@ class Model:
 
     # ---------------------------------------------------------------- cache
     def init_cache(self, batch: int, cache_len: int, dtype=None):
-        """{"pos": host int, "stages": [[{"k", "v"} of (repeats, B, Sc, K, hd)]]}."""
+        """{"pos": host int, "stages": [[entry per pattern position]]}, each
+        entry stacked over the repeats: {"k", "v"} (repeats, B, Sc, K, hd)
+        for attention, {"h" f32, "conv"} for mamba."""
         dtype = dtype or self.dtype
         return {"pos": 0, "stages": [
-            [{n: torch.zeros((stage.repeats,) + shp, dtype=dtype, device=self.device)
-              for n, shp in layer_cache_shape(self.cfg, kind, batch, cache_len).items()}
+            [{n: torch.zeros((stage.repeats,) + shp, dtype=dt, device=self.device)
+              for n, (shp, dt) in layer_cache_shape(self.cfg, kind, batch,
+                                                    cache_len, dtype).items()}
              for kind in stage.pattern]
             for stage in self.cfg.stages]}
 
     # -------------------------------------------------------------- prefill
-    def prefill(self, params, tokens, cache_len: int, *, lora=None,
-                lora_scale: float = 1.0):
+    def prefill(self, params, tokens, cache_len: int, *,
+                impl: Optional[str] = None, lora=None, lora_scale: float = 1.0):
         """Run the prompt; return (last-token logits (B, vocab) f32, cache)."""
         s_prompt = tokens.shape[1]
         if s_prompt > cache_len:
             raise ValueError(f"prompt length {s_prompt} > cache_len {cache_len}")
-        hidden, caches = self.forward(params, tokens, collect_cache=True,
+        hidden, caches = self.forward(params, tokens, impl=impl, collect_cache=True,
                                       lora=lora, lora_scale=lora_scale)
         cache = self.init_cache(tokens.shape[0], cache_len)
         for entries, got in zip(cache["stages"], caches):
             for entry, raw in zip(entries, got):
                 for name, buf in entry.items():
-                    buf[:, :, :s_prompt] = raw[name]
+                    if name in ("h", "conv"):   # whole states, not per position
+                        buf.copy_(raw[name])
+                    else:
+                        buf[:, :, :s_prompt] = raw[name]
         cache["pos"] = s_prompt
         return self.logits(params, hidden[:, -1]), cache
 
     # ---------------------------------------------------------------- decode
-    def decode_step(self, params, cache, tokens, *, lora=None,
-                    lora_scale: float = 1.0):
+    def decode_step(self, params, cache, tokens, *, impl: Optional[str] = None,
+                    lora=None, lora_scale: float = 1.0):
         """tokens (B, 1) → (logits (B, vocab) f32, cache).  The cache's
         buffers are updated in place and its host ``pos`` advanced."""
         cfg = self.cfg
+        impl = impl or self.impl
+        self._check_impl(impl)
         self._check_lora(lora)
         pos = cache["pos"]
         x = self._embed_tokens(params, tokens, torch.full_like(tokens, pos))
@@ -207,7 +239,8 @@ class Model:
                     lf = None if lsp is None else _at(lsp["layers"][pi], r)
                     x = apply_layer_decode(x, _at(sp["layers"][pi], r), kind,
                                            _at(cache["stages"][si][pi], r), pos,
-                                           cfg, lora=lf, lora_scale=lora_scale)
+                                           cfg, impl=impl, lora=lf,
+                                           lora_scale=lora_scale)
         x = apply_norm(x, params["final_norm"], cfg.norm, cfg.norm_eps)
         cache["pos"] = pos + 1
         return self.logits(params, x[:, 0]), cache

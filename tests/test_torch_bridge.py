@@ -74,6 +74,25 @@ def test_port_init_lora_mirrors_jax_layout(jax_trees, cfg):
             np.testing.assert_array_equal(v, flat_l[k], err_msg=k)
 
 
+def test_mamba2_params_and_lora_round_trip_is_bit_exact():
+    """A JAX mamba2 tree (f32 a_log / d_skip / dt_bias beside the mixer
+    weights, no position table) and its LoRA tree on in_proj / out_proj."""
+    jcfg = jget_config("mamba2-1.3b").reduced(d_model=64, repeats=2)
+    params = JModel(jcfg).init(jax.random.PRNGKey(0))
+    lora = jpeft.init_lora(jax.random.PRNGKey(1), params, jpeft.PEFTConfig(lora_rank=4))
+    flat_p = {k: np.asarray(v) for k, v in jtrees.flatten(params).items()}
+    flat_l = {k: np.asarray(v) for k, v in jtrees.flatten(lora).items()}
+    assert "pos_embed" not in flat_p
+    assert {k.rsplit("/", 2)[-2] for k in flat_l} == {"in_proj", "out_proj"}
+    cfg = get_config("mamba2-1.3b").reduced(d_model=64, repeats=2)
+    for flat, load in ((flat_p, bridge.params_from_numpy), (flat_l, bridge.lora_from_numpy)):
+        back = bridge.to_numpy(load(flat, cfg))
+        assert back.keys() == flat.keys()
+        for k, v in flat.items():
+            assert back[k].dtype == v.dtype, k
+            np.testing.assert_array_equal(back[k], v, err_msg=k)
+
+
 def test_bridge_rejects_mismatched_trees(jax_trees, cfg):
     flat_p, flat_l = jax_trees
     with pytest.raises(KeyError, match="params lack"):

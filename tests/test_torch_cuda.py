@@ -8,18 +8,26 @@ Tolerances are those of ``tests/test_kernels.py``.
 import pytest
 import torch
 
+from repro_torch.configs import SparseAttnConfig
+from repro_torch.kernels.block_sparse_attn import ops as bsa_ops
+from repro_torch.kernels.block_sparse_attn.ops import block_sparse_attention
+from repro_torch.kernels.block_sparse_attn.ref import block_sparse_ref
 from repro_torch.kernels.decode_attn.ops import decode_attention
 from repro_torch.kernels.decode_attn.ref import decode_ref
 from repro_torch.kernels.flash_attn.ops import flash_attention
 from repro_torch.kernels.flash_attn.ref import attention_ref
 from repro_torch.kernels.lora_fused.ops import lora_matmul
 from repro_torch.kernels.lora_fused.ref import lora_ref
+from repro_torch.kernels.ssd_chunk.ops import ssd_scan
+from repro_torch.kernels.ssd_chunk.ref import ssd_ref
 
 pytestmark = pytest.mark.cuda
 
 TOL = {"lora": {torch.float32: 1e-4, torch.bfloat16: 3e-2},
        "flash": {torch.float32: 2e-5, torch.bfloat16: 2e-2},
-       "decode": {torch.float32: 2e-5, torch.bfloat16: 3e-2}}
+       "decode": {torch.float32: 2e-5, torch.bfloat16: 3e-2},
+       "ssd": {torch.float32: (5e-4, 1e-3), torch.bfloat16: (2e-2, 2e-2)}}
+SERVE_SPARSE = SparseAttnConfig(block_size=128, local_blocks=4, sink_blocks=1, stride=8)
 
 
 @pytest.fixture
@@ -63,6 +71,101 @@ def test_flash_attn_kernel(gen, dtype, b, s, h, kh, d, window):
     _close(out, attention_ref(q, k, v, causal=True, window=window), TOL["flash"][dtype])
 
 
+@pytest.mark.parametrize("m,k,n", [(2048, 2048, 8512), (4, 2048, 8512),
+                                   (2048, 4096, 2048), (4, 4096, 2048)])
+def test_lora_fused_kernel_mamba_shapes(gen, m, k, n):
+    """mamba2-1.3b's in_proj (N 8512, not a multiple of 64) and out_proj at
+    prefill (M 2048) and decode (M 4) rows."""
+    x, w = _rn(gen, m, k), _rn(gen, k, n, std=0.02)
+    a, b = _rn(gen, k, 8, std=0.02), _rn(gen, 8, n, std=0.05)
+    _close(lora_matmul(x, w, a, b, scale=2.0), lora_ref(x, w, a, b, scale=2.0),
+           TOL["lora"][torch.float32])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,sq,sk,h,kh,d,cfg,q_offset", [
+    (8, 896, 896, 12, 12, 64, SERVE_SPARSE, 0),
+    (2, 256, 256, 8, 4, 64, SparseAttnConfig(block_size=32, local_blocks=2,
+                                             sink_blocks=1, stride=4), 0),
+    (2, 256, 256, 8, 2, 32, SparseAttnConfig(block_size=64, local_blocks=1,
+                                             sink_blocks=2, stride=2), 0),
+    (1, 128, 384, 4, 2, 128, SparseAttnConfig(block_size=16, local_blocks=2,
+                                              sink_blocks=1, stride=4), 256),
+])
+def test_block_sparse_attn_kernel(gen, dtype, b, sq, sk, h, kh, d, cfg, q_offset):
+    q = _rn(gen, b, sq, h, d, dtype=dtype)
+    k, v = _rn(gen, b, sk, kh, d, dtype=dtype), _rn(gen, b, sk, kh, d, dtype=dtype)
+    before = block_sparse_attention.launches
+    out = block_sparse_attention(q, k, v, cfg, q_offset=q_offset)
+    torch.cuda.synchronize()
+    assert block_sparse_attention.launches == before + 1
+    _close(out, block_sparse_ref(q, k, v, cfg, q_offset=q_offset), TOL["flash"][dtype])
+
+
+def test_block_sparse_tables_upload_once(gen):
+    q, kv = _rn(gen, 1, 256, 2, 32), _rn(gen, 1, 256, 1, 32)
+    cfg = SparseAttnConfig(block_size=32, local_blocks=2, sink_blocks=1, stride=4)
+    block_sparse_attention(q, kv, kv, cfg)
+    first = bsa_ops.device_table(8, 8, cfg, 0, q.device)
+    block_sparse_attention(q, kv, kv, cfg)
+    assert bsa_ops.device_table(8, 8, cfg, 0, q.device)[0] is first[0]
+    with pytest.raises(ValueError, match="multiples"):
+        block_sparse_attention(q[:, :100].contiguous(), kv[:, :100].contiguous(),
+                               kv[:, :100].contiguous(), cfg)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("cache_len", [1, 897, 960, 1024])
+def test_decode_attn_kernel_sparse(gen, dtype, cache_len):
+    q = _rn(gen, 8, 1, 12, 64, dtype=dtype)
+    kc, vc = _rn(gen, 8, 1024, 12, 64, dtype=dtype), _rn(gen, 8, 1024, 12, 64, dtype=dtype)
+    out = decode_attention(q, kc, vc, cache_len, sparse=SERVE_SPARSE)
+    _close(out, decode_ref(q, kc, vc, cache_len, sparse=SERVE_SPARSE), TOL["decode"][dtype])
+
+
+def test_decode_attn_kernel_sparse_gqa_small_blocks(gen):
+    cfg = SparseAttnConfig(block_size=16, local_blocks=2, sink_blocks=1, stride=4)
+    q = _rn(gen, 2, 1, 8, 32)
+    kc, vc = _rn(gen, 2, 200, 2, 32), _rn(gen, 2, 200, 2, 32)
+    for cache_len in (5, 83, 200):
+        _close(decode_attention(q, kc, vc, cache_len, sparse=cfg),
+               decode_ref(q, kc, vc, cache_len, sparse=cfg), 2e-5)
+
+
+def _ssd_inputs(gen, b, s, h, p, n, dtype, h0=False, shared_bc=False):
+    x = _rn(gen, b, s, h, p, dtype=dtype)
+    dt = torch.nn.functional.softplus(_rn(gen, b, s, h))
+    a = -torch.exp(_rn(gen, h, std=0.3))
+    if shared_bc:   # the mixer's stride-0 broadcast of one group over the heads
+        bm = _rn(gen, b, s, 1, n, std=0.5, dtype=dtype).expand(b, s, h, n)
+        cm = _rn(gen, b, s, 1, n, std=0.5, dtype=dtype).expand(b, s, h, n)
+    else:
+        bm = _rn(gen, b, s, h, n, std=0.5, dtype=dtype)
+        cm = _rn(gen, b, s, h, n, std=0.5, dtype=dtype)
+    state = _rn(gen, b, h, p, n, std=0.5) if h0 else None
+    return x, dt, a, bm, cm, state
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,s,h,p,n,chunk,h0,shared", [
+    (4, 512, 64, 64, 128, 256, False, True),     # the mamba2-1.3b serve prefill
+    (2, 300, 8, 64, 128, 256, True, True),       # tail and initial state
+    (2, 128, 4, 16, 16, 32, False, False),
+    (2, 100, 4, 32, 32, 64, True, False),
+    (1, 80, 2, 64, 64, 16, False, False),
+])
+def test_ssd_chunk_kernel(gen, dtype, b, s, h, p, n, chunk, h0, shared):
+    args = _ssd_inputs(gen, b, s, h, p, n, dtype, h0=h0, shared_bc=shared)
+    before = ssd_scan.launches
+    y, hf = ssd_scan(*args[:5], chunk=chunk, h0=args[5])
+    torch.cuda.synchronize()
+    assert ssd_scan.launches == before + 1
+    y_r, h_r = ssd_ref(*args[:5], chunk=chunk, h0=args[5])
+    atol, rtol = TOL["ssd"][dtype]
+    torch.testing.assert_close(y.float(), y_r.float(), atol=atol, rtol=rtol)
+    torch.testing.assert_close(hf, h_r, atol=atol, rtol=rtol)
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("cache_len,window", [(1, 0), (101, 0), (192, 0), (300, 0), (150, 64)])
 def test_decode_attn_kernel(gen, dtype, cache_len, window):
@@ -78,21 +181,27 @@ def test_decode_attn_kernel_gqa(gen):
     _close(decode_attention(q, kc, vc, 201), decode_ref(q, kc, vc, 201), 2e-5)
 
 
-def test_serving_on_card_matches_cpu(gen):
-    """Reduced gpt2 serving on the card (kernels) vs the CPU (plain)."""
+@pytest.mark.parametrize("arch,prompt_len,impl", [("gpt2-small", 9, "auto"),
+                                                  ("gpt2-small", 32, "sparse"),
+                                                  ("mamba2-1.3b", 40, "auto")])
+def test_serving_on_card_matches_cpu(gen, arch, prompt_len, impl):
+    """Reduced serving on the card (kernels) vs the CPU (plain): dense and
+    block-sparse gpt2, and mamba2 (its prompt ends inside a scan chunk)."""
     from repro_torch import trees
     from repro_torch.launch import serve
-    args = serve.parse_args(["--arch", "gpt2-small", "--reduced", "--batch", "2",
-                             "--prompt-len", "9", "--gen", "4", "--lora-rank", "4"])
-    model, params, lora, scale, prompts = serve.build(args)
+    args = serve.parse_args(["--arch", arch, "--reduced", "--batch", "2",
+                             "--prompt-len", str(prompt_len), "--gen", "4",
+                             "--lora-rank", "4"])
+    model, params, lora, scale, prompts = serve.build(args, impl=impl)
     lora = trees.map_with_path(lambda p, t: t if p.endswith("/mask") else
                                _rn(gen, *t.shape, std=0.05), lora)
     res = serve.generate(model, params, prompts, 4, lora=lora, lora_scale=scale)
     from repro_torch.models.transformer import Model
-    cpu = Model(model.cfg, device="cpu")
+    cpu = Model(model.cfg, device="cpu", impl=impl)
     p_cpu = trees.map_with_path(lambda _, t: t.cpu(), params)
     l_cpu = trees.map_with_path(lambda _, t: t.cpu(), lora)
-    lg, cache = cpu.prefill(p_cpu, prompts.cpu(), 13, lora=l_cpu, lora_scale=scale)
+    lg, cache = cpu.prefill(p_cpu, prompts.cpu(), prompt_len + 4, lora=l_cpu,
+                            lora_scale=scale)
     torch.testing.assert_close(lg, res["logits"][0].cpu(), atol=1e-4, rtol=0)
     for t in range(4):
         lg, cache = cpu.decode_step(p_cpu, cache, res["tokens"][:, t:t + 1].cpu(),

@@ -103,25 +103,32 @@ def test_decode_ref_matches_pallas_decode(pos, window):
 
 
 def test_cpu_wrappers_count_no_launch():
-    before = (lora_matmul.launches, flash_attention.launches,
-              decode_attention.launches)
+    from repro_torch.configs import SparseAttnConfig
+    from repro_torch.kernels.block_sparse_attn.ops import block_sparse_attention
+    from repro_torch.kernels.ssd_chunk.ops import ssd_scan
+    wrappers = (lora_matmul, flash_attention, decode_attention, block_sparse_attention,
+                ssd_scan)
+    before = [f.launches for f in wrappers]
     x = torch.randn(4, 16)
     lora_matmul(x, torch.randn(16, 8), torch.randn(16, 2), torch.randn(2, 8),
                 scale=1.0)
     q = torch.randn(1, 4, 2, 32)
     flash_attention(q, q, q)
     decode_attention(q[:, :1], q, q, 3)
-    assert before == (lora_matmul.launches, flash_attention.launches,
-                      decode_attention.launches)
+    decode_attention(q[:, :1], q, q, 3, sparse=SparseAttnConfig(block_size=2))
+    block_sparse_attention(q, q, q, SparseAttnConfig(block_size=2))
+    ssd_scan(q, torch.rand(1, 4, 2), -torch.rand(2), q, q, chunk=2)
+    assert before == [f.launches for f in wrappers]
 
 
 def test_build_names_each_source_and_needs_nvcc(monkeypatch):
     """Each CUDA source maps to its own content-hashed library, and a
     machine without nvcc gets a clear error instead of a kernel."""
     from repro_torch.kernels import _build
-    assert set(_build.sources()) == {"lora_fused", "flash_attn", "decode_attn"}
+    names = {"lora_fused", "flash_attn", "decode_attn", "block_sparse_attn", "ssd_chunk"}
+    assert set(_build.sources()) == names
     libs = {_build._target(p).name for p in _build.sources().values()}
-    assert len(libs) == 3 and all(n.endswith(".so") for n in libs)
+    assert len(libs) == len(names) and all(n.endswith(".so") for n in libs)
     monkeypatch.setattr(_build.shutil, "which", lambda _: None)
     monkeypatch.setattr(_build.os.path, "exists", lambda _: False)
     with pytest.raises(RuntimeError, match="nvcc not found"):

@@ -82,8 +82,8 @@ def test_decode_attention_matches_jax(cache_len, window):
 
 
 def test_decode_attention_unported_modes_raise():
+    """Ring (window) caches are still unported; the sparse mask is ported
+    (``tests/test_torch_sparse.py``)."""
     q = torch.zeros(1, 1, 2, 8)
-    with pytest.raises(NotImplementedError, match="sparse"):
-        attention.decode_attention(q, q, q, 1, sparse=object())
     with pytest.raises(NotImplementedError, match="arch-zoo"):
         attention.decode_attention(q, q, q, 1, ring=True)

@@ -7,6 +7,8 @@ kernel in interpret mode) and through the port, whose kernel wrappers take
 their plain versions on CPU tensors.  Tolerance atol 1e-4, that of
 ``test_mixer_factored.py::test_prefill_decode_parity``.
 """
+import itertools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -79,15 +81,18 @@ def _check_cache(cache, jcache):
 
 
 def test_config_copy_matches_reference():
-    """The port's own config copy agrees with the JAX package's on every
-    field the two share."""
-    for reduce in (False, True):
-        a, b = get_config("gpt2-small"), jget_config("gpt2-small")
+    """The port's own config copies agree with the JAX package's on every
+    field the two share (``SSMConfig`` and ``SparseAttnConfig`` included)
+    and on the derived widths."""
+    for arch, reduce in itertools.product(("gpt2-small", "mamba2-1.3b"), (False, True)):
+        a, b = get_config(arch), jget_config(arch)
         if reduce:
             a, b = a.reduced(d_model=128, repeats=2), b.reduced(d_model=128, repeats=2)
         for f in a.__dataclass_fields__:  # dataclass reprs carry no module
             assert repr(getattr(a, f)) == repr(getattr(b, f)), f
-        assert a.hd == b.hd
+        assert (a.hd, a.attention_free) == (b.hd, b.attention_free)
+        if a.ssm is not None:
+            assert (a.d_inner, a.ssm_heads) == (b.d_inner, b.ssm_heads)
 
 
 def test_prefill_and_decode_match_jax_pallas_serving(setup):
@@ -183,6 +188,24 @@ def test_serve_cli_runs_on_cpu_when_asked(capsys):
     assert "UNMERGED" in capsys.readouterr().out
 
 
+def test_serve_cli_runs_mamba2_on_cpu():
+    """The CLI of the verify recipe: reduced mamba2 with a rank-4 LoRA on
+    in_proj and out_proj."""
+    res = serve.main(["--arch", "mamba2-1.3b", "--reduced", "--batch", "2",
+                      "--prompt-len", "40", "--gen", "3", "--lora-rank", "4",
+                      "--device", "cpu"])
+    assert res["tokens"].shape == (2, 3)
+    assert all(torch.isfinite(lg).all() for lg in res["logits"])
+
+
+def test_serve_build_passes_impl():
+    args = serve.parse_args(["--arch", "gpt2-small", "--reduced", "--batch", "1",
+                             "--prompt-len", "32", "--gen", "2", "--device", "cpu"])
+    model, params, _, _, prompts = serve.build(args, impl="sparse")
+    assert model.impl == "sparse"
+    assert serve.generate(model, params, prompts, 2)["tokens"].shape == (1, 2)
+
+
 def test_serve_without_cuda_raises(monkeypatch):
     """No silent CPU fallback: the default device is CUDA."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -197,8 +220,13 @@ def test_unported_kinds_name_their_slice():
     import dataclasses
     from repro_torch.configs import LK, Stage
     cfg = get_config("gpt2-small").reduced()
-    for kind, slice_ in ((LK("enc", "mlp"), "PFTT"), (LK("mamba", "none"), "arch-zoo"),
-                         (LK("attn", "moe"), "arch-zoo")):
+    for kind, slice_ in ((LK("enc", "mlp"), "PFTT"), (LK("mla", "none"), "arch-zoo"),
+                         (LK("attn", "moe"), "arch-zoo"), (LK("local", "mlp"), "arch-zoo")):
         bad = dataclasses.replace(cfg, stages=(Stage((kind,), 1),))
         with pytest.raises(NotImplementedError, match=slice_):
             Model(bad, device="cpu")
+    # rotary positions stay unported for configs with attention layers; an
+    # attention-free config (mamba2) reads no positions and is accepted
+    with pytest.raises(NotImplementedError, match="rotary"):
+        Model(dataclasses.replace(cfg, pos="rope"), device="cpu")
+    Model(get_config("mamba2-1.3b").reduced(), device="cpu")
