@@ -14,7 +14,9 @@ Phases, each reported on its own lines:
    shapes, in f32 and bf16, and holds it against its plain PyTorch version
    (tolerances of tests/test_kernels.py); times the kernel, the plain version
    and one PyTorch library call of the same function, each on a cold L2
-   (median of 30 calls).
+   (median of 30 calls), with the kernel's TFLOP/s and its share of the
+   bound.  TILES lines time each prefill instance of ``lora_fused`` forced,
+   at the serving paths' prefill shapes.
 4. serve   — three serving paths through the port's entry points
    (``launch/serve.py`` build/generate), each with random weights from seed
    0 and nonzero rank-8 LoRA factors from a numpy seed, f32:
@@ -194,14 +196,17 @@ def kernel_cases(torch):
                 main=(clen == 192 and dt == torch.float32)))
         cases += sparse_cases(torch, dt, dname, es, rn)
         cases += ssd_cases(torch, dt, dname, es, rn)
-    # mamba2-1.3b's projections: in_proj K 2048 → N 8512 (not a multiple of
-    # 64), out_proj K 4096 → N 2048, at prefill (M 2048) and decode (M 4)
-    for m, k, n in ((2048, 2048, 8512), (4, 2048, 8512), (2048, 4096, 2048), (4, 4096, 2048)):
+    # SERVE-SPARSE's prefill projection (M = 8·896), and mamba2-1.3b's:
+    # in_proj K 2048 → N 8512 (not a multiple of 64), out_proj K 4096 →
+    # N 2048, at prefill (M 2048) and decode (M 4)
+    for m, k, n, path in ((7168, 768, 768, "sparse"), (2048, 2048, 8512, "mamba"),
+                          (4, 2048, 8512, "mamba"), (2048, 4096, 2048, "mamba"),
+                          (4, 4096, 2048, "mamba")):
         x, w = rn(m, k), rn(k, n, std=0.02)
         a, b = rn(k, 8, std=0.02), rn(8, n, std=0.05)
         merged = w + 2.0 * (a @ b)
         cases.append(dict(
-            name="lora_fused", label=f"M={m} K={k} N={n} r=8 (mamba)", dtype="float32",
+            name="lora_fused", label=f"M={m} K={k} N={n} r=8 ({path})", dtype="float32",
             kernel=lambda x=x, w=w, a=a, b=b: lora_matmul(x, w, a, b, scale=2.0),
             plain=lambda x=x, w=w, a=a, b=b: lora_ref(x, w, a, b, scale=2.0),
             library=lambda x=x, mg=merged: torch.matmul(x, mg),
@@ -332,7 +337,8 @@ def check_kernels(torch):
         print(f"CHECK {c['name']:<11} {c['dtype']:<8} {c['label']:<48} "
               f"max_abs_err={err:.3e} tol={atol:g}/{rtol:g} {'ok' if ok else 'MISMATCH'} "
               f"ms={ms:.4f} plain_ms={plain_ms:.4f} library_ms={lib_txt} "
-              f"bound_ms={b_ms:.4f} ({b_by})", flush=True)
+              f"bound_ms={b_ms:.4f} ({b_by}) tflops={c['flops'] / ms / 1e9:.2f} "
+              f"bound_share={b_ms / ms:.3f}", flush=True)
         if not ok:
             fail(f"{c['name']} {c['dtype']} {c['label']}: max_abs_err {err:.3e} "
                  f"outside atol {atol:g} rtol {rtol:g}")
@@ -341,6 +347,24 @@ def check_kernels(torch):
                                    bound_ms=b_ms, bound_by=b_by, max_abs_err=err,
                                    shape=c["label"], dtype=c["dtype"])
     return rows
+
+
+def time_tiles(torch):
+    """lora_fused's prefill instances, each forced, at the serving paths'
+    prefill shapes (f32, r 8): the times behind the tile rule of
+    csrc/lora_fused.cu."""
+    from repro_torch.kernels.lora_fused.ops import TILES, lora_matmul
+
+    g = torch.Generator(device="cuda").manual_seed(0)
+    flush = torch.empty(32 * 1024 * 1024, dtype=torch.float32, device="cuda")
+    for m, k, n in ((512, 768, 768), (1024, 768, 768), (2048, 768, 768),
+                    (7168, 768, 768), (2048, 4096, 2048), (2048, 2048, 8512)):
+        x, w, a, b = (torch.randn(*s, generator=g, device="cuda") * 0.05
+                      for s in ((m, k), (k, n), (k, 8), (8, n)))
+        ms = {t: device_ms(lambda t=t: lora_matmul(x, w, a, b, scale=2.0, tile=t), flush)
+              for t in TILES}
+        print(f"TILES lora_fused float32 M={m} K={k} N={n} r=8 "
+              + " ".join(f"{t}_ms={v:.4f}" for t, v in ms.items()), flush=True)
 
 
 # ---------------------------------------------------------------- serving
@@ -516,6 +540,7 @@ def main():
 
     t0 = time.perf_counter()
     rows = check_kernels(torch)
+    time_tiles(torch)
     print(f"PHASE kernels {time.perf_counter() - t0:.1f} s", flush=True)
     launches, serve_rows = {n: 0 for n in KERNELS}, {}
     for spec in SERVES:

@@ -49,7 +49,13 @@ def _close(out, ref, tol):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("m,k,n,r", [(8, 768, 768, 8), (1, 100, 70, 3),
                                      (16, 768, 768, 32), (1024, 768, 768, 8),
-                                     (77, 130, 200, 16)])
+                                     (77, 130, 200, 16),
+                                     # the prefill branch's edges: its first row
+                                     # count, SERVE-SPARSE's prefill, element
+                                     # copies (no row 16-byte aligned), the most
+                                     # x·A pairs per thread
+                                     (17, 768, 768, 8), (7168, 768, 768, 8),
+                                     (300, 130, 70, 3), (1024, 768, 768, 32)])
 def test_lora_fused_kernel(gen, dtype, m, k, n, r):
     x, w = _rn(gen, m, k, dtype=dtype), _rn(gen, k, n, std=0.05, dtype=dtype)
     a, b = _rn(gen, k, r, std=0.05, dtype=dtype), _rn(gen, r, n, std=0.05, dtype=dtype)
@@ -80,6 +86,18 @@ def test_lora_fused_kernel_mamba_shapes(gen, m, k, n):
     a, b = _rn(gen, k, 8, std=0.02), _rn(gen, 8, n, std=0.05)
     _close(lora_matmul(x, w, a, b, scale=2.0), lora_ref(x, w, a, b, scale=2.0),
            TOL["lora"][torch.float32])
+
+
+@pytest.mark.parametrize("tile", ["128x128", "64x128", "96x64", "64x64"])
+@pytest.mark.parametrize("m,k,n,r", [(1024, 768, 768, 8), (300, 130, 70, 3), (77, 256, 200, 24)])
+def test_lora_fused_kernel_every_tile(gen, tile, m, k, n, r):
+    """Each prefill tile, forced, on aligned shapes and on a ragged one (rows
+    not 16-byte aligned: element copies, which always take 64×64)."""
+    for dtype in (torch.float32, torch.bfloat16):
+        x, w = _rn(gen, m, k, dtype=dtype), _rn(gen, k, n, std=0.05, dtype=dtype)
+        a, b = _rn(gen, k, r, std=0.05, dtype=dtype), _rn(gen, r, n, std=0.05, dtype=dtype)
+        _close(lora_matmul(x, w, a, b, scale=2.0, tile=tile),
+               lora_ref(x, w, a, b, scale=2.0), TOL["lora"][dtype])
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
