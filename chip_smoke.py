@@ -15,8 +15,7 @@ Phases, each reported on its own lines:
    (tolerances of tests/test_kernels.py); times the kernel, the plain version
    and one PyTorch library call of the same function, each on a cold L2
    (median of 30 calls), with the kernel's TFLOP/s and its share of the
-   bound.  TILES lines time each prefill instance of ``lora_fused`` forced,
-   at the serving paths' prefill shapes.
+   bound.
 4. serve   — three serving paths through the port's entry points
    (``launch/serve.py`` build/generate), each with random weights from seed
    0 and nonzero rank-8 LoRA factors from a numpy seed, f32:
@@ -349,24 +348,6 @@ def check_kernels(torch):
     return rows
 
 
-def time_tiles(torch):
-    """lora_fused's prefill instances, each forced, at the serving paths'
-    prefill shapes (f32, r 8): the times behind the tile rule of
-    csrc/lora_fused.cu."""
-    from repro_torch.kernels.lora_fused.ops import TILES, lora_matmul
-
-    g = torch.Generator(device="cuda").manual_seed(0)
-    flush = torch.empty(32 * 1024 * 1024, dtype=torch.float32, device="cuda")
-    for m, k, n in ((512, 768, 768), (1024, 768, 768), (2048, 768, 768),
-                    (7168, 768, 768), (2048, 4096, 2048), (2048, 2048, 8512)):
-        x, w, a, b = (torch.randn(*s, generator=g, device="cuda") * 0.05
-                      for s in ((m, k), (k, n), (k, 8), (8, n)))
-        ms = {t: device_ms(lambda t=t: lora_matmul(x, w, a, b, scale=2.0, tile=t), flush)
-              for t in TILES}
-        print(f"TILES lora_fused float32 M={m} K={k} N={n} r=8 "
-              + " ".join(f"{t}_ms={v:.4f}" for t, v in ms.items()), flush=True)
-
-
 # ---------------------------------------------------------------- serving
 def wrappers():
     from repro_torch.kernels.block_sparse_attn.ops import block_sparse_attention
@@ -540,7 +521,6 @@ def main():
 
     t0 = time.perf_counter()
     rows = check_kernels(torch)
-    time_tiles(torch)
     print(f"PHASE kernels {time.perf_counter() - t0:.1f} s", flush=True)
     launches, serve_rows = {n: 0 for n in KERNELS}, {}
     for spec in SERVES:

@@ -25,9 +25,9 @@
 //
 // lora_tiled (M > 16, the prefill rows): one template of 256 threads over a
 // BM×BN output tile, each thread a (BM/16)×(BN/16) piece of it at rows
-// ty + 16·i and columns 4·tx + 64·j: 128×128 (8×8, as 2×2 sub-tiles of
-// 4×4), 64×128 (4×8), 96×64 (6×4) and 64×64 (4×4).  What the earlier
-// 64×64 design (4×4 per thread) lost time on, and what this one does instead:
+// ty + 16·i and columns 4·tx + 64·j: 64×128 (4×8), 96×64 (6×4) and
+// 64×64 (4×4).  What the earlier 64×64 design (4×4 per thread) lost time
+// on, and what this one does instead:
 // 1. x·A inside the main loop from shared memory (two scalar loads per FMA,
 //    tripling the shared-load count): x·A is now taken from the x values a
 //    thread already holds in registers.  The 16 threads that share a row set
@@ -37,8 +37,8 @@
 //    one per sub-partition): 6% of the FMAs at r 8, 25% at r 32.
 // 2. Every column block repeating x·A: it still does (one launch per call,
 //    x read once), at that 6–25%, no longer at 3× the main product's loads.
-// 3. A 4×4 micro-tile (16 FMAs per 32 bytes read from shared memory): 8×8
-//    does 64 FMAs per 64 bytes, 4×8 32 per 48.  x is read along k (ptxas
+// 3. A 4×4 micro-tile (16 FMAs per 32 bytes read from shared memory): 4×8
+//    does 32 per 48, 6×4 24 per 40.  x is read along k (ptxas
 //    merges the float2 reads into float4: four k per read; a warp spans 4
 //    rows, a 4-address broadcast), W as float4 (8 addresses a warp).
 // 4. One K slice in flight, staged through registers with two barriers per
@@ -60,8 +60,9 @@
 // fills the SMs twice (two blocks an SM), else 96×64 when its grid has a
 // block for every SM, else 64×64: the larger tile where the grid still
 // fills the card, a smaller one where it would leave SMs idle.  Times that
-// chose it, from chip_smoke.py's TILES lines
-// (f32, r 8, H100 80GB HBM3 at 700 W, cold L2, median of 30; PERF.md):
+// chose it, each tile forced (f32, r 8, H100 80GB HBM3 at 700 W, cold L2,
+// median of 30; the TILES phase chip_smoke.py had when the rule was chosen,
+// PERF.md):
 //   M × K × N          64×128   96×64    64×64    128×128   (ms)
 //   512 × 768 × 768    0.0591   0.0539   0.0383   0.1045
 //   1024 × 768 × 768   0.0597   0.0541   0.0604   0.1156
@@ -69,9 +70,10 @@
 //   7168 × 768 × 768   0.2855   0.2893   0.3037   0.3242
 //   2048 × 4096 × 2048 0.9632   1.2311   1.0962   1.1385
 //   2048 × 2048 × 8512 2.0421   2.3540   2.2796   2.4124
-// The 8×8 tile (128×128) fits two blocks an SM only at 128 registers, where
-// ptxas spilled; at one block an SM it is slower than 64×128 at every
-// serving shape, so the rule never takes it.
+// The design's 8×8 tile (128×128, 2×2 sub-tiles of 4×4, 64 FMAs per 64
+// bytes) fits two blocks an SM only at 128 registers, where ptxas spilled;
+// at one block an SM (168–225 registers) it was slower than 64×128 at every
+// serving shape, as the last column shows, so it is not built.
 
 #include <cstdint>
 
@@ -294,10 +296,9 @@ __device__ __forceinline__ void slice(const T* xs, const T* ws, const T* as, int
 
 // WIDE: 16-byte copies and stores (K, N, r multiples of 16 bytes' worth of
 // elements, pointers 16-byte aligned); otherwise element copies.  RT: rank
-// slots a thread owns (ranks tx and tx + 16), ceil(r / 16).  128×128 runs
-// one block an SM: at two its 128-register cap spilled.
+// slots a thread owns (ranks tx and tx + 16), ceil(r / 16).
 template <typename T, int BM, int BN, int BK, bool WIDE, int RT>
-__global__ void __launch_bounds__(TTHREADS, BM == 128 && BN == 128 ? 1 : 2)
+__global__ void __launch_bounds__(TTHREADS, 2)
 lora_tiled(const T* __restrict__ x, const T* __restrict__ w,
            const T* __restrict__ a, const T* __restrict__ b,
            T* __restrict__ y, int M, int N, int K, int R, float scale) {
@@ -324,7 +325,9 @@ lora_tiled(const T* __restrict__ x, const T* __restrict__ w,
   const int xr = tid / XCH, xk = (tid % XCH) * CW;
   const int wr = tid / WCH, wn = (tid % WCH) * CW;
   const bool wcol = n0 + wn < N;
-  const T* xg = x + (size_t)(m0 + xr) * K + xk;  // rows ≥ M are never read (ok false)
+  // a copy whose source lies past an edge (ok false) is handed the tensor's
+  // base address and reads nothing
+  const T* xg = x + (size_t)(m0 + xr) * K + xk;
   const T* wg = w + (size_t)wr * N + n0 + wn;
   const int ach = WIDE ? R / CW : R;  // copies per A row
   constexpr int AL = (BK * RMAX / CW + TTHREADS - 1) / TTHREADS;
@@ -339,7 +342,7 @@ lora_tiled(const T* __restrict__ x, const T* __restrict__ w,
       if (BM % XSTEP == 0 || r < BM) {
         const bool ok = m0 + r < M && k0 + xk < K;
         const T* src = xg + (size_t)XSTEP * l * K + k0;
-        if constexpr (WIDE) cp16(xs + r * XS + xk, src, ok);
+        if constexpr (WIDE) cp16(xs + r * XS + xk, ok ? src : x, ok);
         else copy_elem(xs + r * XS + xk, ok ? src : x, ok);
       }
     }
@@ -349,7 +352,7 @@ lora_tiled(const T* __restrict__ x, const T* __restrict__ w,
       if (BK % WSTEP == 0 || kr < BK) {
         const bool ok = wcol && k0 + kr < K;
         const T* src = wg + (size_t)(k0 + WSTEP * l) * N;
-        if constexpr (WIDE) cp16(ws + kr * BN + wn, src, ok);
+        if constexpr (WIDE) cp16(ws + kr * BN + wn, ok ? src : w, ok);
         else copy_elem(ws + kr * BN + wn, ok ? src : w, ok);
       }
     }
@@ -360,7 +363,7 @@ lora_tiled(const T* __restrict__ x, const T* __restrict__ w,
         const int kr = c / ach, q = (c % ach) * CW;
         const bool ok = k0 + kr < K;
         const T* src = a + (size_t)(k0 + kr) * R + q;
-        if constexpr (WIDE) cp16(as + kr * RMAX + q, src, ok);
+        if constexpr (WIDE) cp16(as + kr * RMAX + q, ok ? src : a, ok);
         else copy_elem(as + kr * RMAX + q, ok ? src : a, ok);
       }
     }
@@ -485,11 +488,9 @@ int sm_count() {
 
 bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
 
-// tile: 0 = the rule of the source note, 1 = 128×128, 2 = 64×128, 3 = 96×64,
-// 4 = 64×64.
 template <typename T>
 cudaError_t launch(const void* x, const void* w, const void* a, const void* b, void* y,
-                   int M, int N, int K, int R, float scale, int tile, cudaStream_t s) {
+                   int M, int N, int K, int R, float scale, cudaStream_t s) {
   const T* xp = static_cast<const T*>(x);
   const T* wp = static_cast<const T*>(w);
   const T* ap = static_cast<const T*>(a);
@@ -508,16 +509,15 @@ cudaError_t launch(const void* x, const void* w, const void* a, const void* b, v
     constexpr int vec = 16 / sizeof(T);
     const bool wide = K % vec == 0 && N % vec == 0 && R % vec == 0 && aligned16(x) &&
                       aligned16(w) && aligned16(a) && aligned16(y);
-    if (tile == 0) {
-      const long long sms = sm_count();
-      const auto blocks = [&](int bm, int bn) {
-        return (long long)((M + bm - 1) / bm) * ((N + bn - 1) / bn);
-      };
-      tile = blocks(64, 128) >= 2 * sms ? 2 : blocks(96, 64) >= sms ? 3 : 4;
-    }
-    if (tile == 1) return tiled<T, 128, 128, 16>(wide, xp, wp, ap, bp, yp, M, N, K, R, scale, s);
-    if (tile == 2) return tiled<T, 64, 128, 16>(wide, xp, wp, ap, bp, yp, M, N, K, R, scale, s);
-    if (tile == 3) return tiled<T, 96, 64, 16>(wide, xp, wp, ap, bp, yp, M, N, K, R, scale, s);
+    // the tile rule of the source note
+    const long long sms = sm_count();
+    const auto blocks = [&](int bm, int bn) {
+      return (long long)((M + bm - 1) / bm) * ((N + bn - 1) / bn);
+    };
+    if (blocks(64, 128) >= 2 * sms)
+      return tiled<T, 64, 128, 16>(wide, xp, wp, ap, bp, yp, M, N, K, R, scale, s);
+    if (blocks(96, 64) >= sms)
+      return tiled<T, 96, 64, 16>(wide, xp, wp, ap, bp, yp, M, N, K, R, scale, s);
     return tiled<T, 64, 64, 32>(wide, xp, wp, ap, bp, yp, M, N, K, R, scale, s);
   }
   return cudaSuccess;
@@ -526,21 +526,19 @@ cudaError_t launch(const void* x, const void* w, const void* a, const void* b, v
 }  // namespace
 
 // dtype: 0 = f32, 1 = bf16.  x (M,K), w (K,N), a (K,R), b (R,N), y (M,N),
-// all row-major and contiguous.  tile: 0 picks the prefill tile by the rule
-// above; 1–4 force 128×128, 64×128, 96×64, 64×64 (for timing the rule;
-// element copies always take 64×64).  Returns the first error of the launch, else
+// all row-major and contiguous.  Returns the first error of the launch, else
 // cudaGetLastError() after it.
 extern "C" int lora_fused(int dtype, const void* x, const void* w, const void* a,
                           const void* b, void* y, int M, int N, int K, int R,
-                          float scale, int tile, void* stream) {
-  if (R < 1 || R > RMAX || M < 1 || N < 1 || K < 1 || tile < 0 || tile > 4)
+                          float scale, void* stream) {
+  if (R < 1 || R > RMAX || M < 1 || N < 1 || K < 1)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t e;
   if (dtype == 0) {
-    e = launch<float>(x, w, a, b, y, M, N, K, R, scale, tile, s);
+    e = launch<float>(x, w, a, b, y, M, N, K, R, scale, s);
   } else if (dtype == 1) {
-    e = launch<__nv_bfloat16>(x, w, a, b, y, M, N, K, R, scale, tile, s);
+    e = launch<__nv_bfloat16>(x, w, a, b, y, M, N, K, R, scale, s);
   } else {
     return (int)cudaErrorInvalidValue;
   }

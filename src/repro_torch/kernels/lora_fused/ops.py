@@ -15,11 +15,8 @@ from repro_torch.kernels.lora_fused.ref import lora_ref
 
 RANK_MAX = 32          # the kernel's shared-memory budget for the rank
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-# prefill tile of the kernel (M > 16): "auto" is the rule in the source note;
-# the others force one instance, for timing the rule
-TILES = {"auto": 0, "128x128": 1, "64x128": 2, "96x64": 3, "64x64": 4}
 _ARGTYPES = ([ctypes.c_int] + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4
-             + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+             + [ctypes.c_float, ctypes.c_void_p])
 
 
 def _check(x, w, a, b):
@@ -39,11 +36,9 @@ def _check(x, w, a, b):
         raise ValueError("lora_matmul: operands must be contiguous")
 
 
-def lora_matmul(x, w, a, b, *, scale: float, tile: str = "auto"):
+def lora_matmul(x, w, a, b, *, scale: float):
     """x: (..., K) @ [W (K,N) + scale·A (K,r)·B (r,N)] → (..., N)."""
     _check(x, w, a, b)
-    if tile not in TILES:
-        raise ValueError(f"lora_matmul: tile {tile!r} not one of {list(TILES)}")
     if x.device.type == "cpu":
         return lora_ref(x, w, a, b, scale=scale)
     k, n = w.shape
@@ -52,7 +47,7 @@ def lora_matmul(x, w, a, b, *, scale: float, tile: str = "auto"):
     fn = _build.function("lora_fused", _ARGTYPES)
     rc = fn(DTYPES[x.dtype], xf.data_ptr(), w.data_ptr(), a.data_ptr(),
             b.data_ptr(), y.data_ptr(), xf.shape[0], n, k, a.shape[1],
-            float(scale), TILES[tile], torch.cuda.current_stream(x.device).cuda_stream)
+            float(scale), torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(rc, "lora_fused")
     lora_matmul.launches += 1
     return y.reshape(*x.shape[:-1], n)

@@ -36,7 +36,8 @@ def _t(*arrays):
 
 @pytest.mark.parametrize("m,k,n,r", [(128, 256, 384, 8), (64, 128, 128, 16),
                                      (77, 128, 96, 8), (8, 128, 128, 4),
-                                     (17, 130, 70, 32), (300, 96, 200, 3)])
+                                     (17, 130, 70, 32), (300, 96, 200, 3),
+                                     (512, 128, 192, 8)])
 def test_lora_ref_matches_pallas_lora(m, k, n, r):
     rng = np.random.RandomState(4)
     x, w = _randn(rng, m, k), _randn(rng, k, n, std=0.05)
@@ -48,12 +49,6 @@ def test_lora_ref_matches_pallas_lora(m, k, n, r):
     # the wrapper on CPU tensors is the plain version, leading dims flattened
     wrapped = lora_matmul(*_t(x.reshape(1, m, k), w, a, b), scale=2.0)
     np.testing.assert_array_equal(wrapped.numpy()[0], out.numpy())
-
-
-def test_lora_matmul_rejects_unknown_tile():
-    x, w, a, b = (torch.zeros(*s) for s in ((4, 8), (8, 8), (8, 2), (2, 8)))
-    with pytest.raises(ValueError, match="tile"):
-        lora_matmul(x, w, a, b, scale=1.0, tile="256x256")
 
 
 def test_lora_ref_rounds_xa_to_operand_type():
