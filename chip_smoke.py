@@ -15,7 +15,8 @@ Phases, each reported on its own lines:
    (tolerances of tests/test_kernels.py); times the kernel, the plain version
    and one PyTorch library call of the same function, each on a cold L2
    (median of 30 calls), with the kernel's TFLOP/s and its share of the
-   bound.
+   bound; the library call of each kernel's serving-shape row is profiled
+   once, so its PROFILE lines name the kernels it runs.
 4. serve   — three serving paths through the port's entry points
    (``launch/serve.py`` build/generate), each with random weights from seed
    0 and nonzero rank-8 LoRA factors from a numpy seed, f32:
@@ -28,8 +29,9 @@ Phases, each reported on its own lines:
      64 heads of 64, state 128, vocab 50280), batch 4, prompt 512, 32
      decode steps, LoRA on in_proj and out_proj.
    Each path's kernel launch counts are set to 0 just before it runs and
-   checked against the path's just after; then prefill and the first 8
-   decode steps are re-run on the CPU through the plain versions
+   checked against the path's just after; prefill is then run 7 more times
+   and its median printed beside the run's one prefill; then prefill and
+   the first 8 decode steps are re-run on the CPU through the plain versions
    (teacher-forced with the card's tokens, on a subset of the rows) and the
    logits are held to the path's tolerance.
 5. profile — torch.profiler over one prefill and 16 decode steps of each
@@ -78,6 +80,7 @@ SERVES = (
          prompt_len=512, gen=32, rank=8, rows=1, logit_tol=1e-3),
 )
 TEACHER_STEPS = 8
+PREFILL_REPS = 7
 SERVING_SPARSE = dict(block_size=128, local_blocks=4, sink_blocks=1, stride=8)
 
 
@@ -159,18 +162,23 @@ def kernel_cases(torch):
                 nbytes=(m * k + k * n + k * r + r * n + m * n) * es,
                 flops=2 * m * k * n + 2 * m * k * r + 2 * m * r * n,
                 main=(m == 8 and dt == torch.float32)))
-        for bsz, s, h, kh, d, window in ((8, 128, 12, 12, 64, 0), (8, 77, 12, 12, 64, 0),
-                                         (2, 200, 8, 2, 32, 96)):
+        # the last row: the reduced RoBERTa encoder's non-causal attention
+        for bsz, s, h, kh, d, window, causal in ((8, 128, 12, 12, 64, 0, True),
+                                                 (8, 77, 12, 12, 64, 0, True),
+                                                 (2, 200, 8, 2, 32, 96, True),
+                                                 (8, 32, 4, 4, 32, 0, False)):
             q, kk, vv = rn(bsz, s, h, d, dtype=dt), rn(bsz, s, kh, d, dtype=dt), rn(bsz, s, kh, d, dtype=dt)
             qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, kk, vv))
-            allowed = sum(min(i + 1, window) if window else i + 1 for i in range(s))
+            allowed = (sum(min(i + 1, window) if window else i + 1 for i in range(s))
+                       if causal else s * s)
             cases.append(dict(
-                name="flash_attn", label=f"B={bsz} S={s} H={h} K={kh} hd={d} causal window={window}",
+                name="flash_attn", label=f"B={bsz} S={s} H={h} K={kh} hd={d} "
+                f"{'causal' if causal else 'non-causal'} window={window}",
                 dtype=dname,
-                kernel=lambda q=q, k=kk, v=vv, w=window: flash_attention(q, k, v, causal=True, window=w),
-                plain=lambda q=q, k=kk, v=vv, w=window: attention_ref(q, k, v, causal=True, window=w),
-                library=(None if window or h != kh else lambda q=qt, k=kt, v=vt:
-                         F.scaled_dot_product_attention(q, k, v, is_causal=True)),
+                kernel=lambda q=q, k=kk, v=vv, w=window, c=causal: flash_attention(q, k, v, causal=c, window=w),
+                plain=lambda q=q, k=kk, v=vv, w=window, c=causal: attention_ref(q, k, v, causal=c, window=w),
+                library=(None if window or h != kh else lambda q=qt, k=kt, v=vt, c=causal:
+                         F.scaled_dot_product_attention(q, k, v, is_causal=c)),
                 nbytes=(2 * bsz * s * h * d + 2 * bsz * s * kh * d) * es,
                 flops=4 * d * allowed * bsz * h,
                 main=(s == 128 and dt == torch.float32)))
@@ -341,6 +349,9 @@ def check_kernels(torch):
         if not ok:
             fail(f"{c['name']} {c['dtype']} {c['label']}: max_abs_err {err:.3e} "
                  f"outside atol {atol:g} rtol {rtol:g}")
+        if c["main"] and c["library"]:
+            # the library call's own kernels, by name (what the yardstick runs)
+            profile(torch, f"{c['name']} library ({c['label']})", c["library"], 3)
         if c["main"]:
             rows[c["name"]] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
                                    bound_ms=b_ms, bound_by=b_by, max_abs_err=err,
@@ -405,9 +416,20 @@ def serve_path(torch, np, spec):
     launches = {n: f.launches for n, f in kernels.items()}
     expected = expected_launches(model, lora, spec["impl"], args.gen)
     tok_s = args.batch * args.gen / res["decode_s"]
+    # prefill again, PREFILL_REPS times: its median moves less with the host
+    # than the single prefill of the run
+    reps = []
+    for _ in range(PREFILL_REPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        model.prefill(params, prompts, prompts.shape[1] + args.gen, lora=lora, lora_scale=lscale)
+        torch.cuda.synchronize()
+        reps.append((time.perf_counter() - t0) * 1e3)
+    res["prefill_median_ms"] = sorted(reps)[PREFILL_REPS // 2]
     print(f"{tag} {spec['arch']} full width ({model.cfg.n_layers} layers, impl "
           f"{spec['impl']}): batch {args.batch} prompt {args.prompt_len} "
           f"gen {args.gen} rank {args.lora_rank} f32  prefill_ms={res['prefill_s'] * 1e3:.3f} "
+          f"prefill_median_ms={res['prefill_median_ms']:.3f} "
           f"decode_s={res['decode_s']:.4f} decode_tok_s={tok_s:.1f} "
           f"ms_per_decode_step={res['decode_s'] / args.gen * 1e3:.3f}", flush=True)
     print(f"{tag} launches {launches} expected {expected}", flush=True)
@@ -528,6 +550,7 @@ def main():
         for n in KERNELS:
             launches[n] += got[n]
         serve_rows[spec["tag"]] = {"prefill_ms": res["prefill_s"] * 1e3,
+                                   "prefill_median_ms": res["prefill_median_ms"],
                                    "decode_tok_s": tok_s, "launches": got}
         t0 = time.perf_counter()
         profile_path(torch, spec["tag"], *served)

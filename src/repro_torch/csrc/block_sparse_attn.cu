@@ -20,106 +20,124 @@
 //
 // Design: the TPU grid walked the active slots of a q block in order on one
 // core (a sequential grid axis fed by scalar prefetch).  Here one CUDA
-// block owns one (batch·head, 64-row slice of a q block) — a 128-row block
-// is two slices — reads its q block's row of the table itself and loops over
-// the VALID slots only, loading nothing for an invalid one.  Within a kv
-// block it takes kv tiles of 4096/hd rows through shared memory (32 KB of
-// K and V in f32) and skips tiles wholly above the causal diagonal.  The
-// per-tile step is attn_tile.cuh's, shared with flash_attn.cu: four threads
-// per query row, one rescale per 16 keys.  Tensor cores and TMA are later
-// work.
+// block owns one (batch·head, q tile inside a q block) — a 128-row block is
+// two 64-row tiles — reads its q block's row of the table itself and walks
+// the VALID slots only, loading nothing for an invalid one, and within a
+// slot's kv block the kv tiles up to the causal diagonal.  The step is
+// attn_tile.cuh's register-tiled one, shared with flash_attn.cu: the walk
+// runs over slots and tiles alike, so the double-buffered cp.async ring
+// loads the first tile of the next slot while the last one of this slot is
+// computed, and only tiles that cross the diagonal (or a kv block's end)
+// take the per-key mask.
+//
+// The q tile: 64 rows (kv tiles of 64 keys, 32 at hd 128) when the block
+// has more than 32 rows and the 64-row grid gives every SM two blocks, else
+// 32 rows (kv tiles of 32); a q tile never spans two q blocks, so a block of
+// 16 rows leaves half a 32-row tile idle.  The q blocks with the most active
+// slots (the last ones) are launched first.
+//
+// Measured (H100 80GB HBM3, 700 W; chip_smoke.py CHECK lines, cold L2,
+// median of 30, f32): 0.3056 ms at the serving prefill, 28 TFLOP/s of
+// needed work, against 0.8242 for the per-row step this design replaced and
+// 0.7483 for SDPA with the pattern as a boolean mask.  The q tile forced
+// (tools/attn_qtile_sweep.py): 64 rows 0.3051, 32 rows 0.3241.
 #include "attn_tile.cuh"
 
 namespace {
 
-using repro::attend_tile;
-using repro::from_f32;
-using repro::load_kv_tile;
-using repro::NEG_INF;
-using repro::to_f32;
-using repro::TPR;
+using repro::AttnTile;
 
-constexpr int BQ = 64;                   // query rows per CUDA block
-constexpr int THREADS = BQ * TPR;        // 256
+template <int BKV> struct SparseWalk {
+  const int* idx;      // the q block's row of the table
+  const int* valid;
+  int n_active, block, Sk, qpos0, qend;  // rows' key positions [qpos0, qend)
+  int a = -1, j = 0, hi = 0;
+  __device__ bool next(int& j0, int& h) {
+    if (a >= 0 && j + BKV < hi) {
+      j += BKV;
+    } else {
+      for (++a; a < n_active; ++a) {
+        if (!valid[a]) continue;  // the same for the whole block
+        const int lo = idx[a] * block;
+        const int top = min(min(lo + block, Sk), qend);
+        if (lo < top) {
+          j = lo, hi = top;
+          break;
+        }
+      }
+      if (a >= n_active) return false;
+    }
+    j0 = j, h = hi;
+    return true;
+  }
+  __device__ bool need_mask(int j0, int h) const {
+    return j0 + BKV > h || j0 + BKV - 1 > qpos0;
+  }
+  __device__ bool allowed(int qp, int kp) const { return kp <= qp; }
+};
 
-template <typename T, int HD>
-__global__ void __launch_bounds__(THREADS)
+template <typename T, int HD, int BQ, int BKV, bool ASYNC>
+__global__ void __launch_bounds__(AttnTile<HD, BQ, BKV>::THREADS,
+                                  AttnTile<HD, BQ, BKV>::MIN_BLOCKS)
 bsa_fwd(const T* __restrict__ q, const T* __restrict__ k,
         const T* __restrict__ v, T* __restrict__ o,
         const int* __restrict__ idx, const int* __restrict__ valid, int Sq,
         int Sk, int H, int KH, int block, int n_active, int q_offset,
         float scale) {
-  constexpr int BKV = repro::kv_tile_rows<HD>();
-  constexpr int DPT = HD / TPR;          // dims per thread
-  static_assert(BKV % repro::CH == 0, "tile must hold whole chunks");
-  __shared__ float ks[BKV][HD];
-  __shared__ float vs[BKV][HD];
-
+  extern __shared__ __align__(16) float smem[];
   const int n_sub = (block + BQ - 1) / BQ;
-  const int qb = blockIdx.x / n_sub, sub = blockIdx.x % n_sub;
-  const int bh = blockIdx.y, b = bh / H, h = bh % H, kvh = h / (H / KH);
-  const int q0 = qb * block + sub * BQ;                 // first row (q index)
+  const int y = gridDim.y - 1 - blockIdx.y;  // the last q blocks (most slots) first
+  const int qb = y / n_sub, sub = y % n_sub;
+  const int bh = blockIdx.x, b = bh / H, h = bh % H, kvh = h / (H / KH);
+  const int q0 = qb * block + sub * BQ;          // first row (q index)
   const int rows = min(BQ, block - sub * BQ);
-  const int tid = threadIdx.x, row = tid / TPR, part = tid % TPR;
-  const bool active = row < rows;
-  const int qpos = q_offset + q0 + row;                 // key position of the row
-  const int qlast = q_offset + q0 + rows - 1;
-
-  const size_t q_off = ((size_t)(b * Sq + q0 + row) * H + h) * HD;
-  float qr[DPT], acc[DPT];
-#pragma unroll
-  for (int t = 0; t < DPT; ++t) {
-    qr[t] = active ? to_f32(q[q_off + part + TPR * t]) * scale : 0.f;
-    acc[t] = 0.f;
-  }
-  float m = NEG_INF, l = 0.f;
-  const size_t pos_stride = (size_t)KH * HD;
-  const size_t kv_base = ((size_t)b * Sk * KH + kvh) * HD;
-  const int* idx_row = idx + (size_t)qb * n_active;
-  const int* valid_row = valid + (size_t)qb * n_active;
-
-  for (int a = 0; a < n_active; ++a) {
-    if (!valid_row[a]) continue;         // the same for the whole block
-    const int kv_lo = idx_row[a] * block;
-    const int kv_hi = min(min(kv_lo + block, Sk), qlast + 1);
-    for (int j0 = kv_lo; j0 < kv_hi; j0 += BKV) {
-      __syncthreads();  // the previous tile is consumed
-      load_kv_tile<T, HD, BKV, THREADS>(ks, vs, k, v, kv_base, pos_stride, j0, kv_hi, tid);
-      __syncthreads();
-      // every thread runs it (shuffles need the whole warp); rows past the
-      // slice compute on q = 0 and write nothing
-      attend_tile<HD>(ks, vs, j0, min(BKV, kv_hi - j0), part, qr, acc, m, l,
-                      [&](int kp) { return kp <= qpos; });
-    }
-  }
-  if (active) {
-    const float den = fmaxf(l, 1e-30f);
-#pragma unroll
-    for (int t = 0; t < DPT; ++t) o[q_off + part + TPR * t] = from_f32<T>(acc[t] / den);
-  }
+  const int qpos0 = q_offset + q0;               // its key position
+  SparseWalk<BKV> walk{idx + (size_t)qb * n_active, valid + (size_t)qb * n_active,
+                       n_active, block, Sk, qpos0, qpos0 + rows};
+  repro::attend_q_tile<T, HD, BQ, BKV, ASYNC>(
+      q, k, v, o, ((size_t)b * Sq + q0) * H * HD + (size_t)h * HD, (size_t)H * HD, rows,
+      ((size_t)b * Sk * KH + kvh) * HD, (size_t)KH * HD, qpos0, scale, walk, smem);
 }
 
-template <typename T, int HD>
-void launch(const void* q, const void* k, const void* v, void* o, const int* idx,
-            const int* valid, int B, int Sq, int Sk, int H, int KH, int block,
-            int n_active, int q_offset, float scale, cudaStream_t s) {
-  dim3 grid((Sq / block) * ((block + BQ - 1) / BQ), B * H);
-  bsa_fwd<T, HD><<<grid, THREADS, 0, s>>>(
+template <typename T, int HD, int BQ, bool ASYNC>
+cudaError_t launch(const void* q, const void* k, const void* v, void* o, const int* idx,
+                   const int* valid, int B, int Sq, int Sk, int H, int KH, int block,
+                   int n_active, int q_offset, float scale, cudaStream_t s) {
+  constexpr int BKV = repro::kv_tile_rows(HD, BQ);
+  using L = AttnTile<HD, BQ, BKV>;
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      bsa_fwd<T, HD, BQ, BKV, ASYNC>, cudaFuncAttributeMaxDynamicSharedMemorySize, L::BYTES);
+  if (attr != cudaSuccess) return attr;
+  const dim3 grid(B * H, (Sq / block) * ((block + BQ - 1) / BQ));
+  bsa_fwd<T, HD, BQ, BKV, ASYNC><<<grid, L::THREADS, L::BYTES, s>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<T*>(o), idx, valid, Sq, Sk, H, KH, block, n_active, q_offset, scale);
+  return cudaSuccess;
 }
 
-template <typename T>
-int dispatch(int HD, const void* q, const void* k, const void* v, void* o,
-             const int* idx, const int* valid, int B, int Sq, int Sk, int H, int KH,
-             int block, int n_active, int q_offset, float scale, cudaStream_t s) {
+template <typename T, int HD, bool ASYNC>
+cudaError_t pick_tile(const void* q, const void* k, const void* v, void* o, const int* idx,
+                      const int* valid, int B, int Sq, int Sk, int H, int KH, int block,
+                      int n_active, int q_offset, float scale, cudaStream_t s) {
+  // the q-tile rule of the source note
+  const long long blocks64 = (long long)(Sq / block) * ((block + 63) / 64) * B * H;
+  if (block > 32 && blocks64 >= 2LL * repro::sm_count())
+    return launch<T, HD, 64, ASYNC>(q, k, v, o, idx, valid, B, Sq, Sk, H, KH, block,
+                                    n_active, q_offset, scale, s);
+  return launch<T, HD, 32, ASYNC>(q, k, v, o, idx, valid, B, Sq, Sk, H, KH, block, n_active,
+                                  q_offset, scale, s);
+}
+
+template <typename T, bool ASYNC>
+cudaError_t dispatch(int HD, const void* q, const void* k, const void* v, void* o,
+                     const int* idx, const int* valid, int B, int Sq, int Sk, int H, int KH,
+                     int block, int n_active, int q_offset, float scale, cudaStream_t s) {
   switch (HD) {
-    case 32: launch<T, 32>(q, k, v, o, idx, valid, B, Sq, Sk, H, KH, block, n_active, q_offset, scale, s); break;
-    case 64: launch<T, 64>(q, k, v, o, idx, valid, B, Sq, Sk, H, KH, block, n_active, q_offset, scale, s); break;
-    case 128: launch<T, 128>(q, k, v, o, idx, valid, B, Sq, Sk, H, KH, block, n_active, q_offset, scale, s); break;
-    default: return (int)cudaErrorInvalidValue;
+    case 32: return pick_tile<T, 32, ASYNC>(q, k, v, o, idx, valid, B, Sq, Sk, H, KH, block, n_active, q_offset, scale, s);
+    case 64: return pick_tile<T, 64, ASYNC>(q, k, v, o, idx, valid, B, Sq, Sk, H, KH, block, n_active, q_offset, scale, s);
+    case 128: return pick_tile<T, 128, ASYNC>(q, k, v, o, idx, valid, B, Sq, Sk, H, KH, block, n_active, q_offset, scale, s);
+    default: return cudaErrorInvalidValue;
   }
-  return 0;
 }
 
 }  // namespace
@@ -127,7 +145,7 @@ int dispatch(int HD, const void* q, const void* k, const void* v, void* o,
 // dtype: 0 = f32, 1 = bf16.  q/o (B,Sq,H,HD), k/v (B,Sk,KH,HD), contiguous;
 // idx/valid (Sq/block, n_active) int32 on the device.  Sq and Sk are
 // multiples of block; query row i sits at key position q_offset + i.
-// Returns cudaGetLastError().
+// Returns the first error of the launch, else cudaGetLastError() after it.
 extern "C" int block_sparse_attn(int dtype, const void* q, const void* k,
                                  const void* v, void* o, const void* idx,
                                  const void* valid, int B, int Sq, int Sk, int H,
@@ -139,14 +157,17 @@ extern "C" int block_sparse_attn(int dtype, const void* q, const void* k,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int* ip = static_cast<const int*>(idx);
   const int* vp = static_cast<const int*>(valid);
-  int rc;
-  if (dtype == 0) {
-    rc = dispatch<float>(HD, q, k, v, o, ip, vp, B, Sq, Sk, H, KH, block, n_active, q_offset, scale, s);
+  const bool vec = repro::aligned16(q) && repro::aligned16(k) && repro::aligned16(v) &&
+                   repro::aligned16(o);
+  cudaError_t e;
+  if (dtype == 0 && vec) {
+    e = dispatch<float, true>(HD, q, k, v, o, ip, vp, B, Sq, Sk, H, KH, block, n_active, q_offset, scale, s);
+  } else if (dtype == 0) {
+    e = dispatch<float, false>(HD, q, k, v, o, ip, vp, B, Sq, Sk, H, KH, block, n_active, q_offset, scale, s);
   } else if (dtype == 1) {
-    rc = dispatch<__nv_bfloat16>(HD, q, k, v, o, ip, vp, B, Sq, Sk, H, KH, block, n_active, q_offset, scale, s);
+    e = dispatch<__nv_bfloat16, false>(HD, q, k, v, o, ip, vp, B, Sq, Sk, H, KH, block, n_active, q_offset, scale, s);
   } else {
-    rc = (int)cudaErrorInvalidValue;
+    return (int)cudaErrorInvalidValue;
   }
-  if (rc != 0) return rc;
-  return (int)cudaGetLastError();
+  return e != cudaSuccess ? (int)e : (int)cudaGetLastError();
 }

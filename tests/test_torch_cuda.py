@@ -71,14 +71,54 @@ def test_lora_fused_kernel(gen, dtype, m, k, n, r):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("b,s,h,kh,d,window", [(8, 128, 12, 12, 64, 0), (8, 77, 12, 12, 64, 0),
-                                                (2, 256, 8, 4, 64, 96), (1, 33, 4, 1, 128, 0),
-                                                (2, 200, 8, 2, 32, 0)])
-def test_flash_attn_kernel(gen, dtype, b, s, h, kh, d, window):
-    q = _rn(gen, b, s, h, d, dtype=dtype)
-    k, v = _rn(gen, b, s, kh, d, dtype=dtype), _rn(gen, b, s, kh, d, dtype=dtype)
-    out = flash_attention(q, k, v, causal=True, window=window)
-    _close(out, attention_ref(q, k, v, causal=True, window=window), TOL["flash"][dtype])
+@pytest.mark.parametrize("b,sq,sk,h,kh,d,causal,window", [
+    (8, 128, 128, 12, 12, 64, True, 0), (8, 77, 77, 12, 12, 64, True, 0),
+    (2, 256, 256, 8, 4, 64, True, 96), (1, 33, 33, 4, 1, 128, True, 0),
+    (2, 200, 200, 8, 2, 32, True, 0),
+    # non-causal: the reduced RoBERTa encoder, ragged, GQA at hd 128, window
+    (8, 32, 32, 4, 4, 32, False, 0), (2, 65, 130, 8, 8, 64, False, 0),
+    (1, 70, 90, 4, 1, 128, False, 0), (2, 100, 100, 4, 4, 64, False, 24),
+    # the q tile's edges: Sq 1, 31, 33, 65, 129 with Sk ≠ Sq (a row past
+    # Sk sees every key)
+    (2, 1, 40, 4, 4, 64, True, 0), (2, 31, 77, 4, 2, 64, True, 0),
+    (2, 33, 20, 4, 4, 64, True, 0), (2, 65, 64, 4, 4, 32, True, 0),
+    (2, 129, 100, 4, 4, 64, True, 0),
+    # window edges inside a kv tile
+    (2, 200, 200, 8, 8, 64, True, 40), (1, 300, 300, 4, 4, 128, True, 45),
+    # GQA at hd 32 and 128
+    (2, 96, 96, 8, 2, 32, True, 0), (1, 150, 150, 8, 2, 128, True, 0),
+    # grids that take the 64-row q tile on a 132-SM card (ceil(Sq/64)·B·H
+    # ≥ 264), at hd 64, 128 and 32; the cases above take the 32-row tile
+    (8, 256, 256, 12, 12, 64, True, 0), (4, 600, 600, 8, 2, 128, True, 0),
+    (8, 300, 300, 8, 8, 32, True, 64), (8, 256, 256, 12, 12, 64, False, 0),
+])
+def test_flash_attn_kernel(gen, dtype, b, sq, sk, h, kh, d, causal, window):
+    q = _rn(gen, b, sq, h, d, dtype=dtype)
+    k, v = _rn(gen, b, sk, kh, d, dtype=dtype), _rn(gen, b, sk, kh, d, dtype=dtype)
+    before = flash_attention.launches
+    out = flash_attention(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 1
+    _close(out, attention_ref(q, k, v, causal=causal, window=window), TOL["flash"][dtype])
+
+
+def _unaligned(gen, *shape):
+    """A contiguous f32 tensor whose data starts 4 bytes past a 16-byte
+    boundary: the kernels then load through registers, not cp.async."""
+    n = 1
+    for x in shape:
+        n *= x
+    t = _rn(gen, n + 1)[1:].view(*shape)
+    assert t.is_contiguous() and t.data_ptr() % 16 != 0
+    return t
+
+
+def test_attention_kernels_unaligned_f32(gen):
+    q, k, v = _unaligned(gen, 2, 96, 8, 64), _unaligned(gen, 2, 96, 4, 64), _unaligned(gen, 2, 96, 4, 64)
+    _close(flash_attention(q, k, v), attention_ref(q, k, v), TOL["flash"][torch.float32])
+    cfg = SparseAttnConfig(block_size=32, local_blocks=2, sink_blocks=1, stride=2)
+    _close(block_sparse_attention(q, k, v, cfg), block_sparse_ref(q, k, v, cfg),
+           TOL["flash"][torch.float32])
 
 
 @pytest.mark.parametrize("m,k,n", [(2048, 2048, 8512), (4, 2048, 8512),
@@ -101,6 +141,22 @@ def test_lora_fused_kernel_mamba_shapes(gen, m, k, n):
                                              sink_blocks=2, stride=2), 0),
     (1, 128, 384, 4, 2, 128, SparseAttnConfig(block_size=16, local_blocks=2,
                                               sink_blocks=1, stride=4), 256),
+    # q_offset > 0 at SERVE-SPARSE's pattern, and in the 64-row q tile
+    (2, 256, 896, 12, 12, 64, SERVE_SPARSE, 640),
+    (8, 256, 768, 12, 12, 64, SparseAttnConfig(block_size=64, local_blocks=2,
+                                               sink_blocks=1, stride=4), 512),
+    # grids that take the 64-row q tile on a 132-SM card: block 32 (always
+    # the 32-row tile), block 48 and 96 (a q tile the block only partly
+    # fills), block 64, and hd 128
+    (8, 512, 512, 12, 12, 64, SparseAttnConfig(block_size=32, local_blocks=3,
+                                               sink_blocks=1, stride=4), 0),
+    (8, 480, 480, 12, 12, 64, SparseAttnConfig(block_size=48, local_blocks=2,
+                                               sink_blocks=1, stride=2), 0),
+    (4, 384, 384, 12, 4, 64, SparseAttnConfig(block_size=96, local_blocks=2,
+                                              sink_blocks=1, stride=2), 0),
+    (8, 512, 512, 12, 12, 64, SparseAttnConfig(block_size=64, local_blocks=2,
+                                               sink_blocks=1, stride=4), 0),
+    (8, 512, 512, 8, 8, 128, SERVE_SPARSE, 0),
 ])
 def test_block_sparse_attn_kernel(gen, dtype, b, sq, sk, h, kh, d, cfg, q_offset):
     q = _rn(gen, b, sq, h, d, dtype=dtype)

@@ -68,14 +68,15 @@ def test_lora_ref_rounds_xa_to_operand_type():
 @pytest.mark.parametrize("b,s,h,kh,d,bq,bk", [(2, 256, 8, 4, 64, 64, 64),
                                                (1, 128, 4, 4, 32, 128, 32)])
 @pytest.mark.parametrize("window", [0, 96])
-def test_attention_ref_matches_pallas_flash(b, s, h, kh, d, bq, bk, window):
+@pytest.mark.parametrize("causal", [True, False])
+def test_attention_ref_matches_pallas_flash(b, s, h, kh, d, bq, bk, window, causal):
     q, k, v = _qkv(0, b, s, s, h, kh, d)
     ref = np.asarray(j_flash(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
-                             causal=True, window=window, bq=bq, bk=bk,
+                             causal=causal, window=window, bq=bq, bk=bk,
                              interpret=True))
-    out = attention_ref(*_t(q, k, v), causal=True, window=window)
+    out = attention_ref(*_t(q, k, v), causal=causal, window=window)
     np.testing.assert_allclose(out.numpy(), ref, atol=2e-5, rtol=2e-5)
-    wrapped = flash_attention(*_t(q, k, v), causal=True, window=window)
+    wrapped = flash_attention(*_t(q, k, v), causal=causal, window=window)
     np.testing.assert_array_equal(wrapped.numpy(), out.numpy())
 
 
