@@ -15,8 +15,10 @@ Phases, each reported on its own lines:
    (tolerances of tests/test_kernels.py); times the kernel, the plain version
    and one PyTorch library call of the same function, each on a cold L2
    (median of 30 calls), with the kernel's TFLOP/s and its share of the
-   bound; the library call of each kernel's serving-shape row is profiled
-   once, so its PROFILE lines name the kernels it runs.
+   bound; the library call of each kernel's serving-shape row (and of
+   mamba2's out_proj decode row) is profiled once, so its PROFILE lines name
+   the kernels it runs.  Each lora_fused row at M ≤ 16 (the decode branch)
+   prints the strip width and K split its rule took on this card.
 4. serve   — three serving paths through the port's entry points
    (``launch/serve.py`` build/generate), each with random weights from seed
    0 and nonzero rank-8 LoRA factors from a numpy seed, f32:
@@ -119,6 +121,21 @@ def device_ms(fn, flush, iters=30):
     return sorted(times)[iters // 2]
 
 
+def skinny_plan(dtype, n, k):
+    """(strip width, K split) that lora_fused's decode branch (M ≤ 16)
+    takes for an N-column, K-deep call on this card: the C rule itself."""
+    import ctypes
+
+    from repro_torch.kernels import _build
+    fn = _build.function("lora_fused", [ctypes.c_int] * 3 + [ctypes.c_void_p] * 2,
+                         symbol="lora_skinny_plan")
+    strip, split = ctypes.c_int(0), ctypes.c_int(0)
+    if fn({"float32": 0, "bfloat16": 1}[dtype], n, k, ctypes.byref(strip),
+          ctypes.byref(split)):
+        fail(f"lora_skinny_plan refused N {n} K {k}")
+    return strip.value, split.value
+
+
 def bound(nbytes, flops, dtype):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / PEAK_FLOPS[dtype] * 1e3
@@ -161,6 +178,7 @@ def kernel_cases(torch):
                 library=lambda x=x, mg=merged: torch.matmul(x, mg),
                 nbytes=(m * k + k * n + k * r + r * n + m * n) * es,
                 flops=2 * m * k * n + 2 * m * k * r + 2 * m * r * n,
+                plan=(dname, n, k) if m <= 16 else None,
                 main=(m == 8 and dt == torch.float32)))
         # the last row: the reduced RoBERTa encoder's non-causal attention
         for bsz, s, h, kh, d, window, causal in ((8, 128, 12, 12, 64, 0, True),
@@ -205,20 +223,28 @@ def kernel_cases(torch):
         cases += ssd_cases(torch, dt, dname, es, rn)
     # SERVE-SPARSE's prefill projection (M = 8·896), and mamba2-1.3b's:
     # in_proj K 2048 → N 8512 (not a multiple of 64), out_proj K 4096 →
-    # N 2048, at prefill (M 2048) and decode (M 4)
-    for m, k, n, path in ((7168, 768, 768, "sparse"), (2048, 2048, 8512, "mamba"),
-                          (4, 2048, 8512, "mamba"), (2048, 4096, 2048, "mamba"),
-                          (4, 4096, 2048, "mamba")):
-        x, w = rn(m, k), rn(k, n, std=0.02)
-        a, b = rn(k, 8, std=0.02), rn(8, n, std=0.05)
-        merged = w + 2.0 * (a @ b)
+    # N 2048, at prefill (M 2048) and decode (M 4); the decode rows in bf16 too
+    for m, k, n, path, dt in ((7168, 768, 768, "sparse", torch.float32),
+                              (2048, 2048, 8512, "mamba", torch.float32),
+                              (4, 2048, 8512, "mamba", torch.float32),
+                              (2048, 4096, 2048, "mamba", torch.float32),
+                              (4, 4096, 2048, "mamba", torch.float32),
+                              (4, 2048, 8512, "mamba", torch.bfloat16),
+                              (4, 4096, 2048, "mamba", torch.bfloat16)):
+        es = torch.finfo(dt).bits // 8
+        x, w = rn(m, k, dtype=dt), rn(k, n, std=0.02, dtype=dt)
+        a, b = rn(k, 8, std=0.02, dtype=dt), rn(8, n, std=0.05, dtype=dt)
+        merged = (w.float() + 2.0 * (a.float() @ b.float())).to(dt)
         cases.append(dict(
-            name="lora_fused", label=f"M={m} K={k} N={n} r=8 ({path})", dtype="float32",
+            name="lora_fused", label=f"M={m} K={k} N={n} r=8 ({path})",
+            dtype=str(dt).split(".")[1],
             kernel=lambda x=x, w=w, a=a, b=b: lora_matmul(x, w, a, b, scale=2.0),
             plain=lambda x=x, w=w, a=a, b=b: lora_ref(x, w, a, b, scale=2.0),
             library=lambda x=x, mg=merged: torch.matmul(x, mg),
-            nbytes=(m * k + k * n + k * 8 + 8 * n + m * n) * 4,
-            flops=2 * m * k * n + 2 * m * k * 8 + 2 * m * 8 * n, main=False))
+            nbytes=(m * k + k * n + k * 8 + 8 * n + m * n) * es,
+            flops=2 * m * k * n + 2 * m * k * 8 + 2 * m * 8 * n, main=False,
+            plan=(str(dt).split(".")[1], n, k) if m <= 16 else None,
+            profile=(m == 4 and n == 2048 and dt == torch.float32)))
     return cases
 
 
@@ -341,7 +367,9 @@ def check_kernels(torch):
         lib_ms = device_ms(c["library"], flush) if c["library"] else None
         b_ms, b_by = bound(c["nbytes"], c["flops"], c["dtype"])
         lib_txt = f"{lib_ms:.4f}" if lib_ms is not None else "none"
-        print(f"CHECK {c['name']:<11} {c['dtype']:<8} {c['label']:<48} "
+        plan = ("strip={} split={} ".format(*skinny_plan(*c["plan"]))
+                if c.get("plan") else "")
+        print(f"CHECK {c['name']:<11} {c['dtype']:<8} {c['label']:<48} {plan}"
               f"max_abs_err={err:.3e} tol={atol:g}/{rtol:g} {'ok' if ok else 'MISMATCH'} "
               f"ms={ms:.4f} plain_ms={plain_ms:.4f} library_ms={lib_txt} "
               f"bound_ms={b_ms:.4f} ({b_by}) tflops={c['flops'] / ms / 1e9:.2f} "
@@ -349,7 +377,7 @@ def check_kernels(torch):
         if not ok:
             fail(f"{c['name']} {c['dtype']} {c['label']}: max_abs_err {err:.3e} "
                  f"outside atol {atol:g} rtol {rtol:g}")
-        if c["main"] and c["library"]:
+        if (c["main"] or c.get("profile")) and c["library"]:
             # the library call's own kernels, by name (what the yardstick runs)
             profile(torch, f"{c['name']} library ({c['label']})", c["library"], 3)
         if c["main"]:

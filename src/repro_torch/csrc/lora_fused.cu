@@ -14,14 +14,58 @@
 // M 1024 does 1.2 GFLOP on 8.7 MB, mamba2's in_proj (M 2048, K 2048,
 // N 8512) 71 GFLOP on 103 MB, against 67 TFLOP/s of f32 FMA.
 //
-// lora_skinny (M ≤ 16, the decode rows): a block owns 16 output columns and
-// all M rows, so N = 768 gives 48 blocks.  Its 512 threads form 32 k-groups
-// (half warps).  K is walked in chunks of 256 rows: for each chunk a thread
-// issues all its loads at once — 8 rows of W (lane c reads W[k][n0 + c],
-// 64-byte row segments) and of A, and its share of the chunk of x into
-// shared memory — then waits once.  The lanes < r accumulate x·A beside x·W.
-// The per-group partial sums are reduced through shared memory once, at the
-// end.
+// lora_skinny (M ≤ 16, the decode rows) is bound by bytes: it streams W
+// once (mamba2's out_proj decode, M 4, K 4096, N 2048, reads 33.5 MB, 10 µs
+// at 3.35 TB/s).  The earlier design lost 1.7× to cuBLAS there: 16-column
+// blocks read W as 64-byte row pieces with 4-byte loads, 16 KB a block in
+// flight between two barriers a chunk, every block redid x·A over all of K
+// (A half as many bytes as its slice of W), and gpt2's N 768 gave 48 blocks.
+// This one:
+// - A warp reads a 512-byte row segment of W, one 16-byte load a lane (4 f32
+//   or 8 bf16 columns), so a block owns a strip of 128 f32 (256 bf16)
+//   columns and A is r/128 of its bytes.  A warp loads U rows (4 at MR 4
+//   and in bf16, else 8) before it uses any; the first batch is in flight while
+//   the block stages its rows of x in shared memory, one barrier pair per
+//   block.  Double-buffering the batches in registers was slower: it spilled
+//   at 80 registers or, at 128, left too few blocks an SM for the clusters.
+// - K is split across the `split` blocks of a thread block cluster, each
+//   block over a range of rows, its 8 warps over every 8th row of it.  Every
+//   block computes x·A over its own rows beside x·W (lane q < r, one FMA per
+//   x value, from the same x registers).  The partial sums meet in a fixed
+//   order, so a result is the same from run to run: over the warps through
+//   shared memory, then over the cluster through distributed shared memory
+//   (cluster.map_shared_rank): every block sums x·A over the ranks and
+//   rounds it to T, and block `rank` finishes its share of the strip's
+//   columns, y = Σ x·W + scale·round_T(x·A)·B, with B prefetched into L2 at
+//   the start.  One launch, no workspace, no atomics, nothing to reset.
+//   (Pushing the partial sums into the owner block instead of reading them
+//   cost the same and needed more shared memory.)
+// - What bounds the streaming is how many warps an SM keeps loading, and
+//   that every cluster of a grid is resident at once: a cluster's blocks
+//   must share one GPC.  So MR 4 in f32 is held to 80 registers, three
+//   blocks an SM (MINB), which is what lets 16 clusters of 16 or 67 of 4
+//   run in one wave.
+// - Split rule (SM count from cudaDeviceGetAttribute): the split doubles
+//   from 1 while the strips give fewer than two blocks an SM, up to 16 (the
+//   largest cluster Hopper allows, non-portable above 8), while each warp
+//   keeps at least 4 rows: 16 at gpt2's N 768 and mamba2's out_proj
+//   (N 2048), 4 at its in_proj (N 8512).  Times that chose it, each split
+//   forced (tools/lora_skinny_sweep.py; f32, r 8, H100 80GB HBM3 at 700 W,
+//   cold L2, median of 30), beside torch.sum of W, a plain read of the bytes
+//   the call must stream:
+//     M × K × N          1        2        4        8        16       read W
+//     8 × 768 × 768      0.0316   0.0203   0.0150   0.0131   0.0119   0.0132
+//     12 × 768 × 768     0.0438   0.0270   0.0183   0.0151   0.0132   0.0134
+//     4 × 2048 × 8512    0.0757   0.0517   0.0427   0.0478   0.0567   0.0420
+//     4 × 4096 × 2048    0.1247   0.0707   0.0430   0.0316   0.0268   0.0263
+//   At the rule's split the call reads W about as fast as torch.sum does.
+//   chip_smoke.py's timer flushes the L2 by a write, and a call that streams
+//   tens of MB first writes those dirty lines back; with a read flush the
+//   out_proj row takes 0.0221 ms and the in_proj row 0.0350, a marginal
+//   rate near 2.8 TB/s over a fixed 10 µs.
+// - W loads are 16-byte vectors when N is a multiple of the vector and W is
+//   16-byte aligned; otherwise element loads (the WIDE flag).  x, A, B and
+//   y go through element loads and stores, so their alignment is free.
 //
 // lora_tiled (M > 16, the prefill rows): one template of 256 threads over a
 // BM×BN output tile, each thread a (BM/16)×(BN/16) piece of it at rows
@@ -75,11 +119,17 @@
 // at one block an SM (168–225 registers) it was slower than 64×128 at every
 // serving shape, as the last column shows, so it is not built.
 
+#include <cooperative_groups.h>
+
 #include <cstdint>
+#include <cstring>
+#include <type_traits>
 
 #include "common.cuh"
 
 namespace {
+
+namespace cg = cooperative_groups;
 
 using repro::from_f32;
 using repro::round_to;
@@ -88,105 +138,222 @@ using repro::to_f32;
 constexpr int RMAX = 32;  // largest rank; the wrapper checks it
 
 // ----------------------------------------------------------------- skinny
-constexpr int STHREADS = 512;
-constexpr int SBN = 16;               // output columns per block (a half warp)
-constexpr int SKG = STHREADS / SBN;   // 32 k-groups (half warps)
-constexpr int SKU = 8;                // rows of K per group per chunk
-constexpr int SKC = SKG * SKU;        // 256 rows of K per chunk
+constexpr int STHREADS = 256;
+constexpr int SWARPS = STHREADS / 32;   // k-groups of a block, one warp each
+constexpr int SPLIT_MAX = 16;           // largest cluster on Hopper (non-portable above 8)
+constexpr int SMIN_ROWS = 4;            // fewest K rows a warp is split down to
+constexpr int XS_BYTES = 32 * 1024;     // the x slab, then the reduction buffer
 
-template <typename T, int MR, int RT>
-__global__ void __launch_bounds__(STHREADS)
+// Per type and row bound MR: a lane reads VEC columns with one 16-byte load,
+// a warp a 512-byte row segment, which is the block's strip (BN columns);
+// U rows of W are loaded by a warp before any is used.  MINB blocks an SM
+// bound the registers (80 at 3, 128 at 2) where ptxas fits them unspilled:
+// 3 at f32 MR 4, 2 at 32 accumulators a thread, else 1.
+template <typename T, int MR>
+struct SkinnyShape {
+  static constexpr int VEC = 16 / sizeof(T);
+  static constexpr int BN = 32 * VEC;
+  static constexpr int MINB = VEC == 4 && MR == 4 ? 3 : MR * VEC <= 32 ? 2 : 1;
+  static constexpr int U = MR == 4 || VEC == 8 ? 4 : 8;
+  static constexpr int KX = XS_BYTES / (MR * 4);                 // x rows per pass
+  static constexpr int MG0 = XS_BYTES / (SWARPS * BN * 4);
+  static constexpr int MG = MG0 < MR ? MG0 : MR;                 // output rows per reduction step
+  static constexpr int BYTES = XS_BYTES + (MR * BN + 2 * MR * RMAX) * 4;
+  static_assert(SWARPS * MR * RMAX * 4 <= XS_BYTES && MR % MG == 0, "reduction buffer");
+};
+
+// VEC elements of one W row from column ``col`` as raw bits, zero past N or
+// when ``ok`` is false.  WIDE: one 16-byte load (N a multiple of VEC, W
+// 16-byte aligned); otherwise element loads.
+template <typename T, bool WIDE>
+__device__ __forceinline__ uint4 load_w(const T* row, int col, int N, bool ok) {
+  constexpr int VEC = 16 / sizeof(T);
+  if constexpr (WIDE) {
+    return ok && col < N ? __ldg(reinterpret_cast<const uint4*>(row + col)) : make_uint4(0, 0, 0, 0);
+  } else {
+    using Bits = std::conditional_t<sizeof(T) == 4, unsigned, unsigned short>;
+    Bits e[VEC];
+#pragma unroll
+    for (int v = 0; v < VEC; ++v)
+      e[v] = ok && col + v < N ? reinterpret_cast<const Bits*>(row)[col + v] : Bits(0);
+    uint4 r;
+    memcpy(&r, e, 16);
+    return r;
+  }
+}
+
+// Raw bits → VEC f32 values (bf16 is the high half of an f32).
+__device__ __forceinline__ void unpack(uint4 r, float (&f)[4]) {
+  f[0] = __uint_as_float(r.x), f[1] = __uint_as_float(r.y);
+  f[2] = __uint_as_float(r.z), f[3] = __uint_as_float(r.w);
+}
+__device__ __forceinline__ void unpack(uint4 r, float (&f)[8]) {
+  const unsigned u[4] = {r.x, r.y, r.z, r.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    f[2 * i] = __uint_as_float(u[i] << 16);
+    f[2 * i + 1] = __uint_as_float(u[i] & 0xffff0000u);
+  }
+}
+
+// A cluster of ``split`` blocks owns one BN-column strip; block ``rank``
+// owns K rows [rank·kr, (rank+1)·kr), warp w of it the rows w, w + 8, ...
+// of that range.  Rows ≥ M of x are zero.
+template <typename T, int MR, bool WIDE>
+__global__ void __launch_bounds__(STHREADS, SkinnyShape<T, MR>::MINB)
 lora_skinny(const T* __restrict__ x, const T* __restrict__ w,
             const T* __restrict__ a, const T* __restrict__ b,
             T* __restrict__ y, int M, int N, int K, int R, float scale) {
-  static_assert(MR * SBN <= STHREADS, "reduction mapping");
-  static_assert(MR * SKC <= SKG * MR * SBN, "x chunk fits the shared buffer");
-  // one buffer: the x chunk [MR][SKC] during the K loop, then the per-group
-  // partial sums [SKG][MR][SBN] of the reduction
-  __shared__ float buf[SKG * MR * SBN];
-  __shared__ float xa_s[MR][RMAX];
-  __shared__ float bs[RMAX][SBN];
-  float (*xs)[SKC] = reinterpret_cast<float (*)[SKC]>(buf);
-  float (*red)[MR][SBN] = reinterpret_cast<float (*)[MR][SBN]>(buf);
+  using S = SkinnyShape<T, MR>;
+  constexpr int VEC = S::VEC, BN = S::BN, U = S::U, MG = S::MG;
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* xs = reinterpret_cast<float*>(smem);  // x rows [KX][MR], then the reduction buffer
+  float* blk = xs + XS_BYTES / 4;              // [MR][BN]: the block's x·W over its rows
+  float* xa_blk = blk + MR * BN;               // [MR][RMAX]: its x·A over them
+  float* xa = xa_blk + MR * RMAX;              // [MR][RMAX]: x·A over all K, rounded to T
 
-  const int tid = threadIdx.x, c = tid % SBN, kg = tid / SBN;
-  const int n0 = blockIdx.x * SBN, gn = n0 + c;
-  const bool col_ok = gn < N;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int split = cluster.num_blocks(), rank = cluster.block_rank();
+  const int n0 = blockIdx.x / split * BN;
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const int col = n0 + lane * VEC;
+  const int kr = (K + split - 1) / split;
+  const int kb0 = rank * kr, kb1 = min(K, kb0 + kr);
+  const int cw = ((BN + split - 1) / split + 3) / 4 * 4;  // the block's output columns
+  const int c0 = rank * cw, c1 = min(BN, c0 + cw);
 
-  // thread (c, kg): W column n0 + c and A columns c + SBN·t, over the rows
-  // kg, kg + SKG, ... of each chunk
-  float acc[MR], acc_a[RT][MR];
+  // B for the block's columns into L2 now, so the epilogue does not wait on
+  // memory: one prefetch per 128-byte line
+  {
+    constexpr int LINE = 128 / sizeof(T);
+    const int lines = (cw + LINE - 1) / LINE;
+    for (int i = tid; i < R * lines; i += STHREADS) {
+      const int n = n0 + c0 + (i % lines) * LINE;
+      if (n < N) asm volatile("prefetch.global.L2 [%0];" ::"l"(b + (size_t)(i / lines) * N + n));
+    }
+  }
+
+  float acc[MR][VEC], acc_a[MR];
 #pragma unroll
   for (int m = 0; m < MR; ++m) {
-    acc[m] = 0.f;
+    acc_a[m] = 0.f;
 #pragma unroll
-    for (int t = 0; t < RT; ++t) acc_a[t][m] = 0.f;
+    for (int v = 0; v < VEC; ++v) acc[m][v] = 0.f;
   }
-  for (int k0 = 0; k0 < K; k0 += SKC) {
-    // every load of the chunk is issued before any is used: SKU rows of W
-    // (and A) per thread, and the chunk of x staged in shared memory
-    float wv[SKU], av[RT][SKU];
+  uint4 wv[U];
+  float av[U];
+  // batch i0 of this warp: its rows i0 .. i0 + U - 1 (row i is p0 + warp + SWARPS·i)
+  auto load = [&](int p0, int nw, int i0) {
 #pragma unroll
-    for (int u = 0; u < SKU; ++u) {
-      const int k = k0 + kg + u * SKG;
-      wv[u] = (k < K && col_ok) ? to_f32(w[(size_t)k * N + gn]) : 0.f;
-#pragma unroll
-      for (int t = 0; t < RT; ++t) {
-        const int j = c + SBN * t;
-        av[t][u] = (k < K && j < R) ? to_f32(a[(size_t)k * R + j]) : 0.f;
-      }
+    for (int u = 0; u < U; ++u) {
+      const int k = p0 + warp + SWARPS * (i0 + u);
+      const bool ok = i0 + u < nw;
+      wv[u] = load_w<T, WIDE>(w + (size_t)k * N, col, N, ok);
+      av[u] = ok && lane < R ? to_f32(a[(size_t)k * R + lane]) : 0.f;
     }
-    for (int i = tid; i < MR * SKC; i += STHREADS) {
-      const int m = i / SKC, k = k0 + i % SKC;
-      xs[m][i % SKC] = (m < M && k < K) ? to_f32(x[(size_t)m * K + k]) : 0.f;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int u = 0; u < SKU; ++u) {
-      const int kk = kg + u * SKG;
-#pragma unroll
-      for (int m = 0; m < MR; ++m) {
-        const float xv = xs[m][kk];
-        acc[m] = fmaf(xv, wv[u], acc[m]);
-#pragma unroll
-        for (int t = 0; t < RT; ++t) acc_a[t][m] = fmaf(xv, av[t][u], acc_a[t][m]);
-      }
+  };
+
+  for (int p0 = kb0; p0 < kb1; p0 += S::KX) {  // one pass unless K/split > KX
+    const int rows = min(kb1 - p0, S::KX);
+    const int nw = (rows - warp + SWARPS - 1) / SWARPS;  // this warp's rows in the pass
+    load(p0, nw, 0);  // in flight while x is staged
+    __syncthreads();  // the previous pass is done with xs
+    for (int i = tid; i < MR * rows; i += STHREADS) {
+      const int m = i / rows, k = i % rows;
+      xs[k * MR + m] = m < M ? to_f32(x[(size_t)m * K + p0 + k]) : 0.f;
     }
     __syncthreads();
+    for (int i0 = 0; i0 < nw; i0 += U) {
+      if (i0) load(p0, nw, i0);
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        if (i0 + u < nw) {  // warp-uniform
+          float wf[VEC];
+          unpack(wv[u], wf);
+          const float4* xr = reinterpret_cast<const float4*>(xs + (warp + SWARPS * (i0 + u)) * MR);
+#pragma unroll
+          for (int q = 0; q < MR / 4; ++q) {
+            const float4 x4 = xr[q];
+            const float xm[4] = {x4.x, x4.y, x4.z, x4.w};
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+#pragma unroll
+              for (int v = 0; v < VEC; ++v) acc[4 * q + e][v] = fmaf(xm[e], wf[v], acc[4 * q + e][v]);
+              acc_a[4 * q + e] = fmaf(xm[e], av[u], acc_a[4 * q + e]);
+            }
+          }
+        }
+      }
+    }
   }
 
-  // reduce over the k-groups; thread tid < MR·SBN owns (m, c') = (tid / SBN, tid % SBN)
-  const bool owner = tid < MR * SBN;
-  const int om = tid / SBN, oc = tid % SBN;
-#pragma unroll
-  for (int m = 0; m < MR; ++m) red[kg][m][c] = acc[m];
+  // The block's partial sums over its warps, in warp order: x·A first, then
+  // x·W, MG output rows at a time through the reduction buffer.
+  float* red = xs;
   __syncthreads();
-  float base = 0.f;
-  if (owner)
-    for (int g = 0; g < SKG; ++g) base += red[g][om][oc];
+  if (lane < R)
 #pragma unroll
-  for (int t = 0; t < RT; ++t) {  // x·A, SBN columns per pass, rounded to T
+    for (int m = 0; m < MR; ++m) red[(warp * MR + m) * RMAX + lane] = acc_a[m];
+  __syncthreads();
+  for (int i = tid; i < MR * R; i += STHREADS) {
+    const int j = i / R * RMAX + i % R;  // (m, q)
+    float s = 0.f;
+#pragma unroll
+    for (int g = 0; g < SWARPS; ++g) s += red[g * MR * RMAX + j];
+    xa_blk[j] = s;
+  }
+#pragma unroll
+  for (int mg = 0; mg < MR; mg += MG) {
     __syncthreads();
 #pragma unroll
-    for (int m = 0; m < MR; ++m) red[kg][m][c] = acc_a[t][m];
+    for (int mm = 0; mm < MG; ++mm)
+#pragma unroll
+      for (int v = 0; v < VEC; v += 4)
+        *reinterpret_cast<float4*>(red + (warp * MG + mm) * BN + lane * VEC + v) =
+            make_float4(acc[mg + mm][v], acc[mg + mm][v + 1], acc[mg + mm][v + 2], acc[mg + mm][v + 3]);
     __syncthreads();
-    const int j = oc + SBN * t;
-    if (owner && j < R) {
+    for (int i = tid; i < MG * BN; i += STHREADS) {
       float s = 0.f;
-      for (int g = 0; g < SKG; ++g) s += red[g][om][oc];
-      xa_s[om][j] = round_to<T>(s);
+#pragma unroll
+      for (int g = 0; g < SWARPS; ++g) s += red[g * MG * BN + i];
+      blk[mg * BN + i] = s;
     }
   }
-  for (int i = tid; i < R * SBN; i += STHREADS) {
-    const int j = i / SBN, cc = i % SBN;
-    bs[j][cc] = n0 + cc < N ? to_f32(b[(size_t)j * N + n0 + cc]) : 0.f;
+
+  // Across the cluster, in rank order, through distributed shared memory:
+  // every block forms x·A over all K (the same value in each), then block
+  // ``rank`` finishes its share of the strip's columns.
+  cluster.sync();
+  for (int i = tid; i < MR * RMAX; i += STHREADS) {  // ranks ≥ r are zero
+    float part[SPLIT_MAX];
+#pragma unroll
+    for (int r = 0; r < SPLIT_MAX; ++r)
+      part[r] = r < split && i % RMAX < R ? cluster.map_shared_rank(xa_blk, r)[i] : 0.f;
+    float s = 0.f;
+#pragma unroll
+    for (int r = 0; r < SPLIT_MAX; ++r) s += part[r];
+    xa[i] = round_to<T>(s);
   }
   __syncthreads();
-  if (owner && om < M && n0 + oc < N) {
-    float l = 0.f;
-    for (int j = 0; j < R; ++j) l = fmaf(xa_s[om][j], bs[j][oc], l);
-    y[(size_t)om * N + n0 + oc] = from_f32<T>(base + scale * l);
+  for (int i = tid; i < MR * cw; i += STHREADS) {
+    const int m = i / cw, c = c0 + i % cw, n = n0 + c;
+    if (m < M && c < c1 && n < N) {
+      // every load of the output is issued before any is used
+      float bq[RMAX], part[SPLIT_MAX];
+#pragma unroll
+      for (int q = 0; q < RMAX; ++q) bq[q] = q < R ? to_f32(b[(size_t)q * N + n]) : 0.f;
+#pragma unroll
+      for (int r = 0; r < SPLIT_MAX; ++r)
+        part[r] = r < split ? cluster.map_shared_rank(blk, r)[m * BN + c] : 0.f;
+      float base = 0.f, l = 0.f;
+#pragma unroll
+      for (int r = 0; r < SPLIT_MAX; ++r) base += part[r];
+#pragma unroll
+      for (int q = 0; q < RMAX; ++q) l = fmaf(xa[m * RMAX + q], bq[q], l);
+      y[(size_t)m * N + n] = from_f32<T>(base + scale * l);
+    }
   }
+  cluster.sync();  // no block leaves while another reads its shared memory
 }
 
 // ------------------------------------------------------------------ tiled
@@ -488,6 +655,50 @@ int sm_count() {
 
 bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
 
+// The split rule of the source note: K is halved across more blocks of a
+// cluster until the strips give two blocks an SM, up to SPLIT_MAX, while a
+// warp keeps at least SMIN_ROWS rows.
+int skinny_split(int strips, int K, int sms) {
+  int split = 1;
+  while (split < SPLIT_MAX && (long long)strips * split < 2LL * sms &&
+         K >= 2 * split * SWARPS * SMIN_ROWS)
+    split *= 2;
+  return split;
+}
+
+template <typename T, int MR, bool WIDE>
+cudaError_t launch_skinny(int split, const T* x, const T* w, const T* a, const T* b, T* y,
+                          int M, int N, int K, int R, float scale, cudaStream_t s) {
+  using S = SkinnyShape<T, MR>;
+  static const cudaError_t attr = [] {
+    const cudaError_t e = cudaFuncSetAttribute(
+        lora_skinny<T, MR, WIDE>, cudaFuncAttributeMaxDynamicSharedMemorySize, S::BYTES);
+    return e != cudaSuccess ? e : cudaFuncSetAttribute(
+        lora_skinny<T, MR, WIDE>, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  }();
+  if (attr != cudaSuccess) return attr;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((N + S::BN - 1) / S::BN * split);
+  cfg.blockDim = dim3(STHREADS);
+  cfg.dynamicSmemBytes = S::BYTES;
+  cfg.stream = s;
+  cudaLaunchAttribute cluster[1];
+  cluster[0].id = cudaLaunchAttributeClusterDimension;
+  cluster[0].val.clusterDim.x = split;
+  cluster[0].val.clusterDim.y = 1;
+  cluster[0].val.clusterDim.z = 1;
+  cfg.attrs = cluster;
+  cfg.numAttrs = 1;
+  return cudaLaunchKernelEx(&cfg, lora_skinny<T, MR, WIDE>, x, w, a, b, y, M, N, K, R, scale);
+}
+
+template <typename T, int MR>
+cudaError_t skinny(bool wide, int split, const T* x, const T* w, const T* a, const T* b, T* y,
+                   int M, int N, int K, int R, float scale, cudaStream_t s) {
+  return wide ? launch_skinny<T, MR, true>(split, x, w, a, b, y, M, N, K, R, scale, s)
+              : launch_skinny<T, MR, false>(split, x, w, a, b, y, M, N, K, R, scale, s);
+}
+
 template <typename T>
 cudaError_t launch(const void* x, const void* w, const void* a, const void* b, void* y,
                    int M, int N, int K, int R, float scale, cudaStream_t s) {
@@ -496,31 +707,27 @@ cudaError_t launch(const void* x, const void* w, const void* a, const void* b, v
   const T* ap = static_cast<const T*>(a);
   const T* bp = static_cast<const T*>(b);
   T* yp = static_cast<T*>(y);
-  const int nb = (N + SBN - 1) / SBN;
-  if (M <= 8 && R <= SBN) {
-    lora_skinny<T, 8, 1><<<nb, STHREADS, 0, s>>>(xp, wp, ap, bp, yp, M, N, K, R, scale);
-  } else if (M <= 8) {
-    lora_skinny<T, 8, 2><<<nb, STHREADS, 0, s>>>(xp, wp, ap, bp, yp, M, N, K, R, scale);
-  } else if (M <= 16 && R <= SBN) {
-    lora_skinny<T, 16, 1><<<nb, STHREADS, 0, s>>>(xp, wp, ap, bp, yp, M, N, K, R, scale);
-  } else if (M <= 16) {
-    lora_skinny<T, 16, 2><<<nb, STHREADS, 0, s>>>(xp, wp, ap, bp, yp, M, N, K, R, scale);
-  } else {
-    constexpr int vec = 16 / sizeof(T);
-    const bool wide = K % vec == 0 && N % vec == 0 && R % vec == 0 && aligned16(x) &&
-                      aligned16(w) && aligned16(a) && aligned16(y);
-    // the tile rule of the source note
-    const long long sms = sm_count();
-    const auto blocks = [&](int bm, int bn) {
-      return (long long)((M + bm - 1) / bm) * ((N + bn - 1) / bn);
-    };
-    if (blocks(64, 128) >= 2 * sms)
-      return tiled<T, 64, 128, 16>(wide, xp, wp, ap, bp, yp, M, N, K, R, scale, s);
-    if (blocks(96, 64) >= sms)
-      return tiled<T, 96, 64, 16>(wide, xp, wp, ap, bp, yp, M, N, K, R, scale, s);
-    return tiled<T, 64, 64, 32>(wide, xp, wp, ap, bp, yp, M, N, K, R, scale, s);
+  if (M <= 16) {
+    const bool wide = N % (16 / (int)sizeof(T)) == 0 && aligned16(w);
+    const int strips = (N + SkinnyShape<T, 4>::BN - 1) / SkinnyShape<T, 4>::BN;
+    const int split = skinny_split(strips, K, sm_count());
+    if (M <= 4) return skinny<T, 4>(wide, split, xp, wp, ap, bp, yp, M, N, K, R, scale, s);
+    if (M <= 8) return skinny<T, 8>(wide, split, xp, wp, ap, bp, yp, M, N, K, R, scale, s);
+    return skinny<T, 16>(wide, split, xp, wp, ap, bp, yp, M, N, K, R, scale, s);
   }
-  return cudaSuccess;
+  constexpr int vec = 16 / sizeof(T);
+  const bool wide = K % vec == 0 && N % vec == 0 && R % vec == 0 && aligned16(x) &&
+                    aligned16(w) && aligned16(a) && aligned16(y);
+  // the tile rule of the source note
+  const long long sms = sm_count();
+  const auto blocks = [&](int bm, int bn) {
+    return (long long)((M + bm - 1) / bm) * ((N + bn - 1) / bn);
+  };
+  if (blocks(64, 128) >= 2 * sms)
+    return tiled<T, 64, 128, 16>(wide, xp, wp, ap, bp, yp, M, N, K, R, scale, s);
+  if (blocks(96, 64) >= sms)
+    return tiled<T, 96, 64, 16>(wide, xp, wp, ap, bp, yp, M, N, K, R, scale, s);
+  return tiled<T, 64, 64, 32>(wide, xp, wp, ap, bp, yp, M, N, K, R, scale, s);
 }
 
 }  // namespace
@@ -543,4 +750,14 @@ extern "C" int lora_fused(int dtype, const void* x, const void* w, const void* a
     return (int)cudaErrorInvalidValue;
   }
   return e != cudaSuccess ? (int)e : (int)cudaGetLastError();
+}
+
+// The decode branch's plan for a call with M ≤ 16: the strip width in
+// columns and the K split the rule takes on the current device.
+extern "C" int lora_skinny_plan(int dtype, int N, int K, int* strip, int* split) {
+  if ((dtype != 0 && dtype != 1) || N < 1 || K < 1) return (int)cudaErrorInvalidValue;
+  const int bn = dtype == 0 ? SkinnyShape<float, 4>::BN : SkinnyShape<__nv_bfloat16, 4>::BN;
+  *strip = bn;
+  *split = skinny_split((N + bn - 1) / bn, K, sm_count());
+  return 0;
 }

@@ -19,13 +19,15 @@ import time
 from pathlib import Path
 from typing import Dict
 
+import torch
+
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD = _PKG / "build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-_FUNCS: Dict[str, object] = {}   # loaded C entry points by source name
+_FUNCS: Dict[str, object] = {}   # loaded C entry points by symbol
 
 
 def _nvcc() -> str:
@@ -85,16 +87,17 @@ def build_log(name: str) -> str:
     return _target(sources()[name]).with_suffix(".log").read_text()
 
 
-def function(name: str, argtypes):
-    """The C entry point ``int <name>(...)`` of ``csrc/<name>.cu`` with its
-    ctypes signature (``c_void_p`` for every pointer and the stream),
-    building every source on first use."""
-    fn = _FUNCS.get(name)
+def function(name: str, argtypes, symbol: str = ""):
+    """The C entry point ``int <symbol>(...)`` (default ``<name>``) of
+    ``csrc/<name>.cu`` with its ctypes signature (``c_void_p`` for every
+    pointer and the stream), building every source on first use."""
+    symbol = symbol or name
+    fn = _FUNCS.get(symbol)
     if fn is None:
         build_all()
-        fn = getattr(ctypes.CDLL(str(_target(sources()[name]))), name)
+        fn = getattr(ctypes.CDLL(str(_target(sources()[name]))), symbol)
         fn.argtypes, fn.restype = argtypes, ctypes.c_int
-        _FUNCS[name] = fn
+        _FUNCS[symbol] = fn
     return fn
 
 
@@ -102,3 +105,14 @@ def check(rc: int, name: str) -> None:
     """Raise on the ``cudaGetLastError()`` code a C entry point returned."""
     if rc != 0:
         raise RuntimeError(f"{name}: CUDA launch failed (cudaError {rc})")
+
+
+def forward_only(name: str, *tensors) -> None:
+    """Raise where a CUDA kernel would drop a gradient: under grad mode with
+    an operand that requires grad.  The kernels are forward-only (as the
+    TPU kernels are); the CPU branch of each wrapper stays differentiable."""
+    if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{name}: the CUDA kernel is forward-only and would drop the gradient "
+            "of an operand that requires grad; run it under torch.no_grad() or "
+            "detach the operands")

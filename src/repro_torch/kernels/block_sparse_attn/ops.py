@@ -45,6 +45,7 @@ def block_sparse_attention(q, k, v, cfg, *, q_offset: int = 0):
                          f"a multiple of the block {bs}")
     if q.device.type == "cpu":
         return block_sparse_ref(q, k, v, cfg, q_offset=q_offset)
+    _build.forward_only("block_sparse_attention", q, k, v)
     b, sq, h, d = q.shape
     sk, kh = k.shape[1], k.shape[2]
     idx, valid = device_table(sq // bs, sk // bs, cfg, q_offset // bs, q.device)

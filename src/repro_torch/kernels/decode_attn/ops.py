@@ -34,6 +34,7 @@ def decode_attention(q, k_cache, v_cache, cache_len: int, *, window: int = 0,
     if q.device.type == "cpu":
         return decode_ref(q, k_cache, v_cache, cache_len, window=window,
                           sparse=sparse)
+    _build.forward_only("decode_attention", q, k_cache, v_cache)
     b, _, h, d = q.shape
     sc, kh = k_cache.shape[1], k_cache.shape[2]
     pattern = ((sparse.block_size, sparse.sink_blocks, sparse.local_blocks,

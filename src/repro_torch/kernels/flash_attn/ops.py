@@ -42,6 +42,7 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):
     check_operands("flash_attention", q, k, v)
     if q.device.type == "cpu":
         return attention_ref(q, k, v, causal=causal, window=window)
+    _build.forward_only("flash_attention", q, k, v)
     b, sq, h, d = q.shape
     sk, kh = k.shape[1], k.shape[2]
     out = torch.empty_like(q)

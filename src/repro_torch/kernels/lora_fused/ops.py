@@ -41,6 +41,7 @@ def lora_matmul(x, w, a, b, *, scale: float):
     _check(x, w, a, b)
     if x.device.type == "cpu":
         return lora_ref(x, w, a, b, scale=scale)
+    _build.forward_only("lora_matmul", x, w, a, b)
     k, n = w.shape
     xf = x.reshape(-1, k)
     y = torch.empty((xf.shape[0], n), dtype=x.dtype, device=x.device)

@@ -57,6 +57,7 @@ def ssd_scan(x, dt, a_coef, bmat, cmat, *, chunk: int = 256, h0=None):
     _check(x, dt, a_coef, bmat, cmat, h0)
     if x.device.type == "cpu":
         return ssd_ref(x, dt, a_coef, bmat, cmat, chunk=chunk, h0=h0)
+    _build.forward_only("ssd_scan", x, dt, a_coef, bmat, cmat, h0)
     b, s, h, p = x.shape
     n = bmat.shape[-1]
     chunk = min(chunk, s)

@@ -59,7 +59,17 @@ def _close(out, ref, tol):
                                      # with 1024 and 7168 above, a row count
                                      # for each tile the rule takes on a
                                      # 132-SM card: 64×64, 96×64, 64×128
-                                     (512, 768, 768, 8)])
+                                     (512, 768, 768, 8),
+                                     # the decode branch (M ≤ 16): M edges
+                                     # 1, 2, 9, 12, 15 with N not a multiple
+                                     # of the vector or the strip, K not a
+                                     # multiple of the split, r 1, 17, 32
+                                     (1, 768, 768, 8), (2, 1001, 200, 17),
+                                     (9, 130, 70, 1), (12, 768, 768, 8),
+                                     (15, 768, 768, 3), (16, 2048, 8512, 32),
+                                     # f32 splits on a 132-SM card: 1 (K 100
+                                     # above), 2 here, 4 (N 8512), 8 (N 768)
+                                     (4, 256, 20000, 8)])
 def test_lora_fused_kernel(gen, dtype, m, k, n, r):
     x, w = _rn(gen, m, k, dtype=dtype), _rn(gen, k, n, std=0.05, dtype=dtype)
     a, b = _rn(gen, k, r, std=0.05, dtype=dtype), _rn(gen, r, n, std=0.05, dtype=dtype)
@@ -68,6 +78,8 @@ def test_lora_fused_kernel(gen, dtype, m, k, n, r):
     torch.cuda.synchronize()
     assert lora_matmul.launches == before + 1
     _close(out, lora_ref(x, w, a, b, scale=2.0), TOL["lora"][dtype])
+    # the split reductions run in a fixed order: a second call is bitwise equal
+    assert torch.equal(lora_matmul(x, w, a, b, scale=2.0), out)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -121,13 +133,19 @@ def test_attention_kernels_unaligned_f32(gen):
            TOL["flash"][torch.float32])
 
 
+@pytest.mark.parametrize("unaligned", [False, True])
 @pytest.mark.parametrize("m,k,n", [(2048, 2048, 8512), (4, 2048, 8512),
                                    (2048, 4096, 2048), (4, 4096, 2048)])
-def test_lora_fused_kernel_mamba_shapes(gen, m, k, n):
+def test_lora_fused_kernel_mamba_shapes(gen, m, k, n, unaligned):
     """mamba2-1.3b's in_proj (N 8512, not a multiple of 64) and out_proj at
-    prefill (M 2048) and decode (M 4) rows."""
-    x, w = _rn(gen, m, k), _rn(gen, k, n, std=0.02)
-    a, b = _rn(gen, k, 8, std=0.02), _rn(gen, 8, n, std=0.05)
+    prefill (M 2048) and decode (M 4) rows; ``unaligned``: every operand
+    starts 4 bytes past a 16-byte boundary (the element-load paths)."""
+    if unaligned:
+        x, w = _unaligned(gen, m, k), _unaligned(gen, k, n).mul_(0.02)
+        a, b = _unaligned(gen, k, 8).mul_(0.02), _unaligned(gen, 8, n).mul_(0.05)
+    else:
+        x, w = _rn(gen, m, k), _rn(gen, k, n, std=0.02)
+        a, b = _rn(gen, k, 8, std=0.02), _rn(gen, 8, n, std=0.05)
     _close(lora_matmul(x, w, a, b, scale=2.0), lora_ref(x, w, a, b, scale=2.0),
            TOL["lora"][torch.float32])
 
@@ -273,3 +291,27 @@ def test_serving_on_card_matches_cpu(gen, arch, prompt_len, impl):
         lg, cache = cpu.decode_step(p_cpu, cache, res["tokens"][:, t:t + 1].cpu(),
                                     lora=l_cpu, lora_scale=scale)
         torch.testing.assert_close(lg, res["logits"][t + 1].cpu(), atol=1e-4, rtol=0)
+
+
+def test_wrappers_refuse_grad_on_card(gen):
+    """Each CUDA entry point raises when an operand requires grad under grad
+    mode (the kernels are forward-only and would drop it), and runs under
+    torch.no_grad()."""
+    x, w = _rn(gen, 4, 64), _rn(gen, 64, 32)
+    a, b = _rn(gen, 64, 4).requires_grad_(), _rn(gen, 4, 32)
+    q, q1 = _rn(gen, 2, 64, 4, 32).requires_grad_(), _rn(gen, 2, 1, 4, 32).requires_grad_()
+    kv = _rn(gen, 2, 64, 4, 32)
+    cfg = SparseAttnConfig(block_size=16, local_blocks=2, sink_blocks=1, stride=2)
+    ssd = list(_ssd_inputs(gen, 1, 32, 2, 16, 16, torch.float32))
+    ssd[0].requires_grad_()
+    calls = {"lora_matmul": lambda: lora_matmul(x, w, a, b, scale=2.0),
+             "flash_attention": lambda: flash_attention(q, kv, kv),
+             "decode_attention": lambda: decode_attention(q1, kv, kv, 10),
+             "block_sparse_attention": lambda: block_sparse_attention(q, kv, kv, cfg),
+             "ssd_scan": lambda: ssd_scan(*ssd[:5], chunk=16)}
+    for name, call in calls.items():
+        with pytest.raises(RuntimeError, match=f"{name}: the CUDA kernel is forward-only"):
+            call()
+        with torch.no_grad():
+            call()
+    torch.cuda.synchronize()

@@ -155,3 +155,41 @@ def test_wrappers_reject_bad_operands():
         decode_attention(q, q, q, 2)
     with pytest.raises(ValueError, match="cache_len"):
         decode_attention(q[:, :1], q, q, 0)
+
+
+def test_forward_only_guard():
+    """The CUDA branch of every wrapper refuses an operand that requires
+    grad under grad mode, and is silent under no_grad or for detached
+    operands (the kernels are forward-only)."""
+    from repro_torch.kernels import _build
+    x, w = torch.randn(4, 8, requires_grad=True), torch.randn(8, 3)
+    with pytest.raises(RuntimeError, match="lora_matmul: the CUDA kernel is forward-only"):
+        _build.forward_only("lora_matmul", x, w, None)
+    with torch.no_grad():
+        _build.forward_only("lora_matmul", x, w, None)
+    _build.forward_only("lora_matmul", x.detach(), w, None)
+    _build.forward_only("ssd_scan", w, None)
+
+
+def test_lora_matmul_cpu_grads_match_jax():
+    """On CPU tensors the wrapper is the plain, differentiable version: the
+    gradients of x and of the factors equal ``jax.grad`` of the JAX
+    package's jnp factored projection (tolerance of test_lora_factored.py)."""
+    import jax
+
+    from repro.models.peft import lora_proj
+    rng = np.random.RandomState(7)
+    x, w = _randn(rng, 2, 5, 48), _randn(rng, 48, 40, std=0.05)
+    a, b = _randn(rng, 48, 4, std=0.05), _randn(rng, 4, 40, std=0.05)
+    g = _randn(rng, 2, 5, 40)
+
+    def j_loss(x, a, b):
+        lf = {"a": a, "b": b, "mask": jnp.ones((), jnp.float32)}
+        return jnp.sum(lora_proj(x, jnp.asarray(w), lf, scale=2.0) * jnp.asarray(g))
+
+    want = jax.grad(j_loss, argnums=(0, 1, 2))(jnp.asarray(x), jnp.asarray(a), jnp.asarray(b))
+    xt, at, bt = (torch.from_numpy(t).requires_grad_() for t in (x, a, b))
+    y = lora_matmul(xt, torch.from_numpy(w), at, bt, scale=2.0)
+    (y * torch.from_numpy(g)).sum().backward()
+    for got, ref in zip((xt.grad, at.grad, bt.grad), want):
+        np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=1e-5)
