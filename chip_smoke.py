@@ -18,7 +18,10 @@ Phases, each reported on its own lines:
    bound; the library call of each kernel's serving-shape row (and of
    mamba2's out_proj decode row) is profiled once, so its PROFILE lines name
    the kernels it runs.  Each lora_fused row at M ≤ 16 (the decode branch)
-   prints the strip width and K split its rule took on this card.
+   prints the strip width and K split its rule took on this card; each
+   decode_attn row the cluster size (split) its rule took, and each f32
+   decode_attn row also ``read_ms``: a ``torch.sum`` over the K and V
+   positions the call reads (one per contiguous range), under the same timer.
 4. serve   — three serving paths through the port's entry points
    (``launch/serve.py`` build/generate), each with random weights from seed
    0 and nonzero rank-8 LoRA factors from a numpy seed, f32:
@@ -136,6 +139,33 @@ def skinny_plan(dtype, n, k):
     return strip.value, split.value
 
 
+def read_ranges(sc, cache_len, window=0, sparse=None):
+    """The contiguous ranges [a, b) of cache positions a decode call reads."""
+    import torch
+
+    from repro_torch.models.attention import sparse_position_mask
+    pos = torch.arange(sc)
+    mask = pos < cache_len
+    if window:
+        mask &= pos >= cache_len - window
+    if sparse is not None:
+        mask &= sparse_position_mask(pos, cache_len, sparse)
+    ranges, start = [], None
+    for p, on in enumerate(mask.tolist() + [False]):
+        if on and start is None:
+            start = p
+        elif not on and start is not None:
+            ranges.append((start, p))
+            start = None
+    return ranges
+
+
+def read_call(kv, ranges):
+    """A plain read of the K and V positions a decode call reads: one
+    ``torch.sum`` per range over ``kv`` (2, B, Sc, K, hd), K and V stacked."""
+    return lambda: [kv[:, :, a:b].sum() for a, b in ranges]
+
+
 def bound(nbytes, flops, dtype):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / PEAK_FLOPS[dtype] * 1e3
@@ -148,7 +178,7 @@ def kernel_cases(torch):
     dtype) at the serving paths' shapes plus ragged and GQA/window cases."""
     import torch.nn.functional as F
 
-    from repro_torch.kernels.decode_attn.ops import decode_attention
+    from repro_torch.kernels.decode_attn.ops import decode_attention, split_plan
     from repro_torch.kernels.decode_attn.ref import decode_ref
     from repro_torch.kernels.flash_attn.ops import flash_attention
     from repro_torch.kernels.flash_attn.ref import attention_ref
@@ -204,7 +234,8 @@ def kernel_cases(torch):
                                                 (8, 192, 12, 12, 64, 101, 0),
                                                 (8, 192, 12, 12, 64, 1, 0),
                                                 (2, 256, 8, 4, 128, 201, 64)):
-            q, kc, vc = rn(bsz, 1, h, d, dtype=dt), rn(bsz, sc, kh, d, dtype=dt), rn(bsz, sc, kh, d, dtype=dt)
+            q, kv = rn(bsz, 1, h, d, dtype=dt), rn(2, bsz, sc, kh, d, dtype=dt)
+            kc, vc = kv
             lo = max(0, clen - window) if window else 0
             valid = min(clen, sc) - lo
             qt = q.transpose(1, 2).contiguous()
@@ -218,6 +249,9 @@ def kernel_cases(torch):
                          F.scaled_dot_product_attention(q, k, v)),
                 nbytes=(2 * bsz * h * d + 2 * bsz * valid * kh * d) * es,
                 flops=4 * d * valid * bsz * h,
+                split=split_plan(bsz, sc, h, window=window),
+                read=(read_call(kv, read_ranges(sc, clen, window))
+                      if dt == torch.float32 else None),
                 main=(clen == 192 and dt == torch.float32)))
         cases += sparse_cases(torch, dt, dname, es, rn)
         cases += ssd_cases(torch, dt, dname, es, rn)
@@ -257,7 +291,7 @@ def sparse_cases(torch, dt, dname, es, rn):
     from repro_torch.configs import SparseAttnConfig
     from repro_torch.kernels.block_sparse_attn.ops import block_sparse_attention
     from repro_torch.kernels.block_sparse_attn.ref import block_sparse_ref
-    from repro_torch.kernels.decode_attn.ops import decode_attention
+    from repro_torch.kernels.decode_attn.ops import decode_attention, split_plan
     from repro_torch.kernels.decode_attn.ref import decode_ref
     from repro_torch.models.attention import sparse_block_table, sparse_position_mask
 
@@ -291,7 +325,8 @@ def sparse_cases(torch, dt, dname, es, rn):
             main=(sq == 896 and dt == torch.float32)))
     for clen in (897, 960, 1024):
         bsz, sc, h, d = 8, 1024, 12, 64
-        q, kc, vc = rn(bsz, 1, h, d, dtype=dt), rn(bsz, sc, h, d, dtype=dt), rn(bsz, sc, h, d, dtype=dt)
+        q, kv = rn(bsz, 1, h, d, dtype=dt), rn(2, bsz, sc, h, d, dtype=dt)
+        kc, vc = kv
         pos = torch.arange(sc, device="cuda")
         mask = (pos < clen) & sparse_position_mask(pos, clen, serving)
         valid_n = int(mask.sum())
@@ -304,7 +339,10 @@ def sparse_cases(torch, dt, dname, es, rn):
             library=lambda q=qt, k=kt, v=vt, m=mask[None]:
             F.scaled_dot_product_attention(q, k, v, attn_mask=m),
             nbytes=(2 * bsz * h * d + 2 * bsz * valid_n * h * d) * es,
-            flops=4 * d * valid_n * bsz * h, main=False))
+            flops=4 * d * valid_n * bsz * h, main=False,
+            split=split_plan(bsz, sc, h, sparse=serving),
+            read=(read_call(kv, read_ranges(sc, clen, sparse=serving))
+                  if dt == torch.float32 else None)))
     return cases
 
 
@@ -367,11 +405,17 @@ def check_kernels(torch):
         lib_ms = device_ms(c["library"], flush) if c["library"] else None
         b_ms, b_by = bound(c["nbytes"], c["flops"], c["dtype"])
         lib_txt = f"{lib_ms:.4f}" if lib_ms is not None else "none"
-        plan = ("strip={} split={} ".format(*skinny_plan(*c["plan"]))
-                if c.get("plan") else "")
+        if c.get("plan"):
+            plan = "strip={} split={} ".format(*skinny_plan(*c["plan"]))
+        elif c.get("split"):
+            plan = f"split={c['split']} "
+        else:
+            plan = ""
+        read_ms = device_ms(c["read"], flush) if c.get("read") else None
+        read_txt = f"read_ms={read_ms:.4f} " if read_ms is not None else ""
         print(f"CHECK {c['name']:<11} {c['dtype']:<8} {c['label']:<48} {plan}"
               f"max_abs_err={err:.3e} tol={atol:g}/{rtol:g} {'ok' if ok else 'MISMATCH'} "
-              f"ms={ms:.4f} plain_ms={plain_ms:.4f} library_ms={lib_txt} "
+              f"ms={ms:.4f} plain_ms={plain_ms:.4f} library_ms={lib_txt} {read_txt}"
               f"bound_ms={b_ms:.4f} ({b_by}) tflops={c['flops'] / ms / 1e9:.2f} "
               f"bound_share={b_ms / ms:.3f}", flush=True)
         if not ok:
@@ -384,6 +428,8 @@ def check_kernels(torch):
             rows[c["name"]] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
                                    bound_ms=b_ms, bound_by=b_by, max_abs_err=err,
                                    shape=c["label"], dtype=c["dtype"])
+            if read_ms is not None:
+                rows[c["name"]]["read_ms"] = read_ms
     return rows
 
 
@@ -594,7 +640,8 @@ def main():
                     max_abs_err=rows[n]["max_abs_err"], ms=rows[n]["ms"],
                     plain_ms=rows[n]["plain_ms"], bound_ms=rows[n]["bound_ms"],
                     bound_by=rows[n]["bound_by"], library_ms=rows[n]["library_ms"],
-                    shape=rows[n]["shape"], dtype=rows[n]["dtype"])
+                    shape=rows[n]["shape"], dtype=rows[n]["dtype"],
+                    **({"read_ms": rows[n]["read_ms"]} if "read_ms" in rows[n] else {}))
                for n in KERNELS]
     print(json.dumps({"serve": serve_rows}))
     print(json.dumps({"kernels": kernels}))

@@ -11,166 +11,447 @@
 // only if its block is a sink block, lies in the local band of the query's
 // block, or is a multiple of the stride.
 //
-// What bounds it on the H100: each step reads the valid part of both caches
-// once — at the serving shape (B = 8, K = 12, hd = 64, f32) 49 KB per
-// position, 9.4 MB at cache_len 192, about 2.8 us at 3.35 TB/s — against
+// What bounds it on the H100: each step reads the positions it attends to
+// once, in both caches — at the serving shape (B = 8, K = 12, hd = 64, f32)
+// 49 KB per position: 9.4 MB at cache_len 192, 31.5 MB for the 640
+// positions of SERVE-SPARSE's cache_len 1024, 9.4 us at 3.35 TB/s — against
 // 4·hd FLOP per (head, position): bound by the bytes.
 //
-// Design: one block per (batch, query head), eight warps.  The warps take
-// the valid positions in turns, four at a time: a warp loads four K rows
-// and four V rows (each lane reads hd/32 neighbouring dims, so a row is one
-// coalesced read), reduces the four q·k dots by shuffles, and folds them
-// into its running m, l and acc with one rescale.  The eight partial states
-// are merged through shared memory at the end.  Positions past cache_len
-// (and before the window) are never read, nor are positions of inactive
-// blocks under the sparse mask (a warp's group of four with no active
-// position is skipped whole), so a step's cost follows the positions it
-// attends to, not the cache's size.  cache_len arrives as a plain int
-// argument: the host never reads a device scalar in the decode loop.
-// Splitting the cache across blocks (split-KV) is later work.
+// What held the earlier design (one 256-thread block per (b, h): 96 blocks
+// on 132 SMs; each warp read 4 positions a step with 4-byte loads and used
+// them before loading more; the sparse mask tested position by position
+// over the whole range) to 0.58 TB/s.  This one is split-KV over the
+// positions read, merged inside one launch:
+// - The active positions are contiguous segments: [lo, hi) in dense mode
+//   (lo = cache_len - window with a window, hi = min(cache_len, Sc)), which
+//   every thread knows; under the sparse mask one segment per active kv
+//   block, clipped to [lo, hi), which each block enumerates once, in shared
+//   memory, at the start (one warp: a ballot and a scan over the kv blocks).
+//   No position of an inactive block costs a loop trip, and no position is
+//   tested: the query's own, partial block is a segment clipped at hi.
+// - Each (b, h) gets a thread block cluster of `split` blocks.  Rank r takes
+//   the r-th even, contiguous share of the active positions, its 4 warps a
+//   contiguous quarter of that.  A K or V row is read with 16-byte loads (4
+//   f32 or 8 bf16 a lane), so one warp load covers 32·16/(hd·size) rows (2
+//   at hd 64 in f32, 4 in bf16), each a "group" of lanes with its own
+//   running m, l and acc; a q·k dot meets over its group by log2(lanes) xor
+//   shuffles (a lane holds hd/lanes-a-row values, so the shuffles are 4 a
+//   row at hd 64 in f32, and a layout with one lane a position would need
+//   a row's 256 bytes from one lane, 16 loads).  A warp step loads U rows a
+//   group (2 in f32, 1 in bf16: 1 KB of K and 1 KB of V a warp either way),
+//   and the next step's loads are issued before this step's dots and expfs
+//   (register double buffering, unspilled at the 64 registers that 8 blocks
+//   an SM allow; bf16 at U 2 spilled).  q is kept raw and d^-1/2 scales each
+//   dot, so the first K and V loads do not wait on q's.
+// - The merge is deterministic: groups meet in a warp by shuffles in a fixed
+//   order, warps in the block through shared memory in warp order, and
+//   rank 0 reads the ranks' (m, l, acc) through distributed shared memory
+//   (cluster.map_shared_rank) in rank order and writes o; a second cluster
+//   barrier keeps every block alive until rank 0 has read it (a relaxed
+//   arrival, since rank 0 has used what it read; a full cluster.sync() there
+//   was slower).  One
+//   launch, no workspace, no atomics: two calls on the same inputs give the
+//   same bits.  An empty share (cache_len 1 at split 16) contributes
+//   m = NEG_INF, l = 0, acc = 0: NEG_INF is finite, so exp(m - m') is 1 or
+//   0 and never NaN, and a merge with an empty state is exact.
+// - The streaming wants every cluster of the grid resident at once (a
+//   cluster's blocks share one GPC), hence 8 blocks an SM: at 6 (80
+//   registers) SERVE-SPARSE's call (96 clusters of 8) was slower, as if they
+//   no longer fit one wave.  Prefetching a warp's rows into L2 before its
+//   first load was slower too, and is not done.
+// - The split comes from decode_split (below) on B·H, the most positions a
+//   call can read (Sc, the sparse pattern's most blocks, or the window) and
+//   the SM count, never on cache_len: every decode step of a run launches
+//   the same grid (a CUDA graph can capture it once the length lives on the
+//   device), and each block derives its share from cache_len itself.  The
+//   split doubles from 1, up to 16 (the largest cluster Hopper allows,
+//   non-portable above 8), while the grid still fits one wave and either
+//   each rank keeps at least MIN_POS = 32 of the most positions a call can
+//   read or the grid would still fill at most half the SMs: 8 at
+//   SERVE-SPARSE's decode (640 positions at most, 80 a rank), 4 at SERVE's
+//   (192, 48 a rank), 16 at B·H 1.  cache_len arrives as a plain int
+//   argument: the host never reads a device scalar in the decode loop.
+//   Times that chose it, each split forced (tools/decode_split_sweep.py;
+//   f32 unless marked, H100 80GB HBM3 at 700 W, cold L2, median of 30),
+//   beside torch.sum over the K and V positions the call reads:
+//     row (B 8, H = K 12, hd 64)   1       2       4       8       16      read
+//     dense, cache 192 of 192      0.0187  0.0144  0.0135  0.0140  0.0193  0.0156
+//     sparse, cache_len 897        0.0436  0.0289  0.0236  0.0223  0.0288  0.0352
+//     sparse, cache_len 1024       0.0518  0.0337  0.0265  0.0250  0.0317  0.0378
+//     bf16 sparse, cache_len 1024  0.0376  0.0250  0.0196  0.0181  0.0258  0.0362
+//     GQA: B 2, H 8, K 4, hd 128,
+//       cache_len 201, window 64   0.0130  0.0101  0.0087  0.0091  0.0106  0.0138
+//   The rule takes 4, 8, 8, 8 and 4.  Past it, a larger cluster costs more
+//   in its merge than it gains in streaming.  Every row streams its K and V
+//   faster than torch.sum reads the same positions; what is left at the
+//   dense row is fixed cost: the launch (the sweep's `empty` row times an
+//   empty kernel under the same timer), the first DRAM round trip, and the
+//   cluster's merge.
+// - K and V loads are 16-byte vectors when both caches are 16-byte aligned
+//   (a row is a multiple of 16 bytes at every head width); otherwise element
+//   loads (the WIDE flag).  q and o go through element loads and stores.
+#include <cooperative_groups.h>
+
+#include <algorithm>
+#include <cstdint>
+#include <cstring>
+#include <type_traits>
+
 #include "common.cuh"
 
 namespace {
 
+namespace cg = cooperative_groups;
+
 using repro::from_f32;
 using repro::NEG_INF;
 using repro::to_f32;
+using repro::unpack;
 
-constexpr int NW = 8;               // warps per block
+constexpr int NW = 4;               // warps per block
 constexpr int THREADS = NW * 32;
-constexpr int U = 4;                // positions per warp step
+constexpr int MINB = 8;             // blocks an SM the registers are held to (64 a thread)
+constexpr int SPLIT_MAX = 16;       // largest cluster on Hopper (non-portable above 8)
+constexpr int MIN_POS = 32;         // fewest positions a rank is split down to
+constexpr unsigned FULL = 0xffffffffu;
 
+// Per type and head width: VEC elements per 16-byte load, LPR lanes per
+// row, RPI rows (groups) per warp load, U rows a group loads per step (2 in
+// f32, 1 in bf16: 1 KB of K and V a warp load either way), STEP positions
+// per warp step.
 template <typename T, int HD>
-__global__ void __launch_bounds__(THREADS)
+struct Shape {
+  static constexpr int VEC = 16 / sizeof(T);
+  static constexpr int LPR = HD / VEC;
+  static constexpr int RPI = 32 / LPR;
+  static constexpr int U = VEC == 4 ? 2 : 1;
+  static constexpr int STEP = RPI * U;
+  static_assert(LPR >= 1 && LPR <= 32 && 32 % LPR == 0, "lane layout");
+};
+
+// VEC elements from ``p`` as raw bits, zero when ``ok`` is false.  WIDE: one
+// 16-byte load (p 16-byte aligned); otherwise element loads.
+template <typename T, bool WIDE>
+__device__ __forceinline__ uint4 load16(const T* p, bool ok) {
+  if constexpr (WIDE) {
+    return ok ? __ldg(reinterpret_cast<const uint4*>(p)) : make_uint4(0, 0, 0, 0);
+  } else {
+    constexpr int VEC = 16 / sizeof(T);
+    using Bits = std::conditional_t<sizeof(T) == 4, unsigned, unsigned short>;
+    Bits e[VEC];
+#pragma unroll
+    for (int v = 0; v < VEC; ++v) e[v] = ok ? reinterpret_cast<const Bits*>(p)[v] : Bits(0);
+    uint4 r;
+    memcpy(&r, e, 16);
+    return r;
+  }
+}
+
+// Segments a sparse call can have: one per kv block (dense mode keeps none).
+__host__ __device__ __forceinline__ int max_segments(int Sc, int block) {
+  return block > 0 ? (Sc + block - 1) / block : 0;
+}
+
+// The grid is (B·H)·split blocks, one cluster of ``split`` per (b, h).
+// Dynamic shared memory: the segment table, max_segments ints of position
+// bases (position = base + active index) and as many ends (exclusive, in
+// active-index space).
+template <typename T, int HD, bool WIDE>
+__global__ void __launch_bounds__(THREADS, MINB)
 decode_fwd(const T* __restrict__ q, const T* __restrict__ kc,
            const T* __restrict__ vc, T* __restrict__ o, int Sc, int H, int KH,
            int cache_len, int window, int block, int sink, int local,
            int stride, float scale) {
-  constexpr int DPL = HD / 32;      // dims per lane: lane, lane + 32, ...
+  using S = Shape<T, HD>;
+  constexpr int VEC = S::VEC, LPR = S::LPR, RPI = S::RPI, U = S::U, STEP = S::STEP;
+  extern __shared__ int seg[];
   __shared__ float wm[NW], wl[NW];
   __shared__ float wacc[NW][HD];
+  __shared__ float rm, rl;          // the rank's state, read by rank 0
+  __shared__ float racc[HD];
+  __shared__ int n_active;
+  int* seg_base = seg;
+  int* seg_end = seg + max_segments(Sc, block);
 
-  const int bh = blockIdx.x, b = bh / H, h = bh % H, kvh = h / (H / KH);
+  cg::cluster_group cluster = cg::this_cluster();
+  const int split = cluster.num_blocks(), rank = cluster.block_rank();
+  const int bh = blockIdx.x / split, b = bh / H, h = bh % H, kvh = h / (H / KH);
   const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const int grp = lane / LPR, col = (lane % LPR) * VEC;
   const int hi = min(cache_len, Sc);
   const int lo = window > 0 ? max(0, cache_len - window) : 0;
-  const int qblk = block > 0 ? (cache_len - 1) / block : 0;
-  auto allowed = [&](int j) {
-    if (j >= hi) return false;
-    if (block <= 0) return true;
-    const int blk = j / block;
-    return blk < sink || blk > qblk - local || blk % stride == 0;
+
+  // Under the sparse mask, the segment table, by warp 0: kv blocks in
+  // chunks of 32, one a lane; the active ones are compacted by a ballot,
+  // their lengths summed by a scan.  (Dense mode has one segment, [lo, hi),
+  // which every thread knows.)
+  if (block > 0 && warp == 0) {
+    const int qblk = (cache_len - 1) / block;
+    const int nblk = (hi + block - 1) / block;
+    int n = 0, k = 0;  // active positions and segments so far
+    for (int c = lo / block; c < nblk; c += 32) {  // the same trips for the whole warp
+      const int blk = c + lane;
+      const int a = max(blk * block, lo), e = min(blk * block + block, hi);
+      const bool on = blk < nblk && e > a &&
+                      (blk < sink || blk > qblk - local || blk % stride == 0);
+      const int len = on ? e - a : 0;
+      int incl = len;
+#pragma unroll
+      for (int d = 1; d < 32; d <<= 1) {
+        const int v = __shfl_up_sync(FULL, incl, d);
+        if (lane >= d) incl += v;
+      }
+      const unsigned ball = __ballot_sync(FULL, on);
+      if (on) {
+        const int i = k + __popc(ball & ((1u << lane) - 1));
+        seg_end[i] = n + incl;
+        seg_base[i] = a - (n + incl - len);
+      }
+      n += __shfl_sync(FULL, incl, 31);
+      k += __popc(ball);
+    }
+    if (lane == 0) n_active = n;
+  }
+
+  // q stays raw (its loads need not land before the first K and V loads
+  // go out); d^-1/2 scales each dot.
+  T qv[VEC];
+#pragma unroll
+  for (int v = 0; v < VEC; ++v) qv[v] = q[(size_t)bh * HD + col + v];
+  if (block > 0) __syncthreads();
+
+  // The rank's share of the active indices, and the warp's part of it.
+  const int n = block > 0 ? n_active : max(hi - lo, 0);
+  const int t0 = (int)((long long)n * rank / split);
+  const int ns = (int)((long long)n * (rank + 1) / split) - t0;
+  const int w0 = t0 + ns * warp / NW, w1 = t0 + ns * (warp + 1) / NW;
+
+  const size_t pos_stride = (size_t)KH * HD;
+  const size_t row0 = ((size_t)b * Sc * KH + kvh) * HD + col;  // (b, kvh) at position 0
+  const T* kp = kc + row0;
+  const T* vp = vc + row0;
+  int s = 0;  // the lane's segment: its active indices only grow
+  uint4 kr[U], vr[U], kn[U], vn[U];
+  // step ``i0``: the group's rows i0 + grp + RPI·u, zero past w1
+  auto load = [&](int i0, uint4 (&kb)[U], uint4 (&vb)[U]) {
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int t = i0 + grp + RPI * u;
+      const bool ok = t < w1;
+      size_t off = 0;
+      if (ok) {
+        if (block > 0) {
+          while (t >= seg_end[s]) ++s;
+          off = (size_t)(seg_base[s] + t) * pos_stride;
+        } else {
+          off = (size_t)(lo + t) * pos_stride;
+        }
+      }
+      kb[u] = load16<T, WIDE>(kp + off, ok);
+      vb[u] = load16<T, WIDE>(vp + off, ok);
+    }
   };
 
-  float qr[DPL], acc[DPL];
+  float acc[VEC];
 #pragma unroll
-  for (int t = 0; t < DPL; ++t) {
-    qr[t] = to_f32(q[(size_t)bh * HD + lane + 32 * t]) * scale;
-    acc[t] = 0.f;
-  }
+  for (int v = 0; v < VEC; ++v) acc[v] = 0.f;
   float m = NEG_INF, l = 0.f;
-  const size_t pos_stride = (size_t)KH * HD;
-  const size_t base = ((size_t)b * Sc * KH + kvh) * HD;
-
-  for (int j0 = lo + warp * U; j0 < hi; j0 += NW * U) {
-    bool ok[U];
-    bool any = false;
-#pragma unroll
-    for (int u = 0; u < U; ++u) {
-      ok[u] = allowed(j0 + u);
-      any |= ok[u];
-    }
-    if (!any) continue;  // the same for the whole warp
-    float kr[U][DPL], vr[U][DPL];
-#pragma unroll
-    for (int u = 0; u < U; ++u) {
-      const size_t g = base + (size_t)(j0 + u) * pos_stride + lane;
-#pragma unroll
-      for (int t = 0; t < DPL; ++t) {
-        kr[u][t] = ok[u] ? to_f32(kc[g + 32 * t]) : 0.f;
-        vr[u][t] = ok[u] ? to_f32(vc[g + 32 * t]) : 0.f;
-      }
-    }
-    float s[U];
+  if (w0 < w1) load(w0, kr, vr);
+  for (int i0 = w0; i0 < w1; i0 += STEP) {  // warp-uniform trips
+    if (i0 + STEP < w1) load(i0 + STEP, kn, vn);  // in flight while this step computes
+    float sc[U];
     float cmax = NEG_INF;
 #pragma unroll
     for (int u = 0; u < U; ++u) {
+      float kf[VEC];
+      unpack(kr[u], kf);
       float dot = 0.f;
 #pragma unroll
-      for (int t = 0; t < DPL; ++t) dot = fmaf(qr[t], kr[u][t], dot);
+      for (int v = 0; v < VEC; ++v) dot = fmaf(to_f32(qv[v]), kf[v], dot);
 #pragma unroll
-      for (int off = 16; off > 0; off >>= 1) dot += __shfl_xor_sync(0xffffffffu, dot, off);
-      s[u] = dot;
-      if (ok[u]) cmax = fmaxf(cmax, dot);
+      for (int off = LPR / 2; off > 0; off >>= 1) dot += __shfl_xor_sync(FULL, dot, off);
+      sc[u] = dot * scale;
+      if (i0 + grp + RPI * u < w1) cmax = fmaxf(cmax, sc[u]);
     }
     const float m_new = fmaxf(m, cmax);
     const float corr = expf(m - m_new);
     float psum = 0.f;
 #pragma unroll
     for (int u = 0; u < U; ++u) {
-      s[u] = ok[u] ? expf(s[u] - m_new) : 0.f;
-      psum += s[u];
+      sc[u] = i0 + grp + RPI * u < w1 ? expf(sc[u] - m_new) : 0.f;
+      psum += sc[u];
     }
-    l = l * corr + psum;
+    l = fmaf(l, corr, psum);
 #pragma unroll
-    for (int t = 0; t < DPL; ++t) {
-      float a = acc[t] * corr;
+    for (int v = 0; v < VEC; ++v) acc[v] *= corr;
 #pragma unroll
-      for (int u = 0; u < U; ++u) a = fmaf(s[u], vr[u][t], a);
-      acc[t] = a;
+    for (int u = 0; u < U; ++u) {
+      float vf[VEC];
+      unpack(vr[u], vf);
+#pragma unroll
+      for (int v = 0; v < VEC; ++v) acc[v] = fmaf(sc[u], vf[v], acc[v]);
     }
     m = m_new;
+#pragma unroll
+    for (int u = 0; u < U; ++u) kr[u] = kn[u], vr[u] = vn[u];
   }
 
-  if (lane == 0) {
-    wm[warp] = m;
-    wl[warp] = l;
-  }
+  // Groups of the warp meet in lanes 0 .. LPR-1, by shuffles down.
 #pragma unroll
-  for (int t = 0; t < DPL; ++t) wacc[warp][lane + 32 * t] = acc[t];
+  for (int off = 16; off >= LPR; off >>= 1) {
+    const float mo = __shfl_down_sync(FULL, m, off), lo_ = __shfl_down_sync(FULL, l, off);
+    const float mn = fmaxf(m, mo), c = expf(m - mn), co = expf(mo - mn);
+    l = fmaf(l, c, lo_ * co);
+#pragma unroll
+    for (int v = 0; v < VEC; ++v) {
+      const float ao = __shfl_down_sync(FULL, acc[v], off);
+      acc[v] = fmaf(acc[v], c, ao * co);
+    }
+    m = mn;
+  }
+  if (lane < LPR) {
+#pragma unroll
+    for (int v = 0; v < VEC; ++v) wacc[warp][col + v] = acc[v];
+    if (lane == 0) wm[warp] = m, wl[warp] = l;
+  }
   __syncthreads();
+  // The block's warps, in warp order: the rank's (m, l, acc).
   if (tid < HD) {
     float mt = NEG_INF;
+#pragma unroll
     for (int w = 0; w < NW; ++w) mt = fmaxf(mt, wm[w]);
     float lt = 0.f, at = 0.f;
+#pragma unroll
     for (int w = 0; w < NW; ++w) {
       const float c = expf(wm[w] - mt);
       lt = fmaf(wl[w], c, lt);
       at = fmaf(wacc[w][tid], c, at);
     }
+    racc[tid] = at;
+    if (tid == 0) rm = mt, rl = lt;
+  }
+  cluster.sync();
+  // The ranks, in rank order, through distributed shared memory: their
+  // maxima first, then the weighted sums.
+  if (rank == 0 && tid < HD) {
+    float c[SPLIT_MAX];
+#pragma unroll
+    for (int r = 0; r < SPLIT_MAX; ++r) c[r] = r < split ? *cluster.map_shared_rank(&rm, r) : NEG_INF;
+    float mt = NEG_INF;
+#pragma unroll
+    for (int r = 0; r < SPLIT_MAX; ++r) mt = fmaxf(mt, c[r]);
+    float lt = 0.f, at = 0.f;
+#pragma unroll
+    for (int r = 0; r < SPLIT_MAX; ++r) {
+      if (r < split) {
+        c[r] = expf(c[r] - mt);
+        lt = fmaf(*cluster.map_shared_rank(&rl, r), c[r], lt);
+        at = fmaf(cluster.map_shared_rank(racc, r)[tid], c[r], at);
+      }
+    }
     o[(size_t)bh * HD + tid] = from_f32<T>(at / fmaxf(lt, 1e-30f));
   }
+  // No block leaves while rank 0 reads its shared memory.  Rank 0 arrives
+  // after it has used what it read, so the arrival orders nothing (relaxed).
+  asm volatile("barrier.cluster.arrive.relaxed;\n" ::: "memory");
+  asm volatile("barrier.cluster.wait;\n" ::: "memory");
+}
+
+int sm_count() {
+  int dev = 0, n = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
+  return n;
+}
+
+bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
+
+// The most positions a call over this cache can read, whatever its
+// cache_len: Sc, at most sink + local + ceil(blocks / stride) kv blocks
+// under the sparse mask, at most ``window`` with a window.
+int most_positions(int Sc, int window, int block, int sink, int local, int stride) {
+  int p = Sc;
+  if (block > 0) {
+    const long long nblk = (Sc + block - 1) / block;
+    const long long blocks = (long long)sink + local + (nblk + stride - 1) / stride;
+    p = (int)std::min<long long>(p, std::min(nblk, blocks) * block);
+  }
+  if (window > 0) p = std::min(p, window);
+  return p;
+}
+
+// The split rule of the source note: the cluster doubles from 1, up to
+// SPLIT_MAX, while the grid still fits one wave at MINB blocks an SM, and
+// either each rank keeps at least MIN_POS of the most positions a call can
+// read or the grid would still fill at most half the SMs.
+int decode_split(int bh, int positions_max, int sms) {
+  int split = 1;
+  while (split < SPLIT_MAX && 2LL * bh * split <= (long long)MINB * sms &&
+         (positions_max >= 2 * split * MIN_POS || 4LL * bh * split <= sms))
+    split *= 2;
+  return split;
+}
+
+template <typename T, int HD, bool WIDE>
+cudaError_t launch(int split, const void* q, const void* k, const void* v, void* o,
+                   int B, int Sc, int H, int KH, int cache_len, int window,
+                   const int* sp, float scale, cudaStream_t s) {
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      decode_fwd<T, HD, WIDE>, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  if (attr != cudaSuccess) return attr;
+  const int smem = 2 * max_segments(Sc, sp[0]) * (int)sizeof(int);
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        decode_fwd<T, HD, WIDE>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return e;
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(B * H * split);
+  cfg.blockDim = dim3(THREADS);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = s;
+  cudaLaunchAttribute cluster[1];
+  cluster[0].id = cudaLaunchAttributeClusterDimension;
+  cluster[0].val.clusterDim.x = split;
+  cluster[0].val.clusterDim.y = 1;
+  cluster[0].val.clusterDim.z = 1;
+  cfg.attrs = cluster;
+  cfg.numAttrs = 1;
+  return cudaLaunchKernelEx(&cfg, decode_fwd<T, HD, WIDE>, static_cast<const T*>(q),
+                            static_cast<const T*>(k), static_cast<const T*>(v),
+                            static_cast<T*>(o), Sc, H, KH, cache_len, window, sp[0],
+                            sp[1], sp[2], sp[3], scale);
 }
 
 template <typename T, int HD>
-void launch(const void* q, const void* k, const void* v, void* o, int B, int Sc,
-            int H, int KH, int cache_len, int window, const int* sp, float scale,
-            cudaStream_t s) {
-  decode_fwd<T, HD><<<B * H, THREADS, 0, s>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(o), Sc, H, KH, cache_len, window, sp[0], sp[1], sp[2], sp[3],
-      scale);
+cudaError_t launch_hd(bool wide, int split, const void* q, const void* k, const void* v,
+                      void* o, int B, int Sc, int H, int KH, int cache_len, int window,
+                      const int* sp, float scale, cudaStream_t s) {
+  return wide ? launch<T, HD, true>(split, q, k, v, o, B, Sc, H, KH, cache_len, window, sp, scale, s)
+              : launch<T, HD, false>(split, q, k, v, o, B, Sc, H, KH, cache_len, window, sp, scale, s);
 }
 
 template <typename T>
-int dispatch(int HD, const void* q, const void* k, const void* v, void* o, int B,
-             int Sc, int H, int KH, int cache_len, int window, const int* sp,
-             float scale, cudaStream_t s) {
+cudaError_t dispatch(int HD, const void* q, const void* k, const void* v, void* o, int B,
+                     int Sc, int H, int KH, int cache_len, int window, const int* sp,
+                     float scale, cudaStream_t s) {
+  const bool wide = aligned16(k) && aligned16(v);
+  const int split = decode_split(B * H, most_positions(Sc, window, sp[0], sp[1], sp[2], sp[3]),
+                                 sm_count());
   switch (HD) {
-    case 32: launch<T, 32>(q, k, v, o, B, Sc, H, KH, cache_len, window, sp, scale, s); break;
-    case 64: launch<T, 64>(q, k, v, o, B, Sc, H, KH, cache_len, window, sp, scale, s); break;
-    case 128: launch<T, 128>(q, k, v, o, B, Sc, H, KH, cache_len, window, sp, scale, s); break;
-    default: return (int)cudaErrorInvalidValue;
+    case 32: return launch_hd<T, 32>(wide, split, q, k, v, o, B, Sc, H, KH, cache_len, window, sp, scale, s);
+    case 64: return launch_hd<T, 64>(wide, split, q, k, v, o, B, Sc, H, KH, cache_len, window, sp, scale, s);
+    case 128: return launch_hd<T, 128>(wide, split, q, k, v, o, B, Sc, H, KH, cache_len, window, sp, scale, s);
+    default: return cudaErrorInvalidValue;
   }
-  return 0;
 }
 
 }  // namespace
 
 // dtype: 0 = f32, 1 = bf16.  q/o (B,1,H,HD), caches (B,Sc,KH,HD), contiguous;
 // positions < cache_len are valid.  block > 0 adds the sparse mask of
-// (block, sink, local, stride); block = 0 is dense.  Returns
-// cudaGetLastError().
+// (block, sink, local, stride); block = 0 is dense.  Returns the first
+// error of the launch, else cudaGetLastError() after it.
 extern "C" int decode_attn(int dtype, const void* q, const void* k, const void* v,
                            void* o, int B, int Sc, int H, int KH, int HD,
                            int cache_len, int window, int block, int sink,
@@ -180,14 +461,22 @@ extern "C" int decode_attn(int dtype, const void* q, const void* k, const void* 
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int sp[4] = {block, sink, local, stride};
-  int rc;
+  cudaError_t e;
   if (dtype == 0) {
-    rc = dispatch<float>(HD, q, k, v, o, B, Sc, H, KH, cache_len, window, sp, scale, s);
+    e = dispatch<float>(HD, q, k, v, o, B, Sc, H, KH, cache_len, window, sp, scale, s);
   } else if (dtype == 1) {
-    rc = dispatch<__nv_bfloat16>(HD, q, k, v, o, B, Sc, H, KH, cache_len, window, sp, scale, s);
+    e = dispatch<__nv_bfloat16>(HD, q, k, v, o, B, Sc, H, KH, cache_len, window, sp, scale, s);
   } else {
-    rc = (int)cudaErrorInvalidValue;
+    return (int)cudaErrorInvalidValue;
   }
-  if (rc != 0) return rc;
-  return (int)cudaGetLastError();
+  return e != cudaSuccess ? (int)e : (int)cudaGetLastError();
+}
+
+// The cluster size (split) the rule takes on the current device for a call
+// over this cache and pattern; it does not depend on cache_len.
+extern "C" int decode_attn_plan(int B, int Sc, int H, int window, int block, int sink,
+                                int local, int stride, int* split) {
+  if (B < 1 || Sc < 1 || H < 1 || (block > 0 && stride < 1)) return (int)cudaErrorInvalidValue;
+  *split = decode_split(B * H, most_positions(Sc, window, block, sink, local, stride), sm_count());
+  return 0;
 }

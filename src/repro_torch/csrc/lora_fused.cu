@@ -134,6 +134,7 @@ namespace cg = cooperative_groups;
 using repro::from_f32;
 using repro::round_to;
 using repro::to_f32;
+using repro::unpack;
 
 constexpr int RMAX = 32;  // largest rank; the wrapper checks it
 
@@ -179,20 +180,6 @@ __device__ __forceinline__ uint4 load_w(const T* row, int col, int N, bool ok) {
     uint4 r;
     memcpy(&r, e, 16);
     return r;
-  }
-}
-
-// Raw bits → VEC f32 values (bf16 is the high half of an f32).
-__device__ __forceinline__ void unpack(uint4 r, float (&f)[4]) {
-  f[0] = __uint_as_float(r.x), f[1] = __uint_as_float(r.y);
-  f[2] = __uint_as_float(r.z), f[3] = __uint_as_float(r.w);
-}
-__device__ __forceinline__ void unpack(uint4 r, float (&f)[8]) {
-  const unsigned u[4] = {r.x, r.y, r.z, r.w};
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    f[2 * i] = __uint_as_float(u[i] << 16);
-    f[2 * i + 1] = __uint_as_float(u[i] & 0xffff0000u);
   }
 }
 

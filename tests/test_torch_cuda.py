@@ -12,7 +12,7 @@ from repro_torch.configs import SparseAttnConfig
 from repro_torch.kernels.block_sparse_attn import ops as bsa_ops
 from repro_torch.kernels.block_sparse_attn.ops import block_sparse_attention
 from repro_torch.kernels.block_sparse_attn.ref import block_sparse_ref
-from repro_torch.kernels.decode_attn.ops import decode_attention
+from repro_torch.kernels.decode_attn.ops import decode_attention, split_plan
 from repro_torch.kernels.decode_attn.ref import decode_ref
 from repro_torch.kernels.flash_attn.ops import flash_attention
 from repro_torch.kernels.flash_attn.ref import attention_ref
@@ -263,6 +263,60 @@ def test_decode_attn_kernel_gqa(gen):
     q = _rn(gen, 2, 1, 8, 32)
     kc, vc = _rn(gen, 2, 256, 2, 32), _rn(gen, 2, 256, 2, 32)
     _close(decode_attention(q, kc, vc, 201), decode_ref(q, kc, vc, 201), 2e-5)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,sc,h,kh,d,cache_len,window,split", [
+    # B·H 1: the rule's largest cluster, 16, on any card of ≥ 4 SMs; cache_len
+    # 1 leaves 15 ranks empty, 1000 and 37 do not divide among 16
+    (1, 1024, 1, 1, 64, 1, 0, 16), (1, 1024, 1, 1, 64, 1000, 0, 16),
+    (1, 1024, 1, 1, 64, 37, 0, 16), (1, 1024, 1, 1, 128, 1024, 0, 16),
+    # the serving B·H 96 (split by the SM count)
+    (8, 1024, 12, 12, 64, 1, 0, None), (8, 1024, 12, 12, 64, 777, 0, None),
+    (8, 192, 12, 12, 64, 191, 0, None),
+    # fewer than 2·32 positions at most and B·H 96 (a block for every SM of
+    # fewer than 192 without a split): split 1
+    (8, 48, 12, 12, 64, 48, 0, 1), (8, 2048, 12, 12, 64, 2000, 40, 1),
+    # window with GQA, and each head width
+    (2, 1024, 8, 2, 128, 1000, 100, None), (2, 512, 8, 4, 64, 400, 300, None),
+    (4, 512, 8, 8, 32, 333, 0, None), (2, 512, 16, 16, 128, 512, 0, None),
+])
+def test_decode_attn_kernel_splits(gen, dtype, b, sc, h, kh, d, cache_len, window, split):
+    """The split-KV kernel at the rule's smallest and largest clusters, with
+    empty ranks and shares that do not divide evenly: held against the plain
+    version; ``split`` (where not None) is the cluster the rule must take."""
+    if split is not None:
+        assert split_plan(b, sc, h, window=window) == split
+    q = _rn(gen, b, 1, h, d, dtype=dtype)
+    kc, vc = _rn(gen, b, sc, kh, d, dtype=dtype), _rn(gen, b, sc, kh, d, dtype=dtype)
+    _close(decode_attention(q, kc, vc, cache_len, window=window),
+           decode_ref(q, kc, vc, cache_len, window=window), TOL["decode"][dtype])
+
+
+@pytest.mark.parametrize("sparse", [None, SERVE_SPARSE])
+def test_decode_attn_kernel_repeatable_one_launch(gen, sparse):
+    """Two calls on the same inputs give the same bits (the ranks merge in
+    a fixed order), each call is one launch, and the split does not move
+    with cache_len."""
+    q = _rn(gen, 8, 1, 12, 64)
+    kc, vc = _rn(gen, 8, 1024, 12, 64), _rn(gen, 8, 1024, 12, 64)
+    before = decode_attention.launches
+    first = decode_attention(q, kc, vc, 960, sparse=sparse)
+    assert decode_attention.launches == before + 1
+    second = decode_attention(q, kc, vc, 960, sparse=sparse)
+    assert decode_attention.launches == before + 2
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+    assert split_plan(8, 1024, 12, sparse=sparse) > 1
+
+
+def test_decode_attn_kernel_unaligned(gen):
+    """Caches 4 bytes past a 16-byte boundary: the element-load path."""
+    q, kc, vc = _unaligned(gen, 2, 1, 8, 64), _unaligned(gen, 2, 300, 4, 64), _unaligned(gen, 2, 300, 4, 64)
+    for cache_len, sparse in ((1, None), (257, None), (300, SparseAttnConfig(
+            block_size=32, local_blocks=2, sink_blocks=1, stride=4))):
+        _close(decode_attention(q, kc, vc, cache_len, sparse=sparse),
+               decode_ref(q, kc, vc, cache_len, sparse=sparse), TOL["decode"][torch.float32])
 
 
 @pytest.mark.parametrize("arch,prompt_len,impl", [("gpt2-small", 9, "auto"),

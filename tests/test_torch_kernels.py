@@ -11,10 +11,13 @@ import torch
 
 from repro.kernels.decode_attn.ops import decode_attention as j_decode
 from repro.kernels.flash_attn.ops import flash_attention as j_flash
+from repro.configs.base import SparseAttnConfig as JSparse
 from repro.kernels.lora_fused.ops import lora_matmul as j_lora
+from repro.models import attention as j_attn
 from repro.models.attention import dense_attention as j_dense
+from repro_torch.configs import SparseAttnConfig
 from repro_torch.kernels.decode_attn.ops import decode_attention
-from repro_torch.kernels.decode_attn.ref import decode_ref
+from repro_torch.kernels.decode_attn.ref import decode_ref, decode_split_ref
 from repro_torch.kernels.flash_attn.ops import flash_attention
 from repro_torch.kernels.flash_attn.ref import attention_ref
 from repro_torch.kernels.lora_fused.ops import lora_matmul
@@ -105,8 +108,53 @@ def test_decode_ref_matches_pallas_decode(pos, window):
     np.testing.assert_array_equal(wrapped.numpy(), out.numpy())
 
 
+SPLITS = (1, 2, 3, 4, 8, 16)
+_PALLAS_DECODE = {}   # (pos, window) -> the JAX kernel's output, computed once
+
+
+def _decode_inputs():
+    rng = np.random.RandomState(6)
+    return (_randn(rng, 2, 1, 8, 64), _randn(rng, 2, 256, 4, 64),
+            _randn(rng, 2, 256, 4, 64))
+
+
+@pytest.mark.parametrize("split", SPLITS)
+@pytest.mark.parametrize("pos,window", [(0, 0), (100, 0), (255, 0), (200, 64), (7, 3)])
+def test_decode_split_ref_matches_pallas_decode(split, pos, window):
+    """The kernel's split-KV arithmetic (even contiguous shares of the
+    positions read, each share's (m, l, acc), merged in rank order) against
+    the JAX package's Pallas decode kernel in interpret mode.  pos 0 leaves
+    every share but the last empty; window 3 reads fewer positions than
+    most splits have shares."""
+    q, kc, vc = _decode_inputs()
+    if (pos, window) not in _PALLAS_DECODE:
+        _PALLAS_DECODE[pos, window] = np.asarray(j_decode(
+            jnp.asarray(q), jnp.asarray(kc), jnp.asarray(vc), pos, window=window,
+            bk=64, interpret=True))
+    out = decode_split_ref(*_t(q, kc, vc), pos + 1, split, window=window)
+    assert torch.isfinite(out).all()
+    np.testing.assert_allclose(out.numpy(), _PALLAS_DECODE[pos, window], atol=2e-5, rtol=2e-5)
+
+
+@pytest.mark.parametrize("split", SPLITS)
+@pytest.mark.parametrize("pattern", [dict(block_size=32, local_blocks=2, sink_blocks=1, stride=4),
+                                     dict(block_size=64, local_blocks=1, sink_blocks=2, stride=2)])
+@pytest.mark.parametrize("cache_len", [1, 33, 97, 130, 256])
+def test_decode_split_ref_matches_jax_sparse_decode(split, pattern, cache_len):
+    """The same arithmetic under the block-sparse position mask against the
+    JAX package's model-level sparse decode (the patterns of
+    test_torch_sparse.py)."""
+    rng = np.random.RandomState(3)
+    q, kc, vc = _randn(rng, 2, 1, 8, 32), _randn(rng, 2, 256, 2, 32), _randn(rng, 2, 256, 2, 32)
+    want = j_attn.decode_attention(*map(jnp.asarray, (q, kc, vc)), cache_len,
+                                   sparse=JSparse(**pattern))
+    out = decode_split_ref(*_t(q, kc, vc), cache_len, split,
+                           sparse=SparseAttnConfig(**pattern))
+    assert torch.isfinite(out).all()
+    np.testing.assert_allclose(out.numpy(), np.asarray(want), atol=2e-5, rtol=2e-5)
+
+
 def test_cpu_wrappers_count_no_launch():
-    from repro_torch.configs import SparseAttnConfig
     from repro_torch.kernels.block_sparse_attn.ops import block_sparse_attention
     from repro_torch.kernels.ssd_chunk.ops import ssd_scan
     wrappers = (lora_matmul, flash_attention, decode_attention, block_sparse_attention,
