@@ -22,6 +22,9 @@ Phases, each reported on its own lines:
    decode_attn row the cluster size (split) its rule took, and each f32
    decode_attn row also ``read_ms``: a ``torch.sum`` over the K and V
    positions the call reads (one per contiguous range), under the same timer.
+   Each ssd_chunk row prints its plan (``fused``: C·Bᵀ's tiles in the chunk
+   states' launch) and the groups C·Bᵀ is formed for, and its serving-shape
+   row is profiled once, so its PROFILE lines name the scan's kernels.
 4. serve   — three serving paths through the port's entry points
    (``launch/serve.py`` build/generate), each with random weights from seed
    0 and nonzero rank-8 LoRA factors from a numpy seed, f32:
@@ -349,15 +352,20 @@ def sparse_cases(torch, dt, dname, es, rn):
 def ssd_cases(torch, dt, dname, es, rn):
     """ssd_chunk at SERVE-MAMBA's prefill, with x, B and C strided views of
     one conv-output row as the mixer passes them (B/C a stride-0 broadcast
-    of one group over the heads), plus a tail (S 300) and an initial-state
-    case.  No single PyTorch call computes the scan."""
-    from repro_torch.kernels.ssd_chunk.ops import ssd_scan
+    of one group over the heads), plus a tail (S 300), an initial-state case
+    and (f32) a prompt of 8 chunks.  The operations count the causal half of
+    C·Bᵀ once per (batch, chunk) when B and C are shared over the heads, as
+    the kernel forms it, else once per head, and the inter-chunk term only
+    for chunks with a starting state (not chunk 0 without h0).  No single PyTorch call
+    computes the scan."""
+    from repro_torch.kernels.ssd_chunk.ops import shared_cb, ssd_plan, ssd_scan
     from repro_torch.kernels.ssd_chunk.ref import ssd_ref
 
     cases = []
     for bsz, s, h, p, n, chunk, with_h0 in ((4, 512, 64, 64, 128, 256, False),
                                             (4, 300, 64, 64, 128, 256, False),
-                                            (4, 512, 64, 64, 128, 256, True)):
+                                            (4, 512, 64, 64, 128, 256, True),
+                                            (1, 2048, 64, 64, 128, 256, False)):
         if dt == torch.bfloat16 and (s != 512 or with_h0):
             continue
         row = rn(bsz, s, h * p + 2 * n, dtype=dt)
@@ -368,10 +376,14 @@ def ssd_cases(torch, dt, dname, es, rn):
         dts = torch.nn.functional.softplus(rn(bsz, s, h))
         a = -torch.exp(rn(h, std=0.3))
         h0 = rn(bsz, h, p, n, std=0.5) if with_h0 else None
-        flops = 0
-        for c0 in range(0, s, chunk):
+        per_head = scores = 0
+        for c0 in range(0, s, chunk):   # causal S·x, the chunk state, C·h_startᵀ
             lc = min(chunk, s - c0)
-            flops += lc * (lc + 1) // 2 * (2 * n + 2 * p) + 4 * lc * n * p
+            per_head += lc * (lc + 1) // 2 * 2 * p + 2 * lc * n * p
+            if c0 > 0 or with_h0:   # chunk 0 without h0 starts from zero
+                per_head += 2 * lc * n * p
+            scores += lc * (lc + 1) // 2 * 2 * n
+        groups = 1 if shared_cb(bm, cm) else h
         state = bsz * h * p * n * 4
         cases.append(dict(
             name="ssd_chunk", dtype=dname,
@@ -383,7 +395,8 @@ def ssd_cases(torch, dt, dname, es, rn):
             library=None,
             nbytes=(2 * bsz * s * h * p + 2 * bsz * s * n) * es + bsz * s * h * 4 + h * 4
             + state * (2 if with_h0 else 1),
-            flops=flops * bsz * h,
+            flops=per_head * bsz * h + scores * bsz * groups,
+            ssd=f"fused={int(ssd_plan(bsz, s, h, p, n, chunk=chunk))} cb_groups={groups} ",
             main=(s == 512 and not with_h0 and dt == torch.float32)))
     return cases
 
@@ -409,6 +422,8 @@ def check_kernels(torch):
             plan = "strip={} split={} ".format(*skinny_plan(*c["plan"]))
         elif c.get("split"):
             plan = f"split={c['split']} "
+        elif c.get("ssd"):
+            plan = c["ssd"]
         else:
             plan = ""
         read_ms = device_ms(c["read"], flush) if c.get("read") else None
@@ -424,6 +439,9 @@ def check_kernels(torch):
         if (c["main"] or c.get("profile")) and c["library"]:
             # the library call's own kernels, by name (what the yardstick runs)
             profile(torch, f"{c['name']} library ({c['label']})", c["library"], 3)
+        if c["main"] and c.get("ssd"):
+            # the scan's four launches, by name
+            profile(torch, f"{c['name']} kernel ({c['label']})", c["kernel"], 3)
         if c["main"]:
             rows[c["name"]] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
                                    bound_ms=b_ms, bound_by=b_by, max_abs_err=err,

@@ -5,7 +5,13 @@ takes the plain version (``ref.ssd_ref``); a CUDA tensor launches
 x (B,S,H,P) and B/C (B,S,H,N) may be strided views — the mixer passes the
 head slice of its conv output and a stride-0 broadcast of one group over
 the heads — as long as their last axis is contiguous; the kernel reads them
-through their strides.
+through their strides.  With that broadcast (B and C of stride 0 over the
+heads) C·Bᵀ is formed once per (batch, chunk), else once per head.
+
+The CUDA path is four launches on the current stream (C·Bᵀ, the chunk
+states, the state passing, the outputs; three when C·Bᵀ's tiles run in the
+chunk states' launch) over a workspace this wrapper allocates;
+``ssd_plan`` reports which, as the C code's rule chooses it.
 """
 from __future__ import annotations
 
@@ -19,8 +25,8 @@ from repro_torch.kernels.ssd_chunk.ref import ssd_ref
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 SHAPES = ((16, 16), (32, 32), (64, 64), (64, 128))   # (P, N) the kernel is compiled for
 CHUNK_MAX = 1024
-_ARGTYPES = ([ctypes.c_int] + [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6
-             + [ctypes.c_longlong] * 9 + [ctypes.c_void_p])
+_ARGTYPES = ([ctypes.c_int] + [ctypes.c_void_p] * 9 + [ctypes.c_longlong]
+             + [ctypes.c_int] * 7 + [ctypes.c_longlong] * 9 + [ctypes.c_void_p])
 
 
 def _check(x, dt, a_coef, bmat, cmat, h0):
@@ -63,13 +69,18 @@ def ssd_scan(x, dt, a_coef, bmat, cmat, *, chunk: int = 256, h0=None):
     chunk = min(chunk, s)
     if not 1 <= chunk <= CHUNK_MAX:
         raise ValueError(f"ssd_scan: chunk {chunk} outside 1..{CHUNK_MAX}")
+    shared = shared_cb(bmat, cmat)
+    size = workspace_floats(b, s, h, p, n, chunk, shared)
+    # freed on return while the kernels may still run: the caching allocator
+    # hands the block only to later work on this stream, which runs after them
+    ws = torch.empty(size, dtype=torch.float32, device=x.device)
     y = torch.empty((b, s, h, p), dtype=x.dtype, device=x.device)
     h_out = torch.empty((b, h, p, n), dtype=torch.float32, device=x.device)
     fn = _build.function("ssd_chunk", _ARGTYPES)
     rc = fn(DTYPES[x.dtype], x.data_ptr(), dt.data_ptr(), a_coef.data_ptr(),
             bmat.data_ptr(), cmat.data_ptr(), None if h0 is None else h0.data_ptr(),
-            y.data_ptr(), h_out.data_ptr(), b, s, h, p, n, chunk,
-            *x.stride()[:3], *bmat.stride()[:3], *cmat.stride()[:3],
+            y.data_ptr(), h_out.data_ptr(), ws.data_ptr(), size, b, s, h, p, n, chunk,
+            int(shared), *x.stride()[:3], *bmat.stride()[:3], *cmat.stride()[:3],
             torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(rc, "ssd_chunk")
     ssd_scan.launches += 1
@@ -77,3 +88,32 @@ def ssd_scan(x, dt, a_coef, bmat, cmat, *, chunk: int = 256, h0=None):
 
 
 ssd_scan.launches = 0
+
+
+def shared_cb(bmat, cmat) -> bool:
+    """Whether C·Bᵀ is formed once per (batch, chunk): one head, or B and C
+    a stride-0 broadcast over the heads (the mixer's one group)."""
+    return bmat.shape[2] == 1 or (bmat.stride(2) == 0 and cmat.stride(2) == 0)
+
+
+def workspace_floats(b, s, h, p, n, chunk, shared) -> int:
+    """f32 workspace of one call: the chunk states (B,H,nc,P,N), the prefix
+    sums and dt (B,H,nc,LP) each, and C·Bᵀ (B,G,nc,L,LP) with G 1 when
+    ``shared`` else H; LP is the chunk rounded up to 4.  Per head, C·Bᵀ is
+    about B·H·S·chunk floats: 134 MB at B 4, S 512, H 64, chunk 256 and
+    2.1 GB at S 2048, chunk 1024, against 2.1 MB and 34 MB shared.  Only
+    B and C given per head (several groups) take that size."""
+    nc, lp = -(-s // chunk), (chunk + 3) // 4 * 4
+    return b * h * nc * p * n + 2 * b * h * nc * lp + b * (1 if shared else h) * nc * chunk * lp
+
+
+def ssd_plan(batch: int, seq: int, heads: int, headdim: int, state: int, *,
+             chunk: int = 256) -> bool:
+    """Whether the C rule runs C·Bᵀ's tiles in the chunk states' launch
+    (True) or in a launch of its own for a call of this shape."""
+    fn = _build.function("ssd_chunk", [ctypes.c_int] * 6 + [ctypes.c_void_p],
+                         symbol="ssd_chunk_plan")
+    fused = ctypes.c_int(0)
+    _build.check(fn(batch, seq, heads, headdim, state, min(chunk, seq), ctypes.byref(fused)),
+                 "ssd_chunk_plan")
+    return bool(fused.value)

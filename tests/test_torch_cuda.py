@@ -18,7 +18,8 @@ from repro_torch.kernels.flash_attn.ops import flash_attention
 from repro_torch.kernels.flash_attn.ref import attention_ref
 from repro_torch.kernels.lora_fused.ops import lora_matmul
 from repro_torch.kernels.lora_fused.ref import lora_ref
-from repro_torch.kernels.ssd_chunk.ops import ssd_scan
+from repro_torch.kernels.ssd_chunk import ops as ssd_ops
+from repro_torch.kernels.ssd_chunk.ops import ssd_plan, ssd_scan
 from repro_torch.kernels.ssd_chunk.ref import ssd_ref
 
 pytestmark = pytest.mark.cuda
@@ -237,6 +238,14 @@ def _ssd_inputs(gen, b, s, h, p, n, dtype, h0=False, shared_bc=False):
     (2, 128, 4, 16, 16, 32, False, False),
     (2, 100, 4, 32, 32, 64, True, False),
     (1, 80, 2, 64, 64, 16, False, False),
+    (1, 2048, 8, 64, 128, 256, False, True),     # 8 chunks
+    (1, 1000, 4, 64, 128, 64, True, False),      # 16 chunks, the last of 40
+    (2, 300, 4, 64, 128, 100, True, True),       # a chunk not a multiple of 64
+    (2, 50, 4, 32, 32, 256, True, True),         # S < chunk
+    (2, 200, 3, 16, 16, 64, False, True),        # each (P, N) with B/C shared
+    (2, 200, 3, 32, 32, 64, True, True),
+    (2, 200, 3, 64, 64, 64, False, True),
+    (2, 200, 3, 64, 128, 64, True, False),
 ])
 def test_ssd_chunk_kernel(gen, dtype, b, s, h, p, n, chunk, h0, shared):
     args = _ssd_inputs(gen, b, s, h, p, n, dtype, h0=h0, shared_bc=shared)
@@ -247,6 +256,72 @@ def test_ssd_chunk_kernel(gen, dtype, b, s, h, p, n, chunk, h0, shared):
     y_r, h_r = ssd_ref(*args[:5], chunk=chunk, h0=args[5])
     atol, rtol = TOL["ssd"][dtype]
     torch.testing.assert_close(y.float(), y_r.float(), atol=atol, rtol=rtol)
+    torch.testing.assert_close(hf, h_r, atol=atol, rtol=rtol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("s,chunk,h0", [(512, 256, False), (300, 100, True)])
+def test_ssd_chunk_shared_and_per_head_agree(gen, dtype, s, chunk, h0):
+    """B and C as the mixer's stride-0 broadcast (C·Bᵀ once per (batch,
+    chunk)) and as per-head copies of the same values (C·Bᵀ per head) give
+    the same result, and both match the plain version."""
+    x, dt, a, bm, cm, state = _ssd_inputs(gen, 2, s, 8, 64, 128, dtype, h0=h0, shared_bc=True)
+    assert ssd_ops.shared_cb(bm, cm) and not ssd_ops.shared_cb(bm.contiguous(), cm.contiguous())
+    y1, h1 = ssd_scan(x, dt, a, bm, cm, chunk=chunk, h0=state)
+    y2, h2 = ssd_scan(x, dt, a, bm.contiguous(), cm.contiguous(), chunk=chunk, h0=state)
+    torch.testing.assert_close(y1.float(), y2.float(), atol=1e-6, rtol=1e-6)
+    torch.testing.assert_close(h1, h2, atol=1e-6, rtol=1e-6)
+    y_r, h_r = ssd_ref(x, dt, a, bm, cm, chunk=chunk, h0=state)
+    atol, rtol = TOL["ssd"][dtype]
+    torch.testing.assert_close(y1.float(), y_r.float(), atol=atol, rtol=rtol)
+    torch.testing.assert_close(h1, h_r, atol=atol, rtol=rtol)
+
+
+def test_ssd_chunk_repeatable_one_launch(gen):
+    """Two calls on the same inputs give the same bits (no atomics; every
+    sum in a fixed order), and each call counts one launch."""
+    args = _ssd_inputs(gen, 4, 512, 64, 64, 128, torch.float32, h0=True, shared_bc=True)
+    before = ssd_scan.launches
+    y1, h1 = ssd_scan(*args[:5], chunk=256, h0=args[5])
+    assert ssd_scan.launches == before + 1
+    y2, h2 = ssd_scan(*args[:5], chunk=256, h0=args[5])
+    assert ssd_scan.launches == before + 2
+    assert torch.equal(y1, y2) and torch.equal(h1, h2)
+
+
+def test_ssd_chunk_unaligned_operands(gen):
+    """f32 x, B, C and h0 that are not 16-byte aligned (views one element
+    into a buffer) are staged through registers, not cp.async."""
+    b, s, h, p, n = 2, 200, 4, 64, 128
+    args = list(_ssd_inputs(gen, b, s, h, p, n, torch.float32, h0=True))
+    for i in (0, 3, 4, 5):
+        buf = torch.empty(args[i].numel() + 1, device="cuda")
+        buf[1:] = args[i].reshape(-1)
+        args[i] = buf[1:].view(args[i].shape)
+        assert args[i].data_ptr() % 16 != 0
+    y, hf = ssd_scan(*args[:5], chunk=64, h0=args[5])
+    y_r, h_r = ssd_ref(*args[:5], chunk=64, h0=args[5])
+    atol, rtol = TOL["ssd"][torch.float32]
+    torch.testing.assert_close(y, y_r, atol=atol, rtol=rtol)
+    torch.testing.assert_close(hf, h_r, atol=atol, rtol=rtol)
+
+
+_PLAN_SHAPES = [(4, 512, 64, 64, 128, 256, False, True), (1, 300, 2, 64, 128, 100, True, True),
+                (2, 200, 3, 64, 128, 64, True, False), (2, 200, 3, 32, 32, 64, True, False),
+                (2, 96, 2, 16, 16, 32, False, True)]
+
+
+@pytest.mark.parametrize("b,s,h,p,n,chunk,h0,shared", _PLAN_SHAPES)
+def test_ssd_chunk_every_plan(gen, b, s, h, p, n, chunk, h0, shared):
+    """Each plan the rule takes matches the plain version: C·Bᵀ's tiles in
+    the chunk states' launch at P 64, in a launch of their own below."""
+    assert ssd_plan(b, s, h, p, n, chunk=chunk) == (p == 64)
+    x, dt, a, bm, cm, state = _ssd_inputs(gen, b, s, h, p, n, torch.float32, h0=h0,
+                                          shared_bc=shared)
+    y, hf = ssd_scan(x, dt, a, bm, cm, chunk=chunk, h0=state)
+    y_r, h_r = ssd_ref(x, dt, a, bm, cm, chunk=chunk, h0=state)
+    atol, rtol = TOL["ssd"][torch.float32]
+    torch.testing.assert_close(y, y_r, atol=atol, rtol=rtol)
     torch.testing.assert_close(hf, h_r, atol=atol, rtol=rtol)
 
 

@@ -1,8 +1,9 @@
 """The port's Mamba-2 path against the JAX package's, in f32 on the CPU with
 numpy-seeded inputs: the SSD scan (plain version vs the JAX chunked scan
 with an initial state and ragged lengths, and vs the Pallas kernel in
-interpret mode), the decode recurrence, the mixer with LoRA factors, and
-reduced mamba2-1.3b served end to end.  Tolerances: 5e-4 / 1e-3 for the
+interpret mode; the CUDA kernel's state-passing decomposition against
+both), the decode recurrence, the mixer with LoRA factors, and reduced
+mamba2-1.3b served end to end.  Tolerances: 5e-4 / 1e-3 for the
 scan (``tests/test_kernels.py``), 1e-4 for mixer outputs, logits and
 caches (``test_mixer_factored.py``)."""
 import jax
@@ -20,6 +21,7 @@ from repro.models import ssm as j_ssm
 from repro_torch import bridge
 from repro_torch.configs import get_config
 from repro_torch.kernels.ssd_chunk.ops import ssd_scan
+from repro_torch.kernels.ssd_chunk.ref import ssd_state_passing_ref
 from repro_torch.models import ssm
 from repro_torch.models.transformer import Model
 
@@ -88,6 +90,54 @@ def test_ssd_scan_reads_strided_views():
                       b1.contiguous(), c1.contiguous(), chunk=16)
     torch.testing.assert_close(y, y2, atol=0, rtol=0)
     torch.testing.assert_close(hf, h2, atol=0, rtol=0)
+
+
+def _shared_bc(bm, cm):
+    """B and C as one group broadcast over the heads: the numpy arrays with
+    head 0 repeated (for JAX) and the torch stride-0 views (the mixer's)."""
+    b, s, h, n = bm.shape
+    np_b, np_c = (np.repeat(t[:, :, :1], h, 2) for t in (bm, cm))
+    t_b, t_c = (torch.from_numpy(t[:, :, :1].copy()).expand(b, s, h, n) for t in (bm, cm))
+    return np_b, np_c, t_b, t_c
+
+
+@pytest.mark.parametrize("shared", [False, True])
+@pytest.mark.parametrize("chunk", [16, 32, 64])
+def test_state_passing_ref_matches_pallas_kernel(chunk, shared):
+    """The CUDA kernel's decomposition (chunk states, state pass, outputs
+    from the starting states; C·Bᵀ once per (batch, chunk) when shared)
+    against the TPU kernel in interpret mode."""
+    x, dt, a, bm, cm, _ = _scan_inputs(9, 2, 128, 3, 16, 8)
+    tb, tc = torch.from_numpy(bm), torch.from_numpy(cm)
+    if shared:
+        bm, cm, tb, tc = _shared_bc(bm, cm)
+    jy, jh = j_ssd_kernel(*map(jnp.asarray, (x, dt, a, bm, cm)), chunk=chunk)
+    y, hf = ssd_state_passing_ref(torch.from_numpy(x), torch.from_numpy(dt),
+                                  torch.from_numpy(a), tb, tc, chunk=chunk, shared_cb=shared)
+    _close(y.numpy(), jy)
+    _close(hf.numpy(), jh)
+
+
+@pytest.mark.parametrize("shared", [False, True])
+@pytest.mark.parametrize("s,chunk,h0", [(100, 256, True), (300, 256, True), (300, 256, False),
+                                        (40, 64, False), (512, 32, False), (512, 32, True),
+                                        (200, 64, True)])
+def test_state_passing_ref_matches_jax_scan(s, chunk, h0, shared):
+    """The decomposition against the JAX chunked scan with an initial
+    state, ragged lengths (100 and 300 at chunk 256), S < chunk (100, 40)
+    and 16 chunks (512 at 32)."""
+    x, dt, a, bm, cm, state = _scan_inputs(10, 2, s, 3, 16, 8, h0=h0)
+    tb, tc = torch.from_numpy(bm), torch.from_numpy(cm)
+    if shared:
+        bm, cm, tb, tc = _shared_bc(bm, cm)
+    jy, jh = j_ssm.ssd_chunk_scan(*map(jnp.asarray, (x, dt, a, bm, cm)), chunk,
+                                  h0=None if state is None else jnp.asarray(state))
+    y, hf = ssd_state_passing_ref(torch.from_numpy(x), torch.from_numpy(dt),
+                                  torch.from_numpy(a), tb, tc, chunk=chunk,
+                                  h0=None if state is None else torch.from_numpy(state),
+                                  shared_cb=shared)
+    _close(y.numpy(), jy)
+    _close(hf.numpy(), jh)
 
 
 def test_ssd_decode_step_matches_jax():
