@@ -44,11 +44,30 @@ Phases, each reported on its own lines:
    logits are held to the path's tolerance.
 5. profile — torch.profiler over one prefill and 16 decode steps of each
    serving path.
+6. grads   — each autograd Function (``lora_fused``'s and non-causal
+   ``flash_attn``'s: the kernel forward, a plain-torch backward) at the
+   training paths' shapes: every input gradient against autograd of the
+   plain version on the card (GRAD lines, f32 tolerances of TOL), forward
+   and backward device times of both.
+7. TRAIN-PFTT — ``run_pftt`` (the launcher's ``--fl-clients 4
+   --fl-rounds 3`` settings, seed 0, f32) for the four methods of Fig. 5:
+   pretraining seconds, seconds per round, accuracy per round, mean round
+   bytes and delay, each kernel's launches against the path's count; then
+   the same runs on the CPU through the plain versions from the same init:
+   bytes and delays equal, accuracies and local losses within tolerance.
+8. TRAIN-ROBERTA — roberta-base at full width and depth (12 layers, d 768,
+   vocab 50265) through ``launch/train.py``'s PEFT step (adapters + rank-8
+   LoRA on wq/wv, MLM loss, batch 16, sequence 128), 10 AdamW steps: step
+   times, losses, launches per step (checked), forward and backward device
+   times and a PROFILE of one step; the first 2 steps re-run on the CPU from
+   the same init and batches, losses and trainables held to tolerance.
 
-Before the last line it prints one JSON object with a row per kernel; the
-last line is ``{"ok": true, "device": {...}}``.  Any failed check exits
+Before the last line it prints one JSON object with a row per kernel (its
+launches summed over the serving and training paths); the last line is
+``{"ok": true, "device": {...}}``.  Any failed check exits
 nonzero before that line.
 """
+import dataclasses
 import json
 import os
 import subprocess
@@ -89,6 +108,27 @@ SERVES = (
 )
 TEACHER_STEPS = 8
 PREFILL_REPS = 7
+# TRAIN-PFTT: card vs CPU (see train_pftt).  TRAIN-ROBERTA: card vs CPU over
+# the first CPU_STEPS steps (f32 both sides, only the order of sums
+# differs): losses relative to max(1, |loss|); each step's gradients (the
+# card's at the card's state, the CPU's at the CPU's) absolute; the
+# trainables after the last step absolute, except where AdamW cannot carry
+# the measured gradient difference within that limit.  AdamW moves an
+# element by lr·g/(|g| + eps), eps 1e-8, of slope lr·eps/(|g| + eps)².  Where
+# the CPU's gradient is at least K·δ, δ the element's own card-vs-CPU
+# gradient difference, both lie at |g| ≥ (K - 1)·δ, and the two moves differ
+# by at most lr·δ·eps/((K - 1)·δ + eps)² ≤ lr/(4·(K - 1)) a step to first
+# order: K = 1 + CPU_STEPS·lr/(4·tol) keeps CPU_STEPS steps within tol.  An
+# element below that at some step (a near-cancelled sum whose rounding is a
+# large share of it; two CPU runs that differ only in thread count put 6 of
+# them 1e-4–3.4e-4 apart) is held to AdamW's most, 2·lr a step, and counted.
+PFTT_ACC_TOL = 0.05
+PFTT_LOSS_TOL = 1e-5
+ROBERTA_STEPS = 10
+CPU_STEPS = 2
+ROBERTA_LOSS_TOL = 1e-4
+ROBERTA_GRAD_TOL = 1e-5
+ROBERTA_PARAM_TOL = 1e-4
 SERVING_SPARSE = dict(block_size=128, local_blocks=4, sink_blocks=1, stride=8)
 
 
@@ -213,11 +253,15 @@ def kernel_cases(torch):
                 flops=2 * m * k * n + 2 * m * k * r + 2 * m * r * n,
                 plan=(dname, n, k) if m <= 16 else None,
                 main=(m == 8 and dt == torch.float32)))
-        # the last row: the reduced RoBERTa encoder's non-causal attention
+        # the last rows: the reduced RoBERTa encoder's non-causal attention
+        # (PFTT) and roberta-base's at full width (TRAIN-ROBERTA)
         for bsz, s, h, kh, d, window, causal in ((8, 128, 12, 12, 64, 0, True),
                                                  (8, 77, 12, 12, 64, 0, True),
                                                  (2, 200, 8, 2, 32, 96, True),
-                                                 (8, 32, 4, 4, 32, 0, False)):
+                                                 (8, 32, 4, 4, 32, 0, False),
+                                                 (16, 128, 12, 12, 64, 0, False)):
+            if dt == torch.bfloat16 and bsz == 16:
+                continue
             q, kk, vv = rn(bsz, s, h, d, dtype=dt), rn(bsz, s, kh, d, dtype=dt), rn(bsz, s, kh, d, dtype=dt)
             qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, kk, vv))
             allowed = (sum(min(i + 1, window) if window else i + 1 for i in range(s))
@@ -232,7 +276,7 @@ def kernel_cases(torch):
                          F.scaled_dot_product_attention(q, k, v, is_causal=c)),
                 nbytes=(2 * bsz * s * h * d + 2 * bsz * s * kh * d) * es,
                 flops=4 * d * allowed * bsz * h,
-                main=(s == 128 and dt == torch.float32)))
+                main=(s == 128 and bsz == 8 and causal and dt == torch.float32)))
         for bsz, sc, h, kh, d, clen, window in ((8, 192, 12, 12, 64, 192, 0),
                                                 (8, 192, 12, 12, 64, 101, 0),
                                                 (8, 192, 12, 12, 64, 1, 0),
@@ -260,8 +304,12 @@ def kernel_cases(torch):
         cases += ssd_cases(torch, dt, dname, es, rn)
     # SERVE-SPARSE's prefill projection (M = 8·896), and mamba2-1.3b's:
     # in_proj K 2048 → N 8512 (not a multiple of 64), out_proj K 4096 →
-    # N 2048, at prefill (M 2048) and decode (M 4); the decode rows in bf16 too
+    # N 2048, at prefill (M 2048) and decode (M 4); the decode rows in bf16
+    # too; then the training paths' wq/wv: TRAIN-ROBERTA (M 16·128, d 768)
+    # and PFTT's at batch 16 (M 16·32, d 128)
     for m, k, n, path, dt in ((7168, 768, 768, "sparse", torch.float32),
+                              (2048, 768, 768, "roberta train", torch.float32),
+                              (512, 128, 128, "pftt train", torch.float32),
                               (2048, 2048, 8512, "mamba", torch.float32),
                               (4, 2048, 8512, "mamba", torch.float32),
                               (2048, 4096, 2048, "mamba", torch.float32),
@@ -451,6 +499,81 @@ def check_kernels(torch):
     return rows
 
 
+# ---------------------------------------------------------------- gradients
+def grad_cases(torch):
+    """(name, label, kernel call, plain call, inputs) of each autograd
+    Function at the training paths' shapes; the call takes the inputs."""
+    from repro_torch.kernels.flash_attn.ops import flash_attention
+    from repro_torch.kernels.flash_attn.ref import attention_ref
+    from repro_torch.kernels.lora_fused.ops import lora_matmul
+    from repro_torch.kernels.lora_fused.ref import lora_ref
+
+    g = torch.Generator(device="cuda").manual_seed(2)
+
+    def rn(*shape, std=1.0):
+        return torch.randn(*shape, generator=g, device="cuda") * std
+
+    cases = []
+    for m, k in ((2048, 768), (512, 128)):
+        cases.append(dict(
+            name="lora_fused", label=f"M={m} K={k} N={k} r=8",
+            kernel=lambda *t: lora_matmul(*t, scale=2.0),
+            plain=lambda *t: lora_ref(*t, scale=2.0),
+            inputs=(rn(m, k), rn(k, k, std=0.05), rn(k, 8, std=0.05), rn(8, k, std=0.05)),
+            frozen=(1,), names=("x", "w", "a", "b")))
+    for b, s, h, d in ((16, 128, 12, 64), (8, 32, 4, 32)):
+        cases.append(dict(
+            name="flash_attn", label=f"B={b} S={s} H={h} hd={d} non-causal",
+            kernel=lambda *t: flash_attention(*t, causal=False),
+            plain=lambda *t: attention_ref(*t, causal=False),
+            inputs=tuple(rn(b, s, h, d) for _ in range(3)), frozen=(),
+            names=("q", "k", "v")))
+    return cases
+
+
+def check_grads(torch):
+    """Each Function on the card against autograd of its plain version on
+    the card: the max abs error of every input gradient at the kernel's f32
+    tolerance, and the forward and backward device times of both (the
+    backward with the inputs that training differentiates: W frozen)."""
+    flush = torch.empty(32 * 1024 * 1024, dtype=torch.float32, device="cuda")
+    rows = []
+    for c in grad_cases(torch):
+        atol, rtol = TOL[(c["name"], "float32")]
+        cot = None
+        res = {}
+        for which in ("kernel", "plain"):
+            ins = [t.clone().requires_grad_() for t in c["inputs"]]
+            out = c[which](*ins)
+            if cot is None:
+                cot = torch.randn(out.shape, generator=torch.Generator(device="cuda")
+                                  .manual_seed(3), device="cuda")
+            res[which] = (out.detach(), torch.autograd.grad(out, ins, cot))
+        errs = {n: (gk - gp).abs().max().item()
+                for n, gk, gp in zip(c["names"], res["kernel"][1], res["plain"][1])}
+        ok = all(torch.allclose(gk, gp, atol=atol, rtol=rtol)
+                 for gk, gp in zip(res["kernel"][1], res["plain"][1]))
+        times = {}
+        for which in ("kernel", "plain"):
+            ins = [t.clone().requires_grad_(i not in c["frozen"])
+                   for i, t in enumerate(c["inputs"])]
+            train_ins = [t for t in ins if t.requires_grad]
+            times[f"{which}_fwd_ms"] = device_ms(lambda w=which: c[w](*ins), flush)
+            out = c[which](*ins)
+            times[f"{which}_bwd_ms"] = device_ms(
+                lambda o=out: torch.autograd.grad(o, train_ins, cot, retain_graph=True),
+                flush)
+        print(f"GRAD {c['name']:<10} {c['label']:<30} "
+              + " ".join(f"d{n}_err={e:.3e}" for n, e in errs.items())
+              + f" tol={atol:g}/{rtol:g} {'ok' if ok else 'MISMATCH'} "
+              + " ".join(f"{k}={v:.4f}" for k, v in times.items()), flush=True)
+        if not ok:
+            fail(f"GRAD {c['name']} {c['label']}: gradient errors {errs} outside "
+                 f"atol {atol:g} rtol {rtol:g}")
+        rows.append(dict(name=c["name"], shape=c["label"], grad_err=errs, **times))
+    return rows
+
+
 # ---------------------------------------------------------------- serving
 def wrappers():
     from repro_torch.kernels.block_sparse_attn.ops import block_sparse_attention
@@ -561,6 +684,207 @@ def serve_path(torch, np, spec):
     return launches, res, tok_s, (model, params, lora, lscale, prompts)
 
 
+# ---------------------------------------------------------------- training
+def pftt_expected(cfg, method):
+    """Each kernel's launches in one ``run_pftt``: every forward of the
+    reduced encoder (2 layers) runs ``flash_attn`` once a layer and, with
+    LoRA, ``lora_fused`` on wq and wv — MLM pretraining steps, local steps
+    and one evaluation forward per client and round."""
+    layers = 2
+    local = cfg.rounds * cfg.n_clients * cfg.local_steps
+    evals = cfg.rounds * cfg.n_clients
+    lora = method in ("pftt", "vanilla_fl", "fedlora")
+    return {"lora_fused": 2 * layers * (local + evals) if lora else 0,
+            "flash_attn": layers * (cfg.pretrain_steps + local + evals),
+            "decode_attn": 0, "block_sparse_attn": 0, "ssd_chunk": 0}
+
+
+def train_pftt(torch):
+    """TRAIN-PFTT: ``run_pftt`` for the four methods of Fig. 5 at the
+    launcher's settings (``--fl-clients 4 --fl-rounds 3``: 50 pretraining
+    steps, 5 local steps, batch 8, 200 samples per client, seed 0, f32) on
+    the card, launch counts checked, then the same runs on the CPU through
+    the plain versions, from the same init (drawn on the CPU).  Per-round
+    bytes and delays must be equal.  Mean local losses within PFTT_LOSS_TOL
+    × max(1, |loss|) (4.8e-7 at most on an H100 80GB HBM3: the card and
+    the CPU sum in other orders).  Accuracies within PFTT_ACC_TOL: they are
+    counts, and AdamW turns a rounding-level gradient into a move of up to
+    lr (see TRAIN-ROBERTA's note), so a prediction near its margin may flip; one
+    flip moves a round's mean accuracy by 1/(4·n) ≤ 0.025 for a client with
+    n ≥ 10 test samples, and the bound lets two through (0 on an H100 80GB
+    HBM3)."""
+    from repro_torch.core.pftt import run_pftt
+    from repro_torch.launch import train
+
+    args = train.parse_args(["--arch", "roberta-base", "--fl-clients", "4",
+                             "--fl-rounds", "3"])
+    kernels = wrappers()
+    total = {n: 0 for n in KERNELS}
+    out = {}
+    for method in ("pftt", "vanilla_fl", "fedbert", "fedlora"):
+        cfg = train.pftt_config(args, method=method, verbose=False)
+        for f in kernels.values():
+            f.launches = 0
+        card = run_pftt(cfg)
+        launches = {n: f.launches for n, f in kernels.items()}
+        expected = pftt_expected(cfg, method)
+        t0 = time.perf_counter()
+        cpu = run_pftt(dataclasses.replace(cfg, device="cpu"))
+        cpu_s = time.perf_counter() - t0
+        print(f"TRAIN-PFTT {method:<10} pretrain_s={card['pretrain_s']:.3f} "
+              f"s_per_round={sum(card['round_s']) / len(card['round_s']):.4f} "
+              f"round_s={[round(x, 4) for x in card['round_s']]} "
+              f"acc_per_round={[round(a, 4) for a in card['acc_per_round']]} "
+              f"mean_round_bytes={card['mean_round_bytes']:.1f} "
+              f"mean_round_delay_s={card['mean_round_delay_s']:.6f} "
+              f"loss_per_round={[round(x, 5) for x in card['loss_per_round']]}", flush=True)
+        print(f"TRAIN-PFTT {method:<10} launches {launches} expected {expected}", flush=True)
+        if launches != expected:
+            fail(f"TRAIN-PFTT {method}: kernel launches {launches} != expected {expected}")
+        acc_err = max(abs(a - b) for a, b in zip(card["acc_per_round"], cpu["acc_per_round"]))
+        loss_err = max(abs(a - b) / max(1.0, abs(b))
+                       for a, b in zip(card["loss_per_round"], cpu["loss_per_round"]))
+        same_ledger = ([(r["bytes"], r["delay_s"]) for r in card["round_records"]]
+                       == [(r["bytes"], r["delay_s"]) for r in cpu["round_records"]])
+        print(f"TRAIN-PFTT {method:<10} CPU (plain versions, {cpu_s:.1f} s): "
+              f"acc_per_round={[round(a, 4) for a in cpu['acc_per_round']]} "
+              f"acc_max_abs_err={acc_err:.4f} (tol {PFTT_ACC_TOL}) "
+              f"loss_max_rel_err={loss_err:.2e} (tol {PFTT_LOSS_TOL:g}) "
+              f"bytes_and_delays_equal={same_ledger}", flush=True)
+        if not same_ledger or acc_err > PFTT_ACC_TOL or loss_err > PFTT_LOSS_TOL:
+            fail(f"TRAIN-PFTT {method}: card and CPU differ (ledger equal {same_ledger}, "
+                 f"acc {acc_err:.4f}, loss {loss_err:.2e})")
+        for n in KERNELS:
+            total[n] += launches[n]
+        out[method] = {k: card[k] for k in ("acc_per_round", "mean_round_bytes",
+                                            "mean_round_delay_s", "pretrain_s",
+                                            "round_s", "loss_per_round")}
+        out[method]["launches"] = launches
+    # the device's busy share over one whole run (pretraining and 3 rounds)
+    profile(torch, "TRAIN-PFTT pftt run_pftt",
+            lambda: run_pftt(train.pftt_config(args, verbose=False)), 1)
+    return total, out
+
+
+def train_roberta(torch, np):
+    """TRAIN-ROBERTA: roberta-base at full width and depth through
+    ``launch/train.py``'s ``Trainer`` (``make_peft_step``: adapters + rank-8
+    LoRA on wq/wv, MLM loss over 15 % masked positions, batch 16, sequence
+    128, AdamW at the launcher's lr), 10 steps on the card; the first 2
+    re-run on the CPU through the plain versions from the same init and
+    batches, with each step's gradients."""
+    from repro_torch import trees
+    from repro_torch.launch import train
+    from repro_torch.optim import value_and_grad
+
+    argv = ["--arch", "roberta-base", "--steps", str(ROBERTA_STEPS), "--batch", "16",
+            "--seq", "128"]
+    t0 = time.perf_counter()
+    tr = train.Trainer(train.parse_args(argv))
+    rng = np.random.RandomState(0)
+    batches = [tr.batch(rng) for _ in range(ROBERTA_STEPS)]
+    t_built = time.perf_counter()
+    kernels = wrappers()
+    card_g, losses, step_ms, per_step, after = [], [], [], [], None
+    for i, b in enumerate(batches):
+        bt = tr.to_device(b)
+        if i < CPU_STEPS:   # this step's gradients, for the CPU comparison
+            card_g.append({p: g.cpu() for p, g in trees.flatten(value_and_grad(
+                lambda t: tr.loss(t, bt), tr.trainable)[1]).items()})
+        before = {n: f.launches for n, f in kernels.items()}
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        loss = tr.step(bt)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t1) * 1e3)
+        losses.append(float(loss))
+        per_step.append({n: f.launches - before[n] for n, f in kernels.items()})
+        if i == CPU_STEPS - 1:
+            after = {p: v.detach().cpu() for p, v in trees.flatten(tr.trainable).items()}
+    launches = {n: sum(p[n] for p in per_step) for n in KERNELS}
+    layers = tr.cfg.n_layers
+    expected_step = {"lora_fused": 2 * layers, "flash_attn": layers, "decode_attn": 0,
+                     "block_sparse_attn": 0, "ssd_chunk": 0}
+    print(f"TRAIN-ROBERTA roberta-base full width ({layers} layers, d {tr.cfg.d_model}, "
+          f"vocab {tr.cfg.vocab_size}) batch 16 seq 128 rank 8 f32: "
+          f"median_step_ms={sorted(step_ms)[len(step_ms) // 2]:.3f} "
+          f"step_ms={[round(x, 2) for x in step_ms]} "
+          f"loss={[round(x, 5) for x in losses]}", flush=True)
+    print(f"TRAIN-ROBERTA launches per step {per_step[0]} expected {expected_step} "
+          f"(all {len(per_step)} steps equal: {all(p == expected_step for p in per_step)})",
+          flush=True)
+    if any(p != expected_step for p in per_step):
+        fail(f"TRAIN-ROBERTA: launches per step {per_step} != {expected_step}")
+    if not all(np.isfinite(losses)):
+        fail(f"TRAIN-ROBERTA: non-finite loss {losses}")
+
+    # one more step's forward and backward apart, on device events
+    b = tr.to_device(batches[-1])
+    split = {"forward": [], "backward": []}
+    for _ in range(3):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+        leaves = {p: v.detach().requires_grad_() for p, v in trees.flatten(tr.trainable).items()}
+        t = trees.map_with_path(lambda p, _: leaves[p], tr.trainable)
+        ev[0].record()
+        loss = tr.loss(t, b)
+        ev[1].record()
+        torch.autograd.grad(loss, list(leaves.values()), allow_unused=True)
+        ev[2].record()
+        ev[2].synchronize()
+        split["forward"].append(ev[0].elapsed_time(ev[1]))
+        split["backward"].append(ev[1].elapsed_time(ev[2]))
+    print("TRAIN-ROBERTA device ms, forward / backward (median of 3): "
+          f"{sorted(split['forward'])[1]:.3f} / {sorted(split['backward'])[1]:.3f}", flush=True)
+    profile(torch, "TRAIN-ROBERTA step", lambda: tr.step(b), 1)
+    t_card = time.perf_counter()
+
+    # the first CPU_STEPS steps on the CPU through the plain versions, with
+    # each step's gradients
+    cpu = train.Trainer(train.parse_args(argv + ["--device", "cpu"]))
+    cpu_losses, cpu_g = [], []
+    for b in batches[:CPU_STEPS]:
+        bt = cpu.to_device(b)
+        cpu_g.append(trees.flatten(value_and_grad(lambda t, bt=bt: cpu.loss(t, bt),
+                                                  cpu.trainable)[1]))
+        cpu_losses.append(float(cpu.step(bt)))
+    loss_err = max(abs(a - c) / max(1.0, abs(c)) for a, c in zip(losses, cpu_losses))
+    grad_errs = [max((cg[p] - g).abs().max().item() for p, g in pg.items())
+                 for cg, pg in zip(card_g, cpu_g)]
+    grad_err = max(grad_errs)
+    # the elements whose gradient AdamW cannot carry within the limit (see
+    # the note at ROBERTA_PARAM_TOL)
+    lr = tr.args.lr
+    gain = 1 + CPU_STEPS * lr / (4 * ROBERTA_PARAM_TOL)
+    settled_err, open_err, n_open, n_all = 0.0, 0.0, 0, 0
+    for p, v in trees.flatten(cpu.trainable).items():
+        d = (after[p] - v).abs()
+        unsure = torch.zeros_like(d, dtype=torch.bool)
+        for cg, pg in zip(card_g, cpu_g):
+            if pg.get(p) is not None:
+                unsure |= pg[p].abs() < gain * (cg[p] - pg[p]).abs()
+        settled_err = max(settled_err, float((d * ~unsure).max()))
+        open_err = max(open_err, float((d * unsure).max()))
+        n_open += int(unsure.sum())
+        n_all += d.numel()
+    t_end = time.perf_counter()
+    print(f"TRAIN-ROBERTA CPU (plain versions) losses {[round(x, 5) for x in cpu_losses]} "
+          f"loss_max_rel_err={loss_err:.2e} (tol {ROBERTA_LOSS_TOL:g}) "
+          f"grad_max_abs_err per step={[f'{e:.2e}' for e in grad_errs]} "
+          f"(tol {ROBERTA_GRAD_TOL:g}) trainable_max_abs_err after step {CPU_STEPS}="
+          f"{settled_err:.2e} (tol {ROBERTA_PARAM_TOL:g}; a step's |g| below "
+          f"{gain:g}x its card-vs-CPU difference: {n_open} of {n_all} elements, "
+          f"max {open_err:.2e}, tol {CPU_STEPS}*2*lr={CPU_STEPS * 2 * lr:g})", flush=True)
+    print(f"TRAIN-ROBERTA seconds: build {t_built - t0:.1f} card {t_card - t_built:.1f} "
+          f"cpu {t_end - t_card:.1f}", flush=True)
+    if (loss_err > ROBERTA_LOSS_TOL or grad_err > ROBERTA_GRAD_TOL
+            or settled_err > ROBERTA_PARAM_TOL or open_err > CPU_STEPS * 2 * lr):
+        fail(f"TRAIN-ROBERTA: card vs CPU loss {loss_err:.2e}, gradients {grad_errs}, "
+             f"trainables {settled_err:.2e} (AdamW-bound elements: {open_err:.2e})")
+    return launches, dict(median_step_ms=sorted(step_ms)[len(step_ms) // 2], losses=losses,
+                          forward_ms=sorted(split["forward"])[1],
+                          backward_ms=sorted(split["backward"])[1], per_step=per_step[0])
+
+
 def profile(torch, label, run, reps):
     """torch.profiler over ``reps`` calls of ``run``: the device's busy
     share of the wall time and the kernels that fill it, per call.  Prints
@@ -653,6 +977,18 @@ def main():
     if unused:
         fail(f"kernels never launched on the serving paths: {unused}")
 
+    t0 = time.perf_counter()
+    grad_rows = check_grads(torch)
+    print(f"PHASE grads {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    got, pftt_rows = train_pftt(torch)
+    print(f"PHASE TRAIN-PFTT {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    got_r, roberta_row = train_roberta(torch, np)
+    print(f"PHASE TRAIN-ROBERTA {time.perf_counter() - t0:.1f} s", flush=True)
+    for n in KERNELS:
+        launches[n] += got[n] + got_r[n]
+
     kernels = [dict(name=n, route="cuda", source=f"src/repro_torch/csrc/{n}.cu",
                     replaces=REPLACES[n], launches=launches[n],
                     max_abs_err=rows[n]["max_abs_err"], ms=rows[n]["ms"],
@@ -662,6 +998,8 @@ def main():
                     **({"read_ms": rows[n]["read_ms"]} if "read_ms" in rows[n] else {}))
                for n in KERNELS]
     print(json.dumps({"serve": serve_rows}))
+    print(json.dumps({"train": {"grad": grad_rows, "pftt": pftt_rows,
+                                "roberta": roberta_row}}))
     print(json.dumps({"kernels": kernels}))
     print(smi_line(), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -21,3 +21,10 @@ def resolve_device(device=None) -> torch.device:
             "CUDA is not available; pass device='cpu' (--device cpu) to run "
             "the plain PyTorch versions on the CPU")
     return dev
+
+
+def synchronize(device: torch.device) -> None:
+    """Wait for the device's queued work (no-op on the CPU); host timers
+    of device work end here."""
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)

@@ -4,8 +4,8 @@ The port's own copy of the configuration system: ``LayerKind``/``Stage``
 patterns, ``ModelConfig`` with its derived head width and ``reduced()``
 smoke variant, and the registry.  Only the feature blocks of the families
 ported so far are present (dense decoders with dense or block-sparse
-attention, and the Mamba-2 SSM); the MoE and MLA blocks arrive with the
-arch-zoo slice.
+attention, the Mamba-2 SSM and the RoBERTa encoder); the MoE and MLA blocks
+arrive with the arch-zoo slice.
 """
 from __future__ import annotations
 
@@ -201,4 +201,4 @@ def list_configs():
 
 def _load_all():
     # import side effects register the configs
-    from repro_torch.configs import gpt2_small, mamba2_1_3b  # noqa: F401
+    from repro_torch.configs import gpt2_small, mamba2_1_3b, roberta_base  # noqa: F401

@@ -1,0 +1,102 @@
+"""Federated aggregation operators (the port of ``repro.core.aggregation``).
+
+* **Stacked** (the cohort engine): client trees carry a leading client axis
+  on every leaf and outage/selection is a per-client weight vector —
+  ``fedavg_stacked``, ``partial_fedavg_stacked``,
+  ``masked_fedavg_stacked``, ``broadcast_merge_stacked``.
+* **List**: ``fedavg`` stacks per-client trees and calls the stacked core.
+
+The per-leaf weighted mean is one ``tensordot`` over the client axis in
+f32, cast back to the leaf's dtype.  The SVD re-projection of LoRA factor
+pairs (``factored_fedavg_stacked``) comes with the ``comms`` port (ROADMAP
+queue 1); the mesh variants (``axis_names``) with multi-device.
+"""
+from __future__ import annotations
+
+from typing import Callable, Optional, Sequence
+
+import torch
+
+from repro_torch import trees
+
+
+def _client_weights(n: int, weights, device=None) -> torch.Tensor:
+    """Normalized (n,) f32 weight vector; uniform when ``weights`` is None.
+    Zero entries model outages; an all-zero vector is the caller's signal
+    to keep the previous global (guarded, never a NaN)."""
+    if weights is None:
+        return torch.full((n,), 1.0 / n, dtype=torch.float32, device=device)
+    w = torch.as_tensor(weights, dtype=torch.float32, device=device)
+    return w / torch.clamp(w.sum(), min=1e-12)
+
+
+def _weighted_mean(stacked_leaf, w):
+    """(n, *S) leaf × (n,) weights → (*S), f32 accumulation, dtype kept."""
+    out = torch.tensordot(w, stacked_leaf.float(), dims=1)
+    return out.to(stacked_leaf.dtype)
+
+
+def _pad_mask(m, ndim: int):
+    """Right-pad a stacked (n, ...) mask with singleton dims so it
+    broadcasts leading-aligned against a stacked leaf of rank ``ndim``."""
+    return m.reshape(tuple(m.shape) + (1,) * (ndim - m.dim()))
+
+
+def fedavg_stacked(stacked_tree, weights=None):
+    """Weighted mean over the leading client axis of every leaf."""
+    leaves = list(trees.flatten(stacked_tree).values())
+    if not leaves:
+        return stacked_tree
+    w = _client_weights(leaves[0].shape[0], weights, leaves[0].device)
+    return trees.map_leaves(lambda leaf: _weighted_mean(leaf, w), stacked_tree)
+
+
+def partial_fedavg_stacked(global_tree, stacked_tree,
+                           pred: Callable[[str], bool], weights=None):
+    """Aggregate only leaves whose path satisfies ``pred``; others keep the
+    global value."""
+    flat_avg = trees.flatten(fedavg_stacked(stacked_tree, weights))
+    return trees.map_with_path(
+        lambda p, g: flat_avg[p] if (pred(p) and p in flat_avg) else g,
+        global_tree)
+
+
+def masked_fedavg_stacked(global_tree, stacked_tree, stacked_masks,
+                          weights=None):
+    """Elementwise θ_g ← Σ_i w_i·m_i·θ_i / Σ_i w_i·m_i, keeping θ_g where the
+    denominator is zero; masks are leading-aligned 1/0 float trees."""
+    n = next(iter(trees.flatten(stacked_tree).values())).shape[0]
+
+    def agg(g, t, m):
+        w = (torch.ones(n, dtype=torch.float32, device=t.device) if weights is None
+             else torch.as_tensor(weights, dtype=torch.float32, device=t.device))
+        wm = _pad_mask(w, t.dim()) * _pad_mask(m.float(), t.dim())
+        num = (wm * t.float()).sum(0)
+        den = torch.broadcast_to(wm, t.shape).sum(0)
+        avg = num / torch.where(den > 0, den, torch.ones_like(den))
+        return torch.where(den > 0, avg, g.float()).to(g.dtype)
+
+    return trees.map_leaves(agg, global_tree, stacked_tree, stacked_masks)
+
+
+def broadcast_merge_stacked(stacked_tree, global_tree, stacked_masks=None,
+                            gate=None):
+    """Each client resumes from the global value on its masked entries
+    (``m > 0``; every entry with no masks), keeping local values elsewhere;
+    a falsy ``gate`` (e.g. "no client survived the uplink") makes it a
+    no-op."""
+    def put(loc, glob, m=None):
+        bc = torch.broadcast_to(glob[None].to(loc.dtype), loc.shape)
+        out = bc if m is None else torch.where(
+            torch.broadcast_to(_pad_mask(m, loc.dim()), loc.shape) > 0, bc, loc)
+        if gate is not None:
+            out = torch.where(torch.as_tensor(gate, device=loc.device), out, loc)
+        return out
+
+    if stacked_masks is None:
+        return trees.map_leaves(put, stacked_tree, global_tree)
+    return trees.map_leaves(put, stacked_tree, global_tree, stacked_masks)
+
+
+def fedavg(client_trees: Sequence, weights: Optional[Sequence[float]] = None):
+    return fedavg_stacked(trees.stack(client_trees), weights)

@@ -109,8 +109,11 @@ def check(rc: int, name: str) -> None:
 
 def forward_only(name: str, *tensors) -> None:
     """Raise where a CUDA kernel would drop a gradient: under grad mode with
-    an operand that requires grad.  The kernels are forward-only (as the
-    TPU kernels are); the CPU branch of each wrapper stays differentiable."""
+    an operand that requires grad.  The serving-only kernels (decode,
+    block-sparse, SSD) call it: they are forward-only, as the TPU kernels
+    are, while ``lora_fused`` and ``flash_attn`` carry gradients through
+    their autograd Functions.  The CPU branch of every wrapper stays
+    differentiable."""
     if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in tensors):
         raise RuntimeError(
             f"{name}: the CUDA kernel is forward-only and would drop the gradient "

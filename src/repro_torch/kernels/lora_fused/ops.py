@@ -1,8 +1,11 @@
-"""Public wrapper for the fused LoRA projection (personalized serving).
+"""Public wrapper for the fused LoRA projection (serving and training).
 
 Model code reaches it through ``peft.lora_proj`` for every projection that
 carries factors.  A CPU tensor takes the plain version (``ref.lora_ref``);
-a CUDA tensor launches ``csrc/lora_fused.cu`` or raises.
+a CUDA tensor launches ``csrc/lora_fused.cu`` or raises.  When grad mode is
+on and an operand requires grad, the CUDA call goes through ``LoraMatmul``:
+the kernel is its forward, and its backward is plain torch (the TPU kernel
+has no backward; JAX training differentiates the jnp projection, as XLA).
 """
 from __future__ import annotations
 
@@ -36,12 +39,53 @@ def _check(x, w, a, b):
         raise ValueError("lora_matmul: operands must be contiguous")
 
 
+class LoraMatmul(torch.autograd.Function):
+    """``y = x·W + s·(x·A)·B`` with ``fwd(x, w, a, b, scale=)`` as its
+    forward (the kernel on the card; a test passes ``lora_ref``) and the
+    gradients in plain torch, in f32:
+
+        dx = dy·Wᵀ + s·(dy·Bᵀ)·Aᵀ,  dA = s·xᵀ·(dy·Bᵀ),
+        dB = s·(x·A)ᵀ·dy,           dW = xᵀ·dy (only when W requires grad)."""
+
+    @staticmethod
+    def forward(ctx, fwd, x, w, a, b, scale):
+        ctx.save_for_backward(x, w, a, b)
+        ctx.scale = scale
+        return fwd(x, w, a, b, scale=scale)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, w, a, b = ctx.saved_tensors
+        s = ctx.scale
+        k, n = w.shape
+        xf = x.reshape(-1, k).float()
+        dyf = dy.reshape(-1, n).float()
+        af, bf = a.float(), b.float()
+        dyb = dyf @ bf.T                                   # (M, r)
+        dx = dw = da = db = None
+        need = ctx.needs_input_grad
+        if need[1]:
+            dx = (dyf @ w.float().T + s * (dyb @ af.T)).reshape(x.shape).to(x.dtype)
+        if need[2]:
+            dw = (xf.T @ dyf).to(w.dtype)
+        if need[3]:
+            da = (s * (xf.T @ dyb)).to(a.dtype)
+        if need[4]:
+            db = (s * ((xf @ af).T @ dyf)).to(b.dtype)
+        return None, dx, dw, da, db, None
+
+
 def lora_matmul(x, w, a, b, *, scale: float):
     """x: (..., K) @ [W (K,N) + scale·A (K,r)·B (r,N)] → (..., N)."""
     _check(x, w, a, b)
     if x.device.type == "cpu":
         return lora_ref(x, w, a, b, scale=scale)
-    _build.forward_only("lora_matmul", x, w, a, b)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (x, w, a, b)):
+        return LoraMatmul.apply(_launch, x, w, a, b, scale)
+    return _launch(x, w, a, b, scale=scale)
+
+
+def _launch(x, w, a, b, *, scale: float):
     k, n = w.shape
     xf = x.reshape(-1, k)
     y = torch.empty((xf.shape[0], n), dtype=x.dtype, device=x.device)

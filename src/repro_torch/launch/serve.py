@@ -18,7 +18,7 @@ import time
 import numpy as np
 import torch
 
-from repro_torch import resolve_device
+from repro_torch import resolve_device, synchronize
 from repro_torch.configs import get_config, list_configs
 from repro_torch.models import peft as peft_mod
 from repro_torch.models.transformer import Model
@@ -66,11 +66,6 @@ def build(args, *, impl: str = "auto"):
     return model, params, lora, lscale, prompts
 
 
-def _sync(device):
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
-
-
 def generate(model, params, prompts, gen: int, *, lora=None,
              lora_scale: float = 1.0):
     """Greedy decoding: prefill, then ``gen`` decode steps, each feeding the
@@ -78,12 +73,12 @@ def generate(model, params, prompts, gen: int, *, lora=None,
     gen + 1 (B, vocab) tensors: the prefill's, then each step's),
     "prefill_s", "decode_s"}.  The loop never reads a device value back."""
     device = prompts.device
-    _sync(device)
+    synchronize(device)
     t0 = time.perf_counter()
     logits, cache = model.prefill(params, prompts,
                                   cache_len=prompts.shape[1] + gen,
                                   lora=lora, lora_scale=lora_scale)
-    _sync(device)
+    synchronize(device)
     t1 = time.perf_counter()
     out, all_logits = [], [logits]
     for _ in range(gen):
@@ -92,7 +87,7 @@ def generate(model, params, prompts, gen: int, *, lora=None,
         logits, cache = model.decode_step(params, cache, nxt, lora=lora,
                                           lora_scale=lora_scale)
         all_logits.append(logits)
-    _sync(device)
+    synchronize(device)
     t2 = time.perf_counter()
     return {"tokens": torch.cat(out, 1), "logits": all_logits,
             "prefill_s": t1 - t0, "decode_s": t2 - t1}

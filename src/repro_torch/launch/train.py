@@ -1,0 +1,198 @@
+"""Training launcher, on the GPU by default (``--device cpu`` runs the
+kernels' plain versions).
+
+``--fl-clients N`` runs PFTT's synchronous cohort engine on the reduced
+RoBERTa classification workload (``core/pftt.py``; ``--steps``/``--seq``
+do not apply; ``--batch``/``--lr``/``--fl-rounds`` do):
+
+    PYTHONPATH=src python -m repro_torch.launch.train --arch roberta-base \
+        --fl-clients 4 --fl-rounds 3
+
+``--steps N`` trains the chosen architecture at full width (``--reduced``
+for the smoke variant) for N AdamW steps:
+
+    PYTHONPATH=src python -m repro_torch.launch.train --arch roberta-base \
+        --steps 10 --batch 16 --seq 128
+
+With ``--lora-rank R`` > 0 (default 8) it runs ``launch/steps.py``'s
+``make_peft_step``: adapters plus rank-R LoRA on ``mixer/wq``/``mixer/wv``
+trained on an MLM loss over 15 % masked positions, the base frozen, so
+every encoder layer runs the ``lora_fused`` and non-causal ``flash_attn``
+kernels forward and their autograd Functions backward.  ``--lora-rank 0``
+is the JAX launcher's full fine-tuning (``make_train_step`` on next-token
+labels).  The JAX launcher's other modes (population, fault plans,
+deadlines, codecs, checkpoints, telemetry, the arch rounds of other
+architectures) are not ported and their flags raise.
+"""
+from __future__ import annotations
+
+import argparse
+import time
+
+import numpy as np
+import torch
+
+from repro_torch import resolve_device, trees
+from repro_torch.configs import get_config, list_configs
+from repro_torch.core.cohort import not_ported
+from repro_torch.data import SPECIAL
+from repro_torch.launch.steps import make_peft_loss, make_peft_step, make_train_step
+from repro_torch.models import peft as peft_mod
+from repro_torch.models.transformer import Model
+
+# flag → (its "off" value, its entry in cohort.LATER)
+_UNPORTED = {
+    "uplink_codec": ("none", "codec"),
+    "factored_agg": (False, "factored_agg"),
+    "fault_plan": (None, "robust"),
+    "deadline_s": (None, "robust"),
+    "staleness_a": (0.0, "robust"),
+    "max_staleness": (0, "robust"),
+    "ckpt_dir": (None, "checkpoint"),
+    "population": (0, "population"),
+    "telemetry_dir": (None, "health"),
+}
+
+
+def parse_args(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--arch", required=True, choices=list_configs())
+    ap.add_argument("--reduced", action="store_true",
+                    help="reduced config (CPU-runnable)")
+    ap.add_argument("--steps", type=int, default=50)
+    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--seq", type=int, default=128)
+    ap.add_argument("--lr", type=float, default=3e-3)
+    ap.add_argument("--lora-rank", type=int, default=8,
+                    help="--steps mode: PEFT (adapters + LoRA of this rank on "
+                         "wq/wv, MLM loss); 0 → full fine-tuning")
+    ap.add_argument("--fl-clients", type=int, default=0,
+                    help="run a federated PFTT cohort of this size (0 → off)")
+    ap.add_argument("--fl-rounds", type=int, default=3)
+    ap.add_argument("--device", default="cuda",
+                    help="cuda (default; raises without a GPU) or cpu")
+    # the JAX launcher's flags of modes not ported yet: setting one raises
+    ap.add_argument("--uplink-codec", default="none")
+    ap.add_argument("--factored-agg", action="store_true")
+    ap.add_argument("--fault-plan", default=None)
+    ap.add_argument("--deadline-s", type=float, default=None)
+    ap.add_argument("--staleness-a", type=float, default=0.0)
+    ap.add_argument("--max-staleness", type=int, default=0)
+    ap.add_argument("--ckpt-dir", default=None)
+    ap.add_argument("--population", type=int, default=0)
+    ap.add_argument("--telemetry-dir", default=None)
+    args = ap.parse_args(argv)
+    for name, (off, key) in _UNPORTED.items():
+        not_ported(f"--{name.replace('_', '-')}", **{key: getattr(args, name) != off})
+    not_ported(f"--fl-clients with --arch {args.arch} (PFTT runs roberta-base)",
+               arch_round=bool(args.fl_clients) and args.arch != "roberta-base")
+    return args
+
+
+def pftt_config(args, **overrides):
+    """The ``PFTTConfig`` the launcher runs (the JAX launcher's settings:
+    5 local steps, 50 pretraining steps, 200 samples per client)."""
+    from repro_torch.core.pftt import PFTTConfig
+    kw = dict(n_clients=args.fl_clients, rounds=args.fl_rounds,
+              batch=args.batch, lr=args.lr, local_steps=5, pretrain_steps=50,
+              samples_per_client=200, verbose=True, device=args.device)
+    kw.update(overrides)
+    return PFTTConfig(**kw)
+
+
+class Trainer:
+    """``--steps`` mode: the model, its random init (torch seed 0) and the
+    step.  ``batch(rng)`` draws one numpy batch, ``to_device`` moves it,
+    ``step(batch)`` runs one AdamW step on it and returns the loss;
+    ``loss(trainable, batch)`` is the step's loss alone (for timing the
+    forward apart from the backward)."""
+
+    def __init__(self, args):
+        self.args = args
+        self.device = resolve_device(args.device)
+        cfg = get_config(args.arch)
+        if args.reduced:
+            cfg = cfg.reduced()
+        if any(k.mixer == "mamba" for s in cfg.stages for k in s.pattern):
+            raise NotImplementedError(
+                f"{cfg.name}: ssd_chunk has no backward yet (mamba training is "
+                "not ported)")
+        self.cfg = cfg
+        self.model = Model(cfg, device=self.device)
+        gen = torch.Generator().manual_seed(0)
+        params = self.model.init(gen, max_seq=args.seq)
+        self.peft_cfg = None
+        if args.lora_rank:
+            self.peft_cfg = peft_mod.PEFTConfig(
+                lora_rank=args.lora_rank, lora_targets=("mixer/wq", "mixer/wv"))
+            params = peft_mod.init_adapters(gen, params, cfg, self.peft_cfg)
+            lora = peft_mod.init_lora(gen, params, self.peft_cfg)
+            self.frozen = params
+            self.trainable = {
+                "adapters": trees.select(params, peft_mod.is_adapter_path),
+                "lora": lora}
+            self._step, opt = make_peft_step(self.model, self.peft_cfg, lr=args.lr)
+            self._loss = make_peft_loss(self.model, self.peft_cfg)
+        else:
+            self.frozen = None
+            self.trainable = params
+            self._step, opt = make_train_step(self.model, lr=args.lr)
+        self.opt_state = opt.init(self.trainable)
+
+    def batch(self, rng):
+        b, s, v = self.args.batch, self.args.seq, self.cfg.vocab_size
+        if self.peft_cfg is None:   # the JAX launcher's next-token batch
+            toks = rng.randint(6, v, size=(b, s + 1))
+            return {"tokens": toks[:, :-1], "labels": toks[:, 1:],
+                    "mask": np.ones((b, s), np.float32)}
+        toks = rng.randint(6, v, size=(b, s))
+        mpos = rng.rand(b, s) < 0.15
+        return {"tokens": np.where(mpos, SPECIAL["mask"], toks), "labels": toks,
+                "mask": mpos.astype(np.float32)}
+
+    def to_device(self, batch):
+        return {k: torch.from_numpy(np.asarray(v)).to(self.device)
+                for k, v in batch.items()}
+
+    def loss(self, trainable, batch):
+        if self.peft_cfg is None:
+            return self.model.lm_loss(trainable, batch)
+        return self._loss(trainable, self.frozen, batch)
+
+    def step(self, batch):
+        if self.peft_cfg is None:
+            self.trainable, self.opt_state, loss = self._step(
+                self.trainable, self.opt_state, batch)
+        else:
+            self.trainable, self.opt_state, loss = self._step(
+                self.trainable, self.frozen, self.opt_state, batch)
+        return loss
+
+
+def main(argv=None):
+    args = parse_args(argv)
+    if args.fl_clients:
+        from repro_torch.core.pftt import run_pftt
+        print(f"federated PFTT cohort (reduced-roberta workload; --steps/--seq "
+              f"ignored) on {resolve_device(args.device)}")
+        res = run_pftt(pftt_config(args))
+        print(f"final acc {res['final_acc']:.3f} mean round bytes "
+              f"{res['mean_round_bytes']:,.0f} mean round delay "
+              f"{res['mean_round_delay_s']:.3f}s energy {res['total_energy_j']:.2f}J "
+              f"pretrain {res['pretrain_s']:.2f}s rounds "
+              f"{[round(s, 3) for s in res['round_s']]}s")
+        return res
+    tr = Trainer(args)
+    rng = np.random.RandomState(0)
+    losses = []
+    t0 = time.perf_counter()
+    for i in range(args.steps):
+        losses.append(float(tr.step(tr.to_device(tr.batch(rng)))))
+        if i % 10 == 0:
+            print(f"step {i:4d} loss {losses[-1]:.4f} "
+                  f"({(time.perf_counter() - t0) / (i + 1):.3f}s/step)")
+    return losses
+
+
+if __name__ == "__main__":
+    main()

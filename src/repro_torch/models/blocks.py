@@ -5,12 +5,14 @@ A layer is (mixer, ff) with pre-norm residual structure:
     x = x + mixer(norm1(x))
     x = x + ff(norm2(x))            [if ff != none]
 
-This port has the ``attn`` mixer (the dense decoder of gpt2) and the
-``mamba`` mixer (Mamba-2), with the ``mlp`` ff or none.  Prefill attention
-runs the hand-written flash kernel, or under ``impl="sparse"`` with a
-``cfg.sparse_attn`` pattern the block-sparse kernel; decode attention runs
-the flash-decode kernel, with the sparse position mask under
-``impl="sparse"``.  The mamba mixer's scan runs the SSD chunk kernel.
+This port has the ``attn`` mixer (the dense decoder of gpt2), the ``enc``
+mixer (the RoBERTa encoder: the same projections, non-causal, no cache) and
+the ``mamba`` mixer (Mamba-2), with the ``mlp`` ff or none, and PFTT's
+universal adapter after the ff where the layer has one.  Prefill and
+encoder attention run the hand-written flash kernel, or (decoder layers)
+under ``impl="sparse"`` with a ``cfg.sparse_attn`` pattern the block-sparse
+kernel; decode attention runs the flash-decode kernel, with the sparse
+position mask under ``impl="sparse"``.  The mamba mixer's scan runs the SSD chunk kernel.
 Projections with LoRA factors run the fused LoRA kernel
 (``peft.lora_proj``).
 """
@@ -29,7 +31,6 @@ from repro_torch.models.peft import adapter_fwd, lora_proj
 
 IMPLS = ("auto", "dense", "chunked", "sparse")
 _LATER = {
-    "enc": "the PFTT training slice (roberta encoder)",
     "local": "the arch-zoo slice",
     "dec": "the arch-zoo slice (whisper)",
     "mla": "the arch-zoo slice (deepseek MLA)",
@@ -43,7 +44,7 @@ def check_kind(kind: LayerKind) -> None:
         if part in _LATER:
             raise NotImplementedError(
                 f"layer kind {kind.tag}: '{part}' is ported with {_LATER[part]}")
-    if kind.mixer not in ("attn", "mamba") or kind.ff not in ("mlp", "none"):
+    if kind.mixer not in ("attn", "enc", "mamba") or kind.ff not in ("mlp", "none"):
         raise NotImplementedError(f"layer kind {kind.tag} is not ported")
 
 
@@ -84,8 +85,9 @@ def apply_layer_seq(x, lp, kind: LayerKind, cfg: ModelConfig, *,
                     impl: str = "auto", lora=None, lora_scale: float = 1.0):
     """x: (B, S, d) → (x, cache entry): the layer output and the state that
     seeds a decode cache — the prompt's {"k", "v"} for attention, the final
-    SSM state and conv inputs {"h", "conv"} for mamba.  ``lp``/``lora`` are
-    one layer's (unstacked) params and factor subtree."""
+    SSM state and conv inputs {"h", "conv"} for mamba, None for an encoder
+    layer.  ``lp``/``lora`` are one layer's (unstacked) params and factor
+    subtree."""
     check_kind(kind)
     xn = apply_norm(x, lp["norm1"], cfg.norm, cfg.norm_eps)
     mf = _sub(lora, "mixer")
@@ -96,15 +98,15 @@ def apply_layer_seq(x, lp, kind: LayerKind, cfg: ModelConfig, *,
         entry = {"h": h, "conv": conv}
     else:
         q, k, v = _qkv(xn, lp["mixer"], cfg, mf, lora_scale)
-        sparse = _sparse(cfg, impl)
+        sparse = _sparse(cfg, impl) if kind.mixer == "attn" else None
         if sparse is not None:
             y = block_sparse_attention(q, k, v, sparse)
         else:
-            y = flash_attention(q, k, v, causal=True, window=0)
+            y = flash_attention(q, k, v, causal=kind.mixer != "enc", window=0)
         b, s = y.shape[:2]
         x = x + lora_proj(y.reshape(b, s, -1), lp["mixer"]["wo"], _sub(mf, "wo"),
                           scale=lora_scale)
-        entry = {"k": k, "v": v}
+        entry = None if kind.mixer == "enc" else {"k": k, "v": v}
     x = _ff_and_adapter(x, lp, kind, cfg, lora, lora_scale)
     return x, entry
 

@@ -2,11 +2,14 @@
 
 LoRA factors mirror targeted weight leaves: ``W (…, din, dout)`` →
 ``A (…, din, r)``, ``B (…, r, dout)`` and a per-repeat enable ``mask``
-``(repeats, 1, 1)``.  Serving keeps them UNMERGED: every targeted
-projection runs ``y = x@W + (α/r)·(x@A)@(mask·B)`` through the fused
-``lora_fused`` kernel (``lora_proj``), so the shared base is never
-re-materialized per client.  ``apply_lora`` (merge ``W + (α/r)·mask·A·B``
-and run the plain forward) is kept as the merged parity oracle.
+``(repeats, 1, 1)``.  Serving and training keep them UNMERGED: every
+targeted projection runs ``y = x@W + (α/r)·(x@A)@(mask·B)`` through the
+fused ``lora_fused`` kernel (``lora_proj``), so the shared base is never
+re-materialized per client; the mask carries no gradient.
+``apply_lora`` (merge ``W + (α/r)·mask·A·B`` and run the plain forward) is
+kept as the merged parity oracle.  PFTT's universal adapters
+(``init_adapters``) are bottleneck modules with a residual, inserted in
+every layer.
 """
 from __future__ import annotations
 
@@ -30,6 +33,9 @@ class PEFTConfig:
     lora_alpha: float = 16.0
     lora_targets: Tuple[str, ...] = LORA_DEFAULT_TARGETS
     lora_layers: int = 0          # 0 → all repeats; n → only the last n repeats
+    adapter_dim: int = 64
+    enable_lora: bool = True
+    enable_adapters: bool = True
 
 
 def lora_scale(peft: PEFTConfig) -> float:
@@ -94,10 +100,11 @@ def lora_proj(x, w, lf, *, scale: float):
     """Factored projection ``y = x@W + scale·((x@A)@(mask·B))`` through the
     ``lora_fused`` kernel; ``lf`` None (no factors) → plain ``x@w``.  The
     per-layer enable mask (shape (1, 1) once the layer loop has sliced the
-    (repeats, 1, 1) leaf) is folded into B, as in the JAX package."""
+    (repeats, 1, 1) leaf) is folded into B outside the kernel's autograd
+    Function and detached, as the JAX package's ``stop_gradient``."""
     if lf is None or lf.get("a") is None:
         return x @ w
-    b = lf["b"] * lf["mask"].to(lf["b"].dtype)
+    b = lf["b"] * lf["mask"].detach().to(lf["b"].dtype)   # stop-gradient
     return lora_matmul(x, w, lf["a"], b, scale=scale)
 
 
@@ -105,3 +112,28 @@ def adapter_fwd(x, ap):
     """Bottleneck adapter with residual: x + up(gelu(down(x))), tanh GELU
     as ``jax.nn.gelu``'s default."""
     return x + F.gelu(x @ ap["wd"], approximate="tanh") @ ap["wu"]
+
+
+def init_adapters(generator: torch.Generator, params, cfg, peft: PEFTConfig):
+    """A new params tree with an ``adapter`` {"wd" (r, d, a) ~ N(0, 1/d),
+    "wu" (r, a, d) = 0} in every stacked layer of every stage (the base
+    leaves are shared, not copied).  Draws on the CPU from ``generator``."""
+    emb = params["embed"]
+    stages = []
+    for si, sp in enumerate(params["stages"]):
+        r = cfg.stages[si].repeats
+        layers = []
+        for lp in sp["layers"]:
+            wd = torch.randn(r, cfg.d_model, peft.adapter_dim,
+                             generator=generator) * cfg.d_model ** -0.5
+            wu = torch.zeros(r, peft.adapter_dim, cfg.d_model)
+            layers.append(dict(lp, adapter={
+                "wd": wd.to(device=emb.device, dtype=emb.dtype),
+                "wu": wu.to(device=emb.device, dtype=emb.dtype)}))
+        stages.append(dict(sp, layers=layers))
+    return dict(params, stages=stages)
+
+
+def is_adapter_path(path: str) -> bool:
+    return "/adapter/" in path
+

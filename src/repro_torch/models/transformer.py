@@ -1,17 +1,24 @@
-"""Model: the stack runner over stage patterns (decoder-only serving).
+"""Model: the stack runner over stage patterns (decoders and the encoder).
 
 The port of ``repro.models.transformer.Model`` for the families ported so
-far (dense decoders, attention-free Mamba-2): token embeddings (plus
-learned positions where the config has them), stages of repeated layer patterns
-(parameters stacked on a leading repeat axis, walked by a Python loop where
-the JAX package ``lax.scan``s), the final norm and the (tied) LM head.
+far (dense decoders, attention-free Mamba-2, the encoder-only RoBERTa):
+token embeddings (plus learned positions where the config has them),
+stages of repeated layer patterns (parameters stacked on a leading repeat
+axis, walked by a Python loop where the JAX package ``lax.scan``s), the
+final norm and the (tied) LM head, and for an encoder the classifier head.
 Parameters are plain nested dicts of tensors in the JAX layout, so
 ``bridge`` moves them between the two packages unchanged.
 
-Entry points used by the serving launcher:
+Entry points:
 
+* ``lm_loss``     — chunked cross-entropy over the masked positions (MLM
+                    pretraining, full and PEFT fine-tuning)
+* ``cls_loss``    — the encoder classifier's loss and accuracy (PFTT)
 * ``prefill``     — full prompt → last-token logits and a decode cache
 * ``decode_step`` — one token against the cache (updated in place)
+
+The JAX package's losses add ``AUX_WEIGHT · aux``, the MoE balance loss;
+no ported family has MoE layers, so the port's aux is zero and is left out.
 """
 from __future__ import annotations
 
@@ -45,10 +52,10 @@ class Model:
 
     def __init__(self, cfg: ModelConfig, dtype=torch.float32, device=None,
                  impl: str = "auto"):
-        if cfg.is_encoder_only or cfg.is_encoder_decoder:
+        if cfg.is_encoder_decoder:
             raise NotImplementedError(
-                f"{cfg.name}: encoder stacks are ported with the PFTT training "
-                "slice (roberta) and the arch-zoo slice (whisper)")
+                f"{cfg.name}: encoder-decoder stacks are ported with the "
+                "arch-zoo slice (whisper)")
         if cfg.n_prefix_tokens:
             raise NotImplementedError(f"{cfg.name}: VLM prefixes are ported "
                                       "with the arch-zoo slice")
@@ -93,6 +100,8 @@ class Model:
             params["lm_head"] = normal((d, cfg.vocab_size), 0.02)
         if cfg.pos == "learned":
             params["pos_embed"] = normal((max(cfg.max_position, max_seq, 1024), d), 0.02)
+        if cfg.n_classes:
+            params["cls_head"] = normal((d, cfg.n_classes), 0.02)
         stages = []
         for stage in cfg.stages:
             r = stage.repeats
@@ -155,14 +164,16 @@ class Model:
     # -------------------------------------------------------------- forward
     def forward(self, params, tokens, *, impl: Optional[str] = None,
                 collect_cache: bool = False, lora=None, lora_scale: float = 1.0):
-        """tokens (B, S) → (hidden (B, S, d), caches).  With
-        ``collect_cache`` caches[si][pi] holds each layer's cache entry
-        stacked over the repeats — {"k", "v"} (repeats, B, S, K, hd) for
-        attention, {"h", "conv"} for mamba; otherwise it is None."""
+        """tokens (B, S) → (hidden (B, S, d), caches), positions from 0.  With
+        ``collect_cache`` (decoders only) caches[si][pi] holds each layer's
+        cache entry stacked over the repeats — {"k", "v"} (repeats, B, S, K,
+        hd) for attention, {"h", "conv"} for mamba; otherwise it is None."""
         cfg = self.cfg
         impl = impl or self.impl
         self._check_impl(impl)
         self._check_lora(lora)
+        if collect_cache:
+            self._check_decoder()
         positions = torch.arange(tokens.shape[1], device=tokens.device)
         x = self._embed_tokens(params, tokens, positions)
         caches = [] if collect_cache else None
@@ -182,8 +193,56 @@ class Model:
         x = apply_norm(x, params["final_norm"], cfg.norm, cfg.norm_eps)
         return x, caches
 
+    def _check_decoder(self):
+        if self.cfg.is_encoder_only:
+            raise ValueError(f"{self.cfg.name} is an encoder: it has no decode "
+                             "cache")
+
     def _lm_head(self, params):
         return params["embed"].T if self.cfg.tie_embeddings else params["lm_head"]
+
+    # ----------------------------------------------------------------- loss
+    def lm_loss(self, params, batch, *, impl: Optional[str] = None,
+                chunk: int = 512, lora=None, lora_scale: float = 1.0):
+        """Cross-entropy over the positions where ``batch["mask"]`` is set,
+        the logits formed ``chunk`` positions at a time (never the whole
+        (B, S, vocab) at once; one chunk when S is not a multiple)."""
+        hidden, _ = self.forward(params, batch["tokens"], impl=impl, lora=lora,
+                                 lora_scale=lora_scale)
+        labels, mask = batch["labels"], batch["mask"]
+        s = hidden.shape[1]
+        head = self._lm_head(params)
+        chunk = min(chunk, s)
+        if s % chunk:
+            chunk = s
+        tot = cnt = 0.0
+        for c0 in range(0, s, chunk):
+            logits = (hidden[:, c0:c0 + chunk] @ head).float()
+            logz = torch.logsumexp(logits, dim=-1)
+            ll = logits.gather(-1, labels[:, c0:c0 + chunk, None].long())[..., 0]
+            m = mask[:, c0:c0 + chunk].float()
+            tot = tot + ((logz - ll) * m).sum()
+            cnt = cnt + m.sum()
+        return tot / torch.clamp(cnt, min=1.0)
+
+    def cls_loss(self, params, batch, *, impl: Optional[str] = None,
+                 lora=None, lora_scale: float = 1.0):
+        """Encoder classifier (PFTT) on the first position → (loss, accuracy).
+        An optional ``batch["valid"]`` (B,) sample weight (the padded rows of
+        a ragged cohort, ``core.cohort.HostBatchStacker``) makes both the
+        weighted means over the real rows."""
+        hidden, _ = self.forward(params, batch["tokens"], impl=impl, lora=lora,
+                                 lora_scale=lora_scale)
+        logits = (hidden[:, 0] @ params["cls_head"]).float()
+        label = batch["label"].long()
+        logz = torch.logsumexp(logits, dim=-1)
+        ll = logits.gather(-1, label[:, None])[:, 0]
+        correct = (logits.argmax(-1) == label).float()
+        w = batch.get("valid")
+        if w is None:
+            return (logz - ll).mean(), correct.mean()
+        wsum = torch.clamp(w.sum(), min=1.0)
+        return ((logz - ll) * w).sum() / wsum, (correct * w).sum() / wsum
 
     def logits(self, params, hidden):
         return (hidden @ self._lm_head(params)).float()
@@ -193,6 +252,7 @@ class Model:
         """{"pos": host int, "stages": [[entry per pattern position]]}, each
         entry stacked over the repeats: {"k", "v"} (repeats, B, Sc, K, hd)
         for attention, {"h" f32, "conv"} for mamba."""
+        self._check_decoder()
         dtype = dtype or self.dtype
         return {"pos": 0, "stages": [
             [{n: torch.zeros((stage.repeats,) + shp, dtype=dt, device=self.device)
@@ -230,6 +290,7 @@ class Model:
         impl = impl or self.impl
         self._check_impl(impl)
         self._check_lora(lora)
+        self._check_decoder()
         pos = cache["pos"]
         x = self._embed_tokens(params, tokens, torch.full_like(tokens, pos))
         for si, stage in enumerate(cfg.stages):

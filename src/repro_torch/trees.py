@@ -1,9 +1,13 @@
 """Nested-dict/list tree utilities with '/'-joined path keys — the same
 paths as ``repro.trees.flatten`` on a JAX pytree (list entries by index,
-dict entries by key, ``None`` leaves dropped)."""
+dict entries by key, ``None`` leaves dropped) — and the helpers the cohort
+engine builds on: ``select``/``merge`` of subtrees by path, ``stack``/
+``unstack`` along a leading client axis, ``tree_add``."""
 from __future__ import annotations
 
-from typing import Callable, Dict
+from typing import Callable, Dict, List, Optional, Sequence
+
+import torch
 
 
 def _children(tree):
@@ -53,3 +57,56 @@ def unflatten(flat: Dict[str, object]) -> dict:
             node = node.setdefault(h, {})
         node[last] = leaf
     return root
+
+
+def select(tree, pred: Callable[[str], bool]):
+    """Keep leaves whose path satisfies ``pred``; others become ``None``
+    (structure kept, so the result merges back with ``merge``)."""
+    return map_with_path(lambda p, v: v if pred(p) else None, tree)
+
+
+def merge(base, overlay):
+    """``overlay``'s leaf where it is not ``None``, else ``base``'s; the two
+    trees share one structure."""
+    if overlay is None:
+        return base
+    if isinstance(base, dict):
+        return {k: merge(v, overlay.get(k)) for k, v in base.items()}
+    if isinstance(base, (list, tuple)):
+        return type(base)(merge(b, o) for b, o in zip(base, overlay))
+    return overlay
+
+
+def map_leaves(fn: Callable, *trees_):
+    """Map ``fn`` over the leaves of same-structure trees (``None`` in the
+    first tree stays ``None``)."""
+    first = trees_[0]
+    if first is None:
+        return None
+    if isinstance(first, dict):
+        return {k: map_leaves(fn, *(t[k] for t in trees_)) for k in first}
+    if isinstance(first, (list, tuple)):
+        return type(first)(map_leaves(fn, *xs) for xs in zip(*trees_))
+    return fn(*trees_)
+
+
+def stack(client_trees: Sequence):
+    """n same-structure trees of leaf shape S → one tree of leaf shape
+    (n, *S): the cohort's stacked client axis."""
+    return map_leaves(lambda *ls: torch.stack(ls), *client_trees)
+
+
+def unstack(stacked, n: Optional[int] = None) -> List:
+    """Inverse of ``stack``: the per-client trees, as views of the stacked
+    leaves."""
+    if n is None:
+        n = next(iter(flatten(stacked).values())).shape[0]
+    return [map_leaves(lambda leaf, i=i: leaf[i], stacked) for i in range(n)]
+
+
+def tree_add(a, b, scale_b: float = 1.0):
+    return map_leaves(lambda x, y: x + scale_b * y, a, b)
+
+
+def tree_zeros_like(a):
+    return map_leaves(torch.zeros_like, a)

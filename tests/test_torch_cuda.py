@@ -423,9 +423,11 @@ def test_serving_on_card_matches_cpu(gen, arch, prompt_len, impl):
 
 
 def test_wrappers_refuse_grad_on_card(gen):
-    """Each CUDA entry point raises when an operand requires grad under grad
-    mode (the kernels are forward-only and would drop it), and runs under
-    torch.no_grad()."""
+    """The serving-only CUDA entry points (decode, block-sparse, SSD) raise
+    when an operand requires grad under grad mode (their kernels have no
+    backward and would drop it) and run under torch.no_grad(); lora_matmul
+    and flash_attention go through their autograd Functions, so the
+    gradients arrive."""
     x, w = _rn(gen, 4, 64), _rn(gen, 64, 32)
     a, b = _rn(gen, 64, 4).requires_grad_(), _rn(gen, 4, 32)
     q, q1 = _rn(gen, 2, 64, 4, 32).requires_grad_(), _rn(gen, 2, 1, 4, 32).requires_grad_()
@@ -433,9 +435,7 @@ def test_wrappers_refuse_grad_on_card(gen):
     cfg = SparseAttnConfig(block_size=16, local_blocks=2, sink_blocks=1, stride=2)
     ssd = list(_ssd_inputs(gen, 1, 32, 2, 16, 16, torch.float32))
     ssd[0].requires_grad_()
-    calls = {"lora_matmul": lambda: lora_matmul(x, w, a, b, scale=2.0),
-             "flash_attention": lambda: flash_attention(q, kv, kv),
-             "decode_attention": lambda: decode_attention(q1, kv, kv, 10),
+    calls = {"decode_attention": lambda: decode_attention(q1, kv, kv, 10),
              "block_sparse_attention": lambda: block_sparse_attention(q, kv, kv, cfg),
              "ssd_scan": lambda: ssd_scan(*ssd[:5], chunk=16)}
     for name, call in calls.items():
@@ -443,4 +443,71 @@ def test_wrappers_refuse_grad_on_card(gen):
             call()
         with torch.no_grad():
             call()
+    lora_matmul(x, w, a, b, scale=2.0).sum().backward()
+    flash_attention(q, kv, kv, causal=False).sum().backward()
     torch.cuda.synchronize()
+    assert a.grad is not None and bool(a.grad.abs().sum() > 0)
+    assert q.grad is not None and bool(q.grad.abs().sum() > 0)
+
+
+def _grads(fn, *ins):
+    """(output, input gradients) of ``fn`` under a fixed random cotangent."""
+    ins = [t.detach().clone().requires_grad_() for t in ins]
+    out = fn(*ins)
+    g = torch.randn(out.shape, generator=torch.Generator(device=out.device).manual_seed(1),
+                    device=out.device)
+    return out, torch.autograd.grad(out, ins, g)
+
+
+@pytest.mark.parametrize("m,k,n,r", [(512, 128, 128, 8), (2048, 768, 768, 8),
+                                     (77, 130, 200, 16)])
+def test_lora_function_grads_on_card(gen, m, k, n, r):
+    """``LoraMatmul`` on the card (kernel forward, plain backward) against
+    autograd of the plain version on the card: dx, dW, dA, dB."""
+    x, w = _rn(gen, m, k), _rn(gen, k, n, std=0.05)
+    a, b = _rn(gen, k, r, std=0.05), _rn(gen, r, n, std=0.05)
+    before = lora_matmul.launches
+    out, got = _grads(lambda *t: lora_matmul(*t, scale=2.0), x, w, a, b)
+    assert lora_matmul.launches == before + 1
+    ref, want = _grads(lambda *t: lora_ref(*t, scale=2.0), x, w, a, b)
+    _close(out, ref, TOL["lora"][torch.float32])
+    for g_, w_ in zip(got, want):
+        _close(g_, w_, TOL["lora"][torch.float32])
+
+
+@pytest.mark.parametrize("b,s,h,kh,d,causal", [(8, 32, 4, 4, 32, False),
+                                               (16, 128, 12, 12, 64, False),
+                                               (2, 96, 8, 2, 64, True)])
+def test_flash_function_grads_on_card(gen, b, s, h, kh, d, causal):
+    """``FlashAttention`` on the card (kernel forward, softmax VJP by
+    recomputation) against autograd of the plain version on the card."""
+    q, k, v = _rn(gen, b, s, h, d), _rn(gen, b, s, kh, d), _rn(gen, b, s, kh, d)
+    before = flash_attention.launches
+    out, got = _grads(lambda *t: flash_attention(*t, causal=causal), q, k, v)
+    assert flash_attention.launches == before + 1
+    ref, want = _grads(lambda *t: attention_ref(*t, causal=causal), q, k, v)
+    _close(out, ref, TOL["flash"][torch.float32])
+    for g_, w_ in zip(got, want):
+        _close(g_, w_, TOL["flash"][torch.float32])
+
+
+def test_peft_step_on_card_matches_cpu(gen):
+    """Two ``make_peft_step`` steps of the reduced RoBERTa on the card
+    (both kernels, their Functions) against the same steps on the CPU (the
+    plain versions): losses and trainables."""
+    from repro_torch import trees
+    from repro_torch.launch import train
+    argv = ["--arch", "roberta-base", "--reduced", "--batch", "4", "--seq", "32"]
+    card = train.Trainer(train.parse_args(argv))
+    cpu = train.Trainer(train.parse_args(argv + ["--device", "cpu"]))
+    rng = __import__("numpy").random.RandomState(0)
+    for _ in range(2):
+        batch = card.batch(rng)
+        before = (lora_matmul.launches, flash_attention.launches)
+        lc = card.step(card.to_device(batch))
+        assert (lora_matmul.launches - before[0], flash_attention.launches - before[1]) == (2, 1)
+        lp = cpu.step(cpu.to_device(batch))
+        torch.testing.assert_close(lc.cpu(), lp, atol=1e-4, rtol=1e-4)
+    got = trees.flatten(card.trainable)
+    for path, want in trees.flatten(cpu.trainable).items():
+        torch.testing.assert_close(got[path].cpu(), want, atol=1e-4, rtol=0, msg=path)

@@ -220,11 +220,17 @@ def test_unported_kinds_name_their_slice():
     import dataclasses
     from repro_torch.configs import LK, Stage
     cfg = get_config("gpt2-small").reduced()
-    for kind, slice_ in ((LK("enc", "mlp"), "PFTT"), (LK("mla", "none"), "arch-zoo"),
+    for kind, slice_ in ((LK("dec", "mlp"), "arch-zoo"), (LK("mla", "none"), "arch-zoo"),
                          (LK("attn", "moe"), "arch-zoo"), (LK("local", "mlp"), "arch-zoo")):
         bad = dataclasses.replace(cfg, stages=(Stage((kind,), 1),))
         with pytest.raises(NotImplementedError, match=slice_):
             Model(bad, device="cpu")
+    # the encoder (PFTT's roberta) is ported; an encoder-decoder stack is not
+    Model(get_config("roberta-base").reduced(), device="cpu")
+    enc_dec = dataclasses.replace(cfg, stages=(Stage((LK("enc", "mlp"),), 1, "encoder"),
+                                               Stage((LK("attn", "mlp"),), 1)))
+    with pytest.raises(NotImplementedError, match="arch-zoo"):
+        Model(enc_dec, device="cpu")
     # rotary positions stay unported for configs with attention layers; an
     # attention-free config (mamba2) reads no positions and is accepted
     with pytest.raises(NotImplementedError, match="rotary"):
