@@ -44,9 +44,9 @@ Phases, each reported on its own lines:
    logits are held to the path's tolerance.
 5. profile — torch.profiler over one prefill and 16 decode steps of each
    serving path.
-6. grads   — each autograd Function (``lora_fused``'s and non-causal
-   ``flash_attn``'s: the kernel forward, a plain-torch backward) at the
-   training paths' shapes: every input gradient against autograd of the
+6. grads   — each autograd Function (``lora_fused``'s and ``flash_attn``'s,
+   non-causal and causal: the kernel forward, a plain-torch backward) at
+   the training paths' shapes: every input gradient against autograd of the
    plain version on the card (GRAD lines, f32 tolerances of TOL), forward
    and backward device times of both.
 7. TRAIN-PFTT — ``run_pftt`` (the launcher's ``--fl-clients 4
@@ -61,9 +61,29 @@ Phases, each reported on its own lines:
    times, losses, launches per step (checked), forward and backward device
    times and a PROFILE of one step; the first 2 steps re-run on the CPU from
    the same init and batches, losses and trainables held to tolerance.
+9. TRAIN-PFIT — ``run_pfit`` for the four methods of Fig. 4 (pfit, sfl,
+   pfl, shepherd) at ``benchmarks/fig4_pfit.py``'s quick profile (4 rounds,
+   120 pretraining and 120 reward-model steps, 4 clients, rollout batch 16,
+   prompt 16, gen 24, d 128, 4 layers, seed 0, f32): pretraining and
+   reward-model seconds, seconds per round, reward per round, pair
+   accuracies, mean round bytes and delay, each kernel's launches against
+   ``pfit_expected``; then the same runs on the CPU through the plain
+   versions from the same seeds and noise streams (bytes and delays equal,
+   pair accuracies and rewards within tolerance, round 0's tokens equal but
+   at f32 near-ties), and a PROFILE of a run.
+10. TRAIN-PPO — one client's PPO round at gpt2-small's full width and
+   depth (rollout batch 8, prompt 128, 64 sampled decode steps, then
+   ``PPOTrainer.round``: prep and 2 clipped epochs, masks last-2-layers ×
+   40 % head sparsity; the terminal reward a fixed numpy draw, since the
+   reward models exist only over the synthetic 512-token vocabulary):
+   rollout, prep and step ms, forward and backward device ms, launches per
+   phase (checked), a PROFILE of a step; then prep and the first epoch on
+   the CPU from the same init and the card's tokens (logp, advantages,
+   loss, trainables, masked-out parameters bit-equal).
 
 Before the last line it prints one JSON object with a row per kernel (its
-launches summed over the serving and training paths); the last line is
+launches summed over the serving and training paths' main runs); the last
+line is
 ``{"ok": true, "device": {...}}``.  Any failed check exits
 nonzero before that line.
 """
@@ -253,14 +273,18 @@ def kernel_cases(torch):
                 flops=2 * m * k * n + 2 * m * k * r + 2 * m * r * n,
                 plan=(dname, n, k) if m <= 16 else None,
                 main=(m == 8 and dt == torch.float32)))
-        # the last rows: the reduced RoBERTa encoder's non-causal attention
-        # (PFTT) and roberta-base's at full width (TRAIN-ROBERTA)
+        # then the reduced RoBERTa encoder's non-causal attention (PFTT),
+        # roberta-base's at full width (TRAIN-ROBERTA), PFIT's policy (B 16,
+        # S 39, hd 32: its PPO step and pretraining) and gpt2's PPO step at
+        # full width (TRAIN-PPO: S 191, no tile multiple), causal
         for bsz, s, h, kh, d, window, causal in ((8, 128, 12, 12, 64, 0, True),
                                                  (8, 77, 12, 12, 64, 0, True),
                                                  (2, 200, 8, 2, 32, 96, True),
                                                  (8, 32, 4, 4, 32, 0, False),
-                                                 (16, 128, 12, 12, 64, 0, False)):
-            if dt == torch.bfloat16 and bsz == 16:
+                                                 (16, 128, 12, 12, 64, 0, False),
+                                                 (16, 39, 4, 4, 32, 0, True),
+                                                 (8, 191, 12, 12, 64, 0, True)):
+            if dt == torch.bfloat16 and (bsz == 16 or s == 191):
                 continue
             q, kk, vv = rn(bsz, s, h, d, dtype=dt), rn(bsz, s, kh, d, dtype=dt), rn(bsz, s, kh, d, dtype=dt)
             qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, kk, vv))
@@ -277,10 +301,15 @@ def kernel_cases(torch):
                 nbytes=(2 * bsz * s * h * d + 2 * bsz * s * kh * d) * es,
                 flops=4 * d * allowed * bsz * h,
                 main=(s == 128 and bsz == 8 and causal and dt == torch.float32)))
+        # SERVE's decode, ragged lengths, GQA with a window, and PFIT's
+        # rollouts (hd 32, cache 40 = prompt 16 + 24 steps)
         for bsz, sc, h, kh, d, clen, window in ((8, 192, 12, 12, 64, 192, 0),
                                                 (8, 192, 12, 12, 64, 101, 0),
                                                 (8, 192, 12, 12, 64, 1, 0),
-                                                (2, 256, 8, 4, 128, 201, 64)):
+                                                (2, 256, 8, 4, 128, 201, 64),
+                                                (16, 40, 4, 4, 32, 40, 0)):
+            if dt == torch.bfloat16 and d == 32:
+                continue
             q, kv = rn(bsz, 1, h, d, dtype=dt), rn(2, bsz, sc, kh, d, dtype=dt)
             kc, vc = kv
             lo = max(0, clen - window) if window else 0
@@ -292,8 +321,9 @@ def kernel_cases(torch):
                 dtype=dname,
                 kernel=lambda q=q, k=kc, v=vc, c=clen, w=window: decode_attention(q, k, v, c, window=w),
                 plain=lambda q=q, k=kc, v=vc, c=clen, w=window: decode_ref(q, k, v, c, window=w),
-                library=(None if h != kh else lambda q=qt, k=kt, v=vt:
-                         F.scaled_dot_product_attention(q, k, v)),
+                # over the positions read (the window is one contiguous range)
+                library=lambda q=qt, k=kt, v=vt, g=h != kh:
+                F.scaled_dot_product_attention(q, k, v, enable_gqa=g),
                 nbytes=(2 * bsz * h * d + 2 * bsz * valid * kh * d) * es,
                 flops=4 * d * valid * bsz * h,
                 split=split_plan(bsz, sc, h, window=window),
@@ -521,11 +551,13 @@ def grad_cases(torch):
             plain=lambda *t: lora_ref(*t, scale=2.0),
             inputs=(rn(m, k), rn(k, k, std=0.05), rn(k, 8, std=0.05), rn(8, k, std=0.05)),
             frozen=(1,), names=("x", "w", "a", "b")))
-    for b, s, h, d in ((16, 128, 12, 64), (8, 32, 4, 32)):
+    for b, s, h, d, causal in ((16, 128, 12, 64, False), (8, 32, 4, 32, False),
+                               (16, 39, 4, 32, True), (8, 191, 12, 64, True)):
         cases.append(dict(
-            name="flash_attn", label=f"B={b} S={s} H={h} hd={d} non-causal",
-            kernel=lambda *t: flash_attention(*t, causal=False),
-            plain=lambda *t: attention_ref(*t, causal=False),
+            name="flash_attn",
+            label=f"B={b} S={s} H={h} hd={d} {'causal' if causal else 'non-causal'}",
+            kernel=lambda *t, c=causal: flash_attention(*t, causal=c),
+            plain=lambda *t, c=causal: attention_ref(*t, causal=c),
             inputs=tuple(rn(b, s, h, d) for _ in range(3)), frozen=(),
             names=("q", "k", "v")))
     return cases
@@ -885,6 +917,307 @@ def train_roberta(torch, np):
                           backward_ms=sorted(split["backward"])[1], per_step=per_step[0])
 
 
+# TRAIN-PFIT: card vs CPU (see train_pfit).  TRAIN-PPO: card vs CPU on prep
+# and the first epoch (see train_ppo).
+PFIT_QUICK = dict(rounds=4, pretrain_steps=120, rm_steps=120)   # fig4_pfit.py quick
+PFIT_PAIR_ACC_TOL = 0.02
+PFIT_REWARD_TOL = 0.05
+PFIT_TIE = 1e-3
+PPO_BATCH, PPO_PROMPT, PPO_GEN = 8, 128, 64
+PPO_TOL = 1e-4
+
+
+def pfit_expected(cfg, method):
+    """Each kernel's launches in one ``run_pfit``: the policy (``n_layers``
+    layers) runs ``flash_attn`` once a layer per forward, ``decode_attn``
+    once a layer per decode step, and for shepherd ``lora_fused`` on wq and
+    wv; each reward model (2 layers) runs ``flash_attn`` once a layer per
+    score.  Pretraining: a forward a step.  Reward models: a winner's and a
+    loser's score a step, two scores for the pair accuracy, both models.
+    A round, per client: the evaluation (a rollout, a prefill and
+    ``gen_len`` decode steps, scored by both models) and the training —
+    shepherd's local steps, or a PPO rollout scored by both models, prep's
+    two forwards (policy and reference) and one forward an epoch."""
+    L, rm_layers, gen = cfg.n_layers, 2, cfg.gen_len
+    shepherd = method == "shepherd"
+    score = 2 * rm_layers                          # both reward models
+    flash = L * cfg.pretrain_steps + 2 * rm_layers * 2 * (cfg.rm_steps + 1)
+    per_client = L + score                         # evaluation
+    decode = L * gen
+    lora = 2 * L * (1 + gen) if shepherd else 0
+    if shepherd:
+        per_client += L * cfg.shepherd_steps
+        lora += 2 * L * cfg.shepherd_steps
+    else:
+        per_client += L + score + 2 * L + cfg.ppo.ppo_epochs * L
+        decode += L * gen
+    n = cfg.rounds * cfg.n_clients
+    return {"lora_fused": n * lora, "flash_attn": flash + n * per_client,
+            "decode_attn": n * decode, "block_sparse_attn": 0, "ssd_chunk": 0}
+
+
+def first_differences(card, cpu):
+    """Per row whose tokens differ: (client, row, step, card's and CPU's
+    top-two score gaps at the first differing step)."""
+    out = []
+    for ci, (a, b) in enumerate(zip(card, cpu)):
+        p = a["tokens"].shape[1] - a["margin"].shape[1]
+        for row in range(a["tokens"].shape[0]):
+            diff = (a["tokens"][row, p:] != b["tokens"][row, p:]).nonzero()[0]
+            if len(diff):
+                t = int(diff[0])
+                out.append((ci, row, t, float(a["margin"][row, t]), float(b["margin"][row, t])))
+    return out
+
+
+def train_pfit(torch):
+    """TRAIN-PFIT: ``run_pfit`` for the four methods of Fig. 4 at
+    ``benchmarks/fig4_pfit.py``'s quick profile (4 rounds, 120 pretraining
+    and 120 reward-model steps, ``PFITConfig`` defaults otherwise: 4 clients,
+    rollout batch 16, prompt 16, gen 24, d 128, 4 layers, last-K 2, seed 0,
+    f32) on the card, launch counts checked, then the same runs on the CPU
+    through the plain versions from the same seeds and noise streams.
+    Per-round bytes and delays must be equal; the reward models' pair
+    accuracies within PFIT_PAIR_ACC_TOL (counts over 256 pairs: one flip is
+    0.004); the reward per round within PFIT_REWARD_TOL.  Round 0's sampled
+    tokens (each PPO client's rollout, and each client's evaluation when its
+    rollout matched) must be equal, except at an f32 near-tie: where a row
+    first differs, the gap between its two highest scores (g + logits / T)
+    on the card or the CPU must be under PFIT_TIE."""
+    from repro_torch.core.pfit import METHODS, PFITConfig, run_pfit
+
+    kernels = wrappers()
+    total = {n: 0 for n in KERNELS}
+    out = {}
+    for method in METHODS:
+        cfg = PFITConfig(method=method, **PFIT_QUICK)
+        for f in kernels.values():
+            f.launches = 0
+        t0 = time.perf_counter()
+        card = run_pfit(cfg)
+        card_s = time.perf_counter() - t0
+        launches = {n: f.launches for n, f in kernels.items()}
+        expected = pfit_expected(cfg, method)
+        t0 = time.perf_counter()
+        cpu = run_pfit(dataclasses.replace(cfg, device="cpu"))
+        cpu_s = time.perf_counter() - t0
+        print(f"TRAIN-PFIT {method:<8} run_s={card_s:.2f} pretrain_s={card['pretrain_s']:.3f} "
+              f"rm_s={card['rm_s']:.3f} "
+              f"s_per_round={sum(card['round_s']) / len(card['round_s']):.4f} "
+              f"round_s={[round(x, 4) for x in card['round_s']]} "
+              f"reward_per_round={[round(r, 5) for r in card['reward_per_round']]} "
+              f"rm_pair_acc={card['rm_pair_acc']} "
+              f"mean_round_bytes={card['mean_round_bytes']:.1f} "
+              f"mean_round_delay_s={card['mean_round_delay_s']:.6f}", flush=True)
+        print(f"TRAIN-PFIT {method:<8} launches {launches} expected {expected}", flush=True)
+        if launches != expected:
+            fail(f"TRAIN-PFIT {method}: kernel launches {launches} != expected {expected}")
+        same_ledger = ([(r["bytes"], r["delay_s"]) for r in card["round_records"]]
+                       == [(r["bytes"], r["delay_s"]) for r in cpu["round_records"]])
+        acc_err = max(abs(card["rm_pair_acc"][k] - cpu["rm_pair_acc"][k]) for k in ("help", "safe"))
+        reward_err = max(abs(a - b) for a, b in zip(card["reward_per_round"],
+                                                    cpu["reward_per_round"]))
+        rollout_diffs = first_differences(card["rollouts_round0"], cpu["rollouts_round0"])
+        moved = {d[0] for d in rollout_diffs}
+        eval_diffs = [d for d in first_differences(card["eval_round0"], cpu["eval_round0"])
+                      if d[0] not in moved]
+        ties_ok = all(min(d[3], d[4]) < PFIT_TIE for d in rollout_diffs + eval_diffs)
+        print(f"TRAIN-PFIT {method:<8} CPU (plain versions, {cpu_s:.1f} s): "
+              f"reward_per_round={[round(r, 5) for r in cpu['reward_per_round']]} "
+              f"reward_max_abs_err={reward_err:.2e} (tol {PFIT_REWARD_TOL}) "
+              f"rm_pair_acc={cpu['rm_pair_acc']} max_abs_err={acc_err:.4f} "
+              f"(tol {PFIT_PAIR_ACC_TOL}) bytes_and_delays_equal={same_ledger} "
+              f"round-0 rows differing (client, row, step, card gap, cpu gap): "
+              f"rollouts {rollout_diffs} eval {eval_diffs} (near-tie below {PFIT_TIE:g}: "
+              f"{ties_ok})", flush=True)
+        if (not same_ledger or acc_err > PFIT_PAIR_ACC_TOL or reward_err > PFIT_REWARD_TOL
+                or not ties_ok):
+            fail(f"TRAIN-PFIT {method}: card and CPU differ (ledger equal {same_ledger}, "
+                 f"pair acc {acc_err:.4f}, reward {reward_err:.2e}, near-ties {ties_ok})")
+        for n in KERNELS:
+            total[n] += launches[n]
+        out[method] = {k: card[k] for k in ("reward_per_round", "mean_round_bytes",
+                                            "mean_round_delay_s", "pretrain_s", "rm_s",
+                                            "round_s", "rm_pair_acc")}
+        out[method]["launches"] = launches
+    # the device's busy share over a whole run (pretraining, reward models,
+    # two rounds)
+    profile(torch, "TRAIN-PFIT pfit run_pfit (2 rounds)",
+            lambda: run_pfit(PFITConfig(**dict(PFIT_QUICK, rounds=2))), 1)
+    return total, out
+
+
+def train_ppo(torch, np):
+    """TRAIN-PPO: one client's PPO round at gpt2-small's full width and
+    depth (12 layers, d 768, 12 heads of 64, vocab 50257; random weights
+    from torch seed 0, value head 0), masks last-2-layers × 40 % head
+    sparsity (seed 0), AdamW at ``PFITConfig``'s lr.  A rollout (batch 8,
+    prompt 128 from numpy seed 0, 64 sampled decode steps from noise stream
+    (0, 0): a cache of 192, SERVE's shapes), then ``PPOTrainer.round``
+    (prep and 2 clipped epochs) against the reference = the same weights.
+    The reward models exist only over the synthetic corpus's 512-token
+    vocabulary, so the terminal reward is a fixed numpy draw (seed 1).
+    Then prep and the first epoch apart (host ms ending in a synchronize,
+    forward and backward on device events, a PROFILE of a step), and the
+    same prep and first epoch on the CPU from the same init and the card's
+    tokens: logp, advantages and loss within PPO_TOL relative to max(1,
+    max |x|); the trainables within PPO_TOL except where AdamW's first step
+    cannot carry the gradient's own card-vs-CPU difference (TRAIN-ROBERTA's
+    rule, K = 1 + lr/(4·PPO_TOL); gradients read off AdamW's first moment,
+    0.1·g): there 2·lr; every masked-out parameter bit-equal to its init."""
+    from repro_torch import trees
+    from repro_torch.configs import get_config
+    from repro_torch.core.pfit import PFITConfig
+    from repro_torch.models import peft
+    from repro_torch.models.transformer import Model
+    from repro_torch.optim import adamw
+    from repro_torch.rlhf import ppo, rollout
+
+    cfg = get_config("gpt2-small")
+    lr = PFITConfig.lr
+    L = cfg.n_layers
+    kernels = wrappers()
+
+    def setup(device):
+        model = Model(cfg, device=device)
+        params = model.init(torch.Generator().manual_seed(0))
+        params["value_head"] = torch.zeros(cfg.d_model, 1, device=model.device)
+        mask = trees.map_leaves(lambda a, b: a * b, peft.last_k_layers_mask(params, cfg, 2),
+                                peft.head_sparsity_mask(params, cfg, 0.4, seed=0))
+        trainer = ppo.PPOTrainer(model, adamw(lr), ppo.PPOConfig(), PPO_PROMPT)
+        return model, params, mask, trainer
+
+    def counts():
+        return {n: f.launches for n, f in kernels.items()}
+
+    def since(before):
+        return {n: f.launches - before[n] for n, f in kernels.items()}
+
+    t_start = time.perf_counter()
+    model, params, mask, trainer = setup("cuda")
+    prompts = torch.from_numpy(np.random.RandomState(0).randint(
+        6, cfg.vocab_size, size=(PPO_BATCH, PPO_PROMPT))).cuda()
+    reward = torch.from_numpy(np.random.RandomState(1).randn(PPO_BATCH).astype(np.float32)).cuda()
+    noise = rollout.gumbel_stream(0, 0, PPO_GEN, PPO_BATCH, cfg.vocab_size, "cuda")
+    rollout.generate(model, params, prompts[:, :8], 2, noise)            # warm-up
+    phases, times = {}, {}
+    torch.cuda.synchronize()
+    before, t0 = counts(), time.perf_counter()
+    toks = rollout.generate(model, params, prompts, PPO_GEN, noise)
+    torch.cuda.synchronize()
+    times["rollout_ms"] = (time.perf_counter() - t0) * 1e3
+    phases["rollout"] = since(before)
+    before, t0 = counts(), time.perf_counter()
+    _, _, stats = trainer.round(params, params, trainer.opt.init(params), toks, reward,
+                                grad_mask=mask)
+    torch.cuda.synchronize()
+    times["round_ms"] = (time.perf_counter() - t0) * 1e3
+    phases["round"] = since(before)
+    before, t0 = counts(), time.perf_counter()
+    prepped = trainer._prep(params, params, toks, reward)
+    torch.cuda.synchronize()
+    times["prep_ms"] = (time.perf_counter() - t0) * 1e3
+    phases["prep"] = since(before)
+    step_ms, state = [], (params, trainer.opt.init(params))
+    for i in range(2):
+        before, t0 = counts(), time.perf_counter()
+        new_p, new_st, loss, _ = trainer._step(*state, toks, *prepped[:4], mask)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        phases["step"] = since(before)
+        if i == 0:
+            first = (new_p, new_st, float(loss))
+        state = (new_p, new_st)
+    times["step_ms"] = step_ms
+    expected = {"rollout": dict(flash_attn=L, decode_attn=L * PPO_GEN),
+                "round": dict(flash_attn=2 * L + 2 * L), "prep": dict(flash_attn=2 * L),
+                "step": dict(flash_attn=L)}
+    expected = {ph: {n: e.get(n, 0) for n in KERNELS} for ph, e in expected.items()}
+    tok_ok = toks.shape == (PPO_BATCH, PPO_PROMPT + PPO_GEN) and bool(
+        ((toks >= 0) & (toks < cfg.vocab_size)).all())
+    print(f"TRAIN-PPO gpt2-small full width ({L} layers, d {cfg.d_model}, vocab "
+          f"{cfg.vocab_size}) batch {PPO_BATCH} prompt {PPO_PROMPT} gen {PPO_GEN} f32, "
+          f"last-2 layers x 40% head sparsity, terminal reward a fixed numpy draw: "
+          f"rollout_ms={times['rollout_ms']:.2f} round_ms={times['round_ms']:.2f} "
+          f"prep_ms={times['prep_ms']:.2f} step_ms={[round(x, 2) for x in step_ms]} "
+          f"round_stats={ {k: round(v, 5) for k, v in stats.items()} }", flush=True)
+    print(f"TRAIN-PPO launches per phase {phases} expected {expected}", flush=True)
+    if phases != expected or not tok_ok or not np.isfinite(first[2]):
+        fail(f"TRAIN-PPO: launches {phases} != {expected}, tokens ok {tok_ok}, "
+             f"loss {first[2]}")
+
+    # one more step's forward and backward apart, on device events
+    split = {"forward": [], "backward": []}
+    for _ in range(3):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+        leaves = {p: v.detach().requires_grad_() for p, v in trees.flatten(params).items()}
+        t = trees.map_with_path(lambda p, _: leaves[p], params)
+        ev[0].record()
+        loss, _ = ppo.clipped_loss(model, trainer.cfg, t, toks, *prepped[:4])
+        ev[1].record()
+        torch.autograd.grad(loss, list(leaves.values()), allow_unused=True)
+        ev[2].record()
+        ev[2].synchronize()
+        split["forward"].append(ev[0].elapsed_time(ev[1]))
+        split["backward"].append(ev[1].elapsed_time(ev[2]))
+    print("TRAIN-PPO device ms, forward / backward (median of 3): "
+          f"{sorted(split['forward'])[1]:.3f} / {sorted(split['backward'])[1]:.3f}", flush=True)
+    profile(torch, "TRAIN-PPO step", lambda: trainer._step(params, trainer.opt.init(params),
+                                                            toks, *prepped[:4], mask), 1)
+    t_card = time.perf_counter()
+
+    # prep and the first epoch on the CPU through the plain versions
+    _, c_params, c_mask, c_trainer = setup("cpu")
+    c_toks, c_reward = toks.cpu(), reward.cpu()
+    c_prepped = c_trainer._prep(c_params, c_params, c_toks, c_reward)
+    c_new, c_st, c_loss, _ = c_trainer._step(c_params, c_trainer.opt.init(c_params), c_toks,
+                                             *c_prepped[:4], c_mask)
+
+    def rel(a, b):
+        return float((a.cpu() - b).abs().max()) / max(1.0, float(b.abs().max()))
+
+    logp_err, adv_err = rel(prepped[0], c_prepped[0]), rel(prepped[1], c_prepped[1])
+    loss_err = abs(first[2] - float(c_loss)) / max(1.0, abs(float(c_loss)))
+    gain = 1 + lr / (4 * PPO_TOL)
+    c_flat, c_mu = trees.flatten(c_new), trees.flatten(c_st["mu"])
+    card_flat, card_mu = trees.flatten(first[0]), trees.flatten(first[1]["mu"])
+    init, m = trees.flatten(c_params), trees.flatten(c_mask)
+    settled_err = open_err = 0.0
+    n_open = n_all = n_frozen = 0
+    frozen_ok = True
+    for p, v in c_flat.items():
+        got = card_flat[p].cpu()
+        d = (got - v).abs()
+        unsure = c_mu[p].abs() < gain * (card_mu[p].cpu() - c_mu[p]).abs()   # mu = 0.1·g
+        settled_err = max(settled_err, float((d * ~unsure).max()))
+        open_err = max(open_err, float((d * unsure).max()))
+        n_open += int(unsure.sum())
+        n_all += d.numel()
+        off = torch.broadcast_to(m[p], v.shape) == 0
+        n_frozen += int(off.sum())
+        frozen_ok &= bool(torch.equal(got[off], init[p][off])) and bool(
+            torch.equal(v[off], init[p][off]))
+    t_end = time.perf_counter()
+    print(f"TRAIN-PPO CPU (plain versions, prep and epoch 1 on the card's tokens): "
+          f"logp_rel_err={logp_err:.2e} adv_rel_err={adv_err:.2e} loss_rel_err={loss_err:.2e} "
+          f"(tol {PPO_TOL:g}) trainable_max_abs_err={settled_err:.2e} (tol {PPO_TOL:g}; a "
+          f"gradient below {gain:g}x its card-vs-CPU difference: {n_open} of {n_all} "
+          f"elements, max {open_err:.2e}, tol 2*lr={2 * lr:g}) masked-out "
+          f"{n_frozen} elements bit-equal to init: {frozen_ok}", flush=True)
+    print(f"TRAIN-PPO seconds: card {t_card - t_start:.1f} cpu {t_end - t_card:.1f}", flush=True)
+    if (max(logp_err, adv_err, loss_err, settled_err) > PPO_TOL or open_err > 2 * lr
+            or not frozen_ok):
+        fail(f"TRAIN-PPO: card vs CPU logp {logp_err:.2e}, adv {adv_err:.2e}, loss "
+             f"{loss_err:.2e}, trainables {settled_err:.2e} (AdamW-bound {open_err:.2e}), "
+             f"masked-out equal {frozen_ok}")
+    launches = {n: phases["rollout"][n] + phases["round"][n] for n in KERNELS}
+    return launches, dict(times, **{k: sorted(v)[1] for k, v in
+                                    (("forward_ms", split["forward"]),
+                                     ("backward_ms", split["backward"]))},
+                          launches=phases, logp_rel_err=logp_err, adv_rel_err=adv_err,
+                          loss_rel_err=loss_err, trainable_err=settled_err)
+
+
 def profile(torch, label, run, reps):
     """torch.profiler over ``reps`` calls of ``run``: the device's busy
     share of the wall time and the kernels that fill it, per call.  Prints
@@ -986,8 +1319,14 @@ def main():
     t0 = time.perf_counter()
     got_r, roberta_row = train_roberta(torch, np)
     print(f"PHASE TRAIN-ROBERTA {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    got_f, pfit_rows = train_pfit(torch)
+    print(f"PHASE TRAIN-PFIT {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    got_p, ppo_row = train_ppo(torch, np)
+    print(f"PHASE TRAIN-PPO {time.perf_counter() - t0:.1f} s", flush=True)
     for n in KERNELS:
-        launches[n] += got[n] + got_r[n]
+        launches[n] += got[n] + got_r[n] + got_f[n] + got_p[n]
 
     kernels = [dict(name=n, route="cuda", source=f"src/repro_torch/csrc/{n}.cu",
                     replaces=REPLACES[n], launches=launches[n],
@@ -999,7 +1338,8 @@ def main():
                for n in KERNELS]
     print(json.dumps({"serve": serve_rows}))
     print(json.dumps({"train": {"grad": grad_rows, "pftt": pftt_rows,
-                                "roberta": roberta_row}}))
+                                "roberta": roberta_row, "pfit": pfit_rows,
+                                "ppo": ppo_row}}))
     print(json.dumps({"kernels": kernels}))
     print(smi_line(), flush=True)
     print(json.dumps({"ok": True, "device": {

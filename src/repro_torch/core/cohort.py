@@ -1,14 +1,18 @@
 """Federated cohort engine (the port of ``repro.core.cohort``'s
-synchronous supervised round).
+synchronous rounds: ``build_supervised_round`` for PFTT and PFIT's
+shepherd baseline, ``build_ppo_round`` for PFIT's personalized RLHF).
 
 Per-client trainable state and optimizer state stay stacked along a
 leading client axis (``trees.stack``).  One round:
 
-    for each client, in client order: its local steps       # training
+    for each client, in client order: its local steps, or
+      its rollout, double-reward score and PPO epochs       # training
     weighted mean of the uploaded subtree over the outage
-      weight vector (one stacked op per leaf)                # server
-    broadcast of the aggregate into every client's slot,
-      skipped when every client is in outage (Σw = 0)        # downlink
+      weight vector (one stacked op per leaf; PFIT's under
+      each client's sparsity mask, against the global)       # server
+    broadcast of the aggregate into every client's slot
+      (on its masked entries), skipped when every client
+      is in outage (Σw = 0)                                  # downlink
 
 The JAX engine ``vmap``s the clients and ``scan``s their steps inside one
 compiled program.  Here the client axis is a Python loop over views of the
@@ -30,13 +34,17 @@ import numpy as np
 import torch
 
 from repro_torch import trees
-from repro_torch.core.aggregation import fedavg_stacked
+from repro_torch.core.aggregation import (broadcast_merge_stacked, fedavg_stacked,
+                                          masked_fedavg_stacked)
+from repro_torch.rlhf.ppo import PPOConfig, make_ppo_fns
+from repro_torch.rlhf.rollout import generate
 
 # Where each option the port does not run yet is ported: the one table the
-# engine, ``run_pftt`` and the training launcher refuse from.
+# engine, ``run_pftt``, ``run_pfit`` and the launchers refuse from.
 LATER = {
     "robust": "ROADMAP queue 1 item 1 (the robust round: fault plans, deadlines, "
               "staleness, quorum)",
+    "min_quorum": "ROADMAP queue 1 item 1 (the robust round's quorum gate)",
     "checkpoint": "ROADMAP queue 1 item 1 (checkpoint/resume)",
     "codec": "ROADMAP queue 1 item 2 (comms: uplink codecs)",
     "factored_agg": "ROADMAP queue 1 item 2 (comms: factored aggregation)",
@@ -161,5 +169,78 @@ def build_supervised_round(local_step_fn: Callable,
 
         trees.map_with_path(put, st_trainable)
         return st_trainable, st_opt, losses
+
+    return round_step
+
+
+def build_ppo_round(model, opt, ppo_cfg: PPOConfig, prompt_len: int, gen_len: int,
+                    quality_fn: Callable, *, lambda_regs=None,
+                    reg_pred: Optional[Callable[[str], bool]] = None, mesh=None,
+                    codec=None, robust: bool = False, min_quorum: int = 0):
+    """PFIT's round: per client, in client order, a rollout, the
+    personalized reward, ``prep`` and ``ppo_epochs`` masked clipped steps;
+    then the masked aggregation against the global and the masked
+    broadcast, gated on Σw > 0.
+
+    ``quality_fn(tokens, resp_mask, alpha_help, alpha_safe)`` scores a
+    rollout batch with the double reward.  ``lambda_regs`` is the
+    per-client weight of the negative squared L2 pull toward the global
+    over the ``reg_pred`` subtree (default ``stages``); None or all zeros
+    skips it.
+
+    Returns ``round_step(st_params, st_opt, global_params, st_masks,
+    prompts, noises, alphas_help, alphas_safe, weights, rollouts=None) ->
+    (st_params, st_opt, new_global, mean_rewards, mean_kls)``: per-client
+    state stacked on a leading client axis (updated in place), ``prompts``
+    (n, B, P), ``noises`` one Gumbel hook per client (``rlhf.rollout``) in
+    place of the JAX package's keys, the alphas sequences of floats,
+    ``weights`` the (n,) outage vector.  ``rollouts`` (a list) receives
+    each client's (tokens, per-step sampling margins).  The other
+    arguments are those of the JAX package's function; setting one
+    raises."""
+    not_ported("build_ppo_round", mesh=mesh is not None, codec=codec is not None,
+               robust=robust, min_quorum=min_quorum > 0)
+    prep, step = make_ppo_fns(model, opt, ppo_cfg, prompt_len)
+    reg_pred = reg_pred or (lambda p: p.startswith("stages"))
+    lams = None if lambda_regs is None else [float(x) for x in lambda_regs]
+    use_reg = lams is not None and any(x > 0 for x in lams)
+
+    def round_step(st_params, st_opt, global_params, st_masks, prompts, noises,
+                   alphas_help, alphas_safe, weights, rollouts=None):
+        n, b = prompts.shape[:2]
+        dev = weights.device
+        mean_rewards = torch.empty(n, dtype=torch.float32, device=dev)
+        mean_kls = torch.empty(n, dtype=torch.float32, device=dev)
+        resp = torch.cat([torch.zeros(b, prompt_len, device=dev),
+                          torch.ones(b, gen_len, device=dev)], 1)
+        for ci in range(n):
+            params, opt_state = client_view(st_params, ci), client_view(st_opt, ci)
+            margins = None if rollouts is None else []
+            toks = generate(model, params, prompts[ci], gen_len, noises[ci],
+                            temperature=ppo_cfg.temperature, margins=margins)
+            if rollouts is not None:
+                rollouts.append((toks, torch.stack(margins, 1)))
+            with torch.no_grad():
+                reward = quality_fn(toks, resp, alphas_help[ci], alphas_safe[ci])
+                if use_reg:
+                    reward = reward - lams[ci] * trees.tree_l2(
+                        trees.select(params, reg_pred), trees.select(global_params, reg_pred))
+            old_logp, adv, ret, resp_mask, mean_kl = prep(params, global_params, toks, reward)
+            mask = client_view(st_masks, ci)
+            for _ in range(ppo_cfg.ppo_epochs):
+                params, opt_state, _, _ = step(params, opt_state, toks, old_logp, adv,
+                                               ret, resp_mask, mask)
+            write_client(st_params, ci, params)
+            write_client(st_opt, ci, opt_state)
+            mean_rewards[ci], mean_kls[ci] = reward.mean(), mean_kl
+
+        # server: sparse-mask-weighted aggregation over the surviving clients
+        # (all outage: every denominator 0, the global kept), then each client
+        # resumes from the new global on its own masked entries
+        new_global = masked_fedavg_stacked(global_params, st_params, st_masks, weights)
+        merged = broadcast_merge_stacked(st_params, new_global, st_masks,
+                                         gate=weights.sum() > 0)
+        trees.map_leaves(lambda dst, src: dst.copy_(src), st_params, merged)
+        return st_params, st_opt, new_global, mean_rewards, mean_kls
 
     return round_step

@@ -9,13 +9,18 @@ re-materialized per client; the mask carries no gradient.
 ``apply_lora`` (merge ``W + (α/r)·mask·A·B`` and run the plain forward) is
 kept as the merged parity oracle.  PFTT's universal adapters
 (``init_adapters``) are bottleneck modules with a residual, inserted in
-every layer.
+every layer.  PFIT's gradient masks (``last_k_layers_mask``,
+``head_sparsity_mask``, ``apply_grad_mask``) are trees of f32 tensors in
+broadcast shapes: (repeats, 1, …) over a stacked layer leaf, (1, …, h·hd)
+over a head-structured projection, a scalar elsewhere.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Tuple
+import re
+from typing import Dict, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -137,3 +142,71 @@ def init_adapters(generator: torch.Generator, params, cfg, peft: PEFTConfig):
 def is_adapter_path(path: str) -> bool:
     return "/adapter/" in path
 
+
+
+def last_k_layers_mask(params, cfg, k: int):
+    """Gradient mask: 1.0 on the last ``k`` repeats of the last decoder
+    stage (the last stage of an encoder) and on the final norm and the
+    heads (``cls_head``, ``value_head``, ``reward_head``), 0.0 elsewhere —
+    PFIT's "train only the last two layers"."""
+    decoder = [si for si, s in enumerate(cfg.stages) if s.stream == "decoder"]
+    last_si = max(decoder) if decoder else len(cfg.stages) - 1
+    r = cfg.stages[last_si].repeats
+    lo = max(0, r - k)
+    device = _device_of(params)
+
+    def mk(path, v):
+        if path.startswith(f"stages/{last_si}/layers/"):
+            lm = (torch.arange(r, device=device) >= lo).float()
+            return lm.reshape((r,) + (1,) * (v.dim() - 1))
+        one = path.startswith(("final_norm", "cls_head", "value_head", "reward_head"))
+        return torch.tensor(float(one), device=device)
+
+    return trees.map_with_path(mk, params)
+
+
+def head_sparsity_mask(params, cfg, sparsity: float, seed: int,
+                       keep: Optional[Sequence[int]] = None):
+    """The paper's sparse-attention communication mask: a ``sparsity``
+    fraction of the attention heads' q/o parameters (and k/v under MHA) is
+    zeroed, head by head, so it is neither trained nor uploaded.  The kept
+    heads are ``keep`` when given (parity runs pass the JAX package's
+    ``permutation(PRNGKey(seed))`` draw), else the first ``round(h·(1 −
+    sparsity))`` of a ``torch.randperm`` from a CPU generator seeded with
+    ``seed`` (deterministic per client)."""
+    h, hd = cfg.n_heads, cfg.hd
+    device = _device_of(params)
+    if h == 0:
+        return trees.map_with_path(lambda p, v: torch.ones((), device=device), params)
+    n_keep = max(1, int(round(h * (1.0 - sparsity))))
+    if keep is None:
+        keep = torch.randperm(h, generator=torch.Generator().manual_seed(seed))[:n_keep]
+    keep = torch.tensor(np.asarray(keep), dtype=torch.long)
+    if keep.numel() != n_keep:
+        raise ValueError(f"head_sparsity_mask: {keep.numel()} kept heads, "
+                         f"sparsity {sparsity} of {h} keeps {n_keep}")
+    on = torch.zeros(h).index_fill_(0, keep, 1.0)
+    per_dim = on.repeat_interleave(hd).to(device)          # (h·hd,)
+
+    def mk(path, v):
+        if re.search(r"mixer/w[qkv]$", path) and v.shape[-1] == h * hd:
+            # wq always; wk/wv only under MHA, where kv heads are q heads
+            return per_dim.reshape((1,) * (v.dim() - 1) + (h * hd,))
+        if re.search(r"mixer/wo$", path) and v.shape[-2] == h * hd:
+            return per_dim.reshape((1,) * (v.dim() - 2) + (h * hd, 1))
+        return torch.ones((), device=device)
+
+    return trees.map_with_path(mk, params)
+
+
+def apply_grad_mask(grads, *masks):
+    """Multiply each gradient leaf by every mask's (broadcast) leaf; a
+    ``None`` gradient (a leaf the loss does not reach) stays ``None``."""
+    out = grads
+    for m in masks:
+        out = trees.map_leaves(lambda g, mm: g * mm.to(g.dtype), out, m)
+    return out
+
+
+def _device_of(tree):
+    return next(iter(trees.flatten(tree).values())).device

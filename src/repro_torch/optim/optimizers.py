@@ -25,17 +25,23 @@ class Optimizer(NamedTuple):
     update: Callable
 
 
-def value_and_grad(loss_fn: Callable, tree):
+def value_and_grad(loss_fn: Callable, tree, *, has_aux: bool = False):
     """``jax.value_and_grad`` over a tree of tensors: ``loss_fn`` gets a
     tree of detached leaves that require grad; returns (detached loss,
     gradient tree of the same structure).  A leaf the loss does not reach
-    gets ``None``, which the optimizers read as zeros."""
+    gets ``None``, which the optimizers read as zeros.  With ``has_aux``
+    ``loss_fn`` returns (loss, aux) and the result is ((loss, aux), grads),
+    the aux detached."""
     flat = trees.flatten(tree)
     req = {p: v.detach().requires_grad_() for p, v in flat.items()}
-    loss = loss_fn(trees.map_with_path(lambda p, _: req[p], tree))
+    out = loss_fn(trees.map_with_path(lambda p, _: req[p], tree))
+    loss, aux = out if has_aux else (out, None)
     grads = dict(zip(req, torch.autograd.grad(loss, list(req.values()),
                                               allow_unused=True)))
-    return loss.detach(), trees.map_with_path(lambda p, _: grads[p], tree)
+    grads = trees.map_with_path(lambda p, _: grads[p], tree)
+    if has_aux:
+        return (loss.detach(), trees.map_leaves(torch.Tensor.detach, aux)), grads
+    return loss.detach(), grads
 
 
 def _grads_like(grads, params):

@@ -2,7 +2,7 @@
 paths as ``repro.trees.flatten`` on a JAX pytree (list entries by index,
 dict entries by key, ``None`` leaves dropped) — and the helpers the cohort
 engine builds on: ``select``/``merge`` of subtrees by path, ``stack``/
-``unstack`` along a leading client axis, ``tree_add``."""
+``unstack`` along a leading client axis, ``tree_add``, ``tree_l2``."""
 from __future__ import annotations
 
 from typing import Callable, Dict, List, Optional, Sequence
@@ -110,3 +110,13 @@ def tree_add(a, b, scale_b: float = 1.0):
 
 def tree_zeros_like(a):
     return map_leaves(torch.zeros_like, a)
+
+
+def tree_l2(a, b):
+    """Global squared L2 distance between two same-structure trees, each
+    leaf's sum in f32 (``None`` leaves, as after ``select``, add nothing)."""
+    fa, fb = flatten(a), flatten(b)
+    if fa.keys() != fb.keys():
+        raise ValueError("tree_l2: the trees have different leaves")
+    return torch.stack([(fa[p].float() - fb[p].float()).square().sum()
+                        for p in fa]).sum()

@@ -1,7 +1,8 @@
 """Communication-cost accounting (the paper's Figs. 4/5 right panels).
 
 The port of ``repro.wireless.cost``: ``tree_bytes`` counts every
-non-``None`` leaf of a tree of tensors at its element size, and ``CommLedger`` keeps the per-round, per-client upload record
+non-``None`` leaf of a tree of tensors at its element size (under an
+optional upload mask), and ``CommLedger`` keeps the per-round, per-client upload record
 (bytes, delay, energy, outages) the round loop feeds from
 ``comms.ChannelBudget``.
 """
@@ -15,10 +16,28 @@ import numpy as np
 from repro_torch import trees
 
 
-def tree_bytes(tree) -> int:
+def tree_bytes(tree, *, nonzero_mask=None):
     """Bytes of a tree payload: every tensor leaf's element count times its
-    element size (``None`` leaves carry nothing)."""
-    return sum(x.numel() * x.element_size() for x in trees.flatten(tree).values())
+    element size (``None`` leaves carry nothing).  ``nonzero_mask`` (a tree
+    of the same leaves holding 1/0 masks in broadcast shapes): a leaf sends
+    only its mask's share of its elements, ``round(numel · mean(mask))`` —
+    the paper's sparse-attention upload.  The mean is numpy's over the mask
+    as stored, as in the JAX package, so the byte counts agree exactly."""
+    flat = trees.flatten(tree)
+    masks = {}
+    if nonzero_mask is not None:
+        masks = trees.flatten(nonzero_mask)
+        if masks.keys() != flat.keys():
+            raise ValueError("tree_bytes: nonzero_mask's leaves do not match the "
+                             f"tree's: {sorted(masks.keys() ^ flat.keys())[:4]}")
+    total = 0.0
+    for p, x in flat.items():
+        frac = 1.0
+        if p in masks:
+            m = masks[p].detach().cpu().numpy()
+            frac = float(m.mean()) if m.size else 1.0
+        total += round(x.numel() * frac) * x.element_size()
+    return int(total) if float(total).is_integer() else total
 
 
 @dataclasses.dataclass

@@ -477,7 +477,11 @@ def test_lora_function_grads_on_card(gen, m, k, n, r):
 
 @pytest.mark.parametrize("b,s,h,kh,d,causal", [(8, 32, 4, 4, 32, False),
                                                (16, 128, 12, 12, 64, False),
-                                               (2, 96, 8, 2, 64, True)])
+                                               (2, 96, 8, 2, 64, True),
+                                               # PFIT's policy (S 39) and gpt2's
+                                               # PPO step (S 191, no tile multiple)
+                                               (16, 39, 4, 4, 32, True),
+                                               (8, 191, 12, 12, 64, True)])
 def test_flash_function_grads_on_card(gen, b, s, h, kh, d, causal):
     """``FlashAttention`` on the card (kernel forward, softmax VJP by
     recomputation) against autograd of the plain version on the card."""
@@ -511,3 +515,69 @@ def test_peft_step_on_card_matches_cpu(gen):
     got = trees.flatten(card.trainable)
     for path, want in trees.flatten(cpu.trainable).items():
         torch.testing.assert_close(got[path].cpu(), want, atol=1e-4, rtol=0, msg=path)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("cache_len", [1, 17, 39, 40])
+def test_decode_attn_kernel_hd32(gen, dtype, cache_len):
+    """Head width 32 (PFIT's policy and reward models): B 16, 4 heads, a
+    cache of 40, every length a rollout reads."""
+    q = _rn(gen, 16, 1, 4, 32, dtype=dtype)
+    kc, vc = _rn(gen, 16, 40, 4, 32, dtype=dtype), _rn(gen, 16, 40, 4, 32, dtype=dtype)
+    before = decode_attention.launches
+    out = decode_attention(q, kc, vc, cache_len)
+    assert decode_attention.launches == before + 1
+    _close(out, decode_ref(q, kc, vc, cache_len), TOL["decode"][dtype])
+
+
+def test_pfit_rollout_and_ppo_step_on_card_matches_cpu(gen):
+    """A reduced GPT-2 policy (d 128, 2 layers, 4 heads of 32: PFIT's head
+    width): a rollout through the serving kernels samples the CPU's tokens
+    from the same noise, and one masked PPO step through causal
+    ``FlashAttention`` matches the CPU's loss (1e-4) and parameters (1e-4,
+    except where AdamW's first step cannot carry the gradient's own
+    card-vs-CPU difference: there 2·lr, as ``chip_smoke.py``'s
+    TRAIN-ROBERTA); masked-out parameters stay bit-equal."""
+    from repro_torch import trees
+    from repro_torch.configs import get_config
+    from repro_torch.models import peft
+    from repro_torch.models.transformer import Model
+    from repro_torch.optim import adamw
+    from repro_torch.rlhf import ppo, rollout
+    cfg = get_config("gpt2-small").reduced(d_model=128, repeats=2)
+    prompts = torch.randint(6, 512, (4, 8), generator=torch.Generator().manual_seed(0))
+    reward = torch.randn(4, generator=torch.Generator().manual_seed(1))
+    lr, tol = 4e-4, 1e-4
+    out = {}
+    for dev in ("cuda", "cpu"):
+        model = Model(cfg, device=dev)
+        params = model.init(torch.Generator().manual_seed(0))
+        params["value_head"] = torch.zeros(cfg.d_model, 1, device=dev)
+        mask = trees.map_leaves(lambda a, b: a * b, peft.last_k_layers_mask(params, cfg, 1),
+                                peft.head_sparsity_mask(params, cfg, 0.5, 0))
+        noise = rollout.gumbel_stream(0, 3, 6, 4, cfg.vocab_size, dev)
+        before = decode_attention.launches
+        toks = rollout.generate(model, params, prompts.to(dev), 6, noise)
+        if dev == "cuda":
+            assert decode_attention.launches == before + 2 * 6
+        opt = adamw(lr)
+        prep, step = ppo.make_ppo_fns(model, opt, ppo.PPOConfig(), 8)
+        # the step on the card's tokens on both sides
+        toks_in = toks if dev == "cuda" else out["cuda"]["toks"].cpu()
+        prepped = prep(params, params, toks_in, reward.to(dev))
+        new, st, loss, _ = step(params, opt.init(params), toks_in, *prepped[:4], mask)
+        flat = lambda t: {k: v.cpu() for k, v in trees.flatten(t).items()}  # noqa: E731
+        out[dev] = dict(toks=toks, new=flat(new), mu=flat(st["mu"]), loss=float(loss),
+                        init=flat(params), mask=flat(mask))
+    card, cpu = out["cuda"], out["cpu"]
+    assert torch.equal(card["toks"].cpu(), cpu["toks"])
+    assert abs(card["loss"] - cpu["loss"]) <= tol * max(1.0, abs(cpu["loss"]))
+    gain = 1 + lr / (4 * tol)
+    for k, want in cpu["new"].items():
+        d = (card["new"][k] - want).abs()
+        g_card, g_cpu = card["mu"][k] / 0.1, cpu["mu"][k] / 0.1   # AdamW's first moment
+        unsure = g_cpu.abs() < gain * (g_card - g_cpu).abs()
+        assert float((d * ~unsure).max()) <= tol, k
+        assert float((d * unsure).max()) <= 2 * lr, k
+        off = torch.broadcast_to(cpu["mask"][k], want.shape) == 0
+        assert torch.equal(card["new"][k][off], cpu["init"][k][off]), k
