@@ -80,9 +80,26 @@ Phases, each reported on its own lines:
    phase (checked), a PROFILE of a step; then prep and the first epoch on
    the CPU from the same init and the card's tokens (logp, advantages,
    loss, trainables, masked-out parameters bit-equal).
+11. TRAIN-ROBUST — the straggler-tolerant robust round: (a) ``run_pftt``
+   (pftt) at TRAIN-PFTT's settings for 6 rounds under the launcher's fault
+   plan, deadline, quorum and staleness flags (tests/test_deadline.py's MIX
+   and DL): seconds and accuracy per round, the ledger's simulated time,
+   quorum no-ops, deliveries and corruptions, the tracker's counters,
+   launches against the trace's training client-rounds; a run killed after
+   3 rounds and resumed from its checkpoint (ledger equal, accuracies
+   within tolerance) and a CPU re-run (the same); (b) ``run_pfit`` (pfit)
+   at TRAIN-PFIT's quick profile for 4 rounds under tests/test_faults.py's
+   FAULTY: rewards and seconds per round, launches, a CPU re-run (ledger
+   equal, rewards within tolerance); (c) ``build_ppo_round(robust=True)``
+   at gpt2-small's full width (TRAIN-PPO's setup, 2 clients): the robust
+   round's ms beside the synchronous round's on the same inputs, then
+   hand-set rounds (a straggler, clients the broadcast skips, a rejoin, a
+   deadline miss, a round voided under a quorum of 2) whose selections must
+   hold bit for bit on the card and whose one-delivery globals must equal
+   the plain ``masked_fedavg_stacked`` of that client alone.
 
 Before the last line it prints one JSON object with a row per kernel (its
-launches summed over the serving and training paths' main runs); the last
+launches summed over the serving, training and robust paths' main runs); the last
 line is
 ``{"ok": true, "device": {...}}``.  Any failed check exits
 nonzero before that line.
@@ -717,14 +734,16 @@ def serve_path(torch, np, spec):
 
 
 # ---------------------------------------------------------------- training
-def pftt_expected(cfg, method):
+def pftt_expected(cfg, method, trained=None):
     """Each kernel's launches in one ``run_pftt``: every forward of the
     reduced encoder (2 layers) runs ``flash_attn`` once a layer and, with
     LoRA, ``lora_fused`` on wq and wv — MLM pretraining steps, local steps
-    and one evaluation forward per client and round."""
+    and one evaluation forward per client and round.  ``trained``: the
+    client-rounds that train (the robust round runs only the fault trace's
+    ``train`` clients; default every client every round)."""
     layers = 2
-    local = cfg.rounds * cfg.n_clients * cfg.local_steps
     evals = cfg.rounds * cfg.n_clients
+    local = (evals if trained is None else trained) * cfg.local_steps
     lora = method in ("pftt", "vanilla_fl", "fedlora")
     return {"lora_fused": 2 * layers * (local + evals) if lora else 0,
             "flash_attn": layers * (cfg.pretrain_steps + local + evals),
@@ -927,7 +946,7 @@ PPO_BATCH, PPO_PROMPT, PPO_GEN = 8, 128, 64
 PPO_TOL = 1e-4
 
 
-def pfit_expected(cfg, method):
+def pfit_expected(cfg, method, trained=None):
     """Each kernel's launches in one ``run_pfit``: the policy (``n_layers``
     layers) runs ``flash_attn`` once a layer per forward, ``decode_attn``
     once a layer per decode step, and for shepherd ``lora_fused`` on wq and
@@ -937,23 +956,27 @@ def pfit_expected(cfg, method):
     A round, per client: the evaluation (a rollout, a prefill and
     ``gen_len`` decode steps, scored by both models) and the training —
     shepherd's local steps, or a PPO rollout scored by both models, prep's
-    two forwards (policy and reference) and one forward an epoch."""
+    two forwards (policy and reference) and one forward an epoch.
+    ``trained``: the client-rounds that train (default every client every
+    round; the robust round runs only the trace's ``train`` clients, and
+    evaluates every client)."""
     L, rm_layers, gen = cfg.n_layers, 2, cfg.gen_len
     shepherd = method == "shepherd"
     score = 2 * rm_layers                          # both reward models
     flash = L * cfg.pretrain_steps + 2 * rm_layers * 2 * (cfg.rm_steps + 1)
-    per_client = L + score                         # evaluation
-    decode = L * gen
-    lora = 2 * L * (1 + gen) if shepherd else 0
-    if shepherd:
-        per_client += L * cfg.shepherd_steps
-        lora += 2 * L * cfg.shepherd_steps
-    else:
-        per_client += L + score + 2 * L + cfg.ppo.ppo_epochs * L
-        decode += L * gen
     n = cfg.rounds * cfg.n_clients
-    return {"lora_fused": n * lora, "flash_attn": flash + n * per_client,
-            "decode_attn": n * decode, "block_sparse_attn": 0, "ssd_chunk": 0}
+    t = n if trained is None else trained
+    flash += n * (L + score)                       # evaluation
+    decode = n * L * gen
+    lora = n * 2 * L * (1 + gen) if shepherd else 0
+    if shepherd:
+        flash += t * L * cfg.shepherd_steps
+        lora += t * 2 * L * cfg.shepherd_steps
+    else:
+        flash += t * (L + score + 2 * L + cfg.ppo.ppo_epochs * L)
+        decode += t * L * gen
+    return {"lora_fused": lora, "flash_attn": flash, "decode_attn": decode,
+            "block_sparse_attn": 0, "ssd_chunk": 0}
 
 
 def first_differences(card, cpu):
@@ -1218,20 +1241,338 @@ def train_ppo(torch, np):
                           loss_rel_err=loss_err, trainable_err=settled_err)
 
 
+# TRAIN-ROBUST: the robust round (fault plans, staleness, deadlines, quorum,
+# checkpoint and resume) on the card, against the CPU and against itself.
+# MIX and DL are tests/test_deadline.py's, FAULTY tests/test_faults.py's.
+ROBUST_MIX = dict(dropout_p=0.25, straggle_p=0.3, max_straggle=2, crash_p=0.1, max_crash=1,
+                  snr_dip_p=0.2, corrupt_p=0.25, seed=5)
+ROBUST_DL = dict(deadline_s=0.05, backoff_base_s=0.01, max_retries=3, min_quorum=2,
+                 compute_mean_s=0.005, seed=11)
+ROBUST_FAULTY = dict(dropout_p=0.3, straggle_p=0.3, max_straggle=2, crash_p=0.15,
+                     max_crash=2, snr_dip_p=0.25, seed=3)
+ROBUST_ROUNDS, ROBUST_CUT = 6, 3
+ROBUST_PFIT_ROUNDS = 4
+AGG_TOL = 1e-6
+
+
+def same_records(a, b):
+    """Two ledgers' round records equal, NaN delays included."""
+    import numpy as np
+    try:
+        np.testing.assert_equal(a, b)
+    except AssertionError:
+        return False
+    return True
+
+
+def robust_summary(res):
+    recs = res["round_records"]
+    return (f"sim_time_s={res['total_sim_time_s']:.4f} quorum_noops={res['quorum_noops']} "
+            f"delivered={[r.get('n_delivered') for r in recs]} "
+            f"corrupt={[r.get('corrupt') for r in recs]} bytes={[r['bytes'] for r in recs]} "
+            f"staleness={res['staleness']}")
+
+
+def train_robust_pftt(torch):
+    """TRAIN-ROBUST (a): ``run_pftt`` (method pftt) at TRAIN-PFTT's launcher
+    settings (``--fl-clients 4``, seed 0, f32) for 6 rounds under the
+    launcher's robust flags: ``MIX`` (corruption on), ``DL`` (deadline
+    0.05 s, backoff 0.01 s, 3 retries, quorum 2, compute 0.005 s; its seed
+    11 set on the config, which has no flag), ``--staleness-a 0.5
+    --max-staleness 3``.  Launches against ``pftt_expected`` over the
+    trace's training client-rounds.  Then 3 rounds with a checkpoint
+    directory and a resumed run to 6: every round record equal to the
+    uninterrupted run's, accuracies within PFTT_ACC_TOL (the resumed
+    process pretrains the frozen base again).  Then the same run on the CPU
+    from the same init: records equal, accuracies within PFTT_ACC_TOL."""
+    import tempfile
+
+    from repro_torch.core.pftt import run_pftt
+    from repro_torch.launch import train
+
+    spec = ",".join(f"{k}={v}" for k, v in ROBUST_MIX.items())
+    args = train.parse_args([
+        "--arch", "roberta-base", "--fl-clients", "4", "--fl-rounds", str(ROBUST_ROUNDS),
+        "--fault-plan", spec, "--staleness-a", "0.5", "--max-staleness", "3",
+        "--deadline-s", str(ROBUST_DL["deadline_s"]),
+        "--backoff-base-s", str(ROBUST_DL["backoff_base_s"]),
+        "--max-retries", str(ROBUST_DL["max_retries"]),
+        "--min-quorum", str(ROBUST_DL["min_quorum"]),
+        "--compute-time-s", str(ROBUST_DL["compute_mean_s"])])
+    cfg = train.pftt_config(args, verbose=False)
+    cfg = dataclasses.replace(cfg, deadline=dataclasses.replace(cfg.deadline,
+                                                                seed=ROBUST_DL["seed"]))
+    trained = int(cfg.fault_plan.realize(cfg.n_clients, cfg.rounds).train.sum())
+    kernels = wrappers()
+    for f in kernels.values():
+        f.launches = 0
+    card = run_pftt(cfg)
+    launches = {n: f.launches for n, f in kernels.items()}
+    expected = pftt_expected(cfg, "pftt", trained)
+    print(f"TRAIN-ROBUST pftt MIX+DL {cfg.rounds} rounds x {cfg.n_clients} clients "
+          f"({trained} client-rounds train): pretrain_s={card['pretrain_s']:.3f} "
+          f"s_per_round={sum(card['round_s']) / len(card['round_s']):.4f} "
+          f"round_s={[round(x, 4) for x in card['round_s']]} "
+          f"acc_per_round={[round(a, 4) for a in card['acc_per_round']]} "
+          f"{robust_summary(card)}", flush=True)
+    print(f"TRAIN-ROBUST pftt launches {launches} expected {expected}", flush=True)
+    if launches != expected:
+        fail(f"TRAIN-ROBUST pftt: kernel launches {launches} != expected {expected}")
+
+    with tempfile.TemporaryDirectory() as ck:
+        run_pftt(dataclasses.replace(cfg, rounds=ROBUST_CUT, ckpt_dir=ck))   # "killed"
+        resumed = run_pftt(dataclasses.replace(cfg, ckpt_dir=ck, resume=True))
+    res_ok = same_records(resumed["round_records"], card["round_records"])
+    res_err = max(abs(a - b) for a, b in zip(resumed["acc_per_round"], card["acc_per_round"]))
+    print(f"TRAIN-ROBUST pftt kill after {ROBUST_CUT} rounds and resume to {cfg.rounds}: "
+          f"resumed rounds {len(resumed['round_s'])} "
+          f"acc_per_round={[round(a, 4) for a in resumed['acc_per_round']]} "
+          f"acc_max_abs_err={res_err:.4f} (tol {PFTT_ACC_TOL}) ledger_equal={res_ok} "
+          f"staleness={resumed['staleness']}", flush=True)
+    t0 = time.perf_counter()
+    cpu = run_pftt(dataclasses.replace(cfg, device="cpu"))
+    cpu_s = time.perf_counter() - t0
+    cpu_ok = same_records(cpu["round_records"], card["round_records"])
+    cpu_err = max(abs(a - b) for a, b in zip(cpu["acc_per_round"], card["acc_per_round"]))
+    print(f"TRAIN-ROBUST pftt CPU (plain versions, {cpu_s:.1f} s): "
+          f"acc_per_round={[round(a, 4) for a in cpu['acc_per_round']]} "
+          f"acc_max_abs_err={cpu_err:.4f} (tol {PFTT_ACC_TOL}) ledger_equal={cpu_ok} "
+          f"staleness={cpu['staleness']}", flush=True)
+    if not (res_ok and cpu_ok) or max(res_err, cpu_err) > PFTT_ACC_TOL:
+        fail(f"TRAIN-ROBUST pftt: resume ledger {res_ok} acc {res_err:.4f}, CPU ledger "
+             f"{cpu_ok} acc {cpu_err:.4f}")
+    row = {k: card[k] for k in ("acc_per_round", "round_s", "pretrain_s", "total_sim_time_s",
+                                "quorum_noops", "staleness")}
+    return launches, dict(row, launches=launches, resume_acc_err=res_err, cpu_acc_err=cpu_err)
+
+
+def train_robust_pfit(torch):
+    """TRAIN-ROBUST (b): ``run_pfit`` (method pfit) at TRAIN-PFIT's quick
+    profile for 4 rounds under ``FAULTY``, ``staleness_a`` 0.5,
+    ``max_staleness`` 2: launches against ``pfit_expected`` over the trace's
+    training client-rounds, rewards and seconds per round; the same run on
+    the CPU: every round record equal, rewards within PFIT_REWARD_TOL."""
+    from repro_torch.core.pfit import PFITConfig, run_pfit
+    from repro_torch.wireless import FaultPlan
+
+    cfg = PFITConfig(method="pfit", **dict(PFIT_QUICK, rounds=ROBUST_PFIT_ROUNDS),
+                     fault_plan=FaultPlan(**ROBUST_FAULTY), staleness_a=0.5, max_staleness=2)
+    trained = int(cfg.fault_plan.realize(cfg.n_clients, cfg.rounds).train.sum())
+    kernels = wrappers()
+    for f in kernels.values():
+        f.launches = 0
+    card = run_pfit(cfg)
+    launches = {n: f.launches for n, f in kernels.items()}
+    expected = pfit_expected(cfg, "pfit", trained)
+    print(f"TRAIN-ROBUST pfit FAULTY {cfg.rounds} rounds x {cfg.n_clients} clients "
+          f"({trained} client-rounds train): "
+          f"s_per_round={sum(card['round_s']) / len(card['round_s']):.4f} "
+          f"round_s={[round(x, 4) for x in card['round_s']]} "
+          f"reward_per_round={[round(r, 5) for r in card['reward_per_round']]} "
+          f"train_reward_per_round={[round(r, 5) for r in card['train_reward_per_round']]} "
+          f"{robust_summary(card)}", flush=True)
+    print(f"TRAIN-ROBUST pfit launches {launches} expected {expected}", flush=True)
+    if launches != expected:
+        fail(f"TRAIN-ROBUST pfit: kernel launches {launches} != expected {expected}")
+    t0 = time.perf_counter()
+    cpu = run_pfit(dataclasses.replace(cfg, device="cpu"))
+    cpu_s = time.perf_counter() - t0
+    ok = same_records(cpu["round_records"], card["round_records"])
+    err = max(abs(a - b) for a, b in zip(cpu["reward_per_round"], card["reward_per_round"]))
+    print(f"TRAIN-ROBUST pfit CPU (plain versions, {cpu_s:.1f} s): "
+          f"reward_per_round={[round(r, 5) for r in cpu['reward_per_round']]} "
+          f"reward_max_abs_err={err:.2e} (tol {PFIT_REWARD_TOL}) ledger_equal={ok}", flush=True)
+    if not ok or err > PFIT_REWARD_TOL:
+        fail(f"TRAIN-ROBUST pfit: card and CPU differ (ledger equal {ok}, reward {err:.2e})")
+    row = {k: card[k] for k in ("reward_per_round", "round_s", "staleness")}
+    return launches, dict(row, launches=launches, cpu_reward_err=err)
+
+
+# (train, agg_w, recv, rejoin, ontime) of TRAIN-ROBUST (c)'s rounds, 2 clients
+ROBUST_PPO_ROUNDS = (
+    # R1: client 1 straggles (retransmits its pending payload at a
+    # discount); neither takes the broadcast
+    ("straggle", 0, ([1, 0], [1.0, 0.5], [0, 0], [0, 0], [1, 1])),
+    # R2: client 1 rejoins (optimizer zeroed); one delivery (client 0)
+    ("rejoin", 0, ([1, 0], [1.0, 0.0], [1, 1], [0, 1], [1, 1])),
+    # R3: client 1's fresh upload misses the deadline; one delivery
+    ("deadline", 0, ([1, 1], [1.0, 1.0], [1, 1], [0, 0], [1, 0])),
+    # R4: both retransmit, client 0 late: one delivery (client 1's payload,
+    # which R3 left unmerged) under a quorum of 2
+    ("void", 2, ([0, 0], [0.5, 0.5], [1, 1], [0, 0], [0, 1])),
+)
+
+
+def train_robust_ppo(torch, np):
+    """TRAIN-ROBUST (c): ``build_ppo_round(robust=True)`` at gpt2-small's
+    full width and depth with TRAIN-PPO's model, masks (client ci: last-2
+    layers x 40 % head sparsity, seed ci) and fixed terminal reward, 2
+    clients, rollout batch 8, prompt 128, 64 decode steps.  First the
+    synchronous round and the robust round with all-ones masks on the same
+    inputs (after an untimed warm-up): their ms.  Then the hand-set rounds
+    of ROBUST_PPO_ROUNDS, counted: bitwise on the card, a client that does
+    not train keeps its parameters and optimizer state (and, when the
+    broadcast skips it, its parameters), a rejoining client's optimizer
+    state is all zeros (step included), ``pending`` holds the upload (the
+    trained client the broadcast skipped) or the old payload, and the
+    voided round keeps the global and every client; the global after a
+    round with one delivery equals the plain ``masked_fedavg_stacked`` of
+    that client alone within AGG_TOL."""
+    from repro_torch import trees
+    from repro_torch.configs import get_config
+    from repro_torch.core import cohort
+    from repro_torch.core.aggregation import masked_fedavg_stacked
+    from repro_torch.core.pfit import PFITConfig
+    from repro_torch.models import peft
+    from repro_torch.models.transformer import Model
+    from repro_torch.optim import adamw
+    from repro_torch.rlhf import ppo, rollout
+
+    cfg = get_config("gpt2-small")
+    L, n = cfg.n_layers, 2
+    kernels = wrappers()
+    model = Model(cfg, device="cuda")
+    params = model.init(torch.Generator().manual_seed(0))
+    params["value_head"] = torch.zeros(cfg.d_model, 1, device="cuda")
+    masks = trees.stack([trees.map_leaves(
+        lambda a, b: a * b, peft.last_k_layers_mask(params, cfg, 2),
+        peft.head_sparsity_mask(params, cfg, 0.4, seed=ci)) for ci in range(n)])
+    opt = adamw(PFITConfig.lr)
+    prompts = torch.from_numpy(np.random.RandomState(0).randint(
+        6, cfg.vocab_size, size=(n, PPO_BATCH, PPO_PROMPT))).cuda()
+    reward = torch.from_numpy(np.random.RandomState(1).randn(PPO_BATCH).astype(np.float32)).cuda()
+
+    def quality(toks, resp, ah, asafe):
+        return reward
+
+    def build(**kw):
+        return cohort.build_ppo_round(model, opt, ppo.PPOConfig(), PPO_PROMPT, PPO_GEN,
+                                      quality, **kw)
+
+    def noises(rnd):
+        return [rollout.gumbel_stream(0, rnd * 17 + ci, PPO_GEN, PPO_BATCH, cfg.vocab_size,
+                                      "cuda") for ci in range(n)]
+
+    def fresh():
+        return (trees.stack([params] * n), trees.stack([opt.init(params)] * n),
+                trees.map_leaves(torch.clone, params))
+
+    def vec(v):
+        return torch.tensor(v, dtype=torch.float32, device="cuda")
+
+    def timed(fn, *args):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(*args)
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t0) * 1e3
+
+    alphas = ([0.5] * n, [0.5] * n)
+    sync, robust_q0 = build(), build(robust=True)
+    one = vec([1.0] * n)
+
+    def run_sync():
+        return timed(sync, *fresh(), masks, prompts, noises(0), *alphas, one)
+
+    def run_robust():
+        st, so, glob = fresh()
+        return timed(robust_q0, st, so, glob, trees.map_leaves(torch.zeros_like, st), masks,
+                     prompts, noises(0), *alphas, one, one, one, vec([0.0] * n), one)
+
+    run_sync()                                               # warm-up
+    sync_ms, robust_ms = [], []
+    sync_out, ms = run_sync()
+    sync_ms.append(ms)
+    for _ in range(2):                                       # sync, robust, robust, sync
+        out, ms = run_robust()
+        robust_ms.append(ms)
+    sync_ms.append(run_sync()[1])
+    st, so, glob, pending = out[:4]
+    diff = max(float((a - b).abs().max()) for a, b in zip(
+        trees.flatten(sync_out[0]).values(), trees.flatten(st).values()))
+    print(f"TRAIN-ROBUST ppo gpt2-small full width, {n} clients, batch {PPO_BATCH}, prompt "
+          f"{PPO_PROMPT}, gen {PPO_GEN}: sync_round_ms={[round(x, 1) for x in sync_ms]} "
+          f"robust_round_ms={[round(x, 1) for x in robust_ms]} (all-ones masks, same inputs, "
+          f"in turns sync, robust, robust, sync; clients' max abs difference {diff:.2e})",
+          flush=True)
+    del sync_out
+
+    steps = {0: robust_q0, 2: build(robust=True, min_quorum=2)}
+    checks = {}
+    for f in kernels.values():
+        f.launches = 0
+    trained = 0
+    for rnd, (tag, quorum, m) in enumerate(ROBUST_PPO_ROUNDS, start=1):
+        train_m, agg_w, recv, rejoin, ontime = m
+        g_prev = trees.map_leaves(torch.clone, glob)
+        old = {k: v.clone() for k, v in trees.flatten(
+            {"t": st, "o": so, "p": pending}).items()}
+        out, ms = timed(steps[quorum], st, so, glob, pending, masks, prompts, noises(rnd),
+                        *alphas, vec(agg_w), vec(train_m), vec(recv), vec(rejoin), vec(ontime))
+        st, so, glob, pending = out[:4]
+        trained += sum(train_m)
+        new = trees.flatten({"t": st, "o": so, "p": pending})
+        ok = True
+        for k, v in new.items():
+            for ci in range(n):
+                if k.startswith("o/") and rejoin[ci]:
+                    ok &= not bool(v[ci].any())
+                elif not train_m[ci] and (k[0] in "op" or not recv[ci] or tag == "void"):
+                    ok &= torch.equal(v[ci], old[k][ci])
+                elif k.startswith("p/") and not recv[ci]:     # the upload, unbroadcast
+                    ok &= torch.equal(v[ci], new["t/" + k[2:]][ci])
+        w = np.asarray(agg_w) * np.asarray(ontime)
+        if tag == "void":
+            prev = trees.flatten(g_prev)
+            ok &= all(torch.equal(v, prev[k]) for k, v in trees.flatten(glob).items())
+            agg_err = None
+        else:
+            sel = [ci for ci in range(n) if w[ci] > 0]
+            ref = masked_fedavg_stacked(g_prev, trees.map_leaves(lambda v: v[sel], pending),
+                                        trees.map_leaves(lambda v: v[sel], masks),
+                                        vec(w[sel].tolist()))
+            agg_err = max(float((a - trees.flatten(glob)[k]).abs().max())
+                          for k, a in trees.flatten(ref).items())
+            ok &= agg_err <= AGG_TOL
+        checks[tag] = dict(ok=bool(ok), round_ms=ms, deliveries=int((w > 0).sum()),
+                           global_vs_plain=agg_err,
+                           mean_rewards=[round(float(r), 5) for r in out[4]])
+        print(f"TRAIN-ROBUST ppo round {rnd} {tag} (train {train_m} agg_w {agg_w} recv {recv} "
+              f"rejoin {rejoin} ontime {ontime} quorum {quorum}): round_ms={ms:.1f} "
+              f"selection_bitwise_and_aggregate_ok={bool(ok)} global_vs_plain_masked_fedavg="
+              f"{agg_err if agg_err is None else f'{agg_err:.2e}'} (tol {AGG_TOL:g}) "
+              f"mean_rewards={checks[tag]['mean_rewards']}", flush=True)
+    launches = {k: f.launches for k, f in kernels.items()}
+    expected = {k: 0 for k in KERNELS}
+    expected.update(flash_attn=int(trained) * 5 * L, decode_attn=int(trained) * L * PPO_GEN)
+    print(f"TRAIN-ROBUST ppo launches {launches} expected {expected}", flush=True)
+    bad = [t for t, c in checks.items() if not c["ok"]]
+    if bad or launches != expected:
+        fail(f"TRAIN-ROBUST ppo: rounds {bad} failed their checks; launches {launches} != "
+             f"{expected}")
+    return launches, dict(sync_round_ms=sync_ms, robust_round_ms=robust_ms, rounds=checks,
+                          launches=launches)
+
+
 def profile(torch, label, run, reps):
     """torch.profiler over ``reps`` calls of ``run``: the device's busy
-    share of the wall time and the kernels that fill it, per call.  Prints
-    'not measured' when the trace holds no device events."""
+    share of the wall time and the kernels that fill it, per call, and the
+    seconds the trace took to parse.  Prints 'not measured' when the trace
+    holds no device events.  CUDA activity only: on an H100 80GB HBM3,
+    tracing every CPU op as well doubled a TRAIN-PFIT run's wall time (19.2
+    against 9.6 s untraced) and took 158 s to parse, for the same kernels
+    and busy time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile as tprofile
 
     torch.cuda.synchronize()
-    with tprofile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with tprofile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(reps):
             run()
         torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t0) * 1e6
+        t1 = time.perf_counter()
+        wall_us = (t1 - t0) * 1e6
     by_name = {}
     for e in prof.events():
         if e.device_type == DeviceType.CUDA:
@@ -1243,7 +1584,8 @@ def profile(torch, label, run, reps):
     busy = sum(t for _, t in by_name.values())
     print(f"PROFILE {label} x{reps}: wall_us_per_call={wall_us / reps:.1f} "
           f"device_busy_us_per_call={busy / reps:.1f} "
-          f"device_busy_share={busy / wall_us:.3f}")
+          f"device_busy_share={busy / wall_us:.3f} "
+          f"trace_parse_s={time.perf_counter() - t1:.1f}")
     for name, (n, t) in sorted(by_name.items(), key=lambda kv: -kv[1][1])[:10]:
         print(f"PROFILE   {t / reps:10.1f} us/call  {n / reps:6.1f} calls/call  {name[:90]}")
 
@@ -1325,8 +1667,14 @@ def main():
     t0 = time.perf_counter()
     got_p, ppo_row = train_ppo(torch, np)
     print(f"PHASE TRAIN-PPO {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    got_ra, robust_pftt_row = train_robust_pftt(torch)
+    got_rb, robust_pfit_row = train_robust_pfit(torch)
+    got_rc, robust_ppo_row = train_robust_ppo(torch, np)
+    print(f"PHASE TRAIN-ROBUST {time.perf_counter() - t0:.1f} s", flush=True)
     for n in KERNELS:
-        launches[n] += got[n] + got_r[n] + got_f[n] + got_p[n]
+        launches[n] += (got[n] + got_r[n] + got_f[n] + got_p[n] + got_ra[n] + got_rb[n]
+                        + got_rc[n])
 
     kernels = [dict(name=n, route="cuda", source=f"src/repro_torch/csrc/{n}.cu",
                     replaces=REPLACES[n], launches=launches[n],
@@ -1339,7 +1687,9 @@ def main():
     print(json.dumps({"serve": serve_rows}))
     print(json.dumps({"train": {"grad": grad_rows, "pftt": pftt_rows,
                                 "roberta": roberta_row, "pfit": pfit_rows,
-                                "ppo": ppo_row}}))
+                                "ppo": ppo_row, "robust": {
+                                    "pftt": robust_pftt_row, "pfit": robust_pfit_row,
+                                    "ppo": robust_ppo_row}}}))
     print(json.dumps({"kernels": kernels}))
     print(smi_line(), flush=True)
     print(json.dumps({"ok": True, "device": {

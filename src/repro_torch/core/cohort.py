@@ -21,10 +21,18 @@ launches), and a client-stacked ``lora_fused`` is beyond the reference
 (ROADMAP queue 2).  The stacked buffers are updated in place and returned,
 as the JAX engine donates them.
 
-Not ported yet, and refused by name: the robust round (pending buffer,
-fault masks, staleness; ROADMAP queue 1 item 1), uplink codecs and the SVD
-factor aggregation (item 2, ``comms``), on-device health scalars (item 3,
-``obs``) and the client-sharded mesh (item 8, multi-device).
+Both builders take ``robust=True`` (``docs/robustness.md``): the round then
+carries a pending-payload buffer (each client's latest produced-but-unmerged
+upload) and takes the round's fault masks (``train``, ``recv``, ``rejoin``),
+the staleness-discounted weights of ``core/robust.StalenessTracker`` and the
+deadline mask; ``min_quorum`` voids a round with fewer deliveries.  The
+JAX body trains every client and selects the old state back where
+``train`` is 0; here a client that does not train is never run nor
+written, which leaves the same state.  Every gate is a device tensor.
+
+Not ported yet, and refused by name: uplink codecs and the SVD factor
+aggregation (ROADMAP queue 1 item 2, ``comms``), on-device health scalars
+(item 3, ``obs``) and the client-sharded mesh (item 8, multi-device).
 """
 from __future__ import annotations
 
@@ -34,18 +42,14 @@ import numpy as np
 import torch
 
 from repro_torch import trees
-from repro_torch.core.aggregation import (broadcast_merge_stacked, fedavg_stacked,
-                                          masked_fedavg_stacked)
+from repro_torch.core.aggregation import (_pad_mask, broadcast_merge_stacked,
+                                          fedavg_stacked, masked_fedavg_stacked)
 from repro_torch.rlhf.ppo import PPOConfig, make_ppo_fns
 from repro_torch.rlhf.rollout import generate
 
 # Where each option the port does not run yet is ported: the one table the
 # engine, ``run_pftt``, ``run_pfit`` and the launchers refuse from.
 LATER = {
-    "robust": "ROADMAP queue 1 item 1 (the robust round: fault plans, deadlines, "
-              "staleness, quorum)",
-    "min_quorum": "ROADMAP queue 1 item 1 (the robust round's quorum gate)",
-    "checkpoint": "ROADMAP queue 1 item 1 (checkpoint/resume)",
     "codec": "ROADMAP queue 1 item 2 (comms: uplink codecs)",
     "factored_agg": "ROADMAP queue 1 item 2 (comms: factored aggregation)",
     "health": "ROADMAP queue 1 item 3 (obs: cohort health and telemetry)",
@@ -124,10 +128,39 @@ def build_cohort_eval(eval_fn: Callable):
     return cohort_eval
 
 
+def _where_clients(mask, new, old):
+    """Per-client select over stacked trees: leaf ← ``new`` where the
+    client's ``mask`` entry > 0, else ``old`` (new tensors; pure
+    selection, so every value is bitwise one of the two)."""
+    return trees.map_leaves(
+        lambda n, o: torch.where(_pad_mask(mask, n.dim()) > 0, n, o), new, old)
+
+
+def _zero_clients(mask, tree):
+    """Zero every leaf row whose client ``mask`` entry > 0 (crash-rejoin
+    optimizer reset: AdamW's moments and step count re-init to zeros)."""
+    return trees.map_leaves(
+        lambda leaf: torch.where(_pad_mask(mask, leaf.dim()) > 0,
+                                 torch.zeros_like(leaf), leaf), tree)
+
+
+def _training_clients(train_m) -> list:
+    """The clients whose ``train_m`` entry > 0: the only ones the robust
+    bodies run and write (one small device-to-host read a round)."""
+    return [ci for ci, t in enumerate(train_m.tolist()) if t > 0]
+
+
+def _quorum_gate(w, min_quorum: int):
+    """The merge gate on the device: something was delivered (Σw > 0) and
+    at least ``min_quorum`` clients delivered (0: the plain Σw > 0)."""
+    return torch.logical_and(w.sum() > 0, (w > 0).float().sum() >= min_quorum)
+
+
 def build_supervised_round(local_step_fn: Callable,
                            upload_pred: Optional[Callable[[str], bool]] = None,
                            *, mesh=None, codec=None, factored_agg: bool = False,
-                           robust: bool = False, health: bool = False):
+                           robust: bool = False, min_quorum: int = 0,
+                           health: bool = False):
     """Per-client local steps + FedAvg + broadcast as one round.
 
     ``local_step_fn(trainable, opt_state, batch) -> (trainable, opt_state,
@@ -138,39 +171,80 @@ def build_supervised_round(local_step_fn: Callable,
     -> (stacked_trainable, stacked_opt, losses)``: ``batches`` leaves have
     leading (n_clients, local_steps) axes, ``weights`` is the (n_clients,)
     outage vector, ``losses`` the (n_clients, local_steps) local losses.
+
+    ``robust``: the straggler-tolerant signature, ``round_step(st_trainable,
+    st_opt, pending, batches, train_m, agg_w, recv_m, rejoin_m, ontime_m) ->
+    (st_trainable, st_opt, pending, losses)``.  ``pending`` is the stacked
+    buffer of each client's latest produced-but-unmerged upload (the
+    uploaded subtree, zeros at first); ``train_m``/``recv_m``/``rejoin_m``
+    are the round's (n,) fault masks (``wireless.faults``), ``agg_w`` the
+    staleness-discounted weights (``core/robust.StalenessTracker``) and
+    ``ontime_m`` the deadline mask (1 = arrived before the cutoff).  Only
+    ``train`` clients run their steps and are written (the others keep
+    their state, their losses 0); a fresh upload supersedes the pending
+    payload and the others retransmit it; the server merges with ``agg_w ·
+    ontime_m``, gated on Σw > 0 and at least ``min_quorum`` deliveries (on
+    the device); only ``recv`` clients take the broadcast; ``rejoin``
+    clients' optimizer state is zeroed.  The returned ``pending`` is new
+    storage.  All-ones masks and undiscounted weights give bitwise the
+    synchronous round.
+
     The other arguments are the JAX builder's; setting one raises."""
     not_ported("build_supervised_round", mesh=mesh is not None, codec=codec is not None,
-               factored_agg=factored_agg, robust=robust, health=health)
+               factored_agg=factored_agg, health=health)
     pred = upload_pred or (lambda p: True)
 
-    def round_step(st_trainable, st_opt, batches, weights):
-        n, steps = next(iter(batches.values())).shape[:2]
-        losses = torch.empty((n, steps), dtype=torch.float32,
-                             device=weights.device)
-        for ci in range(n):
+    def train_clients(st_trainable, st_opt, batches, clients, losses):
+        for ci in clients:
             tr, op = client_view(st_trainable, ci), client_view(st_opt, ci)
-            for si in range(steps):
+            for si in range(losses.shape[1]):
                 tr, op, losses[ci, si] = local_step_fn(
                     tr, op, {k: v[ci, si] for k, v in batches.items()})
             write_client(st_trainable, ci, tr)
             write_client(st_opt, ci, op)
 
-        # server: weighted mean of the uploaded subtree over the surviving
-        # clients, broadcast into every client's slot; an all-outage round
-        # (Σw = 0) keeps every client's local values
-        flat_agg = trees.flatten(fedavg_stacked(trees.select(st_trainable, pred),
-                                                weights))
-        gate = weights.sum() > 0
+    def broadcast(st_trainable, agg, sel):
+        """Write the aggregate into every stacked slot where ``sel`` (a
+        scalar gate, or one per client) holds; elsewhere keep local."""
+        flat_agg = trees.flatten(agg)
 
         def put(path, loc):
             if path in flat_agg:
-                loc.copy_(torch.where(gate, flat_agg[path][None].to(loc.dtype), loc))
+                loc.copy_(torch.where(_pad_mask(sel, loc.dim()),
+                                      flat_agg[path][None].to(loc.dtype), loc))
             return loc
 
         trees.map_with_path(put, st_trainable)
+
+    def round_step(st_trainable, st_opt, batches, weights):
+        n, steps = next(iter(batches.values())).shape[:2]
+        losses = torch.empty((n, steps), dtype=torch.float32,
+                             device=weights.device)
+        train_clients(st_trainable, st_opt, batches, range(n), losses)
+        # server: weighted mean of the uploaded subtree over the surviving
+        # clients, broadcast into every client's slot; an all-outage round
+        # (Σw = 0) keeps every client's local values
+        broadcast(st_trainable, fedavg_stacked(trees.select(st_trainable, pred), weights),
+                  weights.sum() > 0)
         return st_trainable, st_opt, losses
 
-    return round_step
+    def robust_step(st_trainable, st_opt, pending, batches, train_m, agg_w,
+                    recv_m, rejoin_m, ontime_m):
+        n, steps = next(iter(batches.values())).shape[:2]
+        losses = torch.zeros((n, steps), dtype=torch.float32, device=agg_w.device)
+        train_clients(st_trainable, st_opt, batches, _training_clients(train_m), losses)
+        # what goes on the air: a fresh upload supersedes the pending
+        # payload; stragglers retransmit it.  A deadline miss merges at
+        # weight 0 (it stays pending); an under-quorum round is a no-op.
+        send = _where_clients(train_m, trees.select(st_trainable, pred), pending)
+        w = agg_w * ontime_m
+        gate = _quorum_gate(w, min_quorum)
+        broadcast(st_trainable, fedavg_stacked(send, w), torch.logical_and(gate, recv_m > 0))
+        trees.map_leaves(lambda dst, src: dst.copy_(src), st_opt,
+                         _zero_clients(rejoin_m, st_opt))
+        return st_trainable, st_opt, send, losses
+
+    return robust_step if robust else round_step
 
 
 def build_ppo_round(model, opt, ppo_cfg: PPOConfig, prompt_len: int, gen_len: int,
@@ -195,25 +269,37 @@ def build_ppo_round(model, opt, ppo_cfg: PPOConfig, prompt_len: int, gen_len: in
     (n, B, P), ``noises`` one Gumbel hook per client (``rlhf.rollout``) in
     place of the JAX package's keys, the alphas sequences of floats,
     ``weights`` the (n,) outage vector.  ``rollouts`` (a list) receives
-    each client's (tokens, per-step sampling margins).  The other
-    arguments are those of the JAX package's function; setting one
-    raises."""
-    not_ported("build_ppo_round", mesh=mesh is not None, codec=codec is not None,
-               robust=robust, min_quorum=min_quorum > 0)
+    each client's (tokens, per-step sampling margins).
+
+    ``robust``: ``round_step(st_params, st_opt, global_params, pending,
+    st_masks, prompts, noises, alphas_help, alphas_safe, agg_w, train_m,
+    recv_m, rejoin_m, ontime_m, rollouts=None) -> (st_params, st_opt,
+    new_global, pending, mean_rewards, mean_kls)``, the contract of
+    ``build_supervised_round(robust=True)``: only ``train`` clients run
+    (their rewards and KLs, the others' 0), the masked aggregation takes
+    fresh uploads and retransmitted pending payloads at ``agg_w ·
+    ontime_m``, the masked broadcast reaches ``recv`` clients only, and
+    ``rejoin`` clients' optimizer state is zeroed.  A round the gate voids
+    (nothing delivered, or under ``min_quorum``) keeps the global and every
+    client; the JAX package's fused body returns the ungated aggregate as
+    its global there, its per-client loop keeps the global (ROADMAP queue
+    3), and the port follows the loop.
+
+    The other arguments are those of the JAX package's function; setting
+    one raises."""
+    not_ported("build_ppo_round", mesh=mesh is not None, codec=codec is not None)
     prep, step = make_ppo_fns(model, opt, ppo_cfg, prompt_len)
     reg_pred = reg_pred or (lambda p: p.startswith("stages"))
     lams = None if lambda_regs is None else [float(x) for x in lambda_regs]
     use_reg = lams is not None and any(x > 0 for x in lams)
 
-    def round_step(st_params, st_opt, global_params, st_masks, prompts, noises,
-                   alphas_help, alphas_safe, weights, rollouts=None):
-        n, b = prompts.shape[:2]
-        dev = weights.device
-        mean_rewards = torch.empty(n, dtype=torch.float32, device=dev)
-        mean_kls = torch.empty(n, dtype=torch.float32, device=dev)
+    def train_clients(clients, st_params, st_opt, global_params, st_masks, prompts,
+                      noises, alphas_help, alphas_safe, rollouts, mean_rewards, mean_kls):
+        b = prompts.shape[1]
+        dev = mean_rewards.device
         resp = torch.cat([torch.zeros(b, prompt_len, device=dev),
                           torch.ones(b, gen_len, device=dev)], 1)
-        for ci in range(n):
+        for ci in clients:
             params, opt_state = client_view(st_params, ci), client_view(st_opt, ci)
             margins = None if rollouts is None else []
             toks = generate(model, params, prompts[ci], gen_len, noises[ci],
@@ -234,6 +320,13 @@ def build_ppo_round(model, opt, ppo_cfg: PPOConfig, prompt_len: int, gen_len: in
             write_client(st_opt, ci, opt_state)
             mean_rewards[ci], mean_kls[ci] = reward.mean(), mean_kl
 
+    def round_step(st_params, st_opt, global_params, st_masks, prompts, noises,
+                   alphas_help, alphas_safe, weights, rollouts=None):
+        n = prompts.shape[0]
+        mean_rewards = torch.empty(n, dtype=torch.float32, device=weights.device)
+        mean_kls = torch.empty(n, dtype=torch.float32, device=weights.device)
+        train_clients(range(n), st_params, st_opt, global_params, st_masks, prompts,
+                      noises, alphas_help, alphas_safe, rollouts, mean_rewards, mean_kls)
         # server: sparse-mask-weighted aggregation over the surviving clients
         # (all outage: every denominator 0, the global kept), then each client
         # resumes from the new global on its own masked entries
@@ -243,4 +336,29 @@ def build_ppo_round(model, opt, ppo_cfg: PPOConfig, prompt_len: int, gen_len: in
         trees.map_leaves(lambda dst, src: dst.copy_(src), st_params, merged)
         return st_params, st_opt, new_global, mean_rewards, mean_kls
 
-    return round_step
+    def robust_step(st_params, st_opt, global_params, pending, st_masks, prompts,
+                    noises, alphas_help, alphas_safe, agg_w, train_m, recv_m, rejoin_m,
+                    ontime_m, rollouts=None):
+        n = prompts.shape[0]
+        mean_rewards = torch.zeros(n, dtype=torch.float32, device=agg_w.device)
+        mean_kls = torch.zeros(n, dtype=torch.float32, device=agg_w.device)
+        train_clients(_training_clients(train_m), st_params, st_opt, global_params,
+                      st_masks, prompts, noises, alphas_help, alphas_safe, rollouts,
+                      mean_rewards, mean_kls)
+        # fresh uploads supersede the pending payloads; stragglers and
+        # outage clients retransmit theirs with the staleness discount; a
+        # deadline miss merges at weight 0 (it stays pending)
+        send = _where_clients(train_m, st_params, pending)
+        w = agg_w * ontime_m
+        gate = _quorum_gate(w, min_quorum)
+        new_global = trees.map_leaves(
+            lambda a, g: torch.where(gate, a, g),
+            masked_fedavg_stacked(global_params, send, st_masks, w), global_params)
+        merged = broadcast_merge_stacked(st_params, new_global, st_masks, gate=gate)
+        trees.map_leaves(lambda dst, src: dst.copy_(src), st_params,
+                         _where_clients(recv_m, merged, st_params))
+        trees.map_leaves(lambda dst, src: dst.copy_(src), st_opt,
+                         _zero_clients(rejoin_m, st_opt))
+        return st_params, st_opt, new_global, send, mean_rewards, mean_kls
+
+    return robust_step if robust else round_step

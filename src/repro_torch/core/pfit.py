@@ -1,5 +1,5 @@
 """PFIT — Personalized Federated Instruction Tuning (paper §IV-C), the port
-of ``repro.core.pfit``'s synchronous engine path.
+of ``repro.core.pfit``'s engine path.
 
 Each client fine-tunes the last K layers of a shared policy (a reduced
 GPT-2) with PPO against a personalized reward: a client-specific linear
@@ -26,10 +26,14 @@ models before training, each client's kept heads, each shepherd client's
 LoRA — and a Gumbel noise hook for every sampling stream.  Every numpy
 draw (corpus, batches, pairs, channel) is the copied code's own.
 
+``fault_plan`` and/or a non-inert ``deadline`` switch both engines to the
+straggler-tolerant robust round (``robust=True``; ``core/robust.py``,
+``docs/robustness.md``).  The JAX package checkpoints PFTT only; so does
+the port.
+
 Not ported yet, and refused by name (``cohort.LATER``): the legacy
 per-client loop (``engine=False``), uplink codecs and factored
-aggregation, fault plans and deadlines, population mode, telemetry and a
-mesh.
+aggregation, population mode, telemetry and a mesh.
 """
 from __future__ import annotations
 
@@ -45,6 +49,7 @@ from repro_torch.comms import ChannelBudget
 from repro_torch.configs import get_config
 from repro_torch.core.cohort import (HostBatchStacker, build_ppo_round,
                                      build_supervised_round, not_ported)
+from repro_torch.core.robust import round_extra, round_reports, robust_runtime
 from repro_torch.core.rewards import ClientPreference, DoubleReward
 from repro_torch.data.partition import client_topic_preferences
 from repro_torch.data.synthetic import N_TOPICS, InstructionCorpus
@@ -55,7 +60,8 @@ from repro_torch.rlhf.ppo import PPOConfig
 from repro_torch.rlhf.reward_model import (RewardModel, reward_model_config,
                                            train_reward_model)
 from repro_torch.rlhf.rollout import generate, gumbel_stream
-from repro_torch.wireless import CommLedger, RayleighChannel, tree_bytes
+from repro_torch.wireless import (CommLedger, DeadlineConfig, FaultPlan, RayleighChannel,
+                                  tree_bytes)
 
 METHODS = ("pfit", "sfl", "pfl", "shepherd")
 EVAL_TEMPERATURE = 0.8
@@ -88,8 +94,16 @@ class PFITConfig:
     uplink_codec: str = "none"
     factored_agg: bool = False
     tx_power_w: float = 0.5        # uplink transmit power (ChannelBudget)
-    fault_plan: Optional[object] = None
-    deadline: Optional[object] = None
+    fault_plan: Optional[FaultPlan] = None   # the straggler-tolerant robust
+                                   # round (the zero plan is bitwise the
+                                   # synchronous engine)
+    staleness_alpha: float = 1.0   # FedAsync α (cancels under normalization)
+    staleness_a: float = 0.0       # staleness exponent a in α·(1+s)^(-a)
+    max_staleness: int = 0         # pending payloads older than this drop;
+                                   # 0 = synchronous drop-on-failure
+    deadline: Optional[DeadlineConfig] = None  # continuous-time round
+                                   # (wireless/arrivals.py); inert or None is
+                                   # the round-granular robust runtime
     ppo: PPOConfig = PPOConfig()
     population: Optional[object] = None
     telemetry: Optional[object] = None
@@ -132,23 +146,24 @@ def _pretrain_policy(model, params, corpus, steps, lr, batch, verbose):
 
 
 def run_pfit(cfg: PFITConfig, init: Optional[Dict] = None, mesh=None) -> Dict:
-    """The synchronous cohort engine for one method.  ``init`` (optional,
+    """The cohort engine for one method, synchronous or robust.  ``init`` (optional,
     the JAX package's draws for parity runs): {"policy": flat numpy params
     before pretraining, "rm_help"/"rm_safe": flat numpy reward-model params
     before training, "keep": each client's kept heads, "lora": each
     shepherd client's flat numpy LoRA, "noise": ``noise(stream, batch) ->
     hook``}; a missing entry is drawn by the port.  Returns the JAX
     package's result keys plus the port's: ``round_records`` (the ledger's
-    rounds), ``train_reward_per_round`` (the clients' mean rollout reward,
-    PPO methods), ``rollouts_round0`` and ``eval_round0`` (round 0's
-    sampled tokens and per-step sampling margins, per client, numpy) and
+    rounds), ``staleness`` (the tracker's counters; None when synchronous),
+    ``train_reward_per_round`` (the clients' mean rollout reward, PPO
+    methods; a non-training client's counted as 0), ``rollouts_round0``
+    and ``eval_round0`` (round 0's sampled tokens and per-step sampling
+    margins, per client, numpy) and
     the timings ``pretrain_s``, ``rm_s`` and ``round_s`` (a round's
     training, ledger and evaluation, host clock ending in a synchronize)."""
     if cfg.method not in METHODS:
         raise ValueError(f"method {cfg.method!r} not in {METHODS}")
     not_ported("PFITConfig", legacy_loop=not cfg.engine,
                codec=cfg.uplink_codec != "none", factored_agg=cfg.factored_agg,
-               robust=cfg.fault_plan is not None or cfg.deadline is not None,
                population=cfg.population is not None,
                health=cfg.telemetry is not None, mesh=mesh is not None)
     init = init or {}
@@ -275,9 +290,15 @@ def run_pfit(cfg: PFITConfig, init: Optional[Dict] = None, mesh=None) -> Dict:
                                        prefs[ci].alpha_safe).mean())
         return float(torch.stack(vals).double().mean())
 
+    # ---- the straggler-tolerant runtime (core/robust.py, wireless/faults.py)
+    dl, trace, tracker = robust_runtime(cfg, channel)
+    robust = tracker is not None
+    min_quorum = dl.min_quorum if dl is not None else 0
+
     # ---- the cohort engine: per-client state stacked on a client axis
     if cfg.method == "shepherd":
-        round_step = build_supervised_round(shepherd_local_step)
+        round_step = build_supervised_round(shepherd_local_step, robust=robust,
+                                            min_quorum=min_quorum)
         cohort_tr = trees.stack(loras)
         cohort_opt = trees.stack([opt.init(lo) for lo in loras])
         payloads = [tree_bytes(lo) for lo in loras]
@@ -285,19 +306,41 @@ def run_pfit(cfg: PFITConfig, init: Optional[Dict] = None, mesh=None) -> Dict:
     else:
         ppo_round_step = build_ppo_round(
             model, opt, cfg.ppo, cfg.prompt_len, cfg.gen_len, quality_fn,
-            lambda_regs=[p.lambda_reg for p in prefs])
+            lambda_regs=[p.lambda_reg for p in prefs], robust=robust,
+            min_quorum=min_quorum)
         cohort_tr = trees.stack([params] * cfg.n_clients)
         cohort_opt = trees.stack([opt.init(params)] * cfg.n_clients)
         st_masks = trees.stack(client_masks)
         payloads = [tree_bytes(params, nonzero_mask=client_masks[ci])
                     for ci in range(cfg.n_clients)]
+    # the pending-payload buffer (zeros never merge: their weight is 0) and
+    # the deadline round's scheduling sizes (exact: uncompressed uploads)
+    pending = trees.map_leaves(torch.zeros_like, cohort_tr) if robust else None
+    est_bits = np.asarray([p * 8 for p in payloads], np.float64) if dl else None
+
+    def vec(v):
+        return torch.from_numpy(np.asarray(v, np.float32)).to(device)
 
     reward_curve, train_reward, round_s = [], [], []
     rollouts0, eval0 = [], []
     for rnd in range(cfg.rounds):
         t0 = time.perf_counter()
         gains = channel.realize(cfg.n_clients)
-        weights = torch.from_numpy(channel.outage_weights(gains)).to(device)
+        rplan = None
+        if robust:
+            rf = trace.round(rnd)
+            gains = gains * rf.gain_scale       # injected SNR dips
+            rplan = tracker.begin_round(rf, channel.outage_weights(gains),
+                                        gains=gains, fresh_bits=est_bits)
+            # deadline mode: the pre-deadline weights and the on-time mask
+            # apart (the body multiplies them and derives the quorum gate)
+            ontime = rplan.ontime if dl is not None else np.ones(cfg.n_clients, np.float32)
+            margs = (vec(rplan.agg_w_pre if dl is not None else rplan.agg_w),
+                     vec(rplan.train), vec(rplan.recv), vec(rplan.rejoin), vec(ontime))
+        else:
+            weights = vec(channel.outage_weights(gains))
+        # every client's batches or prompts and noise streams are drawn every
+        # round, training or not: the host streams stay aligned
         if cfg.method == "shepherd":
             def shepherd_batch(ci):
                 s = corpus.sample(cfg.rollout_batch, topic_probs=topic_prefs[ci],
@@ -306,7 +349,14 @@ def run_pfit(cfg: PFITConfig, init: Optional[Dict] = None, mesh=None) -> Dict:
                         "mask": s["mask"][:, 1:]}
             batches = stacker([[shepherd_batch(ci) for _ in range(cfg.shepherd_steps)]
                                for ci in range(cfg.n_clients)])
-            cohort_tr, cohort_opt, _ = round_step(cohort_tr, cohort_opt, batches, weights)
+            if robust:
+                agg_w, train_m, recv_m, rejoin_m, ontime_m = margs
+                cohort_tr, cohort_opt, pending, _ = round_step(
+                    cohort_tr, cohort_opt, pending, batches, train_m, agg_w, recv_m,
+                    rejoin_m, ontime_m)
+            else:
+                cohort_tr, cohort_opt, _ = round_step(cohort_tr, cohort_opt, batches,
+                                                      weights)
         else:
             prompts = torch.from_numpy(np.stack(
                 [corpus.sample(cfg.rollout_batch, topic_probs=topic_prefs[ci],
@@ -314,14 +364,27 @@ def run_pfit(cfg: PFITConfig, init: Optional[Dict] = None, mesh=None) -> Dict:
                  for ci in range(cfg.n_clients)])).to(device)
             noises = [noise_for(rnd * 17 + ci, cfg.rollout_batch)
                       for ci in range(cfg.n_clients)]
-            cohort_tr, cohort_opt, global_params, mean_rewards, _ = ppo_round_step(
-                cohort_tr, cohort_opt, global_params, st_masks, prompts, noises,
-                [p.alpha_help for p in prefs], [p.alpha_safe for p in prefs], weights,
-                rollouts=rollouts0 if rnd == 0 else None)
+            alphas = ([p.alpha_help for p in prefs], [p.alpha_safe for p in prefs])
+            record = rollouts0 if rnd == 0 else None
+            if robust:
+                (cohort_tr, cohort_opt, global_params, pending, mean_rewards,
+                 _) = ppo_round_step(cohort_tr, cohort_opt, global_params, pending,
+                                     st_masks, prompts, noises, *alphas, *margs,
+                                     rollouts=record)
+            else:
+                cohort_tr, cohort_opt, global_params, mean_rewards, _ = ppo_round_step(
+                    cohort_tr, cohort_opt, global_params, st_masks, prompts, noises,
+                    *alphas, weights, rollouts=record)
             train_reward.append(float(mean_rewards.mean()))
-        reports = budget.round_reports([payloads[ci] * 8 for ci in range(cfg.n_clients)],
-                                       gains)
-        ledger.log_round(reports, None, round_id=rnd)
+        bits = [payloads[ci] * 8 for ci in range(cfg.n_clients)]
+        extra = None
+        if robust:
+            charged = tracker.end_round(rplan, np.asarray(bits, np.float64))
+            reports = round_reports(budget, rplan, charged, gains)
+            extra = round_extra(rplan)
+        else:
+            reports = budget.round_reports(bits, gains)
+        ledger.log_round(reports, extra, round_id=rnd)
 
         record = eval0 if rnd == 0 else None
         if cfg.method == "shepherd":   # serve unmerged: the base shared, the factors per client
@@ -353,6 +416,7 @@ def run_pfit(cfg: PFITConfig, init: Optional[Dict] = None, mesh=None) -> Dict:
         "uplink_codec": cfg.uplink_codec,
         "rm_pair_acc": {"help": rmh_stats["pair_acc"], "safe": rms_stats["pair_acc"]},
         "round_records": ledger.rounds,
+        "staleness": tracker.counters() if robust else None,
         "train_reward_per_round": train_reward,
         "rollouts_round0": to_np(rollouts0),
         "eval_round0": to_np(eval0),

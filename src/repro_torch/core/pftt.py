@@ -1,5 +1,5 @@
 """PFTT — Personalized Federated Task Tuning (paper §IV-D), the port of
-``repro.core.pftt``'s synchronous engine path.
+``repro.core.pftt``'s engine path.
 
 Universal adapters (and the classifier head) are aggregated globally each
 round; local LoRA is trained but never uploaded, giving per-client
@@ -25,13 +25,23 @@ adapter leaves, each client's initial LoRA — in place of the port's
 ``torch.Generator`` draws.  Every numpy draw (corpora, MLM masks,
 partition, batches, channel) is the copied code's own, draw for draw.
 
+``fault_plan`` and/or a non-inert ``deadline`` switch the round to the
+straggler-tolerant robust engine (``cohort.build_supervised_round(robust=
+True)``, ``core/robust.StalenessTracker``; ``docs/robustness.md``).
+``ckpt_dir`` saves the stacked state after every round (an atomic npz plus
+a JSON sidecar of the host state); ``resume`` restarts from it and replays
+the host draws of the skipped rounds, so the continued run is the
+uninterrupted one.
+
 Not ported yet, and refused by name (``cohort.LATER``): the legacy
 per-client loop (``engine=False``), uplink codecs and factored aggregation,
-fault plans and deadlines, checkpoints, population mode and telemetry.
+population mode and telemetry.
 """
 from __future__ import annotations
 
 import dataclasses
+import json
+import os
 import time
 from typing import Dict, List, Optional
 
@@ -39,16 +49,19 @@ import numpy as np
 import torch
 
 from repro_torch import bridge, resolve_device, synchronize, trees
+from repro_torch.checkpoint import load_checkpoint, save_checkpoint, save_json
 from repro_torch.comms import ChannelBudget
 from repro_torch.configs import get_config
 from repro_torch.core.cohort import (HostBatchStacker, build_cohort_eval,
                                      build_supervised_round, not_ported)
+from repro_torch.core.robust import round_extra, round_reports, robust_runtime
 from repro_torch.data import (SPECIAL, ClassificationCorpus, batch_iterator,
                               dirichlet_partition)
 from repro_torch.models import peft as peft_mod
 from repro_torch.models.transformer import Model
 from repro_torch.optim import adamw, value_and_grad
-from repro_torch.wireless import CommLedger, RayleighChannel, tree_bytes
+from repro_torch.wireless import (CommLedger, DeadlineConfig, FaultPlan, RayleighChannel,
+                                  tree_bytes)
 
 METHODS = ("pftt", "vanilla_fl", "fedbert", "fedlora")
 
@@ -77,9 +90,18 @@ class PFTTConfig:
     uplink_codec: str = "none"
     factored_agg: bool = False
     tx_power_w: float = 0.5        # uplink transmit power (ChannelBudget)
-    fault_plan: Optional[object] = None
-    deadline: Optional[object] = None
-    ckpt_dir: Optional[str] = None
+    fault_plan: Optional[FaultPlan] = None   # the straggler-tolerant robust
+                                   # round (the zero plan is bitwise the
+                                   # synchronous engine)
+    staleness_alpha: float = 1.0   # FedAsync α (cancels under normalization)
+    staleness_a: float = 0.0       # staleness exponent a in α·(1+s)^(-a)
+    max_staleness: int = 0         # drop pending payloads older than this;
+                                   # 0 = synchronous drop-on-failure
+    deadline: Optional[DeadlineConfig] = None  # continuous-time round
+                                   # (wireless/arrivals.py); inert or None is
+                                   # the round-granular robust runtime
+    ckpt_dir: Optional[str] = None # save the stacked round state each round
+    resume: bool = False           # restart from ckpt_dir's last round
     population: Optional[object] = None
     telemetry: Optional[object] = None
     device: Optional[str] = None   # None/"cuda": the GPU (raises without);
@@ -202,19 +224,20 @@ def _setup_backbone(cfg: PFTTConfig, init: Optional[Dict] = None):
 
 
 def run_pftt(cfg: PFTTConfig, init: Optional[Dict] = None) -> Dict:
-    """The synchronous cohort engine for one method.  ``init`` (optional):
-    {"base": flat numpy params before pretraining, "adapters": flat numpy
-    adapter leaves, "lora": [flat numpy LoRA tree per client]} — the JAX
-    package's draws, for parity runs.  Returns the JAX package's result
-    keys plus the port's timings (``pretrain_s``, ``round_s``) and the mean
-    local loss of each round (``loss_per_round``)."""
+    """The cohort engine for one method, synchronous or robust.  ``init``
+    (optional): {"base": flat numpy params before pretraining, "adapters":
+    flat numpy adapter leaves, "lora": [flat numpy LoRA tree per client]} —
+    the JAX package's draws, for parity runs.  Returns the JAX package's
+    result keys plus the port's: the tracker's ``staleness`` counters
+    (None when synchronous), the mean local loss of each round
+    (``loss_per_round``, a non-training client's counted as 0, as in the
+    JAX body) and the timings ``pretrain_s`` and ``round_s`` (the rounds
+    this process ran)."""
     if cfg.method not in METHODS:
         raise ValueError(f"method {cfg.method!r} not in {METHODS}")
     not_ported("PFTTConfig", legacy_loop=not cfg.engine,
                codec=cfg.uplink_codec != "none", factored_agg=cfg.factored_agg,
-               robust=cfg.fault_plan is not None or cfg.deadline is not None,
-               checkpoint=bool(cfg.ckpt_dir), population=cfg.population is not None,
-               health=cfg.telemetry is not None)
+               population=cfg.population is not None, health=cfg.telemetry is not None)
     (model, mcfg, params, peft_cfg, corpus, gen, rng, use_lora,
      pretrain_s) = _setup_backbone(cfg, init)
     device = model.device
@@ -297,29 +320,112 @@ def run_pftt(cfg: PFTTConfig, init: Optional[Dict] = None) -> Dict:
     def payload_bytes(trainable) -> float:
         return tree_bytes(trees.select(trainable, upload_pred)) + act_bits() / 8
 
-    round_step = build_supervised_round(local_step, upload_pred)
+    # ---- the straggler-tolerant runtime (core/robust.py, wireless/faults.py)
+    dl, trace, tracker = robust_runtime(cfg, channel)
+    robust = tracker is not None
+    arrivals = tracker.arrivals if robust else None
+
+    round_step = build_supervised_round(local_step, upload_pred, robust=robust,
+                                        min_quorum=dl.min_quorum if dl else 0)
     cohort_tr = trees.stack([cl["trainable"] for cl in clients])
     cohort_opt = trees.stack([cl["opt_state"] for cl in clients])
     payloads = [payload_bytes(cl["trainable"]) for cl in clients]
     stacker = HostBatchStacker(device)
+    # the pending-payload buffer: zeros of the uploaded subtree (a zero
+    # payload never merges: its weight is 0 until a real one replaces it)
+    pending = trees.map_leaves(torch.zeros_like, trees.select(cohort_tr, upload_pred)) \
+        if robust else None
+    # the continuous-time round schedules by the payload size known at
+    # dispatch: exact for uncompressed uploads
+    est_bits = np.asarray([p * 8 for p in payloads], np.float64) if dl else None
+
+    def vec(v):
+        return torch.from_numpy(np.asarray(v, np.float32)).to(device)
 
     accs_per_round, loss_per_round, round_s = [], [], []
-    for rnd in range(cfg.rounds):
+
+    # ---- round-level checkpoint/resume: the stacked state restores
+    # exactly; the host streams (fading draws, compute-time draws, each
+    # client's batches) are replayed to the resume point
+    ckpt_file = meta_file = None
+    start_round = 0
+    if cfg.ckpt_dir:
+        ckpt_file = os.path.join(cfg.ckpt_dir, f"pftt_{cfg.method}.npz")
+        meta_file = os.path.join(cfg.ckpt_dir, f"pftt_{cfg.method}.json")
+        if cfg.resume and os.path.exists(meta_file):
+            with open(meta_file) as f:
+                meta = json.load(f)
+            start_round = int(meta["next_round"])
+            accs_per_round[:] = meta["accs_per_round"]
+            loss_per_round[:] = meta.get("loss_per_round", [])
+            ledger.rounds[:] = meta["ledger_rounds"]
+            tpl = {"trainable": cohort_tr, "opt": cohort_opt}
+            if robust:
+                tpl["pending"] = pending
+                tracker.load_state_dict(meta["tracker"])
+                if dl is not None and "est_bits" in meta:
+                    est_bits = np.asarray(meta["est_bits"], np.float64)
+            state = load_checkpoint(ckpt_file, tpl)
+            cohort_tr, cohort_opt = state["trainable"], state["opt"]
+            pending = state.get("pending")
+            for _ in range(start_round):          # burn the skipped rounds'
+                channel.realize(cfg.n_clients)    # host draws
+                if arrivals is not None:
+                    arrivals.burn_round()
+                for ci in range(cfg.n_clients):
+                    for _s in range(cfg.local_steps):
+                        next(client_iters[ci])
+
+    for rnd in range(start_round, cfg.rounds):
         t0 = time.perf_counter()
         gains = channel.realize(cfg.n_clients)
-        # the round's batches in (client, step) order
+        rplan = None
+        if robust:
+            rf = trace.round(rnd)
+            gains = gains * rf.gain_scale       # injected SNR dips
+            rplan = tracker.begin_round(rf, channel.outage_weights(gains),
+                                        gains=gains, fresh_bits=est_bits)
+        # every client's batches, in (client, step) order, every round,
+        # training or not: the host streams stay aligned
         batches = stacker([[next(client_iters[ci]) for _ in range(cfg.local_steps)]
                            for ci in range(cfg.n_clients)])
-        weights = torch.from_numpy(channel.outage_weights(gains)).to(device)
-        cohort_tr, cohort_opt, losses = round_step(cohort_tr, cohort_opt,
-                                                   batches, weights)
-        reports = budget.round_reports(
-            [payloads[ci] * 8 for ci in range(cfg.n_clients)], gains)
-        ledger.log_round(reports, None, round_id=rnd)
+        extra = None
+        if robust:
+            # deadline mode hands the engine the pre-deadline weights and the
+            # on-time mask apart; the body multiplies them and derives the
+            # quorum gate again, so host and device agree
+            ontime = rplan.ontime if dl is not None else np.ones(cfg.n_clients, np.float32)
+            cohort_tr, cohort_opt, pending, losses = round_step(
+                cohort_tr, cohort_opt, pending, batches, vec(rplan.train),
+                vec(rplan.agg_w_pre if dl is not None else rplan.agg_w),
+                vec(rplan.recv), vec(rplan.rejoin), vec(ontime))
+            charged = tracker.end_round(rplan, np.asarray([p * 8 for p in payloads]))
+            reports = round_reports(budget, rplan, charged, gains)
+            extra = round_extra(rplan)
+        else:
+            weights = vec(channel.outage_weights(gains))
+            cohort_tr, cohort_opt, losses = round_step(cohort_tr, cohort_opt,
+                                                       batches, weights)
+            reports = budget.round_reports(
+                [payloads[ci] * 8 for ci in range(cfg.n_clients)], gains)
+        ledger.log_round(reports, extra, round_id=rnd)
         accs = eval_round_accs(cohort_tr)
         accs_per_round.append(float(np.mean(accs)))
         loss_per_round.append(float(losses.mean()))
+        synchronize(device)
         round_s.append(time.perf_counter() - t0)
+        if ckpt_file is not None:   # round-level checkpoint (kill-safe)
+            state = {"trainable": cohort_tr, "opt": cohort_opt}
+            if robust:
+                state["pending"] = pending
+            save_checkpoint(ckpt_file, state)
+            meta = {"next_round": rnd + 1, "accs_per_round": accs_per_round,
+                    "loss_per_round": loss_per_round, "ledger_rounds": ledger.rounds}
+            if robust:
+                meta["tracker"] = tracker.state_dict()
+                if dl is not None:
+                    meta["est_bits"] = [float(b) for b in est_bits]
+            save_json(meta_file, meta)
         if cfg.verbose and rnd % 5 == 0:
             print(f"[pftt:{cfg.method}] round {rnd} acc {accs_per_round[-1]:.3f} "
                   f"bytes {ledger.rounds[-1]['bytes']:,} "
@@ -340,6 +446,7 @@ def run_pftt(cfg: PFTTConfig, init: Optional[Dict] = None) -> Dict:
         "eval_dispatches_per_round": 1.0,   # one cohort-eval call a round
         "fused_engine": True,               # the engine path (not the loop)
         "ragged_cohort": len(set(client_batch_sizes)) > 1,
+        "staleness": tracker.counters() if robust else None,
         "loss_per_round": loss_per_round,
         "pretrain_s": pretrain_s,
         "round_s": round_s,

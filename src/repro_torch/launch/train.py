@@ -1,12 +1,23 @@
 """Training launcher, on the GPU by default (``--device cpu`` runs the
 kernels' plain versions).
 
-``--fl-clients N`` runs PFTT's synchronous cohort engine on the reduced
-RoBERTa classification workload (``core/pftt.py``; ``--steps``/``--seq``
-do not apply; ``--batch``/``--lr``/``--fl-rounds`` do):
+``--fl-clients N`` runs PFTT's cohort engine on the reduced RoBERTa
+classification workload (``core/pftt.py``; ``--steps``/``--seq`` do not
+apply; ``--batch``/``--lr``/``--fl-rounds`` do):
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch roberta-base \
         --fl-clients 4 --fl-rounds 3
+
+``--fault-plan``, ``--staleness-a`` and ``--max-staleness`` switch it to the
+straggler-tolerant robust round; ``--deadline-s``, ``--backoff-base-s``,
+``--max-retries``, ``--min-quorum`` and ``--compute-time-s`` to its
+continuous-time round; ``--ckpt-dir`` saves each round's state and
+``--resume`` continues a killed run from it:
+
+    PYTHONPATH=src python -m repro_torch.launch.train --arch roberta-base \
+        --fl-clients 2 --fl-rounds 2 --fault-plan \
+        "straggle_p=0.5,max_straggle=2,seed=2" --staleness-a 0.5 \
+        --max-staleness 2 --device cpu
 
 ``--steps N`` trains the chosen architecture at full width (``--reduced``
 for the smoke variant) for N AdamW steps:
@@ -20,13 +31,14 @@ trained on an MLM loss over 15 % masked positions, the base frozen, so
 every encoder layer runs the ``lora_fused`` and non-causal ``flash_attn``
 kernels forward and their autograd Functions backward.  ``--lora-rank 0``
 is the JAX launcher's full fine-tuning (``make_train_step`` on next-token
-labels).  The JAX launcher's other modes (population, fault plans,
-deadlines, codecs, checkpoints, telemetry, the arch rounds of other
-architectures) are not ported and their flags raise.
+labels).  The JAX launcher's other modes (population, codecs, telemetry,
+the arch rounds of other architectures) are not ported and their flags
+raise.
 """
 from __future__ import annotations
 
 import argparse
+import math
 import time
 
 import numpy as np
@@ -39,16 +51,12 @@ from repro_torch.data import SPECIAL
 from repro_torch.launch.steps import make_peft_loss, make_peft_step, make_train_step
 from repro_torch.models import peft as peft_mod
 from repro_torch.models.transformer import Model
+from repro_torch.wireless import DeadlineConfig, FaultPlan
 
 # flag → (its "off" value, its entry in cohort.LATER)
 _UNPORTED = {
     "uplink_codec": ("none", "codec"),
     "factored_agg": (False, "factored_agg"),
-    "fault_plan": (None, "robust"),
-    "deadline_s": (None, "robust"),
-    "staleness_a": (0.0, "robust"),
-    "max_staleness": (0, "robust"),
-    "ckpt_dir": (None, "checkpoint"),
     "population": (0, "population"),
     "telemetry_dir": (None, "health"),
 }
@@ -71,14 +79,42 @@ def parse_args(argv=None):
     ap.add_argument("--fl-rounds", type=int, default=3)
     ap.add_argument("--device", default="cuda",
                     help="cuda (default; raises without a GPU) or cpu")
+    ap.add_argument("--fault-plan", default=None,
+                    help="inject wireless faults into the FL run: 'k=v,...' "
+                         "(dropout_p/straggle_p/crash_p/snr_dip_p/corrupt_p/"
+                         "seed/...) or a JSON file path "
+                         "(wireless.faults.FaultPlan)")
+    ap.add_argument("--deadline-s", type=float, default=None,
+                    help="continuous-time FL round: server closes the round "
+                         "this many simulated seconds after dispatch; late "
+                         "arrivals buffer as stale retransmissions "
+                         "(wireless.arrivals.DeadlineConfig)")
+    ap.add_argument("--backoff-base-s", type=float, default=0.0,
+                    help="retransmission backoff base: the n-th failure of "
+                         "a payload waits base*2^(n-1) simulated seconds")
+    ap.add_argument("--max-retries", type=int, default=8,
+                    help="abandon a pending payload after this many failed "
+                         "retransmissions")
+    ap.add_argument("--min-quorum", type=int, default=0,
+                    help="void the round (no merge, deliveries NACKed back "
+                         "to pending) when fewer payloads arrive in time")
+    ap.add_argument("--compute-time-s", type=float, default=0.0,
+                    help="mean per-round local compute time before a fresh "
+                         "upload starts transmitting (stragglers scale it)")
+    ap.add_argument("--staleness-a", type=float, default=0.0,
+                    help="staleness discount exponent: late uploads merge "
+                         "with weight α·(1+s)^(-a)")
+    ap.add_argument("--max-staleness", type=int, default=0,
+                    help="retransmit failed uploads for up to this many "
+                         "rounds (0 = synchronous drop-on-failure)")
+    ap.add_argument("--ckpt-dir", default=None,
+                    help="FL engine: save the stacked round state each round "
+                         "here so a killed run can --resume")
+    ap.add_argument("--resume", action="store_true",
+                    help="FL engine: restart from --ckpt-dir's last round")
     # the JAX launcher's flags of modes not ported yet: setting one raises
     ap.add_argument("--uplink-codec", default="none")
     ap.add_argument("--factored-agg", action="store_true")
-    ap.add_argument("--fault-plan", default=None)
-    ap.add_argument("--deadline-s", type=float, default=None)
-    ap.add_argument("--staleness-a", type=float, default=0.0)
-    ap.add_argument("--max-staleness", type=int, default=0)
-    ap.add_argument("--ckpt-dir", default=None)
     ap.add_argument("--population", type=int, default=0)
     ap.add_argument("--telemetry-dir", default=None)
     args = ap.parse_args(argv)
@@ -89,13 +125,28 @@ def parse_args(argv=None):
     return args
 
 
+def deadline_config(args):
+    """The continuous-time round's ``DeadlineConfig`` when a flag of it is
+    set (None otherwise), as the JAX launcher builds it."""
+    if (args.deadline_s is None and args.backoff_base_s <= 0
+            and args.min_quorum <= 0 and args.compute_time_s <= 0):
+        return None
+    return DeadlineConfig(
+        deadline_s=args.deadline_s if args.deadline_s is not None else math.inf,
+        backoff_base_s=args.backoff_base_s, max_retries=args.max_retries,
+        min_quorum=args.min_quorum, compute_mean_s=args.compute_time_s)
+
+
 def pftt_config(args, **overrides):
     """The ``PFTTConfig`` the launcher runs (the JAX launcher's settings:
     5 local steps, 50 pretraining steps, 200 samples per client)."""
     from repro_torch.core.pftt import PFTTConfig
     kw = dict(n_clients=args.fl_clients, rounds=args.fl_rounds,
               batch=args.batch, lr=args.lr, local_steps=5, pretrain_steps=50,
-              samples_per_client=200, verbose=True, device=args.device)
+              samples_per_client=200, fault_plan=FaultPlan.from_spec(args.fault_plan),
+              staleness_a=args.staleness_a, max_staleness=args.max_staleness,
+              deadline=deadline_config(args), ckpt_dir=args.ckpt_dir,
+              resume=args.resume, verbose=True, device=args.device)
     kw.update(overrides)
     return PFTTConfig(**kw)
 
@@ -181,6 +232,9 @@ def main(argv=None):
               f"{res['mean_round_delay_s']:.3f}s energy {res['total_energy_j']:.2f}J "
               f"pretrain {res['pretrain_s']:.2f}s rounds "
               f"{[round(s, 3) for s in res['round_s']]}s")
+        if deadline_config(args) is not None:
+            print(f"continuous-time round: sim time {res['total_sim_time_s']:.1f}s "
+                  f"quorum no-ops {res['quorum_noops']}")
         return res
     tr = Trainer(args)
     rng = np.random.RandomState(0)

@@ -581,3 +581,28 @@ def test_pfit_rollout_and_ppo_step_on_card_matches_cpu(gen):
         assert float((d * unsure).max()) <= 2 * lr, k
         off = torch.broadcast_to(cpu["mask"][k], want.shape) == 0
         assert torch.equal(card["new"][k][off], cpu["init"][k][off]), k
+
+
+def test_robust_pftt_on_card_matches_cpu(gen):
+    """A robust ``run_pftt`` (d 128: the kernels' head width 32; 3 clients,
+    2 rounds) under
+    ``tests/test_deadline.py``'s ``MIX`` fault plan and ``DL`` deadline on
+    the card against the CPU from the same init: every round record equal
+    (the host decides them), accuracies within 0.05 (``chip_smoke.py``'s
+    TRAIN-PFTT tolerance)."""
+    import numpy as np
+
+    from repro_torch.core import pftt
+    from repro_torch.wireless import DeadlineConfig, FaultPlan
+    kw = dict(d_model=128, n_clients=3, rounds=2, local_steps=2, pretrain_steps=3,
+              samples_per_client=40, batch=32, staleness_a=0.5, max_staleness=3,
+              fault_plan=FaultPlan(dropout_p=0.25, straggle_p=0.3, max_straggle=2,
+                                   crash_p=0.1, max_crash=1, snr_dip_p=0.2, corrupt_p=0.25,
+                                   seed=5),
+              deadline=DeadlineConfig(deadline_s=0.05, backoff_base_s=0.01, max_retries=3,
+                                      min_quorum=2, compute_mean_s=0.005, seed=11))
+    card = pftt.run_pftt(pftt.PFTTConfig(**kw))
+    cpu = pftt.run_pftt(pftt.PFTTConfig(device="cpu", **kw))
+    np.testing.assert_equal(card["round_records"], cpu["round_records"])
+    assert card["staleness"] == cpu["staleness"]
+    np.testing.assert_allclose(card["acc_per_round"], cpu["acc_per_round"], atol=0.05)

@@ -310,13 +310,15 @@ def test_cohort_eval_and_unported_options():
     a, b = ev(st, torch.ones(3, 4))
     np.testing.assert_array_equal(a.numpy(), [4.0, 20.0, 36.0])
     assert b.shape == (3,)
-    for opt, match in (({"codec": object()}, "item 2"), ({"robust": True}, "item 1"),
+    for opt, match in (({"codec": object()}, "item 2"),
+                       ({"robust": True, "codec": object()}, "item 2"),
                        ({"health": True}, "item 3"), ({"mesh": object()}, "item 8"),
                        ({"factored_agg": True}, "item 2")):
         with pytest.raises(NotImplementedError, match=match):
             cohort.build_supervised_round(lambda *a: a, **opt)
     for kw, match in ((dict(engine=False), "legacy"), (dict(uplink_codec="int8"), "comms"),
-                      (dict(fault_plan=object()), "robust"), (dict(ckpt_dir="x"), "checkpoint"),
+                      (dict(fault_plan=object(), uplink_codec="int8"), "comms"),
+                      (dict(ckpt_dir="x", factored_agg=True), "item 2"),
                       (dict(population=object()), "item 4"), (dict(telemetry=object()), "obs")):
         with pytest.raises(NotImplementedError, match=match):
             pftt.run_pftt(pftt.PFTTConfig(device="cpu", **kw))

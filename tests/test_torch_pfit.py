@@ -25,6 +25,7 @@ from repro.models import peft as jpeft
 from repro.rlhf import reward_model as jrm
 from repro_torch.core import pfit
 from repro_torch.launch import pfit as launch_pfit
+from repro_torch.wireless import DeadlineConfig, FaultPlan
 
 KW = dict(n_clients=2, rounds=2, rollout_batch=4, pretrain_steps=15, rm_steps=15,
           d_model=48, n_layers=2, gen_len=8, prompt_len=6, seed=0)
@@ -116,12 +117,25 @@ def test_launcher_runs_on_cpu_and_refuses_without_gpu(monkeypatch, capsys):
 
 @pytest.mark.parametrize("option, match", [
     (dict(engine=False), "legacy"), (dict(uplink_codec="int8"), "item 2"),
-    (dict(factored_agg=True), "item 2"), (dict(fault_plan=object()), "item 1"),
-    (dict(deadline=object()), "item 1"), (dict(population=object()), "item 4"),
+    (dict(factored_agg=True), "item 2"), (dict(population=object()), "item 4"),
     (dict(telemetry=object()), "item 3")])
 def test_unported_options_name_their_item(option, match):
     with pytest.raises(NotImplementedError, match=match):
         pfit.run_pfit(pfit.PFITConfig(device="cpu", **option))
+
+
+@pytest.mark.parametrize("option", [
+    dict(fault_plan=FaultPlan(dropout_p=0.5, seed=1), max_staleness=1),
+    dict(deadline=DeadlineConfig(deadline_s=1.0, min_quorum=1))], ids=["fault_plan", "deadline"])
+def test_robust_options_run(option):
+    """The robust round's options run (one round, pretraining and reward
+    models cut to 2 steps): the result carries the tracker's counters, and
+    a deadline round its simulated time."""
+    res = pfit.run_pfit(pfit.PFITConfig(device="cpu", **dict(
+        KW, rounds=1, pretrain_steps=2, rm_steps=2), **option))
+    assert np.isfinite(res["final_reward"]) and set(res["staleness"]) == {
+        "pending", "abandoned", "retransmissions", "quorum_noops"}
+    assert (res["total_sim_time_s"] > 0) == ("deadline" in option)
 
 
 def test_mesh_is_refused():

@@ -448,7 +448,9 @@ def test_ppo_round_matches_jax_engine(policy, reward_setup, weights):
 
 
 def test_ppo_round_refuses_unported_options():
-    for kw, match in ((dict(codec=object()), "item 2"), (dict(robust=True), "item 1"),
-                      (dict(min_quorum=1), "quorum"), (dict(mesh=object()), "item 8")):
+    for kw, match in ((dict(codec=object()), "item 2"),
+                      (dict(robust=True, codec=object()), "item 2"),
+                      (dict(min_quorum=1, mesh=object()), "item 8"),
+                      (dict(mesh=object()), "item 8")):
         with pytest.raises(NotImplementedError, match=match):
             cohort.build_ppo_round(None, None, ppo.PPOConfig(), 2, 2, None, **kw)

@@ -338,8 +338,8 @@ def test_train_launcher_steps_on_cpu():
     tr = train.Trainer(train.parse_args(argv))
     assert set(tr.trainable) == {"adapters", "lora"}
     assert all("/adapter/" in p for p in trees.flatten(tr.trainable["adapters"]))
-    with pytest.raises(NotImplementedError, match="robust round"):
-        train.parse_args(argv + ["--fault-plan", "dropout_p=0.5"])
+    with pytest.raises(NotImplementedError, match="item 2"):
+        train.parse_args(argv + ["--fault-plan", "dropout_p=0.5", "--uplink-codec", "int8"])
     with pytest.raises(NotImplementedError, match="queue 1 item 6"):
         train.parse_args(["--arch", "gpt2-small", "--fl-clients", "2"])
     with pytest.raises(NotImplementedError, match="ssd_chunk has no backward"):
