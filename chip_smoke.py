@@ -97,14 +97,33 @@ Phases, each reported on its own lines:
    deadline miss, a round voided under a quorum of 2) whose selections must
    hold bit for bit on the card and whose one-delivery globals must equal
    the plain ``masked_fedavg_stacked`` of that client alone.
+12. TRAIN-COMMS — the compressed uplink (``repro_torch.comms``): (a)
+   ``run_pftt`` at TRAIN-PFTT's settings, fedlora under int8, int4, sketch
+   (top-k) and countsketch and int4 with ``factored_agg``, and pftt with
+   int4 under TRAIN-ROBUST (a)'s flags: seconds and accuracy per round,
+   mean round bytes and delay, each client-round's realized bits beside
+   ``payload_bits_upper_bound`` and the raw ``tree_bytes``·8, launches;
+   a CPU re-run from the same init and uniforms (bits and delays within
+   1e-6, or 1e-3 under a quantizer, whose symbols may sit one step apart
+   where the card's and the CPU's training differ; the deadline run's
+   deliveries and no-ops equal; accuracies within 0.05); (b)
+   ``build_ppo_round(codec=int4)`` at gpt2-small's full width (2 clients,
+   TRAIN-ROBUST (c)'s masks) in turns with the codec-free round, one robust
+   int4 round, then each codec's ``roundtrip`` on a client's post-round
+   params: ms, bits beside the bound and the masked raw size, masked-out
+   elements kept, the quantizers against a CPU roundtrip and a float64
+   recount of their bits; (c) ``svd_reproject`` on roberta-base's
+   full-width LoRA (4 clients, rank 8, wq and wv of 12 layers) against the
+   dense oracle, both timed.
 
 Before the last line it prints one JSON object with a row per kernel (its
-launches summed over the serving, training and robust paths' main runs); the last
+launches summed over the serving, training, robust and comms paths' main runs); the last
 line is
 ``{"ok": true, "device": {...}}``.  Any failed check exits
 nonzero before that line.
 """
 import dataclasses
+import functools
 import json
 import os
 import subprocess
@@ -1273,6 +1292,25 @@ def robust_summary(res):
             f"staleness={res['staleness']}")
 
 
+def robust_pftt_config(*flags):
+    """TRAIN-ROBUST (a)'s ``PFTTConfig``: the launcher's robust flags (MIX,
+    DL, staleness) and ``flags``, DL's seed set on the config (no flag)."""
+    from repro_torch.launch import train
+
+    spec = ",".join(f"{k}={v}" for k, v in ROBUST_MIX.items())
+    args = train.parse_args([
+        "--arch", "roberta-base", "--fl-clients", "4", "--fl-rounds", str(ROBUST_ROUNDS),
+        "--fault-plan", spec, "--staleness-a", "0.5", "--max-staleness", "3",
+        "--deadline-s", str(ROBUST_DL["deadline_s"]),
+        "--backoff-base-s", str(ROBUST_DL["backoff_base_s"]),
+        "--max-retries", str(ROBUST_DL["max_retries"]),
+        "--min-quorum", str(ROBUST_DL["min_quorum"]),
+        "--compute-time-s", str(ROBUST_DL["compute_mean_s"]), *flags])
+    cfg = train.pftt_config(args, verbose=False)
+    return dataclasses.replace(cfg, deadline=dataclasses.replace(cfg.deadline,
+                                                                 seed=ROBUST_DL["seed"]))
+
+
 def train_robust_pftt(torch):
     """TRAIN-ROBUST (a): ``run_pftt`` (method pftt) at TRAIN-PFTT's launcher
     settings (``--fl-clients 4``, seed 0, f32) for 6 rounds under the
@@ -1288,20 +1326,8 @@ def train_robust_pftt(torch):
     import tempfile
 
     from repro_torch.core.pftt import run_pftt
-    from repro_torch.launch import train
 
-    spec = ",".join(f"{k}={v}" for k, v in ROBUST_MIX.items())
-    args = train.parse_args([
-        "--arch", "roberta-base", "--fl-clients", "4", "--fl-rounds", str(ROBUST_ROUNDS),
-        "--fault-plan", spec, "--staleness-a", "0.5", "--max-staleness", "3",
-        "--deadline-s", str(ROBUST_DL["deadline_s"]),
-        "--backoff-base-s", str(ROBUST_DL["backoff_base_s"]),
-        "--max-retries", str(ROBUST_DL["max_retries"]),
-        "--min-quorum", str(ROBUST_DL["min_quorum"]),
-        "--compute-time-s", str(ROBUST_DL["compute_mean_s"])])
-    cfg = train.pftt_config(args, verbose=False)
-    cfg = dataclasses.replace(cfg, deadline=dataclasses.replace(cfg.deadline,
-                                                                seed=ROBUST_DL["seed"]))
+    cfg = robust_pftt_config()
     trained = int(cfg.fault_plan.realize(cfg.n_clients, cfg.rounds).train.sum())
     kernels = wrappers()
     for f in kernels.values():
@@ -1554,6 +1580,413 @@ def train_robust_ppo(torch, np):
                           launches=launches)
 
 
+# TRAIN-COMMS: the compressed uplink (codecs, factored aggregation) on the
+# card, against the CPU.
+COMMS_CODECS = ("int8", "int4", "sketch", "countsketch")
+COMMS_BITS_RTOL = 1e-6
+# A quantizer's symbol is floor(x/scale + u): where x/scale + u lies within
+# the card's and the CPU's f32 training difference of an integer, the two
+# runs' symbols are one step apart, and each such flip moves a client's
+# entropy charge by at most log2(n) + 2 bits.  Later client-rounds of a run
+# under a quantizer are held to 1e-3 (tests/test_torch_comms_runs.py's
+# FLIP_RTOL); the sketches and every first round that trains from the same
+# state to COMMS_BITS_RTOL.
+COMMS_FLIP_RTOL = 1e-3
+COMMS_SVD_TOL = 1e-4
+COMMS_SVD_CLIENTS, COMMS_SVD_RANK = 4, 8
+
+
+def comms_pftt_configs():
+    """TRAIN-COMMS (a)'s runs: fedlora under each codec and int4 with
+    ``factored_agg`` at TRAIN-PFTT's launcher settings, and pftt with int4
+    under TRAIN-ROBUST (a)'s flags."""
+    from repro_torch.launch import train
+
+    args = train.parse_args(["--arch", "roberta-base", "--fl-clients", "4",
+                             "--fl-rounds", "3"])
+    runs = [(f"fedlora {c}", train.pftt_config(args, method="fedlora", verbose=False,
+                                               uplink_codec=c)) for c in COMMS_CODECS]
+    runs.append(("fedlora int4+factored", train.pftt_config(
+        args, method="fedlora", verbose=False, uplink_codec="int4", factored_agg=True)))
+    runs.append(("pftt int4 MIX+DL", robust_pftt_config("--uplink-codec", "int4")))
+    return runs
+
+
+def rel_diffs(a, b):
+    """Elementwise |a - b| / max(|b|, 1) of two nested lists of floats (NaN
+    against NaN counts 0)."""
+    import numpy as np
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    d = np.abs(a - b) / np.maximum(np.abs(b), 1.0)
+    return np.where(np.isnan(a) & np.isnan(b), 0.0, d)
+
+
+def train_comms_pftt(torch):
+    """TRAIN-COMMS (a): ``run_pftt`` for each of ``comms_pftt_configs`` on
+    the card, launches against ``pftt_expected`` (the trace's training
+    client-rounds under the fault plan), then the same run on the CPU from
+    the same init and the same uniforms (the default stream is
+    counter-based, the same on both): each client-round's realized bits
+    and each round's delay within COMMS_BITS_RTOL, or COMMS_FLIP_RTOL under
+    a quantizer; the deadline run's deliveries and quorum no-ops equal;
+    accuracies within PFTT_ACC_TOL; every realized size at most its
+    ``payload_bits_upper_bound``.  Under ``factored_agg`` the card's and
+    the CPU's runs part after the first aggregation: ``svd_reproject``
+    returns the same product A'·B' from cuSOLVER and from LAPACK, but the
+    signs of the singular vectors, and so the factors, are each library's
+    own, and the clients' AdamW moments (kept across the broadcast) then
+    train the two factorizations differently.  There only round 0 (bits
+    and the accuracy of the first aggregate, which depends on the product
+    alone) is held to the CPU; the later rounds are printed."""
+    import numpy as np
+
+    from repro_torch.core.pftt import run_pftt
+
+    kernels = wrappers()
+    total = {n: 0 for n in KERNELS}
+    out = {}
+    for tag, cfg in comms_pftt_configs():
+        trained = (None if cfg.fault_plan is None else
+                   int(cfg.fault_plan.realize(cfg.n_clients, cfg.rounds).train.sum()))
+        for f in kernels.values():
+            f.launches = 0
+        card = run_pftt(cfg)
+        launches = {n: f.launches for n, f in kernels.items()}
+        expected = pftt_expected(cfg, cfg.method, trained)
+        t0 = time.perf_counter()
+        cpu = run_pftt(dataclasses.replace(cfg, device="cpu"))
+        cpu_s = time.perf_counter() - t0
+        ub, ub_cpu = card["uplink_bits"], cpu["uplink_bits"]
+        held = 1 if cfg.factored_agg else cfg.rounds      # rounds held to the CPU
+        bits = np.asarray(ub["realized"])
+        bits_err = rel_diffs(ub["realized"][:held], ub_cpu["realized"][:held])
+        delays = [[r["delay_s"] for r in res["round_records"][:held]] for res in (card, cpu)]
+        delay_err = rel_diffs(*delays)
+        tol = COMMS_FLIP_RTOL if cfg.uplink_codec.startswith("int") else COMMS_BITS_RTOL
+        flags = [[(r.get("n_delivered"), r.get("quorum_noop")) for r in res["round_records"]]
+                 for res in (card, cpu)]
+        acc_err = max(abs(a - b) for a, b in zip(card["acc_per_round"][:held],
+                                                 cpu["acc_per_round"][:held]))
+        under = bool((bits <= np.asarray(ub["upper_bound"])[None] * (1 + 1e-6)).all())
+        s_round = sum(card["round_s"]) / len(card["round_s"])
+        print(f"TRAIN-COMMS {tag:<22} s_per_round={s_round:.4f} "
+              f"round_s={[round(x, 4) for x in card['round_s']]} "
+              f"acc_per_round={[round(a, 4) for a in card['acc_per_round']]} "
+              f"mean_round_bytes={card['mean_round_bytes']:.1f} "
+              f"mean_round_delay_s={card['mean_round_delay_s']:.6f} "
+              f"quorum_noops={card['quorum_noops']}", flush=True)
+        print(f"TRAIN-COMMS {tag:<22} bits per client-round "
+              f"{[[round(b, 1) for b in r] for r in ub['realized']]} upper_bound "
+              f"{[round(b, 1) for b in ub['upper_bound']]} raw_tree_bytes_x8 "
+              f"{[round(b, 1) for b in ub['raw']]} all_within_bound={under}", flush=True)
+        print(f"TRAIN-COMMS {tag:<22} launches {launches} expected {expected}", flush=True)
+        print(f"TRAIN-COMMS {tag:<22} CPU (plain versions, {cpu_s:.1f} s): "
+              f"acc_per_round={[round(a, 4) for a in cpu['acc_per_round']]} "
+              f"bits per client-round {[[round(b, 1) for b in r] for r in ub_cpu['realized']]} "
+              f"held rounds {held}: acc_max_abs_err={acc_err:.4f} (tol {PFTT_ACC_TOL}) "
+              f"bits_max_rel_err={bits_err.max():.2e} delay_max_rel_err={delay_err.max():.2e} "
+              f"(tol {tol:g}; client-rounds over {COMMS_BITS_RTOL:g}: "
+              f"{int((bits_err > COMMS_BITS_RTOL).sum())} of {bits_err.size}) "
+              f"deliveries_and_noops_equal={flags[0] == flags[1]}", flush=True)
+        if launches != expected:
+            fail(f"TRAIN-COMMS {tag}: kernel launches {launches} != expected {expected}")
+        if (bits_err.max() > tol or delay_err.max() > tol or flags[0] != flags[1]
+                or acc_err > PFTT_ACC_TOL or not under):
+            fail(f"TRAIN-COMMS {tag}: card and CPU differ (bits {bits_err.max():.2e}, delays "
+                 f"{delay_err.max():.2e}, flags equal {flags[0] == flags[1]}, acc "
+                 f"{acc_err:.4f}) or bits over the bound ({not under})")
+        for n in KERNELS:
+            total[n] += launches[n]
+        out[tag] = dict(acc_per_round=card["acc_per_round"], round_s=card["round_s"],
+                        mean_round_bytes=card["mean_round_bytes"],
+                        mean_round_delay_s=card["mean_round_delay_s"],
+                        quorum_noops=card["quorum_noops"], uplink_bits=ub,
+                        bits_max_rel_err=float(bits_err.max()), cpu_acc_err=acc_err,
+                        launches=launches)
+    return total, out
+
+
+def recount_bits(tree, rec, masks, qbits):
+    """A float64 numpy recount of a quantizer's payload bits from its
+    symbols: n·H over each coded leaf's weighted histogram, 16 bits per
+    scale of a channel that sends, 32 per raw element that sends."""
+    import numpy as np
+
+    from repro_torch import trees
+    total = 0.0
+    wflat = trees.flatten(masks)
+    for p, x in trees.flatten(tree).items():
+        w = np.broadcast_to(wflat[p].cpu().numpy().astype(np.float64), tuple(x.shape))
+        if p not in rec:
+            total += w.sum() * 32
+            continue
+        sym = rec[p]["q"].cpu().numpy().astype(np.int64).ravel() + 2 ** qbits // 2
+        hist = np.bincount(sym, weights=w.ravel(), minlength=2 ** qbits)
+        n = hist.sum()
+        pr = hist[hist > 0] / max(n, 1.0)
+        total += -n * float((pr * np.log2(pr)).sum())
+        scale, ind = rec[p]["scale"], w
+        for ax, s in enumerate(scale.shape):
+            if s == 1:
+                ind = ind.max(axis=ax, keepdims=True)
+        total += 16 * (float(ind.max() > 0) if scale.dim() == 0 else float((ind > 0).sum()))
+    return total
+
+
+def train_comms_ppo(torch, np):
+    """TRAIN-COMMS (b): ``build_ppo_round(codec=int4)`` at gpt2-small's full
+    width with TRAIN-ROBUST (c)'s model, masks and fixed reward (2 clients),
+    against the codec-free round on the same inputs in turns (codec, none,
+    codec, none, after an untimed warm-up of each), then one robust round
+    with int4 (client 1 straggles: its bits 0).  On client 0's post-round
+    params, coded against the round-input params under its mask, each
+    codec's ``roundtrip`` is timed (CUDA events around the call, median of
+    3; bincount sizes its output on the host, so the ms include that sync;
+    int4's and count-sketch's calls profiled once) and its bits printed
+    beside ``payload_bits_upper_bound`` and
+    ``tree_bytes(nonzero_mask=mask)``·8.  Held: masked-out elements decode
+    to the reference bit for bit (the quantizers, top-k: count-sketch's
+    median decode writes every element, as in the JAX package, and the
+    masked aggregation never reads them); the quantizers' scales equal a
+    CPU roundtrip's of the same tensors and uniforms and their symbols
+    differ by one step on at most 1e-6 of the elements; the bits within
+    COMMS_BITS_RTOL of a float64 numpy recount from the symbols; the
+    default uniform stream equal on the card and the CPU over the largest
+    leaf."""
+    from repro_torch import trees
+    from repro_torch.comms import codec as codec_mod
+    from repro_torch.comms import streams
+    from repro_torch.configs import get_config
+    from repro_torch.core import cohort
+    from repro_torch.core.pfit import PFITConfig
+    from repro_torch.models import peft
+    from repro_torch.models.transformer import Model
+    from repro_torch.optim import adamw
+    from repro_torch.rlhf import ppo, rollout
+    from repro_torch.wireless import tree_bytes
+
+    cfg = get_config("gpt2-small")
+    L, n = cfg.n_layers, 2
+    kernels = wrappers()
+    model = Model(cfg, device="cuda")
+    params = model.init(torch.Generator().manual_seed(0))
+    params["value_head"] = torch.zeros(cfg.d_model, 1, device="cuda")
+    masks = trees.stack([trees.map_leaves(
+        lambda a, b: a * b, peft.last_k_layers_mask(params, cfg, 2),
+        peft.head_sparsity_mask(params, cfg, 0.4, seed=ci)) for ci in range(n)])
+    opt = adamw(PFITConfig.lr)
+    prompts = torch.from_numpy(np.random.RandomState(0).randint(
+        6, cfg.vocab_size, size=(n, PPO_BATCH, PPO_PROMPT))).cuda()
+    reward = torch.from_numpy(np.random.RandomState(1).randn(PPO_BATCH).astype(np.float32)).cuda()
+    int4 = codec_mod.get_codec("int4")
+
+    def build(**kw):
+        return cohort.build_ppo_round(model, opt, ppo.PPOConfig(), PPO_PROMPT, PPO_GEN,
+                                      lambda *a: reward, **kw)
+
+    def noises(rnd):
+        return [rollout.gumbel_stream(0, rnd * 17 + ci, PPO_GEN, PPO_BATCH, cfg.vocab_size,
+                                      "cuda") for ci in range(n)]
+
+    def uniforms(rnd):
+        return codec_mod.round_noises(
+            functools.partial(codec_mod.codec_uniforms, 0, device="cuda"), rnd, n)
+
+    def fresh():
+        return (trees.stack([params] * n), trees.stack([opt.init(params)] * n),
+                trees.map_leaves(torch.clone, params))
+
+    def timed(fn, *args):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = fn(*args)
+        torch.cuda.synchronize()
+        return res, (time.perf_counter() - t0) * 1e3
+
+    alphas = ([0.5] * n, [0.5] * n)
+    one = torch.ones(n, device="cuda")
+    steps = {True: build(codec=int4), False: build()}
+
+    def run(coded):
+        extra = (uniforms(0),) if coded else ()
+        return timed(steps[coded], *fresh(), masks, prompts, noises(0), *alphas, one, *extra)
+
+    run(True)                                                 # warm-ups
+    run(False)
+    for f in kernels.values():
+        f.launches = 0
+    round_ms = {True: [], False: []}
+    coded_out = None
+    for coded in (True, False, True, False):
+        res, ms = run(coded)
+        round_ms[coded].append(ms)
+        if coded:
+            coded_out = res
+        del res
+    bits = coded_out[-1].tolist()
+    robust = build(robust=True, codec=int4)
+    st, so, glob = fresh()
+    vec = functools.partial(torch.tensor, dtype=torch.float32, device="cuda")
+    rout, robust_ms = timed(robust, st, so, glob, trees.map_leaves(torch.zeros_like, st), masks,
+                            prompts, noises(1), *alphas, vec([1.0, 0.5]), vec([1, 0]),
+                            vec([0, 0]), vec([0, 0]), vec([1, 1]), uniforms(1))
+    robust_bits = rout[-1].tolist()
+    del rout, st, so, glob
+    launches = {k: f.launches for k, f in kernels.items()}
+    cr = 4 * n + 1            # client-rounds that trained: 4 rounds, then 1 robust
+    expected = {k: 0 for k in KERNELS}
+    expected.update(flash_attn=cr * 5 * L, decode_attn=cr * L * PPO_GEN)
+    print(f"TRAIN-COMMS ppo gpt2-small full width, {n} clients, batch {PPO_BATCH}, prompt "
+          f"{PPO_PROMPT}, gen {PPO_GEN}: int4_round_ms={[round(x, 1) for x in round_ms[True]]} "
+          f"plain_round_ms={[round(x, 1) for x in round_ms[False]]} (same inputs, in turns "
+          f"int4, plain, int4, plain) int4_bits={[round(b, 1) for b in bits]} "
+          f"robust_int4_round_ms={robust_ms:.1f} robust_bits={[round(b, 1) for b in robust_bits]} "
+          f"(client 1 straggles)", flush=True)
+    print(f"TRAIN-COMMS ppo launches {launches} expected {expected}", flush=True)
+    if launches != expected or robust_bits[1] != 0 or not robust_bits[0] > 0 or min(bits) <= 0:
+        fail(f"TRAIN-COMMS ppo: launches {launches} != {expected}, or bits {bits} / robust "
+             f"{robust_bits} wrong")
+
+    post = cohort.client_view(coded_out[0], 0)
+    m0 = cohort.client_view(masks, 0)
+    to_cpu = functools.partial(trees.map_leaves, lambda v: v.cpu())
+    post_cpu, ref_cpu, m0_cpu = to_cpu(post), to_cpu(params), to_cpu(m0)
+    raw_bits = tree_bytes(post, nonzero_mask=m0) * 8
+    rows, ok = {}, True
+    for name in COMMS_CODECS:
+        c = codec_mod.get_codec(name)
+        u_card = {}
+
+        def hook(leaf, shape):
+            u_card[leaf] = codec_mod.codec_uniforms(0, 0, 0, leaf, shape, "cuda")
+            return u_card[leaf]
+
+        times, rec = [], {}
+        for i in range(4):                                    # a warm-up, then 3
+            start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            torch.cuda.synchronize()
+            start.record()
+            dec, b = codec_mod.roundtrip(c, post, ref=params, bit_weights=m0, noise=hook,
+                                         record=rec if i == 3 else None)
+            end.record()
+            end.synchronize()
+            times.append(start.elapsed_time(end))
+        ms = sorted(times[1:])[1]
+        if name in ("int4", "countsketch"):       # where a roundtrip's time goes
+            profile(torch, f"TRAIN-COMMS roundtrip {name}", lambda: codec_mod.roundtrip(
+                c, post, ref=params, bit_weights=m0, noise=hook), 1)
+        b = float(b)
+        ub = codec_mod.payload_bits_upper_bound(c, post)
+        row = dict(ms=ms, bits=b, upper_bound=ub, raw_bits=raw_bits)
+        flat_d, flat_r, flat_m = (trees.flatten(t) for t in (dec, params, m0))
+        kept = None
+        if name != "countsketch":
+            kept = all(torch.equal(v[torch.broadcast_to(flat_m[p], v.shape) == 0],
+                                   flat_r[p][torch.broadcast_to(flat_m[p], v.shape) == 0])
+                       for p, v in flat_d.items())
+            ok &= kept
+        row["masked_out_equal_ref"] = kept
+        if name.startswith("int"):
+            rec_cpu = {}
+            _, b_cpu = codec_mod.roundtrip(c, post_cpu, ref=ref_cpu, bit_weights=m0_cpu,
+                                           noise=lambda leaf, shape: u_card[leaf].cpu(),
+                                           record=rec_cpu)
+            n_el = sum(e["q"].numel() for e in rec.values())
+            steps_apart = sum(int((rec[p]["q"].cpu().int() - e["q"].int()).abs().gt(0).sum())
+                              for p, e in rec_cpu.items())
+            worst = max(int((rec[p]["q"].cpu().int() - e["q"].int()).abs().max())
+                        for p, e in rec_cpu.items())
+            scales_eq = all(torch.equal(rec[p]["scale"].cpu(), e["scale"])
+                            for p, e in rec_cpu.items())
+            recount = recount_bits(post, rec, m0, c.qbits)
+            bits_rel = abs(b - recount) / recount
+            row.update(cpu_bits=float(b_cpu), one_step_elements=steps_apart,
+                       coded_elements=n_el, recount_bits=recount, bits_vs_recount=bits_rel)
+            ok &= (scales_eq and worst <= 1 and steps_apart <= 1e-6 * n_el
+                   and bits_rel <= COMMS_BITS_RTOL)
+            print(f"TRAIN-COMMS roundtrip {name}: CPU bits {float(b_cpu):.1f} "
+                  f"scales_equal={scales_eq} symbols one step apart {steps_apart} of {n_el} "
+                  f"(max step {worst}; limit {1e-6 * n_el:.1f}) float64 recount "
+                  f"{recount:.1f} rel_err={bits_rel:.2e} (tol {COMMS_BITS_RTOL:g})", flush=True)
+        rows[name] = row
+        n_all = sum(v.numel() for v in flat_d.values())
+        print(f"TRAIN-COMMS roundtrip {name:<11} client 0 post-round ({n_all} elements, "
+              f"{raw_bits / 32 / n_all:.4f} of them under the mask): "
+              f"ms={ms:.2f} (of {[round(t, 2) for t in times]}) bits={b:.1f} "
+              f"upper_bound={ub:.1f} tree_bytes_masked_x8={raw_bits:.1f} "
+              f"masked_out_equal_ref={kept}", flush=True)
+        del dec, u_card
+    big = max(trees.flatten(post).items(), key=lambda kv: kv[1].numel())
+    key = streams.stream_key(0, codec_mod.CODEC_STREAM, 0, 0, 0)
+    same_u = torch.equal(streams.uniforms(key, big[1].shape, "cuda").cpu(),
+                         streams.uniforms(key, big[1].shape, "cpu"))
+    print(f"TRAIN-COMMS uniforms of {big[0]} {tuple(big[1].shape)} card == CPU: {same_u}",
+          flush=True)
+    if not (ok and same_u):
+        fail(f"TRAIN-COMMS roundtrip checks failed: {rows}, uniforms equal {same_u}")
+    return launches, dict(int4_round_ms=round_ms[True], plain_round_ms=round_ms[False],
+                          int4_bits=bits, robust_int4_round_ms=robust_ms,
+                          robust_bits=robust_bits, roundtrip=rows, launches=launches)
+
+
+def train_comms_svd(torch, np):
+    """TRAIN-COMMS (c): ``factored_fedavg_tree`` over roberta-base's
+    full-width LoRA (4 clients, rank 8 on wq and wv of 12 layers: A (4, 12,
+    768, 8), B (4, 12, 8, 768) each, numpy seed 2, weights 1, 2, 0.5, 1)
+    against ``dense_rank_r_oracle``: each pair's A'·B' within COMMS_SVD_TOL
+    of the oracle, relative to its largest element; both timed on CUDA
+    events (the re-projection the median of 5 after a warm-up; the O(d³)
+    oracle, 2 s a call on an H100 80GB HBM3, one call after it)."""
+    from repro_torch import trees
+    from repro_torch.comms import factored_agg
+    from repro_torch.configs import get_config
+
+    cfg = get_config("roberta-base")
+    rng = np.random.RandomState(2)
+    n, r, d, reps = COMMS_SVD_CLIENTS, COMMS_SVD_RANK, cfg.d_model, cfg.n_layers
+
+    def rn(*shape):
+        return torch.from_numpy((rng.randn(*shape) * 0.05).astype(np.float32)).cuda()
+
+    up = {w: {"a": rn(n, reps, d, r), "b": rn(n, reps, r, d)} for w in ("wq", "wv")}
+    w = torch.tensor([1.0, 2.0, 0.5, 1.0], device="cuda")
+
+    def event_ms(fn, reps):
+        times = []
+        for _ in range(reps):
+            start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            start.record()
+            res = fn()
+            end.record()
+            end.synchronize()
+            times.append(start.elapsed_time(end))
+        return res, sorted(times)[reps // 2]
+
+    factored_agg.factored_fedavg_tree(up, w)                 # warm-up
+    agg, svd_ms = event_ms(lambda: factored_agg.factored_fedavg_tree(up, w), 5)
+    dense, dense_ms = event_ms(lambda: {k: factored_agg.dense_rank_r_oracle(v["a"], v["b"], w)
+                                        for k, v in up.items()}, 1)
+    errs = {k: float((agg[k]["a"] @ agg[k]["b"] - dense[k]).abs().max()
+                     / dense[k].abs().max()) for k in up}
+    print(f"TRAIN-COMMS svd_reproject roberta-base full width: {n} clients, rank {r}, "
+          f"A {tuple(up['wq']['a'].shape)} B {tuple(up['wq']['b'].shape)} on wq and wv: "
+          f"factored_ms={svd_ms:.3f} dense_oracle_ms={dense_ms:.3f} "
+          f"rel_err={ {k: f'{e:.2e}' for k, e in errs.items()} } (tol {COMMS_SVD_TOL:g})",
+          flush=True)
+    if max(errs.values()) > COMMS_SVD_TOL or set(trees.flatten(agg)) != set(trees.flatten(up)):
+        fail(f"TRAIN-COMMS svd_reproject: product error {errs} over {COMMS_SVD_TOL}")
+    return dict(factored_ms=svd_ms, dense_oracle_ms=dense_ms, rel_err=errs)
+
+
+def train_comms(torch, np):
+    """TRAIN-COMMS (a)–(c); its launches are (a)'s and (b)'s."""
+    got_a, pftt_rows = train_comms_pftt(torch)
+    got_b, ppo_row = train_comms_ppo(torch, np)
+    svd_row = train_comms_svd(torch, np)
+    return ({k: got_a[k] + got_b[k] for k in KERNELS},
+            dict(pftt=pftt_rows, ppo=ppo_row, svd=svd_row))
+
+
 def profile(torch, label, run, reps):
     """torch.profiler over ``reps`` calls of ``run``: the device's busy
     share of the wall time and the kernels that fill it, per call, and the
@@ -1672,9 +2105,12 @@ def main():
     got_rb, robust_pfit_row = train_robust_pfit(torch)
     got_rc, robust_ppo_row = train_robust_ppo(torch, np)
     print(f"PHASE TRAIN-ROBUST {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    got_c, comms_row = train_comms(torch, np)
+    print(f"PHASE TRAIN-COMMS {time.perf_counter() - t0:.1f} s", flush=True)
     for n in KERNELS:
         launches[n] += (got[n] + got_r[n] + got_f[n] + got_p[n] + got_ra[n] + got_rb[n]
-                        + got_rc[n])
+                        + got_rc[n] + got_c[n])
 
     kernels = [dict(name=n, route="cuda", source=f"src/repro_torch/csrc/{n}.cu",
                     replaces=REPLACES[n], launches=launches[n],
@@ -1689,7 +2125,7 @@ def main():
                                 "roberta": roberta_row, "pfit": pfit_rows,
                                 "ppo": ppo_row, "robust": {
                                     "pftt": robust_pftt_row, "pfit": robust_pfit_row,
-                                    "ppo": robust_ppo_row}}}))
+                                    "ppo": robust_ppo_row}, "comms": comms_row}}))
     print(json.dumps({"kernels": kernels}))
     print(smi_line(), flush=True)
     print(json.dumps({"ok": True, "device": {

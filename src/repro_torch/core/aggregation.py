@@ -7,9 +7,10 @@
 * **List**: ``fedavg`` stacks per-client trees and calls the stacked core.
 
 The per-leaf weighted mean is one ``tensordot`` over the client axis in
-f32, cast back to the leaf's dtype.  The SVD re-projection of LoRA factor
-pairs (``factored_fedavg_stacked``) comes with the ``comms`` port (ROADMAP
-queue 1); the mesh variants (``axis_names``) with multi-device.
+f32, cast back to the leaf's dtype.  ``factored_fedavg_stacked``
+aggregates LoRA factor pairs by the SVD re-projection of
+``comms.factored_agg``; the mesh variants (``axis_names``) come with
+multi-device (ROADMAP queue 1 item 8).
 """
 from __future__ import annotations
 
@@ -77,6 +78,15 @@ def masked_fedavg_stacked(global_tree, stacked_tree, stacked_masks,
         return torch.where(den > 0, avg, g.float()).to(g.dtype)
 
     return trees.map_leaves(agg, global_tree, stacked_tree, stacked_masks)
+
+
+def factored_fedavg_stacked(stacked_tree, weights=None, rank=None):
+    """LoRA-factor-aware weighted mean: every ``{'a','b'}`` sibling pair
+    aggregates as the rank-r SVD re-projection of ``Σ ŵ_i A_i·B_i``
+    (``comms.factored_agg``: avg(A·B) ≠ avg(A)·avg(B), and the dense mean
+    update is never formed); every other leaf as ``fedavg_stacked``."""
+    from repro_torch.comms.factored_agg import factored_fedavg_tree
+    return factored_fedavg_tree(stacked_tree, weights, rank=rank)
 
 
 def broadcast_merge_stacked(stacked_tree, global_tree, stacked_masks=None,

@@ -1,19 +1,24 @@
-"""Asynchronous aggregation with staleness discounting (paper §VI-1), the
-port of ``repro.core.async_agg.StalenessWeightedAggregator``.
+"""Asynchronous aggregation with staleness discounting (paper §VI-1) and
+the host-side int8 uplink (§VI-3): the port of
+``repro.core.async_agg``'s ``StalenessWeightedAggregator``,
+``quantize_update``, ``dequantize_update`` and ``quantized_bytes``.
 
 A FedAsync-style server: client updates arrive with a round lag (an outage
 → retransmission next round) and each merges with weight
 ``α · (1+staleness)^(-a)``, so stale updates cannot drag the global model
 backwards.  It is the oracle of the discount that
 ``core/robust.StalenessTracker`` folds into the cohort engine's
-aggregation weights.  The module's other parts are not ported yet
-(ROADMAP queue 1: ``quantize_update`` with item 2, ``FairSelector`` with
-item 4).
+aggregation weights.
+
+``quantize_update``/``dequantize_update`` are the legacy numpy int8 path
+(symmetric, one scale per leaf, round to nearest); the cohort round runs
+the codecs of ``repro_torch.comms`` instead.  ``FairSelector`` comes with
+ROADMAP queue 1 item 4.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import List
+from typing import Dict, List
 
 import numpy as np
 import torch
@@ -61,3 +66,40 @@ class StalenessWeightedAggregator:
         self._pending = []
         self.round += 1
         return self.global_tree
+
+
+# ---------------------------------------------------------------------------
+# int8 uplink quantization (host side, numpy)
+# ---------------------------------------------------------------------------
+
+
+def quantize_update(tree):
+    """Per-leaf symmetric int8 quantization → (q dict of numpy int8 by path,
+    scales dict of floats by path)."""
+    q, scales = {}, {}
+    for path, leaf in trees.flatten(tree).items():
+        x = leaf.detach().cpu().numpy().astype(np.float32)
+        s = float(np.max(np.abs(x))) / 127.0 if x.size else 0.0
+        scales[path] = s
+        q[path] = (np.round(x / s).astype(np.int8) if s > 0
+                   else np.zeros_like(x, np.int8))
+    return q, scales
+
+
+def dequantize_update(q: Dict, scales: Dict, template):
+    """q · scale on each path of ``template`` that ``q`` holds, on the
+    template leaf's device and dtype; other leaves are the template's."""
+    def rebuild(path, leaf):
+        if q.get(path) is None:
+            return leaf
+        return torch.from_numpy(q[path].astype(np.float32) * scales[path]).to(
+            device=leaf.device, dtype=leaf.dtype)
+
+    return trees.map_with_path(rebuild, template)
+
+
+def quantized_bytes(q: Dict) -> int:
+    """int8 payload bytes + one f32 scale per leaf that ships (``None``
+    paths carry no scale on the wire)."""
+    shipped = [v for v in q.values() if v is not None]
+    return sum(v.size for v in shipped) + 4 * len(shipped)

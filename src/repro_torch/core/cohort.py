@@ -30,9 +30,19 @@ JAX body trains every client and selects the old state back where
 ``train`` is 0; here a client that does not train is never run nor
 written, which leaves the same state.  Every gate is a device tensor.
 
-Not ported yet, and refused by name: uplink codecs and the SVD factor
-aggregation (ROADMAP queue 1 item 2, ``comms``), on-device health scalars
-(item 3, ``obs``) and the client-sharded mesh (item 8, multi-device).
+Both builders take ``codec`` (``repro_torch.comms``): after local
+training each client's upload is coded against the round-input value of
+the uploaded subtree (for PPO the whole params, charged only on the
+client's sparsity mask) and the server aggregates the lossy decode; the
+round step takes one uniform hook per client (``codec_noises``, in place
+of the JAX package's keys) and returns each client's payload bits.  The
+state is updated in place, so the reference is a copy taken before any
+client trains.  ``factored_agg`` aggregates LoRA factor pairs by the SVD
+re-projection (``core.aggregation.factored_fedavg_stacked``).
+
+Not ported yet, and refused by name: on-device health scalars (ROADMAP
+queue 1 item 3, ``obs``) and the client-sharded mesh (item 8,
+multi-device).
 """
 from __future__ import annotations
 
@@ -42,16 +52,16 @@ import numpy as np
 import torch
 
 from repro_torch import trees
+from repro_torch.comms.codec import roundtrip
 from repro_torch.core.aggregation import (_pad_mask, broadcast_merge_stacked,
-                                          fedavg_stacked, masked_fedavg_stacked)
+                                          factored_fedavg_stacked, fedavg_stacked,
+                                          masked_fedavg_stacked)
 from repro_torch.rlhf.ppo import PPOConfig, make_ppo_fns
 from repro_torch.rlhf.rollout import generate
 
 # Where each option the port does not run yet is ported: the one table the
 # engine, ``run_pftt``, ``run_pfit`` and the launchers refuse from.
 LATER = {
-    "codec": "ROADMAP queue 1 item 2 (comms: uplink codecs)",
-    "factored_agg": "ROADMAP queue 1 item 2 (comms: factored aggregation)",
     "health": "ROADMAP queue 1 item 3 (obs: cohort health and telemetry)",
     "population": "ROADMAP queue 1 item 4 (population)",
     "arch_round": "ROADMAP queue 1 item 6 (arch zoo: the other architectures' rounds)",
@@ -150,6 +160,29 @@ def _training_clients(train_m) -> list:
     return [ci for ci, t in enumerate(train_m.tolist()) if t > 0]
 
 
+def _clone_tree(tree):
+    """New storage of every leaf (``None`` leaves stay ``None``)."""
+    return trees.map_leaves(torch.clone, tree)
+
+
+def _code_uploads(codec, uploaded, ref, clients, noises, bit_weights=None):
+    """The listed clients' uploads through ``codec``'s roundtrip, each
+    against its row of ``ref`` (and ``bit_weights``) with its uniform hook
+    ``noises[ci]``: (stacked decoded uploads, (n,) f32 payload bits).  Rows
+    of the other clients hold zeros and 0 bits (the robust bodies never
+    send them)."""
+    decoded = trees.map_leaves(torch.zeros_like, uploaded)
+    first = next(iter(trees.flatten(uploaded).values()))
+    bits = torch.zeros(first.shape[0], dtype=torch.float32, device=first.device)
+    for ci in clients:
+        dec, bits[ci] = roundtrip(
+            codec, client_view(uploaded, ci), ref=client_view(ref, ci),
+            bit_weights=None if bit_weights is None else client_view(bit_weights, ci),
+            **({} if noises is None else {"noise": noises[ci]}))
+        write_client(decoded, ci, dec)
+    return decoded, bits
+
+
 def _quorum_gate(w, min_quorum: int):
     """The merge gate on the device: something was delivered (Σw > 0) and
     at least ``min_quorum`` clients delivered (0: the plain Σw > 0)."""
@@ -172,6 +205,12 @@ def build_supervised_round(local_step_fn: Callable,
     leading (n_clients, local_steps) axes, ``weights`` is the (n_clients,)
     outage vector, ``losses`` the (n_clients, local_steps) local losses.
 
+    ``codec``: the step takes a trailing ``codec_noises`` (one hook
+    ``noise(leaf_index, shape) -> uniforms`` per client) and returns a
+    trailing (n,) f32 ``payload_bits``; the server aggregates the decoded
+    uploads.  ``factored_agg``: LoRA factor pairs aggregate by the SVD
+    re-projection.
+
     ``robust``: the straggler-tolerant signature, ``round_step(st_trainable,
     st_opt, pending, batches, train_m, agg_w, recv_m, rejoin_m, ontime_m) ->
     (st_trainable, st_opt, pending, losses)``.  ``pending`` is the stacked
@@ -187,12 +226,22 @@ def build_supervised_round(local_step_fn: Callable,
     the device); only ``recv`` clients take the broadcast; ``rejoin``
     clients' optimizer state is zeroed.  The returned ``pending`` is new
     storage.  All-ones masks and undiscounted weights give bitwise the
-    synchronous round.
+    synchronous round.  With a codec only ``train`` clients are coded (the
+    others' bits are 0) and the trailing ``codec_noises``/``payload_bits``
+    are the synchronous step's.
 
     The other arguments are the JAX builder's; setting one raises."""
-    not_ported("build_supervised_round", mesh=mesh is not None, codec=codec is not None,
-               factored_agg=factored_agg, health=health)
+    not_ported("build_supervised_round", mesh=mesh is not None, health=health)
     pred = upload_pred or (lambda p: True)
+    agg_fn = factored_fedavg_stacked if factored_agg else fedavg_stacked
+
+    def upload(st_trainable, ref, clients, codec_noises):
+        """What the clients put on the air: the uploaded subtree, or with a
+        codec its lossy decode and the bits."""
+        uploaded = trees.select(st_trainable, pred)
+        if codec is None:
+            return uploaded, None
+        return _code_uploads(codec, uploaded, ref, clients, codec_noises)
 
     def train_clients(st_trainable, st_opt, batches, clients, losses):
         for ci in clients:
@@ -216,33 +265,40 @@ def build_supervised_round(local_step_fn: Callable,
 
         trees.map_with_path(put, st_trainable)
 
-    def round_step(st_trainable, st_opt, batches, weights):
+    def round_step(st_trainable, st_opt, batches, weights, codec_noises=None):
         n, steps = next(iter(batches.values())).shape[:2]
         losses = torch.empty((n, steps), dtype=torch.float32,
                              device=weights.device)
+        # the codec's delta reference: the round-input uploaded subtree
+        ref = None if codec is None else _clone_tree(trees.select(st_trainable, pred))
         train_clients(st_trainable, st_opt, batches, range(n), losses)
-        # server: weighted mean of the uploaded subtree over the surviving
-        # clients, broadcast into every client's slot; an all-outage round
-        # (Σw = 0) keeps every client's local values
-        broadcast(st_trainable, fedavg_stacked(trees.select(st_trainable, pred), weights),
-                  weights.sum() > 0)
-        return st_trainable, st_opt, losses
+        uploaded, bits = upload(st_trainable, ref, range(n), codec_noises)
+        # server: weighted mean of the uploads over the surviving clients,
+        # broadcast into every client's slot; an all-outage round (Σw = 0)
+        # keeps every client's local values
+        broadcast(st_trainable, agg_fn(uploaded, weights), weights.sum() > 0)
+        out = (st_trainable, st_opt, losses)
+        return out if codec is None else out + (bits,)
 
     def robust_step(st_trainable, st_opt, pending, batches, train_m, agg_w,
-                    recv_m, rejoin_m, ontime_m):
+                    recv_m, rejoin_m, ontime_m, codec_noises=None):
         n, steps = next(iter(batches.values())).shape[:2]
         losses = torch.zeros((n, steps), dtype=torch.float32, device=agg_w.device)
-        train_clients(st_trainable, st_opt, batches, _training_clients(train_m), losses)
+        ref = None if codec is None else _clone_tree(trees.select(st_trainable, pred))
+        clients = _training_clients(train_m)
+        train_clients(st_trainable, st_opt, batches, clients, losses)
+        uploaded, bits = upload(st_trainable, ref, clients, codec_noises)
         # what goes on the air: a fresh upload supersedes the pending
         # payload; stragglers retransmit it.  A deadline miss merges at
         # weight 0 (it stays pending); an under-quorum round is a no-op.
-        send = _where_clients(train_m, trees.select(st_trainable, pred), pending)
+        send = _where_clients(train_m, uploaded, pending)
         w = agg_w * ontime_m
         gate = _quorum_gate(w, min_quorum)
-        broadcast(st_trainable, fedavg_stacked(send, w), torch.logical_and(gate, recv_m > 0))
+        broadcast(st_trainable, agg_fn(send, w), torch.logical_and(gate, recv_m > 0))
         trees.map_leaves(lambda dst, src: dst.copy_(src), st_opt,
                          _zero_clients(rejoin_m, st_opt))
-        return st_trainable, st_opt, send, losses
+        out = (st_trainable, st_opt, send, losses)
+        return out if codec is None else out + (bits,)
 
     return robust_step if robust else round_step
 
@@ -263,18 +319,27 @@ def build_ppo_round(model, opt, ppo_cfg: PPOConfig, prompt_len: int, gen_len: in
     skips it.
 
     Returns ``round_step(st_params, st_opt, global_params, st_masks,
-    prompts, noises, alphas_help, alphas_safe, weights, rollouts=None) ->
-    (st_params, st_opt, new_global, mean_rewards, mean_kls)``: per-client
-    state stacked on a leading client axis (updated in place), ``prompts``
-    (n, B, P), ``noises`` one Gumbel hook per client (``rlhf.rollout``) in
-    place of the JAX package's keys, the alphas sequences of floats,
-    ``weights`` the (n,) outage vector.  ``rollouts`` (a list) receives
-    each client's (tokens, per-step sampling margins).
+    prompts, noises, alphas_help, alphas_safe, weights, codec_noises=None,
+    rollouts=None) -> (st_params, st_opt, new_global, mean_rewards,
+    mean_kls)``: per-client state stacked on a leading client axis (updated
+    in place), ``prompts`` (n, B, P), ``noises`` one Gumbel hook per client
+    (``rlhf.rollout``) in place of the JAX package's keys, the alphas
+    sequences of floats, ``weights`` the (n,) outage vector.  ``rollouts``
+    (a list) receives each client's (tokens, per-step sampling margins).
+
+    ``codec``: each client's post-PPO params are coded against its
+    round-input params (a copy, 2 × 124 M elements at gpt2-small's width for
+    two clients), the bit charge restricted to the client's sparsity mask,
+    before the masked aggregation; ``codec_noises`` (one uniform hook per
+    client) is then needed and the step returns a trailing (n,)
+    ``payload_bits``.
 
     ``robust``: ``round_step(st_params, st_opt, global_params, pending,
     st_masks, prompts, noises, alphas_help, alphas_safe, agg_w, train_m,
-    recv_m, rejoin_m, ontime_m, rollouts=None) -> (st_params, st_opt,
-    new_global, pending, mean_rewards, mean_kls)``, the contract of
+    recv_m, rejoin_m, ontime_m, codec_noises=None, rollouts=None) ->
+    (st_params, st_opt, new_global, pending, mean_rewards, mean_kls)``
+    (and ``payload_bits`` with a codec, 0 for the clients that do not
+    train), the contract of
     ``build_supervised_round(robust=True)``: only ``train`` clients run
     (their rewards and KLs, the others' 0), the masked aggregation takes
     fresh uploads and retransmitted pending payloads at ``agg_w ·
@@ -287,7 +352,7 @@ def build_ppo_round(model, opt, ppo_cfg: PPOConfig, prompt_len: int, gen_len: in
 
     The other arguments are those of the JAX package's function; setting
     one raises."""
-    not_ported("build_ppo_round", mesh=mesh is not None, codec=codec is not None)
+    not_ported("build_ppo_round", mesh=mesh is not None)
     prep, step = make_ppo_fns(model, opt, ppo_cfg, prompt_len)
     reg_pred = reg_pred or (lambda p: p.startswith("stages"))
     lams = None if lambda_regs is None else [float(x) for x in lambda_regs]
@@ -320,35 +385,49 @@ def build_ppo_round(model, opt, ppo_cfg: PPOConfig, prompt_len: int, gen_len: in
             write_client(st_opt, ci, opt_state)
             mean_rewards[ci], mean_kls[ci] = reward.mean(), mean_kl
 
+    def upload(st_params, ref, st_masks, clients, codec_noises):
+        """The clients' uploads: the params, or with a codec the lossy
+        decode of each one's masked delta and the bits."""
+        if codec is None:
+            return st_params, None
+        return _code_uploads(codec, st_params, ref, clients, codec_noises, st_masks)
+
     def round_step(st_params, st_opt, global_params, st_masks, prompts, noises,
-                   alphas_help, alphas_safe, weights, rollouts=None):
+                   alphas_help, alphas_safe, weights, codec_noises=None, rollouts=None):
         n = prompts.shape[0]
         mean_rewards = torch.empty(n, dtype=torch.float32, device=weights.device)
         mean_kls = torch.empty(n, dtype=torch.float32, device=weights.device)
+        ref = None if codec is None else _clone_tree(st_params)   # round-input params
         train_clients(range(n), st_params, st_opt, global_params, st_masks, prompts,
                       noises, alphas_help, alphas_safe, rollouts, mean_rewards, mean_kls)
+        uploaded, bits = upload(st_params, ref, st_masks, range(n), codec_noises)
+        del ref
         # server: sparse-mask-weighted aggregation over the surviving clients
         # (all outage: every denominator 0, the global kept), then each client
         # resumes from the new global on its own masked entries
-        new_global = masked_fedavg_stacked(global_params, st_params, st_masks, weights)
+        new_global = masked_fedavg_stacked(global_params, uploaded, st_masks, weights)
         merged = broadcast_merge_stacked(st_params, new_global, st_masks,
                                          gate=weights.sum() > 0)
         trees.map_leaves(lambda dst, src: dst.copy_(src), st_params, merged)
-        return st_params, st_opt, new_global, mean_rewards, mean_kls
+        out = (st_params, st_opt, new_global, mean_rewards, mean_kls)
+        return out if codec is None else out + (bits,)
 
     def robust_step(st_params, st_opt, global_params, pending, st_masks, prompts,
                     noises, alphas_help, alphas_safe, agg_w, train_m, recv_m, rejoin_m,
-                    ontime_m, rollouts=None):
+                    ontime_m, codec_noises=None, rollouts=None):
         n = prompts.shape[0]
         mean_rewards = torch.zeros(n, dtype=torch.float32, device=agg_w.device)
         mean_kls = torch.zeros(n, dtype=torch.float32, device=agg_w.device)
-        train_clients(_training_clients(train_m), st_params, st_opt, global_params,
-                      st_masks, prompts, noises, alphas_help, alphas_safe, rollouts,
-                      mean_rewards, mean_kls)
+        ref = None if codec is None else _clone_tree(st_params)
+        clients = _training_clients(train_m)
+        train_clients(clients, st_params, st_opt, global_params, st_masks, prompts, noises,
+                      alphas_help, alphas_safe, rollouts, mean_rewards, mean_kls)
+        uploaded, bits = upload(st_params, ref, st_masks, clients, codec_noises)
+        del ref
         # fresh uploads supersede the pending payloads; stragglers and
         # outage clients retransmit theirs with the staleness discount; a
         # deadline miss merges at weight 0 (it stays pending)
-        send = _where_clients(train_m, st_params, pending)
+        send = _where_clients(train_m, uploaded, pending)
         w = agg_w * ontime_m
         gate = _quorum_gate(w, min_quorum)
         new_global = trees.map_leaves(
@@ -359,6 +438,7 @@ def build_ppo_round(model, opt, ppo_cfg: PPOConfig, prompt_len: int, gen_len: in
                          _where_clients(recv_m, merged, st_params))
         trees.map_leaves(lambda dst, src: dst.copy_(src), st_opt,
                          _zero_clients(rejoin_m, st_opt))
-        return st_params, st_opt, new_global, send, mean_rewards, mean_kls
+        out = (st_params, st_opt, new_global, send, mean_rewards, mean_kls)
+        return out if codec is None else out + (bits,)
 
     return robust_step if robust else round_step

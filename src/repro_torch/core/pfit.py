@@ -31,13 +31,23 @@ straggler-tolerant robust round (``robust=True``; ``core/robust.py``,
 ``docs/robustness.md``).  The JAX package checkpoints PFTT only; so does
 the port.
 
+``uplink_codec`` compresses the uploads inside the round
+(``repro_torch.comms``): the PPO methods code each client's whole params
+against the round-input params, charged on its sparsity mask; shepherd
+codes its LoRA tree, and ``factored_agg`` aggregates shepherd's factor
+pairs by the SVD re-projection (the PPO methods have no factors; the flag
+leaves them as the JAX package does).  The uniforms come from
+``init["codec_noise"](round, client, leaf_index, shape)`` when given, else
+``comms.codec.codec_uniforms``; deadline mode schedules a codec's first
+upload at ``payload_bits_upper_bound`` and each realized size after.
+
 Not ported yet, and refused by name (``cohort.LATER``): the legacy
-per-client loop (``engine=False``), uplink codecs and factored
-aggregation, population mode, telemetry and a mesh.
+per-client loop (``engine=False``), population mode, telemetry and a mesh.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 import time
 from typing import Callable, Dict, Optional
 
@@ -45,7 +55,8 @@ import numpy as np
 import torch
 
 from repro_torch import bridge, resolve_device, synchronize, trees
-from repro_torch.comms import ChannelBudget
+from repro_torch.comms import ChannelBudget, get_codec, payload_bits_upper_bound
+from repro_torch.comms.codec import codec_uniforms, round_noises
 from repro_torch.configs import get_config
 from repro_torch.core.cohort import (HostBatchStacker, build_ppo_round,
                                      build_supervised_round, not_ported)
@@ -151,7 +162,8 @@ def run_pfit(cfg: PFITConfig, init: Optional[Dict] = None, mesh=None) -> Dict:
     before pretraining, "rm_help"/"rm_safe": flat numpy reward-model params
     before training, "keep": each client's kept heads, "lora": each
     shepherd client's flat numpy LoRA, "noise": ``noise(stream, batch) ->
-    hook``}; a missing entry is drawn by the port.  Returns the JAX
+    hook``, "codec_noise": ``(round, client, leaf_index, shape) ->
+    uniforms``}; a missing entry is drawn by the port.  Returns the JAX
     package's result keys plus the port's: ``round_records`` (the ledger's
     rounds), ``staleness`` (the tracker's counters; None when synchronous),
     ``train_reward_per_round`` (the clients' mean rollout reward, PPO
@@ -163,9 +175,9 @@ def run_pfit(cfg: PFITConfig, init: Optional[Dict] = None, mesh=None) -> Dict:
     if cfg.method not in METHODS:
         raise ValueError(f"method {cfg.method!r} not in {METHODS}")
     not_ported("PFITConfig", legacy_loop=not cfg.engine,
-               codec=cfg.uplink_codec != "none", factored_agg=cfg.factored_agg,
                population=cfg.population is not None,
                health=cfg.telemetry is not None, mesh=mesh is not None)
+    codec = get_codec(cfg.uplink_codec)
     init = init or {}
     ms = _method_settings(cfg)
     device = resolve_device(cfg.device)
@@ -297,7 +309,8 @@ def run_pfit(cfg: PFITConfig, init: Optional[Dict] = None, mesh=None) -> Dict:
 
     # ---- the cohort engine: per-client state stacked on a client axis
     if cfg.method == "shepherd":
-        round_step = build_supervised_round(shepherd_local_step, robust=robust,
+        round_step = build_supervised_round(shepherd_local_step, codec=codec,
+                                            factored_agg=cfg.factored_agg, robust=robust,
                                             min_quorum=min_quorum)
         cohort_tr = trees.stack(loras)
         cohort_opt = trees.stack([opt.init(lo) for lo in loras])
@@ -306,7 +319,7 @@ def run_pfit(cfg: PFITConfig, init: Optional[Dict] = None, mesh=None) -> Dict:
     else:
         ppo_round_step = build_ppo_round(
             model, opt, cfg.ppo, cfg.prompt_len, cfg.gen_len, quality_fn,
-            lambda_regs=[p.lambda_reg for p in prefs], robust=robust,
+            lambda_regs=[p.lambda_reg for p in prefs], codec=codec, robust=robust,
             min_quorum=min_quorum)
         cohort_tr = trees.stack([params] * cfg.n_clients)
         cohort_opt = trees.stack([opt.init(params)] * cfg.n_clients)
@@ -314,9 +327,17 @@ def run_pfit(cfg: PFITConfig, init: Optional[Dict] = None, mesh=None) -> Dict:
         payloads = [tree_bytes(params, nonzero_mask=client_masks[ci])
                     for ci in range(cfg.n_clients)]
     # the pending-payload buffer (zeros never merge: their weight is 0) and
-    # the deadline round's scheduling sizes (exact: uncompressed uploads)
+    # the deadline round's scheduling sizes (exact for uncompressed uploads;
+    # a codec's worst case until a realized size replaces it)
     pending = trees.map_leaves(torch.zeros_like, cohort_tr) if robust else None
-    est_bits = np.asarray([p * 8 for p in payloads], np.float64) if dl else None
+    est_bits = None
+    if dl is not None:
+        est_bits = np.asarray(
+            [p * 8 for p in payloads] if codec is None else
+            [payload_bits_upper_bound(codec, t) for t in trees.unstack(cohort_tr)],
+            np.float64)
+    codec_noise = init.get("codec_noise") or functools.partial(
+        codec_uniforms, cfg.seed, device=device)
 
     def vec(v):
         return torch.from_numpy(np.asarray(v, np.float32)).to(device)
@@ -339,6 +360,7 @@ def run_pfit(cfg: PFITConfig, init: Optional[Dict] = None, mesh=None) -> Dict:
                      vec(rplan.train), vec(rplan.recv), vec(rplan.rejoin), vec(ontime))
         else:
             weights = vec(channel.outage_weights(gains))
+        noise_arg = () if codec is None else (round_noises(codec_noise, rnd, cfg.n_clients),)
         # every client's batches or prompts and noise streams are drawn every
         # round, training or not: the host streams stay aligned
         if cfg.method == "shepherd":
@@ -351,12 +373,12 @@ def run_pfit(cfg: PFITConfig, init: Optional[Dict] = None, mesh=None) -> Dict:
                                for ci in range(cfg.n_clients)])
             if robust:
                 agg_w, train_m, recv_m, rejoin_m, ontime_m = margs
-                cohort_tr, cohort_opt, pending, _ = round_step(
-                    cohort_tr, cohort_opt, pending, batches, train_m, agg_w, recv_m,
-                    rejoin_m, ontime_m)
+                outs = round_step(cohort_tr, cohort_opt, pending, batches, train_m, agg_w,
+                                  recv_m, rejoin_m, ontime_m, *noise_arg)
+                cohort_tr, cohort_opt, pending = outs[:3]
             else:
-                cohort_tr, cohort_opt, _ = round_step(cohort_tr, cohort_opt, batches,
-                                                      weights)
+                outs = round_step(cohort_tr, cohort_opt, batches, weights, *noise_arg)
+                cohort_tr, cohort_opt = outs[:2]
         else:
             prompts = torch.from_numpy(np.stack(
                 [corpus.sample(cfg.rollout_batch, topic_probs=topic_prefs[ci],
@@ -367,21 +389,27 @@ def run_pfit(cfg: PFITConfig, init: Optional[Dict] = None, mesh=None) -> Dict:
             alphas = ([p.alpha_help for p in prefs], [p.alpha_safe for p in prefs])
             record = rollouts0 if rnd == 0 else None
             if robust:
-                (cohort_tr, cohort_opt, global_params, pending, mean_rewards,
-                 _) = ppo_round_step(cohort_tr, cohort_opt, global_params, pending,
-                                     st_masks, prompts, noises, *alphas, *margs,
-                                     rollouts=record)
+                outs = ppo_round_step(cohort_tr, cohort_opt, global_params, pending,
+                                      st_masks, prompts, noises, *alphas, *margs,
+                                      *noise_arg, rollouts=record)
+                cohort_tr, cohort_opt, global_params, pending, mean_rewards = outs[:5]
             else:
-                cohort_tr, cohort_opt, global_params, mean_rewards, _ = ppo_round_step(
-                    cohort_tr, cohort_opt, global_params, st_masks, prompts, noises,
-                    *alphas, weights, rollouts=record)
+                outs = ppo_round_step(cohort_tr, cohort_opt, global_params, st_masks,
+                                      prompts, noises, *alphas, weights, *noise_arg,
+                                      rollouts=record)
+                cohort_tr, cohort_opt, global_params, mean_rewards = outs[:4]
             train_reward.append(float(mean_rewards.mean()))
-        bits = [payloads[ci] * 8 for ci in range(cfg.n_clients)]
+        # the engine's realized payload bits with a codec (its last output)
+        bits = ([payloads[ci] * 8 for ci in range(cfg.n_clients)] if codec is None
+                else outs[-1].tolist())
         extra = None
         if robust:
-            charged = tracker.end_round(rplan, np.asarray(bits, np.float64))
+            fresh = np.asarray(bits, np.float64)
+            charged = tracker.end_round(rplan, fresh)
             reports = round_reports(budget, rplan, charged, gains)
             extra = round_extra(rplan)
+            if dl is not None and codec is not None:   # the realized encoded size
+                est_bits = np.where(np.asarray(rplan.train) > 0, fresh, est_bits)
         else:
             reports = budget.round_reports(bits, gains)
         ledger.log_round(reports, extra, round_id=rnd)

@@ -28,19 +28,27 @@ partition, batches, channel) is the copied code's own, draw for draw.
 ``fault_plan`` and/or a non-inert ``deadline`` switch the round to the
 straggler-tolerant robust engine (``cohort.build_supervised_round(robust=
 True)``, ``core/robust.StalenessTracker``; ``docs/robustness.md``).
-``ckpt_dir`` saves the stacked state after every round (an atomic npz plus
-a JSON sidecar of the host state); ``resume`` restarts from it and replays
-the host draws of the skipped rounds, so the continued run is the
-uninterrupted one.
+``ckpt_dir`` saves the stacked state after every round (one atomic npz
+that also holds the host state's JSON, then the same JSON as a sidecar for
+readers); ``resume`` restarts from the npz alone and replays the host draws
+of the skipped rounds, so the continued run is the uninterrupted one.
+
+``uplink_codec`` compresses each client's upload inside the round
+(``repro_torch.comms``; the ledger charges the encoded bits, plus fedbert's
+activation exchange) and ``factored_agg`` aggregates the LoRA factor pairs
+by the SVD re-projection.  The codec's uniforms come from
+``init["codec_noise"](round, client, leaf_index, shape)`` when given (the
+JAX package's draws), else ``comms.codec.codec_uniforms`` of (seed, round,
+client, leaf).  In deadline mode a codec's first scheduling size is
+``payload_bits_upper_bound``; each realized size replaces it.
 
 Not ported yet, and refused by name (``cohort.LATER``): the legacy
-per-client loop (``engine=False``), uplink codecs and factored aggregation,
-population mode and telemetry.
+per-client loop (``engine=False``), population mode and telemetry.
 """
 from __future__ import annotations
 
 import dataclasses
-import json
+import functools
 import os
 import time
 from typing import Dict, List, Optional
@@ -49,8 +57,9 @@ import numpy as np
 import torch
 
 from repro_torch import bridge, resolve_device, synchronize, trees
-from repro_torch.checkpoint import load_checkpoint, save_checkpoint, save_json
-from repro_torch.comms import ChannelBudget
+from repro_torch.checkpoint import load_checkpoint, load_meta, save_checkpoint, save_json
+from repro_torch.comms import ChannelBudget, get_codec, payload_bits_upper_bound
+from repro_torch.comms.codec import codec_uniforms, round_noises
 from repro_torch.configs import get_config
 from repro_torch.core.cohort import (HostBatchStacker, build_cohort_eval,
                                      build_supervised_round, not_ported)
@@ -226,18 +235,25 @@ def _setup_backbone(cfg: PFTTConfig, init: Optional[Dict] = None):
 def run_pftt(cfg: PFTTConfig, init: Optional[Dict] = None) -> Dict:
     """The cohort engine for one method, synchronous or robust.  ``init``
     (optional): {"base": flat numpy params before pretraining, "adapters":
-    flat numpy adapter leaves, "lora": [flat numpy LoRA tree per client]} —
-    the JAX package's draws, for parity runs.  Returns the JAX package's
+    flat numpy adapter leaves, "lora": [flat numpy LoRA tree per client],
+    "codec_noise": ``(round, client, leaf_index, shape) -> uniforms``,
+    "cs_hashes": the count-sketch codec's ``hashes`` hook} — the JAX
+    package's draws, for parity runs.  Returns the JAX package's
     result keys plus the port's: the tracker's ``staleness`` counters
     (None when synchronous), the mean local loss of each round
     (``loss_per_round``, a non-training client's counted as 0, as in the
-    JAX body) and the timings ``pretrain_s`` and ``round_s`` (the rounds
-    this process ran)."""
+    JAX body), ``uplink_bits`` (each client-round's realized payload bits
+    beside each client's raw ``tree_bytes``·8 and, with a codec, its
+    ``payload_bits_upper_bound``; under a codec a non-training client's
+    realized bits are 0) and the timings ``pretrain_s`` and ``round_s``
+    (the rounds this process ran)."""
     if cfg.method not in METHODS:
         raise ValueError(f"method {cfg.method!r} not in {METHODS}")
     not_ported("PFTTConfig", legacy_loop=not cfg.engine,
-               codec=cfg.uplink_codec != "none", factored_agg=cfg.factored_agg,
                population=cfg.population is not None, health=cfg.telemetry is not None)
+    codec = get_codec(cfg.uplink_codec)
+    if init is not None and "cs_hashes" in init and cfg.uplink_codec == "countsketch":
+        codec = dataclasses.replace(codec, hashes=init["cs_hashes"])
     (model, mcfg, params, peft_cfg, corpus, gen, rng, use_lora,
      pretrain_s) = _setup_backbone(cfg, init)
     device = model.device
@@ -325,7 +341,8 @@ def run_pftt(cfg: PFTTConfig, init: Optional[Dict] = None) -> Dict:
     robust = tracker is not None
     arrivals = tracker.arrivals if robust else None
 
-    round_step = build_supervised_round(local_step, upload_pred, robust=robust,
+    round_step = build_supervised_round(local_step, upload_pred, codec=codec,
+                                        factored_agg=cfg.factored_agg, robust=robust,
                                         min_quorum=dl.min_quorum if dl else 0)
     cohort_tr = trees.stack([cl["trainable"] for cl in clients])
     cohort_opt = trees.stack([cl["opt_state"] for cl in clients])
@@ -336,13 +353,21 @@ def run_pftt(cfg: PFTTConfig, init: Optional[Dict] = None) -> Dict:
     pending = trees.map_leaves(torch.zeros_like, trees.select(cohort_tr, upload_pred)) \
         if robust else None
     # the continuous-time round schedules by the payload size known at
-    # dispatch: exact for uncompressed uploads
-    est_bits = np.asarray([p * 8 for p in payloads], np.float64) if dl else None
+    # dispatch: exact for uncompressed uploads; a codec's fresh uploads
+    # reserve the worst-case encoded size until a realized size replaces it
+    est_bits = None
+    if dl is not None:
+        est_bits = np.asarray(
+            [p * 8 for p in payloads] if codec is None else
+            [payload_bits_upper_bound(codec, trees.select(cl["trainable"], upload_pred))
+             + act_bits() for cl in clients], np.float64)
+    codec_noise = (init or {}).get("codec_noise") or functools.partial(
+        codec_uniforms, cfg.seed, device=device)
 
     def vec(v):
         return torch.from_numpy(np.asarray(v, np.float32)).to(device)
 
-    accs_per_round, loss_per_round, round_s = [], [], []
+    accs_per_round, loss_per_round, round_s, bits_per_round = [], [], [], []
 
     # ---- round-level checkpoint/resume: the stacked state restores
     # exactly; the host streams (fading draws, compute-time draws, each
@@ -352,9 +377,9 @@ def run_pftt(cfg: PFTTConfig, init: Optional[Dict] = None) -> Dict:
     if cfg.ckpt_dir:
         ckpt_file = os.path.join(cfg.ckpt_dir, f"pftt_{cfg.method}.npz")
         meta_file = os.path.join(cfg.ckpt_dir, f"pftt_{cfg.method}.json")
-        if cfg.resume and os.path.exists(meta_file):
-            with open(meta_file) as f:
-                meta = json.load(f)
+        if cfg.resume and os.path.exists(ckpt_file):
+            # the host state rides inside the npz: the pair cannot disagree
+            meta = load_meta(ckpt_file)
             start_round = int(meta["next_round"])
             accs_per_round[:] = meta["accs_per_round"]
             loss_per_round[:] = meta.get("loss_per_round", [])
@@ -390,24 +415,33 @@ def run_pftt(cfg: PFTTConfig, init: Optional[Dict] = None) -> Dict:
         batches = stacker([[next(client_iters[ci]) for _ in range(cfg.local_steps)]
                            for ci in range(cfg.n_clients)])
         extra = None
+        noise_arg = () if codec is None else (round_noises(codec_noise, rnd, cfg.n_clients),)
         if robust:
             # deadline mode hands the engine the pre-deadline weights and the
             # on-time mask apart; the body multiplies them and derives the
             # quorum gate again, so host and device agree
             ontime = rplan.ontime if dl is not None else np.ones(cfg.n_clients, np.float32)
-            cohort_tr, cohort_opt, pending, losses = round_step(
+            outs = round_step(
                 cohort_tr, cohort_opt, pending, batches, vec(rplan.train),
                 vec(rplan.agg_w_pre if dl is not None else rplan.agg_w),
-                vec(rplan.recv), vec(rplan.rejoin), vec(ontime))
-            charged = tracker.end_round(rplan, np.asarray([p * 8 for p in payloads]))
+                vec(rplan.recv), vec(rplan.rejoin), vec(ontime), *noise_arg)
+            cohort_tr, cohort_opt, pending, losses = outs[:4]
+            fresh = (np.asarray([p * 8 for p in payloads], np.float64) if codec is None
+                     else outs[4].cpu().numpy().astype(np.float64) + act_bits())
+            bits_per_round.append(fresh.tolist())
+            charged = tracker.end_round(rplan, fresh)
             reports = round_reports(budget, rplan, charged, gains)
             extra = round_extra(rplan)
+            if dl is not None and codec is not None:   # the realized encoded size
+                est_bits = np.where(np.asarray(rplan.train) > 0, fresh, est_bits)   # schedules next
         else:
             weights = vec(channel.outage_weights(gains))
-            cohort_tr, cohort_opt, losses = round_step(cohort_tr, cohort_opt,
-                                                       batches, weights)
-            reports = budget.round_reports(
-                [payloads[ci] * 8 for ci in range(cfg.n_clients)], gains)
+            outs = round_step(cohort_tr, cohort_opt, batches, weights, *noise_arg)
+            cohort_tr, cohort_opt, losses = outs[:3]
+            bits = ([payloads[ci] * 8 for ci in range(cfg.n_clients)] if codec is None
+                    else [b + act_bits() for b in outs[3].tolist()])
+            bits_per_round.append(bits)
+            reports = budget.round_reports(bits, gains)
         ledger.log_round(reports, extra, round_id=rnd)
         accs = eval_round_accs(cohort_tr)
         accs_per_round.append(float(np.mean(accs)))
@@ -418,13 +452,13 @@ def run_pftt(cfg: PFTTConfig, init: Optional[Dict] = None) -> Dict:
             state = {"trainable": cohort_tr, "opt": cohort_opt}
             if robust:
                 state["pending"] = pending
-            save_checkpoint(ckpt_file, state)
             meta = {"next_round": rnd + 1, "accs_per_round": accs_per_round,
                     "loss_per_round": loss_per_round, "ledger_rounds": ledger.rounds}
             if robust:
                 meta["tracker"] = tracker.state_dict()
                 if dl is not None:
                     meta["est_bits"] = [float(b) for b in est_bits]
+            save_checkpoint(ckpt_file, state, meta=meta)
             save_json(meta_file, meta)
         if cfg.verbose and rnd % 5 == 0:
             print(f"[pftt:{cfg.method}] round {rnd} acc {accs_per_round[-1]:.3f} "
@@ -448,6 +482,11 @@ def run_pftt(cfg: PFTTConfig, init: Optional[Dict] = None) -> Dict:
         "ragged_cohort": len(set(client_batch_sizes)) > 1,
         "staleness": tracker.counters() if robust else None,
         "loss_per_round": loss_per_round,
+        "uplink_bits": {"realized": bits_per_round, "raw": [p * 8 for p in payloads],
+                        "upper_bound": None if codec is None else [
+                            payload_bits_upper_bound(
+                                codec, trees.select(cl["trainable"], upload_pred)) + act_bits()
+                            for cl in clients]},
         "pretrain_s": pretrain_s,
         "round_s": round_s,
     }

@@ -19,6 +19,15 @@ continuous-time round; ``--ckpt-dir`` saves each round's state and
         "straggle_p=0.5,max_straggle=2,seed=2" --staleness-a 0.5 \
         --max-staleness 2 --device cpu
 
+``--uplink-codec`` (``int8``, ``int4``: stochastic-rounding quantization;
+``sketch``: top-k) compresses each client's upload inside the round and
+``--factored-agg`` aggregates the LoRA factor pairs by the SVD
+re-projection (``repro_torch.comms``):
+
+    PYTHONPATH=src python -m repro_torch.launch.train --arch roberta-base \
+        --fl-clients 2 --fl-rounds 1 --uplink-codec int4 --factored-agg \
+        --device cpu
+
 ``--steps N`` trains the chosen architecture at full width (``--reduced``
 for the smoke variant) for N AdamW steps:
 
@@ -31,9 +40,8 @@ trained on an MLM loss over 15 % masked positions, the base frozen, so
 every encoder layer runs the ``lora_fused`` and non-causal ``flash_attn``
 kernels forward and their autograd Functions backward.  ``--lora-rank 0``
 is the JAX launcher's full fine-tuning (``make_train_step`` on next-token
-labels).  The JAX launcher's other modes (population, codecs, telemetry,
-the arch rounds of other architectures) are not ported and their flags
-raise.
+labels).  The JAX launcher's other modes (population, telemetry, the arch
+rounds of other architectures) are not ported and their flags raise.
 """
 from __future__ import annotations
 
@@ -55,8 +63,6 @@ from repro_torch.wireless import DeadlineConfig, FaultPlan
 
 # flag → (its "off" value, its entry in cohort.LATER)
 _UNPORTED = {
-    "uplink_codec": ("none", "codec"),
-    "factored_agg": (False, "factored_agg"),
     "population": (0, "population"),
     "telemetry_dir": (None, "health"),
 }
@@ -77,6 +83,15 @@ def parse_args(argv=None):
     ap.add_argument("--fl-clients", type=int, default=0,
                     help="run a federated PFTT cohort of this size (0 → off)")
     ap.add_argument("--fl-rounds", type=int, default=3)
+    ap.add_argument("--uplink-codec", default="none",
+                    choices=["none", "int8", "int4", "sketch"],
+                    help="compress FL uploads inside the round "
+                         "(repro_torch.comms): stochastic-rounding int8/int4 "
+                         "quantization or top-k sketching of the delta "
+                         "against the last broadcast global")
+    ap.add_argument("--factored-agg", action="store_true",
+                    help="aggregate LoRA factor pairs via SVD re-projection "
+                         "of the weighted-mean update (never densified)")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default; raises without a GPU) or cpu")
     ap.add_argument("--fault-plan", default=None,
@@ -113,8 +128,6 @@ def parse_args(argv=None):
     ap.add_argument("--resume", action="store_true",
                     help="FL engine: restart from --ckpt-dir's last round")
     # the JAX launcher's flags of modes not ported yet: setting one raises
-    ap.add_argument("--uplink-codec", default="none")
-    ap.add_argument("--factored-agg", action="store_true")
     ap.add_argument("--population", type=int, default=0)
     ap.add_argument("--telemetry-dir", default=None)
     args = ap.parse_args(argv)
@@ -145,7 +158,8 @@ def pftt_config(args, **overrides):
               batch=args.batch, lr=args.lr, local_steps=5, pretrain_steps=50,
               samples_per_client=200, fault_plan=FaultPlan.from_spec(args.fault_plan),
               staleness_a=args.staleness_a, max_staleness=args.max_staleness,
-              deadline=deadline_config(args), ckpt_dir=args.ckpt_dir,
+              deadline=deadline_config(args), uplink_codec=args.uplink_codec,
+              factored_agg=args.factored_agg, ckpt_dir=args.ckpt_dir,
               resume=args.resume, verbose=True, device=args.device)
     kw.update(overrides)
     return PFTTConfig(**kw)
@@ -228,7 +242,7 @@ def main(argv=None):
               f"ignored) on {resolve_device(args.device)}")
         res = run_pftt(pftt_config(args))
         print(f"final acc {res['final_acc']:.3f} mean round bytes "
-              f"{res['mean_round_bytes']:,.0f} mean round delay "
+              f"{res['mean_round_bytes']:,.0f} (codec={args.uplink_codec}) mean round delay "
               f"{res['mean_round_delay_s']:.3f}s energy {res['total_energy_j']:.2f}J "
               f"pretrain {res['pretrain_s']:.2f}s rounds "
               f"{[round(s, 3) for s in res['round_s']]}s")

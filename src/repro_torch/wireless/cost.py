@@ -16,13 +16,16 @@ import numpy as np
 from repro_torch import trees
 
 
-def tree_bytes(tree, *, nonzero_mask=None):
+def tree_bytes(tree, *, nonzero_mask=None, itemsize=None):
     """Bytes of a tree payload: every tensor leaf's element count times its
     element size (``None`` leaves carry nothing).  ``nonzero_mask`` (a tree
     of the same leaves holding 1/0 masks in broadcast shapes): a leaf sends
     only its mask's share of its elements, ``round(numel · mean(mask))`` —
     the paper's sparse-attention upload.  The mean is numpy's over the mask
-    as stored, as in the JAX package, so the byte counts agree exactly."""
+    as stored, as in the JAX package, so the byte counts agree exactly.
+    ``itemsize`` overrides the bytes per element (quantized leaves are not
+    their dtype's size): a number for every leaf, or a tree of the same
+    leaves (``None`` or missing entries keep the leaf's own)."""
     flat = trees.flatten(tree)
     masks = {}
     if nonzero_mask is not None:
@@ -30,13 +33,19 @@ def tree_bytes(tree, *, nonzero_mask=None):
         if masks.keys() != flat.keys():
             raise ValueError("tree_bytes: nonzero_mask's leaves do not match the "
                              f"tree's: {sorted(masks.keys() ^ flat.keys())[:4]}")
+    if itemsize is None:
+        override = {}
+    elif isinstance(itemsize, (int, float)):
+        override = {p: float(itemsize) for p in flat}
+    else:
+        override = {p: float(v) for p, v in trees.flatten(itemsize).items()}
     total = 0.0
     for p, x in flat.items():
         frac = 1.0
         if p in masks:
             m = masks[p].detach().cpu().numpy()
             frac = float(m.mean()) if m.size else 1.0
-        total += round(x.numel() * frac) * x.element_size()
+        total += round(x.numel() * frac) * override.get(p, x.element_size())
     return int(total) if float(total).is_integer() else total
 
 

@@ -5,6 +5,8 @@ decision is taken inside the fixture, never at import).  Run them on the
 card with ``PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py``.
 Tolerances are those of ``tests/test_kernels.py``.
 """
+import functools
+
 import pytest
 import torch
 
@@ -606,3 +608,48 @@ def test_robust_pftt_on_card_matches_cpu(gen):
     np.testing.assert_equal(card["round_records"], cpu["round_records"])
     assert card["staleness"] == cpu["staleness"]
     np.testing.assert_allclose(card["acc_per_round"], cpu["acc_per_round"], atol=0.05)
+
+
+@pytest.mark.parametrize("name", ["int8", "int4", "sketch", "countsketch"])
+def test_codec_roundtrip_on_card_matches_cpu(gen, name):
+    """One client's upload (LoRA factors, a raw enable mask, a head partly
+    masked, an embedding never uploaded) through ``roundtrip`` on the card
+    against the CPU, on the same tensors with the default uniforms (a
+    counter-based stream, so the same on both): bits within 1e-6 relative;
+    under the quantizers the scales equal and the symbols one step apart at
+    most, on ≤ 1e-6 of the elements; the sketches' decode within 1e-5 (the
+    card's scatter-add order); the uniforms and hashes equal."""
+    from repro_torch import trees
+    from repro_torch.comms import codec, sketch
+
+    shapes = {"lora/a": (2, 768, 8), "lora/b": (2, 8, 768), "lora/mask": (2, 1, 1),
+              "head": (768, 4), "emb": (512, 768)}
+    up = trees.unflatten({k: _rn(gen, *s, std=0.05) for k, s in shapes.items()})
+    ref = trees.map_leaves(lambda v: v + _rn(gen, *v.shape, std=0.01), up)
+    masks = trees.map_leaves(lambda v: torch.ones((1,) * v.dim(), device="cuda"), up)
+    masks["head"] = (torch.rand(768, 1, generator=gen, device="cuda") > 0.5).float()
+    masks["emb"] = torch.zeros(1, 1, device="cuda")
+    c = codec.get_codec(name)
+    out = {}
+    for dev in ("cuda", "cpu"):
+        rec = {}
+        move = functools.partial(trees.map_leaves, lambda v: v.to(dev))
+        dec, bits = codec.roundtrip(
+            c, move(up), ref=move(ref), bit_weights=move(masks), record=rec,
+            noise=lambda leaf, shape, dev=dev: codec.codec_uniforms(0, 1, 2, leaf, shape, dev))
+        out[dev] = (trees.flatten(dec), float(bits), rec)
+    (dc, bc, rc), (dp, bp, rp) = out["cuda"], out["cpu"]
+    assert abs(bc - bp) <= 1e-6 * bp and bp > 0
+    if name.startswith("int"):
+        for k, enc in rp.items():
+            assert torch.equal(rc[k]["scale"].cpu(), enc["scale"]), k
+            d = (rc[k]["q"].cpu().int() - enc["q"].int()).abs()
+            assert int(d.max()) <= 1 and int((d > 0).sum()) <= 1e-6 * d.numel(), k
+    else:
+        for k, v in dp.items():
+            torch.testing.assert_close(dc[k].cpu(), v, atol=1e-5, rtol=0)
+    assert torch.equal(codec.codec_uniforms(0, 1, 2, 3, (4096, 33), "cuda").cpu(),
+                       codec.codec_uniforms(0, 1, 2, 3, (4096, 33), "cpu"))
+    for a, b in zip(sketch.cs_hashes(3, 100000, 3, 7001, "cuda"),
+                    sketch.cs_hashes(3, 100000, 3, 7001, "cpu")):
+        assert torch.equal(a.cpu(), b)

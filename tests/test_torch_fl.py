@@ -310,15 +310,22 @@ def test_cohort_eval_and_unported_options():
     a, b = ev(st, torch.ones(3, 4))
     np.testing.assert_array_equal(a.numpy(), [4.0, 20.0, 36.0])
     assert b.shape == (3,)
-    for opt, match in (({"codec": object()}, "item 2"),
-                       ({"robust": True, "codec": object()}, "item 2"),
+    # the codec and factored aggregation build (they are ported); beside
+    # them the options still refused are refused by name
+    for opt in ({"codec": object()}, {"robust": True, "codec": object()},
+                {"factored_agg": True}):
+        assert callable(cohort.build_supervised_round(lambda *a: a, **opt))
+    for opt, match in (({"codec": object(), "health": True}, "item 3"),
+                       ({"robust": True, "codec": object(), "mesh": object()}, "item 8"),
                        ({"health": True}, "item 3"), ({"mesh": object()}, "item 8"),
-                       ({"factored_agg": True}, "item 2")):
+                       ({"factored_agg": True, "mesh": object()}, "item 8")):
         with pytest.raises(NotImplementedError, match=match):
             cohort.build_supervised_round(lambda *a: a, **opt)
-    for kw, match in ((dict(engine=False), "legacy"), (dict(uplink_codec="int8"), "comms"),
-                      (dict(fault_plan=object(), uplink_codec="int8"), "comms"),
-                      (dict(ckpt_dir="x", factored_agg=True), "item 2"),
+    for kw, match in ((dict(engine=False), "legacy"),
+                      (dict(uplink_codec="int8", population=object()), "item 4"),
+                      (dict(fault_plan=object(), uplink_codec="int8", telemetry=object()),
+                       "obs"),
+                      (dict(ckpt_dir="x", factored_agg=True, engine=False), "legacy"),
                       (dict(population=object()), "item 4"), (dict(telemetry=object()), "obs")):
         with pytest.raises(NotImplementedError, match=match):
             pftt.run_pftt(pftt.PFTTConfig(device="cpu", **kw))

@@ -116,8 +116,8 @@ def test_launcher_runs_on_cpu_and_refuses_without_gpu(monkeypatch, capsys):
 
 
 @pytest.mark.parametrize("option, match", [
-    (dict(engine=False), "legacy"), (dict(uplink_codec="int8"), "item 2"),
-    (dict(factored_agg=True), "item 2"), (dict(population=object()), "item 4"),
+    (dict(engine=False), "legacy"), (dict(uplink_codec="int8", population=object()), "item 4"),
+    (dict(factored_agg=True, telemetry=object()), "item 3"), (dict(population=object()), "item 4"),
     (dict(telemetry=object()), "item 3")])
 def test_unported_options_name_their_item(option, match):
     with pytest.raises(NotImplementedError, match=match):

@@ -448,8 +448,8 @@ def test_ppo_round_matches_jax_engine(policy, reward_setup, weights):
 
 
 def test_ppo_round_refuses_unported_options():
-    for kw, match in ((dict(codec=object()), "item 2"),
-                      (dict(robust=True, codec=object()), "item 2"),
+    for kw, match in ((dict(codec=object(), mesh=object()), "item 8"),
+                      (dict(robust=True, codec=object(), mesh=object()), "item 8"),
                       (dict(min_quorum=1, mesh=object()), "item 8"),
                       (dict(mesh=object()), "item 8")):
         with pytest.raises(NotImplementedError, match=match):

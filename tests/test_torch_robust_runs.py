@@ -27,7 +27,7 @@ from repro.core import pftt as jpftt
 from repro.wireless import arrivals as jarrivals
 from repro.wireless import faults as jfaults
 from repro_torch import trees
-from repro_torch.checkpoint import load_checkpoint, save_checkpoint
+from repro_torch.checkpoint import ckpt, load_checkpoint, save_checkpoint
 from repro_torch.core import pfit, pftt
 from repro_torch.launch import train
 from repro_torch.wireless import DeadlineConfig, FaultPlan
@@ -94,7 +94,8 @@ def test_run_pftt_robust_matches_jax(jax_pftt, case, tmp_path):
     deadline mode the simulated time, quorum no-op, deliveries and
     corruptions) equal, accuracies within 1e-6.  Then the port's checkpoint
     of the last round loads in JAX's ``load_checkpoint`` under the same keys
-    as JAX's own."""
+    as JAX's own (the port's file also holds its host state, under
+    ``ckpt.META_KEY``)."""
     want, jdir = jax_pftt(case)
     got = _port_pftt(case, ckpt_dir=str(tmp_path))
     np.testing.assert_equal(got["round_records"], want["round_records"])
@@ -114,8 +115,8 @@ def test_run_pftt_robust_matches_jax(jax_pftt, case, tmp_path):
         template = trees.unflatten({k: np.asarray(v) for k, v in theirs.items()})
     port_file = os.path.join(str(tmp_path), "pftt_pftt.npz")
     loaded = jckpt.load_checkpoint(port_file, template)
-    with np.load(port_file) as ours:
-        assert set(ours.files) == set(theirs.files)
+    with np.load(port_file) as ours:   # and the port's host state beside them
+        assert set(ours.files) == set(theirs.files) | {ckpt.META_KEY}
         for k, v in trees.flatten(loaded).items():
             np.testing.assert_array_equal(np.asarray(v), ours[k], err_msg=k)
 

@@ -327,8 +327,8 @@ def test_peft_and_train_steps_match_jax(encoder):
 
 def test_train_launcher_steps_on_cpu():
     """``--steps`` mode on the CPU: the PEFT default and full fine-tuning
-    run; the PEFT trainables are the adapters and the LoRA factors;
-    unported modes raise by name."""
+    run; the PEFT trainables are the adapters and the LoRA factors; the
+    uplink flags reach ``PFTTConfig``; unported modes raise by name."""
     argv = ["--arch", "roberta-base", "--reduced", "--steps", "4", "--batch", "4",
             "--seq", "16", "--device", "cpu"]
     losses = train.main(argv)
@@ -338,8 +338,12 @@ def test_train_launcher_steps_on_cpu():
     tr = train.Trainer(train.parse_args(argv))
     assert set(tr.trainable) == {"adapters", "lora"}
     assert all("/adapter/" in p for p in trees.flatten(tr.trainable["adapters"]))
-    with pytest.raises(NotImplementedError, match="item 2"):
-        train.parse_args(argv + ["--fault-plan", "dropout_p=0.5", "--uplink-codec", "int8"])
+    cfg = train.pftt_config(train.parse_args(argv + ["--fault-plan", "dropout_p=0.5",
+                                                     "--uplink-codec", "int8",
+                                                     "--factored-agg"]))
+    assert cfg.uplink_codec == "int8" and cfg.factored_agg
+    with pytest.raises(NotImplementedError, match="item 4"):
+        train.parse_args(argv + ["--uplink-codec", "int8", "--population", "8"])
     with pytest.raises(NotImplementedError, match="queue 1 item 6"):
         train.parse_args(["--arch", "gpt2-small", "--fl-clients", "2"])
     with pytest.raises(NotImplementedError, match="ssd_chunk has no backward"):
