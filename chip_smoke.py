@@ -115,6 +115,23 @@ Phases, each reported on its own lines:
    recount of their bits; (c) ``svd_reproject`` on roberta-base's
    full-width LoRA (4 clients, rank 8, wq and wv of 12 layers) against the
    dense oracle, both timed.
+13. TRAIN-POP — population mode and telemetry (``repro_torch.fl``,
+   ``repro_torch.obs``): (a) ``launch/train.py --population 256 --cohort 8
+   --fl-rounds 2`` under docs/ci.md's availability and straggler flags with
+   ``--telemetry-dir D --trace``: seconds and host ms a round, the store's
+   MB, launches against the client-rounds that train; the event stream
+   validates, ``report --check`` exits 0, ``trace.json``'s spans nest,
+   every round event carries the seven health scalars; a CPU re-run
+   (cohorts, bytes and delays equal, accuracies within 0.05, health within
+   1e-3 relative); (b) the same for 4 rounds, killed after 2 and resumed:
+   ledger, cohorts and tracker equal, canonical streams equal (byte for
+   byte, or each float within 1e-5), no round event twice; (c) shepherd
+   population (``run_pfit``, 64 clients, cohort 4, TRAIN-PFIT's quick
+   profile, 2 rounds) with health, launches, a CPU re-run; (d) the robust
+   body with health at roberta-base's full width through
+   ``PopulationRunner`` (64 clients, cohort 4, 4 rounds): health against
+   the float64 oracle, unsampled rows unchanged, state bitwise equal with
+   health on and off, each timed in turns.
 
 Before the last line it prints one JSON object with a row per kernel (its
 launches summed over the serving, training, robust and comms paths' main runs); the last
@@ -122,8 +139,10 @@ line is
 ``{"ok": true, "device": {...}}``.  Any failed check exits
 nonzero before that line.
 """
+import contextlib
 import dataclasses
 import functools
+import io
 import json
 import os
 import subprocess
@@ -1987,6 +2006,461 @@ def train_comms(torch, np):
             dict(pftt=pftt_rows, ppo=ppo_row, svd=svd_row))
 
 
+# ---------------------------------------------------------------- population
+POP_FLAGS = ["--arch", "roberta-base", "--population", "256", "--cohort", "8",
+             "--sampler", "availability", "--scenario", "avail=diurnal,avail_period=6,seed=1",
+             "--fault-plan", "straggle_p=0.3,max_straggle=2,seed=2",
+             "--staleness-a", "0.5", "--max-staleness", "2"]   # docs/ci.md's cell
+POP_ROUNDS, POP_LONG, POP_CUT = 2, 4, 2
+POP_HEALTH_RTOL = 1e-3        # card against CPU re-run
+POP_STREAM_TOL = 1e-5         # a resumed stream's floats, when not byte-equal
+POP_ORACLE_RTOL = 1e-4        # health against the float64 host oracle
+POP_SHEPHERD = dict(PFIT_QUICK, rounds=2)
+POP_FULL = dict(population=64, cohort=4, rounds=4, local_steps=2, batch=8, seq=32, rank=8)
+POP_HEALTH_REPS = 20          # timed calls of cohort_health alone a round
+
+
+def pop_trained(cfg, cohorts):
+    """The client-rounds that train in a population run: each round's
+    sampled clients that the fault trace lets train and the scenario's
+    availability trace shows reachable (the port's copies of both)."""
+    pop = cfg.population
+    trace = cfg.fault_plan.realize(pop.population, cfg.rounds)
+    avail = pop.scenario.realize(pop.population, cfg.rounds)
+    return int(sum((trace.train[r, ids] * avail.avail_round(r)[ids]).sum()
+                   for r, ids in enumerate(cohorts)))
+
+
+def rel_close(a, b, rtol):
+    return abs(a - b) <= rtol * abs(b) + 1e-7
+
+
+def health_close(card, cpu, rtol):
+    """Largest relative difference over every round's health scalars, and
+    whether each is within ``rtol``."""
+    errs = [abs(h1[k] - h2[k]) / max(abs(h2[k]), 1e-7) for h1, h2 in zip(card, cpu) for k in h1]
+    ok = all(rel_close(h1[k], h2[k], rtol) for h1, h2 in zip(card, cpu) for k in h1)
+    return max(errs, default=0.0), ok
+
+
+def check_telemetry(tag, tele_dir, rounds):
+    """The stream validates, ``report --check`` exits 0, ``trace.json``
+    parses and every span of a round lies inside that round's ``round``
+    span, and each round event carries the seven health scalars."""
+    from repro_torch.launch import report
+    from repro_torch.obs import HEALTH_KEYS, read_events, validate_events
+
+    events = read_events(os.path.join(tele_dir, "events.jsonl"))
+    errors = validate_events(events)
+    rounds_ev = [e for e in events if e["event"] == "round"]
+    health_ok = len(rounds_ev) == rounds and all(
+        set(e["health"]) == set(HEALTH_KEYS)
+        and all(isinstance(v, float) for v in e["health"].values()) for e in rounds_ev)
+    with contextlib.redirect_stdout(io.StringIO()) as out:   # its table
+        rc = report.main([tele_dir, "--check"])
+    check_line = out.getvalue().strip().splitlines()[-1]
+    with open(os.path.join(tele_dir, "trace.json")) as f:
+        spans = json.load(f)["traceEvents"]
+    outer = [(s["ts"], s["ts"] + s["dur"]) for s in spans if s["name"] == "round"]
+    inner = [s for s in spans if s["name"] not in ("round", "eval", "checkpoint")]
+    nested = len(outer) == rounds and all(
+        any(a <= s["ts"] and s["ts"] + s["dur"] <= b for a, b in outer) for s in inner)
+    print(f"{tag} telemetry: {len(events)} events, validate_events errors {errors}, "
+          f"report --check rc {rc} ({check_line}), trace.json {len(spans)} spans nested {nested}, "
+          f"health scalars in every round event {health_ok}", flush=True)
+    if errors or rc != 0 or not nested or not health_ok:
+        fail(f"{tag}: telemetry errors {errors}, report rc {rc}, nested {nested}, "
+             f"health {health_ok}")
+    return events
+
+
+def streams_match(a, b):
+    """'bytes' when two canonical streams are equal byte for byte, 'floats'
+    when they differ only in floats within POP_STREAM_TOL, else None."""
+    if a == b:
+        return "bytes"
+    import numpy as np
+    la, lb = [json.loads(x) for x in a], [json.loads(x) for x in b]
+
+    def walk(x, y):
+        if isinstance(x, dict):
+            return isinstance(y, dict) and x.keys() == y.keys() and all(
+                walk(x[k], y[k]) for k in x)
+        if isinstance(x, list):
+            return isinstance(y, list) and len(x) == len(y) and all(
+                walk(u, v) for u, v in zip(x, y))
+        if isinstance(x, float) and isinstance(y, (int, float)):
+            return bool(np.isclose(x, y, rtol=0, atol=POP_STREAM_TOL))
+        return x == y
+
+    return "floats" if len(la) == len(lb) and walk(la, lb) else None
+
+
+def train_pop_pftt(torch):
+    """TRAIN-POP (a) and (b): ``launch/train.py``'s population PFTT
+    (``--population 256 --cohort 8`` under docs/ci.md's availability and
+    straggler flags, the launcher's 50 pretraining and 5 local steps, batch
+    8, seed 0, f32) for 2 rounds with ``--telemetry-dir D --trace``:
+    seconds and host ms a round, the store's MB, launches against
+    ``pftt_expected`` over the client-rounds that train; the telemetry
+    checks; a CPU re-run from the same init (cohorts, bytes and delays
+    equal, accuracies within PFTT_ACC_TOL, health within POP_HEALTH_RTOL).
+    Then (b): 4 rounds uninterrupted, 2 with a checkpoint and a resume to 4
+    into the same telemetry directory: ledger, cohorts and tracker equal,
+    canonical streams equal byte for byte or within POP_STREAM_TOL, no
+    round event twice."""
+    import tempfile
+
+    from repro_torch.core.pftt import run_pftt
+    from repro_torch.launch import train
+    from repro_torch.obs import TelemetryConfig, canonical_stream, read_events
+
+    kernels = wrappers()
+    with tempfile.TemporaryDirectory() as tmp:
+        d = os.path.join(tmp, "a")
+        args = train.parse_args(POP_FLAGS + ["--fl-rounds", str(POP_ROUNDS),
+                                             "--telemetry-dir", d, "--trace"])
+        cfg = train.pftt_config(args, verbose=False)
+        for f in kernels.values():
+            f.launches = 0
+        card = run_pftt(cfg)
+        launches = {n: f.launches for n, f in kernels.items()}
+        trained = pop_trained(cfg, card["cohorts"])
+        expected = pftt_expected(cfg, "pftt", trained)
+        rounds = len(card["round_wall"])
+        print(f"TRAIN-POP (a) pftt population {cfg.population.population} cohort "
+              f"{cfg.population.cohort_size} x {rounds} rounds ({trained} client-rounds "
+              f"train): pretrain_s={card['pretrain_s']:.3f} "
+              f"s_per_round={card['round_s'] / rounds:.4f} "
+              f"round_wall={[round(x, 4) for x in card['round_wall']]} "
+              f"host_ms_per_round={card['host_s'] / rounds * 1e3:.3f} "
+              f"host_overhead_frac={card['host_overhead_frac']:.4f} "
+              f"store_MB={card['store_bytes'] / 1e6:.3f} "
+              f"acc_per_round={[round(a, 4) for a in card['acc_per_round']]} "
+              f"cohorts={card['cohorts']} staleness={card['staleness']}", flush=True)
+        print(f"TRAIN-POP (a) launches {launches} expected {expected}", flush=True)
+        if launches != expected:
+            fail(f"TRAIN-POP (a): kernel launches {launches} != expected {expected}")
+        events = check_telemetry("TRAIN-POP (a)", d, POP_ROUNDS)
+        phases = [e["wall"]["phases"] for e in events if e["event"] == "round"]
+        print(f"TRAIN-POP (a) phases per round (s): {phases}", flush=True)
+
+        t0 = time.perf_counter()
+        cpu = run_pftt(dataclasses.replace(cfg, device="cpu", telemetry=TelemetryConfig(
+            out_dir=os.path.join(tmp, "a_cpu"))))
+        cpu_s = time.perf_counter() - t0
+        ledger_ok = same_records(cpu["round_records"], card["round_records"])
+        acc_err = max(abs(a - b) for a, b in zip(card["acc_per_round"], cpu["acc_per_round"]))
+        h_err, h_ok = health_close(card["health_per_round"], cpu["health_per_round"],
+                                   POP_HEALTH_RTOL)
+        cohorts_ok = cpu["cohorts"] == card["cohorts"]
+        print(f"TRAIN-POP (a) CPU (plain versions, {cpu_s:.1f} s): cohorts_equal={cohorts_ok} "
+              f"bytes_and_delays_equal={ledger_ok} "
+              f"acc_per_round={[round(a, 4) for a in cpu['acc_per_round']]} "
+              f"acc_max_abs_err={acc_err:.4f} (tol {PFTT_ACC_TOL}) "
+              f"health_max_rel_err={h_err:.2e} (tol {POP_HEALTH_RTOL:g})", flush=True)
+        print(f"TRAIN-POP (a) health card {card['health_per_round']}", flush=True)
+        if not (cohorts_ok and ledger_ok and h_ok) or acc_err > PFTT_ACC_TOL:
+            fail(f"TRAIN-POP (a): card and CPU differ (cohorts {cohorts_ok}, ledger "
+                 f"{ledger_ok}, acc {acc_err:.4f}, health {h_err:.2e})")
+
+        # (b) kill after POP_CUT rounds, resume to POP_LONG
+        full_d, kill_d, ck = (os.path.join(tmp, x) for x in ("full", "killed", "ck"))
+        long_cfg = dataclasses.replace(cfg, rounds=POP_LONG, telemetry=TelemetryConfig(
+            out_dir=full_d))
+        full = run_pftt(long_cfg)
+        kill_cfg = dataclasses.replace(long_cfg, ckpt_dir=ck, telemetry=TelemetryConfig(
+            out_dir=kill_d))
+        run_pftt(dataclasses.replace(kill_cfg, rounds=POP_CUT))
+        resumed = run_pftt(dataclasses.replace(kill_cfg, resume=True))
+        ev_full = read_events(os.path.join(full_d, "events.jsonl"))
+        ev_res = read_events(os.path.join(kill_d, "events.jsonl"))
+        round_ids = [e["round"] for e in ev_res if e["event"] == "round"]
+        no_dup = round_ids == list(range(POP_LONG))
+        how = streams_match(canonical_stream(ev_res), canonical_stream(ev_full))
+        ledger_ok = same_records(resumed["round_records"], full["round_records"])
+        cohorts_ok = resumed["cohorts"] == full["cohorts"]
+        tracker_ok = resumed["staleness"] == full["staleness"]
+        print(f"TRAIN-POP (b) kill after {POP_CUT} rounds and resume to {POP_LONG}: "
+              f"ledger_equal={ledger_ok} cohorts_equal={cohorts_ok} "
+              f"tracker_equal={tracker_ok} ({resumed['staleness']}) "
+              f"canonical_streams_equal={how} round events {round_ids} "
+              f"resume events {sum(e['event'] == 'resume' for e in ev_res)} "
+              f"acc_per_round={[round(a, 4) for a in resumed['acc_per_round']]} "
+              f"uninterrupted={[round(a, 4) for a in full['acc_per_round']]}", flush=True)
+        if not (ledger_ok and cohorts_ok and tracker_ok and no_dup and how):
+            fail(f"TRAIN-POP (b): ledger {ledger_ok} cohorts {cohorts_ok} tracker "
+                 f"{tracker_ok} no duplicate {no_dup} streams {how}")
+    row = {k: card[k] for k in ("acc_per_round", "round_wall", "round_s", "host_s",
+                                "host_overhead_frac", "store_bytes", "pretrain_s", "cohorts",
+                                "health_per_round", "staleness")}
+    return launches, dict(row, launches=launches, trained=trained, cpu_acc_err=acc_err,
+                          cpu_health_rel_err=h_err, resume_stream=how)
+
+
+def shepherd_pop_expected(cfg, trained):
+    """Each kernel's launches in one shepherd population run: ``flash_attn``
+    once a layer per forward of the policy and ``lora_fused`` on wq and wv
+    per forward with LoRA — the pretraining steps (no LoRA), the local
+    steps of the client-rounds that train, one evaluation forward per
+    sampled client and round.  No generation: population rounds are scored
+    by LM loss."""
+    L = cfg.n_layers
+    fwd = trained * cfg.shepherd_steps + cfg.rounds * cfg.population.cohort_size
+    return {"lora_fused": 2 * L * fwd, "flash_attn": L * (cfg.pretrain_steps + fwd),
+            "decode_attn": 0, "block_sparse_attn": 0, "ssd_chunk": 0}
+
+
+def train_pop_shepherd(torch):
+    """TRAIN-POP (c): ``run_pfit(method="shepherd")`` at TRAIN-PFIT's quick
+    profile with a population of 64 and a cohort of 4 (uniform sampling),
+    2 rounds, telemetry with health: seconds a round, launches against
+    ``shepherd_pop_expected``; a CPU re-run (ledger and cohorts equal, the
+    evaluation losses within PFIT_REWARD_TOL, health within
+    POP_HEALTH_RTOL)."""
+    import tempfile
+
+    from repro_torch.core.pfit import PFITConfig, run_pfit
+    from repro_torch.fl import PopulationConfig
+    from repro_torch.obs import TelemetryConfig
+
+    kernels = wrappers()
+    with tempfile.TemporaryDirectory() as tmp:
+        cfg = PFITConfig(method="shepherd", population=PopulationConfig(
+            population=64, cohort_size=4), telemetry=TelemetryConfig(
+                out_dir=os.path.join(tmp, "card"), trace=True), **POP_SHEPHERD)
+        for f in kernels.values():
+            f.launches = 0
+        card = run_pfit(cfg)
+        launches = {n: f.launches for n, f in kernels.items()}
+        expected = shepherd_pop_expected(cfg, cfg.rounds * cfg.population.cohort_size)
+        print(f"TRAIN-POP (c) shepherd population 64 cohort 4 x {cfg.rounds} rounds: "
+              f"pretrain_s={card['pretrain_s']:.3f} "
+              f"s_per_round={card['round_s'] / cfg.rounds:.4f} "
+              f"round_wall={[round(x, 4) for x in card['round_wall']]} "
+              f"host_ms_per_round={card['host_s'] / cfg.rounds * 1e3:.3f} "
+              f"store_MB={card['store_bytes'] / 1e6:.3f} "
+              f"eval_loss_per_round={[round(x, 5) for x in card['eval_loss_per_round']]} "
+              f"cohorts={card['cohorts']}", flush=True)
+        print(f"TRAIN-POP (c) launches {launches} expected {expected}", flush=True)
+        if launches != expected:
+            fail(f"TRAIN-POP (c): kernel launches {launches} != expected {expected}")
+        check_telemetry("TRAIN-POP (c)", cfg.telemetry.out_dir, cfg.rounds)
+        t0 = time.perf_counter()
+        cpu = run_pfit(dataclasses.replace(cfg, device="cpu", telemetry=TelemetryConfig(
+            out_dir=os.path.join(tmp, "cpu"))))
+        cpu_s = time.perf_counter() - t0
+    ledger_ok = same_records(cpu["round_records"], card["round_records"])
+    cohorts_ok = cpu["cohorts"] == card["cohorts"]
+    err = max(abs(a - b) for a, b in zip(card["eval_loss_per_round"],
+                                         cpu["eval_loss_per_round"]))
+    h_err, h_ok = health_close(card["health_per_round"], cpu["health_per_round"],
+                               POP_HEALTH_RTOL)
+    print(f"TRAIN-POP (c) CPU (plain versions, {cpu_s:.1f} s): ledger_equal={ledger_ok} "
+          f"cohorts_equal={cohorts_ok} "
+          f"eval_loss_per_round={[round(x, 5) for x in cpu['eval_loss_per_round']]} "
+          f"max_abs_err={err:.2e} (tol {PFIT_REWARD_TOL}) health_max_rel_err={h_err:.2e}",
+          flush=True)
+    if not (ledger_ok and cohorts_ok and h_ok) or err > PFIT_REWARD_TOL:
+        fail(f"TRAIN-POP (c): ledger {ledger_ok} cohorts {cohorts_ok} eval loss {err:.2e} "
+             f"health {h_err:.2e}")
+    row = {k: card[k] for k in ("eval_loss_per_round", "round_wall", "round_s", "host_s",
+                                "store_bytes", "pretrain_s", "health_per_round")}
+    return launches, dict(row, launches=launches, cpu_eval_loss_err=err)
+
+
+def train_pop_full(torch, np, device="cuda", arch_cfg=None):
+    """TRAIN-POP (d): the robust supervised body with ``health=True`` at
+    roberta-base's full width and depth (12 layers, d 768, rank-8 LoRA on
+    wq/wv, adapters frozen, TRAIN-ROBERTA's MLM loss at batch 8, sequence
+    32, 2 local steps) driven by ``PopulationRunner`` from a
+    ``PopulationStore`` of 64 fedlora clients (the LoRA uploaded), cohort 4,
+    4 rounds, under TRAIN-POP (a)'s straggler plan.  Each round the body is
+    also run with ``health=False`` on copies of the same inputs, the two in
+    turns: the state, pending payloads and losses must be equal bit for
+    bit.  Each round's health scalars are held against ``host_health`` in
+    float64 on that round's own tensors within POP_ORACLE_RTOL; the rows the
+    round did not sample must be unchanged bit for bit.  ``cohort_health``
+    alone on the round's tensors is timed (mean of POP_HEALTH_REPS calls).
+    Launches are read before and after each health-on call and summed; they
+    must equal 2·L (``lora_fused``) and L (``flash_attn``) launches for each
+    local step of a client-round that trains, and the health-off runs',
+    counted apart, the same."""
+    from repro_torch import synchronize, trees
+    from repro_torch.comms import ChannelBudget
+    from repro_torch.configs import get_config
+    from repro_torch.core.cohort import HostBatchStacker, build_supervised_round
+    from repro_torch.core.robust import StalenessConfig, StalenessTracker
+    from repro_torch.data import SPECIAL
+    from repro_torch.fl import (ClientSampler, PopulationConfig, PopulationRunner,
+                                PopulationStore, stacked_client_init)
+    from repro_torch.models import peft
+    from repro_torch.models.transformer import Model
+    from repro_torch.obs import SpanTracer, cohort_health, host_health
+    from repro_torch.optim import adamw, value_and_grad
+    from repro_torch.wireless import CommLedger, FaultPlan, RayleighChannel, tree_bytes
+    from repro_torch.wireless.scenarios import Scenario
+
+    P = POP_FULL
+    dev = torch.device(device)
+    mcfg = arch_cfg or get_config("roberta-base")
+    model = Model(mcfg, device=dev)
+    gen = torch.Generator().manual_seed(0)
+    pcfg = peft.PEFTConfig(lora_rank=P["rank"], lora_targets=("mixer/wq", "mixer/wv"))
+    frozen = peft.init_adapters(gen, model.init(gen, max_seq=P["seq"]), mcfg, pcfg)
+    scale = peft.lora_scale(pcfg)
+    opt = adamw(1e-3)
+
+    def client_init(i):
+        lora = peft.init_lora(torch.Generator().manual_seed(1000 + i), frozen, pcfg)
+        t = {"lora": lora}
+        return {"t": t, "o": opt.init(t)}
+
+    stacked = stacked_client_init(client_init, P["population"])
+    store = PopulationStore({"trainable": stacked["t"], "opt": stacked["o"],
+                             "pending": trees.map_leaves(np.zeros_like, stacked["t"])})
+
+    def local_step(t, op, batch):
+        loss, g = value_and_grad(
+            lambda tt: model.lm_loss(frozen, batch, lora=tt["lora"], lora_scale=scale), t)
+        upd, op = opt.update(g, op, t)
+        return trees.tree_add(t, upd), op, loss
+
+    def draw(cid, rnd):
+        rng = np.random.RandomState(cid * 1009 + rnd)
+        out = []
+        for _ in range(P["local_steps"]):
+            toks = rng.randint(6, mcfg.vocab_size, size=(P["batch"], P["seq"]))
+            mpos = rng.rand(P["batch"], P["seq"]) < 0.15
+            out.append({"tokens": np.where(mpos, SPECIAL["mask"], toks), "labels": toks,
+                        "mask": mpos.astype(np.float32)})
+        return out
+
+    on = build_supervised_round(local_step, robust=True, health=True)
+    off = build_supervised_round(local_step, robust=True, health=False)
+    kernels = wrappers()
+    log = {"on_ms": [], "off_ms": [], "health_ms": [], "oracle_err": [], "bitwise": [],
+           "on_launches": dict.fromkeys(KERNELS, 0), "off_launches": dict.fromkeys(KERNELS, 0)}
+
+    def clone(tree):
+        return trees.map_leaves(lambda x: x.clone(), tree)
+
+    def counted(step, args, launches):
+        """One call of a body, timed; its launches added to ``launches``."""
+        before = {n: kernels[n].launches for n in KERNELS}
+        synchronize(dev)
+        t0 = time.perf_counter()
+        outs = step(*args)
+        synchronize(dev)
+        ms = (time.perf_counter() - t0) * 1e3
+        for n in KERNELS:
+            launches[n] += kernels[n].launches - before[n]
+        return outs, ms
+
+    def step(tr, op, pend, batches, train_m, agg_w, recv_m, rejoin_m, ontime_m):
+        """The health-on body, with the health-off body on copies of the same
+        inputs beside it (in turns), and the float64 oracle."""
+        up_in = clone(tr)
+        args = [tr, op, pend, batches, train_m, agg_w, recv_m, rejoin_m, ontime_m]
+        copies = [clone(tr), clone(op), clone(pend), batches, train_m, agg_w, recv_m,
+                  rejoin_m, ontime_m]
+        first_off = len(log["on_ms"]) % 2 == 1
+        if first_off:
+            outs_off, ms_off = counted(off, copies, log["off_launches"])
+        outs, ms_on = counted(on, args, log["on_launches"])
+        if not first_off:
+            outs_off, ms_off = counted(off, copies, log["off_launches"])
+        log["on_ms"].append(ms_on)
+        log["off_ms"].append(ms_off)
+        same = all(torch.equal(a, b) for a, b in zip(
+            (x for o in outs[:4] for x in trees.flatten(o).values()),
+            (x for o in outs_off for x in trees.flatten(o).values())))
+        log["bitwise"].append(same)
+        w = agg_w * ontime_m
+        gate = float(w.sum() > 0)
+        synchronize(dev)     # cohort_health alone on this round's tensors
+        t0 = time.perf_counter()
+        for _ in range(POP_HEALTH_REPS):
+            cohort_health(outs[2], up_in, outs[3], w, w.sum() > 0, train_m=train_m)
+        synchronize(dev)
+        log["health_ms"].append((time.perf_counter() - t0) * 1e3 / POP_HEALTH_REPS)
+        oracle = host_health(outs[2], up_in, outs[3], w, gate, train_m=train_m)
+        hs = {k: float(v) for k, v in outs[-1].items()}
+        log["oracle_err"].append(max(abs(hs[k] - oracle[k]) / max(abs(oracle[k]), 1e-7)
+                                     for k in hs))
+        log.setdefault("oracle_ok", []).append(all(rel_close(hs[k], oracle[k], POP_ORACLE_RTOL)
+                                                   for k in hs))
+        return outs
+
+    pop = PopulationConfig(population=P["population"], cohort_size=P["cohort"])
+    channel = RayleighChannel(seed=0)
+    plan = FaultPlan(straggle_p=0.3, max_straggle=2, seed=2)
+    tracker = StalenessTracker(P["population"], StalenessConfig(a=0.5, max_staleness=2))
+    tracer = SpanTracer()
+    runner = PopulationRunner(
+        pop=pop, store=store, global_shared=trees.map_leaves(np.array, store.row("trainable", 0)),
+        upload_pred=lambda p: True, channel=channel, budget=ChannelBudget(channel),
+        ledger=CommLedger(), tracker=tracker,
+        trace=plan.realize(P["population"], P["rounds"]),
+        strace=Scenario().realize(P["population"], P["rounds"]),
+        sampler=ClientSampler("uniform", P["population"], P["cohort"], seed=0),
+        device=dev, tracer=tracer, health=True)
+    payload_bits = tree_bytes(trees.map_leaves(torch.from_numpy, store.row("trainable", 0))) * 8
+    stacker = HostBatchStacker(dev)
+    unsampled_ok, gather_ms, scatter_ms = [], [], []
+    trained = 0
+    for rnd in range(P["rounds"]):
+        snap = {s: trees.map_leaves(np.copy, t) for s, t in store.slots.items()}
+        out = runner.run_round(rnd, round_step=step, stacker=stacker, draw_batches=draw,
+                               payload_bits=payload_bits)
+        trained += int((out["plan"].train[out["ids"]] > 0).sum())
+        phases = tracer.pop_round()
+        gather_ms.append(phases["gather"] * 1e3)
+        scatter_ms.append(phases["scatter"] * 1e3)
+        keep = np.setdiff1d(np.arange(P["population"]), out["ids"])
+        unsampled_ok.append(all(
+            np.array_equal(a[keep], b[keep]) for s in store.slots
+            for a, b in zip(trees.flatten(store.slots[s]).values(),
+                            trees.flatten(snap[s]).values())))
+    launches = log["on_launches"]
+    # each local step of a training client: one forward through the L
+    # layers, lora_fused on wq and wv and flash_attn once a layer
+    steps = trained * P["local_steps"]
+    expected = dict.fromkeys(KERNELS, 0)
+    expected.update(lora_fused=2 * mcfg.n_layers * steps, flash_attn=mcfg.n_layers * steps)
+    print(f"TRAIN-POP (d) roberta-base full width, {P['population']} fedlora clients, cohort "
+          f"{P['cohort']} x {P['rounds']} rounds: round_ms_health_on={log['on_ms']} "
+          f"round_ms_health_off={log['off_ms']} (in turns; off first in odd rounds) "
+          f"cohort_health_ms={log['health_ms']} gather_ms={gather_ms} "
+          f"scatter_ms={scatter_ms} store_MB={store.nbytes() / 1e6:.3f} "
+          f"health_vs_float64_oracle_max_rel_err={log['oracle_err']} "
+          f"(tol {POP_ORACLE_RTOL:g}) state_bitwise_equal_on_off={log['bitwise']} "
+          f"unsampled_rows_unchanged={unsampled_ok} ({trained} client-rounds train) "
+          f"launches {launches} expected {expected} "
+          f"(health-off comparison runs {log['off_launches']})", flush=True)
+    if not (all(log["bitwise"]) and all(log["oracle_ok"]) and all(unsampled_ok)):
+        fail(f"TRAIN-POP (d): bitwise {log['bitwise']} oracle {log['oracle_err']} "
+             f"unsampled {unsampled_ok}")
+    if launches != expected or log["off_launches"] != expected:
+        fail(f"TRAIN-POP (d): health-on launches {launches}, health-off "
+             f"{log['off_launches']}, expected {expected} each")
+    return launches, dict(launches=launches, round_ms_health_on=log["on_ms"],
+                          round_ms_health_off=log["off_ms"], health_ms=log["health_ms"],
+                          gather_ms=gather_ms,
+                          scatter_ms=scatter_ms, store_bytes=store.nbytes(),
+                          oracle_rel_err=log["oracle_err"])
+
+
+def train_pop(torch, np):
+    """TRAIN-POP (a)–(d); its launches are (a)'s, (c)'s and (d)'s
+    health-on rounds."""
+    got_a, pftt_row = train_pop_pftt(torch)
+    got_c, shepherd_row = train_pop_shepherd(torch)
+    got_d, full_row = train_pop_full(torch, np)
+    return ({k: got_a[k] + got_c[k] + got_d[k] for k in KERNELS},
+            dict(pftt=pftt_row, shepherd=shepherd_row, full=full_row))
+
+
 def profile(torch, label, run, reps):
     """torch.profiler over ``reps`` calls of ``run``: the device's busy
     share of the wall time and the kernels that fill it, per call, and the
@@ -2108,9 +2582,12 @@ def main():
     t0 = time.perf_counter()
     got_c, comms_row = train_comms(torch, np)
     print(f"PHASE TRAIN-COMMS {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    got_pop, pop_row = train_pop(torch, np)
+    print(f"PHASE TRAIN-POP {time.perf_counter() - t0:.1f} s", flush=True)
     for n in KERNELS:
         launches[n] += (got[n] + got_r[n] + got_f[n] + got_p[n] + got_ra[n] + got_rb[n]
-                        + got_rc[n] + got_c[n])
+                        + got_rc[n] + got_c[n] + got_pop[n])
 
     kernels = [dict(name=n, route="cuda", source=f"src/repro_torch/csrc/{n}.cu",
                     replaces=REPLACES[n], launches=launches[n],
@@ -2125,7 +2602,8 @@ def main():
                                 "roberta": roberta_row, "pfit": pfit_rows,
                                 "ppo": ppo_row, "robust": {
                                     "pftt": robust_pftt_row, "pfit": robust_pfit_row,
-                                    "ppo": robust_ppo_row}, "comms": comms_row}}))
+                                    "ppo": robust_ppo_row}, "comms": comms_row,
+                                "pop": pop_row}}))
     print(json.dumps({"kernels": kernels}))
     print(smi_line(), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -12,8 +12,8 @@ aggregation weights.
 
 ``quantize_update``/``dequantize_update`` are the legacy numpy int8 path
 (symmetric, one scale per leaf, round to nearest); the cohort round runs
-the codecs of ``repro_torch.comms`` instead.  ``FairSelector`` comes with
-ROADMAP queue 1 item 4.
+the codecs of ``repro_torch.comms`` instead.  ``FairSelector`` is the
+proportional-fairness client selector (numpy, a copy of the JAX module's).
 """
 from __future__ import annotations
 
@@ -66,6 +66,32 @@ class StalenessWeightedAggregator:
         self._pending = []
         self.round += 1
         return self.global_tree
+
+
+# ---------------------------------------------------------------------------
+# Proportional-fairness client selection
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass
+class FairSelector:
+    """Select K clients per round by proportional fairness:
+    score_i = instantaneous_rate_i / mean_throughput_i.  Clients in deep
+    fade are skipped but their average decays, raising future priority."""
+
+    n_clients: int
+    ewma: float = 0.9
+
+    def __post_init__(self):
+        self._avg = np.ones(self.n_clients)
+
+    def select(self, rates: np.ndarray, k: int) -> List[int]:
+        score = rates / np.maximum(self._avg, 1e-9)
+        chosen = list(np.argsort(-score)[:k])
+        served = np.zeros(self.n_clients)
+        served[chosen] = rates[chosen]
+        self._avg = self.ewma * self._avg + (1 - self.ewma) * served
+        return chosen
 
 
 # ---------------------------------------------------------------------------

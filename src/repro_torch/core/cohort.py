@@ -40,9 +40,13 @@ state is updated in place, so the reference is a copy taken before any
 client trains.  ``factored_agg`` aggregates LoRA factor pairs by the SVD
 re-projection (``core.aggregation.factored_fedavg_stacked``).
 
-Not ported yet, and refused by name: on-device health scalars (ROADMAP
-queue 1 item 3, ``obs``) and the client-sharded mesh (item 8,
-multi-device).
+``build_supervised_round(health=True)`` returns one trailing dict of
+training-health scalars (``repro_torch.obs.health.cohort_health``), computed
+from the round's own tensors before the broadcast writes the state, with no
+host synchronisation; it changes nothing the round writes.
+
+Not ported yet, and refused by name: the client-sharded mesh (ROADMAP
+queue 1 item 8, multi-device).
 """
 from __future__ import annotations
 
@@ -56,14 +60,13 @@ from repro_torch.comms.codec import roundtrip
 from repro_torch.core.aggregation import (_pad_mask, broadcast_merge_stacked,
                                           factored_fedavg_stacked, fedavg_stacked,
                                           masked_fedavg_stacked)
+from repro_torch.obs.health import cohort_health
 from repro_torch.rlhf.ppo import PPOConfig, make_ppo_fns
 from repro_torch.rlhf.rollout import generate
 
 # Where each option the port does not run yet is ported: the one table the
 # engine, ``run_pftt``, ``run_pfit`` and the launchers refuse from.
 LATER = {
-    "health": "ROADMAP queue 1 item 3 (obs: cohort health and telemetry)",
-    "population": "ROADMAP queue 1 item 4 (population)",
     "arch_round": "ROADMAP queue 1 item 6 (arch zoo: the other architectures' rounds)",
     "mesh": "ROADMAP queue 1 item 8 (multi-device)",
     "legacy_loop": "no item: the cohort engine replaces the legacy per-client loop",
@@ -230,8 +233,15 @@ def build_supervised_round(local_step_fn: Callable,
     others' bits are 0) and the trailing ``codec_noises``/``payload_bits``
     are the synchronous step's.
 
-    The other arguments are the JAX builder's; setting one raises."""
-    not_ported("build_supervised_round", mesh=mesh is not None, health=health)
+    ``health``: the step returns one more, trailing output: a dict of
+    0-dimensional f32 tensors (``obs.health.HEALTH_KEYS``) measured on the
+    round's tensors against a copy of the round-input uploaded subtree —
+    the synchronous body over the (decoded) uploads, the robust one over
+    what went on the air (stragglers' pending payloads included).
+
+    ``mesh`` (an argument of the JAX package's function) is not ported;
+    setting it raises."""
+    not_ported("build_supervised_round", mesh=mesh is not None)
     pred = upload_pred or (lambda p: True)
     agg_fn = factored_fedavg_stacked if factored_agg else fedavg_stacked
 
@@ -265,40 +275,64 @@ def build_supervised_round(local_step_fn: Callable,
 
         trees.map_with_path(put, st_trainable)
 
+    def round_input(st_trainable):
+        """A copy of the round-input uploaded subtree: the codec's delta
+        reference and the health scalars' update baseline (the state is
+        updated in place, so it is taken before any client trains)."""
+        if codec is None and not health:
+            return None
+        return _clone_tree(trees.select(st_trainable, pred))
+
+    def outputs(out, bits, hstats):
+        out = out if codec is None else out + (bits,)
+        return out if not health else out + (hstats,)
+
     def round_step(st_trainable, st_opt, batches, weights, codec_noises=None):
         n, steps = next(iter(batches.values())).shape[:2]
         losses = torch.empty((n, steps), dtype=torch.float32,
                              device=weights.device)
-        # the codec's delta reference: the round-input uploaded subtree
-        ref = None if codec is None else _clone_tree(trees.select(st_trainable, pred))
+        up_in = round_input(st_trainable)
         train_clients(st_trainable, st_opt, batches, range(n), losses)
-        uploaded, bits = upload(st_trainable, ref, range(n), codec_noises)
+        uploaded, bits = upload(st_trainable, up_in, range(n), codec_noises)
+        gate = weights.sum() > 0
+        # health before the broadcast: without a codec ``uploaded`` holds
+        # views of the state the broadcast overwrites
+        hstats = None if not health else cohort_health(
+            uploaded, up_in, losses, weights, gate,
+            raw=None if codec is None else trees.select(st_trainable, pred),
+            decoded=None if codec is None else uploaded)
         # server: weighted mean of the uploads over the surviving clients,
         # broadcast into every client's slot; an all-outage round (Σw = 0)
         # keeps every client's local values
-        broadcast(st_trainable, agg_fn(uploaded, weights), weights.sum() > 0)
-        out = (st_trainable, st_opt, losses)
-        return out if codec is None else out + (bits,)
+        broadcast(st_trainable, agg_fn(uploaded, weights), gate)
+        return outputs((st_trainable, st_opt, losses), bits, hstats)
 
     def robust_step(st_trainable, st_opt, pending, batches, train_m, agg_w,
                     recv_m, rejoin_m, ontime_m, codec_noises=None):
         n, steps = next(iter(batches.values())).shape[:2]
         losses = torch.zeros((n, steps), dtype=torch.float32, device=agg_w.device)
-        ref = None if codec is None else _clone_tree(trees.select(st_trainable, pred))
+        up_in = round_input(st_trainable)
         clients = _training_clients(train_m)
         train_clients(st_trainable, st_opt, batches, clients, losses)
-        uploaded, bits = upload(st_trainable, ref, clients, codec_noises)
+        uploaded, bits = upload(st_trainable, up_in, clients, codec_noises)
         # what goes on the air: a fresh upload supersedes the pending
         # payload; stragglers retransmit it.  A deadline miss merges at
         # weight 0 (it stays pending); an under-quorum round is a no-op.
         send = _where_clients(train_m, uploaded, pending)
         w = agg_w * ontime_m
         gate = _quorum_gate(w, min_quorum)
+        hstats = None
+        if health:
+            # the codec's error over the clients it coded: the other rows of
+            # ``uploaded`` hold zeros, and their raw rows are taken equal
+            raw = None if codec is None else _where_clients(
+                train_m, trees.select(st_trainable, pred), uploaded)
+            hstats = cohort_health(send, up_in, losses, w, gate, train_m=train_m, raw=raw,
+                                   decoded=None if codec is None else uploaded)
         broadcast(st_trainable, agg_fn(send, w), torch.logical_and(gate, recv_m > 0))
         trees.map_leaves(lambda dst, src: dst.copy_(src), st_opt,
                          _zero_clients(rejoin_m, st_opt))
-        out = (st_trainable, st_opt, send, losses)
-        return out if codec is None else out + (bits,)
+        return outputs((st_trainable, st_opt, send, losses), bits, hstats)
 
     return robust_step if robust else round_step
 

@@ -41,8 +41,16 @@ leaves them as the JAX package does).  The uniforms come from
 ``comms.codec.codec_uniforms``; deadline mode schedules a codec's first
 upload at ``payload_bits_upper_bound`` and each realized size after.
 
+``telemetry`` threads one ``SpanTracer`` and one ``RunTelemetry`` through
+the run as in ``run_pftt`` (spans ``gather``, ``encode``, ``device-step``,
+``eval``; ``run``, ``compile`` and ``round`` events); the health scalars
+ride shepherd's supervised round only, as in the JAX package (the PPO
+body has none).  ``population`` runs shepherd's sampled-cohort population
+mode (``_run_pfit_population``); the PPO methods raise the JAX package's
+``ValueError`` there.
+
 Not ported yet, and refused by name (``cohort.LATER``): the legacy
-per-client loop (``engine=False``), population mode, telemetry and a mesh.
+per-client loop (``engine=False``) and a mesh.
 """
 from __future__ import annotations
 
@@ -58,14 +66,16 @@ from repro_torch import bridge, resolve_device, synchronize, trees
 from repro_torch.comms import ChannelBudget, get_codec, payload_bits_upper_bound
 from repro_torch.comms.codec import codec_uniforms, round_noises
 from repro_torch.configs import get_config
-from repro_torch.core.cohort import (HostBatchStacker, build_ppo_round,
+from repro_torch.core.cohort import (HostBatchStacker, build_cohort_eval, build_ppo_round,
                                      build_supervised_round, not_ported)
+from repro_torch.core.pftt import _comm_record
 from repro_torch.core.robust import round_extra, round_reports, robust_runtime
 from repro_torch.core.rewards import ClientPreference, DoubleReward
 from repro_torch.data.partition import client_topic_preferences
 from repro_torch.data.synthetic import N_TOPICS, InstructionCorpus
 from repro_torch.models import peft as peft_mod
 from repro_torch.models.transformer import Model
+from repro_torch.obs import close_run, open_run
 from repro_torch.optim import adamw, value_and_grad
 from repro_torch.rlhf.ppo import PPOConfig
 from repro_torch.rlhf.reward_model import (RewardModel, reward_model_config,
@@ -116,8 +126,9 @@ class PFITConfig:
                                    # (wireless/arrivals.py); inert or None is
                                    # the round-granular robust runtime
     ppo: PPOConfig = PPOConfig()
-    population: Optional[object] = None
-    telemetry: Optional[object] = None
+    population: Optional[object] = None   # fl.PopulationConfig: shepherd's
+                                   # sampled-cohort population mode
+    telemetry: Optional[object] = None    # obs.TelemetryConfig
     device: Optional[str] = None   # None/"cuda": the GPU (raises without);
                                    # "cpu": the kernels' plain versions
 
@@ -169,14 +180,16 @@ def run_pfit(cfg: PFITConfig, init: Optional[Dict] = None, mesh=None) -> Dict:
     ``train_reward_per_round`` (the clients' mean rollout reward, PPO
     methods; a non-training client's counted as 0), ``rollouts_round0``
     and ``eval_round0`` (round 0's sampled tokens and per-step sampling
-    margins, per client, numpy) and
+    margins, per client, numpy), ``health_per_round`` (shepherd with
+    telemetry; else Nones) and
     the timings ``pretrain_s``, ``rm_s`` and ``round_s`` (a round's
     training, ledger and evaluation, host clock ending in a synchronize)."""
     if cfg.method not in METHODS:
         raise ValueError(f"method {cfg.method!r} not in {METHODS}")
-    not_ported("PFITConfig", legacy_loop=not cfg.engine,
-               population=cfg.population is not None,
-               health=cfg.telemetry is not None, mesh=mesh is not None)
+    if cfg.population is not None:
+        not_ported("run_pfit", mesh=mesh is not None)
+        return _run_pfit_population(cfg, init)
+    not_ported("PFITConfig", legacy_loop=not cfg.engine, mesh=mesh is not None)
     codec = get_codec(cfg.uplink_codec)
     init = init or {}
     ms = _method_settings(cfg)
@@ -307,11 +320,15 @@ def run_pfit(cfg: PFITConfig, init: Optional[Dict] = None, mesh=None) -> Dict:
     robust = tracker is not None
     min_quorum = dl.min_quorum if dl is not None else 0
 
+    # ---- observability: health rides shepherd's supervised round only
+    tracer, tele, health, prof = open_run(cfg.telemetry, device)
+    health = health and cfg.method == "shepherd"
+
     # ---- the cohort engine: per-client state stacked on a client axis
     if cfg.method == "shepherd":
         round_step = build_supervised_round(shepherd_local_step, codec=codec,
                                             factored_agg=cfg.factored_agg, robust=robust,
-                                            min_quorum=min_quorum)
+                                            min_quorum=min_quorum, health=health)
         cohort_tr = trees.stack(loras)
         cohort_opt = trees.stack([opt.init(lo) for lo in loras])
         payloads = [tree_bytes(lo) for lo in loras]
@@ -342,8 +359,10 @@ def run_pfit(cfg: PFITConfig, init: Optional[Dict] = None, mesh=None) -> Dict:
     def vec(v):
         return torch.from_numpy(np.asarray(v, np.float32)).to(device)
 
-    reward_curve, train_reward, round_s = [], [], []
+    reward_curve, train_reward, round_s, health_per_round = [], [], [], []
     rollouts0, eval0 = [], []
+    tele.start({"mode": "cohort", "method": cfg.method, "n_clients": cfg.n_clients,
+                "rounds": cfg.rounds, "engine": True, "codec": cfg.uplink_codec})
     for rnd in range(cfg.rounds):
         t0 = time.perf_counter()
         gains = channel.realize(cfg.n_clients)
@@ -360,7 +379,10 @@ def run_pfit(cfg: PFITConfig, init: Optional[Dict] = None, mesh=None) -> Dict:
                      vec(rplan.train), vec(rplan.recv), vec(rplan.rejoin), vec(ontime))
         else:
             weights = vec(channel.outage_weights(gains))
-        noise_arg = () if codec is None else (round_noises(codec_noise, rnd, cfg.n_clients),)
+        noise_arg = ()
+        if codec is not None:
+            with tracer.span("encode"):
+                noise_arg = (round_noises(codec_noise, rnd, cfg.n_clients),)
         # every client's batches or prompts and noise streams are drawn every
         # round, training or not: the host streams stay aligned
         if cfg.method == "shepherd":
@@ -369,39 +391,48 @@ def run_pfit(cfg: PFITConfig, init: Optional[Dict] = None, mesh=None) -> Dict:
                                   helpful_p=0.9, unsafe_p=0.05, rng=rng)
                 return {"tokens": s["tokens"][:, :-1], "labels": s["tokens"][:, 1:],
                         "mask": s["mask"][:, 1:]}
-            batches = stacker([[shepherd_batch(ci) for _ in range(cfg.shepherd_steps)]
-                               for ci in range(cfg.n_clients)])
-            if robust:
-                agg_w, train_m, recv_m, rejoin_m, ontime_m = margs
-                outs = round_step(cohort_tr, cohort_opt, pending, batches, train_m, agg_w,
-                                  recv_m, rejoin_m, ontime_m, *noise_arg)
-                cohort_tr, cohort_opt, pending = outs[:3]
-            else:
-                outs = round_step(cohort_tr, cohort_opt, batches, weights, *noise_arg)
-                cohort_tr, cohort_opt = outs[:2]
+            with tracer.span("gather"):
+                batches = stacker([[shepherd_batch(ci) for _ in range(cfg.shepherd_steps)]
+                                   for ci in range(cfg.n_clients)])
+            with tracer.span("device-step"):
+                if robust:
+                    agg_w, train_m, recv_m, rejoin_m, ontime_m = margs
+                    outs = round_step(cohort_tr, cohort_opt, pending, batches, train_m, agg_w,
+                                      recv_m, rejoin_m, ontime_m, *noise_arg)
+                    cohort_tr, cohort_opt, pending = outs[:3]
+                else:
+                    outs = round_step(cohort_tr, cohort_opt, batches, weights, *noise_arg)
+                    cohort_tr, cohort_opt = outs[:2]
+                synchronize(device)
+            # the bits follow the losses; the health dict comes last
+            bits_out = outs[4 if robust else 3] if codec is not None else None
         else:
-            prompts = torch.from_numpy(np.stack(
-                [corpus.sample(cfg.rollout_batch, topic_probs=topic_prefs[ci],
-                               rng=rng)["tokens"][:, :cfg.prompt_len]
-                 for ci in range(cfg.n_clients)])).to(device)
-            noises = [noise_for(rnd * 17 + ci, cfg.rollout_batch)
-                      for ci in range(cfg.n_clients)]
+            with tracer.span("gather"):
+                prompts = torch.from_numpy(np.stack(
+                    [corpus.sample(cfg.rollout_batch, topic_probs=topic_prefs[ci],
+                                   rng=rng)["tokens"][:, :cfg.prompt_len]
+                     for ci in range(cfg.n_clients)])).to(device)
+                noises = [noise_for(rnd * 17 + ci, cfg.rollout_batch)
+                          for ci in range(cfg.n_clients)]
             alphas = ([p.alpha_help for p in prefs], [p.alpha_safe for p in prefs])
             record = rollouts0 if rnd == 0 else None
-            if robust:
-                outs = ppo_round_step(cohort_tr, cohort_opt, global_params, pending,
-                                      st_masks, prompts, noises, *alphas, *margs,
-                                      *noise_arg, rollouts=record)
-                cohort_tr, cohort_opt, global_params, pending, mean_rewards = outs[:5]
-            else:
-                outs = ppo_round_step(cohort_tr, cohort_opt, global_params, st_masks,
-                                      prompts, noises, *alphas, weights, *noise_arg,
-                                      rollouts=record)
-                cohort_tr, cohort_opt, global_params, mean_rewards = outs[:4]
+            with tracer.span("device-step"):
+                if robust:
+                    outs = ppo_round_step(cohort_tr, cohort_opt, global_params, pending,
+                                          st_masks, prompts, noises, *alphas, *margs,
+                                          *noise_arg, rollouts=record)
+                    cohort_tr, cohort_opt, global_params, pending, mean_rewards = outs[:5]
+                else:
+                    outs = ppo_round_step(cohort_tr, cohort_opt, global_params, st_masks,
+                                          prompts, noises, *alphas, weights, *noise_arg,
+                                          rollouts=record)
+                    cohort_tr, cohort_opt, global_params, mean_rewards = outs[:4]
+                synchronize(device)
             train_reward.append(float(mean_rewards.mean()))
-        # the engine's realized payload bits with a codec (its last output)
+            bits_out = outs[-1] if codec is not None else None   # its last output
+        # the engine's realized payload bits with a codec
         bits = ([payloads[ci] * 8 for ci in range(cfg.n_clients)] if codec is None
-                else outs[-1].tolist())
+                else bits_out.tolist())
         extra = None
         if robust:
             fresh = np.asarray(bits, np.float64)
@@ -415,18 +446,31 @@ def run_pfit(cfg: PFITConfig, init: Optional[Dict] = None, mesh=None) -> Dict:
         ledger.log_round(reports, extra, round_id=rnd)
 
         record = eval0 if rnd == 0 else None
-        if cfg.method == "shepherd":   # serve unmerged: the base shared, the factors per client
-            reward_curve.append(eval_reward([global_params] * cfg.n_clients,
-                                            trees.unstack(cohort_tr, cfg.n_clients),
-                                            record=record))
-        else:
-            reward_curve.append(eval_reward(trees.unstack(cohort_tr, cfg.n_clients),
-                                            record=record))
+        with tracer.span("eval"):
+            if cfg.method == "shepherd":   # serve unmerged: the base shared, the factors per client
+                reward_curve.append(eval_reward([global_params] * cfg.n_clients,
+                                                trees.unstack(cohort_tr, cfg.n_clients),
+                                                record=record))
+            else:
+                reward_curve.append(eval_reward(trees.unstack(cohort_tr, cfg.n_clients),
+                                                record=record))
+        health_per_round.append(None if not health else
+                                {k: float(v) for k, v in outs[-1].items()})
         synchronize(device)
         round_s.append(time.perf_counter() - t0)
+        if tele.enabled:
+            if rnd == 0:   # the kernels are built at their first use, here
+                tele.compile_event(rnd, tracer.totals().get("device-step", 0.0))
+            tele.round_event(rnd, {
+                "reward": reward_curve[-1], "cohort": None,
+                "comm": _comm_record(ledger),
+                "staleness": tracker.counters() if robust else None,
+                "health": health_per_round[-1]}, wall={"phases": tracer.pop_round()})
         if cfg.verbose:
             print(f"[pfit:{cfg.method}] round {rnd} reward {reward_curve[-1]:.4f} "
                   f"bytes {ledger.rounds[-1]['bytes']:,}")
+
+    close_run(cfg.telemetry, tele, prof)
 
     def to_np(recs):
         return [{"tokens": t.cpu().numpy(), "margin": m.cpu().numpy()} for t, m in recs]
@@ -448,7 +492,193 @@ def run_pfit(cfg: PFITConfig, init: Optional[Dict] = None, mesh=None) -> Dict:
         "train_reward_per_round": train_reward,
         "rollouts_round0": to_np(rollouts0),
         "eval_round0": to_np(eval0),
+        "health_per_round": health_per_round,
         "pretrain_s": pretrain_s,
         "rm_s": rm_s_time,
         "round_s": round_s,
+    }
+
+
+def _run_pfit_population(cfg: PFITConfig, init: Optional[Dict] = None) -> Dict:
+    """Sampled-cohort population mode for the shepherd baseline: a
+    ``PopulationStore`` of every client's LoRA/opt/pending trees, per-round
+    sampling and gather/scatter around the supervised robust round body,
+    the ``StalenessTracker`` spanning the population.  Non-IID here is a
+    per-client TOPIC skew (the scenario's Dirichlet draw over the
+    instruction corpus's ``N_TOPICS``).  Each round is scored by the
+    sampled clients' LM loss on a held-out topical draw, as in the JAX
+    package (generation stays in cohort mode).  The PPO methods raise, as
+    in the JAX package: they carry full per-client parameter trees.
+
+    ``init``: {"policy": flat numpy params before pretraining, "lora": every
+    client's flat numpy LoRA (JAX's ``fold_in(key, 200 + i)``),
+    "codec_noise": keyed by client id}; without it client i's LoRA comes
+    from its own generator."""
+    from repro_torch.comms.streams import stream_key
+    from repro_torch.fl.population import (ClientSampler, CohortTestSets, PopulationData,
+                                           PopulationRunner, PopulationStore,
+                                           stacked_client_init)
+    from repro_torch.wireless.scenarios import Scenario
+
+    pop = cfg.population
+    if cfg.method != "shepherd":
+        raise ValueError(
+            "population mode supports the shepherd (supervised LoRA) "
+            f"method only, not {cfg.method!r}: PPO methods carry full "
+            "per-client parameter trees, which don't fit the "
+            "KB-per-client population regime")
+    if not cfg.engine:
+        raise ValueError("population mode runs the fused engine only")
+    N, K = pop.population, pop.cohort_size
+    scen = pop.scenario or Scenario(n_classes=N_TOPICS)
+    if scen.n_classes != N_TOPICS:
+        raise ValueError(f"pfit population scenarios partition over the "
+                         f"instruction corpus's {N_TOPICS} topics; got "
+                         f"n_classes={scen.n_classes}")
+    init = init or {}
+    codec = get_codec(cfg.uplink_codec)
+    device = resolve_device(cfg.device)
+    rng = np.random.RandomState(cfg.seed)
+    gen = torch.Generator().manual_seed(cfg.seed)
+    mcfg = get_config("gpt2-small").reduced(d_model=cfg.d_model, repeats=cfg.n_layers)
+    model = Model(mcfg, device=device)
+    corpus = InstructionCorpus(seq_len=cfg.prompt_len + cfg.gen_len,
+                               prompt_len=cfg.prompt_len, seed=cfg.seed)
+    params = (bridge.params_from_numpy(init["policy"], mcfg, device=device)
+              if "policy" in init else model.init(gen))
+    synchronize(device)
+    t0 = time.perf_counter()
+    params = _pretrain_policy(model, params, corpus, cfg.pretrain_steps,
+                              cfg.pretrain_lr, 16, cfg.verbose)
+    synchronize(device)
+    pretrain_s = time.perf_counter() - t0
+    global_params = params
+
+    strace = scen.realize(N, cfg.rounds)
+    pool_n = int(np.clip(cfg.rollout_batch * 64, 512, 4096))
+    pool = corpus.sample(pool_n, helpful_p=0.9, unsafe_p=0.05, rng=rng)
+    data = PopulationData(pool, strace.class_probs, seed=cfg.seed, label_key="topic")
+
+    peft_cfg = peft_mod.PEFTConfig(lora_rank=cfg.lora_rank,
+                                   lora_targets=("mixer/wq", "mixer/wv"))
+    lscale = peft_mod.lora_scale(peft_cfg)
+    opt = adamw(cfg.lr)
+
+    def client_init(i):
+        lora = (bridge.lora_from_numpy(init["lora"][i], mcfg, device=device) if "lora" in init
+                else peft_mod.init_lora(torch.Generator().manual_seed(
+                    stream_key(cfg.seed, 200 + i)), params, peft_cfg))
+        return {"t": lora, "o": opt.init(lora)}
+
+    stacked = stacked_client_init(client_init, N)
+    store = PopulationStore({"trainable": stacked["t"], "opt": stacked["o"],
+                             "pending": trees.map_leaves(np.zeros_like, stacked["t"])})
+    lora0 = store.row("trainable", 0)
+    lora0_t = trees.map_leaves(torch.from_numpy, lora0)
+
+    channel = RayleighChannel(mean_snr_db=cfg.snr_db, seed=cfg.seed)
+    budget = ChannelBudget(channel, tx_power_w=cfg.tx_power_w)
+    ledger = CommLedger()
+    dl, trace, tracker = robust_runtime(cfg, channel, N, always=True)
+    payload_bits = tree_bytes(lora0_t) * 8
+    est_bits = None
+    if dl is not None:
+        est_bits = np.full(N, payload_bits if codec is None else
+                           payload_bits_upper_bound(codec, lora0_t), np.float64)
+    codec_noise = None if codec is None else (
+        init.get("codec_noise") or functools.partial(codec_uniforms, cfg.seed, device=device))
+
+    def shepherd_local_step(lora, opt_state, batch):
+        loss, g = value_and_grad(
+            lambda lo: model.lm_loss(global_params, batch, lora=lo, lora_scale=lscale),
+            lora)
+        upd, opt_state = opt.update(g, opt_state, lora)
+        return trees.tree_add(lora, upd), opt_state, loss
+
+    tracer, tele, health, prof = open_run(cfg.telemetry, device)
+    round_step = build_supervised_round(
+        shepherd_local_step, codec=codec, factored_agg=cfg.factored_agg, robust=True,
+        min_quorum=dl.min_quorum if dl is not None else 0, health=health)
+    runner = PopulationRunner(
+        pop=pop, store=store, global_shared=trees.map_leaves(np.array, lora0),
+        upload_pred=lambda p: True, channel=channel, budget=budget, ledger=ledger,
+        tracker=tracker, trace=trace, strace=strace,
+        sampler=ClientSampler(pop.sampler, N, K, seed=cfg.seed + 1000 * pop.seed),
+        device=device, arrivals=tracker.arrivals, dl=dl, est_bits=est_bits, tracer=tracer,
+        health=health)
+    stacker = HostBatchStacker(device)
+
+    def _lm_batch(b):
+        return {"tokens": b["tokens"][:, :-1], "labels": b["tokens"][:, 1:],
+                "mask": b["mask"][:, 1:]}
+
+    def draw(cid, rnd):
+        return [_lm_batch(b) for b in data.round_batches(
+            cid, rnd, cfg.shepherd_steps, cfg.rollout_batch)]
+
+    # ---- cohort eval: per-client LM loss on a held-out topical draw
+    n_eval = min(2 * cfg.rollout_batch, 64)
+    test_sets = CohortTestSets(data, n_eval, ("tokens", "labels", "mask"), prep=_lm_batch)
+
+    def eval_client(lora, tokens, labels, mask):
+        batch = {"tokens": tokens, "labels": labels, "mask": mask}
+        return (model.lm_loss(global_params, batch, lora=lora, lora_scale=lscale),)
+
+    eval_cohort = build_cohort_eval(eval_client)
+
+    def eval_ids(cohort_tr, ids):
+        (losses,) = eval_cohort(cohort_tr, *test_sets(ids, device))
+        return [float(x) for x in losses.cpu().numpy()[:len(ids)]]
+
+    tele.start({"mode": "population", "method": cfg.method, "population": N,
+                "cohort_size": K, "rounds": cfg.rounds, "sampler": pop.sampler,
+                "codec": cfg.uplink_codec})
+    loss_per_round: List[float] = []
+    health_per_round, cohorts = [], []
+    for rnd in range(cfg.rounds):
+        out = runner.run_round(rnd, round_step=round_step, stacker=stacker,
+                               draw_batches=draw, payload_bits=payload_bits,
+                               codec_noise=codec_noise)
+        with tracer.span("eval"):
+            loss_per_round.append(float(np.mean(eval_ids(out["cohort_tr"], out["ids"]))))
+        health_per_round.append(out["health"])
+        cohorts.append([int(i) for i in out["ids"]])
+        if tele.enabled:
+            if rnd == 0:
+                tele.compile_event(rnd, tracer.totals().get("device-step", 0.0))
+            tele.round_event(rnd, {
+                "eval_loss": loss_per_round[-1], "cohort": cohorts[-1],
+                "comm": _comm_record(ledger),
+                "staleness": tracker.counters(), "health": out["health"],
+            }, wall={"phases": tracer.pop_round()})
+        if cfg.verbose:
+            print(f"[pfit-pop:shepherd] round {rnd} cohort lm-loss {loss_per_round[-1]:.4f}")
+
+    close_run(cfg.telemetry, tele, prof)
+    return {
+        "method": cfg.method,
+        "eval_loss_per_round": loss_per_round,
+        "final_eval_loss": loss_per_round[-1] if loss_per_round else 0.0,
+        "mean_round_bytes": ledger.mean_round_bytes,
+        "mean_round_delay_s": ledger.mean_round_delay,
+        "total_bytes": ledger.total_bytes,
+        "total_energy_j": ledger.total_energy_j,
+        "total_sim_time_s": ledger.total_sim_time_s,
+        "quorum_noops": ledger.quorum_noops,
+        "uplink_codec": cfg.uplink_codec,
+        "population": N,
+        "cohort_size": K,
+        "sampler": pop.sampler,
+        "scenario": scen.to_dict(),
+        "participation_frac": float(runner.seen.mean()),
+        "host_overhead_frac": runner.host_overhead_frac,
+        "store_bytes": store.nbytes(),
+        "round_records": ledger.rounds,
+        "cohorts": cohorts,
+        "staleness": tracker.counters(),
+        "health_per_round": health_per_round,
+        "host_s": runner.host_s,
+        "round_s": runner.round_s,
+        "round_wall": list(runner.round_wall),
+        "pretrain_s": pretrain_s,
     }

@@ -42,8 +42,22 @@ JAX package's draws), else ``comms.codec.codec_uniforms`` of (seed, round,
 client, leaf).  In deadline mode a codec's first scheduling size is
 ``payload_bits_upper_bound``; each realized size replaces it.
 
+``telemetry`` (``repro_torch.obs.TelemetryConfig``) threads one
+``SpanTracer`` and one ``RunTelemetry`` through the run: the JAX package's
+spans (``gather``, ``encode``, ``device-step`` — ended by a device
+synchronize, so it times the device — ``eval``, ``checkpoint``), one
+``round`` event a round (with the round's health scalars, returned by the
+round step itself) written before that round's checkpoint, and the
+``run``/``resume``/``compile``/``checkpoint`` events; ``trace`` writes
+``trace.json``, ``torch_profile`` brackets the run in ``torch.profiler``.
+
+``population`` (``repro_torch.fl.PopulationConfig``) runs sampled-cohort
+population mode (``_run_pftt_population``): a host ``PopulationStore`` of
+every client's state, a cohort drawn each round into the robust round
+body, the tracker spanning the population.
+
 Not ported yet, and refused by name (``cohort.LATER``): the legacy
-per-client loop (``engine=False``), population mode and telemetry.
+per-client loop (``engine=False``).
 """
 from __future__ import annotations
 
@@ -68,6 +82,7 @@ from repro_torch.data import (SPECIAL, ClassificationCorpus, batch_iterator,
                               dirichlet_partition)
 from repro_torch.models import peft as peft_mod
 from repro_torch.models.transformer import Model
+from repro_torch.obs import close_run, open_run
 from repro_torch.optim import adamw, value_and_grad
 from repro_torch.wireless import (CommLedger, DeadlineConfig, FaultPlan, RayleighChannel,
                                   tree_bytes)
@@ -111,8 +126,10 @@ class PFTTConfig:
                                    # the round-granular robust runtime
     ckpt_dir: Optional[str] = None # save the stacked round state each round
     resume: bool = False           # restart from ckpt_dir's last round
-    population: Optional[object] = None
-    telemetry: Optional[object] = None
+    population: Optional[object] = None   # fl.PopulationConfig: sampled-
+                                   # cohort population mode
+    telemetry: Optional[object] = None    # obs.TelemetryConfig: JSONL round
+                                   # events, span tracing, health scalars
     device: Optional[str] = None   # None/"cuda": the GPU (raises without);
                                    # "cpu": the kernels' plain versions
 
@@ -232,6 +249,21 @@ def _setup_backbone(cfg: PFTTConfig, init: Optional[Dict] = None):
             pretrain_s)
 
 
+def _codec(cfg: PFTTConfig, init: Optional[Dict]):
+    """The run's uplink codec (None: uncompressed); JAX's count-sketch
+    hashes when ``init`` carries them."""
+    codec = get_codec(cfg.uplink_codec)
+    if init is not None and "cs_hashes" in init and cfg.uplink_codec == "countsketch":
+        codec = dataclasses.replace(codec, hashes=init["cs_hashes"])
+    return codec
+
+
+def _comm_record(ledger) -> Dict:
+    """The ledger's newest round without its per-client reports (a round
+    event's ``comm``)."""
+    return {k: v for k, v in ledger.rounds[-1].items() if k != "per_client"}
+
+
 def run_pftt(cfg: PFTTConfig, init: Optional[Dict] = None) -> Dict:
     """The cohort engine for one method, synchronous or robust.  ``init``
     (optional): {"base": flat numpy params before pretraining, "adapters":
@@ -242,18 +274,18 @@ def run_pftt(cfg: PFTTConfig, init: Optional[Dict] = None) -> Dict:
     result keys plus the port's: the tracker's ``staleness`` counters
     (None when synchronous), the mean local loss of each round
     (``loss_per_round``, a non-training client's counted as 0, as in the
-    JAX body), ``uplink_bits`` (each client-round's realized payload bits
+    JAX body), each round's health scalars (``health_per_round``, None
+    without telemetry), ``uplink_bits`` (each client-round's realized payload bits
     beside each client's raw ``tree_bytes``·8 and, with a codec, its
     ``payload_bits_upper_bound``; under a codec a non-training client's
     realized bits are 0) and the timings ``pretrain_s`` and ``round_s``
     (the rounds this process ran)."""
     if cfg.method not in METHODS:
         raise ValueError(f"method {cfg.method!r} not in {METHODS}")
-    not_ported("PFTTConfig", legacy_loop=not cfg.engine,
-               population=cfg.population is not None, health=cfg.telemetry is not None)
-    codec = get_codec(cfg.uplink_codec)
-    if init is not None and "cs_hashes" in init and cfg.uplink_codec == "countsketch":
-        codec = dataclasses.replace(codec, hashes=init["cs_hashes"])
+    if cfg.population is not None:
+        return _run_pftt_population(cfg, init)
+    not_ported("PFTTConfig", legacy_loop=not cfg.engine)
+    codec = _codec(cfg, init)
     (model, mcfg, params, peft_cfg, corpus, gen, rng, use_lora,
      pretrain_s) = _setup_backbone(cfg, init)
     device = model.device
@@ -341,9 +373,12 @@ def run_pftt(cfg: PFTTConfig, init: Optional[Dict] = None) -> Dict:
     robust = tracker is not None
     arrivals = tracker.arrivals if robust else None
 
+    # ---- observability (repro_torch.obs): spans, JSONL round events and
+    # the health scalars the round step returns
+    tracer, tele, health, prof = open_run(cfg.telemetry, device)
     round_step = build_supervised_round(local_step, upload_pred, codec=codec,
                                         factored_agg=cfg.factored_agg, robust=robust,
-                                        min_quorum=dl.min_quorum if dl else 0)
+                                        min_quorum=dl.min_quorum if dl else 0, health=health)
     cohort_tr = trees.stack([cl["trainable"] for cl in clients])
     cohort_opt = trees.stack([cl["opt_state"] for cl in clients])
     payloads = [payload_bytes(cl["trainable"]) for cl in clients]
@@ -368,6 +403,7 @@ def run_pftt(cfg: PFTTConfig, init: Optional[Dict] = None) -> Dict:
         return torch.from_numpy(np.asarray(v, np.float32)).to(device)
 
     accs_per_round, loss_per_round, round_s, bits_per_round = [], [], [], []
+    health_per_round = []
 
     # ---- round-level checkpoint/resume: the stacked state restores
     # exactly; the host streams (fading draws, compute-time draws, each
@@ -383,6 +419,7 @@ def run_pftt(cfg: PFTTConfig, init: Optional[Dict] = None) -> Dict:
             start_round = int(meta["next_round"])
             accs_per_round[:] = meta["accs_per_round"]
             loss_per_round[:] = meta.get("loss_per_round", [])
+            health_per_round[:] = meta.get("health_per_round", [])
             ledger.rounds[:] = meta["ledger_rounds"]
             tpl = {"trainable": cohort_tr, "opt": cohort_opt}
             if robust:
@@ -401,6 +438,13 @@ def run_pftt(cfg: PFTTConfig, init: Optional[Dict] = None) -> Dict:
                     for _s in range(cfg.local_steps):
                         next(client_iters[ci])
 
+    run_meta = {"mode": "cohort", "method": cfg.method, "n_clients": cfg.n_clients,
+                "rounds": cfg.rounds, "engine": True, "codec": cfg.uplink_codec}
+    if start_round > 0:
+        tele.resume(start_round, run_meta)
+    else:
+        tele.start(run_meta)
+
     for rnd in range(start_round, cfg.rounds):
         t0 = time.perf_counter()
         gains = channel.realize(cfg.n_clients)
@@ -412,19 +456,25 @@ def run_pftt(cfg: PFTTConfig, init: Optional[Dict] = None) -> Dict:
                                         gains=gains, fresh_bits=est_bits)
         # every client's batches, in (client, step) order, every round,
         # training or not: the host streams stay aligned
-        batches = stacker([[next(client_iters[ci]) for _ in range(cfg.local_steps)]
-                           for ci in range(cfg.n_clients)])
+        with tracer.span("gather"):
+            batches = stacker([[next(client_iters[ci]) for _ in range(cfg.local_steps)]
+                               for ci in range(cfg.n_clients)])
         extra = None
-        noise_arg = () if codec is None else (round_noises(codec_noise, rnd, cfg.n_clients),)
+        noise_arg = ()
+        if codec is not None:
+            with tracer.span("encode"):
+                noise_arg = (round_noises(codec_noise, rnd, cfg.n_clients),)
         if robust:
             # deadline mode hands the engine the pre-deadline weights and the
             # on-time mask apart; the body multiplies them and derives the
             # quorum gate again, so host and device agree
             ontime = rplan.ontime if dl is not None else np.ones(cfg.n_clients, np.float32)
-            outs = round_step(
-                cohort_tr, cohort_opt, pending, batches, vec(rplan.train),
-                vec(rplan.agg_w_pre if dl is not None else rplan.agg_w),
-                vec(rplan.recv), vec(rplan.rejoin), vec(ontime), *noise_arg)
+            with tracer.span("device-step"):
+                outs = round_step(
+                    cohort_tr, cohort_opt, pending, batches, vec(rplan.train),
+                    vec(rplan.agg_w_pre if dl is not None else rplan.agg_w),
+                    vec(rplan.recv), vec(rplan.rejoin), vec(ontime), *noise_arg)
+                synchronize(device)
             cohort_tr, cohort_opt, pending, losses = outs[:4]
             fresh = (np.asarray([p * 8 for p in payloads], np.float64) if codec is None
                      else outs[4].cpu().numpy().astype(np.float64) + act_bits())
@@ -436,35 +486,54 @@ def run_pftt(cfg: PFTTConfig, init: Optional[Dict] = None) -> Dict:
                 est_bits = np.where(np.asarray(rplan.train) > 0, fresh, est_bits)   # schedules next
         else:
             weights = vec(channel.outage_weights(gains))
-            outs = round_step(cohort_tr, cohort_opt, batches, weights, *noise_arg)
+            with tracer.span("device-step"):
+                outs = round_step(cohort_tr, cohort_opt, batches, weights, *noise_arg)
+                synchronize(device)
             cohort_tr, cohort_opt, losses = outs[:3]
             bits = ([payloads[ci] * 8 for ci in range(cfg.n_clients)] if codec is None
                     else [b + act_bits() for b in outs[3].tolist()])
             bits_per_round.append(bits)
             reports = budget.round_reports(bits, gains)
         ledger.log_round(reports, extra, round_id=rnd)
-        accs = eval_round_accs(cohort_tr)
+        with tracer.span("eval"):
+            accs = eval_round_accs(cohort_tr)
         accs_per_round.append(float(np.mean(accs)))
         loss_per_round.append(float(losses.mean()))
+        health_per_round.append(None if not health else
+                                {k: float(v) for k, v in outs[-1].items()})
         synchronize(device)
         round_s.append(time.perf_counter() - t0)
+        # the round event before the checkpoint (the exactly-once contract:
+        # a kill between the two records the round again on resume)
+        if tele.enabled:
+            if rnd == start_round:   # this process built its kernels here
+                tele.compile_event(rnd, tracer.totals().get("device-step", 0.0))
+            tele.round_event(rnd, {
+                "acc": accs_per_round[-1], "cohort": None,
+                "comm": _comm_record(ledger),
+                "staleness": tracker.counters() if robust else None,
+                "health": health_per_round[-1]}, wall={"phases": tracer.pop_round()})
         if ckpt_file is not None:   # round-level checkpoint (kill-safe)
-            state = {"trainable": cohort_tr, "opt": cohort_opt}
-            if robust:
-                state["pending"] = pending
-            meta = {"next_round": rnd + 1, "accs_per_round": accs_per_round,
-                    "loss_per_round": loss_per_round, "ledger_rounds": ledger.rounds}
-            if robust:
-                meta["tracker"] = tracker.state_dict()
-                if dl is not None:
-                    meta["est_bits"] = [float(b) for b in est_bits]
-            save_checkpoint(ckpt_file, state, meta=meta)
-            save_json(meta_file, meta)
+            with tracer.span("checkpoint"):
+                state = {"trainable": cohort_tr, "opt": cohort_opt}
+                if robust:
+                    state["pending"] = pending
+                meta = {"next_round": rnd + 1, "accs_per_round": accs_per_round,
+                        "loss_per_round": loss_per_round,
+                        "health_per_round": health_per_round, "ledger_rounds": ledger.rounds}
+                if robust:
+                    meta["tracker"] = tracker.state_dict()
+                    if dl is not None:
+                        meta["est_bits"] = [float(b) for b in est_bits]
+                save_checkpoint(ckpt_file, state, meta=meta)
+                save_json(meta_file, meta)
+            tele.checkpoint(rnd)
         if cfg.verbose and rnd % 5 == 0:
             print(f"[pftt:{cfg.method}] round {rnd} acc {accs_per_round[-1]:.3f} "
                   f"bytes {ledger.rounds[-1]['bytes']:,} "
                   f"outages {ledger.rounds[-1]['outages']}")
 
+    close_run(cfg.telemetry, tele, prof)
     return {
         "method": cfg.method,
         "acc_per_round": accs_per_round,
@@ -482,6 +551,7 @@ def run_pftt(cfg: PFTTConfig, init: Optional[Dict] = None) -> Dict:
         "ragged_cohort": len(set(client_batch_sizes)) > 1,
         "staleness": tracker.counters() if robust else None,
         "loss_per_round": loss_per_round,
+        "health_per_round": health_per_round,
         "uplink_bits": {"realized": bits_per_round, "raw": [p * 8 for p in payloads],
                         "upper_bound": None if codec is None else [
                             payload_bits_upper_bound(
@@ -489,4 +559,231 @@ def run_pftt(cfg: PFTTConfig, init: Optional[Dict] = None) -> Dict:
                             for cl in clients]},
         "pretrain_s": pretrain_s,
         "round_s": round_s,
+    }
+
+
+def _run_pftt_population(cfg: PFTTConfig, init: Optional[Dict] = None) -> Dict:
+    """Sampled-cohort population mode (``cfg.population``): the host holds
+    a ``PopulationStore`` of every client's trainable/opt/pending trees;
+    each round a ``ClientSampler`` draws a ``cohort_size`` cohort, the
+    ``PopulationRunner`` gathers the sampled rows (the server's global
+    overlaid into the uploaded subtree: the downlink), the robust round
+    body a ``n_clients=cohort_size`` run builds runs once, and the rows are
+    copied back.  The ``StalenessTracker`` spans the population, so a
+    straggler's pending payload survives rounds it is not sampled in.
+    Non-IID data, availability and mobility come from the
+    ``wireless.scenarios.Scenario`` trace; a ``FaultPlan`` and a
+    ``DeadlineConfig`` compose on top as in cohort mode.
+
+    ``init`` as ``run_pftt``'s, its ``"lora"`` holding every population
+    client's (JAX's ``fold_in(key, 100 + i)`` draws); without it client i's
+    LoRA comes from its own generator.  ``codec_noise`` is keyed by client
+    id.  ``ckpt_dir`` saves the store, the global and the runner's host
+    state (sampler mid-stream, tracker, reset flags) in one atomic npz."""
+    from repro_torch.comms.streams import stream_key
+    from repro_torch.fl.population import (ClientSampler, CohortTestSets, PopulationData,
+                                           PopulationRunner, PopulationStore,
+                                           stacked_client_init)
+    from repro_torch.wireless.scenarios import Scenario
+
+    pop = cfg.population
+    if not cfg.engine:
+        raise ValueError("population mode runs the fused engine only "
+                         "(PFTTConfig(engine=True))")
+    N, K = pop.population, pop.cohort_size
+    scen = pop.scenario or Scenario()
+    if scen.n_classes != 4:
+        raise ValueError("the PFTT classification task is 4-class; "
+                         f"scenario has n_classes={scen.n_classes}")
+    codec = _codec(cfg, init)
+    (model, mcfg, params, peft_cfg, corpus, gen, rng, use_lora,
+     pretrain_s) = _setup_backbone(cfg, init)
+    device = model.device
+    strace = scen.realize(N, cfg.rounds)
+
+    # ---- a shared class-bucketed pool; clients draw lazily from their
+    # Dirichlet label distribution (nothing to replay on resume)
+    pool_n = int(np.clip(cfg.samples_per_client * 16, 1024, 16384))
+    pool = corpus.sample(pool_n, rng=rng)
+    data = PopulationData(pool, strace.class_probs, seed=cfg.seed)
+
+    # ---- the N-client store, on the host
+    opt = adamw(cfg.lr, update_mask=lambda p: not p.endswith("/mask"))
+    upload_pred = _upload_pred(cfg.method)
+
+    def client_init(i):
+        lora = None
+        if use_lora:
+            lora = (bridge.lora_from_numpy(init["lora"][i], mcfg, device=device)
+                    if init is not None else peft_mod.init_lora(
+                        torch.Generator().manual_seed(stream_key(cfg.seed, 100 + i)),
+                        params, peft_cfg))
+        t = _build_trainable(cfg.method, params, lora)
+        return {"t": t, "o": opt.init(t)}
+
+    stacked = stacked_client_init(client_init, N)
+    pend_np = trees.map_leaves(np.zeros_like, trees.select(stacked["t"], upload_pred))
+    store = PopulationStore({"trainable": stacked["t"], "opt": stacked["o"],
+                             "pending": pend_np})
+    shared0 = trees.select(store.row("trainable", 0), upload_pred)
+    global_shared = trees.map_leaves(np.array, shared0)
+    shared0_t = trees.map_leaves(torch.from_numpy, shared0)
+
+    # ---- the wireless runtime over the POPULATION
+    channel = RayleighChannel(mean_snr_db=cfg.snr_db, seed=cfg.seed)
+    budget = ChannelBudget(channel, tx_power_w=cfg.tx_power_w)
+    ledger = CommLedger()
+    dl, trace, tracker = robust_runtime(cfg, channel, N, always=True)
+    ab = 0.0 if cfg.method != "fedbert" else \
+        cfg.local_steps * cfg.batch * cfg.seq_len * cfg.d_model * 4 * 2 * 8
+    payload_bits = tree_bytes(shared0_t) * 8 + ab
+    est_bits = None
+    if dl is not None:
+        est_bits = np.full(N, payload_bits if codec is None else
+                           payload_bits_upper_bound(codec, shared0_t) + ab, np.float64)
+    codec_noise = None if codec is None else (
+        (init or {}).get("codec_noise")
+        or functools.partial(codec_uniforms, cfg.seed, device=device))
+
+    # ---- the round body: the one a cohort_size-client robust run builds
+    frozen = params
+    scale = peft_mod.lora_scale(peft_cfg)
+
+    def local_step(trainable, opt_state, batch):
+        def loss_fn(t):
+            full, lora = _split_trainable(cfg.method, frozen, t)
+            return model.cls_loss(full, batch, lora=lora, lora_scale=scale)[0]
+        loss, g = value_and_grad(loss_fn, trainable)
+        upd, opt_state = opt.update(g, opt_state, trainable)
+        return trees.tree_add(trainable, upd), opt_state, loss
+
+    # ---- observability: the runner owns the round's spans
+    tracer, tele, health, prof = open_run(cfg.telemetry, device)
+    round_step = build_supervised_round(
+        local_step, upload_pred, codec=codec, factored_agg=cfg.factored_agg,
+        robust=True, min_quorum=dl.min_quorum if dl is not None else 0, health=health)
+    runner = PopulationRunner(
+        pop=pop, store=store, global_shared=global_shared, upload_pred=upload_pred,
+        channel=channel, budget=budget, ledger=ledger, tracker=tracker, trace=trace,
+        strace=strace, sampler=ClientSampler(pop.sampler, N, K,
+                                             seed=cfg.seed + 1000 * pop.seed),
+        device=device, arrivals=tracker.arrivals, dl=dl, est_bits=est_bits, act_bits=ab,
+        tracer=tracer, health=health)
+    stacker = HostBatchStacker(device)
+
+    # ---- cohort eval: the sampled clients' held-out draws refill one
+    # buffer and score in one cohort-eval call a round
+    n_eval = int(min(max(cfg.test_samples, 4), 64))
+    test_sets = CohortTestSets(data, n_eval, ("tokens", "label"))
+    e_valid = torch.ones((K, n_eval), device=device)
+
+    def eval_client(trainable, tokens, label, valid):
+        full, lora = _split_trainable(cfg.method, frozen, trainable)
+        hidden, _ = model.forward(full, tokens, lora=lora, lora_scale=scale)
+        pred = (hidden[:, 0] @ full["cls_head"]).float().argmax(-1)
+        correct = (pred == label).float() * valid
+        return correct.sum(), valid.sum()
+
+    eval_cohort = build_cohort_eval(eval_client)
+
+    def eval_ids(cohort_tr, ids):
+        corr, cnt = (t.cpu().numpy() for t in eval_cohort(
+            cohort_tr, *test_sets(ids, device), e_valid))
+        return [float(c / n) for c, n in zip(corr, cnt) if n > 0]
+
+    def draw(cid, rnd):
+        return data.round_batches(cid, rnd, cfg.local_steps, cfg.batch)
+
+    # ---- checkpoint/resume: the store, the global and the runner's host
+    # state in one npz; the channel and arrival draws are burnt
+    accs_per_round: List[float] = []
+    loss_per_round: List[float] = []
+    health_per_round: List = []
+    cohorts: List[List[int]] = []
+    ckpt_file = meta_file = None
+    start_round = 0
+    if cfg.ckpt_dir:
+        ckpt_file = os.path.join(cfg.ckpt_dir, f"pftt_pop_{cfg.method}.npz")
+        meta_file = os.path.join(cfg.ckpt_dir, f"pftt_pop_{cfg.method}.json")
+        if cfg.resume and os.path.exists(ckpt_file):
+            meta = load_meta(ckpt_file)
+            start_round = int(meta["next_round"])
+            accs_per_round[:] = meta["accs_per_round"]
+            loss_per_round[:] = meta["loss_per_round"]
+            health_per_round[:] = meta["health_per_round"]
+            cohorts[:] = meta["cohorts"]
+            ledger.rounds[:] = meta["ledger_rounds"]
+            runner.load_state_dict(meta["runner"])
+            runner.load_checkpoint_tree(load_checkpoint(ckpt_file, runner.checkpoint_tree()))
+            runner.burn_rounds(start_round)
+
+    run_meta = {"mode": "population", "method": cfg.method, "population": N, "cohort": K,
+                "rounds": cfg.rounds, "sampler": pop.sampler, "codec": cfg.uplink_codec}
+    if start_round > 0:
+        tele.resume(start_round, run_meta)
+    else:
+        tele.start(run_meta)
+
+    for rnd in range(start_round, cfg.rounds):
+        out = runner.run_round(rnd, round_step=round_step, stacker=stacker,
+                               draw_batches=draw, payload_bits=payload_bits,
+                               codec_noise=codec_noise)
+        with tracer.span("eval"):
+            accs = eval_ids(out["cohort_tr"], out["ids"])
+        accs_per_round.append(float(np.mean(accs)) if accs else 0.0)
+        loss_per_round.append(float(out["losses"].mean()))
+        health_per_round.append(out["health"])
+        cohorts.append([int(i) for i in out["ids"]])
+        # the round event before the checkpoint, as in run_pftt
+        if tele.enabled:
+            if rnd == start_round:
+                tele.compile_event(rnd, tracer.totals().get("device-step", 0.0))
+            tele.round_event(rnd, {
+                "acc": accs_per_round[-1], "cohort": cohorts[-1],
+                "comm": _comm_record(ledger), "staleness": tracker.counters(),
+                "health": out["health"]}, wall={"phases": tracer.pop_round()})
+        if ckpt_file is not None:
+            with tracer.span("checkpoint"):
+                meta = {"next_round": rnd + 1, "accs_per_round": accs_per_round,
+                        "loss_per_round": loss_per_round,
+                        "health_per_round": health_per_round, "cohorts": cohorts,
+                        "ledger_rounds": ledger.rounds, "runner": runner.state_dict()}
+                save_checkpoint(ckpt_file, runner.checkpoint_tree(), meta=meta)
+                save_json(meta_file, meta)
+            tele.checkpoint(rnd)
+        if cfg.verbose and rnd % 5 == 0:
+            print(f"[pftt-pop:{cfg.method}] round {rnd} "
+                  f"cohort acc {accs_per_round[-1]:.3f} "
+                  f"sampled {cohorts[-1][:8]}… "
+                  f"host {runner.host_overhead_frac:.1%}")
+
+    close_run(cfg.telemetry, tele, prof)
+    return {
+        "method": cfg.method,
+        "acc_per_round": accs_per_round,
+        "final_acc": accs_per_round[-1] if accs_per_round else 0.0,
+        "mean_round_bytes": ledger.mean_round_bytes,
+        "mean_round_delay_s": ledger.mean_round_delay,
+        "total_bytes": ledger.total_bytes,
+        "total_energy_j": ledger.total_energy_j,
+        "total_sim_time_s": ledger.total_sim_time_s,
+        "quorum_noops": ledger.quorum_noops,
+        "round_records": ledger.rounds,
+        "uplink_codec": cfg.uplink_codec,
+        "fused_engine": True,
+        "population": N,
+        "cohort_size": K,
+        "sampler": pop.sampler,
+        "scenario": scen.to_dict(),
+        "participation_frac": float(runner.seen.mean()),
+        "host_overhead_frac": runner.host_overhead_frac,
+        "host_s": runner.host_s,
+        "round_s": runner.round_s,
+        "round_wall": list(runner.round_wall),
+        "store_bytes": store.nbytes(),
+        "cohorts": cohorts,
+        "staleness": tracker.counters(),
+        "loss_per_round": loss_per_round,
+        "health_per_round": health_per_round,
+        "pretrain_s": pretrain_s,
     }

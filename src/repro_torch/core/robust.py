@@ -321,18 +321,22 @@ class StalenessTracker:
 # ---- the runners' shared setup and ledger entries (port only: the JAX
 # package repeats these in ``run_pftt`` and ``run_pfit``) --------------------
 
-def robust_runtime(cfg, channel):
+def robust_runtime(cfg, channel, n_clients: Optional[int] = None, *,
+                   always: bool = False):
     """(deadline, trace, tracker) of a run with ``cfg``'s ``fault_plan``,
-    ``deadline`` and staleness fields: a non-inert deadline switches the
-    tracker to the continuous-time round (with or without a fault plan);
-    (None, None, None) for the synchronous round."""
+    ``deadline`` and staleness fields, over ``n_clients`` (default
+    ``cfg.n_clients``; a population run passes its population): a non-inert
+    deadline switches the tracker to the continuous-time round (with or
+    without a fault plan); (None, None, None) for the synchronous round
+    unless ``always`` (population mode runs the robust body every round)."""
+    n = cfg.n_clients if n_clients is None else n_clients
     dl = cfg.deadline if (cfg.deadline is not None
                           and not cfg.deadline.is_inert()) else None
-    if cfg.fault_plan is None and dl is None:
+    if cfg.fault_plan is None and dl is None and not always:
         return None, None, None
-    trace = (cfg.fault_plan or FaultPlan()).realize(cfg.n_clients, cfg.rounds)
-    arrivals = ArrivalModel(channel, dl, cfg.n_clients) if dl is not None else None
-    tracker = StalenessTracker(cfg.n_clients, StalenessConfig(
+    trace = (cfg.fault_plan or FaultPlan()).realize(n, cfg.rounds)
+    arrivals = ArrivalModel(channel, dl, n) if dl is not None else None
+    tracker = StalenessTracker(n, StalenessConfig(
         alpha=cfg.staleness_alpha, a=cfg.staleness_a,
         max_staleness=cfg.max_staleness), deadline=dl, arrivals=arrivals)
     return dl, trace, tracker

@@ -28,6 +28,20 @@ re-projection (``repro_torch.comms``):
         --fl-clients 2 --fl-rounds 1 --uplink-codec int4 --factored-agg \
         --device cpu
 
+``--population N`` runs PFTT's sampled-cohort population mode: the host
+holds N clients' trainable and optimizer trees and every round samples a
+``--cohort`` cohort (``--sampler``, ``--scenario``; ``fl/population.py``).
+``--telemetry-dir D`` writes the run's JSONL round events (``D/events.jsonl``,
+with the health scalars; ``repro_torch.obs``), ``--trace`` a Chrome trace of
+the host spans (``D/trace.json``) and ``--torch-profile`` a
+``torch.profiler`` trace under ``D/torch_profile``;
+``python -m repro_torch.launch.report D --check`` validates the stream:
+
+    PYTHONPATH=src python -m repro_torch.launch.train --arch roberta-base \
+        --population 256 --cohort 8 --fl-rounds 2 --sampler availability \
+        --scenario "avail=diurnal,avail_period=6,seed=1" \
+        --telemetry-dir /tmp/telemetry --trace
+
 ``--steps N`` trains the chosen architecture at full width (``--reduced``
 for the smoke variant) for N AdamW steps:
 
@@ -40,8 +54,8 @@ trained on an MLM loss over 15 % masked positions, the base frozen, so
 every encoder layer runs the ``lora_fused`` and non-causal ``flash_attn``
 kernels forward and their autograd Functions backward.  ``--lora-rank 0``
 is the JAX launcher's full fine-tuning (``make_train_step`` on next-token
-labels).  The JAX launcher's other modes (population, telemetry, the arch
-rounds of other architectures) are not ported and their flags raise.
+labels).  The JAX launcher's arch rounds of other architectures are not
+ported: ``--fl-clients`` with another ``--arch`` raises.
 """
 from __future__ import annotations
 
@@ -60,12 +74,6 @@ from repro_torch.launch.steps import make_peft_loss, make_peft_step, make_train_
 from repro_torch.models import peft as peft_mod
 from repro_torch.models.transformer import Model
 from repro_torch.wireless import DeadlineConfig, FaultPlan
-
-# flag → (its "off" value, its entry in cohort.LATER)
-_UNPORTED = {
-    "population": (0, "population"),
-    "telemetry_dir": (None, "health"),
-}
 
 
 def parse_args(argv=None):
@@ -127,12 +135,39 @@ def parse_args(argv=None):
                          "here so a killed run can --resume")
     ap.add_argument("--resume", action="store_true",
                     help="FL engine: restart from --ckpt-dir's last round")
-    # the JAX launcher's flags of modes not ported yet: setting one raises
-    ap.add_argument("--population", type=int, default=0)
-    ap.add_argument("--telemetry-dir", default=None)
+    ap.add_argument("--population", type=int, default=0,
+                    help="population mode (roberta-base): the host holds "
+                         "this many clients' adapter/opt trees and every "
+                         "round samples a --cohort cohort into the round "
+                         "(fl.population; 0 → off)")
+    ap.add_argument("--cohort", type=int, default=8,
+                    help="population mode: sampled cohort size per round")
+    ap.add_argument("--sampler", default="uniform",
+                    choices=["uniform", "availability"],
+                    help="population mode: per-round client sampler "
+                         "(availability weights by the scenario's "
+                         "avail_p trace)")
+    ap.add_argument("--scenario", default=None,
+                    help="population scenario spec: 'k=v,...' "
+                         "(alpha/avail/avail_period/mobility/seed/... — "
+                         "wireless.scenarios.Scenario.from_spec) or a JSON "
+                         "file path")
+    ap.add_argument("--telemetry-dir", default=None,
+                    help="FL runs: write the structured run telemetry "
+                         "(events.jsonl — schema-versioned round metrics "
+                         "joining eval, comm ledger, staleness and health "
+                         "signals; repro_torch.obs) into this directory")
+    ap.add_argument("--trace", action="store_true",
+                    help="with --telemetry-dir: also write trace.json, a "
+                         "Chrome trace-event file of the host round phases "
+                         "(open in Perfetto / chrome://tracing)")
+    ap.add_argument("--torch-profile", action="store_true",
+                    help="with --telemetry-dir: bracket the run in a "
+                         "torch.profiler trace under <dir>/torch_profile")
     args = ap.parse_args(argv)
-    for name, (off, key) in _UNPORTED.items():
-        not_ported(f"--{name.replace('_', '-')}", **{key: getattr(args, name) != off})
+    if args.population and args.arch != "roberta-base":
+        raise SystemExit("--population runs the PFTT workload: "
+                         "use --arch roberta-base")
     not_ported(f"--fl-clients with --arch {args.arch} (PFTT runs roberta-base)",
                arch_round=bool(args.fl_clients) and args.arch != "roberta-base")
     return args
@@ -152,15 +187,25 @@ def deadline_config(args):
 
 def pftt_config(args, **overrides):
     """The ``PFTTConfig`` the launcher runs (the JAX launcher's settings:
-    5 local steps, 50 pretraining steps, 200 samples per client)."""
+    5 local steps, 50 pretraining steps, 200 samples per client; population
+    mode's cohort and telemetry from their flags)."""
     from repro_torch.core.pftt import PFTTConfig
-    kw = dict(n_clients=args.fl_clients, rounds=args.fl_rounds,
+    from repro_torch.fl.population import PopulationConfig
+    from repro_torch.obs import TelemetryConfig
+    from repro_torch.wireless.scenarios import Scenario
+    population = None if not args.population else PopulationConfig(
+        population=args.population, cohort_size=args.cohort, sampler=args.sampler,
+        scenario=Scenario.from_spec(args.scenario))
+    telemetry = None if not args.telemetry_dir else TelemetryConfig(
+        out_dir=args.telemetry_dir, trace=args.trace, torch_profile=args.torch_profile)
+    kw = dict(n_clients=args.fl_clients or args.cohort, rounds=args.fl_rounds,
               batch=args.batch, lr=args.lr, local_steps=5, pretrain_steps=50,
               samples_per_client=200, fault_plan=FaultPlan.from_spec(args.fault_plan),
               staleness_a=args.staleness_a, max_staleness=args.max_staleness,
               deadline=deadline_config(args), uplink_codec=args.uplink_codec,
               factored_agg=args.factored_agg, ckpt_dir=args.ckpt_dir,
-              resume=args.resume, verbose=True, device=args.device)
+              resume=args.resume, population=population, telemetry=telemetry,
+              verbose=True, device=args.device)
     kw.update(overrides)
     return PFTTConfig(**kw)
 
@@ -236,16 +281,26 @@ class Trainer:
 
 def main(argv=None):
     args = parse_args(argv)
-    if args.fl_clients:
+    if args.fl_clients or args.population:
         from repro_torch.core.pftt import run_pftt
-        print(f"federated PFTT cohort (reduced-roberta workload; --steps/--seq "
-              f"ignored) on {resolve_device(args.device)}")
+        if args.population:
+            print(f"population PFTT: {args.population} clients, cohort {args.cohort}/round "
+                  f"({args.sampler} sampling) on {resolve_device(args.device)}")
+        else:
+            print(f"federated PFTT cohort (reduced-roberta workload; --steps/--seq "
+                  f"ignored) on {resolve_device(args.device)}")
         res = run_pftt(pftt_config(args))
+        rounds = res["round_wall"] if args.population else res["round_s"]
         print(f"final acc {res['final_acc']:.3f} mean round bytes "
               f"{res['mean_round_bytes']:,.0f} (codec={args.uplink_codec}) mean round delay "
               f"{res['mean_round_delay_s']:.3f}s energy {res['total_energy_j']:.2f}J "
               f"pretrain {res['pretrain_s']:.2f}s rounds "
-              f"{[round(s, 3) for s in res['round_s']]}s")
+              f"{[round(s, 3) for s in rounds]}s")
+        if args.population:
+            print(f"population: sampled {res['participation_frac']:.1%} of "
+                  f"{res['population']} clients, host overhead "
+                  f"{res['host_overhead_frac']:.1%} of round wall-clock, "
+                  f"store {res['store_bytes'] / 1e6:.1f}MB")
         if deadline_config(args) is not None:
             print(f"continuous-time round: sim time {res['total_sim_time_s']:.1f}s "
                   f"quorum no-ops {res['quorum_noops']}")

@@ -129,3 +129,24 @@ def test_port_imports_neither_jax_nor_reference(path):
     bad = [m for m in _imports(ROOT / path)
            if m.split(".")[0] in ("jax", "jaxlib", "repro")]
     assert not bad, f"{path} imports {bad}"
+
+
+def test_obs_and_fl_export_the_jax_packages_names():
+    """``repro_torch.obs`` and ``repro_torch.fl`` export the JAX package's
+    names (the profiler bracket renamed ``torch_profile_*``; obs adds the
+    runners' ``open_run``/``close_run``), and the new modules import on
+    the CPU."""
+    import importlib
+
+    import repro.fl as jfl
+    import repro.obs as jobs
+    from repro_torch import fl, obs
+    assert set(obs.__all__) - {n.replace("jax_", "torch_") for n in jobs.__all__} == {
+        "open_run", "close_run"}      # the port's runners' shared setup
+    assert {n.replace("jax_", "torch_") for n in jobs.__all__} <= set(obs.__all__)
+    assert all(hasattr(obs, n) for n in obs.__all__)
+    jnames = {n for n in dir(jfl) if not n.startswith("_") and n[0].isupper() or n == "run_rounds"}
+    assert jnames <= set(dir(fl))
+    for mod in ("obs.metrics", "obs.trace", "obs.health", "fl.population", "fl.client",
+                "fl.server", "fl.rounds", "wireless.scenarios", "launch.report"):
+        importlib.import_module(f"repro_torch.{mod}")

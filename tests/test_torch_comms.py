@@ -18,6 +18,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from _torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 from repro import trees as jtrees
 from repro.comms import codec as jcodec
@@ -32,17 +33,6 @@ from repro_torch.core import aggregation, async_agg
 from repro_torch.wireless import cost
 
 KEY = jax.random.PRNGKey(5)
-
-
-@pytest.fixture(autouse=True, scope="module")
-def one_torch_thread():
-    """One intra-op thread for this module's torch work: under parallel
-    test workers the OpenMP threads of several processes spin against each
-    other (a small PFIT run took some 70× its time alone)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _np(tree):

@@ -19,6 +19,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from _torch_threads import one_torch_thread  # noqa: F401 (autouse)
 from test_torch_comms import jax_hashes, jax_noise
 from test_torch_comms_runs import FLIP_RTOL, jax_codec_noise
 from test_torch_fl import round_setup  # noqa: F401  (a fixture)
@@ -48,17 +49,6 @@ from repro_torch.rlhf import ppo
 
 TOL = 1e-5
 BITS_RTOL = 1e-6
-
-
-@pytest.fixture(autouse=True, scope="module")
-def one_torch_thread():
-    """One intra-op thread for this module's torch work: under parallel
-    test workers the OpenMP threads of several processes spin against each
-    other (a small PFIT run took some 70× its time alone)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _np(tree):

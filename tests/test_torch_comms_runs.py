@@ -23,6 +23,7 @@ import jax
 import numpy as np
 import pytest
 import torch
+from _torch_threads import one_torch_thread  # noqa: F401 (autouse)
 from test_torch_comms import jax_hashes, jax_noise
 from test_torch_fl import PFTT_KW
 from test_torch_fl import _export_init as pftt_init
@@ -46,17 +47,6 @@ BITS_RTOL = 1e-6
 # 1e-3 (two flips a client-round); one round from identical state holds
 # 1e-6 (``test_torch_comms_rounds.py``).
 FLIP_RTOL = 1e-3
-
-
-@pytest.fixture(autouse=True, scope="module")
-def one_torch_thread():
-    """One intra-op thread for this module's torch work: under parallel
-    test workers the OpenMP threads of several processes spin against each
-    other (a small PFIT run took some 70× its time alone)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def jax_codec_noise(seed):

@@ -12,6 +12,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from _torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 from repro import trees as jtrees
 from repro.comms.codec import ChannelBudget as JBudget
@@ -310,24 +311,31 @@ def test_cohort_eval_and_unported_options():
     a, b = ev(st, torch.ones(3, 4))
     np.testing.assert_array_equal(a.numpy(), [4.0, 20.0, 36.0])
     assert b.shape == (3,)
-    # the codec and factored aggregation build (they are ported); beside
-    # them the options still refused are refused by name
+    # the codec, factored aggregation and health build (they are ported);
+    # beside them the mesh is still refused by name
     for opt in ({"codec": object()}, {"robust": True, "codec": object()},
-                {"factored_agg": True}):
+                {"factored_agg": True}, {"codec": object(), "health": True},
+                {"health": True}, {"robust": True, "health": True}):
         assert callable(cohort.build_supervised_round(lambda *a: a, **opt))
-    for opt, match in (({"codec": object(), "health": True}, "item 3"),
-                       ({"robust": True, "codec": object(), "mesh": object()}, "item 8"),
-                       ({"health": True}, "item 3"), ({"mesh": object()}, "item 8"),
+    for opt, match in (({"robust": True, "codec": object(), "mesh": object()}, "item 8"),
+                       ({"health": True, "mesh": object()}, "item 8"),
+                       ({"mesh": object()}, "item 8"),
                        ({"factored_agg": True, "mesh": object()}, "item 8")):
         with pytest.raises(NotImplementedError, match=match):
             cohort.build_supervised_round(lambda *a: a, **opt)
-    for kw, match in ((dict(engine=False), "legacy"),
-                      (dict(uplink_codec="int8", population=object()), "item 4"),
-                      (dict(fault_plan=object(), uplink_codec="int8", telemetry=object()),
-                       "obs"),
-                      (dict(ckpt_dir="x", factored_agg=True, engine=False), "legacy"),
-                      (dict(population=object()), "item 4"), (dict(telemetry=object()), "obs")):
-        with pytest.raises(NotImplementedError, match=match):
+    # the legacy loop stays refused; population mode raises the JAX
+    # package's own errors before any work
+    from repro_torch.fl import PopulationConfig
+    from repro_torch.wireless.scenarios import Scenario
+    pop = PopulationConfig(population=8, cohort_size=2)
+    for kw, err, match in ((dict(engine=False), NotImplementedError, "legacy"),
+                           (dict(ckpt_dir="x", factored_agg=True, engine=False),
+                            NotImplementedError, "legacy"),
+                           (dict(population=pop, engine=False), ValueError, "engine"),
+                           (dict(population=PopulationConfig(
+                               population=8, cohort_size=2, scenario=Scenario(n_classes=8))),
+                            ValueError, "4-class")):
+        with pytest.raises(err, match=match):
             pftt.run_pftt(pftt.PFTTConfig(device="cpu", **kw))
 
 

@@ -16,6 +16,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from _torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 from repro import trees as jtrees
 from repro.configs import get_config as jget_config
@@ -115,12 +116,21 @@ def test_launcher_runs_on_cpu_and_refuses_without_gpu(monkeypatch, capsys):
             launch_pfit.main(["--rounds", "1"])
 
 
-@pytest.mark.parametrize("option, match", [
-    (dict(engine=False), "legacy"), (dict(uplink_codec="int8", population=object()), "item 4"),
-    (dict(factored_agg=True, telemetry=object()), "item 3"), (dict(population=object()), "item 4"),
-    (dict(telemetry=object()), "item 3")])
-def test_unported_options_name_their_item(option, match):
-    with pytest.raises(NotImplementedError, match=match):
+def _pop():
+    from repro_torch.fl import PopulationConfig
+    return PopulationConfig(population=8, cohort_size=2)
+
+
+@pytest.mark.parametrize("option, err, match", [
+    (dict(engine=False), NotImplementedError, "legacy"),
+    (dict(uplink_codec="int8", population=_pop()), ValueError, "shepherd"),
+    (dict(method="sfl", factored_agg=True, population=_pop()), ValueError, "shepherd"),
+    (dict(method="shepherd", population=_pop(), engine=False), ValueError, "engine"),
+    (dict(method="pfl", population=_pop()), ValueError, "shepherd")])
+def test_unported_options_name_their_item(option, err, match):
+    """The legacy loop is refused by name; population mode (ported) raises
+    the JAX package's own errors for the PPO methods and the loop."""
+    with pytest.raises(err, match=match):
         pfit.run_pfit(pfit.PFITConfig(device="cpu", **option))
 
 

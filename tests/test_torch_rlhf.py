@@ -13,6 +13,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from _torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 from repro import trees as jtrees
 from repro.configs import get_config as jget_config

@@ -17,6 +17,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from _torch_threads import one_torch_thread  # noqa: F401 (autouse)
 from test_torch_fl import round_setup  # noqa: F401  (a fixture)
 from test_torch_rlhf import (B, GEN, PROMPT, _jparams, _port, _port_rm, jax_noise,
                              policy, reward_setup)  # noqa: F401  (fixtures)

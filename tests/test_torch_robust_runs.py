@@ -16,6 +16,7 @@ import os
 import numpy as np
 import pytest
 import torch
+from _torch_threads import one_torch_thread  # noqa: F401 (autouse)
 from test_torch_fl import PFTT_KW
 from test_torch_fl import _export_init as pftt_init
 from test_torch_pfit import KW as PFIT_KW

@@ -11,6 +11,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from _torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 from repro import trees as jtrees
 from repro.configs import get_config as jget_config
@@ -328,7 +329,8 @@ def test_peft_and_train_steps_match_jax(encoder):
 def test_train_launcher_steps_on_cpu():
     """``--steps`` mode on the CPU: the PEFT default and full fine-tuning
     run; the PEFT trainables are the adapters and the LoRA factors; the
-    uplink flags reach ``PFTTConfig``; unported modes raise by name."""
+    uplink and population flags reach ``PFTTConfig``; unported modes raise
+    by name."""
     argv = ["--arch", "roberta-base", "--reduced", "--steps", "4", "--batch", "4",
             "--seq", "16", "--device", "cpu"]
     losses = train.main(argv)
@@ -342,8 +344,11 @@ def test_train_launcher_steps_on_cpu():
                                                      "--uplink-codec", "int8",
                                                      "--factored-agg"]))
     assert cfg.uplink_codec == "int8" and cfg.factored_agg
-    with pytest.raises(NotImplementedError, match="item 4"):
-        train.parse_args(argv + ["--uplink-codec", "int8", "--population", "8"])
+    pop = train.pftt_config(train.parse_args(argv + ["--uplink-codec", "int8",
+                                                     "--population", "8"]))
+    assert pop.population.population == 8 and pop.uplink_codec == "int8"
+    with pytest.raises(SystemExit, match="roberta-base"):
+        train.parse_args(["--arch", "gpt2-small", "--population", "8"])
     with pytest.raises(NotImplementedError, match="queue 1 item 6"):
         train.parse_args(["--arch", "gpt2-small", "--fl-clients", "2"])
     with pytest.raises(NotImplementedError, match="ssd_chunk has no backward"):
