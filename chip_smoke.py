@@ -25,7 +25,7 @@ Phases, each reported on its own lines:
    Each ssd_chunk row prints its plan (``fused``: C·Bᵀ's tiles in the chunk
    states' launch) and the groups C·Bᵀ is formed for, and its serving-shape
    row is profiled once, so its PROFILE lines name the scan's kernels.
-4. serve   — three serving paths through the port's entry points
+4. serve   — the serving paths through the port's entry points
    (``launch/serve.py`` build/generate), each with random weights from seed
    0 and nonzero rank-8 LoRA factors from a numpy seed, f32:
    * SERVE: gpt2-small at full width (12 layers, d 768, vocab 50257),
@@ -35,7 +35,16 @@ Phases, each reported on its own lines:
      prompt 896, 128 decode steps (1024 = max_position);
    * SERVE-MAMBA: mamba2-1.3b at full width and depth (48 layers, d 2048,
      64 heads of 64, state 128, vocab 50280), batch 4, prompt 512, 32
-     decode steps, LoRA on in_proj and out_proj.
+     decode steps, LoRA on in_proj and out_proj;
+   * SERVE-LLAMA: llama3.2-1b at its published widths and depth (16
+     layers, d 2048, 32 query heads on 8 KV heads of 64, d_ff 8192 SwiGLU,
+     RoPE θ 5e5, tied vocab 128256), batch 8, prompt 512, 64 decode steps,
+     LoRA on wq and wv: GQA through ``flash_attn`` and ``decode_attn``;
+   * SERVE-ZOO: gemma3-12b (sliding-window ring caches: window 64, both
+     rings wrap), internvl2-26b (8 projected patch positions before the
+     prompt), dbrx-132b (MoE) and jamba-v0.1-52b (attention + Mamba + MoE)
+     at ``.reduced(d_model=256, repeats=2)`` (head width 64), batch 2,
+     prompt 96, 40 decode steps, no PROFILE.
    Each path's kernel launch counts are set to 0 just before it runs and
    checked against the path's just after; prefill is then run 7 more times
    and its median printed beside the run's one prefill; then prefill and
@@ -45,7 +54,8 @@ Phases, each reported on its own lines:
 5. profile — torch.profiler over one prefill and 16 decode steps of each
    serving path.
 6. grads   — each autograd Function (``lora_fused``'s and ``flash_attn``'s,
-   non-causal and causal: the kernel forward, a plain-torch backward) at
+   non-causal and causal, and ``ssd_chunk``'s ``SSDScan``: the kernel
+   forward, a plain-torch backward) at
    the training paths' shapes: every input gradient against autograd of the
    plain version on the card (GRAD lines, f32 tolerances of TOL), forward
    and backward device times of both.
@@ -132,9 +142,20 @@ Phases, each reported on its own lines:
    ``PopulationRunner`` (64 clients, cohort 4, 4 rounds): health against
    the float64 oracle, unsampled rows unchanged, state bitwise equal with
    health on and off, each timed in turns.
+14. ARCH-ROUND — the universal factored round (``core/arch_round.py``)
+   through ``launch/train.py --arch X --fl-clients 4 --fl-rounds 2
+   --assert-fused --fl-dmodel 256`` for gpt2-small, llama3.2-1b,
+   gemma3-12b, internvl2-26b, dbrx-132b, jamba-v0.1-52b and mamba2-1.3b:
+   seconds a round, losses, the launcher's on-card oracle check (≤ 1e-5),
+   launches against ``arch_expected``; a CPU re-run (losses within 1e-5);
+   then ``--fl-dmodel 64`` (head width 16) must raise on the card.  The
+   grads phase has a GRAD row for ``SSDScan`` (the SSD scan's Function) at
+   the jamba/mamba2 round's shape, and the kernels phase CHECK rows at
+   SERVE-LLAMA's and SERVE-ZOO's shapes.
 
 Before the last line it prints one JSON object with a row per kernel (its
-launches summed over the serving, training, robust and comms paths' main runs); the last
+launches summed over the serving, training, robust, comms, population and
+arch-round paths' main runs); the last
 line is
 ``{"ok": true, "device": {...}}``.  Any failed check exits
 nonzero before that line.
@@ -180,7 +201,18 @@ SERVES = (
          prompt_len=896, gen=128, rank=8, rows=2, logit_tol=1e-3),
     dict(tag="SERVE-MAMBA", arch="mamba2-1.3b", impl="auto", batch=4,
          prompt_len=512, gen=32, rank=8, rows=1, logit_tol=1e-3),
-)
+    # llama3.2-1b at its published widths and depth: GQA (32 query heads on
+    # 8 KV heads of 64), RoPE θ 5e5, tied 128256-token head, 1.24 B params
+    dict(tag="SERVE-LLAMA", arch="llama3.2-1b", impl="auto", batch=8,
+         prompt_len=512, gen=64, rank=8, rows=1, logit_tol=1e-3),
+) + tuple(
+    # the rest of the zoo at .reduced(d_model=256, repeats=2): head width 64
+    # (gemma3's own 240 has no kernel instance yet), gemma3's window 64 so
+    # its rings wrap in prefill and decode; internvl2's 8 patch positions
+    dict(tag=f"SERVE-ZOO {arch}", arch=arch, impl="auto", batch=2, prompt_len=96, gen=40,
+         rank=8, rows=2, logit_tol=1e-3, reduced=dict(d_model=256, repeats=2),
+         profile=False)
+    for arch in ("gemma3-12b", "internvl2-26b", "dbrx-132b", "jamba-v0.1-52b"))
 TEACHER_STEPS = 8
 PREFILL_REPS = 7
 # TRAIN-PFTT: card vs CPU (see train_pftt).  TRAIN-ROBERTA: card vs CPU over
@@ -415,6 +447,98 @@ def kernel_cases(torch):
             flops=2 * m * k * n + 2 * m * k * 8 + 2 * m * 8 * n, main=False,
             plan=(str(dt).split(".")[1], n, k) if m <= 16 else None,
             profile=(m == 4 and n == 2048 and dt == torch.float32)))
+    return cases + zoo_cases(torch, rn)
+
+
+def zoo_cases(torch, rn):
+    """f32 rows at the arch zoo's shapes: SERVE-LLAMA's LoRA projections
+    (prefill M 8·512, K 2048, wq N 2048 and wv N 512; decode M 8), its GQA
+    prefill attention (H 32 on K 8, G 4) and last decode step (cache 576),
+    SERVE-ZOO's windowed prefill (gemma3's ``local`` layers, window 64),
+    and ``ssd_chunk`` at jamba's reduced shapes.  The library calls are
+    SDPA with ``enable_gqa`` (the window as a boolean mask) and
+    ``torch.matmul`` of the merged weight; none computes the scan."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.decode_attn.ops import decode_attention, split_plan
+    from repro_torch.kernels.decode_attn.ref import decode_ref
+    from repro_torch.kernels.flash_attn.ops import flash_attention
+    from repro_torch.kernels.flash_attn.ref import attention_ref
+    from repro_torch.kernels.lora_fused.ops import lora_matmul
+    from repro_torch.kernels.lora_fused.ref import lora_ref
+    from repro_torch.models.attention import make_mask
+
+    cases = []
+    for m, k, n, path in ((4096, 2048, 2048, "llama prefill wq"),
+                          (4096, 2048, 512, "llama prefill wv"),
+                          (8, 2048, 2048, "llama decode wq")):
+        x, w = rn(m, k), rn(k, n, std=0.02)
+        a, b = rn(k, 8, std=0.02), rn(8, n, std=0.05)
+        merged = w + 2.0 * (a @ b)
+        cases.append(dict(
+            name="lora_fused", label=f"M={m} K={k} N={n} r=8 ({path})", dtype="float32",
+            kernel=lambda x=x, w=w, a=a, b=b: lora_matmul(x, w, a, b, scale=2.0),
+            plain=lambda x=x, w=w, a=a, b=b: lora_ref(x, w, a, b, scale=2.0),
+            library=lambda x=x, mg=merged: torch.matmul(x, mg),
+            nbytes=(m * k + k * n + k * 8 + 8 * n + m * n) * 4,
+            flops=2 * m * k * n + 2 * m * k * 8 + 2 * m * 8 * n, main=False,
+            plan=("float32", n, k) if m <= 16 else None))
+    for bsz, sq, h, kh, d, window, path in ((8, 512, 32, 8, 64, 0, "SERVE-LLAMA"),
+                                            (2, 96, 4, 4, 64, 64, "SERVE-ZOO gemma3")):
+        q, kk, vv = rn(bsz, sq, h, d), rn(bsz, sq, kh, d), rn(bsz, sq, kh, d)
+        qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, kk, vv))
+        mask = make_mask(sq, sq, causal=True, window=window, device=q.device)
+        allowed = int(mask.sum())
+        cases.append(dict(
+            name="flash_attn", dtype="float32",
+            label=f"B={bsz} S={sq} H={h} K={kh} hd={d} causal window={window} ({path})",
+            kernel=lambda q=q, k=kk, v=vv, w=window: flash_attention(q, k, v, causal=True,
+                                                                   window=w),
+            plain=lambda q=q, k=kk, v=vv, w=window: attention_ref(q, k, v, causal=True,
+                                                                window=w),
+            library=lambda q=qt, k=kt, v=vt, m=mask, g=h != kh:
+            F.scaled_dot_product_attention(q, k, v, attn_mask=m, enable_gqa=g),
+            nbytes=(2 * bsz * sq * h * d + 2 * bsz * sq * kh * d) * 4,
+            flops=4 * d * allowed * bsz * h, main=False))
+    bsz, sc, h, kh, d = 8, 576, 32, 8, 64
+    q, kv = rn(bsz, 1, h, d), rn(2, bsz, sc, kh, d)
+    kc, vc = kv
+    qt = q.transpose(1, 2).contiguous()
+    kt, vt = (t.transpose(1, 2).contiguous() for t in (kc, vc))
+    cases.append(dict(
+        name="decode_attn", dtype="float32",
+        label=f"B={bsz} Sc={sc} H={h} K={kh} hd={d} cache_len={sc} window=0 (SERVE-LLAMA)",
+        kernel=lambda: decode_attention(q, kc, vc, sc),
+        plain=lambda: decode_ref(q, kc, vc, sc),
+        library=lambda: F.scaled_dot_product_attention(qt, kt, vt, enable_gqa=True),
+        nbytes=(2 * bsz * h * d + 2 * bsz * sc * kh * d) * 4,
+        flops=4 * d * sc * bsz * h, split=split_plan(bsz, sc, h),
+        read=read_call(kv, read_ranges(sc, sc)), main=False))
+    # ssd_chunk at jamba's shapes (d 256: 32 heads of 16, state 16, chunk
+    # 32): ARCH-ROUND's step (B 4, S 16) and SERVE-ZOO's prefill (B 2, S 96)
+    from repro_torch.kernels.ssd_chunk.ops import ssd_plan, ssd_scan
+    from repro_torch.kernels.ssd_chunk.ref import ssd_ref
+    for bsz, s, path in ((4, 16, "ARCH-ROUND"), (2, 96, "SERVE-ZOO jamba")):
+        h, p, n, chunk = 32, 16, 16, 32
+        x, dts = rn(bsz, s, h, p), torch.nn.functional.softplus(rn(bsz, s, h))
+        bm, cm = (rn(bsz, s, 1, n, std=0.5).expand(bsz, s, h, n) for _ in range(2))
+        a = -torch.exp(rn(h, std=0.3))
+        per_head = scores = 0
+        for c0 in range(0, s, chunk):
+            lc = min(chunk, s - c0)
+            per_head += lc * (lc + 1) // 2 * 2 * p + 2 * lc * n * p + (2 * lc * n * p if c0 else 0)
+            scores += lc * (lc + 1) // 2 * 2 * n
+        cases.append(dict(
+            name="ssd_chunk", dtype="float32",
+            label=f"B={bsz} S={s} H={h} P={p} N={n} chunk={chunk} ({path})",
+            kernel=lambda x=x, d=dts, a=a, b=bm, c=cm: ssd_scan(x, d, a, b, c, chunk=32),
+            plain=lambda x=x, d=dts, a=a, b=bm, c=cm: ssd_ref(x, d, a, b, c, chunk=32),
+            library=None,
+            nbytes=(2 * bsz * s * h * p + 2 * bsz * s * n + bsz * s * h + h
+                    + bsz * h * p * n) * 4,
+            flops=per_head * bsz * h + scores * bsz,
+            ssd=f"fused={int(ssd_plan(bsz, s, h, p, n, chunk=chunk))} cb_groups=1 ",
+            main=False))
     return cases
 
 
@@ -592,6 +716,8 @@ def grad_cases(torch):
     from repro_torch.kernels.flash_attn.ref import attention_ref
     from repro_torch.kernels.lora_fused.ops import lora_matmul
     from repro_torch.kernels.lora_fused.ref import lora_ref
+    from repro_torch.kernels.ssd_chunk.ops import ssd_scan
+    from repro_torch.kernels.ssd_chunk.ref import ssd_ref
 
     g = torch.Generator(device="cuda").manual_seed(2)
 
@@ -615,6 +741,24 @@ def grad_cases(torch):
             plain=lambda *t, c=causal: attention_ref(*t, causal=c),
             inputs=tuple(rn(b, s, h, d) for _ in range(3)), frozen=(),
             names=("q", "k", "v")))
+    # SSDScan at ARCH-ROUND's jamba/mamba2 shape (--fl-dmodel 256: batch 4,
+    # S 16, 32 heads of 16, state 16, chunk 32); B and C one group broadcast
+    # over the heads as the mixer passes them; y and h_final in one output
+    b, s, h, p, n = 4, 16, 32, 16, 16
+
+    def scan(fn):
+        def call(x, dt, a, bm, cm):
+            y, hf = fn(x, torch.nn.functional.softplus(dt), a, bm.expand(b, s, h, n),
+                       cm.expand(b, s, h, n), chunk=32)
+            return torch.cat([y.reshape(-1), hf.reshape(-1)])
+        return call
+
+    cases.append(dict(
+        name="ssd_chunk", label=f"SSDScan B={b} S={s} H={h} P={p} N={n}",
+        kernel=scan(ssd_scan), plain=scan(ssd_ref),
+        inputs=(rn(b, s, h, p), rn(b, s, h), -torch.exp(rn(h, std=0.3)),
+                rn(b, s, 1, n, std=0.5), rn(b, s, 1, n, std=0.5)),
+        frozen=(), names=("x", "dt", "a", "B", "C")))
     return cases
 
 
@@ -672,27 +816,43 @@ def wrappers():
                               block_sparse_attention, ssd_scan)))
 
 
-def expected_launches(model, lora, impl, gen):
-    """Each kernel's launches on one prefill plus ``gen`` decode steps."""
+def layer_counts(cfg, lora):
+    """(attn, local, mamba layers, factored projections a forward runs): a
+    factor leaf counts once per repeat, but not on an MoE layer's experts
+    (merged into the expert slabs, not run through ``lora_fused``)."""
     from repro_torch import trees
-    cfg = model.cfg
     kinds = [k for st in cfg.stages for k in st.pattern for _ in range(st.repeats)]
-    n_attn = sum(k.mixer == "attn" for k in kinds)
-    n_mamba = sum(k.mixer == "mamba" for k in kinds)
-    n_lora = sum(v.shape[0] for p, v in trees.flatten(lora).items() if p.endswith("/a"))
-    sparse = impl == "sparse" and cfg.sparse_attn is not None
+    n_lora = 0
+    for p, v in trees.flatten(lora).items():
+        if p.endswith("/a"):
+            si, pi = (int(t) for t in p.split("/")[1:4:2])
+            moe_ff = "/ff/" in p and cfg.stages[si].pattern[pi].ff == "moe"
+            n_lora += 0 if moe_ff else v.shape[0]
+    return (sum(k.mixer == "attn" for k in kinds), sum(k.mixer == "local" for k in kinds),
+            sum(k.mixer == "mamba" for k in kinds), n_lora)
+
+
+def expected_launches(model, lora, impl, gen):
+    """Each kernel's launches on one prefill plus ``gen`` decode steps: a
+    ``local`` layer runs ``flash_attn`` (its window) even under the sparse
+    impl, and its ring decodes through ``decode_attn``; MoE layers launch
+    none of the five."""
+    n_attn, n_local, n_mamba, n_lora = layer_counts(model.cfg, lora)
+    sparse = impl == "sparse" and model.cfg.sparse_attn is not None
     return {"lora_fused": n_lora * (1 + gen),
-            "flash_attn": 0 if sparse else n_attn,
-            "decode_attn": n_attn * gen,
+            "flash_attn": n_local + (0 if sparse else n_attn),
+            "decode_attn": (n_attn + n_local) * gen,
             "block_sparse_attn": n_attn if sparse else 0,
             "ssd_chunk": n_mamba}
 
 
 def serve_path(torch, np, spec):
-    """One serving path at full width through ``serve.build``/``generate``:
-    launch counts against the path's, then a teacher-forced CPU re-run of
-    ``spec["rows"]`` rows through the plain versions."""
+    """One serving path through ``serve.build``/``generate`` (at full width,
+    or at ``spec["reduced"]``'s reduced config): launch counts against the
+    path's, then a teacher-forced CPU re-run of ``spec["rows"]`` rows
+    through the plain versions."""
     from repro_torch import trees
+    from repro_torch.configs import get_config
     from repro_torch.launch import serve
     from repro_torch.models.transformer import Model
 
@@ -701,7 +861,11 @@ def serve_path(torch, np, spec):
                              "--prompt-len", str(spec["prompt_len"]),
                              "--gen", str(spec["gen"]),
                              "--lora-rank", str(spec["rank"])])
-    model, params, lora, lscale, prompts = serve.build(args, impl=spec["impl"])
+    cfg = (get_config(spec["arch"]).reduced(**spec["reduced"]) if spec.get("reduced")
+           else None)
+    model, params, lora, lscale, prompts, patches = serve.build(args, impl=spec["impl"],
+                                                                cfg=cfg)
+    n_cache = serve.cache_len(model, prompts, args.gen)
     # init_lora zeros B: load nonzero A and B from a numpy seed so the
     # rank-r path does real work
     rng = np.random.RandomState(1)
@@ -710,11 +874,13 @@ def serve_path(torch, np, spec):
             (rng.randn(*v.shape) * 0.05).astype(np.float32)).to(v.device), lora)
     t_built = time.perf_counter()
 
-    serve.generate(model, params, prompts, 2, lora=lora, lora_scale=lscale)  # warm-up
+    serve.generate(model, params, prompts, 2, lora=lora, lora_scale=lscale,
+                   patches=patches)  # warm-up
     kernels = wrappers()
     for f in kernels.values():
         f.launches = 0
-    res = serve.generate(model, params, prompts, args.gen, lora=lora, lora_scale=lscale)
+    res = serve.generate(model, params, prompts, args.gen, lora=lora, lora_scale=lscale,
+                         patches=patches)
     launches = {n: f.launches for n, f in kernels.items()}
     expected = expected_launches(model, lora, spec["impl"], args.gen)
     tok_s = args.batch * args.gen / res["decode_s"]
@@ -724,11 +890,13 @@ def serve_path(torch, np, spec):
     for _ in range(PREFILL_REPS):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        model.prefill(params, prompts, prompts.shape[1] + args.gen, lora=lora, lora_scale=lscale)
+        model.prefill(params, prompts, n_cache, patches=patches, lora=lora, lora_scale=lscale)
         torch.cuda.synchronize()
         reps.append((time.perf_counter() - t0) * 1e3)
     res["prefill_median_ms"] = sorted(reps)[PREFILL_REPS // 2]
-    print(f"{tag} {spec['arch']} full width ({model.cfg.n_layers} layers, impl "
+    width = (f"reduced d_model {model.cfg.d_model}" if spec.get("reduced")
+             else "full width")
+    print(f"{tag} {spec['arch']} {width} ({model.cfg.n_layers} layers, impl "
           f"{spec['impl']}): batch {args.batch} prompt {args.prompt_len} "
           f"gen {args.gen} rank {args.lora_rank} f32  prefill_ms={res['prefill_s'] * 1e3:.3f} "
           f"prefill_median_ms={res['prefill_median_ms']:.3f} "
@@ -751,7 +919,8 @@ def serve_path(torch, np, spec):
     p_cpu = trees.map_with_path(lambda _, v: v.cpu(), params)
     l_cpu = trees.map_with_path(lambda _, v: v.cpu(), lora)
     card_logits = [lg[:rows].cpu() for lg in res["logits"][:TEACHER_STEPS + 1]]
-    lg, cache = cpu.prefill(p_cpu, prompts[:rows].cpu(), prompts.shape[1] + args.gen,
+    lg, cache = cpu.prefill(p_cpu, prompts[:rows].cpu(), n_cache,
+                            patches=None if patches is None else patches[:rows].cpu(),
                             lora=l_cpu, lora_scale=lscale)
     errs = [(lg - card_logits[0]).abs().max().item()]
     for t in range(TEACHER_STEPS):
@@ -768,7 +937,7 @@ def serve_path(torch, np, spec):
           f"cpu {t_end - t_card:.1f}", flush=True)
     if max(errs) > tol:
         fail(f"{tag}: card vs CPU logits differ by {max(errs):.3e} > {tol:.3g}")
-    return launches, res, tok_s, (model, params, lora, lscale, prompts)
+    return launches, res, tok_s, (model, params, lora, lscale, prompts, patches)
 
 
 # ---------------------------------------------------------------- training
@@ -2461,6 +2630,95 @@ def train_pop(torch, np):
             dict(pftt=pftt_row, shepherd=shepherd_row, full=full_row))
 
 
+ARCH_ROUND_ARCHS = ("gpt2-small", "llama3.2-1b", "gemma3-12b", "internvl2-26b",
+                    "dbrx-132b", "jamba-v0.1-52b", "mamba2-1.3b")
+ARCH_ROUND_FLAGS = ["--fl-clients", "4", "--fl-rounds", "2", "--assert-fused",
+                    "--fl-dmodel", "256"]
+ARCH_LOSS_TOL = 1e-5
+
+
+def arch_expected(cfg, steps):
+    """Each kernel's launches in one ``--assert-fused`` arch round of
+    ``steps`` client-steps: every engine step's forward runs ``lora_fused``
+    once per factored projection (the backward is plain), and the engine's
+    and the oracle's forwards (the oracle replays every step with merged
+    weights, so no ``lora_fused``) each run ``flash_attn`` per attention or
+    ``local`` layer and ``ssd_chunk`` per mamba layer."""
+    from repro_torch.core.arch_round import MIXER_TARGETS
+    n_attn, n_local, n_mamba, _ = layer_counts(cfg, {})
+    n_lora = sum(len(MIXER_TARGETS.get(k.mixer, ())) * st.repeats
+                 for st in cfg.stages for k in st.pattern)
+    return {"lora_fused": n_lora * steps, "flash_attn": (n_attn + n_local) * 2 * steps,
+            "decode_attn": 0, "block_sparse_attn": 0, "ssd_chunk": n_mamba * 2 * steps}
+
+
+def train_arch(torch):
+    """ARCH-ROUND: ``launch/train.py --arch X --fl-clients 4 --fl-rounds 2
+    --assert-fused --fl-dmodel 256`` (head width 64) for the seven archs on
+    the card — seconds a round, loss per round, the on-card oracle error
+    (≤ 1e-5, asserted by the launcher), launches against ``arch_expected``
+    — then the same on the CPU from the same init (drawn on the CPU): losses
+    within ARCH_LOSS_TOL.  Then ``--fl-dmodel 64`` (head width 16, the JAX
+    launcher's default) must raise the attention kernels' head-width error
+    on the card, not fall back."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.arch_round import ArchRoundConfig
+    from repro_torch.launch import train
+
+    kernels = wrappers()
+    total = {n: 0 for n in KERNELS}
+    rows = {}
+    for arch in ARCH_ROUND_ARCHS:
+        t0 = time.perf_counter()
+        argv = ["--arch", arch] + ARCH_ROUND_FLAGS
+        for f in kernels.values():
+            f.launches = 0
+        with contextlib.redirect_stdout(io.StringIO()) as out:
+            res = train.main(argv)
+        launches = {n: f.launches for n, f in kernels.items()}
+        d = ArchRoundConfig(arch=arch)
+        cfg = get_config(arch).reduced(d_model=256, repeats=d.repeats)
+        expected = arch_expected(cfg, 2 * 4 * d.local_steps)
+        t_card = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            cpu = train.main(argv + ["--device", "cpu"])
+        errs = [abs(a - b) for a, b in zip(res["loss_per_round"], cpu["loss_per_round"])]
+        t_end = time.perf_counter()
+        print(f"ARCH-ROUND {arch} d_model 256 (head width {cfg.hd}): round_s "
+              f"{[round(x, 4) for x in res['round_s']]} loss_per_round "
+              f"{[round(x, 6) for x in res['loss_per_round']]} oracle_max_err "
+              f"{res['oracle_loss_max_err']:.3e} dense_merges {res['dense_merges_in_engine']} "
+              f"targets {res['lora_targets']}", flush=True)
+        print(f"ARCH-ROUND {arch} launches {launches} expected {expected}; CPU losses "
+              f"{[round(x, 6) for x in cpu['loss_per_round']]} max_abs_err "
+              f"{max(errs):.3e} (tol {ARCH_LOSS_TOL:g}); seconds card {t_card - t0:.1f} "
+              f"cpu {t_end - t_card:.1f}", flush=True)
+        if "fused path asserted" not in out.getvalue():
+            fail(f"ARCH-ROUND {arch}: the launcher's fused-path assertion did not pass")
+        if launches != expected:
+            fail(f"ARCH-ROUND {arch}: kernel launches {launches} != expected {expected}")
+        if max(errs) > ARCH_LOSS_TOL:
+            fail(f"ARCH-ROUND {arch}: card vs CPU losses differ by {max(errs):.3e}")
+        for n in KERNELS:
+            total[n] += launches[n]
+        rows[arch] = dict(round_s=res["round_s"], loss_per_round=res["loss_per_round"],
+                          oracle_max_err=res["oracle_loss_max_err"], launches=launches,
+                          cpu_loss_max_err=max(errs))
+    try:
+        with contextlib.redirect_stdout(io.StringIO()):
+            train.main(["--arch", "llama3.2-1b", "--fl-clients", "2", "--fl-rounds", "1",
+                        "--fl-dmodel", "64"])
+    except ValueError as e:
+        refusal = str(e)
+    else:
+        refusal = ""
+    print(f"ARCH-ROUND --fl-dmodel 64 on the card (head width 16): "
+          f"{'raised: ' + refusal if refusal else 'DID NOT RAISE'}", flush=True)
+    if "head width 16" not in refusal:
+        fail("ARCH-ROUND: head width 16 did not raise the kernels' head-width error")
+    return total, rows
+
+
 def profile(torch, label, run, reps):
     """torch.profiler over ``reps`` calls of ``run``: the device's busy
     share of the wall time and the kernels that fill it, per call, and the
@@ -2497,13 +2755,14 @@ def profile(torch, label, run, reps):
         print(f"PROFILE   {t / reps:10.1f} us/call  {n / reps:6.1f} calls/call  {name[:90]}")
 
 
-def profile_path(torch, tag, model, params, lora, lscale, prompts, steps=16):
+def profile_path(torch, tag, model, params, lora, lscale, prompts, patches, steps=16):
     """One prefill, then ``steps`` decode steps, each under the profiler."""
     state = {}
 
     def prefill():
         state["logits"], state["cache"] = model.prefill(
-            params, prompts, prompts.shape[1] + steps, lora=lora, lora_scale=lscale)
+            params, prompts, model.cfg.n_prefix_tokens + prompts.shape[1] + steps,
+            patches=patches, lora=lora, lora_scale=lscale)
 
     def decode():
         state["logits"], state["cache"] = model.decode_step(
@@ -2544,15 +2803,18 @@ def main():
     print(f"PHASE kernels {time.perf_counter() - t0:.1f} s", flush=True)
     launches, serve_rows = {n: 0 for n in KERNELS}, {}
     for spec in SERVES:
+        t0 = time.perf_counter()
         got, res, tok_s, served = serve_path(torch, np, spec)
+        print(f"PHASE {spec['tag']} {time.perf_counter() - t0:.1f} s", flush=True)
         for n in KERNELS:
             launches[n] += got[n]
         serve_rows[spec["tag"]] = {"prefill_ms": res["prefill_s"] * 1e3,
                                    "prefill_median_ms": res["prefill_median_ms"],
                                    "decode_tok_s": tok_s, "launches": got}
-        t0 = time.perf_counter()
-        profile_path(torch, spec["tag"], *served)
-        print(f"PHASE {spec['tag']} profile {time.perf_counter() - t0:.1f} s", flush=True)
+        if spec.get("profile", True):
+            t0 = time.perf_counter()
+            profile_path(torch, spec["tag"], *served)
+            print(f"PHASE {spec['tag']} profile {time.perf_counter() - t0:.1f} s", flush=True)
         del res, served
         torch.cuda.empty_cache()
     unused = [n for n in KERNELS if launches[n] == 0]
@@ -2585,9 +2847,12 @@ def main():
     t0 = time.perf_counter()
     got_pop, pop_row = train_pop(torch, np)
     print(f"PHASE TRAIN-POP {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    got_a, arch_rows = train_arch(torch)
+    print(f"PHASE ARCH-ROUND {time.perf_counter() - t0:.1f} s", flush=True)
     for n in KERNELS:
         launches[n] += (got[n] + got_r[n] + got_f[n] + got_p[n] + got_ra[n] + got_rb[n]
-                        + got_rc[n] + got_c[n] + got_pop[n])
+                        + got_rc[n] + got_c[n] + got_pop[n] + got_a[n])
 
     kernels = [dict(name=n, route="cuda", source=f"src/repro_torch/csrc/{n}.cu",
                     replaces=REPLACES[n], launches=launches[n],
@@ -2603,7 +2868,7 @@ def main():
                                 "ppo": ppo_row, "robust": {
                                     "pftt": robust_pftt_row, "pfit": robust_pfit_row,
                                     "ppo": robust_ppo_row}, "comms": comms_row,
-                                "pop": pop_row}}))
+                                "pop": pop_row, "arch_round": arch_rows}}))
     print(json.dumps({"kernels": kernels}))
     print(smi_line(), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -2,10 +2,10 @@
 
 The port's own copy of the configuration system: ``LayerKind``/``Stage``
 patterns, ``ModelConfig`` with its derived head width and ``reduced()``
-smoke variant, and the registry.  Only the feature blocks of the families
-ported so far are present (dense decoders with dense or block-sparse
-attention, the Mamba-2 SSM and the RoBERTa encoder); the MoE and MLA blocks
-arrive with the arch-zoo slice.
+smoke variant, the registry of every architecture the JAX package
+configures, and the benchmark input shapes.  ``MLAConfig`` is data only:
+the MLA mixer (deepseek-v2) and whisper's cross-attention decoder are not
+ported yet, and ``Model`` refuses them by name.
 """
 from __future__ import annotations
 
@@ -53,6 +53,15 @@ class Stage:
 
 
 @dataclasses.dataclass(frozen=True)
+class MoEConfig:
+    n_experts: int
+    top_k: int
+    d_ff: int                     # per-expert hidden width
+    n_shared_experts: int = 0     # always-on experts (deepseek-v2)
+    capacity_factor: float = 1.25
+
+
+@dataclasses.dataclass(frozen=True)
 class SSMConfig:
     state: int = 128
     headdim: int = 64
@@ -60,6 +69,15 @@ class SSMConfig:
     chunk: int = 256
     conv_width: int = 4
     n_groups: int = 1
+
+
+@dataclasses.dataclass(frozen=True)
+class MLAConfig:
+    kv_lora_rank: int = 512
+    q_lora_rank: int = 1536
+    rope_head_dim: int = 64
+    nope_head_dim: int = 128
+    v_head_dim: int = 128
 
 
 @dataclasses.dataclass(frozen=True)
@@ -82,7 +100,7 @@ class ModelConfig:
     d_model: int
     n_heads: int
     n_kv_heads: int
-    d_ff: int
+    d_ff: int                     # dense-MLP hidden width (0 → none)
     vocab_size: int
     stages: Tuple[Stage, ...]
     head_dim: int = 0             # 0 → d_model // n_heads
@@ -95,7 +113,9 @@ class ModelConfig:
     tie_embeddings: bool = False
     embed_scale: bool = False     # sqrt(d_model) embedding scale
     max_position: int = 0         # learned-pos table size (0 → derived per run)
+    moe: Optional[MoEConfig] = None
     ssm: Optional[SSMConfig] = None
+    mla: Optional[MLAConfig] = None
     sparse_attn: Optional[SparseAttnConfig] = None
     n_prefix_tokens: int = 0      # VLM patch-embedding positions
     prefix_dim: int = 0
@@ -142,20 +162,32 @@ class ModelConfig:
         assert self.ssm is not None
         return self.d_inner // self.ssm.headdim
 
-    def reduced(self, d_model: int = 256, repeats: int = 1,
+    def reduced(self, d_model: int = 256, repeats: int = 1, n_experts: int = 4,
                 vocab: int = 512) -> "ModelConfig":
         """Reduced same-family variant for CPU tests: ≤2 layer kinds per
-        stage pattern, ≤4 heads, the same widths ratio."""
+        stage pattern, ≤4 heads, ≤4 experts, the same widths ratio."""
         scale = d_model / self.d_model
         n_heads = max(2, min(self.n_heads, 4))
         n_kv = max(1, min(self.n_kv_heads, n_heads))
+        hd = d_model // n_heads
         stages = tuple(Stage(s.pattern[: min(len(s.pattern), 2)],
                              min(s.repeats, repeats), s.stream)
                        for s in self.stages)
+        moe = None
+        if self.moe is not None:
+            moe = MoEConfig(n_experts=min(self.moe.n_experts, n_experts),
+                            top_k=min(self.moe.top_k, 2),
+                            d_ff=max(32, int(self.moe.d_ff * scale)),
+                            n_shared_experts=min(self.moe.n_shared_experts, 1),
+                            capacity_factor=2.0)
         ssm = None
         if self.ssm is not None:
             ssm = SSMConfig(state=16, headdim=16, expand=self.ssm.expand,
                             chunk=32, conv_width=self.ssm.conv_width)
+        mla = None
+        if self.mla is not None:
+            mla = MLAConfig(kv_lora_rank=32, q_lora_rank=48, rope_head_dim=16,
+                            nope_head_dim=hd, v_head_dim=hd)
         sparse = self.sparse_attn
         if sparse is not None:
             sparse = SparseAttnConfig(block_size=16, local_blocks=2,
@@ -167,18 +199,36 @@ class ModelConfig:
             d_model=d_model,
             n_heads=n_heads,
             n_kv_heads=n_kv,
-            head_dim=d_model // n_heads,
+            head_dim=hd,
             d_ff=max(32, int(self.d_ff * scale)) if self.d_ff else 0,
             vocab_size=vocab,
             stages=stages,
             window=min(self.window, 64) if self.window else 0,
             max_position=1024,
+            moe=moe,
             ssm=ssm,
+            mla=mla,
             sparse_attn=sparse,
             n_prefix_tokens=min(self.n_prefix_tokens, 8),
             prefix_dim=min(self.prefix_dim, 64) if self.prefix_dim else 0,
             encoder_seq=min(self.encoder_seq, 16) if self.encoder_seq else 0,
         )
+
+
+@dataclasses.dataclass(frozen=True)
+class InputShape:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # train | prefill | decode
+
+
+SHAPES = {
+    "train_4k": InputShape("train_4k", 4_096, 256, "train"),
+    "prefill_32k": InputShape("prefill_32k", 32_768, 32, "prefill"),
+    "decode_32k": InputShape("decode_32k", 32_768, 128, "decode"),
+    "long_500k": InputShape("long_500k", 524_288, 1, "decode"),
+}
 
 
 _REGISTRY = {}
@@ -199,6 +249,19 @@ def list_configs():
     return sorted(_REGISTRY)
 
 
+ASSIGNED = (
+    "whisper-base", "jamba-v0.1-52b", "mamba2-1.3b", "gemma3-12b",
+    "dbrx-132b", "tinyllama-1.1b", "llama3.2-1b", "deepseek-67b",
+    "internvl2-26b", "deepseek-v2-236b",
+)
+
+PAPER_OWN = ("gpt2-small", "roberta-base")
+
+
 def _load_all():
     # import side effects register the configs
-    from repro_torch.configs import gpt2_small, mamba2_1_3b, roberta_base  # noqa: F401
+    from repro_torch.configs import (  # noqa: F401
+        whisper_base, jamba_v0_1_52b, mamba2_1_3b, gemma3_12b, dbrx_132b,
+        tinyllama_1_1b, llama3_2_1b, deepseek_67b, internvl2_26b,
+        deepseek_v2_236b, gpt2_small, roberta_base,
+    )

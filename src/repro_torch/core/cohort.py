@@ -67,7 +67,6 @@ from repro_torch.rlhf.rollout import generate
 # Where each option the port does not run yet is ported: the one table the
 # engine, ``run_pftt``, ``run_pfit`` and the launchers refuse from.
 LATER = {
-    "arch_round": "ROADMAP queue 1 item 6 (arch zoo: the other architectures' rounds)",
     "mesh": "ROADMAP queue 1 item 8 (multi-device)",
     "legacy_loop": "no item: the cohort engine replaces the legacy per-client loop",
 }

@@ -11,7 +11,11 @@ heads) C·Bᵀ is formed once per (batch, chunk), else once per head.
 The CUDA path is four launches on the current stream (C·Bᵀ, the chunk
 states, the state passing, the outputs; three when C·Bᵀ's tiles run in the
 chunk states' launch) over a workspace this wrapper allocates;
-``ssd_plan`` reports which, as the C code's rule chooses it.
+``ssd_plan`` reports which, as the C code's rule chooses it.  When grad
+mode is on and an operand requires grad, the CUDA call goes through
+``SSDScan``: the kernel is its forward, and its backward recomputes the
+plain version under autograd (the TPU kernel has no backward; JAX
+training differentiates its jnp scan, as XLA).
 """
 from __future__ import annotations
 
@@ -56,6 +60,38 @@ def _check(x, dt, a_coef, bmat, cmat, h0):
         raise ValueError("ssd_scan: dt, a and h0 must be contiguous")
 
 
+class SSDScan(torch.autograd.Function):
+    """The scan with ``fwd(x, dt, a_coef, bmat, cmat, chunk=, h0=)`` as its
+    forward (the kernel on the card; a test passes ``ssd_ref``) and the
+    backward by recomputation: ``ssd_ref`` on detached copies of the
+    inputs under ``enable_grad``, then ``autograd.grad`` of its two outputs
+    against the incoming cotangents (f32 arithmetic, as the plain version
+    computes).  A stride-0 broadcast of B or C over the heads gets its
+    gradient summed over the broadcast by autograd of the view it came
+    from."""
+
+    @staticmethod
+    def forward(ctx, fwd, chunk, x, dt, a_coef, bmat, cmat, h0):
+        y, h_out = fwd(x, dt, a_coef, bmat, cmat, chunk=chunk, h0=h0)
+        ctx.save_for_backward(x, dt, a_coef, bmat, cmat, h0)
+        ctx.chunk = chunk
+        return y, h_out
+
+    @staticmethod
+    def backward(ctx, dy, dh):
+        saved = ctx.saved_tensors
+        need = ctx.needs_input_grad[2:]
+        ins = [None if t is None else t.detach().requires_grad_(n)
+               for t, n in zip(saved, need)]
+        with torch.enable_grad():
+            y, h_out = ssd_ref(*ins[:5], chunk=ctx.chunk, h0=ins[5])
+            wrt = [t for t, n in zip(ins, need) if t is not None and n]
+            outs, cots = zip(*[(o, c) for o, c in ((y, dy), (h_out, dh)) if c is not None])
+            got = iter(torch.autograd.grad(outs, wrt, cots, allow_unused=True))
+        grads = [next(got) if t is not None and n else None for t, n in zip(ins, need)]
+        return (None, None, *grads)
+
+
 def ssd_scan(x, dt, a_coef, bmat, cmat, *, chunk: int = 256, h0=None):
     """x (B,S,H,P); dt (B,S,H); a_coef (H,); b/c (B,S,H,N); h0 (B,H,P,N)
     or None → (y (B,S,H,P) in x's dtype, h_final (B,H,P,N) f32).  y
@@ -63,7 +99,13 @@ def ssd_scan(x, dt, a_coef, bmat, cmat, *, chunk: int = 256, h0=None):
     _check(x, dt, a_coef, bmat, cmat, h0)
     if x.device.type == "cpu":
         return ssd_ref(x, dt, a_coef, bmat, cmat, chunk=chunk, h0=h0)
-    _build.forward_only("ssd_scan", x, dt, a_coef, bmat, cmat, h0)
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in (x, dt, a_coef, bmat, cmat, h0)):
+        return SSDScan.apply(_launch, chunk, x, dt, a_coef, bmat, cmat, h0)
+    return _launch(x, dt, a_coef, bmat, cmat, chunk=chunk, h0=h0)
+
+
+def _launch(x, dt, a_coef, bmat, cmat, *, chunk: int, h0=None):
     b, s, h, p = x.shape
     n = bmat.shape[-1]
     chunk = min(chunk, s)

@@ -7,8 +7,16 @@ LoRA kept unmerged (personalized serving), on the GPU by default.
 Every projection with factors runs the fused LoRA kernel, prefill attention
 the flash kernel (the block-sparse kernel for ``build(args, impl="sparse")``)
 and decode attention the flash-decode kernel; a Mamba-2 config
-(``--arch mamba2-1.3b``) runs its scan through the SSD chunk kernel.  With
-``--device cpu`` the same path runs the kernels' plain PyTorch versions.
+(``--arch mamba2-1.3b``) runs its scan through the SSD chunk kernel.  The
+arch zoo serves the same way: GQA with rotary positions (``--arch
+llama3.2-1b``), gemma3's sliding-window ring caches, internvl2 (random
+patch embeddings drawn before the prompts, as the JAX launcher draws them,
+projected into the first positions), MoE (dbrx) and the attention + Mamba +
+MoE hybrid (jamba).  With ``--device cpu`` the same path runs the kernels'
+plain PyTorch versions.
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3.2-1b \
+        --batch 8 --prompt-len 512 --gen 64 --lora-rank 8
 """
 from __future__ import annotations
 
@@ -41,14 +49,18 @@ def parse_args(argv=None):
     return ap.parse_args(argv)
 
 
-def build(args, *, impl: str = "auto"):
-    """→ (model, params, lora, lora_scale, prompts) for the parsed args;
-    ``impl`` goes to ``Model`` ("sparse": the config's block-sparse
-    attention)."""
+def build(args, *, impl: str = "auto", cfg=None):
+    """→ (model, params, lora, lora_scale, prompts, patches) for the parsed
+    args (``patches`` None but for a VLM); ``impl`` goes to ``Model``
+    ("sparse": the config's block-sparse attention); ``cfg`` replaces the
+    arch's config (another reduced variant)."""
     device = resolve_device(args.device)
-    cfg = get_config(args.arch)
-    if args.reduced:
-        cfg = cfg.reduced()
+    if cfg is None:
+        cfg = get_config(args.arch)
+        if args.reduced:
+            cfg = cfg.reduced()
+    if cfg.is_encoder_only:
+        raise SystemExit("encoder-only architectures have no decode path")
     model = Model(cfg, device=device, impl=impl)
     gen = torch.Generator().manual_seed(0)
     params = model.init(gen, max_seq=args.prompt_len + args.gen)
@@ -61,23 +73,33 @@ def build(args, *, impl: str = "auto"):
             params = peft_mod.apply_lora(params, lora, pc)
             lora = None
     rng = np.random.RandomState(0)
+    patches = None
+    if cfg.n_prefix_tokens:
+        patches = torch.from_numpy(rng.randn(args.batch, cfg.n_prefix_tokens,
+                                             cfg.prefix_dim).astype(np.float32)).to(device)
     prompts = torch.from_numpy(rng.randint(
         6, cfg.vocab_size, size=(args.batch, args.prompt_len))).to(device)
-    return model, params, lora, lscale, prompts
+    return model, params, lora, lscale, prompts, patches
+
+
+def cache_len(model, prompts, gen: int) -> int:
+    """Cache positions a generation needs: a VLM's prefix, the prompt and
+    ``gen`` steps."""
+    return model.cfg.n_prefix_tokens + prompts.shape[1] + gen
 
 
 def generate(model, params, prompts, gen: int, *, lora=None,
-             lora_scale: float = 1.0):
-    """Greedy decoding: prefill, then ``gen`` decode steps, each feeding the
-    previous step's argmax.  Returns {"tokens" (B, gen), "logits" (list of
-    gen + 1 (B, vocab) tensors: the prefill's, then each step's),
-    "prefill_s", "decode_s"}.  The loop never reads a device value back."""
+             lora_scale: float = 1.0, patches=None):
+    """Greedy decoding: prefill (after a VLM's ``patches``), then ``gen``
+    decode steps, each feeding the previous step's argmax.  Returns
+    {"tokens" (B, gen), "logits" (list of gen + 1 (B, vocab) tensors: the
+    prefill's, then each step's), "prefill_s", "decode_s"}.  The loop never
+    reads a device value back."""
     device = prompts.device
     synchronize(device)
     t0 = time.perf_counter()
-    logits, cache = model.prefill(params, prompts,
-                                  cache_len=prompts.shape[1] + gen,
-                                  lora=lora, lora_scale=lora_scale)
+    logits, cache = model.prefill(params, prompts, cache_len(model, prompts, gen),
+                                  patches=patches, lora=lora, lora_scale=lora_scale)
     synchronize(device)
     t1 = time.perf_counter()
     out, all_logits = [], [logits]
@@ -95,13 +117,14 @@ def generate(model, params, prompts, gen: int, *, lora=None,
 
 def main(argv=None):
     args = parse_args(argv)
-    model, params, lora, lscale, prompts = build(args)
+    model, params, lora, lscale, prompts, patches = build(args)
     if lora is not None:
         print(f"serving UNMERGED client LoRA (rank {args.lora_rank}, fused "
               "LoRA kernel): base stays shared")
     elif args.lora_rank:
         print(f"serving with merged client LoRA (rank {args.lora_rank})")
-    res = generate(model, params, prompts, args.gen, lora=lora, lora_scale=lscale)
+    res = generate(model, params, prompts, args.gen, lora=lora, lora_scale=lscale,
+                   patches=patches)
     print(f"prefill: {res['prefill_s'] * 1e3:.2f} ms "
           f"({args.batch}×{args.prompt_len} tokens, {model.device})")
     print(f"decode: {args.gen} steps in {res['decode_s']:.3f} s "

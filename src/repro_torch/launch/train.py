@@ -54,8 +54,19 @@ trained on an MLM loss over 15 % masked positions, the base frozen, so
 every encoder layer runs the ``lora_fused`` and non-causal ``flash_attn``
 kernels forward and their autograd Functions backward.  ``--lora-rank 0``
 is the JAX launcher's full fine-tuning (``make_train_step`` on next-token
-labels).  The JAX launcher's arch rounds of other architectures are not
-ported: ``--fl-clients`` with another ``--arch`` raises.
+labels).
+
+``--fl-clients N`` with any other ``--arch`` runs the universal factored
+round on that architecture's reduced config (``core/arch_round.py``,
+``--fl-dmodel`` wide, ``--fl-seq`` tokens a sample): a ragged LoRA cohort,
+one round step a round.  ``--assert-fused`` turns the run into the
+arch-matrix check — it fails unless no dense merge ran inside the engine,
+each round was one round step, and the losses match the dense-merge oracle
+to ≤1e-5.  On the card the width must give a head width the attention
+kernels take (32, 64 or 128: ``--fl-dmodel 256`` → 64):
+
+    PYTHONPATH=src python -m repro_torch.launch.train --arch llama3.2-1b \
+        --fl-clients 4 --fl-rounds 2 --assert-fused --fl-dmodel 256
 """
 from __future__ import annotations
 
@@ -68,7 +79,6 @@ import torch
 
 from repro_torch import resolve_device, trees
 from repro_torch.configs import get_config, list_configs
-from repro_torch.core.cohort import not_ported
 from repro_torch.data import SPECIAL
 from repro_torch.launch.steps import make_peft_loss, make_peft_step, make_train_step
 from repro_torch.models import peft as peft_mod
@@ -164,13 +174,54 @@ def parse_args(argv=None):
     ap.add_argument("--torch-profile", action="store_true",
                     help="with --telemetry-dir: bracket the run in a "
                          "torch.profiler trace under <dir>/torch_profile")
+    ap.add_argument("--assert-fused", action="store_true",
+                    help="FL engine: fail unless the run took the fused "
+                         "factored path — zero dense merges, one round step "
+                         "a round, and (non-roberta archs) ≤1e-5 parity vs "
+                         "the dense-merge oracle")
+    ap.add_argument("--fl-seq", type=int, default=16,
+                    help="arch FL round: per-sample sequence length")
+    ap.add_argument("--fl-dmodel", type=int, default=64,
+                    help="arch FL round: reduced-config width")
     args = ap.parse_args(argv)
     if args.population and args.arch != "roberta-base":
         raise SystemExit("--population runs the PFTT workload: "
                          "use --arch roberta-base")
-    not_ported(f"--fl-clients with --arch {args.arch} (PFTT runs roberta-base)",
-               arch_round=bool(args.fl_clients) and args.arch != "roberta-base")
     return args
+
+
+def arch_round_config(args):
+    """The ``ArchRoundConfig`` of ``--fl-clients`` with a non-roberta arch,
+    as the JAX launcher builds it."""
+    from repro_torch.core.arch_round import ArchRoundConfig
+    return ArchRoundConfig(arch=args.arch, n_clients=args.fl_clients,
+                           rounds=args.fl_rounds, batch=min(args.batch, 4),
+                           seq_len=args.fl_seq, d_model=args.fl_dmodel, lr=args.lr,
+                           oracle=args.assert_fused, device=args.device)
+
+
+def run_arch(args):
+    """The universal factored round (and with ``--assert-fused`` its
+    checks) → the result dict."""
+    from repro_torch.core.arch_round import run_arch_round
+    print(f"universal factored round: --arch {args.arch}, {args.fl_clients} clients "
+          f"on {resolve_device(args.device)}")
+    res = run_arch_round(arch_round_config(args))
+    print(f"arch={res['arch']} targets={res['lora_targets']} ragged={res['ragged']} "
+          f"ghosts={res['n_ghosts']} dispatches/round={res['dispatches_per_round']} "
+          f"dense_merges={res['dense_merges_in_engine']} "
+          f"loss/round={['%.4f' % lo for lo in res['loss_per_round']]} "
+          f"round_s={[round(s, 4) for s in res['round_s']]}")
+    if args.assert_fused:
+        err = res["oracle_loss_max_err"]
+        print(f"oracle parity max err {err:.2e}")
+        assert res["dense_merges_in_engine"] == 0, \
+            "dense-merge fallback taken inside the fused round"
+        assert res["dispatches_per_round"] == 1.0, \
+            "cohort fell back to per-client dispatch"
+        assert err <= 1e-5, f"factored/oracle divergence {err:.2e}"
+        print("fused path asserted: factored, one dispatch, oracle parity OK")
+    return res
 
 
 def deadline_config(args):
@@ -223,10 +274,6 @@ class Trainer:
         cfg = get_config(args.arch)
         if args.reduced:
             cfg = cfg.reduced()
-        if any(k.mixer == "mamba" for s in cfg.stages for k in s.pattern):
-            raise NotImplementedError(
-                f"{cfg.name}: ssd_chunk has no backward yet (mamba training is "
-                "not ported)")
         self.cfg = cfg
         self.model = Model(cfg, device=self.device)
         gen = torch.Generator().manual_seed(0)
@@ -281,6 +328,8 @@ class Trainer:
 
 def main(argv=None):
     args = parse_args(argv)
+    if args.fl_clients and args.arch != "roberta-base":
+        return run_arch(args)
     if args.fl_clients or args.population:
         from repro_torch.core.pftt import run_pftt
         if args.population:
@@ -304,6 +353,9 @@ def main(argv=None):
         if deadline_config(args) is not None:
             print(f"continuous-time round: sim time {res['total_sim_time_s']:.1f}s "
                   f"quorum no-ops {res['quorum_noops']}")
+        if args.assert_fused:
+            assert res["fused_engine"], "PFTT ran the legacy per-client loop"
+            print("fused path asserted: engine round")
         return res
     tr = Trainer(args)
     rng = np.random.RandomState(0)

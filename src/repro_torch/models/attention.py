@@ -125,20 +125,22 @@ def decode_attention(q, k_cache, v_cache, cache_len: int, *, window: int = 0,
     """q: (B,1,H,hd); caches: (B,Sc,K,hd); ``cache_len`` = number of valid
     positions INCLUDING the token just written (positions < cache_len are
     read; with ``window``, only the last ``window`` of them; with ``sparse``,
-    a ``SparseAttnConfig``, only those of the active blocks)."""
-    if ring:
-        raise NotImplementedError("ring (window) caches are ported with the "
-                                  "arch-zoo slice")
+    a ``SparseAttnConfig``, only those of the active blocks).  ``ring``:
+    the cache is a ring of Sc slots (a window cache), every slot below
+    min(cache_len, Sc) valid and in the window by construction."""
     b, _, h, d = q.shape
     sc, n_kv = k_cache.shape[1], k_cache.shape[2]
     qg = q.float().reshape(b, n_kv, h // n_kv, d) * (d ** -0.5)
     logits = torch.einsum("bKgd,btKd->bKgt", qg, k_cache.float())
     pos = torch.arange(sc, device=q.device)
-    allowed = pos < cache_len
-    if window > 0:
-        allowed &= pos > cache_len - 1 - window
-    if sparse is not None:
-        allowed &= sparse_position_mask(pos, cache_len, sparse)
+    if ring:
+        allowed = pos < min(cache_len, sc)
+    else:
+        allowed = pos < cache_len
+        if window > 0:
+            allowed &= pos > cache_len - 1 - window
+        if sparse is not None:
+            allowed &= sparse_position_mask(pos, cache_len, sparse)
     logits = logits.masked_fill(~allowed, NEG_INF)
     probs = torch.softmax(logits, dim=-1)
     out = torch.einsum("bKgt,btKd->bKgd", probs, v_cache.float())

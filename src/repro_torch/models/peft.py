@@ -81,13 +81,28 @@ def _is_lora_leaf(x) -> bool:
     return isinstance(x, dict) and "a" in x
 
 
+# Dense-merge accounting: every merge of a present factor leaf bumps this
+# counter, so tests and the arch-matrix launcher can assert that the
+# factored hot path never fell back to materializing ``W + s·A·B`` (the
+# JAX package counts at trace time; here every eager merge counts).
+_DENSE_MERGE_COUNT = [0]
+
+
+def dense_merge_count() -> int:
+    """Number of factor-leaf dense merges so far (process-global)."""
+    return _DENSE_MERGE_COUNT[0]
+
+
 def merge_factors(params, lora, scale: float):
     """Dense-merge ``W + scale·mask·(A·B)`` over a (sub)tree pair — the
-    merged parity oracle."""
+    merged parity oracle, and the MoE expert FFN's per-layer merge (its
+    batched expert products take no factors).  The mask carries no
+    gradient, as the JAX package's ``stop_gradient``."""
     if lora is None:
         return params
     if _is_lora_leaf(lora):
-        return params + scale * lora["mask"] * (lora["a"] @ lora["b"])
+        _DENSE_MERGE_COUNT[0] += 1
+        return params + scale * lora["mask"].detach() * (lora["a"] @ lora["b"])
     if isinstance(params, dict):
         return {k: merge_factors(v, lora.get(k), scale) for k, v in params.items()}
     if isinstance(params, (list, tuple)):

@@ -1,24 +1,29 @@
 """Model: the stack runner over stage patterns (decoders and the encoder).
 
 The port of ``repro.models.transformer.Model`` for the families ported so
-far (dense decoders, attention-free Mamba-2, the encoder-only RoBERTa):
-token embeddings (plus learned positions where the config has them),
-stages of repeated layer patterns (parameters stacked on a leading repeat
-axis, walked by a Python loop where the JAX package ``lax.scan``s), the
-final norm and the (tied) LM head, and for an encoder the classifier head.
-Parameters are plain nested dicts of tensors in the JAX layout, so
-``bridge`` moves them between the two packages unchanged.
+far — dense GQA decoders with learned or rotary positions (gpt2, the
+llamas, deepseek-67b), gemma3's sliding-window ``local`` layers, the VLM
+(internvl2: projected patch embeddings before the text), MoE (dbrx), the
+attention + Mamba + MoE hybrid (jamba), attention-free Mamba-2 and the
+encoder-only RoBERTa: token embeddings (plus learned positions where the
+config has them), stages of repeated layer patterns (parameters stacked on
+a leading repeat axis, walked by a Python loop where the JAX package
+``lax.scan``s), the final norm and the (tied) LM head, and for an encoder
+the classifier head.  Parameters are plain nested dicts of tensors in the
+JAX layout, so ``bridge`` moves them between the two packages unchanged.
+MLA (deepseek-v2) and encoder-decoder stacks (whisper) are refused by name.
 
 Entry points:
 
 * ``lm_loss``     — chunked cross-entropy over the masked positions (MLM
-                    pretraining, full and PEFT fine-tuning)
+                    pretraining, full and PEFT fine-tuning; a VLM's loss
+                    covers its text positions only)
 * ``cls_loss``    — the encoder classifier's loss and accuracy (PFTT)
 * ``prefill``     — full prompt → last-token logits and a decode cache
 * ``decode_step`` — one token against the cache (updated in place)
 
-The JAX package's losses add ``AUX_WEIGHT · aux``, the MoE balance loss;
-no ported family has MoE layers, so the port's aux is zero and is left out.
+Both losses add ``AUX_WEIGHT · aux``, the sum of the MoE layers' balance
+losses, as the JAX package does; a model without MoE layers adds nothing.
 """
 from __future__ import annotations
 
@@ -28,11 +33,14 @@ import torch
 
 from repro_torch import resolve_device, trees
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models import ssm
+from repro_torch.models import moe, ssm
 from repro_torch.models.blocks import (IMPLS, apply_layer_decode,
                                        apply_layer_seq, check_kind,
                                        layer_cache_shape)
 from repro_torch.models.norms import apply_norm
+from repro_torch.models.rope import rope_cos_sin
+
+AUX_WEIGHT = 0.01
 
 
 def _at(tree, r: int):
@@ -54,14 +62,8 @@ class Model:
                  impl: str = "auto"):
         if cfg.is_encoder_decoder:
             raise NotImplementedError(
-                f"{cfg.name}: encoder-decoder stacks are ported with the "
-                "arch-zoo slice (whisper)")
-        if cfg.n_prefix_tokens:
-            raise NotImplementedError(f"{cfg.name}: VLM prefixes are ported "
-                                      "with the arch-zoo slice")
-        if cfg.pos != "learned" and not cfg.attention_free:
-            raise NotImplementedError(f"{cfg.name}: rotary positions are "
-                                      "ported with the arch-zoo slice")
+                f"{cfg.name}: encoder-decoder stacks are ported with the arch "
+                "zoo's fourteenth slice (whisper)")
         for stage in cfg.stages:
             for kind in stage.pattern:
                 check_kind(kind)
@@ -100,6 +102,8 @@ class Model:
             params["lm_head"] = normal((d, cfg.vocab_size), 0.02)
         if cfg.pos == "learned":
             params["pos_embed"] = normal((max(cfg.max_position, max_seq, 1024), d), 0.02)
+        if cfg.n_prefix_tokens:
+            params["projector"] = normal((cfg.prefix_dim, d), cfg.prefix_dim ** -0.5)
         if cfg.n_classes:
             params["cls_head"] = normal((d, cfg.n_classes), 0.02)
         stages = []
@@ -124,6 +128,9 @@ class Model:
                                 "wd": normal((r, cfg.d_ff, d), cfg.d_ff ** -0.5)}
                     if cfg.act in ("swiglu", "geglu"):
                         lp["ff"]["wg"] = normal((r, d, cfg.d_ff), d ** -0.5)
+                elif kind.ff == "moe":
+                    lp["norm2"] = stacked_norm(r, d)
+                    lp["ff"] = moe.init_moe(normal, d, cfg.moe, cfg.act, lead=(r,))
                 layers.append(lp)
             stages.append({"layers": layers})
         params["stages"] = stages
@@ -137,6 +144,14 @@ class Model:
         if self.cfg.pos == "learned":
             x = x + params["pos_embed"][positions].to(self.dtype)
         return x
+
+    def _rot(self, positions):
+        """The rotary (cos, sin) table of ``positions`` that every layer of
+        a step shares, or None (learned positions, attention-free)."""
+        cfg = self.cfg
+        if cfg.pos != "rope" or cfg.attention_free:
+            return None
+        return rope_cos_sin(positions, cfg.hd, cfg.rope_theta)
 
     @staticmethod
     def _check_impl(impl):
@@ -162,20 +177,38 @@ class Model:
                 "with peft.apply_lora instead")
 
     # -------------------------------------------------------------- forward
-    def forward(self, params, tokens, *, impl: Optional[str] = None,
+    def forward(self, params, tokens, *, patches=None, impl: Optional[str] = None,
                 collect_cache: bool = False, lora=None, lora_scale: float = 1.0):
-        """tokens (B, S) → (hidden (B, S, d), caches), positions from 0.  With
-        ``collect_cache`` (decoders only) caches[si][pi] holds each layer's
-        cache entry stacked over the repeats — {"k", "v"} (repeats, B, S, K,
-        hd) for attention, {"h", "conv"} for mamba; otherwise it is None."""
+        """tokens (B, S) → (hidden (B, P + S, d), caches), positions from 0;
+        a VLM's ``patches`` (B, P, prefix_dim) are projected into the first
+        P positions.  With ``collect_cache`` (decoders only) caches[si][pi]
+        holds each layer's cache entry stacked over the repeats — {"k",
+        "v"} (repeats, B, P + S, K, hd) for attention, {"h", "conv"} for
+        mamba; otherwise it is None."""
+        hidden, _, caches = self._run(params, tokens, patches=patches, impl=impl,
+                                      collect_cache=collect_cache, lora=lora,
+                                      lora_scale=lora_scale)
+        return hidden, caches
+
+    def _run(self, params, tokens, *, patches=None, impl=None,
+             collect_cache=False, lora=None, lora_scale=1.0):
+        """``forward`` → (hidden, aux, caches); aux is the MoE layers' summed
+        balance loss, None without MoE layers."""
         cfg = self.cfg
         impl = impl or self.impl
         self._check_impl(impl)
         self._check_lora(lora)
         if collect_cache:
             self._check_decoder()
-        positions = torch.arange(tokens.shape[1], device=tokens.device)
-        x = self._embed_tokens(params, tokens, positions)
+        n_pre = cfg.n_prefix_tokens
+        if n_pre and (patches is None or patches.shape[1] != n_pre):
+            raise ValueError(f"{cfg.name} takes patches (B, {n_pre}, {cfg.prefix_dim})")
+        positions = torch.arange(n_pre + tokens.shape[1], device=tokens.device)
+        x = self._embed_tokens(params, tokens, positions[n_pre:])
+        if n_pre:
+            x = torch.cat([patches.to(self.dtype) @ params["projector"], x], 1)
+        rot = self._rot(positions)
+        aux = None
         caches = [] if collect_cache else None
         for si, stage in enumerate(cfg.stages):
             sp, lsp = params["stages"][si], self._lora_stage(lora, si)
@@ -183,15 +216,22 @@ class Model:
             for r in range(stage.repeats):
                 for pi, kind in enumerate(stage.pattern):
                     lf = None if lsp is None else _at(lsp["layers"][pi], r)
-                    x, c = apply_layer_seq(x, _at(sp["layers"][pi], r), kind, cfg,
-                                           impl=impl, lora=lf, lora_scale=lora_scale)
+                    x, c, a = apply_layer_seq(x, _at(sp["layers"][pi], r), kind, cfg,
+                                              rot, impl=impl, lora=lf,
+                                              lora_scale=lora_scale)
+                    if a is not None:
+                        aux = a if aux is None else aux + a
                     if collect_cache:
                         for name, t in c.items():
                             got[pi].setdefault(name, []).append(t)
             if collect_cache:
                 caches.append([{n: torch.stack(t) for n, t in e.items()} for e in got])
         x = apply_norm(x, params["final_norm"], cfg.norm, cfg.norm_eps)
-        return x, caches
+        return x, aux, caches
+
+    @staticmethod
+    def _with_aux(loss, aux):
+        return loss if aux is None else loss + AUX_WEIGHT * aux
 
     def _check_decoder(self):
         if self.cfg.is_encoder_only:
@@ -207,8 +247,9 @@ class Model:
         """Cross-entropy over the positions where ``batch["mask"]`` is set,
         the logits formed ``chunk`` positions at a time (never the whole
         (B, S, vocab) at once; one chunk when S is not a multiple)."""
-        hidden, _ = self.forward(params, batch["tokens"], impl=impl, lora=lora,
-                                 lora_scale=lora_scale)
+        hidden, aux, _ = self._run(params, batch["tokens"], patches=batch.get("patches"),
+                                   impl=impl, lora=lora, lora_scale=lora_scale)
+        hidden = hidden[:, self.cfg.n_prefix_tokens:]    # text positions only
         labels, mask = batch["labels"], batch["mask"]
         s = hidden.shape[1]
         head = self._lm_head(params)
@@ -223,7 +264,7 @@ class Model:
             m = mask[:, c0:c0 + chunk].float()
             tot = tot + ((logz - ll) * m).sum()
             cnt = cnt + m.sum()
-        return tot / torch.clamp(cnt, min=1.0)
+        return self._with_aux(tot / torch.clamp(cnt, min=1.0), aux)
 
     def cls_loss(self, params, batch, *, impl: Optional[str] = None,
                  lora=None, lora_scale: float = 1.0):
@@ -231,8 +272,8 @@ class Model:
         An optional ``batch["valid"]`` (B,) sample weight (the padded rows of
         a ragged cohort, ``core.cohort.HostBatchStacker``) makes both the
         weighted means over the real rows."""
-        hidden, _ = self.forward(params, batch["tokens"], impl=impl, lora=lora,
-                                 lora_scale=lora_scale)
+        hidden, aux, _ = self._run(params, batch["tokens"], impl=impl, lora=lora,
+                                   lora_scale=lora_scale)
         logits = (hidden[:, 0] @ params["cls_head"]).float()
         label = batch["label"].long()
         logz = torch.logsumexp(logits, dim=-1)
@@ -240,9 +281,10 @@ class Model:
         correct = (logits.argmax(-1) == label).float()
         w = batch.get("valid")
         if w is None:
-            return (logz - ll).mean(), correct.mean()
+            return self._with_aux((logz - ll).mean(), aux), correct.mean()
         wsum = torch.clamp(w.sum(), min=1.0)
-        return ((logz - ll) * w).sum() / wsum, (correct * w).sum() / wsum
+        return (self._with_aux(((logz - ll) * w).sum() / wsum, aux),
+                (correct * w).sum() / wsum)
 
     def logits(self, params, hidden):
         return (hidden @ self._lm_head(params)).float()
@@ -251,7 +293,9 @@ class Model:
     def init_cache(self, batch: int, cache_len: int, dtype=None):
         """{"pos": host int, "stages": [[entry per pattern position]]}, each
         entry stacked over the repeats: {"k", "v"} (repeats, B, Sc, K, hd)
-        for attention, {"h" f32, "conv"} for mamba."""
+        for attention (Sc = min(cache_len, window) for a ``local`` ring),
+        {"h" f32, "conv"} for mamba.  A VLM's prefix takes cache positions
+        too."""
         self._check_decoder()
         dtype = dtype or self.dtype
         return {"pos": 0, "stages": [
@@ -262,22 +306,33 @@ class Model:
             for stage in self.cfg.stages]}
 
     # -------------------------------------------------------------- prefill
-    def prefill(self, params, tokens, cache_len: int, *,
+    def prefill(self, params, tokens, cache_len: int, *, patches=None,
                 impl: Optional[str] = None, lora=None, lora_scale: float = 1.0):
-        """Run the prompt; return (last-token logits (B, vocab) f32, cache)."""
-        s_prompt = tokens.shape[1]
+        """Run the prompt (after a VLM's ``patches``); return (last-token
+        logits (B, vocab) f32, cache) with the cache's ``pos`` at the prompt's
+        end, the prefix included.  A ``local`` ring keeps the prompt's last
+        Sc positions, position p at slot p mod Sc."""
+        s_prompt = self.cfg.n_prefix_tokens + tokens.shape[1]
         if s_prompt > cache_len:
-            raise ValueError(f"prompt length {s_prompt} > cache_len {cache_len}")
-        hidden, caches = self.forward(params, tokens, impl=impl, collect_cache=True,
-                                      lora=lora, lora_scale=lora_scale)
+            raise ValueError(f"prompt length {s_prompt} (prefix included) > "
+                             f"cache_len {cache_len}")
+        hidden, caches = self.forward(params, tokens, patches=patches, impl=impl,
+                                      collect_cache=True, lora=lora,
+                                      lora_scale=lora_scale)
         cache = self.init_cache(tokens.shape[0], cache_len)
         for entries, got in zip(cache["stages"], caches):
             for entry, raw in zip(entries, got):
                 for name, buf in entry.items():
                     if name in ("h", "conv"):   # whole states, not per position
                         buf.copy_(raw[name])
-                    else:
+                        continue
+                    sc = buf.shape[2]
+                    if s_prompt <= sc:
                         buf[:, :, :s_prompt] = raw[name]
+                    else:                       # ring: the last sc positions
+                        slots = torch.arange(s_prompt - sc, s_prompt,
+                                             device=buf.device) % sc
+                        buf[:, :, slots] = raw[name][:, :, -sc:]
         cache["pos"] = s_prompt
         return self.logits(params, hidden[:, -1]), cache
 
@@ -292,7 +347,9 @@ class Model:
         self._check_lora(lora)
         self._check_decoder()
         pos = cache["pos"]
-        x = self._embed_tokens(params, tokens, torch.full_like(tokens, pos))
+        positions = torch.full_like(tokens, pos)
+        x = self._embed_tokens(params, tokens, positions)
+        rot = self._rot(positions[0])
         for si, stage in enumerate(cfg.stages):
             sp, lsp = params["stages"][si], self._lora_stage(lora, si)
             for r in range(stage.repeats):
@@ -300,7 +357,7 @@ class Model:
                     lf = None if lsp is None else _at(lsp["layers"][pi], r)
                     x = apply_layer_decode(x, _at(sp["layers"][pi], r), kind,
                                            _at(cache["stages"][si][pi], r), pos,
-                                           cfg, impl=impl, lora=lf,
+                                           cfg, rot, impl=impl, lora=lf,
                                            lora_scale=lora_scale)
         x = apply_norm(x, params["final_norm"], cfg.norm, cfg.norm_eps)
         cache["pos"] = pos + 1

@@ -398,16 +398,19 @@ def test_decode_attn_kernel_unaligned(gen):
 
 @pytest.mark.parametrize("arch,prompt_len,impl", [("gpt2-small", 9, "auto"),
                                                   ("gpt2-small", 32, "sparse"),
-                                                  ("mamba2-1.3b", 40, "auto")])
+                                                  ("mamba2-1.3b", 40, "auto"),
+                                                  ("gemma3-12b", 70, "auto")])
 def test_serving_on_card_matches_cpu(gen, arch, prompt_len, impl):
     """Reduced serving on the card (kernels) vs the CPU (plain): dense and
-    block-sparse gpt2, and mamba2 (its prompt ends inside a scan chunk)."""
+    block-sparse gpt2, mamba2 (its prompt ends inside a scan chunk) and
+    gemma3 (two ``local`` layers whose 64-slot rings wrap in prefill and
+    decode)."""
     from repro_torch import trees
     from repro_torch.launch import serve
     args = serve.parse_args(["--arch", arch, "--reduced", "--batch", "2",
                              "--prompt-len", str(prompt_len), "--gen", "4",
                              "--lora-rank", "4"])
-    model, params, lora, scale, prompts = serve.build(args, impl=impl)
+    model, params, lora, scale, prompts, _ = serve.build(args, impl=impl)
     lora = trees.map_with_path(lambda p, t: t if p.endswith("/mask") else
                                _rn(gen, *t.shape, std=0.05), lora)
     res = serve.generate(model, params, prompts, 4, lora=lora, lora_scale=scale)
@@ -425,11 +428,11 @@ def test_serving_on_card_matches_cpu(gen, arch, prompt_len, impl):
 
 
 def test_wrappers_refuse_grad_on_card(gen):
-    """The serving-only CUDA entry points (decode, block-sparse, SSD) raise
-    when an operand requires grad under grad mode (their kernels have no
-    backward and would drop it) and run under torch.no_grad(); lora_matmul
-    and flash_attention go through their autograd Functions, so the
-    gradients arrive."""
+    """The serving-only CUDA entry points (decode, block-sparse) raise when
+    an operand requires grad under grad mode (their kernels have no
+    backward and would drop it) and run under torch.no_grad(); lora_matmul,
+    flash_attention and ssd_scan go through their autograd Functions, so
+    the gradients arrive."""
     x, w = _rn(gen, 4, 64), _rn(gen, 64, 32)
     a, b = _rn(gen, 64, 4).requires_grad_(), _rn(gen, 4, 32)
     q, q1 = _rn(gen, 2, 64, 4, 32).requires_grad_(), _rn(gen, 2, 1, 4, 32).requires_grad_()
@@ -438,8 +441,7 @@ def test_wrappers_refuse_grad_on_card(gen):
     ssd = list(_ssd_inputs(gen, 1, 32, 2, 16, 16, torch.float32))
     ssd[0].requires_grad_()
     calls = {"decode_attention": lambda: decode_attention(q1, kv, kv, 10),
-             "block_sparse_attention": lambda: block_sparse_attention(q, kv, kv, cfg),
-             "ssd_scan": lambda: ssd_scan(*ssd[:5], chunk=16)}
+             "block_sparse_attention": lambda: block_sparse_attention(q, kv, kv, cfg)}
     for name, call in calls.items():
         with pytest.raises(RuntimeError, match=f"{name}: the CUDA kernel is forward-only"):
             call()
@@ -447,9 +449,11 @@ def test_wrappers_refuse_grad_on_card(gen):
             call()
     lora_matmul(x, w, a, b, scale=2.0).sum().backward()
     flash_attention(q, kv, kv, causal=False).sum().backward()
+    ssd_scan(*ssd[:5], chunk=16)[0].sum().backward()
     torch.cuda.synchronize()
     assert a.grad is not None and bool(a.grad.abs().sum() > 0)
     assert q.grad is not None and bool(q.grad.abs().sum() > 0)
+    assert ssd[0].grad is not None and bool(ssd[0].grad.abs().sum() > 0)
 
 
 def _grads(fn, *ins):
@@ -495,6 +499,33 @@ def test_flash_function_grads_on_card(gen, b, s, h, kh, d, causal):
     _close(out, ref, TOL["flash"][torch.float32])
     for g_, w_ in zip(got, want):
         _close(g_, w_, TOL["flash"][torch.float32])
+
+
+@pytest.mark.parametrize("b,s,h,p,n,chunk,h0", [(3, 24, 32, 16, 16, 32, False),
+                                                 (2, 100, 8, 64, 128, 32, True)])
+def test_ssd_function_grads_on_card(gen, b, s, h, p, n, chunk, h0):
+    """``SSDScan`` on the card (the kernel forward, the recomputed plain
+    backward): every input gradient against autograd of ``ssd_ref`` on the
+    card, at the arch round's jamba/mamba2 shape (d 256: 32 heads of 16,
+    state 16) and a multi-chunk case with h0, B and C a stride-0 broadcast."""
+    x, dt, a, bm, cm, hh = _ssd_inputs(gen, b, s, h, p, n, torch.float32, h0=h0,
+                                       shared_bc=True)
+    ins = [x, dt, a, bm[:, :, :1].contiguous(), cm[:, :, :1].contiguous()] + (
+        [hh] if h0 else [])
+
+    def run(fn):
+        leaves = [t.detach().clone().requires_grad_() for t in ins]
+        bc = [t.expand(b, s, h, n) for t in leaves[3:5]]
+        y, hf = fn(*leaves[:3], *bc, leaves[5] if h0 else None)
+        g = torch.Generator(device="cuda").manual_seed(1)
+        loss = ((y * torch.randn(y.shape, generator=g, device="cuda")).sum()
+                + (hf * torch.randn(hf.shape, generator=g, device="cuda")).sum())
+        return torch.autograd.grad(loss, leaves)
+
+    got = run(lambda *t: ssd_scan(*t[:5], chunk=chunk, h0=t[5]))
+    want = run(lambda *t: ssd_ref(*t[:5], chunk=chunk, h0=t[5]))
+    for gk, gp in zip(got, want):
+        torch.testing.assert_close(gk, gp, atol=5e-4, rtol=1e-3)
 
 
 def test_peft_step_on_card_matches_cpu(gen):

@@ -82,8 +82,14 @@ def test_decode_attention_matches_jax(cache_len, window):
 
 
 def test_decode_attention_unported_modes_raise():
-    """Ring (window) caches are still unported; the sparse mask is ported
-    (``tests/test_torch_sparse.py``)."""
-    q = torch.zeros(1, 1, 2, 8)
-    with pytest.raises(NotImplementedError, match="arch-zoo"):
-        attention.decode_attention(q, q, q, 1, ring=True)
+    """Ring (window) caches are ported now (the sparse mask is covered by
+    ``tests/test_torch_sparse.py``): a ring of Sc slots reads every slot
+    below min(cache_len, Sc), as the JAX package's, before and after it
+    wraps."""
+    q, kc, vc = _rand(5, (2, 1, 4, 16), (2, 8, 2, 16), (2, 8, 2, 16))
+    for cache_len in (3, 8, 13):
+        want = j_attn.decode_attention(jnp.asarray(q), jnp.asarray(kc), jnp.asarray(vc),
+                                       cache_len, window=8, ring=True)
+        got = attention.decode_attention(*map(torch.from_numpy, (q, kc, vc)), cache_len,
+                                         window=8, ring=True)
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=2e-6)

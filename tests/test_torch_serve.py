@@ -201,7 +201,7 @@ def test_serve_cli_runs_mamba2_on_cpu():
 def test_serve_build_passes_impl():
     args = serve.parse_args(["--arch", "gpt2-small", "--reduced", "--batch", "1",
                              "--prompt-len", "32", "--gen", "2", "--device", "cpu"])
-    model, params, _, _, prompts = serve.build(args, impl="sparse")
+    model, params, _, _, prompts, _ = serve.build(args, impl="sparse")
     assert model.impl == "sparse"
     assert serve.generate(model, params, prompts, 2)["tokens"].shape == (1, 2)
 
@@ -217,22 +217,26 @@ def test_serve_without_cuda_raises(monkeypatch):
 
 
 def test_unported_kinds_name_their_slice():
+    """MLA and whisper's cross-attention decoder wait for the arch zoo's
+    fourteenth slice; MoE, the ``local`` window, rotary positions and VLM
+    prefixes are ported."""
     import dataclasses
     from repro_torch.configs import LK, Stage
     cfg = get_config("gpt2-small").reduced()
-    for kind, slice_ in ((LK("dec", "mlp"), "arch-zoo"), (LK("mla", "none"), "arch-zoo"),
-                         (LK("attn", "moe"), "arch-zoo"), (LK("local", "mlp"), "arch-zoo")):
+    for kind in (LK("dec", "mlp"), LK("mla", "none")):
         bad = dataclasses.replace(cfg, stages=(Stage((kind,), 1),))
-        with pytest.raises(NotImplementedError, match=slice_):
+        with pytest.raises(NotImplementedError, match="fourteenth slice"):
             Model(bad, device="cpu")
+    moe = get_config("dbrx-132b").reduced()
+    for kind in (LK("attn", "moe"), LK("local", "mlp")):
+        Model(dataclasses.replace(moe, stages=(Stage((kind,), 1),)), device="cpu")
     # the encoder (PFTT's roberta) is ported; an encoder-decoder stack is not
     Model(get_config("roberta-base").reduced(), device="cpu")
     enc_dec = dataclasses.replace(cfg, stages=(Stage((LK("enc", "mlp"),), 1, "encoder"),
                                                Stage((LK("attn", "mlp"),), 1)))
-    with pytest.raises(NotImplementedError, match="arch-zoo"):
+    with pytest.raises(NotImplementedError, match="fourteenth slice"):
         Model(enc_dec, device="cpu")
-    # rotary positions stay unported for configs with attention layers; an
-    # attention-free config (mamba2) reads no positions and is accepted
-    with pytest.raises(NotImplementedError, match="rotary"):
-        Model(dataclasses.replace(cfg, pos="rope"), device="cpu")
+    # rotary positions and VLM prefixes build
+    Model(dataclasses.replace(cfg, pos="rope"), device="cpu")
+    Model(get_config("internvl2-26b").reduced(), device="cpu")
     Model(get_config("mamba2-1.3b").reduced(), device="cpu")
