@@ -44,7 +44,27 @@ Phases, each reported on its own lines:
      rings wrap), internvl2-26b (8 projected patch positions before the
      prompt), dbrx-132b (MoE) and jamba-v0.1-52b (attention + Mamba + MoE)
      at ``.reduced(d_model=256, repeats=2)`` (head width 64), batch 2,
-     prompt 96, 40 decode steps, no PROFILE.
+     prompt 96, 40 decode steps, no PROFILE;
+   * SERVE-WHISPER: whisper-base at its published widths and depth (6
+     encoder + 6 decoder layers, d 512, 8 heads of 64, d_ff 2048, vocab
+     51865, 1500 random post-conv frames), batch 8, prompt 64, 64 decode
+     steps, LoRA on wq and wv: the encoder's non-causal ``flash_attn`` over
+     1500 frames, the ``dec`` layers' causal and cross ``flash_attn`` in
+     prefill, two ``decode_attn`` a layer a step (self, cross over 1500);
+   * SERVE-MLA: deepseek-v2-236b's MLA at its published widths (d 5120,
+     128 heads, q_lora 1536, kv_lora 512, rope 64, nope 128, v 128, vocab
+     102400, dense FF 12288, experts of 1536 with 2 shared and top-6), cut
+     to the prologue layer and one MoE layer and to 16 routed experts
+     (``mla_cut``, 1.96 B parameters), batch 4, prompt 256, 32 decode
+     steps, LoRA on the four MLA targets: ``flash_attn`` at (q/k 192, v
+     128), ``lora_fused`` at the MLA shapes, the absorbed decode in plain
+     torch, timed apart (its share of the decode step's device time);
+   * SERVE-SPARSE-KV: gpt2-small at full width, ``impl="sparse"`` and
+     ``opts={"sparse_kv_seq": 1024}``, batch 8, decoded from
+     ``init_cache`` over 1024 teacher-forced tokens: ``decode_attn`` with
+     its LSE over up to three slot ranges a layer a step, merged; launches
+     against the ranges'; the first row re-run on the CPU at 26 checked
+     steps; prefill of 896 tokens timed beside it.
    Each path's kernel launch counts are set to 0 just before it runs and
    checked against the path's just after; prefill is then run 7 more times
    and its median printed beside the run's one prefill; then prefill and
@@ -52,13 +72,14 @@ Phases, each reported on its own lines:
    (teacher-forced with the card's tokens, on a subset of the rows) and the
    logits are held to the path's tolerance.
 5. profile — torch.profiler over one prefill and 16 decode steps of each
-   serving path.
+   serving path (SERVE-SPARSE-KV: 16 decode steps at positions 1008-1023).
 6. grads   — each autograd Function (``lora_fused``'s and ``flash_attn``'s,
    non-causal and causal, and ``ssd_chunk``'s ``SSDScan``: the kernel
    forward, a plain-torch backward) at
-   the training paths' shapes: every input gradient against autograd of the
-   plain version on the card (GRAD lines, f32 tolerances of TOL), forward
-   and backward device times of both.
+   the training paths' shapes, and ``flash_attn``'s at MLA's (q/k 96, v
+   64): every input gradient against autograd of the plain version on the
+   card (GRAD lines, f32 tolerances of TOL), forward and backward device
+   times of both.
 7. TRAIN-PFTT — ``run_pftt`` (the launcher's ``--fl-clients 4
    --fl-rounds 3`` settings, seed 0, f32) for the four methods of Fig. 5:
    pretraining seconds, seconds per round, accuracy per round, mean round
@@ -145,13 +166,15 @@ Phases, each reported on its own lines:
 14. ARCH-ROUND — the universal factored round (``core/arch_round.py``)
    through ``launch/train.py --arch X --fl-clients 4 --fl-rounds 2
    --assert-fused --fl-dmodel 256`` for gpt2-small, llama3.2-1b,
-   gemma3-12b, internvl2-26b, dbrx-132b, jamba-v0.1-52b and mamba2-1.3b:
+   gemma3-12b, internvl2-26b, dbrx-132b, jamba-v0.1-52b, mamba2-1.3b,
+   deepseek-v2-236b (MLA at (96, 64) with gradient) and whisper-base:
    seconds a round, losses, the launcher's on-card oracle check (≤ 1e-5),
    launches against ``arch_expected``; a CPU re-run (losses within 1e-5);
    then ``--fl-dmodel 64`` (head width 16) must raise on the card.  The
    grads phase has a GRAD row for ``SSDScan`` (the SSD scan's Function) at
    the jamba/mamba2 round's shape, and the kernels phase CHECK rows at
-   SERVE-LLAMA's and SERVE-ZOO's shapes.
+   SERVE-LLAMA's and SERVE-ZOO's shapes, and at SERVE-MLA's, SERVE-WHISPER's,
+   SERVE-SPARSE-KV's and the MLA round's (``mla_whisper_cases``).
 
 Before the last line it prints one JSON object with a row per kernel (its
 launches summed over the serving, training, robust, comms, population and
@@ -212,7 +235,16 @@ SERVES = (
     dict(tag=f"SERVE-ZOO {arch}", arch=arch, impl="auto", batch=2, prompt_len=96, gen=40,
          rank=8, rows=2, logit_tol=1e-3, reduced=dict(d_model=256, repeats=2),
          profile=False)
-    for arch in ("gemma3-12b", "internvl2-26b", "dbrx-132b", "jamba-v0.1-52b"))
+    for arch in ("gemma3-12b", "internvl2-26b", "dbrx-132b", "jamba-v0.1-52b")) + (
+    # whisper-base at its published widths and depth (6 encoder + 6 decoder
+    # layers, d 512, 8 heads of 64, vocab 51865, 1500 random post-conv
+    # frames): the encoder-decoder, cross-attention in prefill and decode
+    dict(tag="SERVE-WHISPER", arch="whisper-base", impl="auto", batch=8, prompt_len=64,
+         gen=64, rank=8, rows=1, logit_tol=1e-3),
+    # deepseek-v2-236b's MLA at its published widths (mla_cut: two layers,
+    # 16 routed experts): q/k 192, v 128 in prefill, absorbed decode
+    dict(tag="SERVE-MLA", arch="deepseek-v2-236b", impl="auto", batch=4, prompt_len=256,
+         gen=32, rank=8, rows=1, logit_tol=1e-3, cut="mla"))
 TEACHER_STEPS = 8
 PREFILL_REPS = 7
 # TRAIN-PFTT: card vs CPU (see train_pftt).  TRAIN-ROBERTA: card vs CPU over
@@ -237,6 +269,29 @@ ROBERTA_LOSS_TOL = 1e-4
 ROBERTA_GRAD_TOL = 1e-5
 ROBERTA_PARAM_TOL = 1e-4
 SERVING_SPARSE = dict(block_size=128, local_blocks=4, sink_blocks=1, stride=8)
+
+
+def ptxas_lines(log):
+    """ptxas's register and spill lines from ``-Xptxas -v``'s report, each
+    after the kernel instance it belongs to, as ``name<template args>`` (the
+    mangled entry's length-prefixed name and its int/bool arguments)."""
+    import re
+    inst = ""
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            mangled = m.group(1)
+            n = re.search(r"_cu_[0-9a-f]{8}(\d+)", mangled)
+            if n:
+                start = n.end() + int(n.group(1))
+                args = mangled[start:mangled.find("Ev", start)]
+                dtype = "bf16" if "bfloat16" in args else "f32"
+                inst = (f"{mangled[n.end():start]}<{dtype},"
+                        + ",".join(re.findall(r"L[ib](\d+)E", args)) + ">")
+            else:
+                inst = mangled[:60]
+        elif "registers" in line or "spill" in line:
+            yield f"{inst}: {line.strip()}"
 
 
 def fail(msg):
@@ -447,7 +502,116 @@ def kernel_cases(torch):
             flops=2 * m * k * n + 2 * m * k * 8 + 2 * m * 8 * n, main=False,
             plan=(str(dt).split(".")[1], n, k) if m <= 16 else None,
             profile=(m == 4 and n == 2048 and dt == torch.float32)))
-    return cases + zoo_cases(torch, rn)
+    return cases + zoo_cases(torch, rn) + mla_whisper_cases(torch, rn)
+
+
+def attn_case(torch, name, label, kernel, plain, q, k, v, allowed, mask=None, scale=None,
+              causal=False, **extra):
+    """A CHECK row of a prefill attention kernel at q (B, Sq, H, dk), k
+    (B, Sk, K, dk), v (B, Sk, K, dv): bytes of q, k, v and o once, 2·(dk +
+    dv) FLOP per allowed (query, key) pair and head; the library call is
+    SDPA (which takes dv ≠ dk) with ``mask`` or ``causal``."""
+    import torch.nn.functional as F
+    b, sq, h, dk = q.shape
+    sk, kh, dv = k.shape[1], k.shape[2], v.shape[3]
+    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    return dict(
+        name=name, dtype="float32", label=label, kernel=kernel, plain=plain,
+        library=lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=mask, is_causal=causal and mask is None, scale=scale,
+            enable_gqa=h != kh),
+        nbytes=(b * sq * h * (dk + dv) + b * sk * kh * (dk + dv)) * 4,
+        flops=2 * (dk + dv) * allowed * b * h, main=False, **extra)
+
+
+def mla_whisper_cases(torch, rn):
+    """f32 rows at the MLA, whisper and sparse-KV paths' shapes: ``flash_attn`` at
+    SERVE-MLA's prefill (deepseek-v2's published (192, 128), B 4, S 256, H
+    128, scale 192^-1/2) and at ARCH-ROUND's deepseek-v2 (q/k 80 padded to
+    96, v 64; B 4, S 16, H 4), ``block_sparse_attn`` at (192, 128), S 512;
+    whisper's three flash shapes at SERVE-WHISPER (the encoder non-causal
+    over 1500 frames, the decoder's causal self-attention over the prompt,
+    the cross-attention of the prompt on the 1500 frames); ``decode_attn``'s
+    cross step (cache 1500) and the LSE output at SERVE-SPARSE-KV's last
+    step, one row for each of its three slot ranges (the persistent
+    prefix, the ring's two pieces)."""
+    import torch.nn.functional as F
+
+    from repro_torch.configs import SparseAttnConfig
+    from repro_torch.kernels.block_sparse_attn.ops import block_sparse_attention
+    from repro_torch.kernels.block_sparse_attn.ref import block_sparse_ref
+    from repro_torch.kernels.decode_attn.ops import decode_attention, split_plan
+    from repro_torch.kernels.decode_attn.ref import decode_ref
+    from repro_torch.kernels.flash_attn.ops import flash_attention
+    from repro_torch.kernels.flash_attn.ref import attention_ref
+    from repro_torch.models.attention import sparse_block_table, sparse_kv_layout, sparse_kv_ranges
+
+    cases = []
+    for b, sq, sk, h, dk, dv, causal, sc, path in (
+            (4, 256, 256, 128, 192, 128, True, 192 ** -0.5, "SERVE-MLA prefill"),
+            (4, 16, 16, 4, 96, 64, True, 80 ** -0.5, "ARCH-ROUND deepseek-v2, q/k 80 padded"),
+            (8, 1500, 1500, 8, 64, 64, False, None, "SERVE-WHISPER encoder"),
+            (8, 64, 64, 8, 64, 64, True, None, "SERVE-WHISPER decoder self"),
+            (8, 64, 1500, 8, 64, 64, False, None, "SERVE-WHISPER cross")):
+        q, k, v = rn(b, sq, h, dk), rn(b, sk, h, dk), rn(b, sk, h, dv)
+        allowed = sq * (sq + 1) // 2 if causal else sq * sk
+        cases.append(attn_case(
+            torch, "flash_attn",
+            f"B={b} Sq={sq} Sk={sk} H={h} dk={dk} dv={dv} "
+            f"{'causal' if causal else 'non-causal'} ({path})",
+            lambda q=q, k=k, v=v, c=causal, s=sc: flash_attention(q, k, v, causal=c, scale=s),
+            lambda q=q, k=k, v=v, c=causal, s=sc: attention_ref(q, k, v, causal=c, scale=s),
+            q, k, v, allowed, scale=sc, causal=causal))
+    serving = SparseAttnConfig(**SERVING_SPARSE)
+    b, s_, h = 4, 512, 128
+    q, k, v = rn(b, s_, h, 192), rn(b, s_, h, 192), rn(b, s_, h, 128)
+    idx, valid = sparse_block_table(s_ // 128, s_ // 128, serving, 0)
+    allowed = torch.zeros(s_, s_, dtype=torch.bool, device="cuda")
+    for i in range(idx.shape[0]):
+        for j in idx[i][valid[i]]:
+            allowed[i * 128:(i + 1) * 128, j * 128:(j + 1) * 128] = True
+    allowed &= torch.ones(s_, s_, dtype=torch.bool, device="cuda").tril()
+    cases.append(attn_case(
+        torch, "block_sparse_attn", f"B={b} S={s_} H={h} dk=192 dv=128 block=128 (MLA sparse)",
+        lambda q=q, k=k, v=v: block_sparse_attention(q, k, v, serving, scale=192 ** -0.5),
+        lambda q=q, k=k, v=v: block_sparse_ref(q, k, v, serving, scale=192 ** -0.5),
+        q, k, v, int(allowed.sum()), mask=allowed, scale=192 ** -0.5))
+    # decode_attn: whisper's cross step, then the sparse-KV ranges with LSE
+    b, h, d = 8, 8, 64
+    q, kv = rn(b, 1, h, d), rn(2, b, 1500, h, d)
+    kc, vc = kv
+    qt = q.transpose(1, 2).contiguous()
+    kt, vt = (t.transpose(1, 2).contiguous() for t in (kc, vc))
+    cases.append(dict(
+        name="decode_attn", dtype="float32",
+        label=f"B={b} Sc=1500 H={h} hd={d} cache_len=1500 (SERVE-WHISPER cross)",
+        kernel=lambda q=q, kc=kc, vc=vc: decode_attention(q, kc, vc, 1500),
+        plain=lambda q=q, kc=kc, vc=vc: decode_ref(q, kc, vc, 1500),
+        library=lambda qt=qt, kt=kt, vt=vt: F.scaled_dot_product_attention(qt, kt, vt),
+        nbytes=(2 * b * h * d + 2 * b * 1500 * h * d) * 4, flops=4 * d * 1500 * b * h,
+        split=split_plan(b, 1500, h), read=read_call(kv, [(0, 1500)]), main=False))
+    b, h, d, seq = 8, 12, 64, SPARSE_KV_SEQ
+    _, _, ring, n_pers = sparse_kv_layout(seq, serving)
+    q = rn(b, 1, h, d)
+    regions = {"pers": rn(2, b, n_pers, h, d), "ring": rn(2, b, ring, h, d)}
+    for reg, end, count in sparse_kv_ranges(seq - 1, serving, seq):
+        kv = regions[reg]
+        kc, vc = kv
+        kt, vt = (t[:, end - count:end].transpose(1, 2).contiguous() for t in (kc, vc))
+        cases.append(dict(
+            name="decode_attn", dtype="float32",
+            label=f"B={b} Sc={kc.shape[1]} H={h} hd={d} slots [{end - count}, {end}) of "
+            f"{reg}, LSE (SERVE-SPARSE-KV position {seq - 1})",
+            kernel=lambda q=q, k=kc, v=vc, e=end, c=count: decode_attention(
+                q, k, v, e, window=c, return_lse=True),
+            plain=lambda q=q, k=kc, v=vc, e=end, c=count: decode_ref(
+                q, k, v, e, window=c, return_lse=True),
+            library=lambda q=q, kt=kt, vt=vt: F.scaled_dot_product_attention(
+                q.transpose(1, 2), kt, vt),
+            nbytes=(2 * b * h * d + b * h + 2 * b * count * h * d) * 4,
+            flops=4 * d * count * b * h, split=split_plan(b, kc.shape[1], h, window=count),
+            read=read_call(kv, [(end - count, end)]), main=False))
+    return cases
 
 
 def zoo_cases(torch, rn):
@@ -759,6 +923,15 @@ def grad_cases(torch):
         inputs=(rn(b, s, h, p), rn(b, s, h), -torch.exp(rn(h, std=0.3)),
                 rn(b, s, 1, n, std=0.5), rn(b, s, 1, n, std=0.5)),
         frozen=(), names=("x", "dt", "a", "B", "C")))
+    # FlashAttention at (96, 64), ARCH-ROUND's deepseek-v2 at d 256 (q/k 80
+    # zero-padded to 96 outside the Function, the scale of 80)
+    cases.append(dict(
+        name="flash_attn", label="B=4 S=16 H=4 dk=96 dv=64 causal (MLA)",
+        kernel=lambda *t: flash_attention(*t, causal=True, scale=80 ** -0.5),
+        plain=lambda *t: attention_ref(*t, causal=True, scale=80 ** -0.5),
+        inputs=(torch.cat([rn(4, 16, 4, 80), torch.zeros(4, 16, 4, 16, device="cuda")], -1),
+                torch.cat([rn(4, 16, 4, 80), torch.zeros(4, 16, 4, 16, device="cuda")], -1),
+                rn(4, 16, 4, 64)), frozen=(), names=("q", "k", "v")))
     return cases
 
 
@@ -816,34 +989,61 @@ def wrappers():
                               block_sparse_attention, ssd_scan)))
 
 
-def layer_counts(cfg, lora):
-    """(attn, local, mamba layers, factored projections a forward runs): a
-    factor leaf counts once per repeat, but not on an MoE layer's experts
-    (merged into the expert slabs, not run through ``lora_fused``)."""
-    from repro_torch import trees
-    kinds = [k for st in cfg.stages for k in st.pattern for _ in range(st.repeats)]
-    n_lora = 0
-    for p, v in trees.flatten(lora).items():
-        if p.endswith("/a"):
-            si, pi = (int(t) for t in p.split("/")[1:4:2])
-            moe_ff = "/ff/" in p and cfg.stages[si].pattern[pi].ff == "moe"
-            n_lora += 0 if moe_ff else v.shape[0]
-    return (sum(k.mixer == "attn" for k in kinds), sum(k.mixer == "local" for k in kinds),
-            sum(k.mixer == "mamba" for k in kinds), n_lora)
+def mla_cut():
+    """SERVE-MLA's model: deepseek-v2-236b at its published widths (d 5120,
+    128 heads, q_lora 1536, kv_lora 512, rope 64, nope 128, v 128, vocab
+    102400, dense FF 12288, experts of 1536, 2 shared, top-6), cut in depth
+    to the prologue layer and one MoE layer and to 16 routed experts of 160
+    (1.96 B parameters)."""
+    from repro_torch.configs import LK, Stage, get_config
+    cfg = get_config("deepseek-v2-236b")
+    return dataclasses.replace(
+        cfg, stages=(Stage((LK("mla", "mlp"),), 1), Stage((LK("mla", "moe"),), 1)),
+        moe=dataclasses.replace(cfg.moe, n_experts=16))
+
+
+def mixer_counts(cfg):
+    """Layers of each mixer kind, over the repeats."""
+    out = {}
+    for st in cfg.stages:
+        for k in st.pattern:
+            out[k.mixer] = out.get(k.mixer, 0) + st.repeats
+    return out
 
 
 def expected_launches(model, lora, impl, gen):
-    """Each kernel's launches on one prefill plus ``gen`` decode steps: a
-    ``local`` layer runs ``flash_attn`` (its window) even under the sparse
-    impl, and its ring decodes through ``decode_attn``; MoE layers launch
-    none of the five."""
-    n_attn, n_local, n_mamba, n_lora = layer_counts(model.cfg, lora)
-    sparse = impl == "sparse" and model.cfg.sparse_attn is not None
-    return {"lora_fused": n_lora * (1 + gen),
-            "flash_attn": n_local + (0 if sparse else n_attn),
-            "decode_attn": (n_attn + n_local) * gen,
-            "block_sparse_attn": n_attn if sparse else 0,
-            "ssd_chunk": n_mamba}
+    """Each kernel's launches on one prefill plus ``gen`` decode steps.
+    Prefill: ``flash_attn`` once an ``attn``, ``local``, ``enc`` or ``mla``
+    layer and twice a ``dec`` layer (self and cross), where under the
+    sparse impl ``attn``, ``dec`` self and ``mla`` run ``block_sparse_attn``
+    (a ``local`` layer keeps its window); ``ssd_chunk`` once a mamba layer;
+    ``lora_fused`` once a factor leaf a repeat, but not on an MoE layer's
+    experts (merged into the slabs).  Each decode step: ``decode_attn`` once
+    an ``attn`` or ``local`` layer and twice a ``dec`` layer; ``lora_fused``
+    for the decoder stream's factor leaves, but not for MLA's ``wkv_b``
+    (merged into the latent weight, ``peft.effective_weight``); MLA's
+    absorbed attention and MoE launch none of the five."""
+    from repro_torch import trees
+    cfg = model.cfg
+    n = mixer_counts(cfg)
+    sparse = impl == "sparse" and cfg.sparse_attn is not None
+    pre_lora = step_lora = 0
+    for p, v in trees.flatten(lora).items():
+        if p.endswith("/a"):
+            si, pi = (int(t) for t in p.split("/")[1:4:2])
+            stage = cfg.stages[si]
+            if "/ff/" in p and stage.pattern[pi].ff == "moe":
+                continue
+            pre_lora += v.shape[0]
+            if stage.stream == "decoder" and not p.endswith("/wkv_b/a"):
+                step_lora += v.shape[0]
+    dense = [n.get(m, 0) for m in ("attn", "dec", "mla")]
+    return {"lora_fused": pre_lora + step_lora * gen,
+            "flash_attn": (n.get("local", 0) + n.get("enc", 0) + n.get("dec", 0)
+                           + (0 if sparse else sum(dense))),
+            "decode_attn": (n.get("attn", 0) + n.get("local", 0) + 2 * n.get("dec", 0)) * gen,
+            "block_sparse_attn": sum(dense) if sparse else 0,
+            "ssd_chunk": n.get("mamba", 0)}
 
 
 def serve_path(torch, np, spec):
@@ -862,9 +1062,9 @@ def serve_path(torch, np, spec):
                              "--gen", str(spec["gen"]),
                              "--lora-rank", str(spec["rank"])])
     cfg = (get_config(spec["arch"]).reduced(**spec["reduced"]) if spec.get("reduced")
-           else None)
-    model, params, lora, lscale, prompts, patches = serve.build(args, impl=spec["impl"],
-                                                                cfg=cfg)
+           else mla_cut() if spec.get("cut") == "mla" else None)
+    model, params, lora, lscale, prompts, patches, frames = serve.build(
+        args, impl=spec["impl"], cfg=cfg)
     n_cache = serve.cache_len(model, prompts, args.gen)
     # init_lora zeros B: load nonzero A and B from a numpy seed so the
     # rank-r path does real work
@@ -875,12 +1075,12 @@ def serve_path(torch, np, spec):
     t_built = time.perf_counter()
 
     serve.generate(model, params, prompts, 2, lora=lora, lora_scale=lscale,
-                   patches=patches)  # warm-up
+                   patches=patches, frames=frames)  # warm-up
     kernels = wrappers()
     for f in kernels.values():
         f.launches = 0
     res = serve.generate(model, params, prompts, args.gen, lora=lora, lora_scale=lscale,
-                         patches=patches)
+                         patches=patches, frames=frames)
     launches = {n: f.launches for n, f in kernels.items()}
     expected = expected_launches(model, lora, spec["impl"], args.gen)
     tok_s = args.batch * args.gen / res["decode_s"]
@@ -890,11 +1090,20 @@ def serve_path(torch, np, spec):
     for _ in range(PREFILL_REPS):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        model.prefill(params, prompts, n_cache, patches=patches, lora=lora, lora_scale=lscale)
+        _, cache = model.prefill(params, prompts, n_cache, patches=patches, frames=frames,
+                                 lora=lora, lora_scale=lscale)
         torch.cuda.synchronize()
         reps.append((time.perf_counter() - t0) * 1e3)
     res["prefill_median_ms"] = sorted(reps)[PREFILL_REPS // 2]
+    if spec.get("cut") == "mla":
+        res["absorbed_ms"] = mla_absorbed_ms(torch, model, params, lora, lscale, cache,
+                                             n_cache)
+        print(f"{tag} absorbed MLA decode (plain torch: effective_weight + "
+              f"absorbed_attention, {mixer_counts(model.cfg)['mla']} layers, cache_len "
+              f"{n_cache}) device_ms={res['absorbed_ms']:.4f}", flush=True)
+    del cache
     width = (f"reduced d_model {model.cfg.d_model}" if spec.get("reduced")
+             else "published widths, cut (mla_cut)" if spec.get("cut")
              else "full width")
     print(f"{tag} {spec['arch']} {width} ({model.cfg.n_layers} layers, impl "
           f"{spec['impl']}): batch {args.batch} prompt {args.prompt_len} "
@@ -921,6 +1130,7 @@ def serve_path(torch, np, spec):
     card_logits = [lg[:rows].cpu() for lg in res["logits"][:TEACHER_STEPS + 1]]
     lg, cache = cpu.prefill(p_cpu, prompts[:rows].cpu(), n_cache,
                             patches=None if patches is None else patches[:rows].cpu(),
+                            frames=None if frames is None else frames[:rows].cpu(),
                             lora=l_cpu, lora_scale=lscale)
     errs = [(lg - card_logits[0]).abs().max().item()]
     for t in range(TEACHER_STEPS):
@@ -937,7 +1147,145 @@ def serve_path(torch, np, spec):
           f"cpu {t_end - t_card:.1f}", flush=True)
     if max(errs) > tol:
         fail(f"{tag}: card vs CPU logits differ by {max(errs):.3e} > {tol:.3g}")
-    return launches, res, tok_s, (model, params, lora, lscale, prompts, patches)
+    return launches, res, tok_s, (model, params, lora, lscale, prompts, patches, frames)
+
+
+SPARSE_KV_SEQ = 1024
+SPARSE_KV_CHECK = tuple(range(0, SPARSE_KV_SEQ, 64)) + tuple(range(640, 649)) + (
+    SPARSE_KV_SEQ - 1,)   # steps whose logits the CPU re-run checks
+
+
+def serve_sparse_kv(torch, np):
+    """SERVE-SPARSE-KV: gpt2-small at full width with ``impl="sparse"`` and
+    ``opts={"sparse_kv_seq": 1024}`` (its ``attn`` layers hold the sparse-KV
+    layout: a persistent region of the sink and strided blocks, 128 slots,
+    and a ring of 5 blocks, 640 slots), batch 8, rank-8 LoRA (numpy seed 1),
+    decoded from ``init_cache`` over 1024 teacher-forced random tokens —
+    the JAX package decodes a sparse-KV cache only that way.  Each step
+    reads up to three slot ranges a layer through ``decode_attn`` with its
+    LSE (``sparse_kv_ranges``), merged exactly; the persistent region is in
+    use from position 640.  Launch counts against the ranges', decode tok/s,
+    then the first row re-run on the CPU (the plain ``sparse_kv_decode``),
+    logits held at SPARSE_KV_CHECK's steps; prefill of the first 896 tokens
+    (plain caches, as the JAX package's prefill) timed beside it."""
+    from repro_torch import trees
+    from repro_torch.launch import serve
+    from repro_torch.models.attention import sparse_kv_ranges
+    from repro_torch.models.transformer import Model
+
+    tag, t_start, seq = "SERVE-SPARSE-KV", time.perf_counter(), SPARSE_KV_SEQ
+    args = serve.parse_args(["--arch", "gpt2-small", "--batch", "8", "--prompt-len", str(seq),
+                             "--gen", "0", "--lora-rank", "8"])
+    opts = {"sparse_kv_seq": seq}
+    model, params, lora, lscale, toks, _, _ = serve.build(args, impl="sparse", opts=opts)
+    rng = np.random.RandomState(1)
+    lora = trees.map_with_path(
+        lambda p, v: v if p.endswith("/mask") else torch.from_numpy(
+            (rng.randn(*v.shape) * 0.05).astype(np.float32)).to(v.device), lora)
+    cfg, b = model.cfg, args.batch
+
+    def run(steps, keep=()):
+        cache, kept = model.init_cache(b, seq), {}
+        for t in range(steps):
+            lg, cache = model.decode_step(params, cache, toks[:, t:t + 1], lora=lora,
+                                          lora_scale=lscale)
+            if t in keep:
+                kept[t] = lg[:1].clone()
+        return cache, kept
+
+    run(4)                                                         # warm-up
+    kernels = wrappers()
+    for f in kernels.values():
+        f.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    cache, kept = run(seq, SPARSE_KV_CHECK)
+    torch.cuda.synchronize()
+    decode_s = time.perf_counter() - t0
+    launches = {n: f.launches for n, f in kernels.items()}
+    n_attn, ranges = mixer_counts(cfg)["attn"], [len(sparse_kv_ranges(t, cfg.sparse_attn, seq))
+                                                 for t in range(seq)]
+    expected = {"lora_fused": 24 * seq, "flash_attn": 0, "decode_attn": n_attn * sum(ranges),
+                "block_sparse_attn": 0, "ssd_chunk": 0}
+    reps = []
+    for _ in range(1 + PREFILL_REPS):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        model.prefill(params, toks[:, :896], seq, lora=lora, lora_scale=lscale)
+        torch.cuda.synchronize()
+        reps.append((time.perf_counter() - t1) * 1e3)
+    tok_s = b * seq / decode_s
+    res = {"prefill_s": reps[0] / 1e3, "prefill_median_ms": sorted(reps[1:])[PREFILL_REPS // 2],
+           "decode_s": decode_s}
+    print(f"{tag} gpt2-small full width (12 layers, impl sparse, sparse_kv_seq {seq}: "
+          f"{cache['stages'][0][0]['k_pers'].shape[2]} persistent + "
+          f"{cache['stages'][0][0]['k_ring'].shape[2]} ring slots a layer): batch {b}, "
+          f"{seq} teacher-forced steps from init_cache, rank 8 f32  "
+          f"prefill_ms={reps[0]:.3f} (896 tokens, plain cache) "
+          f"prefill_median_ms={res['prefill_median_ms']:.3f} decode_s={decode_s:.4f} "
+          f"decode_tok_s={tok_s:.1f} ms_per_decode_step={decode_s / seq * 1e3:.3f} "
+          f"ranges a layer: {ranges.count(1)} steps 1, {ranges.count(2)} steps 2, "
+          f"{ranges.count(3)} steps 3", flush=True)
+    print(f"{tag} launches {launches} expected {expected}", flush=True)
+    if launches != expected:
+        fail(f"{tag}: kernel launches {launches} != expected {expected}")
+    if not all(bool(torch.isfinite(lg).all()) for lg in kept.values()):
+        fail(f"{tag}: non-finite logits")
+    t_card = time.perf_counter()
+    cpu = Model(cfg, device="cpu", impl="sparse", opts=opts)
+    p_cpu = trees.map_with_path(lambda _, v: v.cpu(), params)
+    l_cpu = trees.map_with_path(lambda _, v: v.cpu(), lora)
+    c_cpu, errs = cpu.init_cache(1, seq), []
+    scale = max(1.0, max(lg.abs().max().item() for lg in kept.values()))
+    for t in range(seq):
+        lg, c_cpu = cpu.decode_step(p_cpu, c_cpu, toks[:1, t:t + 1].cpu(), lora=l_cpu,
+                                    lora_scale=lscale)
+        if t in kept:
+            errs.append((lg - kept[t].cpu()).abs().max().item())
+    tol = 1e-3 * scale
+    print(f"{tag} teacher-forced CPU logits (1 of {b} rows, {len(errs)} checked steps) "
+          f"max_abs_err {max(errs):.2e} (tol {tol:.3g}); seconds build "
+          f"{t_card - t_start - decode_s:.1f} card {decode_s:.1f} cpu "
+          f"{time.perf_counter() - t_card:.1f}", flush=True)
+    if max(errs) > tol:
+        fail(f"{tag}: card vs CPU logits differ by {max(errs):.3e} > {tol:.3g}")
+
+    def steps16():                       # 16 late steps (all three ranges), profiled
+        c = cache
+        c["pos"] = seq - 16
+        for t in range(seq - 16, seq):
+            model.decode_step(params, c, toks[:, t:t + 1], lora=lora, lora_scale=lscale)
+
+    prof = profile(torch, f"{tag} decode (16 steps at positions 1008-1023)", steps16, 1)
+    return launches, res, tok_s, prof
+
+
+def mla_absorbed_ms(torch, model, params, lora, lscale, cache, cache_len):
+    """Device ms (cold L2, median of 30) of the absorbed MLA decode's plain
+    torch — ``effective_weight`` of ``wkv_b`` and ``absorbed_attention`` —
+    summed over the model's MLA layers, at ``cache_len`` slots of ``cache``
+    and random q of the step's shape."""
+    from repro_torch.models import mla, peft
+    cfg, m = model.cfg, model.cfg.mla
+    b, h = cache["stages"][0][0]["ckv"].shape[1], cfg.n_heads
+    g = torch.Generator(device="cuda").manual_seed(4)
+    calls = []
+    for si, stage in enumerate(cfg.stages):
+        for pi, kind in enumerate(stage.pattern):
+            for r in range(stage.repeats):
+                w = params["stages"][si]["layers"][pi]["mixer"]["wkv_b"][r]
+                lf = lora["stages"][si]["layers"][pi]["mixer"].get("wkv_b")
+                lf = None if lf is None else {k: t[r] for k, t in lf.items()}
+                ent = cache["stages"][si][pi]
+                qn = torch.randn(b, h, m.nope_head_dim, generator=g, device="cuda")
+                qp = torch.randn(b, h, m.rope_head_dim, generator=g, device="cuda")
+                calls.append(lambda w=w, lf=lf, c=ent["ckv"][r], k=ent["kpe"][r], qn=qn, qp=qp:
+                             mla.absorbed_attention(
+                                 qn, qp, peft.effective_weight(w, lf, lscale).reshape(
+                                     m.kv_lora_rank, h, m.nope_head_dim + m.v_head_dim).float(),
+                                 c, k, cache_len, m))
+    flush = torch.empty(32 * 1024 * 1024, dtype=torch.float32, device="cuda")
+    return device_ms(lambda: [c() for c in calls], flush)
 
 
 # ---------------------------------------------------------------- training
@@ -2631,7 +2979,8 @@ def train_pop(torch, np):
 
 
 ARCH_ROUND_ARCHS = ("gpt2-small", "llama3.2-1b", "gemma3-12b", "internvl2-26b",
-                    "dbrx-132b", "jamba-v0.1-52b", "mamba2-1.3b")
+                    "dbrx-132b", "jamba-v0.1-52b", "mamba2-1.3b", "deepseek-v2-236b",
+                    "whisper-base")
 ARCH_ROUND_FLAGS = ["--fl-clients", "4", "--fl-rounds", "2", "--assert-fused",
                     "--fl-dmodel", "256"]
 ARCH_LOSS_TOL = 1e-5
@@ -2640,16 +2989,19 @@ ARCH_LOSS_TOL = 1e-5
 def arch_expected(cfg, steps):
     """Each kernel's launches in one ``--assert-fused`` arch round of
     ``steps`` client-steps: every engine step's forward runs ``lora_fused``
-    once per factored projection (the backward is plain), and the engine's
-    and the oracle's forwards (the oracle replays every step with merged
-    weights, so no ``lora_fused``) each run ``flash_attn`` per attention or
-    ``local`` layer and ``ssd_chunk`` per mamba layer."""
+    once per factored projection (the backward is plain; MLA's four
+    targets all run factored in the sequence forward), and the engine's and
+    the oracle's forwards (the oracle replays every step with merged
+    weights, so no ``lora_fused``) each run ``flash_attn`` per ``attn``,
+    ``local``, ``enc`` or ``mla`` layer and twice per ``dec`` layer (self
+    and cross), and ``ssd_chunk`` per mamba layer."""
     from repro_torch.core.arch_round import MIXER_TARGETS
-    n_attn, n_local, n_mamba, _ = layer_counts(cfg, {})
+    n = mixer_counts(cfg)
     n_lora = sum(len(MIXER_TARGETS.get(k.mixer, ())) * st.repeats
                  for st in cfg.stages for k in st.pattern)
-    return {"lora_fused": n_lora * steps, "flash_attn": (n_attn + n_local) * 2 * steps,
-            "decode_attn": 0, "block_sparse_attn": 0, "ssd_chunk": n_mamba * 2 * steps}
+    flash = sum(n.get(m, 0) for m in ("attn", "local", "enc", "mla")) + 2 * n.get("dec", 0)
+    return {"lora_fused": n_lora * steps, "flash_attn": flash * 2 * steps,
+            "decode_attn": 0, "block_sparse_attn": 0, "ssd_chunk": n.get("mamba", 0) * 2 * steps}
 
 
 def train_arch(torch):
@@ -2745,7 +3097,7 @@ def profile(torch, label, run, reps):
             by_name[e.name] = (n + 1, t + e.time_range.elapsed_us())
     if not by_name:
         print(f"PROFILE {label}: no device events in the trace (not measured)")
-        return
+        return None
     busy = sum(t for _, t in by_name.values())
     print(f"PROFILE {label} x{reps}: wall_us_per_call={wall_us / reps:.1f} "
           f"device_busy_us_per_call={busy / reps:.1f} "
@@ -2753,16 +3105,19 @@ def profile(torch, label, run, reps):
           f"trace_parse_s={time.perf_counter() - t1:.1f}")
     for name, (n, t) in sorted(by_name.items(), key=lambda kv: -kv[1][1])[:10]:
         print(f"PROFILE   {t / reps:10.1f} us/call  {n / reps:6.1f} calls/call  {name[:90]}")
+    return wall_us / reps, busy / reps
 
 
-def profile_path(torch, tag, model, params, lora, lscale, prompts, patches, steps=16):
-    """One prefill, then ``steps`` decode steps, each under the profiler."""
+def profile_path(torch, tag, model, params, lora, lscale, prompts, patches, frames,
+                 steps=16):
+    """One prefill, then ``steps`` decode steps, each under the profiler →
+    the decode steps' (wall, device busy) µs a step."""
     state = {}
 
     def prefill():
         state["logits"], state["cache"] = model.prefill(
             params, prompts, model.cfg.n_prefix_tokens + prompts.shape[1] + steps,
-            patches=patches, lora=lora, lora_scale=lscale)
+            patches=patches, frames=frames, lora=lora, lora_scale=lscale)
 
     def decode():
         state["logits"], state["cache"] = model.decode_step(
@@ -2770,7 +3125,7 @@ def profile_path(torch, tag, model, params, lora, lscale, prompts, patches, step
             lora=lora, lora_scale=lscale)
 
     profile(torch, f"{tag} prefill", prefill, 1)
-    profile(torch, f"{tag} decode", decode, steps)
+    return profile(torch, f"{tag} decode", decode, steps)
 
 
 def main():
@@ -2794,9 +3149,14 @@ def main():
     print(f"BUILD {len(built)} sources in {time.perf_counter() - t0:.1f} s "
           f"({', '.join(f'{n} {s:.1f} s' for n, s in built.items())})", flush=True)
     for name in _build.sources():
-        for line in _build.build_log(name).splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"PTXAS {name}: {line.strip()}")
+        for line in ptxas_lines(_build.build_log(name)):
+            print(f"PTXAS {name}: {line}")
+    from repro_torch.kernels.flash_attn.ops import occupancy
+    for dk, dv in ((192, 128), (96, 64)):      # MLA's instances: blocks an SM
+        for bq in (32, 64):
+            blocks, smem = occupancy(dk, dv, bq)
+            print(f"OCCUPANCY flash_attn f32 (q/k {dk}, v {dv}) {bq}-row q tile: "
+                  f"{blocks} blocks an SM, {smem} bytes of shared memory a block", flush=True)
 
     t0 = time.perf_counter()
     rows = check_kernels(torch)
@@ -2813,10 +3173,32 @@ def main():
                                    "decode_tok_s": tok_s, "launches": got}
         if spec.get("profile", True):
             t0 = time.perf_counter()
-            profile_path(torch, spec["tag"], *served)
+            prof = profile_path(torch, spec["tag"], *served)
             print(f"PHASE {spec['tag']} profile {time.perf_counter() - t0:.1f} s", flush=True)
+            if prof is not None:
+                serve_rows[spec["tag"]].update(decode_wall_us=prof[0], decode_busy_us=prof[1])
+            if "absorbed_ms" in res and prof is not None:
+                share = res["absorbed_ms"] * 1e3 / prof[1]
+                serve_rows[spec["tag"]].update(absorbed_ms=res["absorbed_ms"],
+                                               absorbed_share_of_busy=share)
+                print(f"{spec['tag']} absorbed MLA decode {res['absorbed_ms'] * 1e3:.1f} us "
+                      f"of {prof[1]:.1f} us device busy a decode step ({share:.3f}; "
+                      f"wall {prof[0]:.1f} us)", flush=True)
         del res, served
         torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    got, res, tok_s, prof = serve_sparse_kv(torch, np)
+    print(f"PHASE SERVE-SPARSE-KV {time.perf_counter() - t0:.1f} s", flush=True)
+    for n in KERNELS:
+        launches[n] += got[n]
+    serve_rows["SERVE-SPARSE-KV"] = {"prefill_ms": res["prefill_s"] * 1e3,
+                                     "prefill_median_ms": res["prefill_median_ms"],
+                                     "decode_tok_s": tok_s, "launches": got}
+    if prof is not None:
+        serve_rows["SERVE-SPARSE-KV"].update(decode_wall_us=prof[0] / 16,
+                                             decode_busy_us=prof[1] / 16)
+    del res
+    torch.cuda.empty_cache()
     unused = [n for n in KERNELS if launches[n] == 0]
     if unused:
         fail(f"kernels never launched on the serving paths: {unused}")

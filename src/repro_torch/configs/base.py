@@ -3,9 +3,8 @@
 The port's own copy of the configuration system: ``LayerKind``/``Stage``
 patterns, ``ModelConfig`` with its derived head width and ``reduced()``
 smoke variant, the registry of every architecture the JAX package
-configures, and the benchmark input shapes.  ``MLAConfig`` is data only:
-the MLA mixer (deepseek-v2) and whisper's cross-attention decoder are not
-ported yet, and ``Model`` refuses them by name.
+configures, and the benchmark input shapes.  ``MLAConfig`` sizes
+deepseek-v2's multi-head latent attention (``models/mla.py``).
 """
 from __future__ import annotations
 

@@ -1,9 +1,10 @@
 """Generic per-architecture federated round — the port of
 ``repro.core.arch_round``, the config zoo's arch-matrix workload.
 
-``run_arch_round`` runs a reduced FedLoRA-style cohort round on any ported
+``run_arch_round`` runs a reduced FedLoRA-style cohort round on any
 architecture (dense gpt2 and the llamas, gemma3's windowed layers, the
-internvl2 VLM, MoE dbrx, the jamba hybrid, mamba2): per-client rank-r LoRA
+internvl2 VLM, MoE dbrx, deepseek-v2's MLA with MoE, the jamba hybrid,
+mamba2, whisper's encoder-decoder): per-client rank-r LoRA
 factor trees train through ``core/cohort.build_supervised_round`` — one
 round step a round — against the shared frozen base, with FedAvg over the
 factors and the broadcast back inside the step.  It shows the universal
@@ -39,7 +40,7 @@ from repro_torch.models.transformer import Model
 from repro_torch.optim import adamw, value_and_grad
 
 # which mixer projections carry LoRA per layer family — the universal
-# factored contract (models/ssm.py, blocks._qkv; mla with the next slice)
+# factored contract (models/ssm.py, models/mla.py, blocks._qkv)
 MIXER_TARGETS = {
     "attn": ("mixer/wq", "mixer/wv"),
     "local": ("mixer/wq", "mixer/wv"),

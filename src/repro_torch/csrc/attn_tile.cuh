@@ -42,6 +42,18 @@
 // on an H100 80GB HBM3 at 700 W: the block-sparse kernel at its serving
 // prefill runs 28 TFLOP/s of needed work, 42% of the f32 FMA peak (2.7× the
 // step it replaced); times in the notes of the two kernels.
+//
+// q and k may be wider than v and o (MLA: q/k nope + rope, v its own width):
+// DK is the width of Qᵀ, the K stages and the q·k dots, DV that of the V
+// stages, P·V and the O registers; the square heads have DK = DV.  A copy of
+// a DK- or DV-wide tile hands each thread 16-byte chunks c = tid + T·l (row
+// c / (D/4), dims 4·(c mod D/4)), so a width need not divide the thread
+// count (192/4 = 48 chunks a row against 128 threads).  At (192, 128) the
+// tile holds Qᵀ 192 wide, K stages 196 floats a row and V stages 132: 116 KB
+// with 32-row q and kv tiles, 145 KB with 64-row q tiles, one block an SM
+// either way, so those instances are held to one block an SM (255
+// registers a thread) where the square ones keep the 128 registers they
+// were tuned under.
 #pragma once
 
 #include <cstdint>
@@ -50,25 +62,49 @@
 
 namespace repro {
 
-// kv rows per tile: 64 with the 64-row q tile at hd ≤ 64; 32 at hd 128 (Qᵀ,
-// two K/V stages and Pᵀ then fit two blocks an SM) and with the 32-row q
-// tile (four blocks an SM).
-constexpr int kv_tile_rows(int HD, int BQ) { return HD == 128 || BQ == 32 ? 32 : 64; }
+// kv rows per tile: 64 with the 64-row q tile at q/k widths below 96; 32 at
+// wider ones (Qᵀ, two K/V stages and Pᵀ then fit two blocks an SM at hd 128)
+// and with the 32-row q tile (four blocks an SM at hd 64).
+constexpr int kv_tile_rows(int DK, int BQ) { return DK >= 96 || BQ == 32 ? 32 : 64; }
 
-// Tile geometry of one (HD, BQ, BKV) instance; 4·BQ threads.
-template <int HD, int BQ, int BKV> struct AttnTile {
+constexpr int SM_SMEM = 233472;   // shared memory an H100 SM holds (228 KB)
+
+// Tile geometry of one (DK, DV, BQ, BKV) instance; 4·BQ threads.
+template <int DK, int DV, int BQ, int BKV> struct AttnTile {
   static constexpr int THREADS = 4 * BQ;
   static constexpr int QS = BQ + 4;       // row stride of Qᵀ and Pᵀ (floats)
-  static constexpr int KS = HD + 4;       // row stride of the K and V stages
+  static constexpr int KS = DK + 4;       // row stride of the K stages
+  static constexpr int VS = DV + 4;       // row stride of the V stages
   static constexpr int KPT = BKV / 16;    // keys per thread in S
-  static constexpr int VW = HD >= 64 ? 4 : 2, NC = HD / (16 * VW);  // O dims per thread: NC groups of VW
-  static constexpr int Q_ELEMS = HD * QS, KV_ELEMS = BKV * KS, P_ELEMS = BKV * QS;
-  static constexpr int BYTES = 4 * (Q_ELEMS + 4 * KV_ELEMS + P_ELEMS);
-  // copies: 4 consecutive dims per thread; RS rows per pass
-  static constexpr int CH = HD / 4, RS = THREADS / CH, KL = BKV / RS, QL = BQ / RS;
-  static constexpr int MIN_BLOCKS = 512 / THREADS;  // 128 registers a thread
-  static_assert(HD % 32 == 0 && BQ % 32 == 0 && BKV % 16 == 0, "tile shape");
-  static_assert(THREADS % CH == 0 && BKV % RS == 0 && BQ % RS == 0, "copy layout");
+  static constexpr int VW = DV >= 64 ? 4 : 2, NC = DV / (16 * VW);  // O dims per thread: NC groups of VW
+  static constexpr int Q_ELEMS = DK * QS, K_ELEMS = BKV * KS, V_ELEMS = BKV * VS,
+                       P_ELEMS = BKV * QS;
+  static constexpr int BYTES = 4 * (Q_ELEMS + 2 * K_ELEMS + 2 * V_ELEMS + P_ELEMS);
+  // copies: 16-byte chunks, CK (CV) a row of q/k (v); QL, KL, VL chunks a thread
+  static constexpr int CK = DK / 4, CV = DV / 4;
+  static constexpr int QL = BQ * CK / THREADS, KL = BKV * CK / THREADS, VL = BKV * CV / THREADS;
+  static constexpr int SMEM_BLOCKS = SM_SMEM / (BYTES + 1024);
+  static constexpr int MIN_BLOCKS =   // 128 registers a thread, or what shared memory allows
+      DK == DV || SMEM_BLOCKS >= 512 / THREADS ? 512 / THREADS
+                                               : (SMEM_BLOCKS > 0 ? SMEM_BLOCKS : 1);
+  static_assert(DK % 32 == 0 && DV % 32 == 0 && BQ % 32 == 0 && BKV % 16 == 0, "tile shape");
+  static_assert(DV % (16 * VW) == 0, "O dims per thread");
+  static_assert((BQ * CK) % THREADS == 0 && (BKV * CK) % THREADS == 0 &&
+                (BKV * CV) % THREADS == 0, "copy layout");
+};
+
+// Row and first dim of the 16-byte chunk c = tid + T·l of a tile C chunks
+// wide; where T is a multiple of C every pass keeps the thread's dims.
+template <int T, int C> struct Chunk {
+  int row, col;
+  __device__ __forceinline__ Chunk(int tid, int l) {
+    if constexpr (T % C == 0) {
+      row = tid / C + (T / C) * l, col = (tid % C) * 4;
+    } else {
+      const int c = tid + T * l;
+      row = c / C, col = (c % C) * 4;
+    }
+  }
 };
 
 // cp.async with zero-fill: ``ok`` false reads nothing and writes zeros.
@@ -94,71 +130,90 @@ template <bool VEC, typename T> __device__ __forceinline__ float4 load4(const T*
   }
 }
 
-// The q tile: rows [0, rows) of q at q + q_base + r·row_stride (key
-// position qpos0 + r), kv row j at kv_base + j·pos_stride, the same row
-// layout for o.  ASYNC: T is float and every operand is 16-byte aligned.
-// Walk (block-uniform): next(j0, hi) yields the kv tiles [j0, min(j0 + BKV,
-// hi)) in order; need_mask(j0, hi) says whether a tile crosses an edge;
-// allowed(qpos, kpos) is the test inside such a tile (kpos < hi is tested
-// here).  Every thread of the block calls it.
-template <typename T, int HD, int BQ, int BKV, bool ASYNC, typename Walk>
+// Where one operand's rows lie: row r of the tile at base + r·stride.
+struct Rows {
+  size_t base, stride;
+};
+
+// The q tile: rows [0, rows) of q at ql (key position qpos0 + r) and of o
+// at ol; kv row j of k at kl and of v at vl.  ASYNC: T is float and every
+// operand is 16-byte aligned.  Walk (block-uniform): next(j0, hi) yields the
+// kv tiles [j0, min(j0 + BKV, hi)) in order; need_mask(j0, hi) says whether
+// a tile crosses an edge; allowed(qpos, kpos) is the test inside such a tile
+// (kpos < hi is tested here).  Every thread of the block calls it.
+template <typename T, int DK, int DV, int BQ, int BKV, bool ASYNC, typename Walk>
 __device__ __forceinline__ void attend_q_tile(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-    T* __restrict__ o, size_t q_base, size_t row_stride, int rows, size_t kv_base,
-    size_t pos_stride, int qpos0, float scale, Walk& walk, float* smem) {
-  using L = AttnTile<HD, BQ, BKV>;
-  constexpr int QS = L::QS, KS = L::KS, KPT = L::KPT, VW = L::VW, NC = L::NC;
-  float* qt = smem;                            // Qᵀ [HD][QS]
+    T* __restrict__ o, Rows ql, Rows ol, int rows, Rows kl, Rows vl, int qpos0,
+    float scale, Walk& walk, float* smem) {
+  using L = AttnTile<DK, DV, BQ, BKV>;
+  constexpr int QS = L::QS, KS = L::KS, VS = L::VS, KPT = L::KPT, VW = L::VW, NC = L::NC;
+  constexpr int TH = L::THREADS;
+  float* qt = smem;                            // Qᵀ [DK][QS]
   float* kst = qt + L::Q_ELEMS;                // K stages [2][BKV][KS]
-  float* vst = kst + 2 * L::KV_ELEMS;          // V stages [2][BKV][KS]
-  float* pt = vst + 2 * L::KV_ELEMS;           // Pᵀ [BKV][QS]
+  float* vst = kst + 2 * L::K_ELEMS;           // V stages [2][BKV][VS]
+  float* pt = vst + 2 * L::V_ELEMS;            // Pᵀ [BKV][QS]
 
   const int tid = threadIdx.x, lane = tid & 31;
   const int tx = lane & 15, ty = 2 * (tid >> 5) + (lane >> 4);
-  const int cr = tid / L::CH, cc = (tid % L::CH) * 4;   // this thread's copy row, dim
 
   // Q, scaled, transposed; rows past `rows` are zero
 #pragma unroll
   for (int l = 0; l < L::QL; ++l) {
-    const int r = cr + L::RS * l;
+    const Chunk<TH, L::CK> c(tid, l);
     float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (r < rows) x = load4<ASYNC>(q + q_base + (size_t)r * row_stride + cc);
-    qt[(cc + 0) * QS + r] = x.x * scale;
-    qt[(cc + 1) * QS + r] = x.y * scale;
-    qt[(cc + 2) * QS + r] = x.z * scale;
-    qt[(cc + 3) * QS + r] = x.w * scale;
+    if (c.row < rows) x = load4<ASYNC>(q + ql.base + (size_t)c.row * ql.stride + c.col);
+    qt[(c.col + 0) * QS + c.row] = x.x * scale;
+    qt[(c.col + 1) * QS + c.row] = x.y * scale;
+    qt[(c.col + 2) * QS + c.row] = x.z * scale;
+    qt[(c.col + 3) * QS + c.row] = x.w * scale;
   }
 
-  // K/V copies: rows cr + RS·l of the tile at dims cc .. cc + 3
-  const T* kg = k + kv_base + (size_t)cr * pos_stride + cc;
-  const T* vg = v + kv_base + (size_t)cr * pos_stride + cc;
-  const size_t step = (size_t)L::RS * pos_stride;
+  // K/V copies of the tile [j0, hi) into stage st
   auto stage = [&](int st, int j0, int hi) {
-    float* ks = kst + st * L::KV_ELEMS + cr * KS + cc;
-    float* vs = vst + st * L::KV_ELEMS + cr * KS + cc;
-    const size_t base = (size_t)j0 * pos_stride;
+    float* ks = kst + st * L::K_ELEMS;
+    float* vs = vst + st * L::V_ELEMS;
     if constexpr (ASYNC) {
 #pragma unroll
       for (int l = 0; l < L::KL; ++l) {
-        const bool ok = j0 + cr + L::RS * l < hi;
-        const size_t g = base + step * l;
-        cp_async16(ks + L::RS * l * KS, ok ? (const void*)(kg + g) : (const void*)k, ok);
-        cp_async16(vs + L::RS * l * KS, ok ? (const void*)(vg + g) : (const void*)v, ok);
+        const Chunk<TH, L::CK> c(tid, l);
+        const bool ok = j0 + c.row < hi;
+        const T* src = k + kl.base + (size_t)(j0 + c.row) * kl.stride + c.col;
+        cp_async16(ks + c.row * KS + c.col, ok ? (const void*)src : (const void*)k, ok);
+      }
+#pragma unroll
+      for (int l = 0; l < L::VL; ++l) {
+        const Chunk<TH, L::CV> c(tid, l);
+        const bool ok = j0 + c.row < hi;
+        const T* src = v + vl.base + (size_t)(j0 + c.row) * vl.stride + c.col;
+        cp_async16(vs + c.row * VS + c.col, ok ? (const void*)src : (const void*)v, ok);
       }
       cp_async_commit();
     } else {
-      float4 kr[L::KL], vr[L::KL];
+      float4 kr[L::KL], vr[L::VL];
 #pragma unroll
       for (int l = 0; l < L::KL; ++l) {
-        const bool ok = j0 + cr + L::RS * l < hi;
-        const size_t g = base + step * l;
-        kr[l] = ok ? load4<false>(kg + g) : make_float4(0.f, 0.f, 0.f, 0.f);
-        vr[l] = ok ? load4<false>(vg + g) : make_float4(0.f, 0.f, 0.f, 0.f);
+        const Chunk<TH, L::CK> c(tid, l);
+        kr[l] = j0 + c.row < hi
+                    ? load4<false>(k + kl.base + (size_t)(j0 + c.row) * kl.stride + c.col)
+                    : make_float4(0.f, 0.f, 0.f, 0.f);
+      }
+#pragma unroll
+      for (int l = 0; l < L::VL; ++l) {
+        const Chunk<TH, L::CV> c(tid, l);
+        vr[l] = j0 + c.row < hi
+                    ? load4<false>(v + vl.base + (size_t)(j0 + c.row) * vl.stride + c.col)
+                    : make_float4(0.f, 0.f, 0.f, 0.f);
       }
 #pragma unroll
       for (int l = 0; l < L::KL; ++l) {
-        *reinterpret_cast<float4*>(ks + L::RS * l * KS) = kr[l];
-        *reinterpret_cast<float4*>(vs + L::RS * l * KS) = vr[l];
+        const Chunk<TH, L::CK> c(tid, l);
+        *reinterpret_cast<float4*>(ks + c.row * KS + c.col) = kr[l];
+      }
+#pragma unroll
+      for (int l = 0; l < L::VL; ++l) {
+        const Chunk<TH, L::CV> c(tid, l);
+        *reinterpret_cast<float4*>(vs + c.row * VS + c.col) = vr[l];
       }
     }
   };
@@ -185,15 +240,15 @@ __device__ __forceinline__ void attend_q_tile(
     const bool have_next = walk.next(nj0, nhi);
     if (ASYNC && have_next) stage(st ^ 1, nj0, nhi);
 
-    const float* ks = kst + st * L::KV_ELEMS;
-    const float* vs = vst + st * L::KV_ELEMS;
+    const float* ks = kst + st * L::K_ELEMS;
+    const float* vs = vst + st * L::V_ELEMS;
     float s[4][KPT];
 #pragma unroll
     for (int i = 0; i < 4; ++i)
 #pragma unroll
       for (int j = 0; j < KPT; ++j) s[i][j] = 0.f;
 #pragma unroll
-    for (int d = 0; d < HD; d += 4) {
+    for (int d = 0; d < DK; d += 4) {
       float qv[4][4];  // [dim][row]
 #pragma unroll
       for (int u = 0; u < 4; ++u) {
@@ -255,7 +310,7 @@ __device__ __forceinline__ void attend_q_tile(
       const float p[4] = {p4.x, p4.y, p4.z, p4.w};
 #pragma unroll
       for (int c = 0; c < NC; ++c) {
-        const float* vp = vs + kk * KS + VW * tx + 16 * VW * c;
+        const float* vp = vs + kk * VS + VW * tx + 16 * VW * c;
         float vv[VW];
         if constexpr (VW == 4) {
           const float4 x = *reinterpret_cast<const float4*>(vp);
@@ -282,7 +337,7 @@ __device__ __forceinline__ void attend_q_tile(
     const int r = 4 * ty + i;
     if (r >= rows) continue;
     const float den = fmaxf(l, 1e-30f);
-    T* orow = o + q_base + (size_t)r * row_stride;
+    T* orow = o + ol.base + (size_t)r * ol.stride;
 #pragma unroll
     for (int c = 0; c < NC; ++c) {
       const int d = VW * tx + 16 * VW * c;

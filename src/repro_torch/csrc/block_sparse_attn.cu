@@ -9,7 +9,8 @@
 // running max m (initialised to -1e30, the JAX NEG_INF, so a fully masked
 // tile adds p = 0 rather than NaN), denominator l and accumulator, GQA by
 // index, output acc / max(l, 1e-30).  Query rows sit at key positions
-// q_offset + row.
+// q_offset + row.  The scale is the caller's, and v and o may be narrower
+// than q and k (MLA's (192, 128) and (96, 64); attn_tile.cuh's note).
 //
 // What bounds it on the H100: at the serving prefill (B = 8, S = 896,
 // H = 12, hd = 64, block 128, local 4, sink 1, stride 8, f32) query block i
@@ -76,9 +77,9 @@ template <int BKV> struct SparseWalk {
   __device__ bool allowed(int qp, int kp) const { return kp <= qp; }
 };
 
-template <typename T, int HD, int BQ, int BKV, bool ASYNC>
-__global__ void __launch_bounds__(AttnTile<HD, BQ, BKV>::THREADS,
-                                  AttnTile<HD, BQ, BKV>::MIN_BLOCKS)
+template <typename T, int DK, int DV, int BQ, int BKV, bool ASYNC>
+__global__ void __launch_bounds__(AttnTile<DK, DV, BQ, BKV>::THREADS,
+                                  AttnTile<DK, DV, BQ, BKV>::MIN_BLOCKS)
 bsa_fwd(const T* __restrict__ q, const T* __restrict__ k,
         const T* __restrict__ v, T* __restrict__ o,
         const int* __restrict__ idx, const int* __restrict__ valid, int Sq,
@@ -94,62 +95,73 @@ bsa_fwd(const T* __restrict__ q, const T* __restrict__ k,
   const int qpos0 = q_offset + q0;               // its key position
   SparseWalk<BKV> walk{idx + (size_t)qb * n_active, valid + (size_t)qb * n_active,
                        n_active, block, Sk, qpos0, qpos0 + rows};
-  repro::attend_q_tile<T, HD, BQ, BKV, ASYNC>(
-      q, k, v, o, ((size_t)b * Sq + q0) * H * HD + (size_t)h * HD, (size_t)H * HD, rows,
-      ((size_t)b * Sk * KH + kvh) * HD, (size_t)KH * HD, qpos0, scale, walk, smem);
+  const size_t qrow = ((size_t)b * Sq + q0) * H + h, kvrow = (size_t)b * Sk * KH + kvh;
+  repro::attend_q_tile<T, DK, DV, BQ, BKV, ASYNC>(
+      q, k, v, o, {qrow * DK, (size_t)H * DK}, {qrow * DV, (size_t)H * DV}, rows,
+      {kvrow * DK, (size_t)KH * DK}, {kvrow * DV, (size_t)KH * DV}, qpos0, scale, walk,
+      smem);
 }
 
-template <typename T, int HD, int BQ, bool ASYNC>
+template <typename T, int DK, int DV, int BQ, bool ASYNC>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o, const int* idx,
                    const int* valid, int B, int Sq, int Sk, int H, int KH, int block,
                    int n_active, int q_offset, float scale, cudaStream_t s) {
-  constexpr int BKV = repro::kv_tile_rows(HD, BQ);
-  using L = AttnTile<HD, BQ, BKV>;
+  constexpr int BKV = repro::kv_tile_rows(DK, BQ);
+  using L = AttnTile<DK, DV, BQ, BKV>;
   static const cudaError_t attr = cudaFuncSetAttribute(
-      bsa_fwd<T, HD, BQ, BKV, ASYNC>, cudaFuncAttributeMaxDynamicSharedMemorySize, L::BYTES);
+      bsa_fwd<T, DK, DV, BQ, BKV, ASYNC>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      L::BYTES);
   if (attr != cudaSuccess) return attr;
   const dim3 grid(B * H, (Sq / block) * ((block + BQ - 1) / BQ));
-  bsa_fwd<T, HD, BQ, BKV, ASYNC><<<grid, L::THREADS, L::BYTES, s>>>(
+  bsa_fwd<T, DK, DV, BQ, BKV, ASYNC><<<grid, L::THREADS, L::BYTES, s>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<T*>(o), idx, valid, Sq, Sk, H, KH, block, n_active, q_offset, scale);
   return cudaSuccess;
 }
 
-template <typename T, int HD, bool ASYNC>
+template <typename T, int DK, int DV, bool ASYNC>
 cudaError_t pick_tile(const void* q, const void* k, const void* v, void* o, const int* idx,
                       const int* valid, int B, int Sq, int Sk, int H, int KH, int block,
                       int n_active, int q_offset, float scale, cudaStream_t s) {
   // the q-tile rule of the source note
   const long long blocks64 = (long long)(Sq / block) * ((block + 63) / 64) * B * H;
   if (block > 32 && blocks64 >= 2LL * repro::sm_count())
-    return launch<T, HD, 64, ASYNC>(q, k, v, o, idx, valid, B, Sq, Sk, H, KH, block,
-                                    n_active, q_offset, scale, s);
-  return launch<T, HD, 32, ASYNC>(q, k, v, o, idx, valid, B, Sq, Sk, H, KH, block, n_active,
-                                  q_offset, scale, s);
+    return launch<T, DK, DV, 64, ASYNC>(q, k, v, o, idx, valid, B, Sq, Sk, H, KH, block,
+                                        n_active, q_offset, scale, s);
+  return launch<T, DK, DV, 32, ASYNC>(q, k, v, o, idx, valid, B, Sq, Sk, H, KH, block,
+                                      n_active, q_offset, scale, s);
 }
 
+// The (q/k, v) widths compiled, as flash_attn.cu's: 32, 64, 128 square,
+// MLA's (192, 128) and (96, 64).
 template <typename T, bool ASYNC>
-cudaError_t dispatch(int HD, const void* q, const void* k, const void* v, void* o,
+cudaError_t dispatch(int DK, int DV, const void* q, const void* k, const void* v, void* o,
                      const int* idx, const int* valid, int B, int Sq, int Sk, int H, int KH,
                      int block, int n_active, int q_offset, float scale, cudaStream_t s) {
-  switch (HD) {
-    case 32: return pick_tile<T, 32, ASYNC>(q, k, v, o, idx, valid, B, Sq, Sk, H, KH, block, n_active, q_offset, scale, s);
-    case 64: return pick_tile<T, 64, ASYNC>(q, k, v, o, idx, valid, B, Sq, Sk, H, KH, block, n_active, q_offset, scale, s);
-    case 128: return pick_tile<T, 128, ASYNC>(q, k, v, o, idx, valid, B, Sq, Sk, H, KH, block, n_active, q_offset, scale, s);
-    default: return cudaErrorInvalidValue;
-  }
+#define REPRO_WIDTHS(dk, dv)                                                            \
+  if (DK == dk && DV == dv)                                                             \
+    return pick_tile<T, dk, dv, ASYNC>(q, k, v, o, idx, valid, B, Sq, Sk, H, KH, block, \
+                                       n_active, q_offset, scale, s);
+  REPRO_WIDTHS(32, 32)
+  REPRO_WIDTHS(64, 64)
+  REPRO_WIDTHS(128, 128)
+  REPRO_WIDTHS(96, 64)
+  REPRO_WIDTHS(192, 128)
+#undef REPRO_WIDTHS
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
 
-// dtype: 0 = f32, 1 = bf16.  q/o (B,Sq,H,HD), k/v (B,Sk,KH,HD), contiguous;
-// idx/valid (Sq/block, n_active) int32 on the device.  Sq and Sk are
-// multiples of block; query row i sits at key position q_offset + i.
-// Returns the first error of the launch, else cudaGetLastError() after it.
+// dtype: 0 = f32, 1 = bf16.  q (B,Sq,H,HD), k (B,Sk,KH,HD), v (B,Sk,KH,HDV),
+// o (B,Sq,H,HDV), contiguous; idx/valid (Sq/block, n_active) int32 on the
+// device.  Sq and Sk are multiples of block; query row i sits at key
+// position q_offset + i.  Returns the first error of the launch, else
+// cudaGetLastError() after it.
 extern "C" int block_sparse_attn(int dtype, const void* q, const void* k,
                                  const void* v, void* o, const void* idx,
                                  const void* valid, int B, int Sq, int Sk, int H,
-                                 int KH, int HD, int block, int n_active,
+                                 int KH, int HD, int HDV, int block, int n_active,
                                  int q_offset, float scale, void* stream) {
   if (B < 1 || Sq < 1 || Sk < 1 || KH < 1 || H % KH != 0 || block < 1 ||
       Sq % block != 0 || Sk % block != 0 || n_active < 1 || q_offset < 0)
@@ -161,11 +173,11 @@ extern "C" int block_sparse_attn(int dtype, const void* q, const void* k,
                    repro::aligned16(o);
   cudaError_t e;
   if (dtype == 0 && vec) {
-    e = dispatch<float, true>(HD, q, k, v, o, ip, vp, B, Sq, Sk, H, KH, block, n_active, q_offset, scale, s);
+    e = dispatch<float, true>(HD, HDV, q, k, v, o, ip, vp, B, Sq, Sk, H, KH, block, n_active, q_offset, scale, s);
   } else if (dtype == 0) {
-    e = dispatch<float, false>(HD, q, k, v, o, ip, vp, B, Sq, Sk, H, KH, block, n_active, q_offset, scale, s);
+    e = dispatch<float, false>(HD, HDV, q, k, v, o, ip, vp, B, Sq, Sk, H, KH, block, n_active, q_offset, scale, s);
   } else if (dtype == 1) {
-    e = dispatch<__nv_bfloat16, false>(HD, q, k, v, o, ip, vp, B, Sq, Sk, H, KH, block, n_active, q_offset, scale, s);
+    e = dispatch<__nv_bfloat16, false>(HD, HDV, q, k, v, o, ip, vp, B, Sq, Sk, H, KH, block, n_active, q_offset, scale, s);
   } else {
     return (int)cudaErrorInvalidValue;
   }

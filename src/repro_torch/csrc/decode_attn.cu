@@ -46,7 +46,10 @@
 // - The merge is deterministic: groups meet in a warp by shuffles in a fixed
 //   order, warps in the block through shared memory in warp order, and
 //   rank 0 reads the ranks' (m, l, acc) through distributed shared memory
-//   (cluster.map_shared_rank) in rank order and writes o; a second cluster
+//   (cluster.map_shared_rank) in rank order and writes o (and, when the
+//   caller asks, the log-sum-exp m + log l of the scaled logits it read, so
+//   that outputs over disjoint position ranges merge exactly: the sparse-KV
+//   cache's persistent prefix and ring); a second cluster
 //   barrier keeps every block alive until rank 0 has read it (a relaxed
 //   arrival, since rank 0 has used what it read; a full cluster.sync() there
 //   was slower).  One
@@ -159,7 +162,8 @@ __host__ __device__ __forceinline__ int max_segments(int Sc, int block) {
 template <typename T, int HD, bool WIDE>
 __global__ void __launch_bounds__(THREADS, MINB)
 decode_fwd(const T* __restrict__ q, const T* __restrict__ kc,
-           const T* __restrict__ vc, T* __restrict__ o, int Sc, int H, int KH,
+           const T* __restrict__ vc, T* __restrict__ o, float* __restrict__ lse,
+           int Sc, int H, int KH,
            int cache_len, int window, int block, int sink, int local,
            int stride, float scale) {
   using S = Shape<T, HD>;
@@ -350,6 +354,7 @@ decode_fwd(const T* __restrict__ q, const T* __restrict__ kc,
       }
     }
     o[(size_t)bh * HD + tid] = from_f32<T>(at / fmaxf(lt, 1e-30f));
+    if (lse != nullptr && tid == 0) lse[bh] = mt + logf(lt);
   }
   // No block leaves while rank 0 reads its shared memory.  Rank 0 arrives
   // after it has used what it read, so the arrival orders nothing (relaxed).
@@ -394,7 +399,7 @@ int decode_split(int bh, int positions_max, int sms) {
 
 template <typename T, int HD, bool WIDE>
 cudaError_t launch(int split, const void* q, const void* k, const void* v, void* o,
-                   int B, int Sc, int H, int KH, int cache_len, int window,
+                   float* lse, int B, int Sc, int H, int KH, int cache_len, int window,
                    const int* sp, float scale, cudaStream_t s) {
   static const cudaError_t attr = cudaFuncSetAttribute(
       decode_fwd<T, HD, WIDE>, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
@@ -419,29 +424,30 @@ cudaError_t launch(int split, const void* q, const void* k, const void* v, void*
   cfg.numAttrs = 1;
   return cudaLaunchKernelEx(&cfg, decode_fwd<T, HD, WIDE>, static_cast<const T*>(q),
                             static_cast<const T*>(k), static_cast<const T*>(v),
-                            static_cast<T*>(o), Sc, H, KH, cache_len, window, sp[0],
+                            static_cast<T*>(o), lse, Sc, H, KH, cache_len, window, sp[0],
                             sp[1], sp[2], sp[3], scale);
 }
 
 template <typename T, int HD>
 cudaError_t launch_hd(bool wide, int split, const void* q, const void* k, const void* v,
-                      void* o, int B, int Sc, int H, int KH, int cache_len, int window,
+                      void* o, float* lse, int B, int Sc, int H, int KH, int cache_len, int window,
                       const int* sp, float scale, cudaStream_t s) {
-  return wide ? launch<T, HD, true>(split, q, k, v, o, B, Sc, H, KH, cache_len, window, sp, scale, s)
-              : launch<T, HD, false>(split, q, k, v, o, B, Sc, H, KH, cache_len, window, sp, scale, s);
+  return wide ? launch<T, HD, true>(split, q, k, v, o, lse, B, Sc, H, KH, cache_len, window, sp, scale, s)
+              : launch<T, HD, false>(split, q, k, v, o, lse, B, Sc, H, KH, cache_len, window, sp, scale, s);
 }
 
 template <typename T>
-cudaError_t dispatch(int HD, const void* q, const void* k, const void* v, void* o, int B,
+cudaError_t dispatch(int HD, const void* q, const void* k, const void* v, void* o, float* lse,
+                     int B,
                      int Sc, int H, int KH, int cache_len, int window, const int* sp,
                      float scale, cudaStream_t s) {
   const bool wide = aligned16(k) && aligned16(v);
   const int split = decode_split(B * H, most_positions(Sc, window, sp[0], sp[1], sp[2], sp[3]),
                                  sm_count());
   switch (HD) {
-    case 32: return launch_hd<T, 32>(wide, split, q, k, v, o, B, Sc, H, KH, cache_len, window, sp, scale, s);
-    case 64: return launch_hd<T, 64>(wide, split, q, k, v, o, B, Sc, H, KH, cache_len, window, sp, scale, s);
-    case 128: return launch_hd<T, 128>(wide, split, q, k, v, o, B, Sc, H, KH, cache_len, window, sp, scale, s);
+    case 32: return launch_hd<T, 32>(wide, split, q, k, v, o, lse, B, Sc, H, KH, cache_len, window, sp, scale, s);
+    case 64: return launch_hd<T, 64>(wide, split, q, k, v, o, lse, B, Sc, H, KH, cache_len, window, sp, scale, s);
+    case 128: return launch_hd<T, 128>(wide, split, q, k, v, o, lse, B, Sc, H, KH, cache_len, window, sp, scale, s);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -450,10 +456,12 @@ cudaError_t dispatch(int HD, const void* q, const void* k, const void* v, void* 
 
 // dtype: 0 = f32, 1 = bf16.  q/o (B,1,H,HD), caches (B,Sc,KH,HD), contiguous;
 // positions < cache_len are valid.  block > 0 adds the sparse mask of
-// (block, sink, local, stride); block = 0 is dense.  Returns the first
-// error of the launch, else cudaGetLastError() after it.
+// (block, sink, local, stride); block = 0 is dense.  lse, when not null,
+// (B,H) f32, gets m + log l of the scaled logits over the positions read
+// (-inf when none is).  Returns the first error of the launch, else
+// cudaGetLastError() after it.
 extern "C" int decode_attn(int dtype, const void* q, const void* k, const void* v,
-                           void* o, int B, int Sc, int H, int KH, int HD,
+                           void* o, void* lse, int B, int Sc, int H, int KH, int HD,
                            int cache_len, int window, int block, int sink,
                            int local, int stride, float scale, void* stream) {
   if (B < 1 || Sc < 1 || KH < 1 || H % KH != 0 || cache_len < 1 ||
@@ -463,9 +471,11 @@ extern "C" int decode_attn(int dtype, const void* q, const void* k, const void* 
   const int sp[4] = {block, sink, local, stride};
   cudaError_t e;
   if (dtype == 0) {
-    e = dispatch<float>(HD, q, k, v, o, B, Sc, H, KH, cache_len, window, sp, scale, s);
+    e = dispatch<float>(HD, q, k, v, o, static_cast<float*>(lse), B, Sc, H, KH, cache_len,
+                        window, sp, scale, s);
   } else if (dtype == 1) {
-    e = dispatch<__nv_bfloat16>(HD, q, k, v, o, B, Sc, H, KH, cache_len, window, sp, scale, s);
+    e = dispatch<__nv_bfloat16>(HD, q, k, v, o, static_cast<float*>(lse), B, Sc, H, KH,
+                                cache_len, window, sp, scale, s);
   } else {
     return (int)cudaErrorInvalidValue;
   }

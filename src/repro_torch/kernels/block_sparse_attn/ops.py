@@ -20,7 +20,7 @@ from repro_torch.kernels.block_sparse_attn.ref import block_sparse_ref
 from repro_torch.kernels.flash_attn.ops import DTYPES, check_operands
 from repro_torch.models.attention import check_sparse_lengths, sparse_block_table
 
-_ARGTYPES = ([ctypes.c_int] + [ctypes.c_void_p] * 6 + [ctypes.c_int] * 9
+_ARGTYPES = ([ctypes.c_int] + [ctypes.c_void_p] * 6 + [ctypes.c_int] * 10
              + [ctypes.c_float, ctypes.c_void_p])
 
 
@@ -33,27 +33,31 @@ def device_table(nq: int, nk: int, cfg, q_block_offset: int, device):
             torch.from_numpy(valid.astype(np.int32)).to(device))
 
 
-def block_sparse_attention(q, k, v, cfg, *, q_offset: int = 0):
-    """q: (B, Sq, H, hd); k/v: (B, Sk, K, hd) → (B, Sq, H, hd).  Sq and Sk
-    are multiples of ``cfg.block_size``; query row i sits at key position
-    ``q_offset + i`` (a multiple of the block)."""
+def block_sparse_attention(q, k, v, cfg, *, q_offset: int = 0, scale=None):
+    """q: (B, Sq, H, dk); k: (B, Sk, K, dk); v: (B, Sk, K, dv) → (B, Sq, H,
+    dv).  Sq and Sk are multiples of ``cfg.block_size``; query row i sits at
+    key position ``q_offset + i`` (a multiple of the block); ``scale``
+    (default dk^-1/2) multiplies q·k.  The (dk, dv) widths are
+    ``flash_attn.ops.WIDTHS``'s (a caller pads q and k to ``qk_width``)."""
     check_operands("block_sparse_attention", q, k, v)
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
     bs = cfg.block_size
     check_sparse_lengths(q.shape[1], k.shape[1], bs)
     if q_offset < 0 or q_offset % bs:
         raise ValueError(f"block_sparse_attention: q_offset {q_offset} is not "
                          f"a multiple of the block {bs}")
     if q.device.type == "cpu":
-        return block_sparse_ref(q, k, v, cfg, q_offset=q_offset)
+        return block_sparse_ref(q, k, v, cfg, q_offset=q_offset, scale=scale)
     _build.forward_only("block_sparse_attention", q, k, v)
     b, sq, h, d = q.shape
-    sk, kh = k.shape[1], k.shape[2]
+    sk, kh, dv = k.shape[1], k.shape[2], v.shape[3]
     idx, valid = device_table(sq // bs, sk // bs, cfg, q_offset // bs, q.device)
-    out = torch.empty_like(q)
+    out = q.new_empty(b, sq, h, dv)
     fn = _build.function("block_sparse_attn", _ARGTYPES)
     rc = fn(DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
             out.data_ptr(), idx.data_ptr(), valid.data_ptr(), b, sq, sk, h, kh,
-            d, bs, idx.shape[1], int(q_offset), d ** -0.5,
+            d, dv, bs, idx.shape[1], int(q_offset), scale,
             torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(rc, "block_sparse_attn")
     block_sparse_attention.launches += 1

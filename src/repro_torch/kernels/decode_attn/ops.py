@@ -18,9 +18,10 @@ import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.decode_attn.ref import decode_ref
-from repro_torch.kernels.flash_attn.ops import DTYPES, check_operands
+from repro_torch.kernels.flash_attn.ops import DTYPES, SQUARE, check_operands
+from repro_torch.models.attention import merge_by_lse, sparse_kv_decode, sparse_kv_ranges
 
-_ARGTYPES = ([ctypes.c_int] + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 11
+_ARGTYPES = ([ctypes.c_int] + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 11
              + [ctypes.c_float, ctypes.c_void_p])
 
 
@@ -30,33 +31,64 @@ def _pattern(sparse):
 
 
 def decode_attention(q, k_cache, v_cache, cache_len: int, *, window: int = 0,
-                     sparse=None):
+                     sparse=None, return_lse: bool = False):
     """q: (B, 1, H, hd); caches: (B, Sc, K, hd) → (B, 1, H, hd).  ``sparse``
-    (a ``SparseAttnConfig``) masks the positions of inactive blocks."""
-    check_operands("decode_attention", q, k_cache, v_cache)
-    if q.shape[1] != 1:
-        raise ValueError(f"decode_attention: one query token, got {tuple(q.shape)}")
+    (a ``SparseAttnConfig``) masks the positions of inactive blocks.  With
+    ``return_lse`` → (out, lse): lse (B, H) f32, the log-sum-exp of the
+    scaled logits over the positions read (-inf when none is), so that
+    outputs over disjoint position ranges merge exactly
+    (``models.attention.merge_by_lse``)."""
+    check_operands("decode_attention", q, k_cache, v_cache, widths=SQUARE)
+    if q.shape[1] != 1 or v_cache.shape != k_cache.shape:
+        raise ValueError(f"decode_attention: one query token and caches of one "
+                         f"shape, got {tuple(q.shape)}, {tuple(k_cache.shape)}, "
+                         f"{tuple(v_cache.shape)}")
     cache_len = int(cache_len)
     if cache_len < 1:
         raise ValueError(f"decode_attention: cache_len {cache_len} < 1")
     if q.device.type == "cpu":
         return decode_ref(q, k_cache, v_cache, cache_len, window=window,
-                          sparse=sparse)
+                          sparse=sparse, return_lse=return_lse)
     _build.forward_only("decode_attention", q, k_cache, v_cache)
     b, _, h, d = q.shape
     sc, kh = k_cache.shape[1], k_cache.shape[2]
     out = torch.empty_like(q)
+    lse = (torch.empty(b, h, dtype=torch.float32, device=q.device) if return_lse
+           else None)
     fn = _build.function("decode_attn", _ARGTYPES)
     rc = fn(DTYPES[q.dtype], q.data_ptr(), k_cache.data_ptr(),
-            v_cache.data_ptr(), out.data_ptr(), b, sc, h, kh, d, cache_len,
+            v_cache.data_ptr(), out.data_ptr(),
+            None if lse is None else lse.data_ptr(), b, sc, h, kh, d, cache_len,
             int(window), *_pattern(sparse), d ** -0.5,
             torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(rc, "decode_attn")
     decode_attention.launches += 1
-    return out
+    return (out, lse) if return_lse else out
 
 
 decode_attention.launches = 0
+
+
+def decode_ranges(q, cache, ranges):
+    """q (B, 1, H, hd) over slot ranges of a sparse-KV cache: one
+    ``decode_attention`` a range (``ranges`` of ``sparse_kv_ranges``: slots
+    [end − count, end) of region "pers" or "ring", read as cache_len = end,
+    window = count) with its log-sum-exp, merged exactly by
+    ``merge_by_lse`` (one range needs no merge).  The ranges are host ints:
+    nothing is read back."""
+    parts = [decode_attention(q, cache[f"k_{reg}"], cache[f"v_{reg}"], end, window=count,
+                              return_lse=len(ranges) > 1) for reg, end, count in ranges]
+    return parts[0] if len(parts) == 1 else merge_by_lse(parts)
+
+
+def sparse_kv_attention(q, cache, pos: int, cfg, seq_len: int):
+    """The query at ``pos`` against a sparse-KV cache (``models.attention``'s
+    layout): on the card, ``decode_ranges`` over the persistent prefix and
+    the ring's one or two ranges (up to three ``decode_attn`` launches); on
+    the CPU the plain ``sparse_kv_decode``."""
+    if q.device.type == "cpu":
+        return sparse_kv_decode(q, cache, pos, cfg, seq_len)
+    return decode_ranges(q, cache, sparse_kv_ranges(pos, cfg, seq_len))
 
 
 def split_plan(batch: int, cache_size: int, heads: int, *, window: int = 0,

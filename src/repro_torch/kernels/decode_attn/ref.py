@@ -7,11 +7,12 @@ from repro_torch.models.attention import NEG_INF, decode_attention, sparse_posit
 
 
 def decode_ref(q, k_cache, v_cache, cache_len: int, *, window: int = 0,
-               sparse=None):
+               sparse=None, return_lse: bool = False):
     """q: (B,1,H,hd); caches (B,Sc,K,hd); positions < cache_len are valid
-    (and, with ``sparse``, in an active block)."""
+    (and, with ``sparse``, in an active block).  ``return_lse`` → (out,
+    lse), lse (B, H) f32 the log-sum-exp of the scaled logits read."""
     return decode_attention(q, k_cache, v_cache, cache_len, window=window,
-                            sparse=sparse)
+                            sparse=sparse, return_lse=return_lse)
 
 
 def decode_split_ref(q, k_cache, v_cache, cache_len: int, split: int, *,

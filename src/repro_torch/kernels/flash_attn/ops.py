@@ -1,11 +1,17 @@
 """Public wrapper: model-layout (B,S,H,hd) GQA attention via the
-hand-written flash kernel (decoder prefill, encoder layers).  A CPU tensor
-takes the plain version (``ref.attention_ref``); a CUDA tensor launches
-``csrc/flash_attn.cu`` or raises.  When grad mode is on and an operand
-requires grad, the CUDA call goes through ``FlashAttention``: the kernel is
-its forward, and its backward is the softmax VJP by recomputation in plain
-torch (the TPU kernel has no backward; JAX training differentiates its
-jnp attention, as XLA)."""
+hand-written flash kernel (decoder prefill, encoder layers, MLA).  A CPU
+tensor takes the plain version (``ref.attention_ref``); a CUDA tensor
+launches ``csrc/flash_attn.cu`` or raises.  When grad mode is on and an
+operand requires grad, the CUDA call goes through ``FlashAttention``: the
+kernel is its forward, and its backward is the softmax VJP by recomputation
+in plain torch (the TPU kernel has no backward; JAX training differentiates
+its jnp attention, as XLA).
+
+v may be narrower than q and k (MLA: q/k nope + rope wide, v its own
+width).  The kernel is compiled for the (q/k, v) widths of ``WIDTHS``; a
+caller with another q/k width zero-pads q and k to ``qk_width(dk, dv)``
+and passes the scale of its unpadded width (``scale=``), so the padded dims
+add exact zeros to every dot."""
 from __future__ import annotations
 
 import ctypes
@@ -16,18 +22,32 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.flash_attn.ref import attention_ref
 from repro_torch.models.attention import NEG_INF, make_mask
 
-HEAD_DIMS = (32, 64, 128)       # head widths the kernel is compiled for
+# (q/k, v) head widths the prefill kernels are compiled for: the square
+# heads and MLA's (deepseek-v2's published (192, 128); (96, 64) for its
+# reduced d-256 variant, q/k 80 padded)
+WIDTHS = ((32, 32), (64, 64), (128, 128), (96, 64), (192, 128))
+SQUARE = tuple(w for w in WIDTHS if w[0] == w[1])   # the decode kernel's
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_ARGTYPES = ([ctypes.c_int] + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8
+_ARGTYPES = ([ctypes.c_int] + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 9
              + [ctypes.c_float, ctypes.c_void_p])
 
 
-def check_operands(name, q, k, v):
-    """Shared operand checks of the two attention wrappers."""
-    if q.dim() != 4 or k.shape != v.shape or k.dim() != 4:
-        raise ValueError(f"{name}: q (B,S,H,hd), k/v (B,Sk,K,hd) expected; "
+def qk_width(dk: int, dv: int) -> int:
+    """The compiled q/k width a (dk, dv) call runs at: the smallest one of
+    ``WIDTHS`` with value width ``dv`` that holds ``dk``; ``dk`` itself
+    when there is none (a CUDA call then raises)."""
+    fits = [w for w, v in WIDTHS if v == dv and w >= dk]
+    return min(fits) if fits else dk
+
+
+def check_operands(name, q, k, v, widths=WIDTHS):
+    """Shared operand checks of the attention wrappers: q (B,S,H,dk), k
+    (B,Sk,K,dk), v (B,Sk,K,dv); on the card (dk, dv) one of ``widths``."""
+    if q.dim() != 4 or k.dim() != 4 or v.dim() != 4 or k.shape[:3] != v.shape[:3]:
+        raise ValueError(f"{name}: q (B,S,H,hd), k (B,Sk,K,hd), v (B,Sk,K,hdv) expected; "
                          f"got {tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
     b, _, h, d = q.shape
+    dv = v.shape[3]
     if k.shape[0] != b or k.shape[3] != d or h % k.shape[2]:
         raise ValueError(f"{name}: q {tuple(q.shape)} does not match kv "
                          f"{tuple(k.shape)} (batch, head width, H % K)")
@@ -35,75 +55,95 @@ def check_operands(name, q, k, v):
         raise TypeError(f"{name}: q, k, v must share one dtype of {list(DTYPES)}")
     if len({t.device for t in (q, k, v)}) != 1:
         raise ValueError(f"{name}: operands on different devices")
-    if q.device.type == "cuda" and d not in HEAD_DIMS:
-        raise ValueError(f"{name}: head width {d} not in {HEAD_DIMS}")
+    if q.device.type == "cuda" and (d, dv) not in widths:
+        vw = f" (v {dv})" if dv != d else ""
+        raise ValueError(f"{name}: head width {d}{vw} not in the compiled "
+                         f"(q/k, v) widths {widths}")
     if not all(t.is_contiguous() for t in (q, k, v)):
         raise ValueError(f"{name}: operands must be contiguous")
 
 
 class FlashAttention(torch.autograd.Function):
-    """Attention with ``fwd(q, k, v, causal=, window=)`` as its forward
-    (the kernel on the card; a test passes ``attention_ref``) and the
-    softmax VJP in plain torch, in f32, from P recomputed under the same
-    causal and window mask (G = H / K query heads per kv head):
+    """Attention with ``fwd(q, k, v, causal=, window=, scale=)`` as its
+    forward (the kernel on the card; a test passes ``attention_ref``) and
+    the softmax VJP in plain torch, in f32, from P recomputed under the same
+    causal and window mask (G = H / K query heads per kv head, s the
+    scale; v may be narrower than q and k):
 
         P = softmax(s·Q·Kᵀ), dV = Σ_g Pᵀ·dO, dP = dO·Vᵀ,
         dS = P∘(dP − rowsum(dO∘O)), dQ = s·dS·K, dK = s·Σ_g dSᵀ·Q."""
 
     @staticmethod
-    def forward(ctx, fwd, q, k, v, causal, window):
-        out = fwd(q, k, v, causal=causal, window=window)
+    def forward(ctx, fwd, q, k, v, causal, window, scale=None):
+        scale = q.shape[-1] ** -0.5 if scale is None else scale
+        out = fwd(q, k, v, causal=causal, window=window, scale=scale)
         ctx.save_for_backward(q, k, v, out)
-        ctx.causal, ctx.window = causal, window
+        ctx.causal, ctx.window, ctx.scale = causal, window, scale
         return out
 
     @staticmethod
     def backward(ctx, dout):
         q, k, v, out = ctx.saved_tensors
         b, sq, h, d = q.shape
-        sk, kh = k.shape[1], k.shape[2]
+        sk, kh, dv = k.shape[1], k.shape[2], v.shape[3]
         g = h // kh
-        s = d ** -0.5
+        s = ctx.scale
         qf = q.float().reshape(b, sq, kh, g, d)
         kf, vf = k.float(), v.float()
-        of = out.float().reshape(b, sq, kh, g, d)
-        dof = dout.float().reshape(b, sq, kh, g, d)
+        of = out.float().reshape(b, sq, kh, g, dv)
+        dof = dout.float().reshape(b, sq, kh, g, dv)
         logits = torch.einsum("bsKgd,btKd->bKgst", qf, kf) * s
         allowed = make_mask(sq, sk, causal=ctx.causal, window=ctx.window,
                             device=q.device)
         p = torch.softmax(logits.masked_fill(~allowed, NEG_INF), dim=-1)
-        dv = torch.einsum("bKgst,bsKgd->btKd", p, dof)
+        dvv = torch.einsum("bKgst,bsKgd->btKd", p, dof)
         dp = torch.einsum("bsKgd,btKd->bKgst", dof, vf)
         rows = (dof * of).sum(-1).permute(0, 2, 3, 1)      # (B, K, G, Sq)
         ds = p * (dp - rows[..., None])
         dq = torch.einsum("bKgst,btKd->bsKgd", ds, kf) * s
         dk = torch.einsum("bKgst,bsKgd->btKd", ds, qf) * s
         return (None, dq.reshape(q.shape).to(q.dtype), dk.to(k.dtype),
-                dv.to(v.dtype), None, None)
+                dvv.to(v.dtype), None, None, None)
 
 
-def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):
-    """q: (B, Sq, H, hd); k/v: (B, Sk, K, hd) → (B, Sq, H, hd).  Query row i
-    sits at key position i; ``window`` > 0 keeps the last ``window`` keys."""
+def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
+                    scale: float | None = None):
+    """q: (B, Sq, H, dk); k: (B, Sk, K, dk); v: (B, Sk, K, dv) → (B, Sq, H,
+    dv).  Query row i sits at key position i; ``window`` > 0 keeps the last
+    ``window`` keys; ``scale`` (default dk^-1/2) multiplies q·k."""
     check_operands("flash_attention", q, k, v)
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
     if q.device.type == "cpu":
-        return attention_ref(q, k, v, causal=causal, window=window)
+        return attention_ref(q, k, v, causal=causal, window=window, scale=scale)
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
-        return FlashAttention.apply(_launch, q, k, v, causal, window)
-    return _launch(q, k, v, causal=causal, window=window)
+        return FlashAttention.apply(_launch, q, k, v, causal, window, scale)
+    return _launch(q, k, v, causal=causal, window=window, scale=scale)
 
 
-def _launch(q, k, v, *, causal: bool, window: int):
+def _launch(q, k, v, *, causal: bool, window: int, scale: float):
     b, sq, h, d = q.shape
-    sk, kh = k.shape[1], k.shape[2]
-    out = torch.empty_like(q)
+    sk, kh, dv = k.shape[1], k.shape[2], v.shape[3]
+    out = q.new_empty(b, sq, h, dv)
     fn = _build.function("flash_attn", _ARGTYPES)
     rc = fn(DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
-            out.data_ptr(), b, sq, sk, h, kh, d, int(causal), int(window),
-            d ** -0.5, torch.cuda.current_stream(q.device).cuda_stream)
+            out.data_ptr(), b, sq, sk, h, kh, d, dv, int(causal), int(window),
+            scale, torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(rc, "flash_attn")
     flash_attention.launches += 1
     return out
 
 
 flash_attention.launches = 0
+
+
+def occupancy(dk: int, dv: int, bq: int):
+    """(blocks an SM, dynamic shared bytes a block) of the f32 instance of
+    widths (dk, dv) with a ``bq``-row q tile (32 or 64), by the card's
+    occupancy call."""
+    fn = _build.function("flash_attn", [ctypes.c_int] * 3 + [ctypes.c_void_p] * 2,
+                         symbol="flash_attn_occupancy")
+    blocks, smem = ctypes.c_int(0), ctypes.c_int(0)
+    _build.check(fn(dk, dv, bq, ctypes.byref(blocks), ctypes.byref(smem)),
+                 "flash_attn_occupancy")
+    return blocks.value, smem.value

@@ -11,12 +11,18 @@ and decode attention the flash-decode kernel; a Mamba-2 config
 arch zoo serves the same way: GQA with rotary positions (``--arch
 llama3.2-1b``), gemma3's sliding-window ring caches, internvl2 (random
 patch embeddings drawn before the prompts, as the JAX launcher draws them,
-projected into the first positions), MoE (dbrx) and the attention + Mamba +
-MoE hybrid (jamba).  With ``--device cpu`` the same path runs the kernels'
-plain PyTorch versions.
+projected into the first positions), MoE (dbrx), the attention + Mamba +
+MoE hybrid (jamba), deepseek-v2's MLA (prefill through the flash kernel at
+q/k 192, v 128; absorbed decode over the latent cache) and whisper's
+encoder-decoder (random post-conv frames drawn first, as the JAX launcher
+draws them; the encoder runs once in prefill, and each decode step
+cross-attends to its cached k/v through the flash-decode kernel).  With
+``--device cpu`` the same path runs the kernels' plain PyTorch versions.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3.2-1b \
         --batch 8 --prompt-len 512 --gen 64 --lora-rank 8
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch whisper-base \
+        --batch 8 --prompt-len 64 --gen 64 --lora-rank 8
 """
 from __future__ import annotations
 
@@ -49,11 +55,14 @@ def parse_args(argv=None):
     return ap.parse_args(argv)
 
 
-def build(args, *, impl: str = "auto", cfg=None):
-    """→ (model, params, lora, lora_scale, prompts, patches) for the parsed
-    args (``patches`` None but for a VLM); ``impl`` goes to ``Model``
-    ("sparse": the config's block-sparse attention); ``cfg`` replaces the
-    arch's config (another reduced variant)."""
+def build(args, *, impl: str = "auto", cfg=None, opts=None):
+    """→ (model, params, lora, lora_scale, prompts, patches, frames) for the
+    parsed args (``patches`` None but for a VLM, ``frames`` (B, S_enc, d)
+    None but for an encoder-decoder; numpy ``RandomState(0)`` draws frames,
+    then patches, then the prompts, as the JAX launcher); ``impl`` and
+    ``opts`` go to ``Model`` ("sparse": the config's block-sparse
+    attention); ``cfg`` replaces the arch's config (another reduced
+    variant or a cut)."""
     device = resolve_device(args.device)
     if cfg is None:
         cfg = get_config(args.arch)
@@ -61,7 +70,7 @@ def build(args, *, impl: str = "auto", cfg=None):
             cfg = cfg.reduced()
     if cfg.is_encoder_only:
         raise SystemExit("encoder-only architectures have no decode path")
-    model = Model(cfg, device=device, impl=impl)
+    model = Model(cfg, device=device, impl=impl, opts=opts)
     gen = torch.Generator().manual_seed(0)
     params = model.init(gen, max_seq=args.prompt_len + args.gen)
     lora, lscale = None, 1.0
@@ -73,13 +82,16 @@ def build(args, *, impl: str = "auto", cfg=None):
             params = peft_mod.apply_lora(params, lora, pc)
             lora = None
     rng = np.random.RandomState(0)
-    patches = None
+    patches = frames = None
+    if cfg.is_encoder_decoder:
+        frames = torch.from_numpy(rng.randn(args.batch, cfg.encoder_seq,
+                                            cfg.d_model).astype(np.float32)).to(device)
     if cfg.n_prefix_tokens:
         patches = torch.from_numpy(rng.randn(args.batch, cfg.n_prefix_tokens,
                                              cfg.prefix_dim).astype(np.float32)).to(device)
     prompts = torch.from_numpy(rng.randint(
         6, cfg.vocab_size, size=(args.batch, args.prompt_len))).to(device)
-    return model, params, lora, lscale, prompts, patches
+    return model, params, lora, lscale, prompts, patches, frames
 
 
 def cache_len(model, prompts, gen: int) -> int:
@@ -89,8 +101,9 @@ def cache_len(model, prompts, gen: int) -> int:
 
 
 def generate(model, params, prompts, gen: int, *, lora=None,
-             lora_scale: float = 1.0, patches=None):
-    """Greedy decoding: prefill (after a VLM's ``patches``), then ``gen``
+             lora_scale: float = 1.0, patches=None, frames=None):
+    """Greedy decoding: prefill (after a VLM's ``patches``; an
+    encoder-decoder's ``frames`` through its encoder), then ``gen``
     decode steps, each feeding the previous step's argmax.  Returns
     {"tokens" (B, gen), "logits" (list of gen + 1 (B, vocab) tensors: the
     prefill's, then each step's), "prefill_s", "decode_s"}.  The loop never
@@ -99,7 +112,8 @@ def generate(model, params, prompts, gen: int, *, lora=None,
     synchronize(device)
     t0 = time.perf_counter()
     logits, cache = model.prefill(params, prompts, cache_len(model, prompts, gen),
-                                  patches=patches, lora=lora, lora_scale=lora_scale)
+                                  patches=patches, frames=frames, lora=lora,
+                                  lora_scale=lora_scale)
     synchronize(device)
     t1 = time.perf_counter()
     out, all_logits = [], [logits]
@@ -117,14 +131,14 @@ def generate(model, params, prompts, gen: int, *, lora=None,
 
 def main(argv=None):
     args = parse_args(argv)
-    model, params, lora, lscale, prompts, patches = build(args)
+    model, params, lora, lscale, prompts, patches, frames = build(args)
     if lora is not None:
         print(f"serving UNMERGED client LoRA (rank {args.lora_rank}, fused "
               "LoRA kernel): base stays shared")
     elif args.lora_rank:
         print(f"serving with merged client LoRA (rank {args.lora_rank})")
     res = generate(model, params, prompts, args.gen, lora=lora, lora_scale=lscale,
-                   patches=patches)
+                   patches=patches, frames=frames)
     print(f"prefill: {res['prefill_s'] * 1e3:.2f} ms "
           f"({args.batch}×{args.prompt_len} tokens, {model.device})")
     print(f"decode: {args.gen} steps in {res['decode_s']:.3f} s "

@@ -62,8 +62,9 @@ round on that architecture's reduced config (``core/arch_round.py``,
 one round step a round.  ``--assert-fused`` turns the run into the
 arch-matrix check — it fails unless no dense merge ran inside the engine,
 each round was one round step, and the losses match the dense-merge oracle
-to ≤1e-5.  On the card the width must give a head width the attention
-kernels take (32, 64 or 128: ``--fl-dmodel 256`` → 64):
+to ≤1e-5.  On the card the width must give head widths the attention
+kernels take (32, 64 or 128, and MLA's q/k 96 with v 64: ``--fl-dmodel
+256`` → 64, and deepseek-v2's q/k 80 padded to 96):
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch llama3.2-1b \
         --fl-clients 4 --fl-rounds 2 --assert-fused --fl-dmodel 256
@@ -297,15 +298,25 @@ class Trainer:
         self.opt_state = opt.init(self.trainable)
 
     def batch(self, rng):
-        b, s, v = self.args.batch, self.args.seq, self.cfg.vocab_size
+        """One numpy batch; an encoder-decoder's ``frames`` and a VLM's
+        ``patches`` are drawn after the tokens, as the JAX launcher draws
+        them."""
+        b, s, v, cfg = self.args.batch, self.args.seq, self.cfg.vocab_size, self.cfg
         if self.peft_cfg is None:   # the JAX launcher's next-token batch
             toks = rng.randint(6, v, size=(b, s + 1))
-            return {"tokens": toks[:, :-1], "labels": toks[:, 1:],
-                    "mask": np.ones((b, s), np.float32)}
-        toks = rng.randint(6, v, size=(b, s))
-        mpos = rng.rand(b, s) < 0.15
-        return {"tokens": np.where(mpos, SPECIAL["mask"], toks), "labels": toks,
-                "mask": mpos.astype(np.float32)}
+            out = {"tokens": toks[:, :-1], "labels": toks[:, 1:],
+                   "mask": np.ones((b, s), np.float32)}
+        else:
+            toks = rng.randint(6, v, size=(b, s))
+            mpos = rng.rand(b, s) < 0.15
+            out = {"tokens": np.where(mpos, SPECIAL["mask"], toks), "labels": toks,
+                   "mask": mpos.astype(np.float32)}
+        if cfg.is_encoder_decoder:
+            out["frames"] = rng.randn(b, cfg.encoder_seq, cfg.d_model).astype(np.float32)
+        if cfg.n_prefix_tokens:
+            out["patches"] = rng.randn(b, cfg.n_prefix_tokens,
+                                       cfg.prefix_dim).astype(np.float32)
+        return out
 
     def to_device(self, batch):
         return {k: torch.from_numpy(np.asarray(v)).to(self.device)

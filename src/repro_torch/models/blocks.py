@@ -2,29 +2,37 @@
 
 A layer is (mixer, ff) with pre-norm residual structure:
 
-    x = x + mixer(norm1(x))
-    x = x + ff(norm2(x))            [if ff != none]
+    x = x + mixer(norm1(x))          [dec adds a cross-attention sublayer]
+    x = x + ff(norm2(x))             [if ff != none]
 
-This port has the ``attn`` mixer (dense GQA decoders: gpt2, the llamas,
-gemma3's global layers, internvl2, dbrx, jamba's attention layers), the
-``local`` mixer (gemma3's sliding-window layers), the ``enc`` mixer (the
-RoBERTa encoder: the same projections, non-causal, no cache) and the
-``mamba`` mixer (Mamba-2), with the ``mlp`` or ``moe`` ff or none, and
-PFTT's universal adapter after the ff where the layer has one.  Rotary
-configs rotate q and k inside ``_qkv`` (the cache holds the rotated k).
+The port has every mixer of the JAX package: ``attn`` (dense GQA decoders:
+gpt2, the llamas, gemma3's global layers, internvl2, dbrx, jamba's
+attention layers), ``local`` (gemma3's sliding-window layers), ``enc`` (the
+RoBERTa and whisper encoders: the same projections, non-causal, no cache),
+``dec`` (whisper's decoder: causal self-attention, then cross-attention of
+the decoder stream on the encoder's memory), ``mla`` (deepseek-v2's
+multi-head latent attention, ``models/mla.py``) and ``mamba`` (Mamba-2),
+with the ``mlp`` or ``moe`` ff or none, and PFTT's universal adapter after
+the ff where the layer has one.  Rotary configs rotate q and k inside
+``_qkv`` (the cache holds the rotated k; MLA rotates its rope part).
 Prefill and encoder attention run the hand-written flash kernel (with the
-config's window on a ``local`` layer), or (``attn`` layers) under
+config's window on a ``local`` layer; non-causal with Sq ≠ Sk for the
+cross-attention), or (``attn``, ``dec`` and ``mla`` layers) under
 ``impl="sparse"`` with a ``cfg.sparse_attn`` pattern the block-sparse
 kernel; decode attention runs the flash-decode kernel, with the sparse
-position mask under ``impl="sparse"``.  A ``local`` layer's decode cache is
-a ring of min(cache_len, window) slots: the token at position p goes to
-slot p mod Sc, and every slot below min(p + 1, Sc) is read — all of them
-lie in the window, and softmax does not depend on slot order, so the
-decode kernel reads the ring as a plain cache of that length.  The mamba
-mixer's scan runs the SSD chunk kernel.  Projections with LoRA factors run
-the fused LoRA kernel (``peft.lora_proj``); an MoE layer merges any ff
-factors into its experts first (``peft.merge_factors``), as the JAX
-package does.  The ``mla`` and ``dec`` mixers are not ported yet.
+position mask under ``impl="sparse"`` (also for the ``sparse_gather_decode``
+option, which reads the same positions).  A ``local`` layer's decode cache
+is a ring of min(cache_len, window) slots: the token at position p goes to
+slot p mod Sc, and every slot below min(p + 1, Sc) is read — all of them lie
+in the window, and softmax does not depend on slot order, so the decode
+kernel reads the ring as a plain cache of that length.  An ``attn`` layer's
+sparse-KV cache (the ``sparse_kv_seq`` option: a persistent region and a
+ring, ``models.attention.sparse_kv_layout``) is read by up to three
+flash-decode launches merged by their log-sum-exp.  MLA's absorbed decode
+stays plain torch (``models/mla.py``).  The mamba mixer's scan runs the SSD
+chunk kernel.  Projections with LoRA factors run the fused LoRA kernel
+(``peft.lora_proj``); an MoE layer merges any ff factors into its experts
+first (``peft.merge_factors``), as the JAX package does.
 """
 from __future__ import annotations
 
@@ -32,9 +40,10 @@ import torch
 
 from repro_torch.configs.base import LayerKind, ModelConfig
 from repro_torch.kernels.block_sparse_attn.ops import block_sparse_attention
-from repro_torch.kernels.decode_attn.ops import decode_attention
+from repro_torch.kernels.decode_attn.ops import decode_attention, sparse_kv_attention
 from repro_torch.kernels.flash_attn.ops import flash_attention
-from repro_torch.models import ssm
+from repro_torch.models import mla, ssm
+from repro_torch.models.attention import sparse_kv_layout, sparse_kv_write
 from repro_torch.models.mlp import mlp
 from repro_torch.models.moe import moe_ffn
 from repro_torch.models.norms import apply_norm
@@ -42,20 +51,19 @@ from repro_torch.models.peft import adapter_fwd, lora_proj, merge_factors
 from repro_torch.models.rope import rotate
 
 IMPLS = ("auto", "dense", "chunked", "sparse")
-_LATER = {
-    "dec": "the arch zoo's fourteenth slice (whisper's cross-attention decoder)",
-    "mla": "the arch zoo's fourteenth slice (deepseek-v2's MLA with absorbed decode)",
-}
+MIXERS = ("attn", "local", "enc", "dec", "mla", "mamba")
 
 
 def check_kind(kind: LayerKind) -> None:
-    """Raise for layer kinds the port has not ported yet."""
-    for part in (kind.mixer, kind.ff):
-        if part in _LATER:
-            raise NotImplementedError(
-                f"layer kind {kind.tag}: '{part}' is ported with {_LATER[part]}")
-    if kind.mixer not in ("attn", "local", "enc", "mamba"):
+    """Raise for a layer kind the port has no mixer for (``none``)."""
+    if kind.mixer not in MIXERS:
         raise NotImplementedError(f"layer kind {kind.tag} is not ported")
+
+
+def rope_width(cfg: ModelConfig) -> int:
+    """The width the rotary table of a step is made for: MLA's rope part,
+    else the head."""
+    return cfg.mla.rope_head_dim if cfg.mla is not None else cfg.hd
 
 
 def _sparse(cfg: ModelConfig, impl: str):
@@ -104,14 +112,17 @@ def _ff_and_adapter(x, lp, kind: LayerKind, cfg: ModelConfig, lora, scale):
 
 
 def apply_layer_seq(x, lp, kind: LayerKind, cfg: ModelConfig, rot=None, *,
-                    impl: str = "auto", lora=None, lora_scale: float = 1.0):
+                    impl: str = "auto", lora=None, lora_scale: float = 1.0,
+                    memory=None):
     """x: (B, S, d) → (x, cache entry, aux), ``rot`` the rotary (cos, sin)
-    table of its positions or None: the layer output, the state that seeds
-    a decode cache — the prompt's
-    {"k", "v"} for attention, the final SSM state and conv inputs
-    {"h", "conv"} for mamba, None for an encoder layer — and an MoE layer's
-    balance loss (None for any other ff).  ``lp``/``lora`` are one layer's
-    (unstacked) params and factor subtree."""
+    table of its positions or None, ``memory`` (B, S_enc, d) the encoder's
+    output for a ``dec`` layer: the layer output, the state that seeds a
+    decode cache — the prompt's {"k", "v"} for attention (a ``dec`` layer
+    adds the memory's cross {"xk", "xv"}), {"ckv", "kpe"} for MLA, the
+    final SSM state and conv inputs {"h", "conv"} for mamba, None for an
+    encoder layer — and an MoE layer's balance loss (None for any other
+    ff).  ``lp``/``lora`` are one layer's (unstacked) params and factor
+    subtree."""
     check_kind(kind)
     xn = apply_norm(x, lp["norm1"], cfg.norm, cfg.norm_eps)
     mf = _sub(lora, "mixer")
@@ -120,9 +131,15 @@ def apply_layer_seq(x, lp, kind: LayerKind, cfg: ModelConfig, rot=None, *,
                                      cfg.norm_eps, lora=mf, scale=lora_scale)
         x = x + y
         entry = {"h": h, "conv": conv}
+    elif kind.mixer == "mla":
+        y, (ckv, kpe) = mla.mla_seq(xn, lp["mixer"], cfg.mla, cfg.n_heads, rot,
+                                    cfg.norm_eps, sparse=_sparse(cfg, impl), lora=mf,
+                                    scale=lora_scale)
+        x = x + y
+        entry = {"ckv": ckv, "kpe": kpe}
     else:
         q, k, v = _qkv(xn, lp["mixer"], cfg, mf, lora_scale, rot)
-        sparse = _sparse(cfg, impl) if kind.mixer == "attn" else None
+        sparse = _sparse(cfg, impl) if kind.mixer in ("attn", "dec") else None
         if sparse is not None:
             y = block_sparse_attention(q, k, v, sparse)
         else:
@@ -132,22 +149,45 @@ def apply_layer_seq(x, lp, kind: LayerKind, cfg: ModelConfig, rot=None, *,
         x = x + lora_proj(y.reshape(b, s, -1), lp["mixer"]["wo"], _sub(mf, "wo"),
                           scale=lora_scale)
         entry = None if kind.mixer == "enc" else {"k": k, "v": v}
+        if kind.mixer == "dec":
+            x, entry["xk"], entry["xv"] = _cross_seq(x, lp, cfg, memory,
+                                                     _sub(lora, "cross"), lora_scale)
     x, aux = _ff_and_adapter(x, lp, kind, cfg, lora, lora_scale)
     return x, entry, aux
 
 
+def _cross_seq(x, lp, cfg: ModelConfig, memory, cf, scale):
+    """A ``dec`` layer's cross-attention sublayer over the whole stream:
+    ``norm_x``, q from x, k/v from the encoder's memory, non-causal
+    attention (Sq ≠ Sk) → (x, xk, xv)."""
+    b, s, _ = x.shape
+    cp = lp["cross"]
+    xn = apply_norm(x, lp["norm_x"], cfg.norm, cfg.norm_eps)
+    qx = lora_proj(xn, cp["wq"], _sub(cf, "wq"), scale=scale).reshape(
+        b, s, cfg.n_heads, cfg.hd)
+    shp = (memory.shape[0], memory.shape[1], cfg.n_kv_heads, cfg.hd)
+    kx = lora_proj(memory, cp["wk"], _sub(cf, "wk"), scale=scale).reshape(shp)
+    vx = lora_proj(memory, cp["wv"], _sub(cf, "wv"), scale=scale).reshape(shp)
+    yx = flash_attention(qx, kx, vx, causal=False)
+    x = x + lora_proj(yx.reshape(b, s, -1), cp["wo"], _sub(cf, "wo"), scale=scale)
+    return x, kx, vx
+
+
 def apply_layer_decode(x, lp, kind: LayerKind, cache, pos: int,
                        cfg: ModelConfig, rot=None, *, impl: str = "auto", lora=None,
-                       lora_scale: float = 1.0):
+                       lora_scale: float = 1.0, opts=None):
     """x: (B, 1, d), the token at position ``pos`` (host int), ``rot`` the
-    rotary (cos, sin) table of that position or None.  Updates this
-    layer's ``cache`` entry IN PLACE — attention writes the token's k/v at
-    slot min(pos, Sc-1) (a ``local`` ring at pos mod Sc), mamba overwrites
-    its state and conv inputs — where the JAX package returns new buffers,
-    and returns x."""
+    rotary (cos, sin) table of that position or None, ``opts`` the model's
+    options.  Updates this layer's ``cache`` entry IN PLACE — attention
+    writes the token's k/v at slot min(pos, Sc-1) (a ``local`` ring at pos
+    mod Sc; a sparse-KV cache at its persistent slot and ring slot), MLA
+    its (c_kv, k_pe) at min(pos, Sc-1), mamba overwrites its state and conv
+    inputs — where the JAX package returns new buffers, and returns x."""
     check_kind(kind)
+    opts = opts or {}
     xn = apply_norm(x, lp["norm1"], cfg.norm, cfg.norm_eps)
     mf = _sub(lora, "mixer")
+    b = x.shape[0]
     if kind.mixer == "mamba":
         y, (h, conv) = ssm.mamba_decode(xn, lp["mixer"], cfg.ssm, cfg.d_model,
                                         cfg.norm_eps, cache["h"], cache["conv"],
@@ -155,34 +195,74 @@ def apply_layer_decode(x, lp, kind: LayerKind, cache, pos: int,
         cache["h"].copy_(h)
         cache["conv"].copy_(conv)
         x = x + y
+    elif kind.mixer == "mla":
+        c_kv, k_pe = mla._compress_kv(xn, lp["mixer"], cfg.mla, rot, cfg.norm_eps,
+                                      lora=mf, scale=lora_scale)
+        slot = min(pos, cache["ckv"].shape[1] - 1)
+        cache["ckv"][:, slot] = c_kv[:, 0]
+        cache["kpe"][:, slot] = k_pe[:, 0]
+        x = x + mla.mla_decode(xn, lp["mixer"], cfg.mla, cfg.n_heads, rot, cfg.norm_eps,
+                               cache["ckv"], cache["kpe"], pos + 1,
+                               sparse=_sparse(cfg, impl), lora=mf, scale=lora_scale)
     else:
         q, k, v = _qkv(xn, lp["mixer"], cfg, mf, lora_scale, rot)
-        kc, vc = cache["k"], cache["v"]
-        sc = kc.shape[1]
-        if kind.mixer == "local":       # ring: every slot read lies in the window
-            slot, cache_len, sparse = pos % sc, min(pos + 1, sc), None
+        if "k_pers" in cache:           # sparse-KV cache (attn layers)
+            seq = opts["sparse_kv_seq"]
+            sparse_kv_write(cache, k, v, pos, cfg.sparse_attn, seq)
+            y = sparse_kv_attention(q, cache, pos, cfg.sparse_attn, seq)
         else:
-            slot, cache_len, sparse = min(pos, sc - 1), pos + 1, _sparse(cfg, impl)
-        kc[:, slot] = k[:, 0]
-        vc[:, slot] = v[:, 0]
-        y = decode_attention(q, kc, vc, cache_len, sparse=sparse)
-        x = x + lora_proj(y.reshape(x.shape[0], 1, -1), lp["mixer"]["wo"],
-                          _sub(mf, "wo"), scale=lora_scale)
+            kc, vc = cache["k"], cache["v"]
+            sc = kc.shape[1]
+            if kind.mixer == "local":   # ring: every slot read lies in the window
+                slot, cache_len, sparse = pos % sc, min(pos + 1, sc), None
+            else:
+                slot, cache_len, sparse = min(pos, sc - 1), pos + 1, _sparse(cfg, impl)
+            kc[:, slot] = k[:, 0]
+            vc[:, slot] = v[:, 0]
+            y = decode_attention(q, kc, vc, cache_len, sparse=sparse)
+        x = x + lora_proj(y.reshape(b, 1, -1), lp["mixer"]["wo"], _sub(mf, "wo"),
+                          scale=lora_scale)
+        if kind.mixer == "dec":
+            cf, cp = _sub(lora, "cross"), lp["cross"]
+            xn2 = apply_norm(x, lp["norm_x"], cfg.norm, cfg.norm_eps)
+            qx = lora_proj(xn2, cp["wq"], _sub(cf, "wq"), scale=lora_scale).reshape(
+                b, 1, cfg.n_heads, cfg.hd)
+            yx = decode_attention(qx, cache["xk"], cache["xv"], cache["xk"].shape[1])
+            x = x + lora_proj(yx.reshape(b, 1, -1), cp["wo"], _sub(cf, "wo"),
+                              scale=lora_scale)
     return _ff_and_adapter(x, lp, kind, cfg, lora, lora_scale)[0]
 
 
 def layer_cache_shape(cfg: ModelConfig, kind: LayerKind, batch: int,
-                      cache_len: int, dtype):
+                      cache_len: int, dtype, sparse_kv: bool = False):
     """Cache entry of one layer as {name: (shape, dtype)} (no leading repeat
     axis).  The SSM state is f32 whatever the model dtype; a ``local``
-    layer's ring holds min(cache_len, window) positions."""
+    layer's ring holds min(cache_len, window) positions; with ``sparse_kv``
+    an ``attn`` layer of a config with a sparse pattern holds the sparse-KV
+    layout of a ``cache_len``-position sequence; a ``dec`` layer also holds
+    the encoder memory's cross k/v."""
     check_kind(kind)
+    kk, hd = cfg.n_kv_heads, cfg.hd
     if kind.mixer == "mamba":
         s = cfg.ssm
         conv_dim = cfg.d_inner + 2 * s.n_groups * s.state
         return {"h": ((batch, cfg.ssm_heads, s.headdim, s.state), torch.float32),
                 "conv": ((batch, s.conv_width - 1, conv_dim), dtype)}
+    if kind.mixer == "mla":
+        m = cfg.mla
+        return {"ckv": ((batch, cache_len, m.kv_lora_rank), dtype),
+                "kpe": ((batch, cache_len, m.rope_head_dim), dtype)}
+    if sparse_kv and kind.mixer == "attn" and cfg.sparse_attn is not None:
+        _, _, ring, n_pers = sparse_kv_layout(cache_len, cfg.sparse_attn)
+        return {"k_pers": ((batch, n_pers, kk, hd), dtype),
+                "v_pers": ((batch, n_pers, kk, hd), dtype),
+                "k_ring": ((batch, ring, kk, hd), dtype),
+                "v_ring": ((batch, ring, kk, hd), dtype)}
     if kind.mixer == "local" and cfg.window:
         cache_len = min(cache_len, cfg.window)
-    shp = (batch, cache_len, cfg.n_kv_heads, cfg.hd)
-    return {"k": (shp, dtype), "v": (shp, dtype)}
+    shp = (batch, cache_len, kk, hd)
+    entry = {"k": (shp, dtype), "v": (shp, dtype)}
+    if kind.mixer == "dec":
+        cross = (batch, cfg.encoder_seq, kk, hd)
+        entry.update(xk=(cross, dtype), xv=(cross, dtype))
+    return entry

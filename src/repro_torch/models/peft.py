@@ -110,6 +110,20 @@ def merge_factors(params, lora, scale: float):
     return params
 
 
+def effective_weight(w, lf, scale: float):
+    """ONE leaf's factors merged into its base weight, ``W + scale·(A·(mask·
+    B))``, for a contraction that consumes the weight itself instead of
+    projecting activations through it (absorbed-MLA decode contracts q and
+    the context against ``wkv_b``).  That matrix lives in the latent space
+    (kv_lora_rank × heads·dims, the order of the factor's own B), so it is
+    not a dense-merge fallback and ``dense_merge_count`` does not move.  The
+    mask carries no gradient."""
+    if lf is None or lf.get("a") is None:
+        return w
+    b = lf["b"] * lf["mask"].detach().to(lf["b"].dtype)
+    return w + scale * (lf["a"] @ b)
+
+
 def apply_lora(params, lora, peft: PEFTConfig):
     """Materialize W + (α/r)·mask·(A·B) for targeted leaves (merged oracle;
     serving threads the factors through ``lora_proj`` instead)."""

@@ -1,17 +1,22 @@
-"""Model: the stack runner over stage patterns (decoders and the encoder).
+"""Model: the stack runner over stage patterns (decoders, encoders and the
+encoder-decoder).
 
-The port of ``repro.models.transformer.Model`` for the families ported so
-far — dense GQA decoders with learned or rotary positions (gpt2, the
-llamas, deepseek-67b), gemma3's sliding-window ``local`` layers, the VLM
-(internvl2: projected patch embeddings before the text), MoE (dbrx), the
-attention + Mamba + MoE hybrid (jamba), attention-free Mamba-2 and the
-encoder-only RoBERTa: token embeddings (plus learned positions where the
-config has them), stages of repeated layer patterns (parameters stacked on
-a leading repeat axis, walked by a Python loop where the JAX package
+The port of ``repro.models.transformer.Model`` for every family the JAX
+package configures — dense GQA decoders with learned or rotary positions
+(gpt2, the llamas, deepseek-67b), gemma3's sliding-window ``local`` layers,
+the VLM (internvl2: projected patch embeddings before the text), MoE
+(dbrx), MLA with fine-grained MoE (deepseek-v2), the attention + Mamba +
+MoE hybrid (jamba), attention-free Mamba-2, the encoder-only RoBERTa and
+the encoder-decoder whisper: token embeddings (plus learned positions where
+the config has them), stages of repeated layer patterns (parameters stacked
+on a leading repeat axis, walked by a Python loop where the JAX package
 ``lax.scan``s), the final norm and the (tied) LM head, and for an encoder
-the classifier head.  Parameters are plain nested dicts of tensors in the
-JAX layout, so ``bridge`` moves them between the two packages unchanged.
-MLA (deepseek-v2) and encoder-decoder stacks (whisper) are refused by name.
+the classifier head.  An encoder-decoder runs its ``stream="encoder"``
+stages first over the post-conv ``frames`` (plus ``enc_pos``, then
+``enc_norm``: the memory), then its decoder stages, whose ``dec`` layers
+cross-attend to the memory; its encoder stages hold no decode cache (None in
+their place).  Parameters are plain nested dicts of tensors in the JAX
+layout, so ``bridge`` moves them between the two packages unchanged.
 
 Entry points:
 
@@ -24,6 +29,20 @@ Entry points:
 
 Both losses add ``AUX_WEIGHT · aux``, the sum of the MoE layers' balance
 losses, as the JAX package does; a model without MoE layers adds nothing.
+
+``opts`` takes the JAX package's option names:
+
+* ``sparse_gather_decode`` — under ``impl="sparse"`` the decode reads only
+  the pattern's active blocks; the decode kernel's sparse mask already
+  reads exactly those positions, so the flag changes no launch;
+* ``sparse_kv_seq`` (int) — ``init_cache`` gives ``attn`` layers the
+  sparse-KV layout of that many positions (a persistent region and a ring,
+  ``models.attention.sparse_kv_layout``); ``prefill`` keeps plain caches,
+  as the JAX package's does;
+* ``causal_skip`` — accepted: the flash kernel never loads a kv tile above
+  the causal diagonal, so causal attention skips them always;
+* ``mamba_sp`` and ``moe_a2a`` (sequence- and expert-parallel) need a
+  device mesh and raise (ROADMAP queue 1 item 8).
 """
 from __future__ import annotations
 
@@ -33,14 +52,16 @@ import torch
 
 from repro_torch import resolve_device, trees
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models import moe, ssm
+from repro_torch.models import mla, moe, ssm
 from repro_torch.models.blocks import (IMPLS, apply_layer_decode,
                                        apply_layer_seq, check_kind,
-                                       layer_cache_shape)
+                                       layer_cache_shape, rope_width)
 from repro_torch.models.norms import apply_norm
 from repro_torch.models.rope import rope_cos_sin
 
 AUX_WEIGHT = 0.01
+OPTS = ("sparse_gather_decode", "sparse_kv_seq", "causal_skip")
+MESH_OPTS = ("mamba_sp", "moe_a2a")
 
 
 def _at(tree, r: int):
@@ -56,21 +77,28 @@ class Model:
     """``impl`` picks the attention core as in the JAX package: "sparse"
     runs the config's block-sparse pattern (prefill and decode), every other
     value exact attention.  ``forward``, ``prefill`` and ``decode_step``
-    take an ``impl`` that overrides it for one call."""
+    take an ``impl`` that overrides it for one call.  ``opts``: the module
+    docstring's options."""
 
     def __init__(self, cfg: ModelConfig, dtype=torch.float32, device=None,
-                 impl: str = "auto"):
-        if cfg.is_encoder_decoder:
-            raise NotImplementedError(
-                f"{cfg.name}: encoder-decoder stacks are ported with the arch "
-                "zoo's fourteenth slice (whisper)")
+                 impl: str = "auto", opts: Optional[dict] = None):
         for stage in cfg.stages:
             for kind in stage.pattern:
                 check_kind(kind)
         self._check_impl(impl)
+        opts = dict(opts or {})
+        mesh = [k for k in opts if k in MESH_OPTS and opts[k]]
+        if mesh:
+            raise NotImplementedError(
+                f"Model opts {mesh} need a device mesh: ROADMAP queue 1 item 8 "
+                "(multi-device)")
+        unknown = sorted(set(opts) - set(OPTS) - set(MESH_OPTS))
+        if unknown:
+            raise ValueError(f"unknown Model opts {unknown}; known: {OPTS + MESH_OPTS}")
         self.cfg = cfg
         self.dtype = dtype
         self.impl = impl
+        self.opts = opts
         self.device = resolve_device(device)
 
     # ------------------------------------------------------------------ init
@@ -94,6 +122,13 @@ class Model:
             return {k: v.expand(r, dim).clone() for k, v in norm(dim).items()}
 
         d, h, kh, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd
+
+        def attn_proj(r):
+            return {"wq": normal((r, d, h * hd), d ** -0.5),
+                    "wk": normal((r, d, kh * hd), d ** -0.5),
+                    "wv": normal((r, d, kh * hd), d ** -0.5),
+                    "wo": normal((r, h * hd, d), (h * hd) ** -0.5)}
+
         params: Dict[str, Any] = {
             "embed": normal((cfg.vocab_size, d), 0.02),
             "final_norm": norm(d),
@@ -104,6 +139,9 @@ class Model:
             params["pos_embed"] = normal((max(cfg.max_position, max_seq, 1024), d), 0.02)
         if cfg.n_prefix_tokens:
             params["projector"] = normal((cfg.prefix_dim, d), cfg.prefix_dim ** -0.5)
+        if cfg.encoder_seq:
+            params["enc_pos"] = normal((cfg.encoder_seq, d), 0.02)
+            params["enc_norm"] = norm(d)
         if cfg.n_classes:
             params["cls_head"] = normal((d, cfg.n_classes), 0.02)
         stages = []
@@ -115,13 +153,14 @@ class Model:
                 if kind.mixer == "mamba":
                     lp["mixer"] = ssm.init_mamba(normal, d, cfg.ssm, self.dtype,
                                                  self.device, lead=(r,))
+                elif kind.mixer == "mla":
+                    lp["mixer"] = mla.init_mla(normal, d, h, cfg.mla, self.dtype,
+                                               self.device, lead=(r,))
                 else:
-                    lp["mixer"] = {
-                        "wq": normal((r, d, h * hd), d ** -0.5),
-                        "wk": normal((r, d, kh * hd), d ** -0.5),
-                        "wv": normal((r, d, kh * hd), d ** -0.5),
-                        "wo": normal((r, h * hd, d), (h * hd) ** -0.5),
-                    }
+                    lp["mixer"] = attn_proj(r)
+                    if kind.mixer == "dec":
+                        lp["cross"] = attn_proj(r)
+                        lp["norm_x"] = stacked_norm(r, d)
                 if kind.ff == "mlp":
                     lp["norm2"] = stacked_norm(r, d)
                     lp["ff"] = {"wu": normal((r, d, cfg.d_ff), d ** -0.5),
@@ -151,7 +190,7 @@ class Model:
         cfg = self.cfg
         if cfg.pos != "rope" or cfg.attention_free:
             return None
-        return rope_cos_sin(positions, cfg.hd, cfg.rope_theta)
+        return rope_cos_sin(positions, rope_width(cfg), cfg.rope_theta)
 
     @staticmethod
     def _check_impl(impl):
@@ -177,20 +216,66 @@ class Model:
                 "with peft.apply_lora instead")
 
     # -------------------------------------------------------------- forward
-    def forward(self, params, tokens, *, patches=None, impl: Optional[str] = None,
-                collect_cache: bool = False, lora=None, lora_scale: float = 1.0):
+    def forward(self, params, tokens, *, frames=None, patches=None,
+                impl: Optional[str] = None, collect_cache: bool = False, lora=None,
+                lora_scale: float = 1.0):
         """tokens (B, S) → (hidden (B, P + S, d), caches), positions from 0;
         a VLM's ``patches`` (B, P, prefix_dim) are projected into the first
-        P positions.  With ``collect_cache`` (decoders only) caches[si][pi]
-        holds each layer's cache entry stacked over the repeats — {"k",
-        "v"} (repeats, B, P + S, K, hd) for attention, {"h", "conv"} for
-        mamba; otherwise it is None."""
-        hidden, _, caches = self._run(params, tokens, patches=patches, impl=impl,
-                                      collect_cache=collect_cache, lora=lora,
+        P positions; an encoder-decoder's ``frames`` (B, S_enc, d) are its
+        encoder's input.  With ``collect_cache`` (decoders only)
+        caches[si][pi] holds each layer's cache entry stacked over the
+        repeats — {"k", "v"} (repeats, B, P + S, K, hd) for attention (a
+        ``dec`` layer adds {"xk", "xv"} (repeats, B, S_enc, K, hd)),
+        {"ckv", "kpe"} for MLA, {"h", "conv"} for mamba — and an encoder
+        stage's caches[si] is None; otherwise caches is None."""
+        hidden, _, caches = self._run(params, tokens, frames=frames, patches=patches,
+                                      impl=impl, collect_cache=collect_cache, lora=lora,
                                       lora_scale=lora_scale)
         return hidden, caches
 
-    def _run(self, params, tokens, *, patches=None, impl=None,
+    def _stages(self, params, lora, x, rot, impl, lora_scale, *, stream=None,
+                memory=None, collect_cache=False):
+        """Run the stages (of one ``stream``, or all) over x → (x, aux,
+        caches: a list per stage, None for a stage not run)."""
+        cfg = self.cfg
+        aux = None
+        caches = []
+        for si, stage in enumerate(cfg.stages):
+            if stream is not None and stage.stream != stream:
+                caches.append(None)
+                continue
+            sp, lsp = params["stages"][si], self._lora_stage(lora, si)
+            got = [{} for _ in stage.pattern]
+            for r in range(stage.repeats):
+                for pi, kind in enumerate(stage.pattern):
+                    lf = None if lsp is None else _at(lsp["layers"][pi], r)
+                    x, c, a = apply_layer_seq(x, _at(sp["layers"][pi], r), kind, cfg,
+                                              rot, impl=impl, lora=lf,
+                                              lora_scale=lora_scale, memory=memory)
+                    if a is not None:
+                        aux = a if aux is None else aux + a
+                    if collect_cache:
+                        for name, t in c.items():
+                            got[pi].setdefault(name, []).append(t)
+            caches.append([{n: torch.stack(t) for n, t in e.items()} for e in got]
+                          if collect_cache else None)
+        return x, aux, caches
+
+    def _encode(self, params, frames, impl, lora, lora_scale):
+        """The encoder-decoder's memory: its encoder stages over the
+        post-conv ``frames`` (B, S_enc, d) plus ``enc_pos``, then
+        ``enc_norm`` (an encoder stage's balance loss is dropped, as the
+        JAX package drops it)."""
+        cfg = self.cfg
+        if frames is None or tuple(frames.shape[1:]) != (cfg.encoder_seq, cfg.d_model):
+            raise ValueError(f"{cfg.name} takes frames (B, {cfg.encoder_seq}, "
+                             f"{cfg.d_model})")
+        x = frames.to(self.dtype) + params["enc_pos"].to(self.dtype)[None]
+        x, _, _ = self._stages(params, lora, x, None, impl, lora_scale,
+                               stream="encoder")
+        return apply_norm(x, params["enc_norm"], cfg.norm, cfg.norm_eps)
+
+    def _run(self, params, tokens, *, frames=None, patches=None, impl=None,
              collect_cache=False, lora=None, lora_scale=1.0):
         """``forward`` → (hidden, aux, caches); aux is the MoE layers' summed
         balance loss, None without MoE layers."""
@@ -203,31 +288,19 @@ class Model:
         n_pre = cfg.n_prefix_tokens
         if n_pre and (patches is None or patches.shape[1] != n_pre):
             raise ValueError(f"{cfg.name} takes patches (B, {n_pre}, {cfg.prefix_dim})")
+        memory = None
+        if cfg.is_encoder_decoder:
+            memory = self._encode(params, frames, impl, lora, lora_scale)
         positions = torch.arange(n_pre + tokens.shape[1], device=tokens.device)
         x = self._embed_tokens(params, tokens, positions[n_pre:])
         if n_pre:
             x = torch.cat([patches.to(self.dtype) @ params["projector"], x], 1)
-        rot = self._rot(positions)
-        aux = None
-        caches = [] if collect_cache else None
-        for si, stage in enumerate(cfg.stages):
-            sp, lsp = params["stages"][si], self._lora_stage(lora, si)
-            got = [{} for _ in stage.pattern]
-            for r in range(stage.repeats):
-                for pi, kind in enumerate(stage.pattern):
-                    lf = None if lsp is None else _at(lsp["layers"][pi], r)
-                    x, c, a = apply_layer_seq(x, _at(sp["layers"][pi], r), kind, cfg,
-                                              rot, impl=impl, lora=lf,
-                                              lora_scale=lora_scale)
-                    if a is not None:
-                        aux = a if aux is None else aux + a
-                    if collect_cache:
-                        for name, t in c.items():
-                            got[pi].setdefault(name, []).append(t)
-            if collect_cache:
-                caches.append([{n: torch.stack(t) for n, t in e.items()} for e in got])
+        x, aux, caches = self._stages(
+            params, lora, x, self._rot(positions), impl, lora_scale,
+            stream="decoder" if cfg.is_encoder_decoder else None, memory=memory,
+            collect_cache=collect_cache)
         x = apply_norm(x, params["final_norm"], cfg.norm, cfg.norm_eps)
-        return x, aux, caches
+        return x, aux, (caches if collect_cache else None)
 
     @staticmethod
     def _with_aux(loss, aux):
@@ -246,9 +319,11 @@ class Model:
                 chunk: int = 512, lora=None, lora_scale: float = 1.0):
         """Cross-entropy over the positions where ``batch["mask"]`` is set,
         the logits formed ``chunk`` positions at a time (never the whole
-        (B, S, vocab) at once; one chunk when S is not a multiple)."""
-        hidden, aux, _ = self._run(params, batch["tokens"], patches=batch.get("patches"),
-                                   impl=impl, lora=lora, lora_scale=lora_scale)
+        (B, S, vocab) at once; one chunk when S is not a multiple).  A VLM's
+        batch carries ``patches``, an encoder-decoder's ``frames``."""
+        hidden, aux, _ = self._run(params, batch["tokens"], frames=batch.get("frames"),
+                                   patches=batch.get("patches"), impl=impl, lora=lora,
+                                   lora_scale=lora_scale)
         hidden = hidden[:, self.cfg.n_prefix_tokens:]    # text positions only
         labels, mask = batch["labels"], batch["mask"]
         s = hidden.shape[1]
@@ -290,40 +365,52 @@ class Model:
         return (hidden @ self._lm_head(params)).float()
 
     # ---------------------------------------------------------------- cache
-    def init_cache(self, batch: int, cache_len: int, dtype=None):
+    def init_cache(self, batch: int, cache_len: int, dtype=None, *,
+                   sparse_kv: Optional[bool] = None):
         """{"pos": host int, "stages": [[entry per pattern position]]}, each
         entry stacked over the repeats: {"k", "v"} (repeats, B, Sc, K, hd)
-        for attention (Sc = min(cache_len, window) for a ``local`` ring),
-        {"h" f32, "conv"} for mamba.  A VLM's prefix takes cache positions
-        too."""
+        for attention (Sc = min(cache_len, window) for a ``local`` ring; a
+        ``dec`` layer adds the cross {"xk", "xv"}; with the ``sparse_kv_seq``
+        option an ``attn`` layer holds the sparse-KV layout of ``cache_len``
+        positions instead), {"ckv", "kpe"} for MLA, {"h" f32, "conv"} for
+        mamba; an encoder stage's place holds None.  A VLM's prefix takes
+        cache positions too.  ``sparse_kv`` overrides the option (prefill
+        builds plain caches)."""
         self._check_decoder()
         dtype = dtype or self.dtype
+        if sparse_kv is None:
+            sparse_kv = bool(self.opts.get("sparse_kv_seq"))
         return {"pos": 0, "stages": [
+            None if self.cfg.is_encoder_decoder and stage.stream != "decoder" else
             [{n: torch.zeros((stage.repeats,) + shp, dtype=dt, device=self.device)
-              for n, (shp, dt) in layer_cache_shape(self.cfg, kind, batch,
-                                                    cache_len, dtype).items()}
+              for n, (shp, dt) in layer_cache_shape(self.cfg, kind, batch, cache_len,
+                                                    dtype, sparse_kv).items()}
              for kind in stage.pattern]
             for stage in self.cfg.stages]}
 
     # -------------------------------------------------------------- prefill
-    def prefill(self, params, tokens, cache_len: int, *, patches=None,
+    def prefill(self, params, tokens, cache_len: int, *, frames=None, patches=None,
                 impl: Optional[str] = None, lora=None, lora_scale: float = 1.0):
-        """Run the prompt (after a VLM's ``patches``); return (last-token
-        logits (B, vocab) f32, cache) with the cache's ``pos`` at the prompt's
-        end, the prefix included.  A ``local`` ring keeps the prompt's last
-        Sc positions, position p at slot p mod Sc."""
+        """Run the prompt (after a VLM's ``patches``; an encoder-decoder's
+        ``frames`` through its encoder); return (last-token logits (B,
+        vocab) f32, cache) with the cache's ``pos`` at the prompt's end, the
+        prefix included.  A ``local`` ring keeps the prompt's last Sc
+        positions, position p at slot p mod Sc; a ``dec`` layer's cross
+        k/v are kept whole."""
         s_prompt = self.cfg.n_prefix_tokens + tokens.shape[1]
         if s_prompt > cache_len:
             raise ValueError(f"prompt length {s_prompt} (prefix included) > "
                              f"cache_len {cache_len}")
-        hidden, caches = self.forward(params, tokens, patches=patches, impl=impl,
-                                      collect_cache=True, lora=lora,
+        hidden, caches = self.forward(params, tokens, frames=frames, patches=patches,
+                                      impl=impl, collect_cache=True, lora=lora,
                                       lora_scale=lora_scale)
-        cache = self.init_cache(tokens.shape[0], cache_len)
+        cache = self.init_cache(tokens.shape[0], cache_len, sparse_kv=False)
         for entries, got in zip(cache["stages"], caches):
+            if entries is None:
+                continue
             for entry, raw in zip(entries, got):
                 for name, buf in entry.items():
-                    if name in ("h", "conv"):   # whole states, not per position
+                    if name in ("h", "conv", "xk", "xv"):   # whole, not per position
                         buf.copy_(raw[name])
                         continue
                     sc = buf.shape[2]
@@ -351,6 +438,8 @@ class Model:
         x = self._embed_tokens(params, tokens, positions)
         rot = self._rot(positions[0])
         for si, stage in enumerate(cfg.stages):
+            if cache["stages"][si] is None:      # an encoder stage
+                continue
             sp, lsp = params["stages"][si], self._lora_stage(lora, si)
             for r in range(stage.repeats):
                 for pi, kind in enumerate(stage.pattern):
@@ -358,7 +447,7 @@ class Model:
                     x = apply_layer_decode(x, _at(sp["layers"][pi], r), kind,
                                            _at(cache["stages"][si][pi], r), pos,
                                            cfg, rot, impl=impl, lora=lf,
-                                           lora_scale=lora_scale)
+                                           lora_scale=lora_scale, opts=self.opts)
         x = apply_norm(x, params["final_norm"], cfg.norm, cfg.norm_eps)
         cache["pos"] = pos + 1
         return self.logits(params, x[:, 0]), cache

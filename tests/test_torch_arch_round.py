@@ -23,7 +23,7 @@ from repro_torch.core import arch_round
 from repro_torch.launch import train
 
 ARCHS = ("gpt2-small", "llama3.2-1b", "gemma3-12b", "internvl2-26b", "dbrx-132b",
-         "jamba-v0.1-52b", "mamba2-1.3b")
+         "jamba-v0.1-52b", "mamba2-1.3b", "deepseek-v2-236b", "whisper-base")
 KW = dict(n_clients=2, rounds=1, local_steps=2, batch=3, seq_len=12, d_model=32)
 LOSS_TOL = 1e-5
 FACTOR_TOL = 1e-5
@@ -116,9 +116,9 @@ def test_arch_round_matches_jax(arch, monkeypatch):
 
 def test_arch_round_launcher_and_refusals():
     """``--fl-clients`` with a non-roberta arch runs the arch round and
-    ``--assert-fused`` passes on the CPU; a mesh, deepseek-v2 (MLA) and
-    whisper (encoder-decoder) are refused by name; ``--population`` with
-    another arch keeps the JAX launcher's SystemExit."""
+    ``--assert-fused`` passes on the CPU, deepseek-v2 (MLA) and whisper
+    (encoder-decoder) included; a mesh is refused by name; ``--population``
+    with another arch keeps the JAX launcher's SystemExit."""
     res = train.main(["--arch", "llama3.2-1b", "--fl-clients", "2", "--fl-rounds", "1",
                       "--assert-fused", "--device", "cpu"])
     assert res["dense_merges_in_engine"] == 0 and res["oracle_loss_max_err"] <= 1e-5
@@ -130,10 +130,10 @@ def test_arch_round_launcher_and_refusals():
     cfg = arch_round.ArchRoundConfig(arch="llama3.2-1b", device="cpu", **KW)
     with pytest.raises(NotImplementedError, match="item 8"):
         arch_round.run_arch_round(cfg, mesh=object())
-    for arch, what in (("deepseek-v2-236b", "MLA"), ("whisper-base", "whisper")):
-        with pytest.raises(NotImplementedError, match=f"fourteenth slice.*{what}"):
-            train.main(["--arch", arch, "--fl-clients", "2", "--fl-rounds", "1",
-                        "--device", "cpu"])
+    for arch in ("deepseek-v2-236b", "whisper-base"):
+        res = train.main(["--arch", arch, "--fl-clients", "2", "--fl-rounds", "1",
+                          "--assert-fused", "--device", "cpu"])
+        assert res["dense_merges_in_engine"] == 0 and res["oracle_loss_max_err"] <= 1e-5
     with pytest.raises(SystemExit, match="roberta-base"):
         train.parse_args(["--arch", "llama3.2-1b", "--population", "8"])
 

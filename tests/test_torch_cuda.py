@@ -117,6 +117,92 @@ def test_flash_attn_kernel(gen, dtype, b, sq, sk, h, kh, d, causal, window):
     _close(out, attention_ref(q, k, v, causal=causal, window=window), TOL["flash"][dtype])
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,sq,sk,h,kh,dk,dv,causal,window", [
+    # deepseek-v2's published widths (SERVE-MLA's prefill, the 64-row q
+    # tile), ragged and GQA; the reduced d-256 MLA (q/k 80 padded to 96) at
+    # the arch round's shape, non-causal with Sq ≠ Sk, and a window
+    (4, 256, 256, 128, 128, 192, 128, True, 0), (2, 77, 77, 8, 8, 192, 128, True, 0),
+    (2, 300, 300, 4, 2, 192, 128, False, 0), (4, 16, 16, 4, 4, 96, 64, True, 0),
+    (2, 65, 130, 4, 4, 96, 64, False, 0), (8, 256, 256, 12, 12, 96, 64, True, 40)])
+def test_flash_attn_kernel_mla_widths(gen, dtype, b, sq, sk, h, kh, dk, dv, causal, window):
+    """The (q/k, v) instances (192, 128) and (96, 64) with an explicit
+    scale against the plain version."""
+    q, k = _rn(gen, b, sq, h, dk, dtype=dtype), _rn(gen, b, sk, kh, dk, dtype=dtype)
+    v = _rn(gen, b, sk, kh, dv, dtype=dtype)
+    out = flash_attention(q, k, v, causal=causal, window=window, scale=0.09)
+    assert out.shape == (b, sq, h, dv)
+    _close(out, attention_ref(q, k, v, causal=causal, window=window, scale=0.09),
+           TOL["flash"][dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dk,dv,h,kh", [(192, 128, 16, 16), (96, 64, 8, 2)])
+def test_block_sparse_attn_kernel_mla_widths(gen, dtype, dk, dv, h, kh):
+    cfg = SparseAttnConfig(block_size=128, local_blocks=4, sink_blocks=1, stride=8)
+    q, k = _rn(gen, 2, 512, h, dk, dtype=dtype), _rn(gen, 2, 512, kh, dk, dtype=dtype)
+    v = _rn(gen, 2, 512, kh, dv, dtype=dtype)
+    _close(block_sparse_attention(q, k, v, cfg, scale=0.08),
+           block_sparse_ref(q, k, v, cfg, scale=0.08), TOL["flash"][dtype])
+
+
+def test_attention_kernels_refuse_uncompiled_widths(gen):
+    """A (q/k, v) pair with no instance raises naming the widths (q/k 80
+    unpadded; hd 16); the decode kernel takes square heads only."""
+    q = _rn(gen, 1, 8, 2, 80)
+    with pytest.raises(ValueError, match="head width 80 \\(v 64\\)"):
+        flash_attention(q, q, _rn(gen, 1, 8, 2, 64))
+    with pytest.raises(ValueError, match="head width 16"):
+        flash_attention(*(_rn(gen, 1, 8, 2, 16) for _ in range(3)))
+    with pytest.raises(ValueError, match="head width 96"):
+        decode_attention(_rn(gen, 1, 1, 2, 96), _rn(gen, 1, 8, 2, 96),
+                         _rn(gen, 1, 8, 2, 96), 4)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,sc,h,kh,d,cache_len,window,sparse", [
+    (8, 1024, 12, 12, 64, 640, 640, False), (8, 192, 12, 12, 64, 170, 20, False),
+    (8, 1024, 12, 12, 64, 1000, 0, True), (2, 64, 8, 4, 128, 1, 0, False),
+    (8, 1500, 8, 8, 64, 1500, 0, False)])
+def test_decode_attn_kernel_lse(gen, dtype, b, sc, h, kh, d, cache_len, window, sparse):
+    """``return_lse``: the output has the bits of the call without it (one
+    launch each), and the LSE is the plain version's within 1e-4."""
+    cfg = SERVE_SPARSE if sparse else None
+    q, kc, vc = (_rn(gen, b, 1, h, d, dtype=dtype), _rn(gen, b, sc, kh, d, dtype=dtype),
+                 _rn(gen, b, sc, kh, d, dtype=dtype))
+    before = decode_attention.launches
+    out, lse = decode_attention(q, kc, vc, cache_len, window=window, sparse=cfg,
+                                return_lse=True)
+    plain = decode_attention(q, kc, vc, cache_len, window=window, sparse=cfg)
+    torch.cuda.synchronize()
+    assert decode_attention.launches == before + 2 and torch.equal(out, plain)
+    ref, ref_lse = decode_ref(q, kc, vc, cache_len, window=window, sparse=cfg,
+                              return_lse=True)
+    _close(out, ref, TOL["decode"][dtype])
+    torch.testing.assert_close(lse, ref_lse, atol=1e-4, rtol=0)
+
+
+def test_sparse_kv_decode_on_card_matches_cpu(gen):
+    """The sparse-KV cache's card path (up to three flash-decode launches a
+    step, merged by their LSEs) against the plain ``sparse_kv_decode`` on
+    the card, at every position of a 1024-position sequence of SERVE's
+    pattern (block 128, local 4, sink 1, stride 8)."""
+    from repro_torch.kernels.decode_attn.ops import sparse_kv_attention
+    from repro_torch.models import attention
+    seq, b, h, d = 1024, 2, 12, 64
+    _, _, ring, n_pers = attention.sparse_kv_layout(seq, SERVE_SPARSE)
+    cache = {n: torch.zeros(b, sz, h, d, device="cuda") for n, sz in
+             (("k_pers", n_pers), ("v_pers", n_pers), ("k_ring", ring), ("v_ring", ring))}
+    for pos in range(seq):
+        q, k, v = (_rn(gen, b, 1, h, d) for _ in range(3))
+        attention.sparse_kv_write(cache, k, v, pos, SERVE_SPARSE, seq)
+        if pos % 7 and pos != seq - 1:
+            continue
+        _close(sparse_kv_attention(q, cache, pos, SERVE_SPARSE, seq),
+               attention.sparse_kv_decode(q, cache, pos, SERVE_SPARSE, seq),
+               TOL["decode"][torch.float32])
+
+
 def _unaligned(gen, *shape):
     """A contiguous f32 tensor whose data starts 4 bytes past a 16-byte
     boundary: the kernels then load through registers, not cp.async."""
@@ -397,29 +483,35 @@ def test_decode_attn_kernel_unaligned(gen):
 
 
 @pytest.mark.parametrize("arch,prompt_len,impl", [("gpt2-small", 9, "auto"),
+                                                  ("whisper-base", 32, "auto"),
+                                                  ("deepseek-v2-236b", 32, "auto"),
+                                                  ("deepseek-v2-236b", 32, "sparse"),
                                                   ("gpt2-small", 32, "sparse"),
                                                   ("mamba2-1.3b", 40, "auto"),
                                                   ("gemma3-12b", 70, "auto")])
 def test_serving_on_card_matches_cpu(gen, arch, prompt_len, impl):
     """Reduced serving on the card (kernels) vs the CPU (plain): dense and
-    block-sparse gpt2, mamba2 (its prompt ends inside a scan chunk) and
+    block-sparse gpt2, mamba2 (its prompt ends inside a scan chunk),
     gemma3 (two ``local`` layers whose 64-slot rings wrap in prefill and
-    decode)."""
+    decode), whisper (the encoder-decoder, its frames) and deepseek-v2 (MLA
+    at (96, 64), dense and block-sparse)."""
     from repro_torch import trees
     from repro_torch.launch import serve
     args = serve.parse_args(["--arch", arch, "--reduced", "--batch", "2",
                              "--prompt-len", str(prompt_len), "--gen", "4",
                              "--lora-rank", "4"])
-    model, params, lora, scale, prompts, _ = serve.build(args, impl=impl)
+    model, params, lora, scale, prompts, _, frames = serve.build(args, impl=impl)
     lora = trees.map_with_path(lambda p, t: t if p.endswith("/mask") else
                                _rn(gen, *t.shape, std=0.05), lora)
-    res = serve.generate(model, params, prompts, 4, lora=lora, lora_scale=scale)
+    res = serve.generate(model, params, prompts, 4, lora=lora, lora_scale=scale,
+                         frames=frames)
     from repro_torch.models.transformer import Model
     cpu = Model(model.cfg, device="cpu", impl=impl)
     p_cpu = trees.map_with_path(lambda _, t: t.cpu(), params)
     l_cpu = trees.map_with_path(lambda _, t: t.cpu(), lora)
     lg, cache = cpu.prefill(p_cpu, prompts.cpu(), prompt_len + 4, lora=l_cpu,
-                            lora_scale=scale)
+                            lora_scale=scale,
+                            frames=None if frames is None else frames.cpu())
     torch.testing.assert_close(lg, res["logits"][0].cpu(), atol=1e-4, rtol=0)
     for t in range(4):
         lg, cache = cpu.decode_step(p_cpu, cache, res["tokens"][:, t:t + 1].cpu(),
@@ -479,6 +571,26 @@ def test_lora_function_grads_on_card(gen, m, k, n, r):
     _close(out, ref, TOL["lora"][torch.float32])
     for g_, w_ in zip(got, want):
         _close(g_, w_, TOL["lora"][torch.float32])
+
+
+def test_flash_function_grads_mla_widths_on_card(gen):
+    """``FlashAttention`` at (96, 64) with the scale of q/k 80 (ARCH-ROUND's
+    deepseek-v2 at d 256), q/k padded by a ``cat`` outside the Function:
+    the unpadded inputs' gradients against autograd of the plain version."""
+    q, k, v = _rn(gen, 4, 16, 4, 80), _rn(gen, 4, 16, 4, 80), _rn(gen, 4, 16, 4, 64)
+
+    def call(fn):
+        def f(q, k, v):
+            pad = q.new_zeros(*q.shape[:3], 16)
+            return fn(torch.cat([q, pad], -1), torch.cat([k, pad], -1), v, causal=True,
+                      scale=80 ** -0.5)
+        return f
+
+    out, got = _grads(call(flash_attention), q, k, v)
+    ref, want = _grads(call(attention_ref), q, k, v)
+    _close(out, ref, TOL["flash"][torch.float32])
+    for g_, w_ in zip(got, want):
+        _close(g_, w_, TOL["flash"][torch.float32])
 
 
 @pytest.mark.parametrize("b,s,h,kh,d,causal", [(8, 32, 4, 4, 32, False),

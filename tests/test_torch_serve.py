@@ -201,7 +201,8 @@ def test_serve_cli_runs_mamba2_on_cpu():
 def test_serve_build_passes_impl():
     args = serve.parse_args(["--arch", "gpt2-small", "--reduced", "--batch", "1",
                              "--prompt-len", "32", "--gen", "2", "--device", "cpu"])
-    model, params, _, _, prompts, _ = serve.build(args, impl="sparse")
+    model, params, _, _, prompts, _, frames = serve.build(args, impl="sparse")
+    assert frames is None
     assert model.impl == "sparse"
     assert serve.generate(model, params, prompts, 2)["tokens"].shape == (1, 2)
 
@@ -217,25 +218,32 @@ def test_serve_without_cuda_raises(monkeypatch):
 
 
 def test_unported_kinds_name_their_slice():
-    """MLA and whisper's cross-attention decoder wait for the arch zoo's
-    fourteenth slice; MoE, the ``local`` window, rotary positions and VLM
-    prefixes are ported."""
+    """Every mixer of the JAX package is ported: MLA (with any ff),
+    whisper's cross-attention decoder, MoE, the ``local`` window, the
+    encoder, an encoder-decoder stack, rotary positions and VLM prefixes
+    build, and an encoder-decoder serves from a reduced config; only a
+    ``none`` mixer is refused."""
     import dataclasses
     from repro_torch.configs import LK, Stage
     cfg = get_config("gpt2-small").reduced()
-    for kind in (LK("dec", "mlp"), LK("mla", "none")):
-        bad = dataclasses.replace(cfg, stages=(Stage((kind,), 1),))
-        with pytest.raises(NotImplementedError, match="fourteenth slice"):
-            Model(bad, device="cpu")
+    mla_cfg = get_config("deepseek-v2-236b").reduced()
+    for kind in (LK("mla", "none"), LK("mla", "mlp"), LK("mla", "moe")):
+        Model(dataclasses.replace(mla_cfg, stages=(Stage((kind,), 1),)), device="cpu")
+    with pytest.raises(NotImplementedError, match="not ported"):
+        Model(dataclasses.replace(cfg, stages=(Stage((LK("none", "mlp"),), 1),)),
+              device="cpu")
     moe = get_config("dbrx-132b").reduced()
     for kind in (LK("attn", "moe"), LK("local", "mlp")):
         Model(dataclasses.replace(moe, stages=(Stage((kind,), 1),)), device="cpu")
-    # the encoder (PFTT's roberta) is ported; an encoder-decoder stack is not
     Model(get_config("roberta-base").reduced(), device="cpu")
-    enc_dec = dataclasses.replace(cfg, stages=(Stage((LK("enc", "mlp"),), 1, "encoder"),
-                                               Stage((LK("attn", "mlp"),), 1)))
-    with pytest.raises(NotImplementedError, match="fourteenth slice"):
-        Model(enc_dec, device="cpu")
+    whisper = get_config("whisper-base").reduced(d_model=64)
+    enc_dec = dataclasses.replace(whisper, stages=(
+        Stage((LK("enc", "mlp"),), 1, "encoder"), Stage((LK("dec", "mlp"),), 1)))
+    res = serve.main(["--arch", "whisper-base", "--reduced", "--batch", "2",
+                      "--prompt-len", "8", "--gen", "3", "--lora-rank", "4",
+                      "--device", "cpu"])
+    assert res["tokens"].shape == (2, 3)
+    assert Model(enc_dec, device="cpu").cfg.is_encoder_decoder
     # rotary positions and VLM prefixes build
     Model(dataclasses.replace(cfg, pos="rope"), device="cpu")
     Model(get_config("internvl2-26b").reduced(), device="cpu")

@@ -350,12 +350,17 @@ def test_train_launcher_steps_on_cpu():
     with pytest.raises(SystemExit, match="roberta-base"):
         train.parse_args(["--arch", "gpt2-small", "--population", "8"])
     # another arch's --fl-clients is the arch round (tests/test_torch_arch_round.py);
-    # MLA waits for the arch zoo's next slice
+    # MLA and the encoder-decoder train in --steps mode (whisper's batch
+    # carries the frames, drawn after the tokens as the JAX launcher)
     assert train.arch_round_config(train.parse_args(
         ["--arch", "gpt2-small", "--fl-clients", "2", "--device", "cpu"])).arch == "gpt2-small"
-    with pytest.raises(NotImplementedError, match="fourteenth slice"):
-        train.Trainer(train.parse_args(["--arch", "deepseek-v2-236b", "--reduced",
-                                        "--device", "cpu"]))
+    for arch in ("deepseek-v2-236b", "whisper-base"):
+        got = train.main(["--arch", arch, "--reduced", "--steps", "2", "--batch", "2",
+                          "--seq", "16", "--lora-rank", "0", "--device", "cpu"])
+        assert len(got) == 2 and all(np.isfinite(got))
+    tr = train.Trainer(train.parse_args(["--arch", "whisper-base", "--reduced",
+                                         "--device", "cpu"]))
+    assert tr.batch(np.random.RandomState(0))["frames"].shape == (8, 16, 256)
     # mamba trains: the SSD scan carries gradients (SSDScan on the card)
     mamba = train.main(["--arch", "mamba2-1.3b", "--reduced", "--steps", "2", "--batch", "2",
                         "--seq", "16", "--device", "cpu"])

@@ -269,14 +269,21 @@ def test_bridge_round_trip_of_new_leaves(arch):
 
 
 def test_unported_archs_name_the_next_slice():
-    """deepseek-v2 (MLA) and whisper (an encoder-decoder stack) are refused
-    by name; every other config builds."""
-    for arch, what in (("deepseek-v2-236b", "MLA"), ("whisper-base", "whisper")):
-        with pytest.raises(NotImplementedError, match=f"fourteenth slice.*{what}"):
-            Model(get_config(arch).reduced(), device="cpu")
+    """Every config builds, deepseek-v2 (MLA) and whisper (an
+    encoder-decoder stack) included, and the port's own init of those two
+    has the JAX package's paths, shapes and dtypes (whisper's ``enc_pos``,
+    ``enc_norm`` and ``dec`` layers' ``cross``/``norm_x``; MLA's seven
+    leaves)."""
     for arch in configs.list_configs():
-        if arch not in ("deepseek-v2-236b", "whisper-base"):
-            Model(get_config(arch).reduced(), device="cpu")
+        Model(get_config(arch).reduced(), device="cpu")
+    for arch in ("deepseek-v2-236b", "whisper-base"):
+        jcfg = jget_config(arch).reduced(d_model=32, repeats=2)
+        want = _np_tree(JModel(jcfg, meshctx=MESH).init(jax.random.PRNGKey(0), max_seq=64))
+        own = bridge.to_numpy(Model(get_config(arch).reduced(d_model=32, repeats=2),
+                                    device="cpu").init(torch.Generator().manual_seed(0),
+                                                       max_seq=64))
+        assert {k: (v.shape, v.dtype) for k, v in own.items()} == \
+            {k: (v.shape, v.dtype) for k, v in want.items()}
 
 
 # ---------------------------------------------------------------- SSDScan
