@@ -175,10 +175,34 @@ Phases, each reported on its own lines:
    the jamba/mamba2 round's shape, and the kernels phase CHECK rows at
    SERVE-LLAMA's and SERVE-ZOO's shapes, and at SERVE-MLA's, SERVE-WHISPER's,
    SERVE-SPARSE-KV's and the MLA round's (``mla_whisper_cases``).
+15. TRAIN-MESH — the client-sharded cohort over ``torch.distributed``
+   (``repro_torch.sharding``, ``launch/mesh.py``): (a) ``run_pftt`` at
+   TRAIN-PFTT's settings (pftt) under a one-rank NCCL group against the
+   same card's unsharded run from the same state: round records (bytes,
+   delays, outage selections), accuracies and launches equal, the
+   checkpointed trainables and optimizer state bit for bit; s a round both
+   ways and each ``all_reduce``'s device ms (CUDA events around the
+   call); (b) two ranks on the one card over gloo (``chip_smoke.py
+   --mesh-rank``, spawned), 3 clients, so rank 1 holds a ghost: against
+   the unsharded card run of the same 3 clients, accuracies within 1e-6,
+   records equal, launches summed over the ranks equal to the unsharded
+   count plus the ghost's and the second rank's pretraining; (c)
+   ``python -m torch.distributed.run --standalone --nproc-per-node 1 -m
+   repro_torch.launch.train --arch roberta-base --fl-clients 4 --fl-rounds
+   1`` must exit 0.
+16. LAUNCH — ``launch/steps.py``'s ``make_prefill_step`` and
+   ``make_serve_step`` at gpt2-small's full width (batch 8, prompt 128, 8
+   decode steps, rank-8 LoRA): their logits equal to SERVE's path
+   (``serve.generate``) on the same weights, launches checked; then
+   ``launch/train.py --arch roberta-base --steps 3`` at full width (batch 16,
+   seq 128) with and without rematerialization: losses within 1e-5, step
+   ms and ``torch.cuda.max_memory_allocated`` each, launches a step (remat
+   runs each forward kernel twice); the launcher's ``--ckpt`` read back
+   through ``checkpoint.load_checkpoint``.
 
 Before the last line it prints one JSON object with a row per kernel (its
-launches summed over the serving, training, robust, comms, population and
-arch-round paths' main runs); the last
+launches summed over the serving, training, robust, comms, population,
+arch-round, mesh and launch paths' main runs); the last
 line is
 ``{"ok": true, "device": {...}}``.  Any failed check exits
 nonzero before that line.
@@ -191,6 +215,7 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -3070,6 +3095,315 @@ def train_arch(torch):
         fail("ARCH-ROUND: head width 16 did not raise the kernels' head-width error")
     return total, rows
 
+MESH_ACC_TOL = 1e-6
+MESH_CLIENTS = 3           # TRAIN-MESH (b): two ranks, one ghost
+MESH_ARGV = ["--arch", "roberta-base", "--fl-clients", "4", "--fl-rounds", "3"]
+
+
+def mesh_config(n_clients):
+    """TRAIN-PFTT's pftt run (the launcher's settings) at ``n_clients``."""
+    from repro_torch.launch import train
+    return train.pftt_config(train.parse_args(MESH_ARGV), n_clients=n_clients,
+                             verbose=False)
+
+
+def run_counted(run):
+    """``run()`` with every kernel's launch count set to 0 just before it →
+    (its result, the launches)."""
+    kernels = wrappers()
+    for f in kernels.values():
+        f.launches = 0
+    res = run()
+    return res, {n: f.launches for n, f in kernels.items()}
+
+
+def ledger_rows(res):
+    return [(r["bytes"], r["delay_s"], r["outages"]) for r in res["round_records"]]
+
+
+def mesh_rank(argv):
+    """One rank of TRAIN-MESH (b): ``chip_smoke.py --mesh-rank RANK WORLD
+    STORE OUT`` joins a gloo group of WORLD processes on card 0 through the
+    ``FileStore`` STORE, runs ``run_pftt`` at ``mesh_config(MESH_CLIENTS)``
+    under the group's client mesh and writes its result and launches to
+    OUT (JSON)."""
+    rank, world, store, out = int(argv[0]), int(argv[1]), argv[2], argv[3]
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.core.pftt import run_pftt
+    from repro_torch.launch.mesh import client_mesh
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dist.init_process_group("gloo", store=dist.FileStore(store, world), rank=rank,
+                            world_size=world)
+    try:
+        mesh = client_mesh()
+        res, launches = run_counted(lambda: run_pftt(mesh_config(MESH_CLIENTS), mesh=mesh))
+        with open(out, "w") as f:
+            json.dump({"acc_per_round": res["acc_per_round"], "ledger": ledger_rows(res),
+                       "round_s": res["round_s"], "pretrain_s": res["pretrain_s"],
+                       "launches": launches}, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def train_mesh(torch, np):
+    """TRAIN-MESH (a)–(c): see the module docstring.  Its checkpoints and
+    rank outputs live in a temporary directory removed at the end."""
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_mesh_") as tmp:
+        return train_mesh_in(torch, np, tmp)
+
+
+def train_mesh_in(torch, np, tmp):
+    import torch.distributed as dist
+
+    from repro_torch import sharding
+    from repro_torch.core.pftt import run_pftt
+    from repro_torch.launch.mesh import client_mesh
+
+    total = {n: 0 for n in KERNELS}
+    # (a) one rank over NCCL against the unsharded run, both checkpointing
+    cfg = mesh_config(4)
+    runs = {}
+    plain, plain_l = run_counted(lambda: run_pftt(dataclasses.replace(
+        cfg, ckpt_dir=os.path.join(tmp, "plain"))))
+    dist.init_process_group("nccl", init_method="file://" + os.path.join(tmp, "nccl"),
+                            rank=0, world_size=1)
+    events, orig = [], sharding._all_reduce
+
+    def timed(t, mesh, op):       # CUDA events around each all_reduce
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        out = orig(t, mesh, op)
+        ev[1].record()
+        events.append((ev, t.numel() * t.element_size()))
+        return out
+
+    try:
+        mesh = client_mesh()
+        t0 = time.perf_counter()     # NCCL sets its communicator up here
+        sharding.psum(torch.zeros(1, device="cuda"), mesh)
+        torch.cuda.synchronize()
+        setup_s = time.perf_counter() - t0
+        sharding._all_reduce = timed
+        shard, shard_l = run_counted(lambda: run_pftt(
+            dataclasses.replace(cfg, ckpt_dir=os.path.join(tmp, "mesh")), mesh=mesh))
+    finally:
+        sharding._all_reduce = orig
+        dist.destroy_process_group()
+    torch.cuda.synchronize()
+    reduce_ms = [ev[0].elapsed_time(ev[1]) for ev, _ in events]
+    reduce_bytes = [b for _, b in events]
+    by_size = {b: sorted(m for m, c in zip(reduce_ms, reduce_bytes) if c == b)
+               for b in sorted(set(reduce_bytes))}
+    files = [os.path.join(tmp, d, "pftt_pftt.npz") for d in ("plain", "mesh")]
+    with np.load(files[0]) as a, np.load(files[1]) as b:
+        state_equal = sorted(a.files) == sorted(b.files) and all(
+            np.array_equal(a[k], b[k]) for k in a.files if not k.startswith("__"))
+    runs["a"] = dict(plain_round_s=plain["round_s"], mesh_round_s=shard["round_s"],
+                     allreduce_ms=reduce_ms, allreduce_bytes=reduce_bytes,
+                     nccl_setup_s=setup_s, launches=shard_l, state_bit_equal=state_equal)
+    same = (ledger_rows(plain) == ledger_rows(shard)
+            and plain["acc_per_round"] == shard["acc_per_round"]
+            and same_records(plain["round_records"], shard["round_records"]))
+    print(f"TRAIN-MESH (a) run_pftt pftt 4 clients 3 rounds, one-rank NCCL group vs "
+          f"unsharded, same card: s_per_round mesh "
+          f"{sum(shard['round_s']) / len(shard['round_s']):.4f} "
+          f"{[round(x, 4) for x in shard['round_s']]} unsharded "
+          f"{sum(plain['round_s']) / len(plain['round_s']):.4f} "
+          f"{[round(x, 4) for x in plain['round_s']]}; acc {shard['acc_per_round']}; "
+          f"records equal {same}; checkpointed state bit-equal {state_equal}; launches "
+          f"{shard_l} unsharded {plain_l}", flush=True)
+    print(f"TRAIN-MESH (a) all_reduce: {len(reduce_ms)} calls in 3 rounds, ms between "
+          f"CUDA events on the caller's stream around the call (one rank: the hand-off to "
+          f"NCCL's stream, no cross-card transfer) median {sorted(reduce_ms)[len(reduce_ms) // 2]:.4f} "
+          f"max {max(reduce_ms):.4f} total {sum(reduce_ms):.3f}; by bytes a call (calls, "
+          f"median ms): {({b: (len(m), round(m[len(m) // 2], 4)) for b, m in by_size.items()})}"
+          f"; NCCL communicator setup (one warm-up reduce, before the run) {setup_s:.3f} s",
+          flush=True)
+    if not (same and state_equal and shard_l == plain_l):
+        fail("TRAIN-MESH (a): the one-rank sharded run differs from the unsharded run")
+    for n in KERNELS:
+        total[n] += shard_l[n]
+
+    # (b) two ranks on the one card over gloo, 3 clients (rank 1: client 2
+    # and a ghost) against the unsharded card run of the same clients
+    cfg3 = mesh_config(MESH_CLIENTS)
+    ref, ref_l = run_counted(lambda: run_pftt(cfg3))
+    world, t0 = 2, time.perf_counter()
+    outs = [os.path.join(tmp, f"rank{r}.json") for r in range(world)]
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--mesh-rank",
+                               str(r), str(world), os.path.join(tmp, "gloo"), outs[r]],
+                              cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+             for r in range(world)]
+    logs = []
+    try:
+        for p in procs:
+            logs.append(p.communicate(timeout=300)[0].decode(errors="replace"))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for r, (p, log) in enumerate(zip(procs, logs)):
+        if p.returncode != 0:
+            fail(f"TRAIN-MESH (b) rank {r} exited {p.returncode}:\n{log[-3000:]}")
+    ranks = []
+    for o in outs:
+        with open(o) as f:
+            ranks.append(json.load(f))
+    summed = {n: sum(r["launches"][n] for r in ranks) for n in KERNELS}
+    ghost = {n: pftt_expected(mesh_config(4), "pftt")[n]
+             - pftt_expected(cfg3, "pftt")[n] for n in KERNELS}
+    pre = {n: pftt_expected(dataclasses.replace(cfg3, rounds=0), "pftt")[n]
+           for n in KERNELS}
+    expected = {n: ref_l[n] + ghost[n] + (world - 1) * pre[n] for n in KERNELS}
+    acc_err = max(abs(a - b) for r in ranks
+                  for a, b in zip(r["acc_per_round"], ref["acc_per_round"]))
+    same_ledger = all([tuple(x) for x in r["ledger"]] == ledger_rows(ref) for r in ranks)
+    runs["b"] = dict(rank_round_s=[r["round_s"] for r in ranks], plain_round_s=ref["round_s"],
+                     acc_max_abs_err=acc_err, launches=summed, seconds=time.perf_counter() - t0)
+    print(f"TRAIN-MESH (b) two ranks on one card over gloo, 3 clients (one ghost): "
+          f"s_per_round rank0 {sum(ranks[0]['round_s']) / 3:.4f} rank1 "
+          f"{sum(ranks[1]['round_s']) / 3:.4f} unsharded {sum(ref['round_s']) / 3:.4f}; "
+          f"acc_max_abs_err {acc_err:.2e} (tol {MESH_ACC_TOL:g}); records equal "
+          f"{same_ledger}; launches summed {summed} = unsharded {ref_l} + ghost {ghost} "
+          f"+ rank 1's pretraining {pre}: {summed == expected}; "
+          f"{time.perf_counter() - t0:.1f} s with the spawns", flush=True)
+    if acc_err > MESH_ACC_TOL or not same_ledger or summed != expected:
+        fail("TRAIN-MESH (b): the two-rank run differs from the unsharded run")
+    for n in KERNELS:
+        total[n] += summed[n]
+
+    # (c) the launcher under torchrun, one rank
+    t0 = time.perf_counter()
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    proc = subprocess.run([sys.executable, "-m", "torch.distributed.run", "--standalone",
+                           "--nproc-per-node", "1", "-m", "repro_torch.launch.train"]
+                          + MESH_ARGV[:4] + ["--fl-rounds", "1"], cwd=ROOT, env=env,
+                          stdout=subprocess.PIPE, stderr=subprocess.STDOUT, timeout=300)
+    text = proc.stdout.decode(errors="replace")
+    runs["c"] = dict(exit=proc.returncode, seconds=time.perf_counter() - t0)
+    print(f"TRAIN-MESH (c) torchrun --nproc-per-node 1 launch.train --fl-clients 4 "
+          f"--fl-rounds 1: exit {proc.returncode} in {time.perf_counter() - t0:.1f} s; "
+          f"{[ln for ln in text.splitlines() if ln.startswith(('federated', 'final'))]}",
+          flush=True)
+    if proc.returncode != 0 or "client mesh" not in text:
+        fail(f"TRAIN-MESH (c): torchrun launch failed:\n{text[-3000:]}")
+    return total, runs
+
+
+LAUNCH_GEN = 8
+LAUNCH_STEPS = 3
+REMAT_LOSS_TOL = 1e-5
+CKPT_TOL = 1e-6            # the launcher's run against the same seeds' Trainer
+
+
+def launch_phase(torch, np):
+    """LAUNCH: see the module docstring."""
+    from repro_torch import trees
+    from repro_torch.checkpoint import load_checkpoint
+    from repro_torch.launch import serve, steps, train
+
+    total = {n: 0 for n in KERNELS}
+    args = serve.parse_args(["--arch", "gpt2-small", "--batch", "8", "--prompt-len", "128",
+                             "--gen", str(LAUNCH_GEN), "--lora-rank", "8"])
+    model, params, lora, lscale, prompts, _, _ = serve.build(args)
+    rng = np.random.RandomState(1)
+    lora = trees.map_with_path(
+        lambda p, v: v if p.endswith("/mask") else torch.from_numpy(
+            (rng.randn(*v.shape) * 0.05).astype(np.float32)).to(v.device), lora)
+    want = serve.generate(model, params, prompts, LAUNCH_GEN, lora=lora, lora_scale=lscale)
+    prefill = steps.make_prefill_step(model, serve.cache_len(model, prompts, LAUNCH_GEN),
+                                      lora_scale=lscale)
+    decode = steps.make_serve_step(model, lora_scale=lscale)
+
+    def via_steps():
+        logits, cache = prefill(params, {"tokens": prompts}, lora=lora)
+        got = [logits]
+        for _ in range(LAUNCH_GEN):
+            logits, cache = decode(params, cache, logits.argmax(-1, keepdim=True), lora=lora)
+            got.append(logits)
+        torch.cuda.synchronize()
+        return got
+
+    got, launches = run_counted(via_steps)
+    diff = max(float((a - b).abs().max()) for a, b in zip(got, want["logits"]))
+    expected = expected_launches(model, lora, "auto", LAUNCH_GEN)
+    print(f"LAUNCH make_prefill_step + make_serve_step gpt2-small full width batch 8 "
+          f"prompt 128, {LAUNCH_GEN} decode steps: max |logit - SERVE path's| {diff:.3e}; "
+          f"launches {launches} expected {expected}", flush=True)
+    if diff != 0.0 or launches != expected:
+        fail("LAUNCH: the step builders' logits or launches differ from the SERVE path's")
+    for n in KERNELS:
+        total[n] += launches[n]
+    del model, params, lora, want, got
+    torch.cuda.empty_cache()
+
+    argv = ["--arch", "roberta-base", "--steps", str(LAUNCH_STEPS), "--batch", "16",
+            "--seq", "128"]
+    row = {}
+    for remat in (True, False):
+        tr = train.Trainer(train.parse_args(argv), remat=remat)
+        rng = np.random.RandomState(0)
+        batches = [tr.to_device(tr.batch(rng)) for _ in range(LAUNCH_STEPS)]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ms, losses, per_step = [], [], []
+        for b in batches:
+            t0 = time.perf_counter()
+            loss, got = run_counted(lambda b=b: float(tr.step(b)))
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            losses.append(loss)
+            per_step.append(got)
+        peak = torch.cuda.max_memory_allocated()
+        layers = tr.cfg.n_layers
+        k = 2 if remat else 1            # remat recomputes each forward kernel
+        expected = {"lora_fused": 2 * layers * k, "flash_attn": layers * k,
+                    "decode_attn": 0, "block_sparse_attn": 0, "ssd_chunk": 0}
+        row["remat" if remat else "plain"] = dict(step_ms=ms, losses=losses,
+                                                  max_memory_allocated=peak,
+                                                  launches_per_step=per_step[0])
+        print(f"LAUNCH launch.train --steps {LAUNCH_STEPS} roberta-base full width batch 16 "
+              f"seq 128 remat={remat} (the first step cold; warm steps: "
+              f"tools/train_step_timing.py): median_step_ms {sorted(ms)[len(ms) // 2]:.2f} "
+              f"step_ms {[round(x, 2) for x in ms]} losses "
+              f"{[round(x, 6) for x in losses]} max_memory_allocated {peak / 2**20:.1f} MiB "
+              f"launches a step {per_step[0]}", flush=True)
+        if any(p != expected for p in per_step):
+            fail(f"LAUNCH remat={remat}: launches a step {per_step} != {expected}")
+        for n in KERNELS:
+            total[n] += sum(p[n] for p in per_step)
+        if remat:    # on the host: the plain run's peak must not count them
+            template = trees.map_leaves(lambda v: v.detach().cpu(), tr.params())
+            trained = trees.flatten(template)
+        del tr, batches
+        torch.cuda.empty_cache()
+    err = max(abs(a - b) for a, b in zip(row["remat"]["losses"], row["plain"]["losses"]))
+    print(f"LAUNCH remat vs plain: max loss difference {err:.3e} (tol {REMAT_LOSS_TOL:g}); "
+          f"peak memory {row['remat']['max_memory_allocated'] / 2**20:.1f} vs "
+          f"{row['plain']['max_memory_allocated'] / 2**20:.1f} MiB", flush=True)
+    if err > REMAT_LOSS_TOL:
+        fail(f"LAUNCH: remat changes the losses by {err:.3e}")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ckpt_") as tmp:
+        path = os.path.join(tmp, "roberta.npz")
+        with contextlib.redirect_stdout(io.StringIO()):
+            main_losses, got = run_counted(lambda: train.main(argv + ["--ckpt", path]))
+        loaded = trees.flatten(load_checkpoint(path, template))
+    ck_err = max(float((loaded[p] - v).abs().max()) for p, v in trained.items())
+    loss_err = max(abs(a - b) for a, b in zip(main_losses, row["remat"]["losses"]))
+    print(f"LAUNCH launch.train --ckpt: losses {[round(x, 6) for x in main_losses]}, the "
+          f"checkpoint read back through load_checkpoint within {ck_err:.3e} of the "
+          f"remat run's trained parameters", flush=True)
+    if ck_err > CKPT_TOL or loss_err > CKPT_TOL:
+        fail(f"LAUNCH: --ckpt's parameters ({ck_err:.3e}) or losses ({loss_err:.3e}) "
+             "differ from the remat run's")
+    for n in KERNELS:
+        total[n] += got[n]
+    return total, row
+
 
 def profile(torch, label, run, reps):
     """torch.profiler over ``reps`` calls of ``run``: the device's busy
@@ -3232,9 +3566,16 @@ def main():
     t0 = time.perf_counter()
     got_a, arch_rows = train_arch(torch)
     print(f"PHASE ARCH-ROUND {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    got_m, mesh_rows = train_mesh(torch, np)
+    print(f"PHASE TRAIN-MESH {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    got_l, launch_row = launch_phase(torch, np)
+    print(f"PHASE LAUNCH {time.perf_counter() - t0:.1f} s", flush=True)
     for n in KERNELS:
         launches[n] += (got[n] + got_r[n] + got_f[n] + got_p[n] + got_ra[n] + got_rb[n]
-                        + got_rc[n] + got_c[n] + got_pop[n] + got_a[n])
+                        + got_rc[n] + got_c[n] + got_pop[n] + got_a[n] + got_m[n]
+                        + got_l[n])
 
     kernels = [dict(name=n, route="cuda", source=f"src/repro_torch/csrc/{n}.cu",
                     replaces=REPLACES[n], launches=launches[n],
@@ -3250,7 +3591,8 @@ def main():
                                 "ppo": ppo_row, "robust": {
                                     "pftt": robust_pftt_row, "pfit": robust_pfit_row,
                                     "ppo": robust_ppo_row}, "comms": comms_row,
-                                "pop": pop_row, "arch_round": arch_rows}}))
+                                "pop": pop_row, "arch_round": arch_rows,
+                                "mesh": mesh_rows, "launch": launch_row}}))
     print(json.dumps({"kernels": kernels}))
     print(smi_line(), flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -3259,4 +3601,7 @@ def main():
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--mesh-rank"]:
+        mesh_rank(sys.argv[2:])
+    else:
+        main()

@@ -1,6 +1,5 @@
 """Server-side LoRA factor aggregation without densification, the port of
-``repro.comms.factored_agg`` (the mesh's all-gather comes with ROADMAP
-queue 1 item 8).
+``repro.comms.factored_agg``.
 
 Averaging the factors elementwise is not the mean update:
 ``avg_i(A_i·B_i) ≠ avg_i(A_i)·avg_i(B_i)``.  ``svd_reproject`` computes the
@@ -19,7 +18,9 @@ card).  The signs of an SVD are ambiguous, so only the product ``A'·B'``
 is defined; the tests compare products.  ``factored_fedavg_tree`` applies
 it to every ``{'a','b'}`` sibling pair of an uploaded tree (other leaves
 get the plain weighted mean); ``core.aggregation.factored_fedavg_stacked``
-dispatches to it.
+dispatches to it.  Under a client mesh the factor rows and weights are
+gathered from every rank first (``sharding.gather_clients``; factors are
+rank-r tiny) and every rank computes the same re-projection.
 """
 from __future__ import annotations
 
@@ -29,6 +30,7 @@ import torch
 
 from repro_torch import trees
 from repro_torch.core.aggregation import fedavg_stacked
+from repro_torch.sharding import gather_clients
 
 
 def _normalized_weights(n: int, weights, device=None) -> torch.Tensor:
@@ -38,12 +40,18 @@ def _normalized_weights(n: int, weights, device=None) -> torch.Tensor:
     return w / torch.clamp(w.sum(), min=1e-12)
 
 
-def svd_reproject(st_a, st_b, weights=None, rank: Optional[int] = None):
+def svd_reproject(st_a, st_b, weights=None, rank: Optional[int] = None, *, mesh=None):
     """Stacked factors ``A (n, …, din, r)``, ``B (n, …, r, dout)`` and (n,)
     weights → rank-``rank`` (default r) factors ``(A', B')`` of the weighted
     mean update ``Σ ŵ_i A_i B_i``, batched over the leading dims (the
     layer-repeat axis).  Zero weights make L rank-deficient (fine); all-zero
-    weights give a zero product, which the round's gate then discards."""
+    weights give a zero product, which the round's gate then discards.
+    ``mesh``: every rank's rows are gathered first (replicated result)."""
+    if mesh is not None:
+        st_a, st_b = gather_clients(st_a, mesh), gather_clients(st_b, mesh)
+        if weights is not None:
+            weights = gather_clients(torch.as_tensor(weights, dtype=torch.float32,
+                                                      device=st_a.device), mesh)
     n, r = st_a.shape[0], st_a.shape[-1]
     rank = r if rank is None else rank
     w = _normalized_weights(n, weights, st_a.device)
@@ -83,15 +91,16 @@ def _factor_pairs(flat):
             if p.endswith("/a") and (p[:-2] + "/b") in flat]
 
 
-def factored_fedavg_tree(stacked_tree, weights=None, rank: Optional[int] = None):
+def factored_fedavg_tree(stacked_tree, weights=None, *, mesh=None,
+                         rank: Optional[int] = None):
     """Weighted mean of a stacked upload tree where every ``{'a','b'}``
     factor pair aggregates as ``svd_reproject`` and every other leaf as
-    ``fedavg_stacked``."""
-    avg = fedavg_stacked(stacked_tree, weights)
+    ``fedavg_stacked`` (both under ``mesh`` when given)."""
+    avg = fedavg_stacked(stacked_tree, weights, mesh=mesh)
     flat = trees.flatten(stacked_tree)
     repl = {}
     for _, pa, pb in _factor_pairs(flat):
-        repl[pa], repl[pb] = svd_reproject(flat[pa], flat[pb], weights, rank)
+        repl[pa], repl[pb] = svd_reproject(flat[pa], flat[pb], weights, rank, mesh=mesh)
     if not repl:
         return avg
     return trees.map_with_path(lambda p, v: repl.get(p, v), avg)

@@ -9,8 +9,17 @@
 The per-leaf weighted mean is one ``tensordot`` over the client axis in
 f32, cast back to the leaf's dtype.  ``factored_fedavg_stacked``
 aggregates LoRA factor pairs by the SVD re-projection of
-``comms.factored_agg``; the mesh variants (``axis_names``) come with
-multi-device (ROADMAP queue 1 item 8).
+``comms.factored_agg``.
+
+Every stacked operator takes ``mesh=`` (a ``sharding.ClientMesh``; the JAX
+package's ``axis_names=``): the client axis is then sharded over the
+ranks, each holding its rows.  The weights are normalised by their total
+summed over the ranks, each rank's weighted partial sums are summed over
+the ranks (one ``all_reduce`` for the whole tree), and every rank returns
+the same global mean.  Zero-weight rows (outages, ghost padding) drop out
+of numerator and denominator alike.  At world size 1 the arithmetic is
+the unsharded one, bit for bit; at more ranks the partial sums
+reassociate the f32 sum.
 """
 from __future__ import annotations
 
@@ -19,6 +28,7 @@ from typing import Callable, Optional, Sequence
 import torch
 
 from repro_torch import trees
+from repro_torch.sharding import psum, psum_tree
 
 
 def _client_weights(n: int, weights, device=None) -> torch.Tensor:
@@ -43,50 +53,80 @@ def _pad_mask(m, ndim: int):
     return m.reshape(tuple(m.shape) + (1,) * (ndim - m.dim()))
 
 
-def fedavg_stacked(stacked_tree, weights=None):
-    """Weighted mean over the leading client axis of every leaf."""
+def fedavg_stacked(stacked_tree, weights=None, *, mesh=None):
+    """Weighted mean over the leading client axis of every leaf; under
+    ``mesh`` over the rows of every rank (a replicated result)."""
     leaves = list(trees.flatten(stacked_tree).values())
     if not leaves:
         return stacked_tree
-    w = _client_weights(leaves[0].shape[0], weights, leaves[0].device)
-    return trees.map_leaves(lambda leaf: _weighted_mean(leaf, w), stacked_tree)
+    n, dev = leaves[0].shape[0], leaves[0].device
+    if mesh is None:
+        w = _client_weights(n, weights, dev)
+        return trees.map_leaves(lambda leaf: _weighted_mean(leaf, w), stacked_tree)
+    w = (torch.ones(n, dtype=torch.float32, device=dev) if weights is None
+         else torch.as_tensor(weights, dtype=torch.float32, device=dev))
+    w = w / torch.clamp(psum(w.sum(), mesh), min=1e-12)
+    means = psum_tree(trees.map_leaves(lambda leaf: torch.tensordot(w, leaf.float(), dims=1),
+                                       stacked_tree), mesh)
+    return trees.map_leaves(lambda m, leaf: m.to(leaf.dtype), means, stacked_tree)
 
 
 def partial_fedavg_stacked(global_tree, stacked_tree,
-                           pred: Callable[[str], bool], weights=None):
+                           pred: Callable[[str], bool], weights=None, *, mesh=None):
     """Aggregate only leaves whose path satisfies ``pred``; others keep the
     global value."""
-    flat_avg = trees.flatten(fedavg_stacked(stacked_tree, weights))
+    flat_avg = trees.flatten(fedavg_stacked(stacked_tree, weights, mesh=mesh))
     return trees.map_with_path(
         lambda p, g: flat_avg[p] if (pred(p) and p in flat_avg) else g,
         global_tree)
 
 
 def masked_fedavg_stacked(global_tree, stacked_tree, stacked_masks,
-                          weights=None):
+                          weights=None, *, mesh=None):
     """Elementwise θ_g ← Σ_i w_i·m_i·θ_i / Σ_i w_i·m_i, keeping θ_g where the
-    denominator is zero; masks are leading-aligned 1/0 float trees."""
+    denominator is zero; masks are leading-aligned 1/0 float trees.  Under
+    ``mesh`` the numerators and denominators are summed over the ranks
+    before the divide, so the kept-global test reads the whole cohort's
+    denominator."""
     n = next(iter(trees.flatten(stacked_tree).values())).shape[0]
 
-    def agg(g, t, m):
+    def parts(t, m):
         w = (torch.ones(n, dtype=torch.float32, device=t.device) if weights is None
              else torch.as_tensor(weights, dtype=torch.float32, device=t.device))
         wm = _pad_mask(w, t.dim()) * _pad_mask(m.float(), t.dim())
-        num = (wm * t.float()).sum(0)
-        den = torch.broadcast_to(wm, t.shape).sum(0)
+        return {"num": (wm * t.float()).sum(0),
+                "den": torch.broadcast_to(wm, t.shape).sum(0)}
+
+    def agg(g, s):
+        num, den = s["num"], s["den"]
         avg = num / torch.where(den > 0, den, torch.ones_like(den))
         return torch.where(den > 0, avg, g.float()).to(g.dtype)
 
-    return trees.map_leaves(agg, global_tree, stacked_tree, stacked_masks)
+    if mesh is None:    # leaf by leaf: one leaf's sums alive at a time
+        return trees.map_leaves(lambda g, t, m: agg(g, parts(t, m)), global_tree,
+                                stacked_tree, stacked_masks)
+    sums = psum_tree(trees.map_leaves(parts, stacked_tree, stacked_masks), mesh)
+    return _map_sums(agg, global_tree, sums)
 
 
-def factored_fedavg_stacked(stacked_tree, weights=None, rank=None):
+def _map_sums(fn, tree, sums):
+    """``fn(leaf, {"num", "den"})`` over ``tree``'s leaves, the sums tree
+    holding a {"num", "den"} dict where ``tree`` holds a leaf."""
+    if isinstance(tree, dict):
+        return {k: _map_sums(fn, tree[k], sums[k]) for k in tree}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_map_sums(fn, t, s) for t, s in zip(tree, sums))
+    return None if tree is None else fn(tree, sums)
+
+
+def factored_fedavg_stacked(stacked_tree, weights=None, *, mesh=None, rank=None):
     """LoRA-factor-aware weighted mean: every ``{'a','b'}`` sibling pair
     aggregates as the rank-r SVD re-projection of ``Σ ŵ_i A_i·B_i``
     (``comms.factored_agg``: avg(A·B) ≠ avg(A)·avg(B), and the dense mean
-    update is never formed); every other leaf as ``fedavg_stacked``."""
+    update is never formed); every other leaf as ``fedavg_stacked``.
+    Under ``mesh`` the factor rows are gathered first (rank-r tiny)."""
     from repro_torch.comms.factored_agg import factored_fedavg_tree
-    return factored_fedavg_tree(stacked_tree, weights, rank=rank)
+    return factored_fedavg_tree(stacked_tree, weights, mesh=mesh, rank=rank)
 
 
 def broadcast_merge_stacked(stacked_tree, global_tree, stacked_masks=None,

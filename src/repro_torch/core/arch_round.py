@@ -19,8 +19,10 @@ factored path:
   per-client dense-merge loop (``peft.apply_lora`` each step) and reports
   the largest per-(round, client, step) loss deviation.
 
-The JAX function's ``mesh`` (the client axis sharded over devices) is not
-ported.  ``init`` takes the JAX package's draws for parity runs.
+``mesh`` (a ``sharding.ClientMesh``) shards the client axis over the ranks
+of its process group, ghost-padding a cohort that does not divide them;
+every rank draws every batch, runs its rows, and gathers the losses.
+``init`` takes the JAX package's draws for parity runs.
 """
 from __future__ import annotations
 
@@ -34,10 +36,11 @@ import torch
 from repro_torch import bridge, resolve_device, synchronize, trees
 from repro_torch.configs import get_config
 from repro_torch.core.aggregation import fedavg_stacked
-from repro_torch.core.cohort import HostBatchStacker, build_supervised_round, not_ported
+from repro_torch.core.cohort import HostBatchStacker, build_supervised_round
 from repro_torch.models import peft as peft_mod
 from repro_torch.models.transformer import Model
 from repro_torch.optim import adamw, value_and_grad
+from repro_torch.sharding import cohort_sharding
 
 # which mixer projections carry LoRA per layer family — the universal
 # factored contract (models/ssm.py, models/mla.py, blocks._qkv)
@@ -122,8 +125,11 @@ def run_arch_round(cfg: ArchRoundConfig, mesh=None, client_axes=None,
     ``PRNGKey(seed)`` and ``fold_in(key, 100 + ci)`` draws; without it the
     base and factors are drawn from torch generators seeded with ``seed``
     and 100 + ci.  Beside the JAX package's keys the result has
-    ``round_s``, each round step's seconds (ending in a synchronize)."""
-    not_ported("run_arch_round", mesh=mesh is not None or client_axes is not None)
+    ``round_s``, each round step's seconds (ending in a synchronize), and
+    ``global_lora``, the aggregated factors.  ``mesh`` (+ ``client_axes``):
+    the cohort sharded over the mesh's ranks; the oracle then replays the
+    real clients on every rank."""
+    cs = cohort_sharding(mesh, cfg.n_clients, client_axes)   # this process's rows
     device = resolve_device(cfg.device)
     mcfg = get_config(cfg.arch).reduced(d_model=cfg.d_model, repeats=cfg.repeats)
     model = Model(mcfg, device=device)
@@ -148,24 +154,25 @@ def run_arch_round(cfg: ArchRoundConfig, mesh=None, client_axes=None,
         upd, opt_state = opt.update(g, opt_state, lora)
         return trees.tree_add(lora, upd), opt_state, loss
 
-    round_step = build_supervised_round(local_step, None)
-    cohort = trees.stack(loras)
-    cohort_opt = trees.stack([opt.init(lf) for lf in loras])
-    stacker = HostBatchStacker(device)
+    round_step = build_supervised_round(local_step, None, cs=cs)
+    cohort = cs.take(trees.stack(loras))
+    cohort_opt = cs.take(trees.stack([opt.init(lf) for lf in loras]))
+    stacker = HostBatchStacker(device, rows=cs.rows)
 
     rng = np.random.RandomState(cfg.seed)
     sizes = ([max(1, cfg.batch - (ci % 2)) for ci in range(cfg.n_clients)]
              if cfg.ragged and cfg.n_clients > 1 else [cfg.batch] * cfg.n_clients)
     round_batches = [_draw_round_batches(mcfg, rng, sizes, cfg.local_steps, cfg.seq_len)
                      for _ in range(cfg.rounds)]
-    weights = torch.ones(cfg.n_clients, dtype=torch.float32, device=device)
+    weights = torch.from_numpy(cs.take_vec(np.ones(cfg.n_clients))).to(device)
 
     eng_losses, padded_rounds, round_s = [], [], []
     dispatches = merges_in_engine = 0
     for rnd in range(cfg.rounds):
-        batches = stacker(round_batches[rnd])
-        if cfg.oracle:
-            padded_rounds.append(batches)
+        batches = stacker(cs.pad(round_batches[rnd]))
+        if cfg.oracle:   # the real clients' padded batches, every rank
+            padded_rounds.append(batches if mesh is None
+                                 else HostBatchStacker(device)(round_batches[rnd]))
         m0 = peft_mod.dense_merge_count()
         synchronize(device)
         t0 = time.perf_counter()
@@ -174,13 +181,13 @@ def run_arch_round(cfg: ArchRoundConfig, mesh=None, client_axes=None,
         round_s.append(time.perf_counter() - t0)
         merges_in_engine += peft_mod.dense_merge_count() - m0
         dispatches += 1
-        eng_losses.append(losses.cpu().numpy())
+        eng_losses.append(cs.gather(losses).cpu().numpy())
 
     result = {
         "arch": cfg.arch,
         "lora_targets": list(targets),
         "ragged": len(set(sizes)) > 1,
-        "n_ghosts": 0,
+        "n_ghosts": cs.n_pad,
         "dispatches_per_round": dispatches / max(cfg.rounds, 1),
         "dense_merges_in_engine": int(merges_in_engine),
         "loss_per_round": [float(lo.mean()) for lo in eng_losses],

@@ -45,11 +45,20 @@ training-health scalars (``repro_torch.obs.health.cohort_health``), computed
 from the round's own tensors before the broadcast writes the state, with no
 host synchronisation; it changes nothing the round writes.
 
-Not ported yet, and refused by name: the client-sharded mesh (ROADMAP
-queue 1 item 8, multi-device).
+Both builders take the cohort's layout as ``cs=`` (a
+``sharding.CohortSharding``, from ``sharding.cohort_sharding(mesh, n,
+client_axes)``): under a mesh the client axis is sharded over the processes
+of a ``torch.distributed`` group, each rank holding its rows of every
+stacked input (ghost-padded to a multiple of the shard count).  Each rank
+runs its own clients; the aggregation sums every rank's weighted partial
+sums in one ``all_reduce`` (``core/aggregation.py``), the gates read the
+summed weights, and every rank broadcasts the same global into its rows.
+Anything without a client axis (the frozen base, the PPO global, the
+reward models) every rank holds whole.
 """
 from __future__ import annotations
 
+import functools
 from typing import Callable, Optional
 
 import numpy as np
@@ -63,11 +72,11 @@ from repro_torch.core.aggregation import (_pad_mask, broadcast_merge_stacked,
 from repro_torch.obs.health import cohort_health
 from repro_torch.rlhf.ppo import PPOConfig, make_ppo_fns
 from repro_torch.rlhf.rollout import generate
+from repro_torch.sharding import CohortSharding, gather_clients, psum
 
-# Where each option the port does not run yet is ported: the one table the
+# Where each option the port does not run is ported: the one table the
 # engine, ``run_pftt``, ``run_pfit`` and the launchers refuse from.
 LATER = {
-    "mesh": "ROADMAP queue 1 item 8 (multi-device)",
     "legacy_loop": "no item: the cohort engine replaces the legacy per-client loop",
 }
 
@@ -98,44 +107,57 @@ class HostBatchStacker:
     (n_clients, local_steps, max_batch) f32 mask with 1.0 on real sample
     rows (axis 0 of every leaf is the sample axis); ``Model.cls_loss``
     weights samples by it, so padded rows contribute exactly zero.  Uniform
-    cohorts get no ``"valid"`` leaf."""
+    cohorts get no ``"valid"`` leaf.
 
-    def __init__(self, device="cpu"):
+    ``rows`` (a slice of the cohort; a sharded rank's ``CohortSharding.rows``):
+    only those clients are stacked and moved, with the shapes and the
+    ``"valid"`` decision of the whole cohort, so every rank's layout is its
+    rows of the unsharded one."""
+
+    def __init__(self, device="cpu", rows: Optional[slice] = None):
         self.device = torch.device(device)
+        self.rows = rows if rows is not None else slice(None)
 
     def __call__(self, per_client_batches):
-        nc, ns = len(per_client_batches), len(per_client_batches[0])
+        ns = len(per_client_batches[0])
         steps = [step for cb in per_client_batches for step in cb]
+        mine = per_client_batches[self.rows]
+        nc = len(mine)
         out, ragged = {}, False
         for k in steps[0]:
-            leaves = [np.asarray(step[k]) for step in steps]
-            shape = tuple(np.max([leaf.shape for leaf in leaves], axis=0))
+            shapes = [np.shape(step[k]) for step in steps]
+            shape = tuple(np.max(shapes, axis=0))
+            ragged |= any(sh != shape for sh in shapes)
+            leaves = [np.asarray(step[k]) for cb in mine for step in cb]
             buf = np.zeros((len(leaves),) + shape, leaves[0].dtype)
             for i, leaf in enumerate(leaves):
                 buf[(i,) + tuple(slice(0, d) for d in leaf.shape)] = leaf
-                ragged |= leaf.shape != shape
             out[k] = buf.reshape((nc, ns) + shape)
         if ragged:
             first = next(iter(out.values()))
-            rows = np.array([len(np.asarray(next(iter(step.values())))) for step in steps])
+            rows = np.array([len(np.asarray(next(iter(step.values()))))
+                             for cb in mine for step in cb])
             valid = np.arange(first.shape[2])[None] < rows[:, None]
             out["valid"] = valid.astype(np.float32).reshape(nc, ns, -1)
         return {k: torch.from_numpy(v).to(self.device) for k, v in out.items()}
 
 
-def build_cohort_eval(eval_fn: Callable):
+def build_cohort_eval(eval_fn: Callable, mesh=None):
     """Per-client eval over a stacked cohort.  ``eval_fn(trainable,
     *per_client_data) -> tuple of tensors`` is the single-client eval; the
     returned ``cohort_eval(stacked_trainable, *stacked_data)`` runs it for
     each client under ``torch.no_grad()`` and stacks each output over the
     clients (ragged test sets are padded with a validity mask that rides in
-    as one of the stacked args)."""
+    as one of the stacked args).  Under ``mesh`` each rank runs its own rows
+    and every output is gathered over the ranks: each rank returns the
+    whole padded cohort's."""
     def cohort_eval(stacked_trainable, *stacked_data):
         n = stacked_data[0].shape[0]
         with torch.no_grad():
             outs = [eval_fn(client_view(stacked_trainable, ci),
                             *(d[ci] for d in stacked_data)) for ci in range(n)]
-        return tuple(torch.stack(col) for col in zip(*outs))
+        cols = tuple(torch.stack(col) for col in zip(*outs))
+        return cols if mesh is None else tuple(gather_clients(c, mesh) for c in cols)
 
     return cohort_eval
 
@@ -185,15 +207,24 @@ def _code_uploads(codec, uploaded, ref, clients, noises, bit_weights=None):
     return decoded, bits
 
 
-def _quorum_gate(w, min_quorum: int):
+def _quorum_gate(w, min_quorum: int, mesh=None):
     """The merge gate on the device: something was delivered (Σw > 0) and
-    at least ``min_quorum`` clients delivered (0: the plain Σw > 0)."""
-    return torch.logical_and(w.sum() > 0, (w > 0).float().sum() >= min_quorum)
+    at least ``min_quorum`` clients delivered (0: the plain Σw > 0); under
+    ``mesh`` both counts are summed over the ranks."""
+    if mesh is None:
+        return torch.logical_and(w.sum() > 0, (w > 0).float().sum() >= min_quorum)
+    tot = psum(torch.stack([w.sum(), (w > 0).float().sum()]), mesh)
+    return torch.logical_and(tot[0] > 0, tot[1] >= min_quorum)
+
+
+def _any_weight(w, mesh=None):
+    """Σw > 0 over the whole cohort (the all-outage gate)."""
+    return (w.sum() if mesh is None else psum(w.sum(), mesh)) > 0
 
 
 def build_supervised_round(local_step_fn: Callable,
                            upload_pred: Optional[Callable[[str], bool]] = None,
-                           *, mesh=None, codec=None, factored_agg: bool = False,
+                           *, cs: Optional[CohortSharding] = None, codec=None, factored_agg: bool = False,
                            robust: bool = False, min_quorum: int = 0,
                            health: bool = False):
     """Per-client local steps + FedAvg + broadcast as one round.
@@ -238,11 +269,14 @@ def build_supervised_round(local_step_fn: Callable,
     the synchronous body over the (decoded) uploads, the robust one over
     what went on the air (stragglers' pending payloads included).
 
-    ``mesh`` (an argument of the JAX package's function) is not ported;
-    setting it raises."""
-    not_ported("build_supervised_round", mesh=mesh is not None)
+    ``cs`` (the cohort's layout over a client mesh): every stacked input
+    and output holds this rank's rows, the aggregation and the gates are
+    summed over the ranks, and the health scalars are the whole cohort's,
+    the ghost rows left out."""
+    mesh = None if cs is None else cs.mesh
     pred = upload_pred or (lambda p: True)
-    agg_fn = factored_fedavg_stacked if factored_agg else fedavg_stacked
+    agg_fn = functools.partial(factored_fedavg_stacked if factored_agg else fedavg_stacked,
+                               mesh=mesh)
 
     def upload(st_trainable, ref, clients, codec_noises):
         """What the clients put on the air: the uploaded subtree, or with a
@@ -286,6 +320,10 @@ def build_supervised_round(local_step_fn: Callable,
         out = out if codec is None else out + (bits,)
         return out if not health else out + (hstats,)
 
+    def ghost_kw():
+        """The health scalars' mesh and this rank's ghost rows."""
+        return {"mesh": mesh, "ghost": None if cs is None else cs.ghosts()}
+
     def round_step(st_trainable, st_opt, batches, weights, codec_noises=None):
         n, steps = next(iter(batches.values())).shape[:2]
         losses = torch.empty((n, steps), dtype=torch.float32,
@@ -293,13 +331,13 @@ def build_supervised_round(local_step_fn: Callable,
         up_in = round_input(st_trainable)
         train_clients(st_trainable, st_opt, batches, range(n), losses)
         uploaded, bits = upload(st_trainable, up_in, range(n), codec_noises)
-        gate = weights.sum() > 0
+        gate = _any_weight(weights, mesh)
         # health before the broadcast: without a codec ``uploaded`` holds
         # views of the state the broadcast overwrites
         hstats = None if not health else cohort_health(
             uploaded, up_in, losses, weights, gate,
             raw=None if codec is None else trees.select(st_trainable, pred),
-            decoded=None if codec is None else uploaded)
+            decoded=None if codec is None else uploaded, **ghost_kw())
         # server: weighted mean of the uploads over the surviving clients,
         # broadcast into every client's slot; an all-outage round (Σw = 0)
         # keeps every client's local values
@@ -319,7 +357,7 @@ def build_supervised_round(local_step_fn: Callable,
         # weight 0 (it stays pending); an under-quorum round is a no-op.
         send = _where_clients(train_m, uploaded, pending)
         w = agg_w * ontime_m
-        gate = _quorum_gate(w, min_quorum)
+        gate = _quorum_gate(w, min_quorum, mesh)
         hstats = None
         if health:
             # the codec's error over the clients it coded: the other rows of
@@ -327,7 +365,8 @@ def build_supervised_round(local_step_fn: Callable,
             raw = None if codec is None else _where_clients(
                 train_m, trees.select(st_trainable, pred), uploaded)
             hstats = cohort_health(send, up_in, losses, w, gate, train_m=train_m, raw=raw,
-                                   decoded=None if codec is None else uploaded)
+                                   decoded=None if codec is None else uploaded,
+                                   **ghost_kw())
         broadcast(st_trainable, agg_fn(send, w), torch.logical_and(gate, recv_m > 0))
         trees.map_leaves(lambda dst, src: dst.copy_(src), st_opt,
                          _zero_clients(rejoin_m, st_opt))
@@ -338,8 +377,9 @@ def build_supervised_round(local_step_fn: Callable,
 
 def build_ppo_round(model, opt, ppo_cfg: PPOConfig, prompt_len: int, gen_len: int,
                     quality_fn: Callable, *, lambda_regs=None,
-                    reg_pred: Optional[Callable[[str], bool]] = None, mesh=None,
-                    codec=None, robust: bool = False, min_quorum: int = 0):
+                    reg_pred: Optional[Callable[[str], bool]] = None,
+                    cs: Optional[CohortSharding] = None, codec=None, robust: bool = False,
+                    min_quorum: int = 0):
     """PFIT's round: per client, in client order, a rollout, the
     personalized reward, ``prep`` and ``ppo_epochs`` masked clipped steps;
     then the masked aggregation against the global and the masked
@@ -383,13 +423,18 @@ def build_ppo_round(model, opt, ppo_cfg: PPOConfig, prompt_len: int, gen_len: in
     its global there, its per-client loop keeps the global (ROADMAP queue
     3), and the port follows the loop.
 
-    The other arguments are those of the JAX package's function; setting
-    one raises."""
-    not_ported("build_ppo_round", mesh=mesh is not None)
+    ``cs``: as in ``build_supervised_round``, each rank holding its rows
+    of every per-client input, the global model whole on every rank, the
+    masked aggregation's numerators and denominators summed over the ranks.
+    ``lambda_regs`` covers the real cohort; each rank takes its rows of it
+    (a ghost takes client 0's)."""
+    mesh = None if cs is None else cs.mesh
     prep, step = make_ppo_fns(model, opt, ppo_cfg, prompt_len)
     reg_pred = reg_pred or (lambda p: p.startswith("stages"))
     lams = None if lambda_regs is None else [float(x) for x in lambda_regs]
     use_reg = lams is not None and any(x > 0 for x in lams)
+    if use_reg and cs is not None:
+        lams = cs.local(lams)
 
     def train_clients(clients, st_params, st_opt, global_params, st_masks, prompts,
                       noises, alphas_help, alphas_safe, rollouts, mean_rewards, mean_kls):
@@ -438,9 +483,10 @@ def build_ppo_round(model, opt, ppo_cfg: PPOConfig, prompt_len: int, gen_len: in
         # server: sparse-mask-weighted aggregation over the surviving clients
         # (all outage: every denominator 0, the global kept), then each client
         # resumes from the new global on its own masked entries
-        new_global = masked_fedavg_stacked(global_params, uploaded, st_masks, weights)
+        new_global = masked_fedavg_stacked(global_params, uploaded, st_masks, weights,
+                                           mesh=mesh)
         merged = broadcast_merge_stacked(st_params, new_global, st_masks,
-                                         gate=weights.sum() > 0)
+                                         gate=_any_weight(weights, mesh))
         trees.map_leaves(lambda dst, src: dst.copy_(src), st_params, merged)
         out = (st_params, st_opt, new_global, mean_rewards, mean_kls)
         return out if codec is None else out + (bits,)
@@ -462,10 +508,10 @@ def build_ppo_round(model, opt, ppo_cfg: PPOConfig, prompt_len: int, gen_len: in
         # deadline miss merges at weight 0 (it stays pending)
         send = _where_clients(train_m, uploaded, pending)
         w = agg_w * ontime_m
-        gate = _quorum_gate(w, min_quorum)
+        gate = _quorum_gate(w, min_quorum, mesh)
         new_global = trees.map_leaves(
             lambda a, g: torch.where(gate, a, g),
-            masked_fedavg_stacked(global_params, send, st_masks, w), global_params)
+            masked_fedavg_stacked(global_params, send, st_masks, w, mesh=mesh), global_params)
         merged = broadcast_merge_stacked(st_params, new_global, st_masks, gate=gate)
         trees.map_leaves(lambda dst, src: dst.copy_(src), st_params,
                          _where_clients(recv_m, merged, st_params))

@@ -49,8 +49,15 @@ body has none).  ``population`` runs shepherd's sampled-cohort population
 mode (``_run_pfit_population``); the PPO methods raise the JAX package's
 ``ValueError`` there.
 
+``run_pfit(cfg, mesh=...)`` shards the cohort over the ranks of a
+``sharding.ClientMesh`` as ``run_pftt`` does: every rank makes every host
+draw and pretrains the same policy and reward models, runs its rows of the
+ghost-padded cohort (rollout noise keyed by client id, never by rank), and
+gathers the rewards and bits; each rank evaluates its own real clients and
+the per-client rewards are gathered.  Only rank 0 writes telemetry.
+
 Not ported yet, and refused by name (``cohort.LATER``): the legacy
-per-client loop (``engine=False``) and a mesh.
+per-client loop (``engine=False``).
 """
 from __future__ import annotations
 
@@ -81,6 +88,7 @@ from repro_torch.rlhf.ppo import PPOConfig
 from repro_torch.rlhf.reward_model import (RewardModel, reward_model_config,
                                            train_reward_model)
 from repro_torch.rlhf.rollout import generate, gumbel_stream
+from repro_torch.sharding import cohort_sharding
 from repro_torch.wireless import (CommLedger, DeadlineConfig, FaultPlan, RayleighChannel,
                                   tree_bytes)
 
@@ -167,7 +175,8 @@ def _pretrain_policy(model, params, corpus, steps, lr, batch, verbose):
     return params
 
 
-def run_pfit(cfg: PFITConfig, init: Optional[Dict] = None, mesh=None) -> Dict:
+def run_pfit(cfg: PFITConfig, init: Optional[Dict] = None, mesh=None,
+             client_axes=None) -> Dict:
     """The cohort engine for one method, synchronous or robust.  ``init`` (optional,
     the JAX package's draws for parity runs): {"policy": flat numpy params
     before pretraining, "rm_help"/"rm_safe": flat numpy reward-model params
@@ -183,13 +192,16 @@ def run_pfit(cfg: PFITConfig, init: Optional[Dict] = None, mesh=None) -> Dict:
     margins, per client, numpy), ``health_per_round`` (shepherd with
     telemetry; else Nones) and
     the timings ``pretrain_s``, ``rm_s`` and ``round_s`` (a round's
-    training, ledger and evaluation, host clock ending in a synchronize)."""
+    training, ledger and evaluation, host clock ending in a synchronize).
+    ``mesh`` (+ ``client_axes``): shard the cohort (module docstring);
+    ``rollouts_round0``/``eval_round0`` then hold this rank's clients."""
     if cfg.method not in METHODS:
         raise ValueError(f"method {cfg.method!r} not in {METHODS}")
     if cfg.population is not None:
-        not_ported("run_pfit", mesh=mesh is not None)
-        return _run_pfit_population(cfg, init)
-    not_ported("PFITConfig", legacy_loop=not cfg.engine, mesh=mesh is not None)
+        return _run_pfit_population(cfg, init, mesh, client_axes)
+    not_ported("PFITConfig", legacy_loop=not cfg.engine)
+    cs = cohort_sharding(mesh, cfg.n_clients, client_axes)   # this process's rows
+    cfg = cfg if cs.lead else dataclasses.replace(cfg, verbose=False)
     codec = get_codec(cfg.uplink_codec)
     init = init or {}
     ms = _method_settings(cfg)
@@ -298,22 +310,27 @@ def run_pfit(cfg: PFITConfig, init: Optional[Dict] = None, mesh=None) -> Dict:
                            torch.ones(2 * cfg.rollout_batch, cfg.gen_len, device=device)], 1)
 
     def eval_reward(client_params, client_loras=None, record=None):
-        """Mean personalized quality reward on the fixed eval prompts;
-        ``client_loras[ci]`` serves client ci's LoRA unmerged.  ``record``
-        (a list) receives each client's (tokens, margins)."""
+        """Mean personalized quality reward on the fixed eval prompts over
+        the real clients, each rank scoring its own rows (ghosts score 0,
+        dropped after the gather); ``client_loras[i]`` serves row i's LoRA
+        unmerged.  ``record`` (a list) receives each client's (tokens,
+        margins)."""
         vals = []
-        for ci, p in enumerate(client_params):
+        for i, (ci, p) in enumerate(zip(cs.local(range(cfg.n_clients)), client_params)):
+            if cs.rows.start + i >= cfg.n_clients:     # a ghost row
+                vals.append(torch.zeros((), device=device))
+                continue
             margins = None if record is None else []
             toks = generate(model, p, eval_prompts[ci], cfg.gen_len, eval_noise[ci],
                             temperature=EVAL_TEMPERATURE, margins=margins,
-                            lora=None if client_loras is None else client_loras[ci],
+                            lora=None if client_loras is None else client_loras[i],
                             lora_scale=lscale)
             if record is not None:
                 record.append((toks, torch.stack(margins, 1)))
             with torch.no_grad():
                 vals.append(quality_fn(toks, eval_mask, prefs[ci].alpha_help,
                                        prefs[ci].alpha_safe).mean())
-        return float(torch.stack(vals).double().mean())
+        return float(cs.gather(torch.stack(vals)).double().mean())
 
     # ---- the straggler-tolerant runtime (core/robust.py, wireless/faults.py)
     dl, trace, tracker = robust_runtime(cfg, channel)
@@ -321,26 +338,26 @@ def run_pfit(cfg: PFITConfig, init: Optional[Dict] = None, mesh=None) -> Dict:
     min_quorum = dl.min_quorum if dl is not None else 0
 
     # ---- observability: health rides shepherd's supervised round only
-    tracer, tele, health, prof = open_run(cfg.telemetry, device)
+    tracer, tele, health, prof = open_run(cfg.telemetry, device, write=cs.lead)
     health = health and cfg.method == "shepherd"
 
     # ---- the cohort engine: per-client state stacked on a client axis
     if cfg.method == "shepherd":
         round_step = build_supervised_round(shepherd_local_step, codec=codec,
                                             factored_agg=cfg.factored_agg, robust=robust,
-                                            min_quorum=min_quorum, health=health)
-        cohort_tr = trees.stack(loras)
-        cohort_opt = trees.stack([opt.init(lo) for lo in loras])
+                                            min_quorum=min_quorum, health=health, cs=cs)
+        cohort_tr = cs.take(trees.stack(loras))
+        cohort_opt = cs.take(trees.stack([opt.init(lo) for lo in loras]))
         payloads = [tree_bytes(lo) for lo in loras]
-        stacker = HostBatchStacker(device)
+        stacker = HostBatchStacker(device, rows=cs.rows)
     else:
         ppo_round_step = build_ppo_round(
             model, opt, cfg.ppo, cfg.prompt_len, cfg.gen_len, quality_fn,
             lambda_regs=[p.lambda_reg for p in prefs], codec=codec, robust=robust,
-            min_quorum=min_quorum)
-        cohort_tr = trees.stack([params] * cfg.n_clients)
-        cohort_opt = trees.stack([opt.init(params)] * cfg.n_clients)
-        st_masks = trees.stack(client_masks)
+            min_quorum=min_quorum, cs=cs)
+        cohort_tr = trees.stack([params] * cs.n_local)
+        cohort_opt = trees.stack([opt.init(params)] * cs.n_local)
+        st_masks = cs.take(trees.stack(client_masks))
         payloads = [tree_bytes(params, nonzero_mask=client_masks[ci])
                     for ci in range(cfg.n_clients)]
     # the pending-payload buffer (zeros never merge: their weight is 0) and
@@ -351,13 +368,15 @@ def run_pfit(cfg: PFITConfig, init: Optional[Dict] = None, mesh=None) -> Dict:
     if dl is not None:
         est_bits = np.asarray(
             [p * 8 for p in payloads] if codec is None else
-            [payload_bits_upper_bound(codec, t) for t in trees.unstack(cohort_tr)],
+            [payload_bits_upper_bound(codec, t) for t in
+             (loras if cfg.method == "shepherd" else [params] * cfg.n_clients)],
             np.float64)
     codec_noise = init.get("codec_noise") or functools.partial(
         codec_uniforms, cfg.seed, device=device)
 
-    def vec(v):
-        return torch.from_numpy(np.asarray(v, np.float32)).to(device)
+    def vec(v, fill=0.0):
+        """A round vector on the device: this rank's rows, ghosts ``fill``."""
+        return torch.from_numpy(cs.take_vec(v, fill)).to(device)
 
     reward_curve, train_reward, round_s, health_per_round = [], [], [], []
     rollouts0, eval0 = [], []
@@ -376,13 +395,14 @@ def run_pfit(cfg: PFITConfig, init: Optional[Dict] = None, mesh=None) -> Dict:
             # apart (the body multiplies them and derives the quorum gate)
             ontime = rplan.ontime if dl is not None else np.ones(cfg.n_clients, np.float32)
             margs = (vec(rplan.agg_w_pre if dl is not None else rplan.agg_w),
-                     vec(rplan.train), vec(rplan.recv), vec(rplan.rejoin), vec(ontime))
+                     vec(rplan.train, 1.0), vec(rplan.recv, 1.0), vec(rplan.rejoin),
+                     vec(ontime, 1.0))
         else:
             weights = vec(channel.outage_weights(gains))
         noise_arg = ()
         if codec is not None:
             with tracer.span("encode"):
-                noise_arg = (round_noises(codec_noise, rnd, cfg.n_clients),)
+                noise_arg = (cs.local(round_noises(codec_noise, rnd, cfg.n_clients)),)
         # every client's batches or prompts and noise streams are drawn every
         # round, training or not: the host streams stay aligned
         if cfg.method == "shepherd":
@@ -392,8 +412,9 @@ def run_pfit(cfg: PFITConfig, init: Optional[Dict] = None, mesh=None) -> Dict:
                 return {"tokens": s["tokens"][:, :-1], "labels": s["tokens"][:, 1:],
                         "mask": s["mask"][:, 1:]}
             with tracer.span("gather"):
-                batches = stacker([[shepherd_batch(ci) for _ in range(cfg.shepherd_steps)]
-                                   for ci in range(cfg.n_clients)])
+                batches = stacker(cs.pad([[shepherd_batch(ci)
+                                           for _ in range(cfg.shepherd_steps)]
+                                          for ci in range(cfg.n_clients)]))
             with tracer.span("device-step"):
                 if robust:
                     agg_w, train_m, recv_m, rejoin_m, ontime_m = margs
@@ -408,13 +429,14 @@ def run_pfit(cfg: PFITConfig, init: Optional[Dict] = None, mesh=None) -> Dict:
             bits_out = outs[4 if robust else 3] if codec is not None else None
         else:
             with tracer.span("gather"):
-                prompts = torch.from_numpy(np.stack(
+                prompts = torch.from_numpy(np.stack(cs.local(
                     [corpus.sample(cfg.rollout_batch, topic_probs=topic_prefs[ci],
                                    rng=rng)["tokens"][:, :cfg.prompt_len]
-                     for ci in range(cfg.n_clients)])).to(device)
+                     for ci in range(cfg.n_clients)]))).to(device)
                 noises = [noise_for(rnd * 17 + ci, cfg.rollout_batch)
-                          for ci in range(cfg.n_clients)]
-            alphas = ([p.alpha_help for p in prefs], [p.alpha_safe for p in prefs])
+                          for ci in cs.local(range(cfg.n_clients))]
+            alphas = (cs.local([p.alpha_help for p in prefs]),
+                      cs.local([p.alpha_safe for p in prefs]))
             record = rollouts0 if rnd == 0 else None
             with tracer.span("device-step"):
                 if robust:
@@ -428,11 +450,11 @@ def run_pfit(cfg: PFITConfig, init: Optional[Dict] = None, mesh=None) -> Dict:
                                           rollouts=record)
                     cohort_tr, cohort_opt, global_params, mean_rewards = outs[:4]
                 synchronize(device)
-            train_reward.append(float(mean_rewards.mean()))
+            train_reward.append(float(cs.gather(mean_rewards).mean()))
             bits_out = outs[-1] if codec is not None else None   # its last output
         # the engine's realized payload bits with a codec
         bits = ([payloads[ci] * 8 for ci in range(cfg.n_clients)] if codec is None
-                else bits_out.tolist())
+                else cs.gather(bits_out).tolist())
         extra = None
         if robust:
             fresh = np.asarray(bits, np.float64)
@@ -448,12 +470,11 @@ def run_pfit(cfg: PFITConfig, init: Optional[Dict] = None, mesh=None) -> Dict:
         record = eval0 if rnd == 0 else None
         with tracer.span("eval"):
             if cfg.method == "shepherd":   # serve unmerged: the base shared, the factors per client
-                reward_curve.append(eval_reward([global_params] * cfg.n_clients,
-                                                trees.unstack(cohort_tr, cfg.n_clients),
+                local = trees.unstack(cohort_tr)
+                reward_curve.append(eval_reward([global_params] * len(local), local,
                                                 record=record))
             else:
-                reward_curve.append(eval_reward(trees.unstack(cohort_tr, cfg.n_clients),
-                                                record=record))
+                reward_curve.append(eval_reward(trees.unstack(cohort_tr), record=record))
         health_per_round.append(None if not health else
                                 {k: float(v) for k, v in outs[-1].items()})
         synchronize(device)
@@ -499,7 +520,8 @@ def run_pfit(cfg: PFITConfig, init: Optional[Dict] = None, mesh=None) -> Dict:
     }
 
 
-def _run_pfit_population(cfg: PFITConfig, init: Optional[Dict] = None) -> Dict:
+def _run_pfit_population(cfg: PFITConfig, init: Optional[Dict] = None, mesh=None,
+                         client_axes=None) -> Dict:
     """Sampled-cohort population mode for the shepherd baseline: a
     ``PopulationStore`` of every client's LoRA/opt/pending trees, per-round
     sampling and gather/scatter around the supervised robust round body,
@@ -513,7 +535,8 @@ def _run_pfit_population(cfg: PFITConfig, init: Optional[Dict] = None) -> Dict:
     ``init``: {"policy": flat numpy params before pretraining, "lora": every
     client's flat numpy LoRA (JAX's ``fold_in(key, 200 + i)``),
     "codec_noise": keyed by client id}; without it client i's LoRA comes
-    from its own generator."""
+    from its own generator.  ``mesh``: the cohort sharded over the ranks,
+    every rank holding the whole store (``PopulationRunner``)."""
     from repro_torch.comms.streams import stream_key
     from repro_torch.fl.population import (ClientSampler, CohortTestSets, PopulationData,
                                            PopulationRunner, PopulationStore,
@@ -535,6 +558,8 @@ def _run_pfit_population(cfg: PFITConfig, init: Optional[Dict] = None) -> Dict:
         raise ValueError(f"pfit population scenarios partition over the "
                          f"instruction corpus's {N_TOPICS} topics; got "
                          f"n_classes={scen.n_classes}")
+    cs = cohort_sharding(mesh, K, client_axes)
+    cfg = cfg if cs.lead else dataclasses.replace(cfg, verbose=False)
     init = init or {}
     codec = get_codec(cfg.uplink_codec)
     device = resolve_device(cfg.device)
@@ -595,18 +620,18 @@ def _run_pfit_population(cfg: PFITConfig, init: Optional[Dict] = None) -> Dict:
         upd, opt_state = opt.update(g, opt_state, lora)
         return trees.tree_add(lora, upd), opt_state, loss
 
-    tracer, tele, health, prof = open_run(cfg.telemetry, device)
+    tracer, tele, health, prof = open_run(cfg.telemetry, device, write=cs.lead)
     round_step = build_supervised_round(
-        shepherd_local_step, codec=codec, factored_agg=cfg.factored_agg, robust=True,
+        shepherd_local_step, cs=cs, codec=codec, factored_agg=cfg.factored_agg, robust=True,
         min_quorum=dl.min_quorum if dl is not None else 0, health=health)
     runner = PopulationRunner(
         pop=pop, store=store, global_shared=trees.map_leaves(np.array, lora0),
         upload_pred=lambda p: True, channel=channel, budget=budget, ledger=ledger,
         tracker=tracker, trace=trace, strace=strace,
         sampler=ClientSampler(pop.sampler, N, K, seed=cfg.seed + 1000 * pop.seed),
-        device=device, arrivals=tracker.arrivals, dl=dl, est_bits=est_bits, tracer=tracer,
-        health=health)
-    stacker = HostBatchStacker(device)
+        device=device, arrivals=tracker.arrivals, dl=dl, cs=cs, est_bits=est_bits,
+        tracer=tracer, health=health)
+    stacker = HostBatchStacker(device, rows=cs.rows)
 
     def _lm_batch(b):
         return {"tokens": b["tokens"][:, :-1], "labels": b["tokens"][:, 1:],
@@ -624,10 +649,10 @@ def _run_pfit_population(cfg: PFITConfig, init: Optional[Dict] = None) -> Dict:
         batch = {"tokens": tokens, "labels": labels, "mask": mask}
         return (model.lm_loss(global_params, batch, lora=lora, lora_scale=lscale),)
 
-    eval_cohort = build_cohort_eval(eval_client)
+    eval_cohort = build_cohort_eval(eval_client, mesh=mesh)
 
     def eval_ids(cohort_tr, ids):
-        (losses,) = eval_cohort(cohort_tr, *test_sets(ids, device))
+        (losses,) = eval_cohort(cohort_tr, *test_sets(cs.local(ids), device))
         return [float(x) for x in losses.cpu().numpy()[:len(ids)]]
 
     tele.start({"mode": "population", "method": cfg.method, "population": N,

@@ -56,6 +56,16 @@ population mode (``_run_pftt_population``): a host ``PopulationStore`` of
 every client's state, a cohort drawn each round into the robust round
 body, the tracker spanning the population.
 
+``run_pftt(cfg, mesh=...)`` (a ``sharding.ClientMesh`` over an initialised
+process group) shards the cohort over the ranks: every rank draws the
+whole run's host streams (pretraining, data, channel, faults, batches)
+from the same seeds and keeps its rows of the ghost-padded cohort
+(``sharding.cohort_sharding``); the round's aggregation and gates sum over
+the ranks; accuracies, bits and losses are gathered, so every rank
+computes the same ledger and result.  Only rank 0 writes telemetry and
+checkpoints; a checkpoint holds the real cohort gathered from every rank,
+in the unsharded format, so a run resumes at any world size.
+
 Not ported yet, and refused by name (``cohort.LATER``): the legacy
 per-client loop (``engine=False``).
 """
@@ -84,6 +94,7 @@ from repro_torch.models import peft as peft_mod
 from repro_torch.models.transformer import Model
 from repro_torch.obs import close_run, open_run
 from repro_torch.optim import adamw, value_and_grad
+from repro_torch.sharding import cohort_sharding
 from repro_torch.wireless import (CommLedger, DeadlineConfig, FaultPlan, RayleighChannel,
                                   tree_bytes)
 
@@ -264,7 +275,8 @@ def _comm_record(ledger) -> Dict:
     return {k: v for k, v in ledger.rounds[-1].items() if k != "per_client"}
 
 
-def run_pftt(cfg: PFTTConfig, init: Optional[Dict] = None) -> Dict:
+def run_pftt(cfg: PFTTConfig, init: Optional[Dict] = None, mesh=None,
+             client_axes=None) -> Dict:
     """The cohort engine for one method, synchronous or robust.  ``init``
     (optional): {"base": flat numpy params before pretraining, "adapters":
     flat numpy adapter leaves, "lora": [flat numpy LoRA tree per client],
@@ -279,12 +291,15 @@ def run_pftt(cfg: PFTTConfig, init: Optional[Dict] = None) -> Dict:
     beside each client's raw ``tree_bytes``·8 and, with a codec, its
     ``payload_bits_upper_bound``; under a codec a non-training client's
     realized bits are 0) and the timings ``pretrain_s`` and ``round_s``
-    (the rounds this process ran)."""
+    (the rounds this process ran).  ``mesh`` (+ ``client_axes``): shard the
+    cohort over the mesh's ranks (module docstring)."""
     if cfg.method not in METHODS:
         raise ValueError(f"method {cfg.method!r} not in {METHODS}")
     if cfg.population is not None:
-        return _run_pftt_population(cfg, init)
+        return _run_pftt_population(cfg, init, mesh, client_axes)
     not_ported("PFTTConfig", legacy_loop=not cfg.engine)
+    cs = cohort_sharding(mesh, cfg.n_clients, client_axes)   # this process's rows
+    cfg = cfg if cs.lead else dataclasses.replace(cfg, verbose=False)
     codec = _codec(cfg, init)
     (model, mcfg, params, peft_cfg, corpus, gen, rng, use_lora,
      pretrain_s) = _setup_backbone(cfg, init)
@@ -325,18 +340,19 @@ def run_pftt(cfg: PFTTConfig, init: Optional[Dict] = None) -> Dict:
         upd, opt_state = opt.update(g, opt_state, trainable)
         return trees.tree_add(trainable, upd), opt_state, loss
 
-    # ---- eval: every client's test set padded to one shape (validity-masked)
+    # ---- eval: every client's test set padded to one shape (validity-masked;
+    # ghost rows hold no valid sample, so they drop out of the accuracies)
     max_test = max([len(te["label"]) for te in client_test] + [1])
     seq = client_test[0]["tokens"].shape[1]
-    t_toks = np.zeros((cfg.n_clients, max_test, seq), np.int32)
-    t_labels = np.zeros((cfg.n_clients, max_test), np.int32)
-    t_valid = np.zeros((cfg.n_clients, max_test), np.float32)
+    t_toks = np.zeros((cs.total, max_test, seq), np.int32)
+    t_labels = np.zeros((cs.total, max_test), np.int32)
+    t_valid = np.zeros((cs.total, max_test), np.float32)
     for ci, te in enumerate(client_test):
         n = len(te["label"])
         t_toks[ci, :n] = te["tokens"]
         t_labels[ci, :n] = te["label"]
         t_valid[ci, :n] = 1.0
-    t_toks, t_labels, t_valid = (torch.from_numpy(a).to(device)
+    t_toks, t_labels, t_valid = (torch.from_numpy(np.ascontiguousarray(a[cs.rows])).to(device)
                                  for a in (t_toks, t_labels, t_valid))
 
     def eval_client(trainable, tokens, label, valid):
@@ -346,7 +362,7 @@ def run_pftt(cfg: PFTTConfig, init: Optional[Dict] = None) -> Dict:
         correct = (pred == label).float() * valid
         return correct.sum(), valid.sum()
 
-    eval_cohort = build_cohort_eval(eval_client)
+    eval_cohort = build_cohort_eval(eval_client, mesh=mesh)
 
     def eval_round_accs(stacked_trainable):
         """Per-client accuracies (clients with an empty test set dropped)."""
@@ -375,14 +391,14 @@ def run_pftt(cfg: PFTTConfig, init: Optional[Dict] = None) -> Dict:
 
     # ---- observability (repro_torch.obs): spans, JSONL round events and
     # the health scalars the round step returns
-    tracer, tele, health, prof = open_run(cfg.telemetry, device)
-    round_step = build_supervised_round(local_step, upload_pred, codec=codec,
-                                        factored_agg=cfg.factored_agg, robust=robust,
-                                        min_quorum=dl.min_quorum if dl else 0, health=health)
-    cohort_tr = trees.stack([cl["trainable"] for cl in clients])
-    cohort_opt = trees.stack([cl["opt_state"] for cl in clients])
+    tracer, tele, health, prof = open_run(cfg.telemetry, device, write=cs.lead)
+    round_step = build_supervised_round(
+        local_step, upload_pred, cs=cs, codec=codec, factored_agg=cfg.factored_agg, robust=robust,
+        min_quorum=dl.min_quorum if dl else 0, health=health)
+    cohort_tr = cs.take(trees.stack([cl["trainable"] for cl in clients]))
+    cohort_opt = cs.take(trees.stack([cl["opt_state"] for cl in clients]))
     payloads = [payload_bytes(cl["trainable"]) for cl in clients]
-    stacker = HostBatchStacker(device)
+    stacker = HostBatchStacker(device, rows=cs.rows)
     # the pending-payload buffer: zeros of the uploaded subtree (a zero
     # payload never merges: its weight is 0 until a real one replaces it)
     pending = trees.map_leaves(torch.zeros_like, trees.select(cohort_tr, upload_pred)) \
@@ -399,8 +415,9 @@ def run_pftt(cfg: PFTTConfig, init: Optional[Dict] = None) -> Dict:
     codec_noise = (init or {}).get("codec_noise") or functools.partial(
         codec_uniforms, cfg.seed, device=device)
 
-    def vec(v):
-        return torch.from_numpy(np.asarray(v, np.float32)).to(device)
+    def vec(v, fill=0.0):
+        """A round vector on the device: this rank's rows, ghosts ``fill``."""
+        return torch.from_numpy(cs.take_vec(v, fill)).to(device)
 
     accs_per_round, loss_per_round, round_s, bits_per_round = [], [], [], []
     health_per_round = []
@@ -421,13 +438,15 @@ def run_pftt(cfg: PFTTConfig, init: Optional[Dict] = None) -> Dict:
             loss_per_round[:] = meta.get("loss_per_round", [])
             health_per_round[:] = meta.get("health_per_round", [])
             ledger.rounds[:] = meta["ledger_rounds"]
-            tpl = {"trainable": cohort_tr, "opt": cohort_opt}
+            # the file holds the real cohort whatever the world size
+            tpl = {"trainable": trees.stack([cl["trainable"] for cl in clients]),
+                   "opt": trees.stack([cl["opt_state"] for cl in clients])}
             if robust:
-                tpl["pending"] = pending
+                tpl["pending"] = trees.select(tpl["trainable"], upload_pred)
                 tracker.load_state_dict(meta["tracker"])
                 if dl is not None and "est_bits" in meta:
                     est_bits = np.asarray(meta["est_bits"], np.float64)
-            state = load_checkpoint(ckpt_file, tpl)
+            state = cs.take(load_checkpoint(ckpt_file, tpl))
             cohort_tr, cohort_opt = state["trainable"], state["opt"]
             pending = state.get("pending")
             for _ in range(start_round):          # burn the skipped rounds'
@@ -457,27 +476,29 @@ def run_pftt(cfg: PFTTConfig, init: Optional[Dict] = None) -> Dict:
         # every client's batches, in (client, step) order, every round,
         # training or not: the host streams stay aligned
         with tracer.span("gather"):
-            batches = stacker([[next(client_iters[ci]) for _ in range(cfg.local_steps)]
-                               for ci in range(cfg.n_clients)])
+            batches = stacker(cs.pad([[next(client_iters[ci]) for _ in range(cfg.local_steps)]
+                                      for ci in range(cfg.n_clients)]))
         extra = None
         noise_arg = ()
         if codec is not None:
-            with tracer.span("encode"):
-                noise_arg = (round_noises(codec_noise, rnd, cfg.n_clients),)
+            with tracer.span("encode"):   # keyed by client id (a ghost: client 0's)
+                noise_arg = (cs.local(round_noises(codec_noise, rnd, cfg.n_clients)),)
         if robust:
             # deadline mode hands the engine the pre-deadline weights and the
             # on-time mask apart; the body multiplies them and derives the
             # quorum gate again, so host and device agree
             ontime = rplan.ontime if dl is not None else np.ones(cfg.n_clients, np.float32)
+            # ghosts train and receive like real clients, never rejoin, and
+            # carry zero weight
             with tracer.span("device-step"):
                 outs = round_step(
-                    cohort_tr, cohort_opt, pending, batches, vec(rplan.train),
+                    cohort_tr, cohort_opt, pending, batches, vec(rplan.train, 1.0),
                     vec(rplan.agg_w_pre if dl is not None else rplan.agg_w),
-                    vec(rplan.recv), vec(rplan.rejoin), vec(ontime), *noise_arg)
+                    vec(rplan.recv, 1.0), vec(rplan.rejoin), vec(ontime, 1.0), *noise_arg)
                 synchronize(device)
             cohort_tr, cohort_opt, pending, losses = outs[:4]
             fresh = (np.asarray([p * 8 for p in payloads], np.float64) if codec is None
-                     else outs[4].cpu().numpy().astype(np.float64) + act_bits())
+                     else cs.gather(outs[4]).cpu().numpy().astype(np.float64) + act_bits())
             bits_per_round.append(fresh.tolist())
             charged = tracker.end_round(rplan, fresh)
             reports = round_reports(budget, rplan, charged, gains)
@@ -491,14 +512,14 @@ def run_pftt(cfg: PFTTConfig, init: Optional[Dict] = None) -> Dict:
                 synchronize(device)
             cohort_tr, cohort_opt, losses = outs[:3]
             bits = ([payloads[ci] * 8 for ci in range(cfg.n_clients)] if codec is None
-                    else [b + act_bits() for b in outs[3].tolist()])
+                    else [b + act_bits() for b in cs.gather(outs[3]).tolist()])
             bits_per_round.append(bits)
             reports = budget.round_reports(bits, gains)
         ledger.log_round(reports, extra, round_id=rnd)
         with tracer.span("eval"):
             accs = eval_round_accs(cohort_tr)
         accs_per_round.append(float(np.mean(accs)))
-        loss_per_round.append(float(losses.mean()))
+        loss_per_round.append(float(cs.gather(losses).mean()))
         health_per_round.append(None if not health else
                                 {k: float(v) for k, v in outs[-1].items()})
         synchronize(device)
@@ -518,6 +539,7 @@ def run_pftt(cfg: PFTTConfig, init: Optional[Dict] = None) -> Dict:
                 state = {"trainable": cohort_tr, "opt": cohort_opt}
                 if robust:
                     state["pending"] = pending
+                state = cs.gather_tree(state)    # the real cohort, from every rank
                 meta = {"next_round": rnd + 1, "accs_per_round": accs_per_round,
                         "loss_per_round": loss_per_round,
                         "health_per_round": health_per_round, "ledger_rounds": ledger.rounds}
@@ -525,8 +547,9 @@ def run_pftt(cfg: PFTTConfig, init: Optional[Dict] = None) -> Dict:
                     meta["tracker"] = tracker.state_dict()
                     if dl is not None:
                         meta["est_bits"] = [float(b) for b in est_bits]
-                save_checkpoint(ckpt_file, state, meta=meta)
-                save_json(meta_file, meta)
+                if cs.lead:
+                    save_checkpoint(ckpt_file, state, meta=meta)
+                    save_json(meta_file, meta)
             tele.checkpoint(rnd)
         if cfg.verbose and rnd % 5 == 0:
             print(f"[pftt:{cfg.method}] round {rnd} acc {accs_per_round[-1]:.3f} "
@@ -562,7 +585,8 @@ def run_pftt(cfg: PFTTConfig, init: Optional[Dict] = None) -> Dict:
     }
 
 
-def _run_pftt_population(cfg: PFTTConfig, init: Optional[Dict] = None) -> Dict:
+def _run_pftt_population(cfg: PFTTConfig, init: Optional[Dict] = None, mesh=None,
+                         client_axes=None) -> Dict:
     """Sampled-cohort population mode (``cfg.population``): the host holds
     a ``PopulationStore`` of every client's trainable/opt/pending trees;
     each round a ``ClientSampler`` draws a ``cohort_size`` cohort, the
@@ -579,7 +603,9 @@ def _run_pftt_population(cfg: PFTTConfig, init: Optional[Dict] = None) -> Dict:
     client's (JAX's ``fold_in(key, 100 + i)`` draws); without it client i's
     LoRA comes from its own generator.  ``codec_noise`` is keyed by client
     id.  ``ckpt_dir`` saves the store, the global and the runner's host
-    state (sampler mid-stream, tracker, reset flags) in one atomic npz."""
+    state (sampler mid-stream, tracker, reset flags) in one atomic npz.
+    ``mesh``: the cohort is sharded over the ranks, every rank holding the
+    whole store (``PopulationRunner``'s ghost rows and gathers)."""
     from repro_torch.comms.streams import stream_key
     from repro_torch.fl.population import (ClientSampler, CohortTestSets, PopulationData,
                                            PopulationRunner, PopulationStore,
@@ -595,6 +621,8 @@ def _run_pftt_population(cfg: PFTTConfig, init: Optional[Dict] = None) -> Dict:
     if scen.n_classes != 4:
         raise ValueError("the PFTT classification task is 4-class; "
                          f"scenario has n_classes={scen.n_classes}")
+    cs = cohort_sharding(mesh, K, client_axes)
+    cfg = cfg if cs.lead else dataclasses.replace(cfg, verbose=False)
     codec = _codec(cfg, init)
     (model, mcfg, params, peft_cfg, corpus, gen, rng, use_lora,
      pretrain_s) = _setup_backbone(cfg, init)
@@ -658,24 +686,26 @@ def _run_pftt_population(cfg: PFTTConfig, init: Optional[Dict] = None) -> Dict:
         return trees.tree_add(trainable, upd), opt_state, loss
 
     # ---- observability: the runner owns the round's spans
-    tracer, tele, health, prof = open_run(cfg.telemetry, device)
+    tracer, tele, health, prof = open_run(cfg.telemetry, device, write=cs.lead)
     round_step = build_supervised_round(
-        local_step, upload_pred, codec=codec, factored_agg=cfg.factored_agg,
+        local_step, upload_pred, cs=cs, codec=codec, factored_agg=cfg.factored_agg,
         robust=True, min_quorum=dl.min_quorum if dl is not None else 0, health=health)
     runner = PopulationRunner(
         pop=pop, store=store, global_shared=global_shared, upload_pred=upload_pred,
         channel=channel, budget=budget, ledger=ledger, tracker=tracker, trace=trace,
         strace=strace, sampler=ClientSampler(pop.sampler, N, K,
                                              seed=cfg.seed + 1000 * pop.seed),
-        device=device, arrivals=tracker.arrivals, dl=dl, est_bits=est_bits, act_bits=ab,
-        tracer=tracer, health=health)
-    stacker = HostBatchStacker(device)
+        device=device, arrivals=tracker.arrivals, dl=dl, cs=cs, est_bits=est_bits,
+        act_bits=ab, tracer=tracer, health=health)
+    stacker = HostBatchStacker(device, rows=cs.rows)
 
     # ---- cohort eval: the sampled clients' held-out draws refill one
-    # buffer and score in one cohort-eval call a round
+    # buffer and score in one cohort-eval call a round (ghost rows: no valid
+    # sample)
     n_eval = int(min(max(cfg.test_samples, 4), 64))
     test_sets = CohortTestSets(data, n_eval, ("tokens", "label"))
-    e_valid = torch.ones((K, n_eval), device=device)
+    e_valid = torch.from_numpy(np.repeat(cs.take_vec(np.ones(K)), n_eval)
+                               .reshape(-1, n_eval)).to(device)
 
     def eval_client(trainable, tokens, label, valid):
         full, lora = _split_trainable(cfg.method, frozen, trainable)
@@ -684,11 +714,11 @@ def _run_pftt_population(cfg: PFTTConfig, init: Optional[Dict] = None) -> Dict:
         correct = (pred == label).float() * valid
         return correct.sum(), valid.sum()
 
-    eval_cohort = build_cohort_eval(eval_client)
+    eval_cohort = build_cohort_eval(eval_client, mesh=mesh)
 
     def eval_ids(cohort_tr, ids):
         corr, cnt = (t.cpu().numpy() for t in eval_cohort(
-            cohort_tr, *test_sets(ids, device), e_valid))
+            cohort_tr, *test_sets(cs.local(ids), device), e_valid))
         return [float(c / n) for c, n in zip(corr, cnt) if n > 0]
 
     def draw(cid, rnd):
@@ -748,8 +778,9 @@ def _run_pftt_population(cfg: PFTTConfig, init: Optional[Dict] = None) -> Dict:
                         "loss_per_round": loss_per_round,
                         "health_per_round": health_per_round, "cohorts": cohorts,
                         "ledger_rounds": ledger.rounds, "runner": runner.state_dict()}
-                save_checkpoint(ckpt_file, runner.checkpoint_tree(), meta=meta)
-                save_json(meta_file, meta)
+                if cs.lead:    # every rank holds the same store
+                    save_checkpoint(ckpt_file, runner.checkpoint_tree(), meta=meta)
+                    save_json(meta_file, meta)
             tele.checkpoint(rnd)
         if cfg.verbose and rnd % 5 == 0:
             print(f"[pftt-pop:{cfg.method}] round {rnd} "

@@ -19,14 +19,21 @@ the cohort engine's robust round body and writes the results back:
   ``StalenessTracker``) → gather + global overlay → the robust round body
   → scatter → ledger.
 
-``PopulationConfig``, ``PopulationStore`` (without the mesh's ghost rows),
-``ClientSampler`` and ``PopulationData`` are copies of the JAX module's;
-its test holds them against the originals.  The host-to-device step is an
-explicit copy on every device (``torch.from_numpy`` alone would share the
-staging buffer on the CPU, and the round body writes its inputs in place).
-The codec's uniforms are keyed by client id, never by cohort row, so a
-client's stream does not depend on which cohort it lands in.  The
-client-sharded mesh is ROADMAP queue 1 item 8.
+``PopulationConfig``, ``PopulationStore``, ``ClientSampler`` and
+``PopulationData`` are copies of the JAX module's; its test holds them
+against the originals.  The host-to-device step is an explicit copy on
+every device (``torch.from_numpy`` alone would share the staging buffer on
+the CPU, and the round body writes its inputs in place).  The codec's
+uniforms are keyed by client id, never by cohort row, so a client's stream
+does not depend on which cohort it lands in.
+
+Under a client mesh (``PopulationRunner(cs=...)``, a
+``sharding.CohortSharding`` of the cohort) every rank holds the whole
+store and makes every host draw; the gathered cohort is padded with ghost
+rows (copies of the first sampled client, ``gather(pad_to=)``), each rank
+moves only its rows to its device, and after the round the rows of every
+rank are gathered back so that every rank scatters the same cohort into
+its store.
 """
 from __future__ import annotations
 
@@ -39,6 +46,7 @@ import torch
 from repro_torch import synchronize, trees
 from repro_torch.core.robust import round_extra, round_reports
 from repro_torch.obs.trace import SpanTracer
+from repro_torch.sharding import cohort_sharding
 from repro_torch.wireless.scenarios import Scenario
 
 SAMPLER_KINDS = ("uniform", "availability")
@@ -119,26 +127,30 @@ class PopulationStore:
         return sum(leaf.nbytes for tree in self._slots.values()
                    for leaf in trees.flatten(tree).values())
 
-    def gather(self, slot: str, ids: np.ndarray):
+    def gather(self, slot: str, ids: np.ndarray, pad_to: int = 0):
         """Rows ``ids`` of ``slot`` → the slot's reused staging buffer
-        (allocated on first use, refilled in place afterwards)."""
+        (allocated on first use, refilled in place afterwards); rows beyond
+        ``len(ids)``, up to ``pad_to``, repeat row ``ids[0]`` (the ghost
+        rows of ``sharding.CohortSharding``)."""
         ids = np.asarray(ids, np.int64)
+        rows = max(pad_to, len(ids))
         tree = self._slots[slot]
         buf = self._bufs.get(slot)
-        if buf is None or next(iter(trees.flatten(buf).values())).shape[0] != len(ids):
+        if buf is None or next(iter(trees.flatten(buf).values())).shape[0] != rows:
             buf = trees.map_leaves(
-                lambda l: np.empty((len(ids),) + l.shape[1:], l.dtype), tree)
+                lambda l: np.empty((rows,) + l.shape[1:], l.dtype), tree)
             self._bufs[slot] = buf
+        full = np.concatenate([ids, np.full(rows - len(ids), ids[0], np.int64)])
 
         def fill(src, dst):
-            np.take(src, ids, axis=0, out=dst)
+            np.take(src, full, axis=0, out=dst)
             return dst
 
         return trees.map_leaves(fill, tree, buf)
 
     def scatter(self, slot: str, ids: np.ndarray, device_tree) -> None:
-        """Copy the rows of ``device_tree`` (tensors or arrays) into rows
-        ``ids`` of ``slot``."""
+        """Copy the first ``len(ids)`` rows of ``device_tree`` (tensors or
+        arrays) into rows ``ids`` of ``slot`` (ghost rows are dropped)."""
         ids = np.asarray(ids, np.int64)
 
         def put(dst, src):
@@ -346,12 +358,17 @@ class PopulationRunner:
     flag; the reset is applied to the store the next time that client is
     gathered.  ``state_dict``/``checkpoint_tree`` capture the whole host
     state (sampler RNG mid-stream, tracker, flags, store, global) so a
-    killed run resumes into the uninterrupted sequence."""
+    killed run resumes into the uninterrupted sequence.
+
+    ``cs`` (a ``sharding.CohortSharding`` of the cohort; the round step
+    built with the same mesh): the cohort is ghost-padded to ``cs.total``
+    rows, this rank runs its rows, and the round's rows, bits and losses
+    are gathered from every rank before the scatter (module docstring)."""
 
     def __init__(self, *, pop: PopulationConfig, store: PopulationStore,
                  global_shared, upload_pred, channel, budget, ledger,
                  tracker, trace, strace, sampler: ClientSampler, device,
-                 arrivals=None, dl=None, est_bits=None, act_bits: float = 0.0,
+                 arrivals=None, dl=None, cs=None, est_bits=None, act_bits: float = 0.0,
                  tracer=None, health: bool = False):
         self.pop = pop
         self.N = pop.population
@@ -369,6 +386,9 @@ class PopulationRunner:
         self.device = torch.device(device)
         self.arrivals = arrivals
         self.dl = dl
+        # the cohort's layout (None: this process holds the whole cohort)
+        self.cs = cs if cs is not None else cohort_sharding(None, self.K)
+        self.n_rows = self.cs.total
         self.est_bits = None if est_bits is None else \
             np.asarray(est_bits, np.float64)
         self.act_bits = float(act_bits)
@@ -392,8 +412,13 @@ class PopulationRunner:
         return trees.map_leaves(
             lambda a: torch.from_numpy(a).to(self.device, copy=True), tree)
 
-    def _vec(self, v):
-        return torch.from_numpy(np.asarray(v, np.float32)).to(self.device, copy=True)
+    def _local(self, tree):
+        """This rank's rows of a host tree of the padded cohort."""
+        return trees.map_leaves(lambda a: np.ascontiguousarray(a[self.cs.rows]), tree)
+
+    def _vec(self, v, fill: float):
+        """A cohort vector → this rank's rows on the device, ghosts ``fill``."""
+        return torch.from_numpy(self.cs.take_vec(v, fill)).to(self.device, copy=True)
 
     def _overlay_global(self, tr_buf) -> None:
         """Broadcast the server's global into the gathered rows' uploaded
@@ -455,28 +480,31 @@ class PopulationRunner:
                 reset = ids[self.needs_opt_reset[ids]]
                 self.store.zero_rows("opt", reset)
                 self.needs_opt_reset[ids] = False
-                tr_h = self.store.gather("trainable", ids)
+                tr_h = self.store.gather("trainable", ids, pad_to=self.n_rows)
                 self._overlay_global(tr_h)
-                tr_d = self._put(tr_h)
-                opt_d = self._put(self.store.gather("opt", ids))
-                pend_d = self._put(self.store.gather("pending", ids))
+                tr_d = self._put(self._local(tr_h))
+                opt_d = self._put(self._local(self.store.gather("opt", ids, pad_to=self.n_rows)))
+                pend_d = self._put(self._local(
+                    self.store.gather("pending", ids, pad_to=self.n_rows)))
 
             # the batch draw rides inside the device-step window (it is not
             # host_s overhead, as in the JAX runner)
             hstats = None
             with tracer.span("device-step"):
-                batches = stacker([draw_batches(int(c), rnd) for c in ids])
+                rows = [draw_batches(int(c), rnd) for c in ids]
+                batches = stacker(rows + [rows[0]] * (self.n_rows - self.K))
                 w = rplan.agg_w_pre if self.dl is not None else rplan.agg_w
                 ontime = rplan.ontime if self.dl is not None \
                     else np.ones(self.N, np.float32)
-                margs = (self._vec(rplan.train[ids]), self._vec(w[ids]),
-                         self._vec(rplan.recv[ids]), self._vec(rplan.rejoin[ids]),
-                         self._vec(ontime[ids]))
+                # ghosts train and receive, never rejoin, weigh 0
+                margs = (self._vec(rplan.train[ids], 1.0), self._vec(w[ids], 0.0),
+                         self._vec(rplan.recv[ids], 1.0), self._vec(rplan.rejoin[ids], 0.0),
+                         self._vec(ontime[ids], 1.0))
                 noise_arg = ()
                 if codec_noise is not None:
                     with tracer.span("encode"):
                         noise_arg = ([lambda leaf, shape, c=int(c): codec_noise(rnd, c, leaf, shape)
-                                      for c in ids],)
+                                      for c in self.cs.local(ids)],)
                 outs = round_step(tr_d, opt_d, pend_d, batches, *margs, *noise_arg)
                 tr_d, opt_d, pend_d, losses = outs[:4]
                 if self.health:
@@ -485,12 +513,14 @@ class PopulationRunner:
             if codec_noise is None:
                 fresh_c = np.full(self.K, (payload_bits or 0.0), np.float64)
             else:
-                fresh_c = outs[4].cpu().numpy().astype(np.float64) + self.act_bits
+                fresh_c = self.cs.gather(outs[4]).cpu().numpy().astype(np.float64) \
+                    + self.act_bits
 
             with tracer.span("scatter") as sp_scatter:
-                self.store.scatter("trainable", ids, tr_d)
-                self.store.scatter("opt", ids, opt_d)
-                self.store.scatter("pending", ids, pend_d)
+                whole = self.cs.gather_tree({"trainable": tr_d, "opt": opt_d,
+                                             "pending": pend_d, "losses": losses})
+                for slot in ("trainable", "opt", "pending"):
+                    self.store.scatter(slot, ids, whole[slot])
                 # the merge gate is host-known: extract the new global from
                 # any cohort row that received the broadcast
                 gate = float(rplan.agg_w.sum()) > 0 and rplan.quorum_ok
@@ -517,7 +547,7 @@ class PopulationRunner:
         self.round_wall.append(sp_round.dur)
         if hstats is not None:
             hstats = {k: float(v) for k, v in hstats.items()}
-        return {"ids": ids, "cohort_tr": tr_d, "losses": losses,
+        return {"ids": ids, "cohort_tr": tr_d, "losses": whole["losses"],
                 "plan": rplan, "health": hstats}
 
     def burn_rounds(self, n: int) -> None:

@@ -68,6 +68,22 @@ kernels take (32, 64 or 128, and MLA's q/k 96 with v 64: ``--fl-dmodel
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch llama3.2-1b \
         --fl-clients 4 --fl-rounds 2 --assert-fused --fl-dmodel 256
+
+Started by torchrun, the FL modes (the arch round, ``--fl-clients``
+PFTT, ``--population``) shard the stacked client axis over every rank
+(``launch/mesh.py``: one ``("data",)`` axis, NCCL on the card, gloo on the
+CPU or where ranks share a card); only rank 0 prints, writes telemetry and
+writes checkpoints:
+
+    PYTHONPATH=src python -m torch.distributed.run --standalone \
+        --nproc-per-node 2 -m repro_torch.launch.train --arch roberta-base \
+        --fl-clients 4 --fl-rounds 2 --device cpu
+
+``--steps`` builds the model with rematerialization (``Model(remat=True)``,
+as the JAX launcher) and ``--ckpt PATH`` saves the trained parameters
+after the steps (with LoRA: ``{"params": base with the adapters, "lora":
+the factors}``), readable by ``checkpoint.load_checkpoint``.
+``--data-axis`` (the (data, model) tensor-parallel mesh) is not ported.
 """
 from __future__ import annotations
 
@@ -79,11 +95,13 @@ import numpy as np
 import torch
 
 from repro_torch import resolve_device, trees
+from repro_torch.checkpoint import save_checkpoint
 from repro_torch.configs import get_config, list_configs
 from repro_torch.data import SPECIAL
 from repro_torch.launch.steps import make_peft_loss, make_peft_step, make_train_step
 from repro_torch.models import peft as peft_mod
 from repro_torch.models.transformer import Model
+from repro_torch.sharding import TENSOR_PARALLEL
 from repro_torch.wireless import DeadlineConfig, FaultPlan
 
 
@@ -96,6 +114,11 @@ def parse_args(argv=None):
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--seq", type=int, default=128)
     ap.add_argument("--lr", type=float, default=3e-3)
+    ap.add_argument("--data-axis", type=int, default=0,
+                    help="data-parallel axis of the (data, model) mesh: not "
+                         "ported (ROADMAP queue 1 item 8's last part)")
+    ap.add_argument("--ckpt", default=None,
+                    help="--steps mode: save the trained parameters here (npz)")
     ap.add_argument("--lora-rank", type=int, default=8,
                     help="--steps mode: PEFT (adapters + LoRA of this rank on "
                          "wq/wv, MLM loss); 0 → full fine-tuning")
@@ -188,6 +211,9 @@ def parse_args(argv=None):
     if args.population and args.arch != "roberta-base":
         raise SystemExit("--population runs the PFTT workload: "
                          "use --arch roberta-base")
+    if args.data_axis:
+        raise SystemExit(f"--data-axis needs the (data, model) tensor-parallel mesh: "
+                         f"{TENSOR_PARALLEL}")
     return args
 
 
@@ -201,28 +227,37 @@ def arch_round_config(args):
                            oracle=args.assert_fused, device=args.device)
 
 
-def run_arch(args):
+def run_arch(args, mesh=None, say=print):
     """The universal factored round (and with ``--assert-fused`` its
-    checks) → the result dict."""
+    checks) → the result dict; ``mesh``: the client mesh, ``say`` prints
+    (nothing on ranks but 0)."""
     from repro_torch.core.arch_round import run_arch_round
-    print(f"universal factored round: --arch {args.arch}, {args.fl_clients} clients "
-          f"on {resolve_device(args.device)}")
-    res = run_arch_round(arch_round_config(args))
-    print(f"arch={res['arch']} targets={res['lora_targets']} ragged={res['ragged']} "
-          f"ghosts={res['n_ghosts']} dispatches/round={res['dispatches_per_round']} "
-          f"dense_merges={res['dense_merges_in_engine']} "
-          f"loss/round={['%.4f' % lo for lo in res['loss_per_round']]} "
-          f"round_s={[round(s, 4) for s in res['round_s']]}")
+    say(f"universal factored round: --arch {args.arch}, {args.fl_clients} clients "
+        f"on {where(args, mesh)}")
+    res = run_arch_round(arch_round_config(args), mesh=mesh,
+                         client_axes=None if mesh is None else ("data",))
+    say(f"arch={res['arch']} targets={res['lora_targets']} ragged={res['ragged']} "
+        f"ghosts={res['n_ghosts']} dispatches/round={res['dispatches_per_round']} "
+        f"dense_merges={res['dense_merges_in_engine']} "
+        f"loss/round={['%.4f' % lo for lo in res['loss_per_round']]} "
+        f"round_s={[round(s, 4) for s in res['round_s']]}")
     if args.assert_fused:
         err = res["oracle_loss_max_err"]
-        print(f"oracle parity max err {err:.2e}")
+        say(f"oracle parity max err {err:.2e}")
         assert res["dense_merges_in_engine"] == 0, \
             "dense-merge fallback taken inside the fused round"
         assert res["dispatches_per_round"] == 1.0, \
             "cohort fell back to per-client dispatch"
         assert err <= 1e-5, f"factored/oracle divergence {err:.2e}"
-        print("fused path asserted: factored, one dispatch, oracle parity OK")
+        say("fused path asserted: factored, one dispatch, oracle parity OK")
     return res
+
+
+def where(args, mesh) -> str:
+    """The devices a run takes, for its first line."""
+    if mesh is None:
+        return str(resolve_device(args.device))
+    return f"{mesh.size} rank(s) of a client mesh, rank {mesh.rank} on {args.device}"
 
 
 def deadline_config(args):
@@ -267,16 +302,18 @@ class Trainer:
     step.  ``batch(rng)`` draws one numpy batch, ``to_device`` moves it,
     ``step(batch)`` runs one AdamW step on it and returns the loss;
     ``loss(trainable, batch)`` is the step's loss alone (for timing the
-    forward apart from the backward)."""
+    forward apart from the backward); ``params()`` the trained parameters
+    (``--ckpt``'s tree).  ``remat``: the model's rematerialization (the
+    launcher's is on)."""
 
-    def __init__(self, args):
+    def __init__(self, args, remat: bool = False):
         self.args = args
         self.device = resolve_device(args.device)
         cfg = get_config(args.arch)
         if args.reduced:
             cfg = cfg.reduced()
         self.cfg = cfg
-        self.model = Model(cfg, device=self.device)
+        self.model = Model(cfg, device=self.device, remat=remat)
         gen = torch.Generator().manual_seed(0)
         params = self.model.init(gen, max_seq=args.seq)
         self.peft_cfg = None
@@ -336,39 +373,75 @@ class Trainer:
                 self.trainable, self.frozen, self.opt_state, batch)
         return loss
 
+    def params(self):
+        """The trained parameters: the model tree, or with LoRA {"params":
+        the base with the trained adapters, "lora": the factors}."""
+        if self.peft_cfg is None:
+            return self.trainable
+        return {"params": trees.merge(self.frozen, self.trainable["adapters"]),
+                "lora": self.trainable["lora"]}
+
 
 def main(argv=None):
     args = parse_args(argv)
+    if not (args.fl_clients or args.population):
+        return run_steps(args)
+    from repro_torch.launch.mesh import in_torchrun, make_client_mesh, rank_device
+    mesh = None
+    if in_torchrun():
+        args.device = str(rank_device(args.device))
+        mesh = make_client_mesh(args.device)
+    try:
+        return run_fl(args, mesh)
+    finally:
+        if mesh is not None:
+            import torch.distributed as dist
+            dist.destroy_process_group()
+
+
+def run_fl(args, mesh=None):
+    """The FL modes (the arch round, PFTT, population), sharded over
+    ``mesh`` when torchrun started the run."""
+    lead = mesh is None or mesh.rank == 0
+
+    def say(msg):
+        if lead:
+            print(msg, flush=True)
+
     if args.fl_clients and args.arch != "roberta-base":
-        return run_arch(args)
-    if args.fl_clients or args.population:
-        from repro_torch.core.pftt import run_pftt
-        if args.population:
-            print(f"population PFTT: {args.population} clients, cohort {args.cohort}/round "
-                  f"({args.sampler} sampling) on {resolve_device(args.device)}")
-        else:
-            print(f"federated PFTT cohort (reduced-roberta workload; --steps/--seq "
-                  f"ignored) on {resolve_device(args.device)}")
-        res = run_pftt(pftt_config(args))
-        rounds = res["round_wall"] if args.population else res["round_s"]
-        print(f"final acc {res['final_acc']:.3f} mean round bytes "
-              f"{res['mean_round_bytes']:,.0f} (codec={args.uplink_codec}) mean round delay "
-              f"{res['mean_round_delay_s']:.3f}s energy {res['total_energy_j']:.2f}J "
-              f"pretrain {res['pretrain_s']:.2f}s rounds "
-              f"{[round(s, 3) for s in rounds]}s")
-        if args.population:
-            print(f"population: sampled {res['participation_frac']:.1%} of "
-                  f"{res['population']} clients, host overhead "
-                  f"{res['host_overhead_frac']:.1%} of round wall-clock, "
-                  f"store {res['store_bytes'] / 1e6:.1f}MB")
-        if deadline_config(args) is not None:
-            print(f"continuous-time round: sim time {res['total_sim_time_s']:.1f}s "
-                  f"quorum no-ops {res['quorum_noops']}")
-        if args.assert_fused:
-            assert res["fused_engine"], "PFTT ran the legacy per-client loop"
-            print("fused path asserted: engine round")
-        return res
-    tr = Trainer(args)
+        return run_arch(args, mesh, say)
+    from repro_torch.core.pftt import run_pftt
+    if args.population:
+        say(f"population PFTT: {args.population} clients, cohort {args.cohort}/round "
+            f"({args.sampler} sampling) on {where(args, mesh)}")
+    else:
+        say(f"federated PFTT cohort (reduced-roberta workload; --steps/--seq "
+            f"ignored) on {where(args, mesh)}")
+    res = run_pftt(pftt_config(args), mesh=mesh,
+                   client_axes=None if mesh is None else ("data",))
+    rounds = res["round_wall"] if args.population else res["round_s"]
+    say(f"final acc {res['final_acc']:.3f} mean round bytes "
+        f"{res['mean_round_bytes']:,.0f} (codec={args.uplink_codec}) mean round delay "
+        f"{res['mean_round_delay_s']:.3f}s energy {res['total_energy_j']:.2f}J "
+        f"pretrain {res['pretrain_s']:.2f}s rounds "
+        f"{[round(s, 3) for s in rounds]}s")
+    if args.population:
+        say(f"population: sampled {res['participation_frac']:.1%} of "
+            f"{res['population']} clients, host overhead "
+            f"{res['host_overhead_frac']:.1%} of round wall-clock, "
+            f"store {res['store_bytes'] / 1e6:.1f}MB")
+    if deadline_config(args) is not None:
+        say(f"continuous-time round: sim time {res['total_sim_time_s']:.1f}s "
+            f"quorum no-ops {res['quorum_noops']}")
+    if args.assert_fused:
+        assert res["fused_engine"], "PFTT ran the legacy per-client loop"
+        say("fused path asserted: engine round")
+    return res
+
+
+def run_steps(args):
+    """``--steps``: N AdamW steps with rematerialization, then ``--ckpt``."""
+    tr = Trainer(args, remat=True)
     rng = np.random.RandomState(0)
     losses = []
     t0 = time.perf_counter()
@@ -377,6 +450,9 @@ def main(argv=None):
         if i % 10 == 0:
             print(f"step {i:4d} loss {losses[-1]:.4f} "
                   f"({(time.perf_counter() - t0) / (i + 1):.3f}s/step)")
+    if args.ckpt:
+        save_checkpoint(args.ckpt, tr.params())
+        print("saved", args.ckpt)
     return losses
 
 

@@ -41,14 +41,17 @@ losses, as the JAX package does; a model without MoE layers adds nothing.
   as the JAX package's does;
 * ``causal_skip`` — accepted: the flash kernel never loads a kv tile above
   the causal diagonal, so causal attention skips them always;
-* ``mamba_sp`` and ``moe_a2a`` (sequence- and expert-parallel) need a
-  device mesh and raise (ROADMAP queue 1 item 8).
+* ``mamba_sp`` and ``moe_a2a`` (sequence- and expert-parallel) need the
+  (data, model) tensor-parallel mesh and raise (ROADMAP queue 1 item 8's
+  last part; the client-sharded mesh of ``repro_torch.sharding`` does not
+  shard a model).
 """
 from __future__ import annotations
 
 from typing import Any, Dict, Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch import resolve_device, trees
 from repro_torch.configs.base import ModelConfig
@@ -78,10 +81,14 @@ class Model:
     runs the config's block-sparse pattern (prefill and decode), every other
     value exact attention.  ``forward``, ``prefill`` and ``decode_step``
     take an ``impl`` that overrides it for one call.  ``opts``: the module
-    docstring's options."""
+    docstring's options.  ``remat``: when gradients are recorded (training),
+    each repeat of a stage runs under ``torch.utils.checkpoint`` (the JAX
+    package's ``jax.checkpoint`` of the layer-scan body): its activations
+    are recomputed in the backward, the kernels' forwards and MoE's routing
+    included, which changes neither the loss nor a gradient."""
 
     def __init__(self, cfg: ModelConfig, dtype=torch.float32, device=None,
-                 impl: str = "auto", opts: Optional[dict] = None):
+                 impl: str = "auto", opts: Optional[dict] = None, remat: bool = False):
         for stage in cfg.stages:
             for kind in stage.pattern:
                 check_kind(kind)
@@ -90,14 +97,15 @@ class Model:
         mesh = [k for k in opts if k in MESH_OPTS and opts[k]]
         if mesh:
             raise NotImplementedError(
-                f"Model opts {mesh} need a device mesh: ROADMAP queue 1 item 8 "
-                "(multi-device)")
+                f"Model opts {mesh} need the (data, model) tensor-parallel mesh: "
+                "ROADMAP queue 1 item 8's last part")
         unknown = sorted(set(opts) - set(OPTS) - set(MESH_OPTS))
         if unknown:
             raise ValueError(f"unknown Model opts {unknown}; known: {OPTS + MESH_OPTS}")
         self.cfg = cfg
         self.dtype = dtype
         self.impl = impl
+        self.remat = remat
         self.opts = opts
         self.device = resolve_device(device)
 
@@ -240,13 +248,18 @@ class Model:
         cfg = self.cfg
         aux = None
         caches = []
+        # rematerialization in training: a repeat's activations are dropped
+        # after its forward and recomputed in the backward
+        remat = self.remat and torch.is_grad_enabled() and not collect_cache
         for si, stage in enumerate(cfg.stages):
             if stream is not None and stage.stream != stream:
                 caches.append(None)
                 continue
             sp, lsp = params["stages"][si], self._lora_stage(lora, si)
             got = [{} for _ in stage.pattern]
-            for r in range(stage.repeats):
+
+            def repeat(x, aux, r, stage=stage, sp=sp, lsp=lsp, got=got):
+                """One repeat of the stage's layer pattern."""
                 for pi, kind in enumerate(stage.pattern):
                     lf = None if lsp is None else _at(lsp["layers"][pi], r)
                     x, c, a = apply_layer_seq(x, _at(sp["layers"][pi], r), kind, cfg,
@@ -257,6 +270,13 @@ class Model:
                     if collect_cache:
                         for name, t in c.items():
                             got[pi].setdefault(name, []).append(t)
+                return x, aux
+
+            for r in range(stage.repeats):
+                if remat:
+                    x, aux = checkpoint(repeat, x, aux, r, use_reentrant=False)
+                else:
+                    x, aux = repeat(x, aux, r)
             caches.append([{n: torch.stack(t) for n, t in e.items()} for e in got]
                           if collect_cache else None)
         return x, aux, caches

@@ -1,6 +1,5 @@
 """Training-health scalars of a federated round, the port of
-``repro.obs.health`` (without the mesh: no client shards, so no partial
-sums to reduce across them).
+``repro.obs.health``.
 
 ``cohort_health`` runs inside the supervised round bodies of
 ``core/cohort.py`` on tensors the body already holds — a handful of
@@ -27,6 +26,13 @@ when it writes the round's telemetry event.  Keys (``HEALTH_KEYS``):
                       divided by Σ train_m · steps (a non-training row's
                       losses are 0).
 
+Under a client mesh (``mesh=``) every scalar is the whole cohort's: the
+partial sums of all ranks go out in one ``all_reduce`` and the max in one
+more, so every rank returns the same values.  ``ghost`` marks the rank's
+ghost-padded rows, which the per-client scalars and the codec error leave
+out (the JAX package's sharded body counts them; without ghosts the
+scalars are those of the unsharded cohort).
+
 ``host_health`` is the float64 numpy oracle (a copy of the JAX package's,
 over the port's nested-dict trees) the tests and the chip run hold it
 against.
@@ -40,6 +46,7 @@ import torch
 
 from repro_torch import trees
 from repro_torch.core.aggregation import fedavg_stacked
+from repro_torch.sharding import pmax, psum
 
 HEALTH_KEYS = ("update_norm", "client_norm_mean", "client_norm_max",
                "codec_err", "agg_weight_sum", "delivered", "loss_mean")
@@ -56,40 +63,43 @@ def _leaf_sq(leaf):
 
 
 def cohort_health(send, ref, losses, agg_w, gate, *, train_m=None, raw=None,
-                  decoded=None) -> Dict[str, torch.Tensor]:
+                  decoded=None, mesh=None, ghost=None) -> Dict[str, torch.Tensor]:
     """All args are the round body's tensors: ``send``/``ref`` stacked client
     trees (axis 0 = cohort row), ``losses`` (C, steps), ``agg_w`` (C,),
     ``gate`` a 0-d bool or float tensor, ``raw``/``decoded`` the pre/post-
-    codec upload trees (None without a codec)."""
+    codec upload trees (None without a codec); ``mesh`` the client mesh
+    (None: one process holds the cohort), ``ghost`` a (C,) bool of ghost
+    rows (None: none)."""
     delta = trees.map_leaves(lambda s, r: s.float() - r.float(), send, ref)
-    agg = fedavg_stacked(delta, agg_w)
+    agg = fedavg_stacked(delta, agg_w, mesh=mesh)
     sq = torch.stack([l.float().square().sum() for l in _leaves(agg)]).sum()
     update_norm = torch.sqrt(sq) * gate.float()
 
     norms = torch.sqrt(torch.stack([_leaf_sq(l) for l in _leaves(delta)]).sum(0))
-    client_norm_mean = norms.sum() / max(float(norms.shape[0]), 1.0)
-    client_norm_max = norms.max()
-
-    if raw is not None and decoded is not None:
-        err_sq = torch.stack([(d.float() - r.float()).square().sum()
-                              for d, r in zip(_leaves(decoded), _leaves(raw))]).sum()
-        codec_err = torch.sqrt(err_sq)
-    else:
-        codec_err = torch.zeros((), dtype=torch.float32, device=agg_w.device)
-
+    real = (torch.ones_like(norms) if ghost is None
+            else (~ghost.to(norms.device)).float())
     w = agg_w.float()
     tm = (torch.ones(losses.shape[0], dtype=torch.float32, device=losses.device)
           if train_m is None else train_m.float())
+    err = torch.zeros((), dtype=torch.float32, device=agg_w.device)
+    if raw is not None and decoded is not None:
+        err = (real * torch.stack([(d.float() - r.float()).square().reshape(d.shape[0], -1).sum(1)
+                                   for d, r in zip(_leaves(decoded), _leaves(raw))]).sum(0)).sum()
     n_steps = float(losses.shape[1]) if losses.dim() > 1 else 1.0
-    loss_mean = losses.float().sum() / torch.clamp(tm.sum() * n_steps, min=1.0)
-
+    # every partial sum of the cohort in one vector: one all_reduce
+    part = torch.stack([(norms * real).sum(), real.sum(), err, w.sum(), (w > 0).float().sum(),
+                        (losses.float().reshape(losses.shape[0], -1).sum(1) * real).sum(),
+                        (tm * real).sum()])
+    top = torch.where(real > 0, norms, torch.zeros_like(norms)).max()
+    if mesh is not None:
+        part, top = psum(part, mesh), pmax(top, mesh)
     return {"update_norm": update_norm,
-            "client_norm_mean": client_norm_mean,
-            "client_norm_max": client_norm_max,
-            "codec_err": codec_err,
-            "agg_weight_sum": w.sum(),
-            "delivered": (w > 0).float().sum(),
-            "loss_mean": loss_mean}
+            "client_norm_mean": part[0] / torch.clamp(part[1], min=1.0),
+            "client_norm_max": top,
+            "codec_err": torch.sqrt(part[2]),
+            "agg_weight_sum": part[3],
+            "delivered": part[4],
+            "loss_mean": part[5] / torch.clamp(part[6] * n_steps, min=1.0)}
 
 
 # ---------------------------------------------------------------------------

@@ -150,14 +150,17 @@ def torch_profile_stop(prof, out_dir: str) -> str:
 # ---------------------------------------------------------------------------
 
 
-def open_run(telemetry, device):
+def open_run(telemetry, device, write: bool = True):
     """(tracer, ``RunTelemetry``, health on, profiler or None) of a run
     with ``telemetry`` (an ``obs.TelemetryConfig``, or None: a tracer that
-    still times, a telemetry that writes nothing, no health)."""
+    still times, a telemetry that writes nothing, no health).  ``write``
+    False (a sharded run's ranks but 0): health as configured, nothing
+    written, no profiler."""
     from repro_torch.obs.metrics import RunTelemetry
-    tracer = SpanTracer(enabled=bool(telemetry and telemetry.trace))
-    tele = RunTelemetry(telemetry.out_dir if telemetry else None, tracer=tracer)
-    prof = torch_profile_start(device) if (telemetry and telemetry.torch_profile) else None
+    write = write and bool(telemetry)
+    tracer = SpanTracer(enabled=bool(write and telemetry.trace))
+    tele = RunTelemetry(telemetry.out_dir if write else None, tracer=tracer)
+    prof = torch_profile_start(device) if (write and telemetry.torch_profile) else None
     return tracer, tele, bool(telemetry and telemetry.health), prof
 
 

@@ -21,6 +21,7 @@ from repro.sharding import MeshCtx
 from repro_torch import bridge
 from repro_torch.core import arch_round
 from repro_torch.launch import train
+from repro_torch.sharding import ClientMesh
 
 ARCHS = ("gpt2-small", "llama3.2-1b", "gemma3-12b", "internvl2-26b", "dbrx-132b",
          "jamba-v0.1-52b", "mamba2-1.3b", "deepseek-v2-236b", "whisper-base")
@@ -117,7 +118,8 @@ def test_arch_round_matches_jax(arch, monkeypatch):
 def test_arch_round_launcher_and_refusals():
     """``--fl-clients`` with a non-roberta arch runs the arch round and
     ``--assert-fused`` passes on the CPU, deepseek-v2 (MLA) and whisper
-    (encoder-decoder) included; a mesh is refused by name; ``--population``
+    (encoder-decoder) included; a mesh without a process group raises;
+    ``--population``
     with another arch keeps the JAX launcher's SystemExit."""
     res = train.main(["--arch", "llama3.2-1b", "--fl-clients", "2", "--fl-rounds", "1",
                       "--assert-fused", "--device", "cpu"])
@@ -128,8 +130,8 @@ def test_arch_round_launcher_and_refusals():
     assert (cfg.batch, cfg.seq_len, cfg.d_model, cfg.n_clients, cfg.oracle) == (
         4, 24, 256, 4, False)
     cfg = arch_round.ArchRoundConfig(arch="llama3.2-1b", device="cpu", **KW)
-    with pytest.raises(NotImplementedError, match="item 8"):
-        arch_round.run_arch_round(cfg, mesh=object())
+    with pytest.raises(RuntimeError, match="not initialised"):
+        arch_round.run_arch_round(cfg, mesh=ClientMesh(("data",), (2,)))
     for arch in ("deepseek-v2-236b", "whisper-base"):
         res = train.main(["--arch", arch, "--fl-clients", "2", "--fl-rounds", "1",
                           "--assert-fused", "--device", "cpu"])

@@ -36,6 +36,7 @@ from repro_torch.data import partition, pipeline, synthetic
 from repro_torch.models import peft
 from repro_torch.models.transformer import Model
 from repro_torch.optim import adamw, value_and_grad
+from repro_torch.sharding import ClientMesh, cohort_sharding
 from repro_torch.wireless import channel, cost
 
 TOL = 1e-5
@@ -312,17 +313,22 @@ def test_cohort_eval_and_unported_options():
     np.testing.assert_array_equal(a.numpy(), [4.0, 20.0, 36.0])
     assert b.shape == (3,)
     # the codec, factored aggregation and health build (they are ported);
-    # beside them the mesh is still refused by name
+    # a sharded round over a mesh whose process group is not initialised
+    # raises (no fallback to world size 1), and so does anything but a
+    # ClientMesh
     for opt in ({"codec": object()}, {"robust": True, "codec": object()},
                 {"factored_agg": True}, {"codec": object(), "health": True},
                 {"health": True}, {"robust": True, "health": True}):
         assert callable(cohort.build_supervised_round(lambda *a: a, **opt))
-    for opt, match in (({"robust": True, "codec": object(), "mesh": object()}, "item 8"),
-                       ({"health": True, "mesh": object()}, "item 8"),
-                       ({"mesh": object()}, "item 8"),
-                       ({"factored_agg": True, "mesh": object()}, "item 8")):
-        with pytest.raises(NotImplementedError, match=match):
-            cohort.build_supervised_round(lambda *a: a, **opt)
+    mesh = ClientMesh(("data",), (1,))
+    for opt, m, err, match in (({"robust": True, "codec": object()}, mesh,
+                                RuntimeError, "not initialised"),
+                               ({"health": True}, mesh, RuntimeError, "not initialised"),
+                               ({}, object(), TypeError, "ClientMesh"),
+                               ({"factored_agg": True}, mesh, RuntimeError,
+                                "not initialised")):
+        with pytest.raises(err, match=match):
+            cohort.build_supervised_round(lambda *a: a, cs=cohort_sharding(m, 2), **opt)
     # the legacy loop stays refused; population mode raises the JAX
     # package's own errors before any work
     from repro_torch.fl import PopulationConfig

@@ -26,6 +26,8 @@ from repro.models import peft as jpeft
 from repro.rlhf import reward_model as jrm
 from repro_torch.core import pfit
 from repro_torch.launch import pfit as launch_pfit
+from repro_torch.fl import PopulationConfig
+from repro_torch.sharding import ClientMesh
 from repro_torch.wireless import DeadlineConfig, FaultPlan
 
 KW = dict(n_clients=2, rounds=2, rollout_batch=4, pretrain_steps=15, rm_steps=15,
@@ -149,5 +151,9 @@ def test_robust_options_run(option):
 
 
 def test_mesh_is_refused():
-    with pytest.raises(NotImplementedError, match="item 8"):
-        pfit.run_pfit(pfit.PFITConfig(device="cpu"), mesh=object())
+    """A mesh whose process group is not initialised raises before any work
+    (no fallback to world size 1)."""
+    for kw in ({}, {"population": PopulationConfig(population=8, cohort_size=2)}):
+        with pytest.raises(RuntimeError, match="not initialised"):
+            pfit.run_pfit(pfit.PFITConfig(device="cpu", method="shepherd", **kw),
+                          mesh=ClientMesh(("data",), (2,)))

@@ -34,6 +34,7 @@ from repro_torch.models import peft
 from repro_torch.models.transformer import Model
 from repro_torch.optim import adamw, sgd
 from repro_torch.rlhf import ppo, reward_model, rollout
+from repro_torch.sharding import ClientMesh, cohort_sharding
 from repro_torch.wireless import cost
 
 TOL = 1e-5
@@ -449,9 +450,15 @@ def test_ppo_round_matches_jax_engine(policy, reward_setup, weights):
 
 
 def test_ppo_round_refuses_unported_options():
-    for kw, match in ((dict(codec=object(), mesh=object()), "item 8"),
-                      (dict(robust=True, codec=object(), mesh=object()), "item 8"),
-                      (dict(min_quorum=1, mesh=object()), "item 8"),
-                      (dict(mesh=object()), "item 8")):
-        with pytest.raises(NotImplementedError, match=match):
-            cohort.build_ppo_round(None, None, ppo.PPOConfig(), 2, 2, None, **kw)
+    """A sharded round over a mesh whose process group is not initialised
+    raises (no fallback to world size 1), and so does anything but a
+    ClientMesh."""
+    mesh = ClientMesh(("data",), (2,))
+    for kw, m, err, match in ((dict(codec=object()), mesh, RuntimeError, "not initialised"),
+                              (dict(robust=True, codec=object()), mesh, RuntimeError,
+                               "not initialised"),
+                              (dict(min_quorum=1), mesh, RuntimeError, "not initialised"),
+                              ({}, object(), TypeError, "ClientMesh")):
+        with pytest.raises(err, match=match):
+            cohort.build_ppo_round(None, None, ppo.PPOConfig(), 2, 2, None,
+                                   cs=cohort_sharding(m, 2), **kw)
