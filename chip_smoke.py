@@ -93,8 +93,9 @@ Phases, each reported on its own lines:
    times and a PROFILE of one step; the first 2 steps re-run on the CPU from
    the same init and batches, losses and trainables held to tolerance.
 9. TRAIN-PFIT — ``run_pfit`` for the four methods of Fig. 4 (pfit, sfl,
-   pfl, shepherd) at ``benchmarks/fig4_pfit.py``'s quick profile (4 rounds,
-   120 pretraining and 120 reward-model steps, 4 clients, rollout batch 16,
+   pfl, shepherd) at ``benchmarks/fig4_pfit.py``'s quick profile cut to 2
+   rounds, 60 pretraining and 60 reward-model steps (``PFIT_QUICK``; the
+   profile has 4 and 120 + 120), 4 clients, rollout batch 16,
    prompt 16, gen 24, d 128, 4 layers, seed 0, f32): pretraining and
    reward-model seconds, seconds per round, reward per round, pair
    accuracies, mean round bytes and delay, each kernel's launches against
@@ -200,9 +201,30 @@ Phases, each reported on its own lines:
    runs each forward kernel twice); the launcher's ``--ckpt`` read back
    through ``checkpoint.load_checkpoint``.
 
+17. TP — the (data, model) tensor-parallel mesh, llama3.2-1b at full width
+   cut to 2 layers: (a) ``launch.train --steps 3 --data-axis 1`` under a
+   one-rank NCCL torchrun, losses and trained parameters bit-equal to the
+   meshless card run; (b) the same as 4 gloo ranks on the card, (2, 2):
+   losses and unsharded parameters within 1e-4 (elements whose √v̂ is
+   small held to 2e-4), s a step, each rank's peak memory beside the
+   meshless run's; (c) SERVE-TP on (1, 4) (``chip_smoke.py --tp-rank``,
+   spawned): prefill 128 and 16 decode steps with LoRA on wq/wv, logits
+   within SERVE's gate of the meshless run, per-rank launches (flash_attn
+   on 8 of 32 heads, lora_fused on local slices, decode_attn on each
+   rank's segment: rank 1's empty for 8 steps); (d) ``mamba_sp``
+   (mamba2-1.3b, 2 layers) and ``moe_a2a`` (``mla_cut``) on (1, 4): one
+   loss and its gradient within 1e-4 of the meshless run (per leaf and
+   rank: the norm, and 2048 sampled elements), the balance loss weighted
+   0 (at 4 tokens a rank, where a2a drops nothing); ``moe_a2a``'s layer
+   alone (``mla_cut``'s MoE layer, 16 tokens a rank pulled towards rank
+   0's experts so that both capacities drop choices) against
+   ``a2a_loopback``, the same capacities on one process, output, balance
+   loss and gradients within 1e-4; (e) a DRYRUN line of llama3.2-1b ``train_4k`` on the abstract
+   (16, 16) mesh.
+
 Before the last line it prints one JSON object with a row per kernel (its
 launches summed over the serving, training, robust, comms, population,
-arch-round, mesh and launch paths' main runs); the last
+arch-round, mesh, launch and tensor-parallel paths' main runs); the last
 line is
 ``{"ok": true, "device": {...}}``.  Any failed check exits
 nonzero before that line.
@@ -792,6 +814,32 @@ def sparse_cases(torch, dt, dname, es, rn):
             split=split_plan(bsz, sc, h, sparse=serving),
             read=(read_call(kv, read_ranges(sc, clen, sparse=serving))
                   if dt == torch.float32 else None)))
+    # a segment of a sequence-split cache (the tensor-parallel decode): slot
+    # i holds position offset + i, the window and the sparse mask read
+    # positions; a segment with the query's block and one before it
+    for clen, off, sp in ((400, 256, None), (1024, 512, serving), (700, 512, serving)):
+        bsz, sc, h, d = 8, 256, 12, 64
+        q, kv = rn(bsz, 1, h, d, dtype=dt), rn(2, bsz, sc, h, d, dtype=dt)
+        kc, vc = kv
+        pos = off + torch.arange(sc, device="cuda")
+        mask = pos < clen
+        if sp is not None:
+            mask &= sparse_position_mask(pos, clen, sp)
+        valid_n = int(mask.sum())
+        qt, kt, vt = q.transpose(1, 2).contiguous(), kc.transpose(1, 2).contiguous(), vc.transpose(1, 2).contiguous()
+        cases.append(dict(
+            name="decode_attn", dtype=dname,
+            label=f"B={bsz} Sc={sc} H={h} hd={d} cache_len={clen} offset={off}"
+                  + (" sparse" if sp is not None else ""),
+            kernel=lambda q=q, k=kc, v=vc, c=clen, o=off, p=sp: decode_attention(
+                q, k, v, c, offset=o, sparse=p),
+            plain=lambda q=q, k=kc, v=vc, c=clen, o=off, p=sp: decode_ref(
+                q, k, v, c, offset=o, sparse=p),
+            library=lambda q=qt, k=kt, v=vt, m=mask[None]:
+            F.scaled_dot_product_attention(q, k, v, attn_mask=m),
+            nbytes=(2 * bsz * h * d + 2 * bsz * valid_n * h * d) * es,
+            flops=4 * d * valid_n * bsz * h, main=False,
+            split=split_plan(bsz, sc, h, sparse=sp), read=None))
     return cases
 
 
@@ -1409,7 +1457,7 @@ def train_roberta(torch, np):
     from repro_torch.optim import value_and_grad
 
     argv = ["--arch", "roberta-base", "--steps", str(ROBERTA_STEPS), "--batch", "16",
-            "--seq", "128"]
+            "--seq", "128", "--lora-rank", "8"]
     t0 = time.perf_counter()
     tr = train.Trainer(train.parse_args(argv))
     rng = np.random.RandomState(0)
@@ -1518,7 +1566,9 @@ def train_roberta(torch, np):
 
 # TRAIN-PFIT: card vs CPU (see train_pfit).  TRAIN-PPO: card vs CPU on prep
 # and the first epoch (see train_ppo).
-PFIT_QUICK = dict(rounds=4, pretrain_steps=120, rm_steps=120)   # fig4_pfit.py quick
+# fig4_pfit.py's quick profile (4 rounds, 120 + 120 steps), cut to keep the
+# script inside its time: 2 rounds, 60 pretraining and 60 reward-model steps
+PFIT_QUICK = dict(rounds=2, pretrain_steps=60, rm_steps=60)
 PFIT_PAIR_ACC_TOL = 0.02
 PFIT_REWARD_TOL = 0.05
 PFIT_TIE = 1e-3
@@ -1575,8 +1625,9 @@ def first_differences(card, cpu):
 
 def train_pfit(torch):
     """TRAIN-PFIT: ``run_pfit`` for the four methods of Fig. 4 at
-    ``benchmarks/fig4_pfit.py``'s quick profile (4 rounds, 120 pretraining
-    and 120 reward-model steps, ``PFITConfig`` defaults otherwise: 4 clients,
+    ``PFIT_QUICK`` (``benchmarks/fig4_pfit.py``'s quick profile cut to 2
+    rounds, 60 pretraining and 60 reward-model steps; ``PFITConfig``
+    defaults otherwise: 4 clients,
     rollout batch 16, prompt 16, gen 24, d 128, 4 layers, last-K 2, seed 0,
     f32) on the card, launch counts checked, then the same runs on the CPU
     through the plain versions from the same seeds and noise streams.
@@ -1645,8 +1696,8 @@ def train_pfit(torch):
         out[method]["launches"] = launches
     # the device's busy share over a whole run (pretraining, reward models,
     # two rounds)
-    profile(torch, "TRAIN-PFIT pfit run_pfit (2 rounds)",
-            lambda: run_pfit(PFITConfig(**dict(PFIT_QUICK, rounds=2))), 1)
+    profile(torch, "TRAIN-PFIT pfit run_pfit (1 round)",
+            lambda: run_pfit(PFITConfig(**dict(PFIT_QUICK, rounds=1))), 1)
     return total, out
 
 
@@ -3342,7 +3393,7 @@ def launch_phase(torch, np):
     torch.cuda.empty_cache()
 
     argv = ["--arch", "roberta-base", "--steps", str(LAUNCH_STEPS), "--batch", "16",
-            "--seq", "128"]
+            "--seq", "128", "--lora-rank", "8"]
     row = {}
     for remat in (True, False):
         tr = train.Trainer(train.parse_args(argv), remat=remat)
@@ -3402,6 +3453,516 @@ def launch_phase(torch, np):
              "differ from the remat run's")
     for n in KERNELS:
         total[n] += got[n]
+    return total, row
+
+
+# ---------------------------------------------------------------- TP
+TP_STEPS = ["--arch", "llama3.2-1b", "--depth", "2", "--steps", "3", "--batch", "4",
+            "--seq", "128", "--lr", "1e-4"]    # make_train_step's default lr
+TP_TOL = 1e-4              # (b), (d): losses, parameters, gradients
+# (b): the elements AdamW leaves open (see tp_phase) at lr 1e-4.  Three
+# steps move an element by at most about 3·lr, so two runs may part by
+# 6·lr there; on an H100 80GB HBM3 at 700 W the open elements of the
+# (2, 2) gloo run parted from the meshless run's by at most 1.01e-4.
+TP_OPEN_TOL = 2e-4
+TP_SERVE = dict(batch=8, prompt=128, gen=16, cache_len=544)   # segments of 136
+TP_SP = dict(batch=2, seq=512)          # mamba_sp: 128 positions a rank
+# moe_a2a's model: 4 tokens a rank, so no choice can be dropped: a rank's
+# 4 experts take at most 4 of a token's 6 choices (16), and c_out =
+# ceil8(1.5 · t·k / M) = 16.  The meshless model is the reference there,
+# and its capacity is not a2a's: at 16 tokens a rank a2a drops choices
+# that the meshless model keeps.
+TP_A2A = dict(batch=1, seq=16)
+# moe_a2a's layer alone (TP_A2A_LAYER), where it drops: 16 tokens a rank
+# pulled towards rank 0's experts (a shift of about 2 in their logits), so
+# every rank sends rank 0 more than c_out = 40 choices and rank 0's experts
+# get more than c2 = 40 each; held against ``a2a_loopback``, the same
+# capacities on one process, balance loss included
+TP_A2A_LAYER = dict(batch=1, seq=64, pull=4.0)
+TP_SAMPLES = 2048          # gradient elements compared a leaf and rank (beside its norm)
+TP_WORLD = 4
+
+
+def tp_cut(arch, depth=2):
+    """``arch`` at its published widths, every stage cut to ``depth``
+    repeats (``launch.train --depth``)."""
+    from repro_torch.configs import Stage, get_config
+    cfg = get_config(arch)
+    return dataclasses.replace(cfg, stages=tuple(
+        Stage(st.pattern, min(st.repeats, depth), st.stream) for st in cfg.stages))
+
+
+def tp_setup(torch, np, name):
+    """(cfg, whole params drawn on the card from CUDA seed 0, inputs) of
+    the TP phase's (c) serve / (d) sp / (d) a2a model."""
+    from repro_torch.models.transformer import Model
+    cfg = {"serve": lambda: tp_cut("llama3.2-1b"), "sp": lambda: tp_cut("mamba2-1.3b"),
+           "a2a": mla_cut}[name]()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params = Model(cfg, device="cuda").init(gen, max_seq=1024)
+    rng = np.random.RandomState(2)
+    if name == "serve":
+        from repro_torch import trees
+        from repro_torch.models import peft
+        pc = peft.PEFTConfig(lora_rank=8, lora_targets=("mixer/wq", "mixer/wv"))
+        lora = trees.map_with_path(
+            lambda p, v: v if p.endswith("/mask") else torch.from_numpy(
+                (rng.randn(*v.shape) * 0.05).astype(np.float32)).cuda(),
+            peft.init_lora(torch.Generator().manual_seed(1), params, pc))
+        s = TP_SERVE
+        toks = rng.randint(6, cfg.vocab_size, (s["batch"], s["prompt"] + s["gen"]))
+        return cfg, params, {"lora": lora, "scale": peft.lora_scale(pc),
+                             "tokens": torch.from_numpy(toks).cuda()}
+    s = TP_SP if name == "sp" else TP_A2A
+    toks = rng.randint(6, cfg.vocab_size, (s["batch"], s["seq"] + 1))
+    return cfg, params, {"tokens": torch.from_numpy(toks[:, :-1]).cuda(),
+                         "labels": torch.from_numpy(toks[:, 1:]).cuda(),
+                         "mask": torch.ones(s["batch"], s["seq"], device="cuda")}
+
+
+def tp_a2a_layer(torch):
+    """(moe config, act, whole layer params, x, r) of moe_a2a's layer check:
+    ``mla_cut``'s MoE layer (routed experts and the 2 shared) drawn on the
+    card from CUDA seed 3, and x (1, 64, 5120) pulled towards the first
+    quarter of the experts (rank 0's) by TP_A2A_LAYER["pull"] along their
+    router columns' summed direction."""
+    from repro_torch.models.moe import init_moe
+    cfg = mla_cut()
+    gen = torch.Generator(device="cuda").manual_seed(3)
+
+    def normal(shape, std):
+        return torch.randn(shape, generator=gen, device="cuda") * std
+    params = init_moe(normal, cfg.d_model, cfg.moe, cfg.act)
+    s = TP_A2A_LAYER
+    u = params["router"][:, :cfg.moe.n_experts // TP_WORLD].sum(-1)
+    x = normal((s["batch"], s["seq"], cfg.d_model), 1.0) + s["pull"] * u / u.norm()
+    return cfg.moe, cfg.act, params, x, normal(tuple(x.shape), 1.0)
+
+
+def a2a_loopback(torch, x, params, cfg, act, n_model):
+    """``moe.moe_ffn_a2a`` over ``n_model`` model ranks on one process:
+    each sequence block routed and bucketed to the ranks at capacity c_out,
+    each rank's experts over what the blocks sent it at capacity c2, the
+    outputs sent back, the balance loss the blocks' mean, the shared experts
+    on the whole x → (y, aux, choices dropped at c_out, at c2)."""
+    from repro_torch.models import moe
+    k, e_loc = cfg.top_k, cfg.n_experts // n_model
+    b, seq, d = x.shape
+    s = seq // n_model
+    t = b * s
+    c_out = max(8, -(-int(t * k / n_model * 1.5) // 8) * 8)
+    sends, toks, aux, drop_out = [], [], 0.0, 0
+    for r in range(n_model):
+        xt = x[:, r * s:(r + 1) * s].reshape(t, d)
+        gates, w, idx = moe.route(xt, params["router"], cfg)
+        flat_e, flat_w = idx.reshape(-1), w.reshape(-1)
+        table = moe._bucket_table(flat_e // e_loc, n_model, c_out)
+        ok = table < t * k
+        tcl = table.clamp(max=t * k)
+        tok = torch.where(ok, table // k, t)
+        sends.append((torch.cat([xt, xt.new_zeros(1, d)])[tok],
+                      torch.where(ok, torch.cat([flat_e, flat_e.new_zeros(1)])[tcl] % e_loc,
+                                  e_loc),
+                      torch.where(ok, torch.cat([flat_w, flat_w.new_zeros(1)])[tcl], 0.0)))
+        toks.append(tok)
+        aux = aux + moe._balance(gates, idx, cfg) / n_model
+        drop_out += t * k - int(ok.sum())
+    n_recv = n_model * c_out
+    c2 = min(max(8, -(-int(n_recv / e_loc) // 8) * 8), n_recv)
+    backs, drop_in = [], 0
+    for m in range(n_model):
+        rx, re_, rw = (torch.stack([sends[r][i][m] for r in range(n_model)]).reshape(
+            (n_recv, d) if i == 0 else (n_recv,)) for i in range(3))
+        table2 = moe._bucket_table(re_, e_loc, c2)
+        ok2 = table2 < n_recv
+        t2 = table2.clamp(max=n_recv)
+        xe = torch.cat([rx, rx.new_zeros(1, d)])[t2] * ok2[..., None].to(rx.dtype)
+        sl = slice(m * e_loc, (m + 1) * e_loc)
+        ye = moe._experts(xe, params["wg"][sl], params["wu"][sl], params["wd"][sl], act)
+        wtab = torch.where(ok2, torch.cat([rw, rw.new_zeros(1)])[t2], 0.0)
+        ye = (ye.float() * wtab[..., None]).to(x.dtype)
+        backs.append(x.new_zeros(n_recv + 1, d).index_add(
+            0, t2.reshape(-1), ye.reshape(-1, d))[:n_recv].reshape(n_model, c_out, d))
+        drop_in += int((re_ < e_loc).sum()) - int(ok2.sum())
+    y = torch.cat([x.new_zeros(t + 1, d).index_add(
+        0, toks[r].reshape(-1),
+        torch.stack([backs[m][r] for m in range(n_model)]).reshape(-1, d))[:t].reshape(b, s, d)
+        for r in range(n_model)], 1)
+    return moe._shared(x, y, params, cfg, act, None), aux, drop_out, drop_in
+
+
+def tp_serve(torch, model, params, inp):
+    """Prefill of the prompt, then the teacher-forced decode steps → (logits
+    (gen + 1, B, V), decode_attn launches a decode step)."""
+    s, kernels = TP_SERVE, wrappers()
+    toks = inp["tokens"]
+    per_step = []
+    with torch.no_grad():
+        logits, cache = model.prefill(params, toks[:, :s["prompt"]], s["cache_len"],
+                                      lora=inp["lora"], lora_scale=inp["scale"])
+        out = [logits]
+        for i in range(s["gen"]):
+            before = kernels["decode_attn"].launches
+            logits, cache = model.decode_step(params, cache, toks[:, s["prompt"] + i:][:, :1],
+                                              lora=inp["lora"], lora_scale=inp["scale"])
+            per_step.append(kernels["decode_attn"].launches - before)
+            out.append(logits)
+    torch.cuda.synchronize()
+    return torch.stack(out), per_step
+
+
+def tp_grad_stats(torch, grads, specs, mc):
+    """Per leaf of this rank's gradient blocks: (L2 norm, TP_SAMPLES
+    elements at positions drawn from the leaf's path)."""
+    import zlib
+
+    from repro_torch import trees
+    from repro_torch.sharding import shard_leaf
+    out = {}
+    for p, g in trees.flatten(grads).items():
+        if g is None:
+            continue
+        if specs is not None:
+            g = shard_leaf(g, specs[p], mc)
+        flat = g.detach().reshape(-1)
+        idx = torch.randint(0, flat.numel(), (TP_SAMPLES,),
+                            generator=torch.Generator().manual_seed(zlib.crc32(p.encode())))
+        out[p] = (float(flat.double().norm()), flat[idx.to(flat.device)].double().cpu().numpy())
+    return out
+
+
+def tp_rank(argv):
+    """One rank of the TP phase's (c) and (d): ``chip_smoke.py --tp-rank
+    RANK WORLD STORE OUT`` joins a gloo group of WORLD processes on card 0
+    through the ``FileStore`` STORE, builds the (1, WORLD) mesh, runs
+    SERVE-TP, then mamba_sp's and moe_a2a's loss and gradient (the balance
+    loss weighted 0: see ``tp_phase``), and pickles its results to OUT."""
+    import pickle
+
+    rank, world, store, out = int(argv[0]), int(argv[1]), argv[2], argv[3]
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch import trees
+    from repro_torch.models import moe, parallel, transformer
+    from repro_torch.models.transformer import Model
+    from repro_torch.optim import value_and_grad
+    from repro_torch.sharding import MeshCtx, Spec
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dist.init_process_group("gloo", store=dist.FileStore(store, world), rank=rank,
+                            world_size=world)
+    res = {}
+    try:
+        mc = MeshCtx.create((1, world))
+        cfg, params, inp = tp_setup(torch, np, "serve")
+        model = Model(cfg, device="cuda", meshctx=mc)
+        loc = model.shard(params)
+        del params
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        (logits, per_step), launches = run_counted(lambda: tp_serve(torch, model, loc, inp))
+        rel = {p[len("stages/0/layers/0/"):]: Spec(*tuple(s)[1:])
+               for p, s in model.specs.items() if p.startswith("stages/0/layers/0/")}
+        plan = parallel.layer_plan(mc, cfg, cfg.stages[0].pattern[0], rel)
+        res["serve"] = {"s": time.perf_counter() - t0, "launches": launches,
+                        "decode_per_step": per_step,
+                        "heads": cfg.n_heads // world if plan.attn else cfg.n_heads,
+                        "peak": torch.cuda.max_memory_allocated(),
+                        "logits": logits.cpu().numpy() if rank == 0 else None}
+        del model, loc, logits
+        aux_w, transformer.AUX_WEIGHT = transformer.AUX_WEIGHT, 0.0
+        for name, opts in (("sp", {"mamba_sp": True}), ("a2a", {"moe_a2a": True})):
+            torch.cuda.empty_cache()
+            cfg, params, batch = tp_setup(torch, np, name)
+            model = Model(cfg, device="cuda", meshctx=mc, opts=opts)
+            loc = model.shard(params)
+            del params
+            t0 = time.perf_counter()
+            (loss, grads), launches = run_counted(
+                lambda: value_and_grad(lambda p: model.lm_loss(p, batch), loc))
+            torch.cuda.synchronize()
+            res[name] = {"s": time.perf_counter() - t0, "loss": float(loss),
+                         "launches": launches,
+                         "stats": tp_grad_stats(torch, grads, None, mc)}
+            del model, loc, grads
+        transformer.AUX_WEIGHT = aux_w
+        torch.cuda.empty_cache()
+        cfg, act, params, x, r = tp_a2a_layer(torch)
+        e_loc = cfg.n_experts // world
+        sl = slice(mc.coord(mc.model_axis) * e_loc, (mc.coord(mc.model_axis) + 1) * e_loc)
+        leaves = dict(trees.flatten(params), x=x)
+        leaves.update({n: params[n][sl] for n in ("wg", "wu", "wd")})
+        leaves = {p: v.detach().clone().requires_grad_() for p, v in leaves.items()}
+        del params
+        t0 = time.perf_counter()
+        tree = trees.unflatten({p: v for p, v in leaves.items() if p != "x"})
+        (y, aux), launches = run_counted(lambda: moe.moe_ffn_a2a(
+            leaves["x"], tree, cfg, act, tp=parallel.LayerTP(mc=mc, moe=True)))
+        ((y * r).sum() + aux).backward()
+        torch.cuda.synchronize()
+        res["a2a_layer"] = {"s": time.perf_counter() - t0, "aux": float(aux.detach()),
+                            "y": y.detach().cpu().numpy() if rank == 0 else None,
+                            "launches": launches,
+                            "stats": tp_grad_stats(torch, {p: v.grad for p, v in leaves.items()},
+                                                   None, mc)}
+        with open(out, "wb") as f:
+            pickle.dump(res, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def torchrun(nproc, argv, timeout=600):
+    """``python -m torch.distributed.run --standalone --nproc-per-node N -m
+    repro_torch.launch.train ARGV`` from the checkout → (exit code, output)."""
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"), OMP_NUM_THREADS="1")
+    return subprocess.Popen([sys.executable, "-m", "torch.distributed.run", "--standalone",
+                             "--nproc-per-node", str(nproc), "-m",
+                             "repro_torch.launch.train"] + argv,
+                            cwd=ROOT, env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT)
+
+
+def finish(proc, tag, timeout=600):
+    try:
+        log = proc.communicate(timeout=timeout)[0].decode(errors="replace")
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    if proc.returncode != 0:
+        fail(f"{tag} exited {proc.returncode}:\n{log[-3000:]}")
+    return log
+
+
+def tp_phase(torch, np):
+    """TP: see the module docstring.  Its checkpoints and rank outputs live
+    in a temporary directory removed at the end."""
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_tp_") as tmp:
+        return tp_phase_in(torch, np, tmp)
+
+
+def tp_phase_in(torch, np, tmp):
+    import pickle
+
+    from repro_torch import trees
+    from repro_torch.checkpoint import load_checkpoint
+    from repro_torch.launch import dryrun, train
+    from repro_torch.models import transformer
+    from repro_torch.models.transformer import Model
+    from repro_torch.optim import value_and_grad
+    from repro_torch.sharding import MeshCtx, Spec, param_specs
+    row = {}
+    # (a) one NCCL rank and (b) four gloo ranks as (2, 2) start together and
+    # share the card and the host with the meshless run below: their s a
+    # step are not each other's
+    ckpt_a, ckpt_b = os.path.join(tmp, "a.npz"), os.path.join(tmp, "b.npz")
+    rep_a, rep_b = os.path.join(tmp, "a.json"), os.path.join(tmp, "b.json")
+    proc_a = torchrun(1, TP_STEPS + ["--data-axis", "1", "--ckpt", ckpt_a, "--report", rep_a])
+    proc_b = torchrun(TP_WORLD, TP_STEPS + ["--data-axis", "2", "--ckpt", ckpt_b,
+                                            "--report", rep_b])
+    # the meshless card run: 3 steps.  AdamW's direction m̂/(√v̂ + eps) turns
+    # a rounding difference of a gradient into up to lr a step where √v̂ is
+    # small (TRAIN-ROBERTA's note; at initialisation many attention weights
+    # have |g| ~ 1e-9, under eps): an element whose √v̂ falls under 1e-4 of
+    # its leaf's largest |g| (plus 1e-6) at some step is "open", held to
+    # TP_OPEN_TOL; every other element to TP_TOL
+    torch.cuda.reset_peak_memory_stats()
+    tr = train.Trainer(train.parse_args(TP_STEPS), remat=True)
+    rng = np.random.RandomState(0)
+    unsure, losses = {}, []
+    t1 = time.perf_counter()
+    for t in range(1, 4):
+        b = tr.to_device(tr.batch(rng))
+        g = trees.flatten(value_and_grad(lambda p, b=b: tr.loss(p, b), tr.trainable)[1])
+        losses.append(float(tr.step(b)))
+        for p, v in trees.flatten(tr.opt_state["nu"]).items():
+            small = (v / (1 - 0.999 ** t)).sqrt() < 1e-4 * g[p].abs().max() + 1e-6
+            unsure[p] = small if p not in unsure else unsure[p] | small
+        del g
+    torch.cuda.synchronize()
+    plain_s = (time.perf_counter() - t1) / 3
+    plain_peak = torch.cuda.max_memory_allocated()
+    want = {p: v.cpu() for p, v in trees.flatten(tr.params()).items()}
+    unsure = {p: u.cpu() for p, u in unsure.items()}
+    lr = tr.args.lr
+    del tr
+    torch.cuda.empty_cache()
+    t1 = time.perf_counter()
+    dry = dryrun.run_one("llama3.2-1b", "train_4k", "single", "train",
+                         out_dir=os.path.join(tmp, "dryrun"), verbose=False)
+    pd, rf = dry["per_device"], dry["roofline"]
+    print(f"DRYRUN llama3.2-1b train_4k on the abstract (16, 16) mesh (fsdp, bf16, meta; "
+          f"{time.perf_counter() - t1:.1f} s): per device {pd['flops']:.4e} FLOPs (global "
+          f"{dry['global']['flops']:.4e}, replication {pd['replication']:.3f}), collectives "
+          f"{pd['collectives']} wire {pd['collective_wire_bytes']:.4e} B, args "
+          f"{pd['argument_bytes']:.4e} B; roofline compute {rf['compute_s'] * 1e3:.2f} ms, "
+          f"memory {rf['memory_s'] * 1e3:.2f} ms, collective {rf['collective_s'] * 1e3:.2f} "
+          f"ms ({rf['dominant']}; H100 SXM data-sheet figures)", flush=True)
+    row["dryrun"] = {"per_device": pd, "roofline": rf, "global_flops": dry["global"]["flops"]}
+
+    finish(proc_a, "TP (a) torchrun")
+    with open(rep_a) as f:
+        rep = json.load(f)
+    got = trees.flatten(load_checkpoint(ckpt_a, want))
+    equal = rep["losses"] == losses and all(torch.equal(got[p], v) for p, v in want.items())
+    print(f"TP (a) torchrun 1 rank (NCCL) --steps 3 --data-axis 1 llama3.2-1b full width, "
+          f"2 layers, batch 4, seq 128, lr {lr:g}: losses {[round(x, 6) for x in rep['losses']]} "
+          f"meshless {[round(x, 6) for x in losses]}; losses and trained parameters "
+          f"bit-equal: {equal}; s a step {[round(x, 3) for x in rep['step_s']]} against "
+          f"meshless {plain_s:.3f} (sharing the card with (b)); peak "
+          f"{rep['max_memory_allocated'][0] / 2**20:.0f} against {plain_peak / 2**20:.0f} MiB",
+          flush=True)
+    if not equal:
+        fail("TP (a): the (1, 1) run is not bit-equal to the meshless run")
+    row["a"] = {"losses": rep["losses"], "step_s": rep["step_s"], "plain_s_per_step": plain_s}
+
+    finish(proc_b, "TP (b) torchrun")
+    with open(rep_b) as f:
+        rep = json.load(f)
+    got = trees.flatten(load_checkpoint(ckpt_b, want))
+    settled, open_err, worst, n_open = 0.0, 0.0, "", 0
+    for p, v in want.items():
+        d = (got[p] - v).abs()
+        e = float((d * ~unsure[p]).max())
+        if e > settled:
+            settled, worst = e, p
+        open_err = max(open_err, float((d * unsure[p]).max()))
+        n_open += int(unsure[p].sum())
+    loss_err = max(abs(a - c) for a, c in zip(rep["losses"], losses))
+    print(f"TP (b) torchrun 4 ranks (gloo, one card) --steps 3 --data-axis 2: losses "
+          f"{[round(x, 6) for x in rep['losses']]} max_abs_err {loss_err:.2e} (tol {TP_TOL:g}); "
+          f"unsharded parameters max_abs_err {settled:.2e} at {worst} (tol {TP_TOL:g}; "
+          f"{n_open} of {sum(u.numel() for u in unsure.values())} elements open, "
+          f"at most {open_err:.2e}, tol {TP_OPEN_TOL:g}); s a step "
+          f"{[round(x, 3) for x in rep['step_s']]} (gloo stages every collective through the "
+          f"host); peak MiB per rank {[round(m / 2**20) for m in rep['max_memory_allocated']]} "
+          f"against meshless {plain_peak / 2**20:.0f}", flush=True)
+    if loss_err > TP_TOL or settled > TP_TOL or open_err > TP_OPEN_TOL:
+        fail("TP (b): the (2, 2) run differs from the meshless run")
+    row["b"] = {"losses": rep["losses"], "step_s": rep["step_s"], "n_open": n_open,
+                "max_memory_allocated": rep["max_memory_allocated"],
+                "plain_max_memory_allocated": plain_peak}
+    del want, unsure, got
+    torch.cuda.empty_cache()
+
+    # (c), (d): four ranks of chip_smoke.py --tp-rank
+    outs = [os.path.join(tmp, f"tp{r}.pkl") for r in range(TP_WORLD)]
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--tp-rank", str(r),
+                               str(TP_WORLD), os.path.join(tmp, "gloo"), outs[r]],
+                              cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+             for r in range(TP_WORLD)]
+    for r, p in enumerate(procs):
+        finish(p, f"TP (c)/(d) rank {r}")
+    ranks = []
+    for o in outs:
+        with open(o, "rb") as f:
+            ranks.append(pickle.load(f))
+    total = {n: sum(r[k]["launches"][n] for r in ranks
+                    for k in ("serve", "sp", "a2a", "a2a_layer")) for n in KERNELS}
+    # (c) against the meshless card run
+    cfg, params, inp = tp_setup(torch, np, "serve")
+    ref, _ = tp_serve(torch, Model(cfg, device="cuda"), params, inp)
+    del params
+    ref = ref.cpu().numpy()
+    err = float(np.abs(ranks[0]["serve"]["logits"] - ref).max())
+    tol = 1e-3 * max(1.0, float(np.abs(ref).max()))
+    s, layers = TP_SERVE, cfg.n_layers
+    seg = s["cache_len"] // TP_WORLD
+    want_l = []
+    for r in range(TP_WORLD):
+        steps = [layers * int(s["prompt"] + i + 1 > r * seg) for i in range(s["gen"])]
+        want_l.append(({"lora_fused": 2 * layers * (1 + s["gen"]), "flash_attn": layers,
+                        "decode_attn": sum(steps), "block_sparse_attn": 0, "ssd_chunk": 0},
+                       steps))
+    got_l = [(r["serve"]["launches"], r["serve"]["decode_per_step"]) for r in ranks]
+    print(f"SERVE-TP llama3.2-1b full width, 2 layers, on (1, 4) gloo: batch {s['batch']}, "
+          f"prefill {s['prompt']}, {s['gen']} decode steps, cache {s['cache_len']} (segments "
+          f"of {seg}), LoRA on wq/wv: max |logit - meshless| {err:.3e} (tol {tol:.3e}); "
+          f"flash_attn on {ranks[0]['serve']['heads']} of {cfg.n_heads} heads a rank; "
+          f"launches per rank {[g[0] for g in got_l]}; decode_attn a step per rank "
+          f"{[g[1] for g in got_l]}; s {[round(r['serve']['s'], 3) for r in ranks]}; peak MiB "
+          f"{[round(r['serve']['peak'] / 2**20) for r in ranks]}", flush=True)
+    if err > tol or got_l != want_l or ranks[1]["serve"]["decode_per_step"][0] != 0:
+        fail(f"SERVE-TP: logits {err:.3e} or launches {got_l} != {want_l}")
+    row["serve"] = {"logit_err": err, "launches": [g[0] for g in got_l],
+                    "s": [r["serve"]["s"] for r in ranks]}
+    # (d) against the meshless card runs, the balance loss weighted 0 on
+    # both sides (JAX's moe_a2a averages it over the sequence shards; the
+    # CPU tests hold that against JAX)
+    aux_w = transformer.AUX_WEIGHT
+    transformer.AUX_WEIGHT = 0.0
+    try:
+        for name in ("sp", "a2a"):
+            torch.cuda.empty_cache()
+            cfg, params, batch = tp_setup(torch, np, name)
+            loss, grads = value_and_grad(lambda p: Model(cfg, device="cuda").lm_loss(p, batch),
+                                         params)
+            specs = trees.flatten(param_specs(MeshCtx.abstract((1, TP_WORLD)), params, cfg))
+            del params
+            loss_err, norm_err, elem_err = 0.0, 0.0, 0.0
+            for r, rk in enumerate(ranks):
+                want_s = tp_grad_stats(torch, grads, specs, MeshCtx.abstract((1, TP_WORLD),
+                                                                             rank=r))
+                loss_err = max(loss_err, abs(rk[name]["loss"] - float(loss)))
+                for p, (norm, smp) in want_s.items():
+                    gn, gs = rk[name]["stats"][p]
+                    norm_err = max(norm_err, abs(gn - norm) / max(1.0, norm))
+                    elem_err = max(elem_err, float(np.abs(gs - smp).max()))
+            del grads
+            what = ("mamba_sp mamba2-1.3b full width, 2 layers, batch 2, seq 512"
+                    if name == "sp" else "moe_a2a deepseek-v2 (mla_cut: 2 layers, 16 "
+                    "routed experts), batch 1, seq 16")
+            print(f"TP (d) {what} on (1, 4) gloo: loss {ranks[0][name]['loss']:.6f} vs "
+                  f"meshless {float(loss):.6f} (err {loss_err:.2e}); gradients: per leaf and "
+                  f"rank norm rel err {norm_err:.2e}, {TP_SAMPLES} sampled elements max abs "
+                  f"err {elem_err:.2e} (tol {TP_TOL:g}); launches rank 0 "
+                  f"{ranks[0][name]['launches']}; s {[round(r[name]['s'], 3) for r in ranks]}",
+                  flush=True)
+            if loss_err > TP_TOL or norm_err > TP_TOL or elem_err > TP_TOL:
+                fail(f"TP (d) {name}: the (1, 4) run differs from the meshless run")
+            row[name] = {"loss_err": loss_err, "grad_norm_rel_err": norm_err,
+                         "grad_elem_err": elem_err, "s": [r[name]["s"] for r in ranks]}
+    finally:
+        transformer.AUX_WEIGHT = aux_w
+    # (d) moe_a2a's layer where its capacities drop, against a2a_loopback
+    torch.cuda.empty_cache()
+    cfg, act, params, x, r = tp_a2a_layer(torch)
+    leaves = {p: v.detach().clone().requires_grad_()
+              for p, v in dict(trees.flatten(params), x=x).items()}
+    del params
+    y, aux, drop_out, drop_in = a2a_loopback(
+        torch, leaves["x"], trees.unflatten({p: v for p, v in leaves.items() if p != "x"}),
+        cfg, act, TP_WORLD)
+    ((y * r).sum() + aux).backward()
+    grads = {p: v.grad for p, v in leaves.items()}
+    specs = {p: Spec(*(("model",) if p in ("wg", "wu", "wd") else (None,))
+                     + (None,) * (g.dim() - 1)) for p, g in grads.items()}
+    y_err = float(np.abs(ranks[0]["a2a_layer"]["y"] - y.detach().cpu().numpy()).max())
+    aux_err = max(abs(rk["a2a_layer"]["aux"] - float(aux.detach())) for rk in ranks)
+    norm_err, elem_err = 0.0, 0.0
+    for rank, rk in enumerate(ranks):
+        want_s = tp_grad_stats(torch, grads, specs, MeshCtx.abstract((1, TP_WORLD), rank=rank))
+        for p, (norm, smp) in want_s.items():
+            gn, gs = rk["a2a_layer"]["stats"][p]
+            norm_err = max(norm_err, abs(gn - norm) / max(1.0, norm))
+            elem_err = max(elem_err, float(np.abs(gs - smp).max()))
+    del leaves, grads, y
+    s = TP_A2A_LAYER
+    print(f"TP (d) moe_a2a layer (mla_cut's: d {x.shape[-1]}, {cfg.n_experts} routed experts "
+          f"of {cfg.d_ff}, top-{cfg.top_k}, {cfg.n_shared_experts} shared), batch {s['batch']}, "
+          f"seq {s['seq']} pulled {s['pull']:g} towards rank 0's experts, on (1, 4) gloo "
+          f"against a2a_loopback: choices dropped at c_out {drop_out}, at c2 {drop_in}; "
+          f"max |y - loopback| {y_err:.2e}, balance loss err {aux_err:.2e}, gradients: per leaf "
+          f"and rank norm rel err {norm_err:.2e}, {TP_SAMPLES} sampled elements max abs err "
+          f"{elem_err:.2e} (tol {TP_TOL:g}); s {[round(rk['a2a_layer']['s'], 3) for rk in ranks]}",
+          flush=True)
+    if min(drop_out, drop_in) < 1 or max(y_err, aux_err, norm_err, elem_err) > TP_TOL:
+        fail("TP (d) moe_a2a layer: no drops at a capacity, or the (1, 4) run differs from "
+             "a2a_loopback")
+    row["a2a_layer"] = {"drops": [drop_out, drop_in], "y_err": y_err, "aux_err": aux_err,
+                        "grad_norm_rel_err": norm_err, "grad_elem_err": elem_err}
     return total, row
 
 
@@ -3572,10 +4133,13 @@ def main():
     t0 = time.perf_counter()
     got_l, launch_row = launch_phase(torch, np)
     print(f"PHASE LAUNCH {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    got_t, tp_row = tp_phase(torch, np)
+    print(f"PHASE TP {time.perf_counter() - t0:.1f} s", flush=True)
     for n in KERNELS:
         launches[n] += (got[n] + got_r[n] + got_f[n] + got_p[n] + got_ra[n] + got_rb[n]
                         + got_rc[n] + got_c[n] + got_pop[n] + got_a[n] + got_m[n]
-                        + got_l[n])
+                        + got_l[n] + got_t[n])
 
     kernels = [dict(name=n, route="cuda", source=f"src/repro_torch/csrc/{n}.cu",
                     replaces=REPLACES[n], launches=launches[n],
@@ -3592,7 +4156,7 @@ def main():
                                     "pftt": robust_pftt_row, "pfit": robust_pfit_row,
                                     "ppo": robust_ppo_row}, "comms": comms_row,
                                 "pop": pop_row, "arch_round": arch_rows,
-                                "mesh": mesh_rows, "launch": launch_row}}))
+                                "mesh": mesh_rows, "launch": launch_row, "tp": tp_row}}))
     print(json.dumps({"kernels": kernels}))
     print(smi_line(), flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -3603,5 +4167,7 @@ def main():
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--mesh-rank"]:
         mesh_rank(sys.argv[2:])
+    elif sys.argv[1:2] == ["--tp-rank"]:
+        tp_rank(sys.argv[2:])
     else:
         main()

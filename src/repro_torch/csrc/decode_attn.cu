@@ -164,7 +164,7 @@ __global__ void __launch_bounds__(THREADS, MINB)
 decode_fwd(const T* __restrict__ q, const T* __restrict__ kc,
            const T* __restrict__ vc, T* __restrict__ o, float* __restrict__ lse,
            int Sc, int H, int KH,
-           int cache_len, int window, int block, int sink, int local,
+           int cache_len, int offset, int window, int block, int sink, int local,
            int stride, float scale) {
   using S = Shape<T, HD>;
   constexpr int VEC = S::VEC, LPR = S::LPR, RPI = S::RPI, U = S::U, STEP = S::STEP;
@@ -182,22 +182,25 @@ decode_fwd(const T* __restrict__ q, const T* __restrict__ kc,
   const int bh = blockIdx.x / split, b = bh / H, h = bh % H, kvh = h / (H / KH);
   const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
   const int grp = lane / LPR, col = (lane % LPR) * VEC;
-  const int hi = min(cache_len, Sc);
-  const int lo = window > 0 ? max(0, cache_len - window) : 0;
+  // Slot i holds position offset + i: the slots below cl are valid.
+  const int cl = cache_len - offset;
+  const int hi = min(cl, Sc);
+  const int lo = window > 0 ? max(0, cl - window) : 0;
 
   // Under the sparse mask, the segment table, by warp 0: kv blocks in
   // chunks of 32, one a lane; the active ones are compacted by a ballot,
   // their lengths summed by a scan.  (Dense mode has one segment, [lo, hi),
   // which every thread knows.)
   if (block > 0 && warp == 0) {
-    const int qblk = (cache_len - 1) / block;
+    const int boff = offset / block;  // offset is a multiple of block
+    const int qblk = (cl - 1) / block;
     const int nblk = (hi + block - 1) / block;
     int n = 0, k = 0;  // active positions and segments so far
     for (int c = lo / block; c < nblk; c += 32) {  // the same trips for the whole warp
       const int blk = c + lane;
       const int a = max(blk * block, lo), e = min(blk * block + block, hi);
       const bool on = blk < nblk && e > a &&
-                      (blk < sink || blk > qblk - local || blk % stride == 0);
+                      (blk + boff < sink || blk > qblk - local || (blk + boff) % stride == 0);
       const int len = on ? e - a : 0;
       int incl = len;
 #pragma unroll
@@ -399,8 +402,8 @@ int decode_split(int bh, int positions_max, int sms) {
 
 template <typename T, int HD, bool WIDE>
 cudaError_t launch(int split, const void* q, const void* k, const void* v, void* o,
-                   float* lse, int B, int Sc, int H, int KH, int cache_len, int window,
-                   const int* sp, float scale, cudaStream_t s) {
+                   float* lse, int B, int Sc, int H, int KH, int cache_len, int offset,
+                   int window, const int* sp, float scale, cudaStream_t s) {
   static const cudaError_t attr = cudaFuncSetAttribute(
       decode_fwd<T, HD, WIDE>, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
   if (attr != cudaSuccess) return attr;
@@ -424,30 +427,32 @@ cudaError_t launch(int split, const void* q, const void* k, const void* v, void*
   cfg.numAttrs = 1;
   return cudaLaunchKernelEx(&cfg, decode_fwd<T, HD, WIDE>, static_cast<const T*>(q),
                             static_cast<const T*>(k), static_cast<const T*>(v),
-                            static_cast<T*>(o), lse, Sc, H, KH, cache_len, window, sp[0],
+                            static_cast<T*>(o), lse, Sc, H, KH, cache_len, offset, window, sp[0],
                             sp[1], sp[2], sp[3], scale);
 }
 
 template <typename T, int HD>
 cudaError_t launch_hd(bool wide, int split, const void* q, const void* k, const void* v,
-                      void* o, float* lse, int B, int Sc, int H, int KH, int cache_len, int window,
-                      const int* sp, float scale, cudaStream_t s) {
-  return wide ? launch<T, HD, true>(split, q, k, v, o, lse, B, Sc, H, KH, cache_len, window, sp, scale, s)
-              : launch<T, HD, false>(split, q, k, v, o, lse, B, Sc, H, KH, cache_len, window, sp, scale, s);
+                      void* o, float* lse, int B, int Sc, int H, int KH, int cache_len, int offset,
+                      int window, const int* sp, float scale, cudaStream_t s) {
+  return wide ? launch<T, HD, true>(split, q, k, v, o, lse, B, Sc, H, KH, cache_len, offset, window,
+                                    sp, scale, s)
+              : launch<T, HD, false>(split, q, k, v, o, lse, B, Sc, H, KH, cache_len, offset, window,
+                                     sp, scale, s);
 }
 
 template <typename T>
 cudaError_t dispatch(int HD, const void* q, const void* k, const void* v, void* o, float* lse,
                      int B,
-                     int Sc, int H, int KH, int cache_len, int window, const int* sp,
+                     int Sc, int H, int KH, int cache_len, int offset, int window, const int* sp,
                      float scale, cudaStream_t s) {
   const bool wide = aligned16(k) && aligned16(v);
   const int split = decode_split(B * H, most_positions(Sc, window, sp[0], sp[1], sp[2], sp[3]),
                                  sm_count());
   switch (HD) {
-    case 32: return launch_hd<T, 32>(wide, split, q, k, v, o, lse, B, Sc, H, KH, cache_len, window, sp, scale, s);
-    case 64: return launch_hd<T, 64>(wide, split, q, k, v, o, lse, B, Sc, H, KH, cache_len, window, sp, scale, s);
-    case 128: return launch_hd<T, 128>(wide, split, q, k, v, o, lse, B, Sc, H, KH, cache_len, window, sp, scale, s);
+    case 32: return launch_hd<T, 32>(wide, split, q, k, v, o, lse, B, Sc, H, KH, cache_len, offset, window, sp, scale, s);
+    case 64: return launch_hd<T, 64>(wide, split, q, k, v, o, lse, B, Sc, H, KH, cache_len, offset, window, sp, scale, s);
+    case 128: return launch_hd<T, 128>(wide, split, q, k, v, o, lse, B, Sc, H, KH, cache_len, offset, window, sp, scale, s);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -455,27 +460,29 @@ cudaError_t dispatch(int HD, const void* q, const void* k, const void* v, void* 
 }  // namespace
 
 // dtype: 0 = f32, 1 = bf16.  q/o (B,1,H,HD), caches (B,Sc,KH,HD), contiguous;
-// positions < cache_len are valid.  block > 0 adds the sparse mask of
+// slot i holds position offset + i (offset ≥ 0, a multiple of block when
+// block > 0: a segment of a sequence-split cache); positions < cache_len
+// are valid.  block > 0 adds the sparse mask of
 // (block, sink, local, stride); block = 0 is dense.  lse, when not null,
 // (B,H) f32, gets m + log l of the scaled logits over the positions read
 // (-inf when none is).  Returns the first error of the launch, else
 // cudaGetLastError() after it.
 extern "C" int decode_attn(int dtype, const void* q, const void* k, const void* v,
                            void* o, void* lse, int B, int Sc, int H, int KH, int HD,
-                           int cache_len, int window, int block, int sink,
+                           int cache_len, int offset, int window, int block, int sink,
                            int local, int stride, float scale, void* stream) {
-  if (B < 1 || Sc < 1 || KH < 1 || H % KH != 0 || cache_len < 1 ||
-      (block > 0 && stride < 1))
+  if (B < 1 || Sc < 1 || KH < 1 || H % KH != 0 || offset < 0 || cache_len - offset < 1 ||
+      (block > 0 && (stride < 1 || offset % block != 0)))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int sp[4] = {block, sink, local, stride};
   cudaError_t e;
   if (dtype == 0) {
     e = dispatch<float>(HD, q, k, v, o, static_cast<float*>(lse), B, Sc, H, KH, cache_len,
-                        window, sp, scale, s);
+                        offset, window, sp, scale, s);
   } else if (dtype == 1) {
     e = dispatch<__nv_bfloat16>(HD, q, k, v, o, static_cast<float*>(lse), B, Sc, H, KH,
-                                cache_len, window, sp, scale, s);
+                                cache_len, offset, window, sp, scale, s);
   } else {
     return (int)cudaErrorInvalidValue;
   }

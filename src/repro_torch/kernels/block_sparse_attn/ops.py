@@ -1,6 +1,6 @@
 """Public wrapper: model-layout (B,S,H,hd) causal block-sparse attention
-(the paper's sparse-attention device) at prefill.  A CPU tensor takes the
-plain version (``ref.block_sparse_ref``); a CUDA tensor launches
+(the paper's sparse-attention device) at prefill.  A CPU tensor (or a
+``meta`` one: shapes only, the dry run) takes the plain version (``ref.block_sparse_ref``); a CUDA tensor launches
 ``csrc/block_sparse_attn.cu`` or raises.
 
 The static (idx, valid) table of ``models.attention.sparse_block_table`` is
@@ -47,7 +47,7 @@ def block_sparse_attention(q, k, v, cfg, *, q_offset: int = 0, scale=None):
     if q_offset < 0 or q_offset % bs:
         raise ValueError(f"block_sparse_attention: q_offset {q_offset} is not "
                          f"a multiple of the block {bs}")
-    if q.device.type == "cpu":
+    if q.device.type in ("cpu", "meta"):
         return block_sparse_ref(q, k, v, cfg, q_offset=q_offset, scale=scale)
     _build.forward_only("block_sparse_attention", q, k, v)
     b, sq, h, d = q.shape

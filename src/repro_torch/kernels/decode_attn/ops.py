@@ -1,6 +1,7 @@
 """Public wrapper: model-layout flash-decode (one query token against the
-KV cache).  A CPU tensor takes the plain version (``ref.decode_ref``); a
-CUDA tensor launches ``csrc/decode_attn.cu`` or raises.
+KV cache).  A CPU (or ``meta``: the dry run's shapes) tensor takes the
+plain version (``ref.decode_ref``); a CUDA tensor launches
+``csrc/decode_attn.cu`` or raises.
 
 Convention: ``cache_len`` is the number of valid cache positions including
 the token just written (positions ``< cache_len`` are read), the model
@@ -21,7 +22,7 @@ from repro_torch.kernels.decode_attn.ref import decode_ref
 from repro_torch.kernels.flash_attn.ops import DTYPES, SQUARE, check_operands
 from repro_torch.models.attention import merge_by_lse, sparse_kv_decode, sparse_kv_ranges
 
-_ARGTYPES = ([ctypes.c_int] + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 11
+_ARGTYPES = ([ctypes.c_int] + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 12
              + [ctypes.c_float, ctypes.c_void_p])
 
 
@@ -31,24 +32,31 @@ def _pattern(sparse):
 
 
 def decode_attention(q, k_cache, v_cache, cache_len: int, *, window: int = 0,
-                     sparse=None, return_lse: bool = False):
+                     sparse=None, return_lse: bool = False, offset: int = 0):
     """q: (B, 1, H, hd); caches: (B, Sc, K, hd) → (B, 1, H, hd).  ``sparse``
     (a ``SparseAttnConfig``) masks the positions of inactive blocks.  With
     ``return_lse`` → (out, lse): lse (B, H) f32, the log-sum-exp of the
     scaled logits over the positions read (-inf when none is), so that
     outputs over disjoint position ranges merge exactly
-    (``models.attention.merge_by_lse``)."""
+    (``models.attention.merge_by_lse``).  ``offset``: slot i holds position
+    offset + i (a segment of a sequence-split cache; a multiple of the
+    sparse block), and cache_len counts positions, so the segment reads
+    slots below cache_len − offset."""
     check_operands("decode_attention", q, k_cache, v_cache, widths=SQUARE)
     if q.shape[1] != 1 or v_cache.shape != k_cache.shape:
         raise ValueError(f"decode_attention: one query token and caches of one "
                          f"shape, got {tuple(q.shape)}, {tuple(k_cache.shape)}, "
                          f"{tuple(v_cache.shape)}")
-    cache_len = int(cache_len)
-    if cache_len < 1:
-        raise ValueError(f"decode_attention: cache_len {cache_len} < 1")
-    if q.device.type == "cpu":
+    cache_len, offset = int(cache_len), int(offset)
+    if cache_len - offset < 1 or offset < 0:
+        raise ValueError(f"decode_attention: cache_len {cache_len} at offset {offset} "
+                         "reads no slot")
+    if sparse is not None and offset % sparse.block_size:
+        raise ValueError(f"decode_attention: offset {offset} is not a multiple of the "
+                         f"sparse block {sparse.block_size}")
+    if q.device.type in ("cpu", "meta"):
         return decode_ref(q, k_cache, v_cache, cache_len, window=window,
-                          sparse=sparse, return_lse=return_lse)
+                          sparse=sparse, return_lse=return_lse, offset=offset)
     _build.forward_only("decode_attention", q, k_cache, v_cache)
     b, _, h, d = q.shape
     sc, kh = k_cache.shape[1], k_cache.shape[2]
@@ -59,7 +67,7 @@ def decode_attention(q, k_cache, v_cache, cache_len: int, *, window: int = 0,
     rc = fn(DTYPES[q.dtype], q.data_ptr(), k_cache.data_ptr(),
             v_cache.data_ptr(), out.data_ptr(),
             None if lse is None else lse.data_ptr(), b, sc, h, kh, d, cache_len,
-            int(window), *_pattern(sparse), d ** -0.5,
+            offset, int(window), *_pattern(sparse), d ** -0.5,
             torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(rc, "decode_attn")
     decode_attention.launches += 1
@@ -86,7 +94,7 @@ def sparse_kv_attention(q, cache, pos: int, cfg, seq_len: int):
     layout): on the card, ``decode_ranges`` over the persistent prefix and
     the ring's one or two ranges (up to three ``decode_attn`` launches); on
     the CPU the plain ``sparse_kv_decode``."""
-    if q.device.type == "cpu":
+    if q.device.type in ("cpu", "meta"):
         return sparse_kv_decode(q, cache, pos, cfg, seq_len)
     return decode_ranges(q, cache, sparse_kv_ranges(pos, cfg, seq_len))
 

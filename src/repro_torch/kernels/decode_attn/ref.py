@@ -7,12 +7,13 @@ from repro_torch.models.attention import NEG_INF, decode_attention, sparse_posit
 
 
 def decode_ref(q, k_cache, v_cache, cache_len: int, *, window: int = 0,
-               sparse=None, return_lse: bool = False):
-    """q: (B,1,H,hd); caches (B,Sc,K,hd); positions < cache_len are valid
-    (and, with ``sparse``, in an active block).  ``return_lse`` → (out,
-    lse), lse (B, H) f32 the log-sum-exp of the scaled logits read."""
+               sparse=None, return_lse: bool = False, offset: int = 0):
+    """q: (B,1,H,hd); caches (B,Sc,K,hd), slot i holding position offset + i;
+    positions < cache_len are valid (and, with ``sparse``, in an active
+    block).  ``return_lse`` → (out, lse), lse (B, H) f32 the log-sum-exp of
+    the scaled logits read."""
     return decode_attention(q, k_cache, v_cache, cache_len, window=window,
-                            sparse=sparse, return_lse=return_lse)
+                            sparse=sparse, return_lse=return_lse, offset=offset)
 
 
 def decode_split_ref(q, k_cache, v_cache, cache_len: int, split: int, *,

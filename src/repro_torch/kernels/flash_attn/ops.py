@@ -1,6 +1,6 @@
 """Public wrapper: model-layout (B,S,H,hd) GQA attention via the
 hand-written flash kernel (decoder prefill, encoder layers, MLA).  A CPU
-tensor takes the plain version (``ref.attention_ref``); a CUDA tensor
+(or ``meta``: the dry run's shapes) tensor takes the plain version (``ref.attention_ref``); a CUDA tensor
 launches ``csrc/flash_attn.cu`` or raises.  When grad mode is on and an
 operand requires grad, the CUDA call goes through ``FlashAttention``: the
 kernel is its forward, and its backward is the softmax VJP by recomputation
@@ -114,7 +114,7 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
     check_operands("flash_attention", q, k, v)
     if scale is None:
         scale = q.shape[-1] ** -0.5
-    if q.device.type == "cpu":
+    if q.device.type in ("cpu", "meta"):
         return attention_ref(q, k, v, causal=causal, window=window, scale=scale)
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
         return FlashAttention.apply(_launch, q, k, v, causal, window, scale)

@@ -1,9 +1,10 @@
 """Public wrapper for the fused LoRA projection (serving and training).
 
 Model code reaches it through ``peft.lora_proj`` for every projection that
-carries factors.  A CPU tensor takes the plain version (``ref.lora_ref``);
-a CUDA tensor launches ``csrc/lora_fused.cu`` or raises.  When grad mode is
-on and an operand requires grad, the CUDA call goes through ``LoraMatmul``:
+carries factors.  A CPU (or ``meta``: the dry run's shapes) tensor takes
+the plain version (``ref.lora_ref``); a CUDA tensor launches
+``csrc/lora_fused.cu`` or raises.  When grad mode is on and an operand
+requires grad, the CUDA call goes through ``LoraMatmul``:
 the kernel is its forward, and its backward is plain torch (the TPU kernel
 has no backward; JAX training differentiates the jnp projection, as XLA).
 """
@@ -78,7 +79,7 @@ class LoraMatmul(torch.autograd.Function):
 def lora_matmul(x, w, a, b, *, scale: float):
     """x: (..., K) @ [W (K,N) + scale·A (K,r)·B (r,N)] → (..., N)."""
     _check(x, w, a, b)
-    if x.device.type == "cpu":
+    if x.device.type in ("cpu", "meta"):
         return lora_ref(x, w, a, b, scale=scale)
     if torch.is_grad_enabled() and any(t.requires_grad for t in (x, w, a, b)):
         return LoraMatmul.apply(_launch, x, w, a, b, scale)

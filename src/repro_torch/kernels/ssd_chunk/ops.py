@@ -1,5 +1,5 @@
 """Public wrapper: model-layout Mamba-2 SSD chunked scan.  A CPU tensor
-takes the plain version (``ref.ssd_ref``); a CUDA tensor launches
+(or a ``meta`` one: the dry run's shapes) takes the plain version (``ref.ssd_ref``); a CUDA tensor launches
 ``csrc/ssd_chunk.cu`` or raises.
 
 x (B,S,H,P) and B/C (B,S,H,N) may be strided views — the mixer passes the
@@ -46,7 +46,7 @@ def _check(x, dt, a_coef, bmat, cmat, h0):
     tensors = [x, dt, a_coef, bmat, cmat] + ([] if h0 is None else [h0])
     if len({t.device for t in tensors}) != 1:
         raise ValueError("ssd_scan: operands on different devices")
-    if x.device.type == "cpu":
+    if x.device.type in ("cpu", "meta"):
         return
     if len({x.dtype, bmat.dtype, cmat.dtype}) != 1 or x.dtype not in DTYPES:
         raise TypeError(f"ssd_scan: x, B, C must share one dtype of {list(DTYPES)}")
@@ -97,7 +97,7 @@ def ssd_scan(x, dt, a_coef, bmat, cmat, *, chunk: int = 256, h0=None):
     or None → (y (B,S,H,P) in x's dtype, h_final (B,H,P,N) f32).  y
     excludes the D-skip term."""
     _check(x, dt, a_coef, bmat, cmat, h0)
-    if x.device.type == "cpu":
+    if x.device.type in ("cpu", "meta"):
         return ssd_ref(x, dt, a_coef, bmat, cmat, chunk=chunk, h0=h0)
     if torch.is_grad_enabled() and any(
             t is not None and t.requires_grad for t in (x, dt, a_coef, bmat, cmat, h0)):

@@ -17,6 +17,11 @@ launcher runs.
 
 Each training step is ``(state…, batch) → (new state…, loss)`` with the
 state as trees of tensors; gradients come from ``optim.value_and_grad``.
+Under a (data, model) mesh (a model built with ``meshctx``) the state is
+this rank's blocks, the batch the whole one (each rank runs its rows), and
+``model.sync_grads`` sums over the data ranks the gradients of leaves
+replicated over them before AdamW, which then updates the local blocks:
+each model rank holds the full gradient of what it stores.
 The JAX package's ``factored`` switch (False: the merged oracle,
 ``peft.apply_lora``) has no counterpart: the port's steps always run the
 factors unmerged.  ``make_input_batch_shapes`` (alias ``input_specs``)
@@ -65,7 +70,7 @@ def make_train_step(model, lr: float = 1e-4, impl: Optional[str] = None):
     def train_step(params, opt_state, batch):
         loss, grads = value_and_grad(
             lambda p: model.lm_loss(p, batch, impl=impl), params)
-        updates, opt_state = opt.update(grads, opt_state, params)
+        updates, opt_state = opt.update(model.sync_grads(grads), opt_state, params)
         return trees.tree_add(params, updates), opt_state, loss
 
     return train_step, opt
@@ -94,7 +99,7 @@ def make_peft_step(model, peft_cfg: peft_mod.PEFTConfig, lr: float = 1e-3,
     def peft_step(trainable, frozen, opt_state, batch):
         loss, grads = value_and_grad(
             lambda t: loss_fn(t, frozen, batch), trainable)
-        updates, opt_state = opt.update(grads, opt_state, trainable)
+        updates, opt_state = opt.update(model.sync_grads(grads), opt_state, trainable)
         return trees.tree_add(trainable, updates), opt_state, loss
 
     return peft_step, opt
@@ -144,7 +149,7 @@ def make_fl_round_step(model, peft_cfg: peft_mod.PEFTConfig, n_clients: int,
                       for ci in range(n_clients)]
             return torch.stack(losses).mean()
         loss, grads = value_and_grad(loss_fn, trainable)
-        updates, opt_state = opt.update(grads, opt_state, trainable)
+        updates, opt_state = opt.update(model.sync_grads(grads), opt_state, trainable)
         return trees.tree_add(trainable, updates), opt_state, loss
 
     return fl_round_step, opt

@@ -43,18 +43,34 @@ the host spans (``D/trace.json``) and ``--torch-profile`` a
         --telemetry-dir /tmp/telemetry --trace
 
 ``--steps N`` trains the chosen architecture at full width (``--reduced``
-for the smoke variant) for N AdamW steps:
+for the smoke variant; ``--depth R`` cuts every stage to R repeats) for N
+AdamW steps of the JAX launcher's full fine-tuning (``launch/steps.py``'s
+``make_train_step`` over every parameter, next-token labels):
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch roberta-base \
         --steps 10 --batch 16 --seq 128
 
-With ``--lora-rank R`` > 0 (default 8) it runs ``launch/steps.py``'s
-``make_peft_step``: adapters plus rank-R LoRA on ``mixer/wq``/``mixer/wv``
-trained on an MLM loss over 15 % masked positions, the base frozen, so
-every encoder layer runs the ``lora_fused`` and non-causal ``flash_attn``
-kernels forward and their autograd Functions backward.  ``--lora-rank 0``
-is the JAX launcher's full fine-tuning (``make_train_step`` on next-token
-labels).
+With ``--lora-rank R`` > 0 (default 0) it runs ``make_peft_step`` instead:
+adapters plus rank-R LoRA on ``mixer/wq``/``mixer/wv`` trained on an MLM
+loss over 15 % masked positions, the base frozen, so every encoder layer
+runs the ``lora_fused`` and non-causal ``flash_attn`` kernels forward and
+their autograd Functions backward.
+
+Started by torchrun, ``--steps`` runs under the (data, model) mesh of
+``launch/mesh.py::make_tp_mesh``: ``--data-axis D`` data coordinates by
+world / D model coordinates (0: every rank on the data axis, as the JAX
+launcher).  The initial parameters are drawn whole from torch seed 0 and
+each rank keeps its blocks under ``param_specs(..., "fsdp")``; every rank
+draws the same batches and runs its rows.  Four ranks on one card share it
+over gloo, four cards take one each over NCCL:
+
+    PYTHONPATH=src python -m torch.distributed.run --standalone \
+        --nproc-per-node 4 -m repro_torch.launch.train --arch llama3.2-1b \
+        --steps 3 --depth 2 --data-axis 2
+
+Without torchrun ``--steps`` runs on one device with no mesh (a one-rank
+torchrun's (1, 1) mesh gives the same bits).  ``--report PATH`` writes the losses, the seconds
+a step and every rank's peak device memory (rank 0 writes).
 
 ``--fl-clients N`` with any other ``--arch`` runs the universal factored
 round on that architecture's reduced config (``core/arch_round.py``,
@@ -81,13 +97,15 @@ writes checkpoints:
 
 ``--steps`` builds the model with rematerialization (``Model(remat=True)``,
 as the JAX launcher) and ``--ckpt PATH`` saves the trained parameters
-after the steps (with LoRA: ``{"params": base with the adapters, "lora":
-the factors}``), readable by ``checkpoint.load_checkpoint``.
-``--data-axis`` (the (data, model) tensor-parallel mesh) is not ported.
+after the steps, whole (rank 0 writes under a mesh; with LoRA:
+``{"params": base with the adapters, "lora": the factors}``), readable by
+``checkpoint.load_checkpoint``.
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
+import json
 import math
 import time
 
@@ -96,12 +114,12 @@ import torch
 
 from repro_torch import resolve_device, trees
 from repro_torch.checkpoint import save_checkpoint
-from repro_torch.configs import get_config, list_configs
+from repro_torch.configs import Stage, get_config, list_configs
 from repro_torch.data import SPECIAL
 from repro_torch.launch.steps import make_peft_loss, make_peft_step, make_train_step
 from repro_torch.models import peft as peft_mod
 from repro_torch.models.transformer import Model
-from repro_torch.sharding import TENSOR_PARALLEL
+from repro_torch.sharding import MeshCtx
 from repro_torch.wireless import DeadlineConfig, FaultPlan
 
 
@@ -114,14 +132,20 @@ def parse_args(argv=None):
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--seq", type=int, default=128)
     ap.add_argument("--lr", type=float, default=3e-3)
+    ap.add_argument("--depth", type=int, default=0,
+                    help="--steps mode: cut every stage to this many repeats "
+                         "(0 → the config's depth)")
     ap.add_argument("--data-axis", type=int, default=0,
-                    help="data-parallel axis of the (data, model) mesh: not "
-                         "ported (ROADMAP queue 1 item 8's last part)")
+                    help="--steps under torchrun: data axis of the (data, "
+                         "model) mesh, world/D the model axis (0 → every rank)")
     ap.add_argument("--ckpt", default=None,
                     help="--steps mode: save the trained parameters here (npz)")
-    ap.add_argument("--lora-rank", type=int, default=8,
+    ap.add_argument("--report", default=None,
+                    help="--steps mode: write losses, s/step and each rank's "
+                         "peak device memory here (JSON)")
+    ap.add_argument("--lora-rank", type=int, default=0,
                     help="--steps mode: PEFT (adapters + LoRA of this rank on "
-                         "wq/wv, MLM loss); 0 → full fine-tuning")
+                         "wq/wv, MLM loss); 0 (default) → full fine-tuning")
     ap.add_argument("--fl-clients", type=int, default=0,
                     help="run a federated PFTT cohort of this size (0 → off)")
     ap.add_argument("--fl-rounds", type=int, default=3)
@@ -211,9 +235,6 @@ def parse_args(argv=None):
     if args.population and args.arch != "roberta-base":
         raise SystemExit("--population runs the PFTT workload: "
                          "use --arch roberta-base")
-    if args.data_axis:
-        raise SystemExit(f"--data-axis needs the (data, model) tensor-parallel mesh: "
-                         f"{TENSOR_PARALLEL}")
     return args
 
 
@@ -297,23 +318,35 @@ def pftt_config(args, **overrides):
     return PFTTConfig(**kw)
 
 
+def step_config(args):
+    """The ``--steps`` model config: ``--reduced``, then ``--depth``."""
+    cfg = get_config(args.arch)
+    if args.reduced:
+        cfg = cfg.reduced()
+    if args.depth:
+        cfg = dataclasses.replace(cfg, stages=tuple(
+            Stage(st.pattern, min(st.repeats, args.depth), st.stream) for st in cfg.stages))
+    return cfg
+
+
 class Trainer:
     """``--steps`` mode: the model, its random init (torch seed 0) and the
     step.  ``batch(rng)`` draws one numpy batch, ``to_device`` moves it,
     ``step(batch)`` runs one AdamW step on it and returns the loss;
     ``loss(trainable, batch)`` is the step's loss alone (for timing the
-    forward apart from the backward); ``params()`` the trained parameters
-    (``--ckpt``'s tree).  ``remat``: the model's rematerialization (the
-    launcher's is on)."""
+    forward apart from the backward); ``params()`` the trained parameters,
+    whole (``--ckpt``'s tree).  ``remat``: the model's rematerialization
+    (the launcher's is on).  ``meshctx``: a (data, model) mesh; the state
+    is then this rank's blocks (the whole batch is drawn, each rank runs
+    its rows)."""
 
-    def __init__(self, args, remat: bool = False):
+    def __init__(self, args, remat: bool = False, meshctx: MeshCtx = None):
         self.args = args
         self.device = resolve_device(args.device)
-        cfg = get_config(args.arch)
-        if args.reduced:
-            cfg = cfg.reduced()
+        cfg = step_config(args)
         self.cfg = cfg
-        self.model = Model(cfg, device=self.device, remat=remat)
+        self.mc = meshctx
+        self.model = Model(cfg, device=self.device, remat=remat, meshctx=meshctx)
         gen = torch.Generator().manual_seed(0)
         params = self.model.init(gen, max_seq=args.seq)
         self.peft_cfg = None
@@ -322,15 +355,15 @@ class Trainer:
                 lora_rank=args.lora_rank, lora_targets=("mixer/wq", "mixer/wv"))
             params = peft_mod.init_adapters(gen, params, cfg, self.peft_cfg)
             lora = peft_mod.init_lora(gen, params, self.peft_cfg)
-            self.frozen = params
+            self.frozen = params if meshctx is None else self.model.shard(params)
             self.trainable = {
-                "adapters": trees.select(params, peft_mod.is_adapter_path),
+                "adapters": trees.select(self.frozen, peft_mod.is_adapter_path),
                 "lora": lora}
             self._step, opt = make_peft_step(self.model, self.peft_cfg, lr=args.lr)
             self._loss = make_peft_loss(self.model, self.peft_cfg)
         else:
             self.frozen = None
-            self.trainable = params
+            self.trainable = params if meshctx is None else self.model.shard(params)
             self._step, opt = make_train_step(self.model, lr=args.lr)
         self.opt_state = opt.init(self.trainable)
 
@@ -374,11 +407,13 @@ class Trainer:
         return loss
 
     def params(self):
-        """The trained parameters: the model tree, or with LoRA {"params":
-        the base with the trained adapters, "lora": the factors}."""
+        """The trained parameters, whole (under a mesh every rank joins):
+        the model tree, or with LoRA {"params": the base with the trained
+        adapters, "lora": the factors}."""
+        whole = self.model.unshard if self.mc is not None else (lambda t: t)
         if self.peft_cfg is None:
-            return self.trainable
-        return {"params": trees.merge(self.frozen, self.trainable["adapters"]),
+            return whole(self.trainable)
+        return {"params": whole(trees.merge(self.frozen, self.trainable["adapters"])),
                 "lora": self.trainable["lora"]}
 
 
@@ -440,19 +475,61 @@ def run_fl(args, mesh=None):
 
 
 def run_steps(args):
-    """``--steps``: N AdamW steps with rematerialization, then ``--ckpt``."""
-    tr = Trainer(args, remat=True)
+    """``--steps``: N AdamW steps with rematerialization, under torchrun's
+    (data, model) mesh or, outside torchrun, on one device with no mesh;
+    then ``--ckpt`` and ``--report``."""
+    from repro_torch.launch.mesh import in_torchrun, make_tp_mesh, rank_device
+    if not in_torchrun():
+        if args.data_axis > 1:
+            raise SystemExit("--data-axis > 1 needs ranks: start the run under torchrun")
+        return _steps(args, None)
+    args.device = str(rank_device(args.device))
+    mc = make_tp_mesh(args.data_axis, args.device)
+    try:
+        return _steps(args, mc)
+    finally:
+        import torch.distributed as dist
+        dist.destroy_process_group()
+
+
+def _steps(args, mc):
+    lead = mc is None or mc.rank == 0
+
+    def say(msg):
+        if lead:
+            print(msg, flush=True)
+
+    tr = Trainer(args, remat=True, meshctx=mc)
+    dev = tr.device
+    shape = (1, 1) if mc is None else mc.shape
+    say(f"--steps {args.arch}: mesh {shape} on {dev}, "
+        f"{'LoRA rank %d' % args.lora_rank if args.lora_rank else 'full fine-tuning'}")
     rng = np.random.RandomState(0)
-    losses = []
+    losses, step_s = [], []
     t0 = time.perf_counter()
     for i in range(args.steps):
-        losses.append(float(tr.step(tr.to_device(tr.batch(rng)))))
+        t1 = time.perf_counter()
+        losses.append(float(tr.step(tr.to_device(tr.batch(rng)))))   # float() waits
+        step_s.append(time.perf_counter() - t1)
         if i % 10 == 0:
-            print(f"step {i:4d} loss {losses[-1]:.4f} "
-                  f"({(time.perf_counter() - t0) / (i + 1):.3f}s/step)")
-    if args.ckpt:
-        save_checkpoint(args.ckpt, tr.params())
+            say(f"step {i:4d} loss {losses[-1]:.4f} "
+                f"({(time.perf_counter() - t0) / (i + 1):.3f}s/step)")
+    sec = (time.perf_counter() - t0) / max(args.steps, 1)
+    params = tr.params() if args.ckpt else None       # every rank joins the unshard
+    mem = torch.zeros(1 if mc is None else mc.size, dtype=torch.float64, device=dev)
+    if dev.type == "cuda":
+        mem[0 if mc is None else mc.rank] = torch.cuda.max_memory_allocated(dev)
+    if mc is not None:
+        mem = mc.reduce(mem, mc.axis_names)
+    if lead and args.ckpt:
+        save_checkpoint(args.ckpt, params)
         print("saved", args.ckpt)
+    if lead and args.report:
+        with open(args.report, "w") as f:
+            json.dump({"arch": args.arch, "mesh": shape, "losses": losses,
+                       "s_per_step": sec, "step_s": step_s,
+                       "max_memory_allocated": mem.tolist(),
+                       "device": str(dev)}, f)
     return losses
 
 

@@ -125,20 +125,23 @@ def sparse_position_mask(pos, cache_len: int, cfg):
 
 
 def decode_attention(q, k_cache, v_cache, cache_len: int, *, window: int = 0,
-                     sparse=None, ring: bool = False, return_lse: bool = False):
+                     sparse=None, ring: bool = False, return_lse: bool = False,
+                     offset: int = 0):
     """q: (B,1,H,hd); caches: (B,Sc,K,hd); ``cache_len`` = number of valid
     positions INCLUDING the token just written (positions < cache_len are
     read; with ``window``, only the last ``window`` of them; with ``sparse``,
-    a ``SparseAttnConfig``, only those of the active blocks).  ``ring``:
-    the cache is a ring of Sc slots (a window cache), every slot below
-    min(cache_len, Sc) valid and in the window by construction.
+    a ``SparseAttnConfig``, only those of the active blocks).  ``offset``:
+    slot i of the cache holds position offset + i (a segment of a cache
+    split over ranks; the window and the sparse mask read positions).
+    ``ring``: the cache is a ring of Sc slots (a window cache), every slot
+    below min(cache_len, Sc) valid and in the window by construction.
     ``return_lse`` → (out, lse (B, H) f32: logsumexp of the scaled logits
     read, -inf where none is)."""
     b, _, h, d = q.shape
     sc, n_kv = k_cache.shape[1], k_cache.shape[2]
     qg = q.float().reshape(b, n_kv, h // n_kv, d) * (d ** -0.5)
     logits = torch.einsum("bKgd,btKd->bKgt", qg, k_cache.float())
-    pos = torch.arange(sc, device=q.device)
+    pos = torch.arange(sc, device=q.device) + offset
     if ring:
         allowed = pos < min(cache_len, sc)
     else:

@@ -33,6 +33,15 @@ stays plain torch (``models/mla.py``).  The mamba mixer's scan runs the SSD
 chunk kernel.  Projections with LoRA factors run the fused LoRA kernel
 (``peft.lora_proj``); an MoE layer merges any ff factors into its experts
 first (``peft.merge_factors``), as the JAX package does.
+
+Under a (data, model) mesh both functions take ``tp``, the layer's plan
+(``models.parallel.LayerTP``): ``lp`` and ``lora`` arrive in its layout,
+attention and the MLP run on this rank's heads and columns, MoE on its
+experts (``moe_a2a``: the all-to-all variant), mamba's ``mamba_sp`` option
+on this rank's sequence block in training; a decode step writes the token
+on the rank that owns its slot and merges the ranks' segments
+(``parallel.decode_segment``), and a cache it has no plan for (mamba, MLA,
+the sparse-KV layout) is gathered whole, stepped, and cut back.
 """
 from __future__ import annotations
 
@@ -45,10 +54,13 @@ from repro_torch.kernels.flash_attn.ops import flash_attention
 from repro_torch.models import mla, ssm
 from repro_torch.models.attention import sparse_kv_layout, sparse_kv_write
 from repro_torch.models.mlp import mlp
-from repro_torch.models.moe import moe_ffn
+from repro_torch.models.moe import moe_ffn, moe_ffn_a2a
 from repro_torch.models.norms import apply_norm
+from repro_torch.models.parallel import ATTN_TP, decode_segment, segment_write
 from repro_torch.models.peft import adapter_fwd, lora_proj, merge_factors
 from repro_torch.models.rope import rotate
+from repro_torch.sharding import (Spec, all_reduce, copy_to, gather, reduce_from,
+                                  shard_leaf, unshard_leaf)
 
 IMPLS = ("auto", "dense", "chunked", "sparse")
 MIXERS = ("attn", "local", "enc", "dec", "mla", "mamba")
@@ -81,12 +93,24 @@ def _sub(lora, *keys):
     return lora
 
 
-def _qkv(xn, mp, cfg: ModelConfig, mf, scale: float, rot):
+def _has_factors(lora) -> bool:
+    if isinstance(lora, dict):
+        return "a" in lora or any(_has_factors(v) for v in lora.values())
+    return False
+
+
+def _heads(cfg: ModelConfig, tp):
+    """(query heads, kv heads) this rank computes."""
+    m = 1 if tp is None or not tp.attn else tp.mc.model_size
+    return cfg.n_heads // m, cfg.n_kv_heads // m
+
+
+def _qkv(xn, mp, cfg: ModelConfig, mf, scale: float, rot, heads=None):
     """q (B,S,H,hd), k/v (B,S,K,hd); ``rot``, the (cos, sin) table of the
     step's positions (``rope.rope_cos_sin``), rotates q and k (None: no
-    rotary positions)."""
+    rotary positions); ``heads``: (H, K) this rank computes."""
     b, s, _ = xn.shape
-    h, k_, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    (h, k_), hd = heads or (cfg.n_heads, cfg.n_kv_heads), cfg.hd
     q = lora_proj(xn, mp["wq"], _sub(mf, "wq"), scale=scale).reshape(b, s, h, hd)
     k = lora_proj(xn, mp["wk"], _sub(mf, "wk"), scale=scale).reshape(b, s, k_, hd)
     v = lora_proj(xn, mp["wv"], _sub(mf, "wv"), scale=scale).reshape(b, s, k_, hd)
@@ -95,16 +119,18 @@ def _qkv(xn, mp, cfg: ModelConfig, mf, scale: float, rot):
     return q, k, v
 
 
-def _ff_and_adapter(x, lp, kind: LayerKind, cfg: ModelConfig, lora, scale):
+def _ff_and_adapter(x, lp, kind: LayerKind, cfg: ModelConfig, lora, scale, tp=None):
     """The ff sublayer and the adapter → (x, MoE balance loss or None)."""
     aux = None
     if kind.ff != "none":
         xn2 = apply_norm(x, lp["norm2"], cfg.norm, cfg.norm_eps)
         if kind.ff == "mlp":
-            x = x + mlp(xn2, lp["ff"], cfg.act, lora=_sub(lora, "ff"), scale=scale)
+            x = x + mlp(xn2, lp["ff"], cfg.act, lora=_sub(lora, "ff"), scale=scale,
+                        mc=tp.mc if tp is not None and tp.mlp else None)
         else:
-            y, aux = moe_ffn(xn2, merge_factors(lp["ff"], _sub(lora, "ff"), scale),
-                             cfg.moe, cfg.act)
+            ffn = moe_ffn_a2a if tp is not None and tp.moe_a2a else moe_ffn
+            y, aux = ffn(xn2, merge_factors(lp["ff"], _sub(lora, "ff"), scale),
+                         cfg.moe, cfg.act, tp=tp)
             x = x + y
     if "adapter" in lp:  # PFTT universal adapter (bottleneck + residual)
         x = adapter_fwd(x, lp["adapter"])
@@ -113,7 +139,7 @@ def _ff_and_adapter(x, lp, kind: LayerKind, cfg: ModelConfig, lora, scale):
 
 def apply_layer_seq(x, lp, kind: LayerKind, cfg: ModelConfig, rot=None, *,
                     impl: str = "auto", lora=None, lora_scale: float = 1.0,
-                    memory=None):
+                    memory=None, tp=None, collect: bool = False):
     """x: (B, S, d) → (x, cache entry, aux), ``rot`` the rotary (cos, sin)
     table of its positions or None, ``memory`` (B, S_enc, d) the encoder's
     output for a ``dec`` layer: the layer output, the state that seeds a
@@ -122,11 +148,19 @@ def apply_layer_seq(x, lp, kind: LayerKind, cfg: ModelConfig, rot=None, *,
     final SSM state and conv inputs {"h", "conv"} for mamba, None for an
     encoder layer — and an MoE layer's balance loss (None for any other
     ff).  ``lp``/``lora`` are one layer's (unstacked) params and factor
-    subtree."""
+    subtree.  ``tp``: the layer's plan under a mesh (``collect``: the
+    cache entry gets every head, for a prefill)."""
     check_kind(kind)
     xn = apply_norm(x, lp["norm1"], cfg.norm, cfg.norm_eps)
     mf = _sub(lora, "mixer")
-    if kind.mixer == "mamba":
+    if kind.mixer == "mamba" and tp is not None and tp.mamba_sp and tp.train \
+            and not _has_factors(mf):
+        # sequence-parallel SSD (its body takes raw weights, as the JAX
+        # package's: a layer with factors takes the plain mixer below)
+        x = x + ssm.mamba_seq_sp(xn, lp["mixer"], cfg.ssm, cfg.d_model, cfg.norm_eps,
+                                 tp.mc)
+        entry = None
+    elif kind.mixer == "mamba":
         y, (h, conv) = ssm.mamba_seq(xn, lp["mixer"], cfg.ssm, cfg.d_model,
                                      cfg.norm_eps, lora=mf, scale=lora_scale)
         x = x + y
@@ -138,7 +172,9 @@ def apply_layer_seq(x, lp, kind: LayerKind, cfg: ModelConfig, rot=None, *,
         x = x + y
         entry = {"ckv": ckv, "kpe": kpe}
     else:
-        q, k, v = _qkv(xn, lp["mixer"], cfg, mf, lora_scale, rot)
+        par = tp is not None and tp.attn
+        xin = copy_to(xn, tp.mc, tp.model) if par else xn
+        q, k, v = _qkv(xin, lp["mixer"], cfg, mf, lora_scale, rot, _heads(cfg, tp))
         sparse = _sparse(cfg, impl) if kind.mixer in ("attn", "dec") else None
         if sparse is not None:
             y = block_sparse_attention(q, k, v, sparse)
@@ -146,13 +182,16 @@ def apply_layer_seq(x, lp, kind: LayerKind, cfg: ModelConfig, rot=None, *,
             y = flash_attention(q, k, v, causal=kind.mixer != "enc",
                                 window=cfg.window if kind.mixer == "local" else 0)
         b, s = y.shape[:2]
-        x = x + lora_proj(y.reshape(b, s, -1), lp["mixer"]["wo"], _sub(mf, "wo"),
-                          scale=lora_scale)
+        o = lora_proj(y.reshape(b, s, -1), lp["mixer"]["wo"], _sub(mf, "wo"),
+                      scale=lora_scale)
+        x = x + (reduce_from(o, tp.mc, tp.model) if par else o)
+        if par and collect:                 # a prefill's cache holds every head
+            k, v = (gather(t, tp.mc, tp.model, 2, sum_grad=False) for t in (k, v))
         entry = None if kind.mixer == "enc" else {"k": k, "v": v}
         if kind.mixer == "dec":
             x, entry["xk"], entry["xv"] = _cross_seq(x, lp, cfg, memory,
                                                      _sub(lora, "cross"), lora_scale)
-    x, aux = _ff_and_adapter(x, lp, kind, cfg, lora, lora_scale)
+    x, aux = _ff_and_adapter(x, lp, kind, cfg, lora, lora_scale, tp)
     return x, entry, aux
 
 
@@ -175,15 +214,28 @@ def _cross_seq(x, lp, cfg: ModelConfig, memory, cf, scale):
 
 def apply_layer_decode(x, lp, kind: LayerKind, cache, pos: int,
                        cfg: ModelConfig, rot=None, *, impl: str = "auto", lora=None,
-                       lora_scale: float = 1.0, opts=None):
+                       lora_scale: float = 1.0, opts=None, tp=None):
     """x: (B, 1, d), the token at position ``pos`` (host int), ``rot`` the
     rotary (cos, sin) table of that position or None, ``opts`` the model's
     options.  Updates this layer's ``cache`` entry IN PLACE — attention
     writes the token's k/v at slot min(pos, Sc-1) (a ``local`` ring at pos
     mod Sc; a sparse-KV cache at its persistent slot and ring slot), MLA
     its (c_kv, k_pe) at min(pos, Sc-1), mamba overwrites its state and conv
-    inputs — where the JAX package returns new buffers, and returns x."""
+    inputs — where the JAX package returns new buffers, and returns x.
+    ``tp``: the layer's plan under a mesh, with its cache entry's specs."""
     check_kind(kind)
+    if tp is not None:
+        x = _mixer_decode_tp(x, lp, kind, cache, pos, cfg, rot, impl=impl, lora=lora,
+                             lora_scale=lora_scale, opts=opts, tp=tp)
+        return _ff_and_adapter(x, lp, kind, cfg, lora, lora_scale, tp)[0]
+    x = _mixer_decode(x, lp, kind, cache, pos, cfg, rot, impl=impl, lora=lora,
+                      lora_scale=lora_scale, opts=opts)
+    return _ff_and_adapter(x, lp, kind, cfg, lora, lora_scale)[0]
+
+
+def _mixer_decode(x, lp, kind: LayerKind, cache, pos: int, cfg: ModelConfig, rot, *,
+                  impl, lora, lora_scale, opts):
+    """The mixer sublayer of ``apply_layer_decode`` → x."""
     opts = opts or {}
     xn = apply_norm(x, lp["norm1"], cfg.norm, cfg.norm_eps)
     mf = _sub(lora, "mixer")
@@ -230,7 +282,61 @@ def apply_layer_decode(x, lp, kind: LayerKind, cache, pos: int,
             yx = decode_attention(qx, cache["xk"], cache["xv"], cache["xk"].shape[1])
             x = x + lora_proj(yx.reshape(b, 1, -1), cp["wo"], _sub(cf, "wo"),
                               scale=lora_scale)
-    return _ff_and_adapter(x, lp, kind, cfg, lora, lora_scale)[0]
+    return x
+
+
+def _mixer_decode_tp(x, lp, kind: LayerKind, cache, pos: int, cfg: ModelConfig, rot, *,
+                     impl, lora, lora_scale, opts, tp):
+    """The mixer of a decode step under a mesh.  Attention with a plain
+    cache: q and the new k/v get every head (gathered over the model axis
+    when the plan splits heads), the token is written on the rank owning
+    its slot, each rank reads its sequence segment for every head and the
+    segments merge by their log-sum-exp; the rank keeps its heads for the
+    row-parallel ``wo``.  Any other cache is gathered whole (the batch
+    dimension stays this rank's rows), stepped by the single-device code
+    with the whole weights, and cut back."""
+    mc, specs = tp.mc, tp.cache_specs
+    if not (kind.mixer in ATTN_TP and "k" in cache):
+        nob = {n: Spec(*((None,) + tuple(sp)[1:])) for n, sp in specs.items()}
+        whole = {n: unshard_leaf(t, nob[n], mc) for n, t in cache.items()}
+        x = _mixer_decode(x, lp, kind, whole, pos, cfg, rot, impl=impl, lora=lora,
+                          lora_scale=lora_scale, opts=opts)
+        for n, t in cache.items():
+            t.copy_(shard_leaf(whole[n], nob[n], mc))
+        return x
+    xn = apply_norm(x, lp["norm1"], cfg.norm, cfg.norm_eps)
+    mf = _sub(lora, "mixer")
+    b = x.shape[0]
+    q, k, v = _qkv(xn, lp["mixer"], cfg, mf, lora_scale, rot, _heads(cfg, tp))
+    if tp.attn:
+        q, k, v = (gather(t, mc, tp.model, 2, sum_grad=False) for t in (q, k, v))
+    kc, vc = cache["k"], cache["v"]
+    seq = specs["k"][1]
+    sc = kc.shape[1] * mc.extent(seq)
+    if kind.mixer == "local":           # ring: every slot read lies in the window
+        slot, n_read, sparse = pos % sc, min(pos + 1, sc), None
+    else:
+        slot, n_read, sparse = min(pos, sc - 1), pos + 1, _sparse(cfg, impl)
+    segment_write(kc, k, slot, mc, seq)
+    segment_write(vc, v, slot, mc, seq)
+    y = decode_segment(q, kc, vc, n_read, mc, seq, sparse=sparse)
+    if tp.attn:                         # this rank's heads for the row-parallel wo
+        h_loc = cfg.n_heads // mc.model_size
+        y = y[:, :, mc.coord(tp.model) * h_loc:(mc.coord(tp.model) + 1) * h_loc]
+    o = lora_proj(y.reshape(b, 1, -1).contiguous(), lp["mixer"]["wo"], _sub(mf, "wo"),
+                  scale=lora_scale)
+    x = x + (all_reduce(o, mc, tp.model) if tp.attn else o)
+    if kind.mixer == "dec":
+        cf, cp = _sub(lora, "cross"), lp["cross"]
+        xn2 = apply_norm(x, lp["norm_x"], cfg.norm, cfg.norm_eps)
+        qx = lora_proj(xn2, cp["wq"], _sub(cf, "wq"), scale=lora_scale).reshape(
+            b, 1, cfg.n_heads, cfg.hd)
+        seqx = specs["xk"][1]
+        yx = decode_segment(qx, cache["xk"], cache["xv"],
+                            cache["xk"].shape[1] * mc.extent(seqx), mc, seqx)
+        x = x + lora_proj(yx.reshape(b, 1, -1), cp["wo"], _sub(cf, "wo"),
+                          scale=lora_scale)
+    return x
 
 
 def layer_cache_shape(cfg: ModelConfig, kind: LayerKind, batch: int,

@@ -10,6 +10,9 @@ Factored LoRA: ``mamba_seq`` and ``mamba_decode`` take an optional
 ``lora`` subtree with ``{'a','b','mask'}`` factors on ``in_proj`` and/or
 ``out_proj`` and run those projections through ``peft.lora_proj`` (the
 fused LoRA kernel), so the shared base is never merged per client.
+
+``mamba_seq_sp`` is the sequence-parallel mixer of a (data, model) mesh's
+training step (the ``mamba_sp`` option).
 """
 from __future__ import annotations
 
@@ -19,6 +22,7 @@ import torch.nn.functional as F
 from repro_torch.kernels.ssd_chunk import ops as ssd_ops
 from repro_torch.models.norms import rmsnorm
 from repro_torch.models.peft import lora_proj
+from repro_torch.sharding import copy_to, gather, scatter
 
 
 def _lf(lora, key):
@@ -225,3 +229,58 @@ def mamba_decode(x, p, cfg, d_model: int, eps: float, h_state, conv_state,
     y = y + (p["d_skip"][None, :, None] * xs.float()).to(y.dtype)
     y = _gate_out(y.reshape(b, d_in), z, p, eps, lora, scale, x.dtype)
     return y[:, None], (hnew, window[:, 1:])
+
+
+# ---------------------------------------------------------------------------
+# Sequence-parallel SSD (the JAX package's ``mamba_seq_sp``)
+# ---------------------------------------------------------------------------
+
+
+def mamba_seq_sp(x, p, cfg, d_model: int, eps: float, mc):
+    """The mamba2 mixer with the sequence split over the model axis of
+    ``mc`` (a ``sharding.MeshCtx``): x (B, S, d) replicated over the model
+    ranks, ``p`` the whole weights.  Each rank scans its block of S from
+    state 0 (``ssd_scan``: the ``ssd_chunk`` kernel), its causal conv
+    reading the previous rank's last W-1 inputs (a summed zero buffer); the
+    ranks' (decay, end state) pairs are gathered, an exclusive prefix over
+    ranks gives this rank's incoming state, and its linear correction is
+    added.  → y (B, S, d) replicated again.  Falls back to ``mamba_seq``
+    where JAX's does (no model axis, S not dividing it)."""
+    m, n_dev = mc.model_axis, mc.model_size
+    if n_dev <= 1 or x.shape[1] % n_dev:
+        return mamba_seq(x, p, cfg, d_model, eps)[0]
+    # every rank's gradient of the (replicated) weights covers its block only
+    p = {k: ({kk: copy_to(vv, mc, m) for kk, vv in v.items()} if isinstance(v, dict)
+             else copy_to(v, mc, m)) for k, v in p.items()}
+    xs = scatter(x, mc, m, 1)
+    b, s, _ = xs.shape
+    d_in = cfg.expand * d_model
+    h = d_in // cfg.headdim
+    g_n = cfg.n_groups * cfg.state
+    w1 = cfg.conv_width - 1
+    z, xbc, dt_raw = _split_proj(xs @ p["in_proj"], d_in, g_n, h)
+    idx = mc.coord(m)
+    # every rank's graph holds every gathered entry, so that each runs the
+    # gathers' backward all_reduces (rank 0 reads no halo, and no state)
+    halos = gather(xbc[None, :, -w1:], mc, m, 0)                     # (M, B, W-1, C)
+    prev = torch.cat([torch.zeros_like(halos[:1]), halos[:-1]])[idx]
+    conv_out = _causal_conv(torch.cat([prev, xbc], 1), p["conv_w"], p["conv_b"])[:, w1:]
+    xbc = F.silu(conv_out)
+    xh = xbc[..., :d_in].reshape(b, s, h, cfg.headdim)
+    bmat = _heads(xbc[..., d_in:d_in + g_n], cfg.n_groups, h)
+    cmat = _heads(xbc[..., d_in + g_n:], cfg.n_groups, h)
+    dt = F.softplus(dt_raw.float() + p["dt_bias"][None, None])
+    a_coef = -torch.exp(p["a_log"])
+    y, s_dev = ssd_ops.ssd_scan(xh, dt, a_coef, bmat, cmat, chunk=cfg.chunk)
+    cs = torch.cumsum(dt * a_coef[None, None, :], 1)                  # (B, S_loc, H)
+    d_all = gather(torch.exp(cs[:, -1])[None], mc, m, 0)              # (M, B, H)
+    s_all = gather(s_dev.float()[None], mc, m, 0)                     # (M, B, H, P, N)
+    carry, prefix = torch.zeros_like(s_all[0]), []
+    for j in range(n_dev):                                # exclusive prefix over ranks
+        prefix.append(carry)
+        carry = d_all[j][..., None, None] * carry + s_all[j]
+    h_in = torch.stack(prefix + [carry])[idx]
+    y_corr = torch.einsum("blhn,bhpn,blh->blhp", cmat.float(), h_in, torch.exp(cs))
+    y = y.float() + y_corr + p["d_skip"][None, None, :, None] * xh.float()
+    y = _gate_out(y.reshape(b, s, d_in).to(x.dtype), z, p, eps, None, 1.0, x.dtype)
+    return gather(y, mc, m, 1, sum_grad=False)

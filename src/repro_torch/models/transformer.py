@@ -41,10 +41,28 @@ losses, as the JAX package does; a model without MoE layers adds nothing.
   as the JAX package's does;
 * ``causal_skip`` — accepted: the flash kernel never loads a kv tile above
   the causal diagonal, so causal attention skips them always;
-* ``mamba_sp`` and ``moe_a2a`` (sequence- and expert-parallel) need the
-  (data, model) tensor-parallel mesh and raise (ROADMAP queue 1 item 8's
-  last part; the client-sharded mesh of ``repro_torch.sharding`` does not
-  shard a model).
+* ``mamba_sp`` — under a mesh, training runs the mamba mixers
+  sequence-parallel (``ssm.mamba_seq_sp``);
+* ``moe_a2a`` — under a mesh, the MoE layers route by all-to-all
+  (``moe.moe_ffn_a2a``).  Without a mesh (or a model axis) both fall back
+  to the single-device mixers, as the JAX package's do.
+
+Under a (data, model) mesh (``Model(cfg, meshctx=...)``, a
+``sharding.MeshCtx``) the parameters are this rank's blocks under
+``sharding.param_specs`` (``shard`` cuts them from the whole tree,
+``unshard`` joins them; ``init`` always draws the whole tree).  The entry
+points take the whole batch and return whole results: each rank runs its
+batch rows (those of its data coordinate when the batch divides the data
+axes, all of them otherwise), the layers run their plans
+(``models.parallel``), the embedding and the LM head are vocab-parallel
+where the vocab divides the model axis (the cross-entropy's max and sum of
+exponentials reduced over it), and a loss's numerator and denominator are
+summed over the data ranks apart (the MoE balance loss is the mean of the
+data shards', JAX's ``pmean``).  The decode cache is laid out by
+``sharding.cache_specs`` (``init_cache``/``prefill`` return this rank's
+blocks; its ``specs`` and whole ``batch`` ride in the cache dict).  The
+JAX package's sequence-sharded layer boundary changes no number and is not
+done: activations between layers are replicated over the model axis.
 """
 from __future__ import annotations
 
@@ -60,11 +78,15 @@ from repro_torch.models.blocks import (IMPLS, apply_layer_decode,
                                        apply_layer_seq, check_kind,
                                        layer_cache_shape, rope_width)
 from repro_torch.models.norms import apply_norm
+from repro_torch.models.parallel import (layer_plan, layer_view, plan_factors,
+                                         view_leaf, vocab_embed, vocab_xent)
 from repro_torch.models.rope import rope_cos_sin
+from repro_torch.sharding import (MeshCtx, Spec, all_reduce, cache_specs, gather,
+                                  local_shape, param_specs, reduce_from, shard_leaf,
+                                  shard_tree, spec_axes, unshard_tree)
 
 AUX_WEIGHT = 0.01
-OPTS = ("sparse_gather_decode", "sparse_kv_seq", "causal_skip")
-MESH_OPTS = ("mamba_sp", "moe_a2a")
+OPTS = ("sparse_gather_decode", "sparse_kv_seq", "causal_skip", "mamba_sp", "moe_a2a")
 
 
 def _at(tree, r: int):
@@ -85,45 +107,53 @@ class Model:
     each repeat of a stage runs under ``torch.utils.checkpoint`` (the JAX
     package's ``jax.checkpoint`` of the layer-scan body): its activations
     are recomputed in the backward, the kernels' forwards and MoE's routing
-    included, which changes neither the loss nor a gradient."""
+    included, which changes neither the loss nor a gradient.  ``meshctx``:
+    the (data, model) mesh (the module docstring), ``policy`` the
+    ``param_specs`` policy ``shard`` cuts by."""
 
     def __init__(self, cfg: ModelConfig, dtype=torch.float32, device=None,
-                 impl: str = "auto", opts: Optional[dict] = None, remat: bool = False):
+                 impl: str = "auto", opts: Optional[dict] = None, remat: bool = False,
+                 meshctx: Optional[MeshCtx] = None, policy: str = "fsdp"):
         for stage in cfg.stages:
             for kind in stage.pattern:
                 check_kind(kind)
         self._check_impl(impl)
         opts = dict(opts or {})
-        mesh = [k for k in opts if k in MESH_OPTS and opts[k]]
-        if mesh:
-            raise NotImplementedError(
-                f"Model opts {mesh} need the (data, model) tensor-parallel mesh: "
-                "ROADMAP queue 1 item 8's last part")
-        unknown = sorted(set(opts) - set(OPTS) - set(MESH_OPTS))
+        unknown = sorted(set(opts) - set(OPTS))
         if unknown:
-            raise ValueError(f"unknown Model opts {unknown}; known: {OPTS + MESH_OPTS}")
+            raise ValueError(f"unknown Model opts {unknown}; known: {OPTS}")
         self.cfg = cfg
         self.dtype = dtype
         self.impl = impl
         self.remat = remat
         self.opts = opts
         self.device = resolve_device(device)
+        self.mc = meshctx
+        self.policy = policy
+        self.specs: Dict[str, Spec] = {}     # path → spec of the blocks ``shard`` cut
+        self._layer_specs: Dict[tuple, dict] = {}
 
     # ------------------------------------------------------------------ init
-    def init(self, generator: torch.Generator, max_seq: int = 0) -> Dict[str, Any]:
+    def init(self, generator: Optional[torch.Generator], max_seq: int = 0) -> Dict[str, Any]:
         """Random parameters at the JAX package's shapes and scales, drawn
-        on the CPU from ``generator`` and moved to the model's device."""
+        from ``generator`` on its device (the CPU, or the card for a CUDA
+        generator) and moved to the model's device; the whole tree, also
+        under a mesh (``shard`` cuts it).  ``generator`` None: ``meta``
+        tensors (shapes only)."""
         cfg = self.cfg
+        dev = self.device if generator is not None else torch.device("meta")
 
         def normal(shape, std):
-            return (torch.randn(*shape, generator=generator) * std).to(
-                device=self.device, dtype=self.dtype)
+            if generator is None:
+                return torch.empty(shape, dtype=self.dtype, device=dev)
+            return (torch.randn(*shape, generator=generator, device=generator.device)
+                    * std).to(device=dev, dtype=self.dtype)
 
         def norm(dim):
             one = torch.ones if cfg.norm == "ln" else torch.zeros
-            p = {"scale": one(dim, device=self.device, dtype=self.dtype)}
+            p = {"scale": one(dim, device=dev, dtype=self.dtype)}
             if cfg.norm == "ln":
-                p["bias"] = torch.zeros(dim, device=self.device, dtype=self.dtype)
+                p["bias"] = torch.zeros(dim, device=dev, dtype=self.dtype)
             return p
 
         def stacked_norm(r, dim):
@@ -160,10 +190,10 @@ class Model:
                 lp = {"norm1": stacked_norm(r, d)}
                 if kind.mixer == "mamba":
                     lp["mixer"] = ssm.init_mamba(normal, d, cfg.ssm, self.dtype,
-                                                 self.device, lead=(r,))
+                                                 dev, lead=(r,))
                 elif kind.mixer == "mla":
                     lp["mixer"] = mla.init_mla(normal, d, h, cfg.mla, self.dtype,
-                                               self.device, lead=(r,))
+                                               dev, lead=(r,))
                 else:
                     lp["mixer"] = attn_proj(r)
                     if kind.mixer == "dec":
@@ -183,13 +213,103 @@ class Model:
         params["stages"] = stages
         return params
 
+    # ---------------------------------------------------------------- mesh
+    def shard(self, tree):
+        """A whole parameter tree → this rank's blocks under
+        ``param_specs(meshctx, tree, cfg, self.policy)``; the model keeps
+        the specs (by path) to run on them."""
+        specs = trees.flatten(param_specs(self.mc, tree, self.cfg, self.policy))
+        self.specs.update(specs)
+        self._layer_specs.clear()
+        return shard_tree(tree, specs, self.mc)
+
+    def unshard(self, tree):
+        """This rank's blocks → the whole tree, on every rank."""
+        return unshard_tree(tree, self.specs, self.mc)
+
+    def sync_grads(self, grads):
+        """The gradients of this rank's blocks → their sums over the data
+        ranks: a leaf whose spec holds no batch axis (norm scales, the
+        router, adapters, LoRA factors, and every leaf of a tree this model
+        did not shard) is summed over the data axes, all of them in one
+        all_reduce a dtype; an FSDP leaf already is (its gather's
+        backward).  The identity without a mesh or data axis."""
+        mc = self.mc
+        if mc is None or mc.data_size <= 1:
+            return grads
+        batch = set(mc.batch_axes)
+        flat = trees.flatten(grads)
+        todo = [p for p, g in flat.items() if g is not None and not any(
+            batch & set(spec_axes(e)) for e in self.specs.get(p, ()))]
+        out = dict(flat)
+        for dt in {flat[p].dtype for p in todo}:
+            ps = [p for p in todo if flat[p].dtype == dt]
+            buf = all_reduce(torch.cat([flat[p].reshape(-1) for p in ps]), mc, mc.batch_axes)
+            off = 0
+            for p in ps:
+                out[p] = buf[off:off + flat[p].numel()].reshape(flat[p].shape)
+                off += flat[p].numel()
+        return trees.map_with_path(lambda p, g: out[p], grads)
+
+    def _view(self, params, name: str, keep: bool = False):
+        """A top-level leaf (or norm dict) in the compute's layout: whole,
+        or with its model dimension this rank's (``keep``)."""
+        x = params[name]
+        if self.mc is None:
+            return x
+        if isinstance(x, dict):
+            return {k: view_leaf(v, self.specs.get(f"{name}/{k}"), self.mc)
+                    for k, v in x.items()}
+        return view_leaf(x, self.specs.get(name), self.mc, keep)
+
+    def _vocab(self, name: str) -> bool:
+        """Whether ``name`` (embed, lm_head) is split over the model axis
+        along its vocab dimension."""
+        spec = self.specs.get(name) if self.mc is not None else None
+        return spec is not None and spec[0 if name == "embed" else -1] == self.mc.model_axis
+
+    def _rows(self, batch: int) -> bool:
+        """Whether each rank runs its data coordinate's rows of a batch."""
+        d = self.mc.data_size if self.mc is not None else 1
+        return d > 1 and batch % d == 0
+
+    def _local(self, t, rows: bool):
+        if t is None or not rows:
+            return t
+        return shard_leaf(t, Spec(self.mc.batch_axes, *([None] * (t.dim() - 1))), self.mc)
+
+    def _whole_rows(self, t, rows: bool):
+        return gather(t, self.mc, self.mc.batch_axes, 0, sum_grad=False) if rows else t
+
+    def _layer(self, sp, lsp, si: int, pi: int, kind, r: int, **flags):
+        """One repeat's layer params and factors (in its plan's layout under
+        a mesh) and its plan (None without a mesh)."""
+        lp = _at(sp["layers"][pi], r)
+        lf = None if lsp is None else _at(lsp["layers"][pi], r)
+        if self.mc is None:
+            return lp, lf, None
+        rel = self._layer_specs.get((si, pi))
+        if rel is None:
+            pre = f"stages/{si}/layers/{pi}/"
+            rel = {p[len(pre):]: Spec(*tuple(sp_)[1:]) for p, sp_ in self.specs.items()
+                   if p.startswith(pre)}
+            self._layer_specs[(si, pi)] = rel
+        plan = layer_plan(self.mc, self.cfg, kind, rel,
+                          mamba_sp=bool(self.opts.get("mamba_sp")),
+                          moe_a2a=bool(self.opts.get("moe_a2a")), **flags)
+        return layer_view(lp, rel, plan), plan_factors(lf, plan), plan
+
     # -------------------------------------------------------------- plumbing
     def _embed_tokens(self, params, tokens, positions):
-        x = params["embed"][tokens].to(self.dtype)
+        if self._vocab("embed"):
+            x = vocab_embed(self._view(params, "embed", keep=True), tokens,
+                            self.mc).to(self.dtype)
+        else:
+            x = self._view(params, "embed")[tokens].to(self.dtype)
         if self.cfg.embed_scale:
             x = x * self.cfg.d_model ** 0.5
         if self.cfg.pos == "learned":
-            x = x + params["pos_embed"][positions].to(self.dtype)
+            x = x + self._view(params, "pos_embed")[positions].to(self.dtype)
         return x
 
     def _rot(self, positions):
@@ -242,9 +362,11 @@ class Model:
         return hidden, caches
 
     def _stages(self, params, lora, x, rot, impl, lora_scale, *, stream=None,
-                memory=None, collect_cache=False):
+                memory=None, collect_cache=False, rows=False, train=False):
         """Run the stages (of one ``stream``, or all) over x → (x, aux,
-        caches: a list per stage, None for a stage not run)."""
+        caches: a list per stage, None for a stage not run).  Under a mesh
+        each layer's view (its FSDP gathers) is taken inside the repeat, so
+        remat takes it again in the backward."""
         cfg = self.cfg
         aux = None
         caches = []
@@ -258,13 +380,14 @@ class Model:
             sp, lsp = params["stages"][si], self._lora_stage(lora, si)
             got = [{} for _ in stage.pattern]
 
-            def repeat(x, aux, r, stage=stage, sp=sp, lsp=lsp, got=got):
+            def repeat(x, aux, r, stage=stage, sp=sp, lsp=lsp, got=got, si=si):
                 """One repeat of the stage's layer pattern."""
                 for pi, kind in enumerate(stage.pattern):
-                    lf = None if lsp is None else _at(lsp["layers"][pi], r)
-                    x, c, a = apply_layer_seq(x, _at(sp["layers"][pi], r), kind, cfg,
-                                              rot, impl=impl, lora=lf,
-                                              lora_scale=lora_scale, memory=memory)
+                    lp, lf, tp = self._layer(sp, lsp, si, pi, kind, r, rows=rows,
+                                             train=train)
+                    x, c, a = apply_layer_seq(x, lp, kind, cfg, rot, impl=impl, lora=lf,
+                                              lora_scale=lora_scale, memory=memory,
+                                              tp=tp, collect=collect_cache)
                     if a is not None:
                         aux = a if aux is None else aux + a
                     if collect_cache:
@@ -281,7 +404,7 @@ class Model:
                           if collect_cache else None)
         return x, aux, caches
 
-    def _encode(self, params, frames, impl, lora, lora_scale):
+    def _encode(self, params, frames, impl, lora, lora_scale, rows=False, train=False):
         """The encoder-decoder's memory: its encoder stages over the
         post-conv ``frames`` (B, S_enc, d) plus ``enc_pos``, then
         ``enc_norm`` (an encoder stage's balance loss is dropped, as the
@@ -290,16 +413,19 @@ class Model:
         if frames is None or tuple(frames.shape[1:]) != (cfg.encoder_seq, cfg.d_model):
             raise ValueError(f"{cfg.name} takes frames (B, {cfg.encoder_seq}, "
                              f"{cfg.d_model})")
-        x = frames.to(self.dtype) + params["enc_pos"].to(self.dtype)[None]
+        x = frames.to(self.dtype) + self._view(params, "enc_pos").to(self.dtype)[None]
         x, _, _ = self._stages(params, lora, x, None, impl, lora_scale,
-                               stream="encoder")
-        return apply_norm(x, params["enc_norm"], cfg.norm, cfg.norm_eps)
+                               stream="encoder", rows=rows, train=train)
+        return apply_norm(x, self._view(params, "enc_norm"), cfg.norm, cfg.norm_eps)
 
     def _run(self, params, tokens, *, frames=None, patches=None, impl=None,
-             collect_cache=False, lora=None, lora_scale=1.0):
+             collect_cache=False, lora=None, lora_scale=1.0, train=False):
         """``forward`` → (hidden, aux, caches); aux is the MoE layers' summed
-        balance loss, None without MoE layers."""
+        balance loss, None without MoE layers.  Under a mesh the inputs are
+        the whole batch and the outputs this rank's rows."""
         cfg = self.cfg
+        rows = self._rows(tokens.shape[0])
+        tokens, frames, patches = (self._local(t, rows) for t in (tokens, frames, patches))
         impl = impl or self.impl
         self._check_impl(impl)
         self._check_lora(lora)
@@ -310,16 +436,16 @@ class Model:
             raise ValueError(f"{cfg.name} takes patches (B, {n_pre}, {cfg.prefix_dim})")
         memory = None
         if cfg.is_encoder_decoder:
-            memory = self._encode(params, frames, impl, lora, lora_scale)
+            memory = self._encode(params, frames, impl, lora, lora_scale, rows, train)
         positions = torch.arange(n_pre + tokens.shape[1], device=tokens.device)
         x = self._embed_tokens(params, tokens, positions[n_pre:])
         if n_pre:
-            x = torch.cat([patches.to(self.dtype) @ params["projector"], x], 1)
+            x = torch.cat([patches.to(self.dtype) @ self._view(params, "projector"), x], 1)
         x, aux, caches = self._stages(
             params, lora, x, self._rot(positions), impl, lora_scale,
             stream="decoder" if cfg.is_encoder_decoder else None, memory=memory,
-            collect_cache=collect_cache)
-        x = apply_norm(x, params["final_norm"], cfg.norm, cfg.norm_eps)
+            collect_cache=collect_cache, rows=rows, train=train)
+        x = apply_norm(x, self._view(params, "final_norm"), cfg.norm, cfg.norm_eps)
         return x, aux, (caches if collect_cache else None)
 
     @staticmethod
@@ -332,7 +458,22 @@ class Model:
                              "cache")
 
     def _lm_head(self, params):
-        return params["embed"].T if self.cfg.tie_embeddings else params["lm_head"]
+        """(head (d, V or this rank's V/M columns), vocab-parallel?)."""
+        name = "embed" if self.cfg.tie_embeddings else "lm_head"
+        vocab = self._vocab(name)
+        head = self._view(params, name, keep=vocab)
+        return (head.T if name == "embed" else head), vocab
+
+    def _mesh_mean(self, tot, cnt, aux):
+        """A loss over the data ranks: its numerator this rank's, its
+        denominator summed over them (a mean of means is wrong where masks
+        differ), plus the balance loss averaged over them; the value summed
+        over the data ranks, the backward this rank's share."""
+        mc = self.mc
+        loss = tot / torch.clamp(all_reduce(cnt, mc, mc.batch_axes), min=1.0)
+        if aux is not None:
+            loss = loss + AUX_WEIGHT * (aux / mc.data_size)
+        return reduce_from(loss, mc, mc.batch_axes)
 
     # ----------------------------------------------------------------- loss
     def lm_loss(self, params, batch, *, impl: Optional[str] = None,
@@ -343,22 +484,29 @@ class Model:
         batch carries ``patches``, an encoder-decoder's ``frames``."""
         hidden, aux, _ = self._run(params, batch["tokens"], frames=batch.get("frames"),
                                    patches=batch.get("patches"), impl=impl, lora=lora,
-                                   lora_scale=lora_scale)
+                                   lora_scale=lora_scale, train=True)
         hidden = hidden[:, self.cfg.n_prefix_tokens:]    # text positions only
-        labels, mask = batch["labels"], batch["mask"]
+        rows = self._rows(batch["labels"].shape[0])
+        labels, mask = self._local(batch["labels"], rows), self._local(batch["mask"], rows)
         s = hidden.shape[1]
-        head = self._lm_head(params)
+        head, vocab = self._lm_head(params)
         chunk = min(chunk, s)
         if s % chunk:
             chunk = s
         tot = cnt = 0.0
         for c0 in range(0, s, chunk):
-            logits = (hidden[:, c0:c0 + chunk] @ head).float()
-            logz = torch.logsumexp(logits, dim=-1)
-            ll = logits.gather(-1, labels[:, c0:c0 + chunk, None].long())[..., 0]
+            lab = labels[:, c0:c0 + chunk]
+            if vocab:
+                terms = vocab_xent(hidden[:, c0:c0 + chunk], head, lab, self.mc)
+            else:
+                logits = (hidden[:, c0:c0 + chunk] @ head).float()
+                logz = torch.logsumexp(logits, dim=-1)
+                terms = logz - logits.gather(-1, lab[..., None].long())[..., 0]
             m = mask[:, c0:c0 + chunk].float()
-            tot = tot + ((logz - ll) * m).sum()
+            tot = tot + (terms * m).sum()
             cnt = cnt + m.sum()
+        if self.mc is not None:
+            return self._mesh_mean(tot, cnt, aux)
         return self._with_aux(tot / torch.clamp(cnt, min=1.0), aux)
 
     def cls_loss(self, params, batch, *, impl: Optional[str] = None,
@@ -368,13 +516,19 @@ class Model:
         a ragged cohort, ``core.cohort.HostBatchStacker``) makes both the
         weighted means over the real rows."""
         hidden, aux, _ = self._run(params, batch["tokens"], impl=impl, lora=lora,
-                                   lora_scale=lora_scale)
-        logits = (hidden[:, 0] @ params["cls_head"]).float()
-        label = batch["label"].long()
+                                   lora_scale=lora_scale, train=True)
+        logits = (hidden[:, 0] @ self._view(params, "cls_head")).float()
+        rows = self._rows(batch["label"].shape[0])
+        label = self._local(batch["label"], rows).long()
         logz = torch.logsumexp(logits, dim=-1)
         ll = logits.gather(-1, label[:, None])[:, 0]
         correct = (logits.argmax(-1) == label).float()
-        w = batch.get("valid")
+        w = self._local(batch.get("valid"), rows)
+        if self.mc is not None:
+            w = torch.ones_like(ll) if w is None else w.float()
+            acc = all_reduce((correct * w).sum(), self.mc, self.mc.batch_axes)
+            n = torch.clamp(all_reduce(w.sum(), self.mc, self.mc.batch_axes), min=1.0)
+            return self._mesh_mean(((logz - ll) * w).sum(), w.sum(), aux), acc / n
         if w is None:
             return self._with_aux((logz - ll).mean(), aux), correct.mean()
         wsum = torch.clamp(w.sum(), min=1.0)
@@ -382,7 +536,11 @@ class Model:
                 (correct * w).sum() / wsum)
 
     def logits(self, params, hidden):
-        return (hidden @ self._lm_head(params)).float()
+        """hidden (…, d) → f32 logits over the whole vocab (gathered over
+        the model axis when the head is vocab-parallel)."""
+        head, vocab = self._lm_head(params)
+        out = (hidden @ head).float()
+        return gather(out, self.mc, self.mc.model_axis, -1, sum_grad=False) if vocab else out
 
     # ---------------------------------------------------------------- cache
     def init_cache(self, batch: int, cache_len: int, dtype=None, *,
@@ -395,18 +553,37 @@ class Model:
         positions instead), {"ckv", "kpe"} for MLA, {"h" f32, "conv"} for
         mamba; an encoder stage's place holds None.  A VLM's prefix takes
         cache positions too.  ``sparse_kv`` overrides the option (prefill
-        builds plain caches)."""
+        builds plain caches).  Under a mesh: this rank's blocks of the
+        cache of the whole ``batch`` (``sharding.cache_specs``), with
+        ``specs`` and ``batch`` in the dict."""
         self._check_decoder()
+        if self.mc is None:
+            return self._alloc_cache(batch, cache_len, dtype, sparse_kv, self.device)
+        meta = self._alloc_cache(batch, cache_len, dtype, sparse_kv, torch.device("meta"))
+        specs = self._cache_specs(meta, batch)
+        stages = trees.map_with_path(
+            lambda p, t: torch.zeros(local_shape(t.shape, specs["stages/" + p], self.mc),
+                                     dtype=t.dtype, device=self.device), meta["stages"])
+        return {"pos": 0, "stages": stages, "specs": specs, "batch": batch}
+
+    def _alloc_cache(self, batch, cache_len, dtype, sparse_kv, device):
         dtype = dtype or self.dtype
         if sparse_kv is None:
             sparse_kv = bool(self.opts.get("sparse_kv_seq"))
         return {"pos": 0, "stages": [
             None if self.cfg.is_encoder_decoder and stage.stream != "decoder" else
-            [{n: torch.zeros((stage.repeats,) + shp, dtype=dt, device=self.device)
+            [{n: torch.zeros((stage.repeats,) + shp, dtype=dt, device=device)
               for n, (shp, dt) in layer_cache_shape(self.cfg, kind, batch, cache_len,
                                                     dtype, sparse_kv).items()}
              for kind in stage.pattern]
             for stage in self.cfg.stages]}
+
+    def _cache_specs(self, cache, batch: int) -> Dict[str, Spec]:
+        """{"stages/si/pi/name": spec} of a cache of the whole ``batch``."""
+        shapes = trees.map_leaves(
+            lambda t: torch.empty((t.shape[0], batch) + tuple(t.shape[2:]), device="meta"),
+            {"stages": cache["stages"]})
+        return trees.flatten(cache_specs(self.mc, shapes, batch=batch))
 
     # -------------------------------------------------------------- prefill
     def prefill(self, params, tokens, cache_len: int, *, frames=None, patches=None,
@@ -424,7 +601,8 @@ class Model:
         hidden, caches = self.forward(params, tokens, frames=frames, patches=patches,
                                       impl=impl, collect_cache=True, lora=lora,
                                       lora_scale=lora_scale)
-        cache = self.init_cache(tokens.shape[0], cache_len, sparse_kv=False)
+        self._check_decoder()
+        cache = self._alloc_cache(hidden.shape[0], cache_len, None, False, self.device)
         for entries, got in zip(cache["stages"], caches):
             if entries is None:
                 continue
@@ -441,7 +619,17 @@ class Model:
                                              device=buf.device) % sc
                         buf[:, :, slots] = raw[name][:, :, -sc:]
         cache["pos"] = s_prompt
-        return self.logits(params, hidden[:, -1]), cache
+        logits = self.logits(params, hidden[:, -1])
+        if self.mc is None:
+            return logits, cache
+        # this rank's rows hold every position and head: cut its blocks
+        b = tokens.shape[0]
+        specs = self._cache_specs(cache, b)
+        cache["stages"] = trees.map_with_path(
+            lambda p, t: shard_leaf(t, Spec(*((None, None) + tuple(specs["stages/" + p])[2:])),
+                                    self.mc), cache["stages"])
+        cache.update(specs=specs, batch=b)
+        return self._whole_rows(logits, self._rows(b)), cache
 
     # ---------------------------------------------------------------- decode
     def decode_step(self, params, cache, tokens, *, impl: Optional[str] = None,
@@ -454,6 +642,8 @@ class Model:
         self._check_lora(lora)
         self._check_decoder()
         pos = cache["pos"]
+        rows = self.mc is not None and self._rows(cache["batch"])
+        tokens = self._local(tokens, rows)
         positions = torch.full_like(tokens, pos)
         x = self._embed_tokens(params, tokens, positions)
         rot = self._rot(positions[0])
@@ -463,11 +653,17 @@ class Model:
             sp, lsp = params["stages"][si], self._lora_stage(lora, si)
             for r in range(stage.repeats):
                 for pi, kind in enumerate(stage.pattern):
-                    lf = None if lsp is None else _at(lsp["layers"][pi], r)
-                    x = apply_layer_decode(x, _at(sp["layers"][pi], r), kind,
-                                           _at(cache["stages"][si][pi], r), pos,
-                                           cfg, rot, impl=impl, lora=lf,
-                                           lora_scale=lora_scale, opts=self.opts)
-        x = apply_norm(x, params["final_norm"], cfg.norm, cfg.norm_eps)
+                    entry = _at(cache["stages"][si][pi], r)
+                    flags = {}
+                    if self.mc is not None:
+                        flags = dict(rows=rows, sparse_kv="k_pers" in entry, cache_specs={
+                            n: Spec(*tuple(cache["specs"][f"stages/{si}/{pi}/{n}"])[1:])
+                            for n in entry})
+                    lp, lf, tp = self._layer(sp, lsp, si, pi, kind, r, **flags)
+                    x = apply_layer_decode(x, lp, kind, entry, pos, cfg, rot, impl=impl,
+                                           lora=lf, lora_scale=lora_scale, opts=self.opts,
+                                           tp=tp)
+        x = apply_norm(x, self._view(params, "final_norm"), cfg.norm, cfg.norm_eps)
         cache["pos"] = pos + 1
-        return self.logits(params, x[:, 0]), cache
+        logits = self.logits(params, x[:, 0])
+        return (logits if self.mc is None else self._whole_rows(logits, rows)), cache

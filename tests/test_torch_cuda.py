@@ -646,7 +646,8 @@ def test_peft_step_on_card_matches_cpu(gen):
     plain versions): losses and trainables."""
     from repro_torch import trees
     from repro_torch.launch import train
-    argv = ["--arch", "roberta-base", "--reduced", "--batch", "4", "--seq", "32"]
+    argv = ["--arch", "roberta-base", "--reduced", "--batch", "4", "--seq", "32",
+            "--lora-rank", "8"]
     card = train.Trainer(train.parse_args(argv))
     cpu = train.Trainer(train.parse_args(argv + ["--device", "cpu"]))
     rng = __import__("numpy").random.RandomState(0)

@@ -179,10 +179,11 @@ def test_steps_ckpt_reads_back(tmp_path, lora_rank):
 
 
 def test_launcher_refusals(monkeypatch):
-    with pytest.raises(SystemExit, match="tensor-parallel"):
-        train.parse_args(["--arch", "gpt2-small", "--data-axis", "2"])
     for var in ("RANK", "WORLD_SIZE"):
         monkeypatch.delenv(var, raising=False)
+    with pytest.raises(SystemExit, match="torchrun"):
+        train.main(["--arch", "gpt2-small", "--reduced", "--steps", "1", "--data-axis", "2",
+                    "--device", "cpu"])
     assert not launch_mesh.in_torchrun()
     with pytest.raises(RuntimeError, match="torch.distributed.run"):
         launch_mesh.make_client_mesh("cpu")

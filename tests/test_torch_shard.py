@@ -77,9 +77,10 @@ def test_ghost_padding_matches_jax(mesh1):
 
 
 def test_mesh_checks_and_world1_collectives(mesh1):
-    """A tensor-parallel axis and a mesh larger than its group raise; at
+    """A ClientMesh with an axis besides its client axes (a (data, model)
+    mesh comes as a MeshCtx) and a mesh larger than its group raise; at
     world size 1 the collectives return their input."""
-    with pytest.raises(NotImplementedError, match="tensor-parallel"):
+    with pytest.raises(ValueError, match="MeshCtx"):
         sharding.mesh_axes(sharding.ClientMesh(("data", "model"), (1, 2)))
     with pytest.raises(ValueError, match="ranks"):
         sharding.mesh_axes(sharding.ClientMesh(("data",), (2,)))

@@ -193,15 +193,15 @@ def test_gpt2_decode_from_sparse_kv_cache_matches_jax():
 
 
 def test_model_opts():
-    """Unknown options raise; the mesh options raise naming queue 1 item 8;
+    """Unknown options raise; the mesh options are accepted (without a mesh
+    they fall back to the single-device mixers, ``tests/test_torch_tp.py``);
     ``causal_skip`` is accepted; ``sparse_kv_seq``
     leaves ``prefill``'s cache plain (as the JAX package's)."""
     cfg = get_config("gpt2-small").reduced(d_model=64)
     with pytest.raises(ValueError, match="unknown Model opts"):
         Model(cfg, device="cpu", opts={"bogus": 1})
     for name in ("mamba_sp", "moe_a2a"):
-        with pytest.raises(NotImplementedError, match="item 8"):
-            Model(cfg, device="cpu", opts={name: True})
+        assert Model(cfg, device="cpu", opts={name: True}).opts == {name: True}
     m = Model(cfg, device="cpu", impl="sparse",
               opts={"causal_skip": True, "sparse_kv_seq": 64})
     p = m.init(torch.Generator().manual_seed(0), max_seq=64)

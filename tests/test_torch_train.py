@@ -327,17 +327,17 @@ def test_peft_and_train_steps_match_jax(encoder):
 
 
 def test_train_launcher_steps_on_cpu():
-    """``--steps`` mode on the CPU: the PEFT default and full fine-tuning
-    run; the PEFT trainables are the adapters and the LoRA factors; the
-    uplink and population flags reach ``PFTTConfig``; unported modes raise
-    by name."""
+    """``--steps`` mode on the CPU: PEFT (``--lora-rank 8``) and the
+    default full fine-tuning run; the PEFT trainables are the adapters and
+    the LoRA factors; the uplink and population flags reach
+    ``PFTTConfig``; unported modes raise by name."""
     argv = ["--arch", "roberta-base", "--reduced", "--steps", "4", "--batch", "4",
             "--seq", "16", "--device", "cpu"]
-    losses = train.main(argv)
+    losses = train.main(argv + ["--lora-rank", "8"])
     assert len(losses) == 4 and all(np.isfinite(losses))
-    full = train.main(argv + ["--lora-rank", "0"])
+    full = train.main(argv)
     assert len(full) == 4 and all(np.isfinite(full))
-    tr = train.Trainer(train.parse_args(argv))
+    tr = train.Trainer(train.parse_args(argv + ["--lora-rank", "8"]))
     assert set(tr.trainable) == {"adapters", "lora"}
     assert all("/adapter/" in p for p in trees.flatten(tr.trainable["adapters"]))
     cfg = train.pftt_config(train.parse_args(argv + ["--fault-plan", "dropout_p=0.5",

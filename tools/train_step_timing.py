@@ -39,7 +39,8 @@ def main():
     from repro_torch.launch import train
 
     tr = train.Trainer(train.parse_args(["--arch", "roberta-base", "--batch", "16",
-                                         "--seq", "128"]), remat=args.remat)
+                                         "--seq", "128", "--lora-rank", "8"]),
+                       remat=args.remat)
     rng = np.random.RandomState(0)
     batches = [tr.to_device(tr.batch(rng)) for _ in range(5 + args.steps)]
     step_ms = []
