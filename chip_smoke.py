@@ -51,6 +51,16 @@ Phases, each reported on its own lines:
      steps, LoRA on wq and wv: the encoder's non-causal ``flash_attn`` over
      1500 frames, the ``dec`` layers' causal and cross ``flash_attn`` in
      prefill, two ``decode_attn`` a layer a step (self, cross over 1500);
+   * SERVE-GEMMA3 and SERVE-GEMMA3-SPARSE: gemma3-12b at its published
+     widths (d 3840, 16 query heads on 8 KV heads of 240, GeGLU d_ff
+     15360, tied vocab 262144, window 1024), cut to one repeat of its 5:1
+     pattern (``gemma3_cut``: 5 ``local`` layers and 1 global, 2.33 B
+     parameters), batch 2, prompt 1152 (past the window: the rings wrap in
+     prefill), 32 decode steps, LoRA on wq and wv (the sparse path serves
+     the dense path's weights): heads of 240 through
+     ``flash_attn`` (windowed on the local layers) and ``decode_attn``
+     (rings and the global cache), and under ``impl="sparse"`` the global
+     layer through ``block_sparse_attn`` and the sparse decode mask;
    * SERVE-MLA: deepseek-v2-236b's MLA at its published widths (d 5120,
      128 heads, q_lora 1536, kv_lora 512, rope 64, nope 128, v 128, vocab
      102400, dense FF 12288, experts of 1536 with 2 shared and top-6), cut
@@ -76,8 +86,9 @@ Phases, each reported on its own lines:
 6. grads   — each autograd Function (``lora_fused``'s and ``flash_attn``'s,
    non-causal and causal, and ``ssd_chunk``'s ``SSDScan``: the kernel
    forward, a plain-torch backward) at
-   the training paths' shapes, and ``flash_attn``'s at MLA's (q/k 96, v
-   64): every input gradient against autograd of the plain version on the
+   the training paths' shapes, ``flash_attn``'s at MLA's (q/k 80, v 64:
+   the (96, 64) tile) and at heads of 16 (the launcher's default arch
+   round, the 32 tile): every input gradient against autograd of the plain version on the
    card (GRAD lines, f32 tolerances of TOL), forward and backward device
    times of both.
 7. TRAIN-PFTT — ``run_pftt`` (the launcher's ``--fl-clients 4
@@ -166,16 +177,20 @@ Phases, each reported on its own lines:
    health on and off, each timed in turns.
 14. ARCH-ROUND — the universal factored round (``core/arch_round.py``)
    through ``launch/train.py --arch X --fl-clients 4 --fl-rounds 2
-   --assert-fused --fl-dmodel 256`` for gpt2-small, llama3.2-1b,
-   gemma3-12b, internvl2-26b, dbrx-132b, jamba-v0.1-52b, mamba2-1.3b,
-   deepseek-v2-236b (MLA at (96, 64) with gradient) and whisper-base:
+   --assert-fused`` at ``--fl-dmodel 256`` (heads of 64) and at the
+   launcher's default width, d 64 (heads of 16, MLA's (32, 16): the 32
+   tile), for gpt2-small, llama3.2-1b, gemma3-12b, internvl2-26b,
+   dbrx-132b, jamba-v0.1-52b, mamba2-1.3b, deepseek-v2-236b (MLA with
+   gradient: (80, 64) in the (96, 64) tile at d 256) and whisper-base:
    seconds a round, losses, the launcher's on-card oracle check (≤ 1e-5),
-   launches against ``arch_expected``; a CPU re-run (losses within 1e-5);
-   then ``--fl-dmodel 64`` (head width 16) must raise on the card.  The
+   launches against ``arch_expected``; a CPU re-run (losses within
+   1e-5).  The
    grads phase has a GRAD row for ``SSDScan`` (the SSD scan's Function) at
    the jamba/mamba2 round's shape, and the kernels phase CHECK rows at
-   SERVE-LLAMA's and SERVE-ZOO's shapes, and at SERVE-MLA's, SERVE-WHISPER's,
-   SERVE-SPARSE-KV's and the MLA round's (``mla_whisper_cases``).
+   SERVE-LLAMA's and SERVE-ZOO's shapes, at SERVE-MLA's, SERVE-WHISPER's,
+   SERVE-SPARSE-KV's and the MLA round's (``mla_whisper_cases``), and at
+   SERVE-GEMMA3's heads of 240 and the default arch round's heads of 16
+   (``width_cases``).
 15. TRAIN-MESH — the client-sharded cohort over ``torch.distributed``
    (``repro_torch.sharding``, ``launch/mesh.py``): (a) ``run_pftt`` at
    TRAIN-PFTT's settings (pftt) under a one-rank NCCL group against the
@@ -259,6 +274,7 @@ REPLACES = {"lora_fused": "src/repro/kernels/lora_fused/kernel.py:69",
             "decode_attn": "src/repro/kernels/decode_attn/kernel.py:92",
             "block_sparse_attn": "src/repro/kernels/block_sparse_attn/kernel.py:102",
             "ssd_chunk": "src/repro/kernels/ssd_chunk/kernel.py:76"}
+GEMMA3_PROMPT = 1152     # SERVE-GEMMA3's prompt: 9 sparse blocks, past the window of 1024
 # Serving paths.  ``rows``: batch rows re-run on the CPU; ``logit_tol``:
 # the card's logits against the CPU's, absolute, times max(1, max |logit|).
 # f32 on both sides: what differs is the order of the sums (tiles, split
@@ -276,9 +292,9 @@ SERVES = (
     dict(tag="SERVE-LLAMA", arch="llama3.2-1b", impl="auto", batch=8,
          prompt_len=512, gen=64, rank=8, rows=1, logit_tol=1e-3),
 ) + tuple(
-    # the rest of the zoo at .reduced(d_model=256, repeats=2): head width 64
-    # (gemma3's own 240 has no kernel instance yet), gemma3's window 64 so
-    # its rings wrap in prefill and decode; internvl2's 8 patch positions
+    # the rest of the zoo at .reduced(d_model=256, repeats=2): head width
+    # 64, gemma3's window 64 so its rings wrap in prefill and decode;
+    # internvl2's 8 patch positions
     dict(tag=f"SERVE-ZOO {arch}", arch=arch, impl="auto", batch=2, prompt_len=96, gen=40,
          rank=8, rows=2, logit_tol=1e-3, reduced=dict(d_model=256, repeats=2),
          profile=False)
@@ -291,7 +307,16 @@ SERVES = (
     # deepseek-v2-236b's MLA at its published widths (mla_cut: two layers,
     # 16 routed experts): q/k 192, v 128 in prefill, absorbed decode
     dict(tag="SERVE-MLA", arch="deepseek-v2-236b", impl="auto", batch=4, prompt_len=256,
-         gen=32, rank=8, rows=1, logit_tol=1e-3, cut="mla"))
+         gen=32, rank=8, rows=1, logit_tol=1e-3, cut="mla"),
+    # gemma3-12b at its published widths, heads of 240 (gemma3_cut: one
+    # repeat of its 5:1 pattern); the prompt passes the window of 1024.
+    # The sparse path serves the dense path's weights (``weights_of``: one
+    # host draw of 2.33 B parameters, not two)
+    dict(tag="SERVE-GEMMA3", arch="gemma3-12b", impl="auto", batch=2,
+         prompt_len=GEMMA3_PROMPT, gen=32, rank=8, rows=1, logit_tol=1e-3, cut="gemma3"),
+    dict(tag="SERVE-GEMMA3-SPARSE", arch="gemma3-12b", impl="sparse", batch=2,
+         prompt_len=GEMMA3_PROMPT, gen=32, rank=8, rows=1, logit_tol=1e-3, cut="gemma3",
+         weights_of="SERVE-GEMMA3"))
 TEACHER_STEPS = 8
 PREFILL_REPS = 7
 # TRAIN-PFTT: card vs CPU (see train_pftt).  TRAIN-ROBERTA: card vs CPU over
@@ -549,7 +574,8 @@ def kernel_cases(torch):
             flops=2 * m * k * n + 2 * m * k * 8 + 2 * m * 8 * n, main=False,
             plan=(str(dt).split(".")[1], n, k) if m <= 16 else None,
             profile=(m == 4 and n == 2048 and dt == torch.float32)))
-    return cases + zoo_cases(torch, rn) + mla_whisper_cases(torch, rn)
+    return (cases + zoo_cases(torch, rn) + mla_whisper_cases(torch, rn)
+            + width_cases(torch, rn))
 
 
 def attn_case(torch, name, label, kernel, plain, q, k, v, allowed, mask=None, scale=None,
@@ -574,8 +600,8 @@ def attn_case(torch, name, label, kernel, plain, q, k, v, allowed, mask=None, sc
 def mla_whisper_cases(torch, rn):
     """f32 rows at the MLA, whisper and sparse-KV paths' shapes: ``flash_attn`` at
     SERVE-MLA's prefill (deepseek-v2's published (192, 128), B 4, S 256, H
-    128, scale 192^-1/2) and at ARCH-ROUND's deepseek-v2 (q/k 80 padded to
-    96, v 64; B 4, S 16, H 4), ``block_sparse_attn`` at (192, 128), S 512;
+    128, scale 192^-1/2) and at ARCH-ROUND's deepseek-v2 (q/k 80, v 64 in
+    the (96, 64) tile; B 4, S 16, H 4), ``block_sparse_attn`` at (192, 128), S 512;
     whisper's three flash shapes at SERVE-WHISPER (the encoder non-causal
     over 1500 frames, the decoder's causal self-attention over the prompt,
     the cross-attention of the prompt on the 1500 frames); ``decode_attn``'s
@@ -596,7 +622,7 @@ def mla_whisper_cases(torch, rn):
     cases = []
     for b, sq, sk, h, dk, dv, causal, sc, path in (
             (4, 256, 256, 128, 192, 128, True, 192 ** -0.5, "SERVE-MLA prefill"),
-            (4, 16, 16, 4, 96, 64, True, 80 ** -0.5, "ARCH-ROUND deepseek-v2, q/k 80 padded"),
+            (4, 16, 16, 4, 80, 64, True, None, "ARCH-ROUND deepseek-v2 d 256, the (96, 64) tile"),
             (8, 1500, 1500, 8, 64, 64, False, None, "SERVE-WHISPER encoder"),
             (8, 64, 64, 8, 64, 64, True, None, "SERVE-WHISPER decoder self"),
             (8, 64, 1500, 8, 64, 64, False, None, "SERVE-WHISPER cross")):
@@ -658,6 +684,107 @@ def mla_whisper_cases(torch, rn):
             nbytes=(2 * b * h * d + b * h + 2 * b * count * h * d) * 4,
             flops=4 * d * count * b * h, split=split_plan(b, kc.shape[1], h, window=count),
             read=read_call(kv, [(end - count, end)]), main=False))
+    return cases
+
+
+def width_cases(torch, rn):
+    """f32 rows at row widths below their compiled tile: SERVE-GEMMA3's
+    heads of 240 (the 256 tile; B 2, 16 query heads on 8 KV heads, prompt
+    GEMMA3_PROMPT): ``flash_attn`` causal with the local layers' window
+    1024 and without (the global layer), ``block_sparse_attn`` at the
+    global layer's pattern (block 128, local 4, sink 1, stride 8),
+    ``decode_attn`` on a full 1024-slot ring and on the global cache after
+    32 steps, plain and under the sparse mask, and its ``lora_fused``
+    projections (wq, wv at
+    prefill, wq at decode); the default arch round's heads of 16 and MLA's
+    (32, 16) (the 32 tile; B 4, S 16, H 4).  Bytes and operations count the
+    row widths, not the tile's; the library call is SDPA (``enable_gqa``;
+    the window and the sparse pattern as a boolean mask), or ``torch.matmul``
+    of the merged weight."""
+    import torch.nn.functional as F
+
+    from repro_torch.configs import SparseAttnConfig
+    from repro_torch.kernels.block_sparse_attn.ops import block_sparse_attention
+    from repro_torch.kernels.block_sparse_attn.ref import block_sparse_ref
+    from repro_torch.kernels.decode_attn.ops import decode_attention, split_plan
+    from repro_torch.kernels.decode_attn.ref import decode_ref
+    from repro_torch.kernels.flash_attn.ops import flash_attention
+    from repro_torch.kernels.flash_attn.ref import attention_ref
+    from repro_torch.models.attention import (make_mask, sparse_block_table,
+                                              sparse_position_mask)
+
+    cases = []
+    b, s_, h, kh, d = 2, GEMMA3_PROMPT, 16, 8, 240
+    cl = GEMMA3_PROMPT + 32               # the global cache after 32 steps
+    q, k, v = rn(b, s_, h, d), rn(b, s_, kh, d), rn(b, s_, kh, d)
+    for window, layer in ((1024, "local"), (0, "global")):
+        mask = make_mask(s_, s_, causal=True, window=window, device=q.device)
+        cases.append(attn_case(
+            torch, "flash_attn",
+            f"B={b} S={s_} H={h} K={kh} hd={d} causal window={window} (SERVE-GEMMA3 {layer})",
+            lambda q=q, k=k, v=v, w=window: flash_attention(q, k, v, causal=True, window=w),
+            lambda q=q, k=k, v=v, w=window: attention_ref(q, k, v, causal=True, window=w),
+            q, k, v, int(mask.sum()), mask=mask if window else None, causal=True))
+    serving = SparseAttnConfig(**SERVING_SPARSE)
+    idx, valid = sparse_block_table(s_ // 128, s_ // 128, serving, 0)
+    allowed = torch.zeros(s_, s_, dtype=torch.bool, device="cuda")
+    for i in range(idx.shape[0]):
+        for j in idx[i][valid[i]]:
+            allowed[i * 128:(i + 1) * 128, j * 128:(j + 1) * 128] = True
+    allowed &= torch.ones(s_, s_, dtype=torch.bool, device="cuda").tril()
+    cases.append(attn_case(
+        torch, "block_sparse_attn",
+        f"B={b} S={s_} H={h} K={kh} hd={d} block=128 (SERVE-GEMMA3-SPARSE global)",
+        lambda q=q, k=k, v=v: block_sparse_attention(q, k, v, serving),
+        lambda q=q, k=k, v=v: block_sparse_ref(q, k, v, serving),
+        q, k, v, int(allowed.sum()), mask=allowed))
+    q1 = rn(b, 1, h, d)
+    for sc, clen, sp, what in ((1024, 1024, None, "local ring"), (cl, cl, None, "global"),
+                               (cl, cl, serving, "global, sparse")):
+        kv = rn(2, b, sc, kh, d)
+        kc, vc = kv
+        pos = torch.arange(sc, device="cuda")
+        mask = pos < clen
+        if sp is not None:
+            mask &= sparse_position_mask(pos, clen, sp)
+        n_read = int(mask.sum())
+        kt, vt = (t.transpose(1, 2).contiguous() for t in (kc, vc))
+        cases.append(dict(
+            name="decode_attn", dtype="float32",
+            label=f"B={b} Sc={sc} H={h} K={kh} hd={d} cache_len={clen}"
+                  + (" sparse" if sp is not None else "") + f" (SERVE-GEMMA3 {what})",
+            kernel=lambda kc=kc, vc=vc, c=clen, p=sp: decode_attention(q1, kc, vc, c, sparse=p),
+            plain=lambda kc=kc, vc=vc, c=clen, p=sp: decode_ref(q1, kc, vc, c, sparse=p),
+            library=lambda kt=kt, vt=vt, m=mask[None]: F.scaled_dot_product_attention(
+                q1.transpose(1, 2), kt, vt, attn_mask=m, enable_gqa=True),
+            nbytes=(2 * b * h * d + 2 * b * n_read * kh * d) * 4,
+            flops=4 * d * n_read * b * h, split=split_plan(b, sc, h, sparse=sp, head_dim=d),
+            read=read_call(kv, read_ranges(sc, clen, sparse=sp)), main=False))
+    # SERVE-GEMMA3's LoRA projections: wq (K 3840 → N 3840) and wv (→ N
+    # 1920) at prefill (M 2·GEMMA3_PROMPT) and decode (M 2)
+    from repro_torch.kernels.lora_fused.ops import lora_matmul
+    from repro_torch.kernels.lora_fused.ref import lora_ref
+    for m, n, path in ((2 * s_, 3840, "prefill wq"), (2 * s_, 1920, "prefill wv"),
+                       (2, 3840, "decode wq")):
+        x, w = rn(m, 3840), rn(3840, n, std=0.02)
+        a, bb = rn(3840, 8, std=0.02), rn(8, n, std=0.05)
+        merged = w + 2.0 * (a @ bb)
+        cases.append(dict(
+            name="lora_fused", label=f"M={m} K=3840 N={n} r=8 (SERVE-GEMMA3 {path})",
+            dtype="float32",
+            kernel=lambda x=x, w=w, a=a, b=bb: lora_matmul(x, w, a, b, scale=2.0),
+            plain=lambda x=x, w=w, a=a, b=bb: lora_ref(x, w, a, b, scale=2.0),
+            library=lambda x=x, mg=merged: torch.matmul(x, mg),
+            nbytes=(m * 3840 + 3840 * n + 3840 * 8 + 8 * n + m * n) * 4,
+            flops=2 * m * 3840 * n + 2 * m * 3840 * 8 + 2 * m * 8 * n, main=False,
+            plan=("float32", n, 3840) if m <= 16 else None))
+    for dk, dv in ((16, 16), (32, 16)):
+        q, k, v = rn(4, 16, 4, dk), rn(4, 16, 4, dk), rn(4, 16, 4, dv)
+        cases.append(attn_case(
+            torch, "flash_attn", f"B=4 S=16 H=4 dk={dk} dv={dv} causal (ARCH-ROUND d 64)",
+            lambda q=q, k=k, v=v: flash_attention(q, k, v, causal=True),
+            lambda q=q, k=k, v=v: attention_ref(q, k, v, causal=True),
+            q, k, v, 16 * 17 // 2, causal=True))
     return cases
 
 
@@ -996,15 +1123,16 @@ def grad_cases(torch):
         inputs=(rn(b, s, h, p), rn(b, s, h), -torch.exp(rn(h, std=0.3)),
                 rn(b, s, 1, n, std=0.5), rn(b, s, 1, n, std=0.5)),
         frozen=(), names=("x", "dt", "a", "B", "C")))
-    # FlashAttention at (96, 64), ARCH-ROUND's deepseek-v2 at d 256 (q/k 80
-    # zero-padded to 96 outside the Function, the scale of 80)
-    cases.append(dict(
-        name="flash_attn", label="B=4 S=16 H=4 dk=96 dv=64 causal (MLA)",
-        kernel=lambda *t: flash_attention(*t, causal=True, scale=80 ** -0.5),
-        plain=lambda *t: attention_ref(*t, causal=True, scale=80 ** -0.5),
-        inputs=(torch.cat([rn(4, 16, 4, 80), torch.zeros(4, 16, 4, 16, device="cuda")], -1),
-                torch.cat([rn(4, 16, 4, 80), torch.zeros(4, 16, 4, 16, device="cuda")], -1),
-                rn(4, 16, 4, 64)), frozen=(), names=("q", "k", "v")))
+    # FlashAttention at ARCH-ROUND's deepseek-v2 at d 256 (q/k 80, v 64:
+    # the (96, 64) tile, zero-filled in the kernel) and at the launcher's
+    # default d 64 (heads of 16, MLA's (32, 16): the 32 tile)
+    for dk, dv, what in ((80, 64, "MLA d 256"), (16, 16, "d 64"), (32, 16, "MLA d 64")):
+        cases.append(dict(
+            name="flash_attn", label=f"B=4 S=16 H=4 dk={dk} dv={dv} causal ({what})",
+            kernel=lambda *t: flash_attention(*t, causal=True),
+            plain=lambda *t: attention_ref(*t, causal=True),
+            inputs=(rn(4, 16, 4, dk), rn(4, 16, 4, dk), rn(4, 16, 4, dv)), frozen=(),
+            names=("q", "k", "v")))
     return cases
 
 
@@ -1075,6 +1203,21 @@ def mla_cut():
         moe=dataclasses.replace(cfg.moe, n_experts=16))
 
 
+def gemma3_cut():
+    """SERVE-GEMMA3's model: gemma3-12b at its published widths (d 3840,
+    16 query heads on 8 KV heads of 240, GeGLU d_ff 15360, tied vocab
+    262144, window 1024, the global layer's block-sparse pattern), cut in
+    depth to one repeat of its pattern, 5 ``local`` layers and 1 global
+    (2.33 B parameters, 1.01 B of them the embedding)."""
+    from repro_torch.configs import Stage, get_config
+    cfg = get_config("gemma3-12b")
+    return dataclasses.replace(
+        cfg, stages=tuple(Stage(st.pattern, 1, st.stream) for st in cfg.stages))
+
+
+CUTS = {"mla": mla_cut, "gemma3": gemma3_cut}
+
+
 def mixer_counts(cfg):
     """Layers of each mixer kind, over the repeats."""
     out = {}
@@ -1119,6 +1262,9 @@ def expected_launches(model, lora, impl, gen):
             "ssd_chunk": n.get("mamba", 0)}
 
 
+SERVED = {}   # a path's build, kept for a later path that serves its weights
+
+
 def serve_path(torch, np, spec):
     """One serving path through ``serve.build``/``generate`` (at full width,
     or at ``spec["reduced"]``'s reduced config): launch counts against the
@@ -1135,16 +1281,23 @@ def serve_path(torch, np, spec):
                              "--gen", str(spec["gen"]),
                              "--lora-rank", str(spec["rank"])])
     cfg = (get_config(spec["arch"]).reduced(**spec["reduced"]) if spec.get("reduced")
-           else mla_cut() if spec.get("cut") == "mla" else None)
-    model, params, lora, lscale, prompts, patches, frames = serve.build(
-        args, impl=spec["impl"], cfg=cfg)
+           else CUTS[spec["cut"]]() if spec.get("cut") else None)
+    if spec.get("weights_of"):
+        built = SERVED.pop(spec["weights_of"])
+        model = Model(built[0].cfg, device=built[0].device, impl=spec["impl"])
+        params, lora, lscale, prompts, patches, frames = built[1:]
+    else:
+        model, params, lora, lscale, prompts, patches, frames = serve.build(
+            args, impl=spec["impl"], cfg=cfg)
+        # init_lora zeros B: load nonzero A and B from a numpy seed so the
+        # rank-r path does real work
+        rng = np.random.RandomState(1)
+        lora = trees.map_with_path(
+            lambda p, v: v if p.endswith("/mask") else torch.from_numpy(
+                (rng.randn(*v.shape) * 0.05).astype(np.float32)).to(v.device), lora)
+    if any(s.get("weights_of") == tag for s in SERVES):
+        SERVED[tag] = (model, params, lora, lscale, prompts, patches, frames)
     n_cache = serve.cache_len(model, prompts, args.gen)
-    # init_lora zeros B: load nonzero A and B from a numpy seed so the
-    # rank-r path does real work
-    rng = np.random.RandomState(1)
-    lora = trees.map_with_path(
-        lambda p, v: v if p.endswith("/mask") else torch.from_numpy(
-            (rng.randn(*v.shape) * 0.05).astype(np.float32)).to(v.device), lora)
     t_built = time.perf_counter()
 
     serve.generate(model, params, prompts, 2, lora=lora, lora_scale=lscale,
@@ -1176,9 +1329,11 @@ def serve_path(torch, np, spec):
               f"{n_cache}) device_ms={res['absorbed_ms']:.4f}", flush=True)
     del cache
     width = (f"reduced d_model {model.cfg.d_model}" if spec.get("reduced")
-             else "published widths, cut (mla_cut)" if spec.get("cut")
+             else f"published widths, cut ({spec['cut']}_cut)" if spec.get("cut")
              else "full width")
-    print(f"{tag} {spec['arch']} {width} ({model.cfg.n_layers} layers, impl "
+    print(f"{tag} {spec['arch']} {width} ({model.cfg.n_layers} layers, d_model "
+          f"{model.cfg.d_model}, heads {model.cfg.n_heads} on {model.cfg.n_kv_heads} of "
+          f"{model.cfg.hd}, impl "
           f"{spec['impl']}): batch {args.batch} prompt {args.prompt_len} "
           f"gen {args.gen} rank {args.lora_rank} f32  prefill_ms={res['prefill_s'] * 1e3:.3f} "
           f"prefill_median_ms={res['prefill_median_ms']:.3f} "
@@ -3057,8 +3212,10 @@ def train_pop(torch, np):
 ARCH_ROUND_ARCHS = ("gpt2-small", "llama3.2-1b", "gemma3-12b", "internvl2-26b",
                     "dbrx-132b", "jamba-v0.1-52b", "mamba2-1.3b", "deepseek-v2-236b",
                     "whisper-base")
-ARCH_ROUND_FLAGS = ["--fl-clients", "4", "--fl-rounds", "2", "--assert-fused",
-                    "--fl-dmodel", "256"]
+ARCH_ROUND_FLAGS = ["--fl-clients", "4", "--fl-rounds", "2", "--assert-fused"]
+# (d_model, its flags): heads of 64, and the launcher's default width (no
+# flag: d 64, heads of 16)
+ARCH_WIDTHS = ((256, ["--fl-dmodel", "256"]), (64, []))
 ARCH_LOSS_TOL = 1e-5
 
 
@@ -3082,13 +3239,12 @@ def arch_expected(cfg, steps):
 
 def train_arch(torch):
     """ARCH-ROUND: ``launch/train.py --arch X --fl-clients 4 --fl-rounds 2
-    --assert-fused --fl-dmodel 256`` (head width 64) for the seven archs on
+    --assert-fused`` at each of ``ARCH_WIDTHS`` (``--fl-dmodel 256``, heads
+    of 64; the launcher's default d 64, heads of 16) for the nine archs on
     the card — seconds a round, loss per round, the on-card oracle error
     (≤ 1e-5, asserted by the launcher), launches against ``arch_expected``
-    — then the same on the CPU from the same init (drawn on the CPU): losses
-    within ARCH_LOSS_TOL.  Then ``--fl-dmodel 64`` (head width 16, the JAX
-    launcher's default) must raise the attention kernels' head-width error
-    on the card, not fall back."""
+    — then the same on the CPU from the same init (drawn on the CPU):
+    losses within ARCH_LOSS_TOL."""
     from repro_torch.configs import get_config
     from repro_torch.core.arch_round import ArchRoundConfig
     from repro_torch.launch import train
@@ -3096,54 +3252,49 @@ def train_arch(torch):
     kernels = wrappers()
     total = {n: 0 for n in KERNELS}
     rows = {}
-    for arch in ARCH_ROUND_ARCHS:
-        t0 = time.perf_counter()
-        argv = ["--arch", arch] + ARCH_ROUND_FLAGS
-        for f in kernels.values():
-            f.launches = 0
-        with contextlib.redirect_stdout(io.StringIO()) as out:
-            res = train.main(argv)
-        launches = {n: f.launches for n, f in kernels.items()}
-        d = ArchRoundConfig(arch=arch)
-        cfg = get_config(arch).reduced(d_model=256, repeats=d.repeats)
-        expected = arch_expected(cfg, 2 * 4 * d.local_steps)
-        t_card = time.perf_counter()
-        with contextlib.redirect_stdout(io.StringIO()):
-            cpu = train.main(argv + ["--device", "cpu"])
-        errs = [abs(a - b) for a, b in zip(res["loss_per_round"], cpu["loss_per_round"])]
-        t_end = time.perf_counter()
-        print(f"ARCH-ROUND {arch} d_model 256 (head width {cfg.hd}): round_s "
-              f"{[round(x, 4) for x in res['round_s']]} loss_per_round "
-              f"{[round(x, 6) for x in res['loss_per_round']]} oracle_max_err "
-              f"{res['oracle_loss_max_err']:.3e} dense_merges {res['dense_merges_in_engine']} "
-              f"targets {res['lora_targets']}", flush=True)
-        print(f"ARCH-ROUND {arch} launches {launches} expected {expected}; CPU losses "
-              f"{[round(x, 6) for x in cpu['loss_per_round']]} max_abs_err "
-              f"{max(errs):.3e} (tol {ARCH_LOSS_TOL:g}); seconds card {t_card - t0:.1f} "
-              f"cpu {t_end - t_card:.1f}", flush=True)
-        if "fused path asserted" not in out.getvalue():
-            fail(f"ARCH-ROUND {arch}: the launcher's fused-path assertion did not pass")
-        if launches != expected:
-            fail(f"ARCH-ROUND {arch}: kernel launches {launches} != expected {expected}")
-        if max(errs) > ARCH_LOSS_TOL:
-            fail(f"ARCH-ROUND {arch}: card vs CPU losses differ by {max(errs):.3e}")
-        for n in KERNELS:
-            total[n] += launches[n]
-        rows[arch] = dict(round_s=res["round_s"], loss_per_round=res["loss_per_round"],
-                          oracle_max_err=res["oracle_loss_max_err"], launches=launches,
-                          cpu_loss_max_err=max(errs))
-    try:
-        with contextlib.redirect_stdout(io.StringIO()):
-            train.main(["--arch", "llama3.2-1b", "--fl-clients", "2", "--fl-rounds", "1",
-                        "--fl-dmodel", "64"])
-    except ValueError as e:
-        refusal = str(e)
-    else:
-        refusal = ""
-    print(f"ARCH-ROUND --fl-dmodel 64 on the card (head width 16): "
-          f"{'raised: ' + refusal if refusal else 'DID NOT RAISE'}", flush=True)
-    if "head width 16" not in refusal:
-        fail("ARCH-ROUND: head width 16 did not raise the kernels' head-width error")
+    for d_model, width_flags in ARCH_WIDTHS:
+        for arch in ARCH_ROUND_ARCHS:
+            t0 = time.perf_counter()
+            argv = ["--arch", arch] + ARCH_ROUND_FLAGS + width_flags
+            for f in kernels.values():
+                f.launches = 0
+            with contextlib.redirect_stdout(io.StringIO()) as out:
+                res = train.main(argv)
+            launches = {n: f.launches for n, f in kernels.items()}
+            d = ArchRoundConfig(arch=arch)
+            cfg = get_config(arch).reduced(d_model=d_model, repeats=d.repeats)
+            expected = arch_expected(cfg, 2 * 4 * d.local_steps)
+            t_card = time.perf_counter()
+            with contextlib.redirect_stdout(io.StringIO()):
+                cpu = train.main(argv + ["--device", "cpu"])
+            errs = [abs(a - b) for a, b in zip(res["loss_per_round"], cpu["loss_per_round"])]
+            t_end = time.perf_counter()
+            heads = (f"q/k {cfg.mla.nope_head_dim + cfg.mla.rope_head_dim}, v "
+                     f"{cfg.mla.v_head_dim}" if cfg.mla
+                     else f"SSD heads of {cfg.ssm.headdim}" if cfg.attention_free
+                     else f"head width {cfg.hd}")
+            print(f"ARCH-ROUND {arch} d_model {d_model} ({heads}): round_s "
+                  f"{[round(x, 4) for x in res['round_s']]} loss_per_round "
+                  f"{[round(x, 6) for x in res['loss_per_round']]} oracle_max_err "
+                  f"{res['oracle_loss_max_err']:.3e} dense_merges "
+                  f"{res['dense_merges_in_engine']} targets {res['lora_targets']}", flush=True)
+            print(f"ARCH-ROUND {arch} d_model {d_model} launches {launches} expected "
+                  f"{expected}; CPU losses {[round(x, 6) for x in cpu['loss_per_round']]} "
+                  f"max_abs_err {max(errs):.3e} (tol {ARCH_LOSS_TOL:g}); seconds card "
+                  f"{t_card - t0:.1f} cpu {t_end - t_card:.1f}", flush=True)
+            tag = f"ARCH-ROUND {arch} d_model {d_model}"
+            if "fused path asserted" not in out.getvalue():
+                fail(f"{tag}: the launcher's fused-path assertion did not pass")
+            if launches != expected:
+                fail(f"{tag}: kernel launches {launches} != expected {expected}")
+            if max(errs) > ARCH_LOSS_TOL:
+                fail(f"{tag}: card vs CPU losses differ by {max(errs):.3e}")
+            for n in KERNELS:
+                total[n] += launches[n]
+            rows[f"{arch} d{d_model}"] = dict(
+                round_s=res["round_s"], loss_per_round=res["loss_per_round"],
+                oracle_max_err=res["oracle_loss_max_err"], launches=launches,
+                cpu_loss_max_err=max(errs))
     return total, rows
 
 MESH_ACC_TOL = 1e-6
@@ -4047,7 +4198,7 @@ def main():
         for line in ptxas_lines(_build.build_log(name)):
             print(f"PTXAS {name}: {line}")
     from repro_torch.kernels.flash_attn.ops import occupancy
-    for dk, dv in ((192, 128), (96, 64)):      # MLA's instances: blocks an SM
+    for dk, dv in ((256, 256), (192, 128), (96, 64)):   # one block an SM each
         for bq in (32, 64):
             blocks, smem = occupancy(dk, dv, bq)
             print(f"OCCUPANCY flash_attn f32 (q/k {dk}, v {dv}) {bq}-row q tile: "

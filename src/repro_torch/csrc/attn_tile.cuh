@@ -52,8 +52,21 @@
 // tile holds Qᵀ 192 wide, K stages 196 floats a row and V stages 132: 116 KB
 // with 32-row q and kv tiles, 145 KB with 64-row q tiles, one block an SM
 // either way, so those instances are held to one block an SM (255
-// registers a thread) where the square ones keep the 128 registers they
-// were tuned under.
+// registers a thread).
+//
+// The compiled widths (DK, DV) are tile widths, not row widths: a call
+// passes its rows' own (dk, dv) ≤ (DK, DV) at run time, whole 16-byte
+// chunks (dk·4 bytes a row in f32).  Operands are read at their true row
+// stride; the tile's dims from dk up to DK of Qᵀ and K, and from dv up to
+// DV of V, are zero-filled (cp.async with src-size 0, or a zero register),
+// so a pad dim adds an exact zero to every q·k dot and its O column is
+// never stored: gemma3's heads of 240 run in the (256, 256) tile, heads of
+// 16 in the (32, 32) one, MLA's (80, 64) in (96, 64).  At (256, 256) the
+// tile holds 174,592 B with 32-row q and kv tiles and 211,456 B with 64-row
+// q tiles: one block an SM, 255 registers for a thread's 64 O floats.  The
+// register rule is one for every instance: the 128 registers that 512
+// threads an SM allow, or, where shared memory holds fewer blocks than
+// that, as many registers as those blocks leave.
 #pragma once
 
 #include <cstdint>
@@ -68,6 +81,18 @@ namespace repro {
 constexpr int kv_tile_rows(int DK, int BQ) { return DK >= 96 || BQ == 32 ? 32 : 64; }
 
 constexpr int SM_SMEM = 233472;   // shared memory an H100 SM holds (228 KB)
+
+// The (q/k, v) tile widths both prefill kernels compile, X(DK, DV) each:
+// the square heads and MLA's (kernels/flash_attn/ops.py WIDTHS, the same
+// list, picks one for a call's row widths).
+#define REPRO_ATTN_WIDTHS(X) \
+  X(32, 32) X(64, 64) X(128, 128) X(256, 256) X(96, 64) X(192, 128)
+
+// Row widths (dk, dv) the (DK, DV) tile runs: whole 4-element chunks, at
+// least one, at most the tile's.
+inline bool row_widths_fit(int dk, int dv, int DK, int DV) {
+  return dk >= 4 && dv >= 4 && dk <= DK && dv <= DV && dk % 4 == 0 && dv % 4 == 0;
+}
 
 // Tile geometry of one (DK, DV, BQ, BKV) instance; 4·BQ threads.
 template <int DK, int DV, int BQ, int BKV> struct AttnTile {
@@ -85,8 +110,7 @@ template <int DK, int DV, int BQ, int BKV> struct AttnTile {
   static constexpr int QL = BQ * CK / THREADS, KL = BKV * CK / THREADS, VL = BKV * CV / THREADS;
   static constexpr int SMEM_BLOCKS = SM_SMEM / (BYTES + 1024);
   static constexpr int MIN_BLOCKS =   // 128 registers a thread, or what shared memory allows
-      DK == DV || SMEM_BLOCKS >= 512 / THREADS ? 512 / THREADS
-                                               : (SMEM_BLOCKS > 0 ? SMEM_BLOCKS : 1);
+      SMEM_BLOCKS >= 512 / THREADS ? 512 / THREADS : (SMEM_BLOCKS > 0 ? SMEM_BLOCKS : 1);
   static_assert(DK % 32 == 0 && DV % 32 == 0 && BQ % 32 == 0 && BKV % 16 == 0, "tile shape");
   static_assert(DV % (16 * VW) == 0, "O dims per thread");
   static_assert((BQ * CK) % THREADS == 0 && (BKV * CK) % THREADS == 0 &&
@@ -135,17 +159,42 @@ struct Rows {
   size_t base, stride;
 };
 
+// Register copies of a tile (the path without cp.async): chunks l < N of
+// rows [j0, hi) of a C-chunk-wide tile, dims < w read (f32 on the way in),
+// the rest zero; then their store to shared memory at row stride S.
+template <int N, int TH, int C, typename T>
+__device__ __forceinline__ void fetch(float4 (&r)[N], const T* p, Rows rl, int j0, int hi,
+                                      int w, int tid) {
+#pragma unroll
+  for (int l = 0; l < N; ++l) {
+    const Chunk<TH, C> c(tid, l);
+    r[l] = j0 + c.row < hi && c.col < w
+               ? load4<false>(p + rl.base + (size_t)(j0 + c.row) * rl.stride + c.col)
+               : make_float4(0.f, 0.f, 0.f, 0.f);
+  }
+}
+template <int N, int TH, int C>
+__device__ __forceinline__ void put(float* s, int S, const float4 (&r)[N], int tid) {
+#pragma unroll
+  for (int l = 0; l < N; ++l) {
+    const Chunk<TH, C> c(tid, l);
+    *reinterpret_cast<float4*>(s + c.row * S + c.col) = r[l];
+  }
+}
+
 // The q tile: rows [0, rows) of q at ql (key position qpos0 + r) and of o
-// at ol; kv row j of k at kl and of v at vl.  ASYNC: T is float and every
-// operand is 16-byte aligned.  Walk (block-uniform): next(j0, hi) yields the
-// kv tiles [j0, min(j0 + BKV, hi)) in order; need_mask(j0, hi) says whether
-// a tile crosses an edge; allowed(qpos, kpos) is the test inside such a tile
-// (kpos < hi is tested here).  Every thread of the block calls it.
+// at ol; kv row j of k at kl and of v at vl; rows of q and k dk wide, of v
+// and o dv wide (dk ≤ DK, dv ≤ DV, multiples of 4).  ASYNC: T is float and
+// every operand is 16-byte aligned.  Walk (block-uniform): next(j0, hi)
+// yields the kv tiles [j0, min(j0 + BKV, hi)) in order; need_mask(j0, hi)
+// says whether a tile crosses an edge; allowed(qpos, kpos) is the test
+// inside such a tile (kpos < hi is tested here).  Every thread of the block
+// calls it.
 template <typename T, int DK, int DV, int BQ, int BKV, bool ASYNC, typename Walk>
 __device__ __forceinline__ void attend_q_tile(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-    T* __restrict__ o, Rows ql, Rows ol, int rows, Rows kl, Rows vl, int qpos0,
-    float scale, Walk& walk, float* smem) {
+    T* __restrict__ o, Rows ql, Rows ol, int rows, Rows kl, Rows vl, int dk, int dv,
+    int qpos0, float scale, Walk& walk, float* smem) {
   using L = AttnTile<DK, DV, BQ, BKV>;
   constexpr int QS = L::QS, KS = L::KS, VS = L::VS, KPT = L::KPT, VW = L::VW, NC = L::NC;
   constexpr int TH = L::THREADS;
@@ -157,19 +206,20 @@ __device__ __forceinline__ void attend_q_tile(
   const int tid = threadIdx.x, lane = tid & 31;
   const int tx = lane & 15, ty = 2 * (tid >> 5) + (lane >> 4);
 
-  // Q, scaled, transposed; rows past `rows` are zero
+  // Q, scaled, transposed; rows past `rows` and dims past dk are zero
 #pragma unroll
   for (int l = 0; l < L::QL; ++l) {
     const Chunk<TH, L::CK> c(tid, l);
     float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (c.row < rows) x = load4<ASYNC>(q + ql.base + (size_t)c.row * ql.stride + c.col);
+    if (c.row < rows && c.col < dk)
+      x = load4<ASYNC>(q + ql.base + (size_t)c.row * ql.stride + c.col);
     qt[(c.col + 0) * QS + c.row] = x.x * scale;
     qt[(c.col + 1) * QS + c.row] = x.y * scale;
     qt[(c.col + 2) * QS + c.row] = x.z * scale;
     qt[(c.col + 3) * QS + c.row] = x.w * scale;
   }
 
-  // K/V copies of the tile [j0, hi) into stage st
+  // K/V copies of the tile [j0, hi) into stage st; dims past dk (dv) zero
   auto stage = [&](int st, int j0, int hi) {
     float* ks = kst + st * L::K_ELEMS;
     float* vs = vst + st * L::V_ELEMS;
@@ -177,44 +227,36 @@ __device__ __forceinline__ void attend_q_tile(
 #pragma unroll
       for (int l = 0; l < L::KL; ++l) {
         const Chunk<TH, L::CK> c(tid, l);
-        const bool ok = j0 + c.row < hi;
+        const bool ok = j0 + c.row < hi && c.col < dk;
         const T* src = k + kl.base + (size_t)(j0 + c.row) * kl.stride + c.col;
         cp_async16(ks + c.row * KS + c.col, ok ? (const void*)src : (const void*)k, ok);
       }
 #pragma unroll
       for (int l = 0; l < L::VL; ++l) {
         const Chunk<TH, L::CV> c(tid, l);
-        const bool ok = j0 + c.row < hi;
+        const bool ok = j0 + c.row < hi && c.col < dv;
         const T* src = v + vl.base + (size_t)(j0 + c.row) * vl.stride + c.col;
         cp_async16(vs + c.row * VS + c.col, ok ? (const void*)src : (const void*)v, ok);
       }
       cp_async_commit();
-    } else {
+    } else if constexpr (L::KL + L::VL <= 24) {
+      // K's and V's loads in flight together
       float4 kr[L::KL], vr[L::VL];
-#pragma unroll
-      for (int l = 0; l < L::KL; ++l) {
-        const Chunk<TH, L::CK> c(tid, l);
-        kr[l] = j0 + c.row < hi
-                    ? load4<false>(k + kl.base + (size_t)(j0 + c.row) * kl.stride + c.col)
-                    : make_float4(0.f, 0.f, 0.f, 0.f);
+      fetch<L::KL, TH, L::CK>(kr, k, kl, j0, hi, dk, tid);
+      fetch<L::VL, TH, L::CV>(vr, v, vl, j0, hi, dv, tid);
+      put<L::KL, TH, L::CK>(ks, KS, kr, tid);
+      put<L::VL, TH, L::CV>(vs, VS, vr, tid);
+    } else {
+      // the (256, 256) tile's 32 chunks a thread: K, then V, so that 64 and
+      // not 128 registers hold a copy beside the 64 O floats
+      {
+        float4 kr[L::KL];
+        fetch<L::KL, TH, L::CK>(kr, k, kl, j0, hi, dk, tid);
+        put<L::KL, TH, L::CK>(ks, KS, kr, tid);
       }
-#pragma unroll
-      for (int l = 0; l < L::VL; ++l) {
-        const Chunk<TH, L::CV> c(tid, l);
-        vr[l] = j0 + c.row < hi
-                    ? load4<false>(v + vl.base + (size_t)(j0 + c.row) * vl.stride + c.col)
-                    : make_float4(0.f, 0.f, 0.f, 0.f);
-      }
-#pragma unroll
-      for (int l = 0; l < L::KL; ++l) {
-        const Chunk<TH, L::CK> c(tid, l);
-        *reinterpret_cast<float4*>(ks + c.row * KS + c.col) = kr[l];
-      }
-#pragma unroll
-      for (int l = 0; l < L::VL; ++l) {
-        const Chunk<TH, L::CV> c(tid, l);
-        *reinterpret_cast<float4*>(vs + c.row * VS + c.col) = vr[l];
-      }
+      float4 vr[L::VL];
+      fetch<L::VL, TH, L::CV>(vr, v, vl, j0, hi, dv, tid);
+      put<L::VL, TH, L::CV>(vs, VS, vr, tid);
     }
   };
 
@@ -341,6 +383,7 @@ __device__ __forceinline__ void attend_q_tile(
 #pragma unroll
     for (int c = 0; c < NC; ++c) {
       const int d = VW * tx + 16 * VW * c;
+      if (d >= dv) continue;  // the tile's pad dims
       if constexpr (ASYNC && VW == 4) {
         *reinterpret_cast<float4*>(orow + d) =
             make_float4(acc[i][4 * c] / den, acc[i][4 * c + 1] / den,

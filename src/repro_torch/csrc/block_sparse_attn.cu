@@ -10,7 +10,9 @@
 // tile adds p = 0 rather than NaN), denominator l and accumulator, GQA by
 // index, output acc / max(l, 1e-30).  Query rows sit at key positions
 // q_offset + row.  The scale is the caller's, and v and o may be narrower
-// than q and k (MLA's (192, 128) and (96, 64); attn_tile.cuh's note).
+// than q and k (MLA's (192, 128) and (96, 64)); the call's rows (dk, dv) may
+// be narrower than the compiled tile, which is zero-filled past them
+// (gemma3's 240 in the 256 tile; attn_tile.cuh's note).
 //
 // What bounds it on the H100: at the serving prefill (B = 8, S = 896,
 // H = 12, hd = 64, block 128, local 4, sink 1, stride 8, f32) query block i
@@ -83,7 +85,7 @@ __global__ void __launch_bounds__(AttnTile<DK, DV, BQ, BKV>::THREADS,
 bsa_fwd(const T* __restrict__ q, const T* __restrict__ k,
         const T* __restrict__ v, T* __restrict__ o,
         const int* __restrict__ idx, const int* __restrict__ valid, int Sq,
-        int Sk, int H, int KH, int block, int n_active, int q_offset,
+        int Sk, int H, int KH, int dk, int dv, int block, int n_active, int q_offset,
         float scale) {
   extern __shared__ __align__(16) float smem[];
   const int n_sub = (block + BQ - 1) / BQ;
@@ -97,15 +99,15 @@ bsa_fwd(const T* __restrict__ q, const T* __restrict__ k,
                        n_active, block, Sk, qpos0, qpos0 + rows};
   const size_t qrow = ((size_t)b * Sq + q0) * H + h, kvrow = (size_t)b * Sk * KH + kvh;
   repro::attend_q_tile<T, DK, DV, BQ, BKV, ASYNC>(
-      q, k, v, o, {qrow * DK, (size_t)H * DK}, {qrow * DV, (size_t)H * DV}, rows,
-      {kvrow * DK, (size_t)KH * DK}, {kvrow * DV, (size_t)KH * DV}, qpos0, scale, walk,
-      smem);
+      q, k, v, o, {qrow * dk, (size_t)H * dk}, {qrow * dv, (size_t)H * dv}, rows,
+      {kvrow * dk, (size_t)KH * dk}, {kvrow * dv, (size_t)KH * dv}, dk, dv, qpos0, scale,
+      walk, smem);
 }
 
 template <typename T, int DK, int DV, int BQ, bool ASYNC>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o, const int* idx,
-                   const int* valid, int B, int Sq, int Sk, int H, int KH, int block,
-                   int n_active, int q_offset, float scale, cudaStream_t s) {
+                   const int* valid, int B, int Sq, int Sk, int H, int KH, int dk, int dv,
+                   int block, int n_active, int q_offset, float scale, cudaStream_t s) {
   constexpr int BKV = repro::kv_tile_rows(DK, BQ);
   using L = AttnTile<DK, DV, BQ, BKV>;
   static const cudaError_t attr = cudaFuncSetAttribute(
@@ -115,55 +117,54 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, const i
   const dim3 grid(B * H, (Sq / block) * ((block + BQ - 1) / BQ));
   bsa_fwd<T, DK, DV, BQ, BKV, ASYNC><<<grid, L::THREADS, L::BYTES, s>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(o), idx, valid, Sq, Sk, H, KH, block, n_active, q_offset, scale);
+      static_cast<T*>(o), idx, valid, Sq, Sk, H, KH, dk, dv, block, n_active, q_offset,
+      scale);
   return cudaSuccess;
 }
 
 template <typename T, int DK, int DV, bool ASYNC>
 cudaError_t pick_tile(const void* q, const void* k, const void* v, void* o, const int* idx,
-                      const int* valid, int B, int Sq, int Sk, int H, int KH, int block,
-                      int n_active, int q_offset, float scale, cudaStream_t s) {
+                      const int* valid, int B, int Sq, int Sk, int H, int KH, int dk, int dv,
+                      int block, int n_active, int q_offset, float scale, cudaStream_t s) {
   // the q-tile rule of the source note
   const long long blocks64 = (long long)(Sq / block) * ((block + 63) / 64) * B * H;
   if (block > 32 && blocks64 >= 2LL * repro::sm_count())
-    return launch<T, DK, DV, 64, ASYNC>(q, k, v, o, idx, valid, B, Sq, Sk, H, KH, block,
-                                        n_active, q_offset, scale, s);
-  return launch<T, DK, DV, 32, ASYNC>(q, k, v, o, idx, valid, B, Sq, Sk, H, KH, block,
+    return launch<T, DK, DV, 64, ASYNC>(q, k, v, o, idx, valid, B, Sq, Sk, H, KH, dk, dv,
+                                        block, n_active, q_offset, scale, s);
+  return launch<T, DK, DV, 32, ASYNC>(q, k, v, o, idx, valid, B, Sq, Sk, H, KH, dk, dv, block,
                                       n_active, q_offset, scale, s);
 }
 
-// The (q/k, v) widths compiled, as flash_attn.cu's: 32, 64, 128 square,
-// MLA's (192, 128) and (96, 64).
+// The (q/k, v) tile widths compiled, flash_attn.cu's (REPRO_ATTN_WIDTHS).
 template <typename T, bool ASYNC>
 cudaError_t dispatch(int DK, int DV, const void* q, const void* k, const void* v, void* o,
                      const int* idx, const int* valid, int B, int Sq, int Sk, int H, int KH,
-                     int block, int n_active, int q_offset, float scale, cudaStream_t s) {
-#define REPRO_WIDTHS(dk, dv)                                                            \
-  if (DK == dk && DV == dv)                                                             \
-    return pick_tile<T, dk, dv, ASYNC>(q, k, v, o, idx, valid, B, Sq, Sk, H, KH, block, \
-                                       n_active, q_offset, scale, s);
-  REPRO_WIDTHS(32, 32)
-  REPRO_WIDTHS(64, 64)
-  REPRO_WIDTHS(128, 128)
-  REPRO_WIDTHS(96, 64)
-  REPRO_WIDTHS(192, 128)
-#undef REPRO_WIDTHS
+                     int dk, int dv, int block, int n_active, int q_offset, float scale,
+                     cudaStream_t s) {
+#define REPRO_WIDTH(wk, wv)                                                              \
+  if (DK == wk && DV == wv)                                                              \
+    return pick_tile<T, wk, wv, ASYNC>(q, k, v, o, idx, valid, B, Sq, Sk, H, KH, dk, dv, \
+                                       block, n_active, q_offset, scale, s);
+  REPRO_ATTN_WIDTHS(REPRO_WIDTH)
+#undef REPRO_WIDTH
   return cudaErrorInvalidValue;
 }
 
 }  // namespace
 
-// dtype: 0 = f32, 1 = bf16.  q (B,Sq,H,HD), k (B,Sk,KH,HD), v (B,Sk,KH,HDV),
-// o (B,Sq,H,HDV), contiguous; idx/valid (Sq/block, n_active) int32 on the
+// dtype: 0 = f32, 1 = bf16.  q (B,Sq,H,dk), k (B,Sk,KH,dk), v (B,Sk,KH,dv),
+// o (B,Sq,H,dv), contiguous, run in the compiled (HD, HDV) tile (dk ≤ HD,
+// dv ≤ HDV, multiples of 4); idx/valid (Sq/block, n_active) int32 on the
 // device.  Sq and Sk are multiples of block; query row i sits at key
 // position q_offset + i.  Returns the first error of the launch, else
 // cudaGetLastError() after it.
 extern "C" int block_sparse_attn(int dtype, const void* q, const void* k,
                                  const void* v, void* o, const void* idx,
                                  const void* valid, int B, int Sq, int Sk, int H,
-                                 int KH, int HD, int HDV, int block, int n_active,
-                                 int q_offset, float scale, void* stream) {
+                                 int KH, int HD, int HDV, int dk, int dv, int block,
+                                 int n_active, int q_offset, float scale, void* stream) {
   if (B < 1 || Sq < 1 || Sk < 1 || KH < 1 || H % KH != 0 || block < 1 ||
+      !repro::row_widths_fit(dk, dv, HD, HDV) ||
       Sq % block != 0 || Sk % block != 0 || n_active < 1 || q_offset < 0)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -173,11 +174,11 @@ extern "C" int block_sparse_attn(int dtype, const void* q, const void* k,
                    repro::aligned16(o);
   cudaError_t e;
   if (dtype == 0 && vec) {
-    e = dispatch<float, true>(HD, HDV, q, k, v, o, ip, vp, B, Sq, Sk, H, KH, block, n_active, q_offset, scale, s);
+    e = dispatch<float, true>(HD, HDV, q, k, v, o, ip, vp, B, Sq, Sk, H, KH, dk, dv, block, n_active, q_offset, scale, s);
   } else if (dtype == 0) {
-    e = dispatch<float, false>(HD, HDV, q, k, v, o, ip, vp, B, Sq, Sk, H, KH, block, n_active, q_offset, scale, s);
+    e = dispatch<float, false>(HD, HDV, q, k, v, o, ip, vp, B, Sq, Sk, H, KH, dk, dv, block, n_active, q_offset, scale, s);
   } else if (dtype == 1) {
-    e = dispatch<__nv_bfloat16, false>(HD, HDV, q, k, v, o, ip, vp, B, Sq, Sk, H, KH, block, n_active, q_offset, scale, s);
+    e = dispatch<__nv_bfloat16, false>(HD, HDV, q, k, v, o, ip, vp, B, Sq, Sk, H, KH, dk, dv, block, n_active, q_offset, scale, s);
   } else {
     return (int)cudaErrorInvalidValue;
   }

@@ -93,6 +93,23 @@
 // - K and V loads are 16-byte vectors when both caches are 16-byte aligned
 //   (a row is a multiple of 16 bytes at every head width); otherwise element
 //   loads (the WIDE flag).  q and o go through element loads and stores.
+// - The compiled HD (32, 64, 128, 256) is a lane layout, not a row width:
+//   the call's rows are d ≤ HD wide, whole 16-byte chunks (d·size a
+//   multiple of 16), read at their true stride; a lane's q dims past d are
+//   zero and its chunks past d read the row's first chunk (exact zeros in
+//   every dot; an accumulator column that is never stored, and the same
+//   sectors as lane 0's load), so gemma3's heads of 240 run at HD 256 and
+//   heads of 16 at HD 32.  At HD 256 in f32 a row is 64 chunks, two a lane (chunk c
+//   of a lane at dims 4·(lane + 32·c), so a warp load still covers 512
+//   contiguous bytes), one row a group and U = 1: 1 KB of K and V a warp
+//   load, as at every other width.  Its lane holds 8 accumulator floats and
+//   four 32-byte load buffers, more than 64 registers hold, so the HD-256
+//   instances run at 4 blocks an SM (128 registers) and the split rule
+//   reads 4 in its one-wave test; every other instance keeps 8.  The block
+//   merge and rank 0's cluster merge give a thread two dims at HD 256 (a
+//   loop of constant trips: one with a trip count read at run time put
+//   300 bytes of every instance in local memory), rank 0's weights once
+//   for both.
 #include <cooperative_groups.h>
 
 #include <algorithm>
@@ -113,23 +130,30 @@ using repro::unpack;
 
 constexpr int NW = 4;               // warps per block
 constexpr int THREADS = NW * 32;
-constexpr int MINB = 8;             // blocks an SM the registers are held to (64 a thread)
 constexpr int SPLIT_MAX = 16;       // largest cluster on Hopper (non-portable above 8)
 constexpr int MIN_POS = 32;         // fewest positions a rank is split down to
 constexpr unsigned FULL = 0xffffffffu;
 
-// Per type and head width: VEC elements per 16-byte load, LPR lanes per
-// row, RPI rows (groups) per warp load, U rows a group loads per step (2 in
-// f32, 1 in bf16: 1 KB of K and V a warp load either way), STEP positions
-// per warp step.
+// Blocks an SM the registers are held to: 8 (64 registers a thread), or 4
+// (128) at HD 256.
+constexpr int min_blocks(int HD) { return HD > 128 ? 4 : 8; }
+
+// Per type and head width: VEC elements per 16-byte load, CPL 16-byte
+// chunks a lane holds of a row, LPR lanes per row, RPI rows (groups) per
+// warp load, U rows a group loads per step (1 KB of K and V a warp load:
+// 2 where a lane's share of a row is 16 bytes in f32, else 1), STEP
+// positions per warp step, MINB blocks an SM.
 template <typename T, int HD>
 struct Shape {
   static constexpr int VEC = 16 / sizeof(T);
-  static constexpr int LPR = HD / VEC;
+  static constexpr int CHUNKS = HD / VEC;
+  static constexpr int CPL = CHUNKS > 32 ? CHUNKS / 32 : 1;
+  static constexpr int LPR = CHUNKS / CPL;
   static constexpr int RPI = 32 / LPR;
-  static constexpr int U = VEC == 4 ? 2 : 1;
+  static constexpr int U = VEC * CPL == 4 ? 2 : 1;
   static constexpr int STEP = RPI * U;
-  static_assert(LPR >= 1 && LPR <= 32 && 32 % LPR == 0, "lane layout");
+  static constexpr int MINB = min_blocks(HD);
+  static_assert(LPR >= 1 && LPR <= 32 && 32 % LPR == 0 && CHUNKS == LPR * CPL, "lane layout");
 };
 
 // VEC elements from ``p`` as raw bits, zero when ``ok`` is false.  WIDE: one
@@ -156,18 +180,19 @@ __host__ __device__ __forceinline__ int max_segments(int Sc, int block) {
 }
 
 // The grid is (B·H)·split blocks, one cluster of ``split`` per (b, h).
-// Dynamic shared memory: the segment table, max_segments ints of position
-// bases (position = base + active index) and as many ends (exclusive, in
-// active-index space).
+// Rows are d ≤ HD elements wide.  Dynamic shared memory: the segment table,
+// max_segments ints of position bases (position = base + active index) and
+// as many ends (exclusive, in active-index space).
 template <typename T, int HD, bool WIDE>
-__global__ void __launch_bounds__(THREADS, MINB)
+__global__ void __launch_bounds__(THREADS, (Shape<T, HD>::MINB))
 decode_fwd(const T* __restrict__ q, const T* __restrict__ kc,
            const T* __restrict__ vc, T* __restrict__ o, float* __restrict__ lse,
-           int Sc, int H, int KH,
+           int Sc, int H, int KH, int d,
            int cache_len, int offset, int window, int block, int sink, int local,
            int stride, float scale) {
   using S = Shape<T, HD>;
-  constexpr int VEC = S::VEC, LPR = S::LPR, RPI = S::RPI, U = S::U, STEP = S::STEP;
+  constexpr int VEC = S::VEC, CPL = S::CPL, LPR = S::LPR, RPI = S::RPI, U = S::U,
+                STEP = S::STEP;
   extern __shared__ int seg[];
   __shared__ float wm[NW], wl[NW];
   __shared__ float wacc[NW][HD];
@@ -181,6 +206,7 @@ decode_fwd(const T* __restrict__ q, const T* __restrict__ kc,
   const int split = cluster.num_blocks(), rank = cluster.block_rank();
   const int bh = blockIdx.x / split, b = bh / H, h = bh % H, kvh = h / (H / KH);
   const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  // the lane's chunk c covers dims col + LPR·VEC·c
   const int grp = lane / LPR, col = (lane % LPR) * VEC;
   // Slot i holds position offset + i: the slots below cl are valid.
   const int cl = cache_len - offset;
@@ -204,9 +230,9 @@ decode_fwd(const T* __restrict__ q, const T* __restrict__ kc,
       const int len = on ? e - a : 0;
       int incl = len;
 #pragma unroll
-      for (int d = 1; d < 32; d <<= 1) {
-        const int v = __shfl_up_sync(FULL, incl, d);
-        if (lane >= d) incl += v;
+      for (int sh = 1; sh < 32; sh <<= 1) {
+        const int v = __shfl_up_sync(FULL, incl, sh);
+        if (lane >= sh) incl += v;
       }
       const unsigned ball = __ballot_sync(FULL, on);
       if (on) {
@@ -221,10 +247,15 @@ decode_fwd(const T* __restrict__ q, const T* __restrict__ kc,
   }
 
   // q stays raw (its loads need not land before the first K and V loads
-  // go out); d^-1/2 scales each dot.
-  T qv[VEC];
+  // go out); d^-1/2 scales each dot.  Dims past d are zero.
+  T qv[CPL][VEC];
 #pragma unroll
-  for (int v = 0; v < VEC; ++v) qv[v] = q[(size_t)bh * HD + col + v];
+  for (int c = 0; c < CPL; ++c)
+#pragma unroll
+    for (int v = 0; v < VEC; ++v) {
+      const int dim = col + LPR * VEC * c + v;
+      qv[c][v] = dim < d ? q[(size_t)bh * d + dim] : from_f32<T>(0.f);
+    }
   if (block > 0) __syncthreads();
 
   // The rank's share of the active indices, and the warp's part of it.
@@ -233,14 +264,21 @@ decode_fwd(const T* __restrict__ q, const T* __restrict__ kc,
   const int ns = (int)((long long)n * (rank + 1) / split) - t0;
   const int w0 = t0 + ns * warp / NW, w1 = t0 + ns * (warp + 1) / NW;
 
-  const size_t pos_stride = (size_t)KH * HD;
-  const size_t row0 = ((size_t)b * Sc * KH + kvh) * HD + col;  // (b, kvh) at position 0
+  const size_t pos_stride = (size_t)KH * d;
+  const size_t row0 = ((size_t)b * Sc * KH + kvh) * d + col;  // (b, kvh) at position 0
   const T* kp = kc + row0;
   const T* vp = vc + row0;
+  // The lane's chunk c at kp + cofs[c].  A chunk past the row's d dims
+  // reads the row's first chunk instead: its q dims are zero, so it adds
+  // exact zeros to the dot, and its accumulator dims are never stored; no
+  // load waits on a test of the row width.
+  int cofs[CPL];
+#pragma unroll
+  for (int c = 0; c < CPL; ++c) cofs[c] = col + LPR * VEC * c < d ? LPR * VEC * c : -col;
   int s = 0;  // the lane's segment: its active indices only grow
-  uint4 kr[U], vr[U], kn[U], vn[U];
+  uint4 kr[U][CPL], vr[U][CPL], kn[U][CPL], vn[U][CPL];
   // step ``i0``: the group's rows i0 + grp + RPI·u, zero past w1
-  auto load = [&](int i0, uint4 (&kb)[U], uint4 (&vb)[U]) {
+  auto load = [&](int i0, uint4 (&kb)[U][CPL], uint4 (&vb)[U][CPL]) {
 #pragma unroll
     for (int u = 0; u < U; ++u) {
       const int t = i0 + grp + RPI * u;
@@ -254,14 +292,18 @@ decode_fwd(const T* __restrict__ q, const T* __restrict__ kc,
           off = (size_t)(lo + t) * pos_stride;
         }
       }
-      kb[u] = load16<T, WIDE>(kp + off, ok);
-      vb[u] = load16<T, WIDE>(vp + off, ok);
+#pragma unroll
+      for (int c = 0; c < CPL; ++c) {
+        kb[u][c] = load16<T, WIDE>(kp + off + cofs[c], ok);
+        vb[u][c] = load16<T, WIDE>(vp + off + cofs[c], ok);
+      }
     }
   };
 
-  float acc[VEC];
+  constexpr int NA = CPL * VEC;  // accumulator floats a lane: chunk c's at c·VEC
+  float acc[NA];
 #pragma unroll
-  for (int v = 0; v < VEC; ++v) acc[v] = 0.f;
+  for (int v = 0; v < NA; ++v) acc[v] = 0.f;
   float m = NEG_INF, l = 0.f;
   if (w0 < w1) load(w0, kr, vr);
   for (int i0 = w0; i0 < w1; i0 += STEP) {  // warp-uniform trips
@@ -270,11 +312,14 @@ decode_fwd(const T* __restrict__ q, const T* __restrict__ kc,
     float cmax = NEG_INF;
 #pragma unroll
     for (int u = 0; u < U; ++u) {
-      float kf[VEC];
-      unpack(kr[u], kf);
       float dot = 0.f;
 #pragma unroll
-      for (int v = 0; v < VEC; ++v) dot = fmaf(to_f32(qv[v]), kf[v], dot);
+      for (int c = 0; c < CPL; ++c) {
+        float kf[VEC];
+        unpack(kr[u][c], kf);
+#pragma unroll
+        for (int v = 0; v < VEC; ++v) dot = fmaf(to_f32(qv[c][v]), kf[v], dot);
+      }
 #pragma unroll
       for (int off = LPR / 2; off > 0; off >>= 1) dot += __shfl_xor_sync(FULL, dot, off);
       sc[u] = dot * scale;
@@ -290,17 +335,21 @@ decode_fwd(const T* __restrict__ q, const T* __restrict__ kc,
     }
     l = fmaf(l, corr, psum);
 #pragma unroll
-    for (int v = 0; v < VEC; ++v) acc[v] *= corr;
+    for (int v = 0; v < NA; ++v) acc[v] *= corr;
 #pragma unroll
-    for (int u = 0; u < U; ++u) {
-      float vf[VEC];
-      unpack(vr[u], vf);
+    for (int u = 0; u < U; ++u)
 #pragma unroll
-      for (int v = 0; v < VEC; ++v) acc[v] = fmaf(sc[u], vf[v], acc[v]);
-    }
+      for (int c = 0; c < CPL; ++c) {
+        float vf[VEC];
+        unpack(vr[u][c], vf);
+#pragma unroll
+        for (int v = 0; v < VEC; ++v) acc[c * VEC + v] = fmaf(sc[u], vf[v], acc[c * VEC + v]);
+      }
     m = m_new;
 #pragma unroll
-    for (int u = 0; u < U; ++u) kr[u] = kn[u], vr[u] = vn[u];
+    for (int u = 0; u < U; ++u)
+#pragma unroll
+      for (int c = 0; c < CPL; ++c) kr[u][c] = kn[u][c], vr[u][c] = vn[u][c];
   }
 
   // Groups of the warp meet in lanes 0 .. LPR-1, by shuffles down.
@@ -310,7 +359,7 @@ decode_fwd(const T* __restrict__ q, const T* __restrict__ kc,
     const float mn = fmaxf(m, mo), c = expf(m - mn), co = expf(mo - mn);
     l = fmaf(l, c, lo_ * co);
 #pragma unroll
-    for (int v = 0; v < VEC; ++v) {
+    for (int v = 0; v < NA; ++v) {
       const float ao = __shfl_down_sync(FULL, acc[v], off);
       acc[v] = fmaf(acc[v], c, ao * co);
     }
@@ -318,12 +367,20 @@ decode_fwd(const T* __restrict__ q, const T* __restrict__ kc,
   }
   if (lane < LPR) {
 #pragma unroll
-    for (int v = 0; v < VEC; ++v) wacc[warp][col + v] = acc[v];
+    for (int c = 0; c < CPL; ++c)
+#pragma unroll
+      for (int v = 0; v < VEC; ++v) wacc[warp][col + LPR * VEC * c + v] = acc[c * VEC + v];
     if (lane == 0) wm[warp] = m, wl[warp] = l;
   }
   __syncthreads();
-  // The block's warps, in warp order: the rank's (m, l, acc).
-  if (tid < HD) {
+  // The block's warps, in warp order: the rank's (m, l, acc), a dim a
+  // thread (DPT dims a thread at HD 256; a loop of constant trips, so that
+  // nothing of it reaches local memory).
+  constexpr int DPT = (HD + THREADS - 1) / THREADS;
+#pragma unroll
+  for (int j = 0; j < DPT; ++j) {
+    const int dim = tid + THREADS * j;
+    if (dim >= HD) break;
     float mt = NEG_INF;
 #pragma unroll
     for (int w = 0; w < NW; ++w) mt = fmaxf(mt, wm[w]);
@@ -332,31 +389,40 @@ decode_fwd(const T* __restrict__ q, const T* __restrict__ kc,
     for (int w = 0; w < NW; ++w) {
       const float c = expf(wm[w] - mt);
       lt = fmaf(wl[w], c, lt);
-      at = fmaf(wacc[w][tid], c, at);
+      at = fmaf(wacc[w][dim], c, at);
     }
-    racc[tid] = at;
-    if (tid == 0) rm = mt, rl = lt;
+    racc[dim] = at;
+    if (dim == 0) rm = mt, rl = lt;
   }
   cluster.sync();
   // The ranks, in rank order, through distributed shared memory: their
-  // maxima first, then the weighted sums.
-  if (rank == 0 && tid < HD) {
+  // maxima and weights first, then each dim's weighted sum; the row's d
+  // dims are stored.
+  if (rank == 0 && tid < d) {
     float c[SPLIT_MAX];
 #pragma unroll
     for (int r = 0; r < SPLIT_MAX; ++r) c[r] = r < split ? *cluster.map_shared_rank(&rm, r) : NEG_INF;
     float mt = NEG_INF;
 #pragma unroll
     for (int r = 0; r < SPLIT_MAX; ++r) mt = fmaxf(mt, c[r]);
-    float lt = 0.f, at = 0.f;
+    float lt = 0.f;
 #pragma unroll
     for (int r = 0; r < SPLIT_MAX; ++r) {
       if (r < split) {
         c[r] = expf(c[r] - mt);
         lt = fmaf(*cluster.map_shared_rank(&rl, r), c[r], lt);
-        at = fmaf(cluster.map_shared_rank(racc, r)[tid], c[r], at);
       }
     }
-    o[(size_t)bh * HD + tid] = from_f32<T>(at / fmaxf(lt, 1e-30f));
+#pragma unroll
+    for (int j = 0; j < DPT; ++j) {
+      const int dim = tid + THREADS * j;
+      if (dim >= d) break;
+      float at = 0.f;
+#pragma unroll
+      for (int r = 0; r < SPLIT_MAX; ++r)
+        if (r < split) at = fmaf(cluster.map_shared_rank(racc, r)[dim], c[r], at);
+      o[(size_t)bh * d + dim] = from_f32<T>(at / fmaxf(lt, 1e-30f));
+    }
     if (lse != nullptr && tid == 0) lse[bh] = mt + logf(lt);
   }
   // No block leaves while rank 0 reads its shared memory.  Rank 0 arrives
@@ -389,12 +455,13 @@ int most_positions(int Sc, int window, int block, int sink, int local, int strid
 }
 
 // The split rule of the source note: the cluster doubles from 1, up to
-// SPLIT_MAX, while the grid still fits one wave at MINB blocks an SM, and
-// either each rank keeps at least MIN_POS of the most positions a call can
-// read or the grid would still fill at most half the SMs.
-int decode_split(int bh, int positions_max, int sms) {
+// SPLIT_MAX, while the grid still fits one wave at ``minb`` blocks an SM (the
+// instance's MINB), and either each rank keeps at least MIN_POS of the most
+// positions a call can read or the grid would still fill at most half the
+// SMs.
+int decode_split(int bh, int positions_max, int sms, int minb) {
   int split = 1;
-  while (split < SPLIT_MAX && 2LL * bh * split <= (long long)MINB * sms &&
+  while (split < SPLIT_MAX && 2LL * bh * split <= (long long)minb * sms &&
          (positions_max >= 2 * split * MIN_POS || 4LL * bh * split <= sms))
     split *= 2;
   return split;
@@ -402,7 +469,7 @@ int decode_split(int bh, int positions_max, int sms) {
 
 template <typename T, int HD, bool WIDE>
 cudaError_t launch(int split, const void* q, const void* k, const void* v, void* o,
-                   float* lse, int B, int Sc, int H, int KH, int cache_len, int offset,
+                   float* lse, int B, int Sc, int H, int KH, int d, int cache_len, int offset,
                    int window, const int* sp, float scale, cudaStream_t s) {
   static const cudaError_t attr = cudaFuncSetAttribute(
       decode_fwd<T, HD, WIDE>, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
@@ -427,61 +494,64 @@ cudaError_t launch(int split, const void* q, const void* k, const void* v, void*
   cfg.numAttrs = 1;
   return cudaLaunchKernelEx(&cfg, decode_fwd<T, HD, WIDE>, static_cast<const T*>(q),
                             static_cast<const T*>(k), static_cast<const T*>(v),
-                            static_cast<T*>(o), lse, Sc, H, KH, cache_len, offset, window, sp[0],
-                            sp[1], sp[2], sp[3], scale);
+                            static_cast<T*>(o), lse, Sc, H, KH, d, cache_len, offset, window,
+                            sp[0], sp[1], sp[2], sp[3], scale);
 }
 
 template <typename T, int HD>
-cudaError_t launch_hd(bool wide, int split, const void* q, const void* k, const void* v,
-                      void* o, float* lse, int B, int Sc, int H, int KH, int cache_len, int offset,
+cudaError_t launch_hd(bool wide, const void* q, const void* k, const void* v, void* o,
+                      float* lse, int B, int Sc, int H, int KH, int d, int cache_len, int offset,
                       int window, const int* sp, float scale, cudaStream_t s) {
-  return wide ? launch<T, HD, true>(split, q, k, v, o, lse, B, Sc, H, KH, cache_len, offset, window,
-                                    sp, scale, s)
-              : launch<T, HD, false>(split, q, k, v, o, lse, B, Sc, H, KH, cache_len, offset, window,
-                                     sp, scale, s);
+  const int split = decode_split(B * H, most_positions(Sc, window, sp[0], sp[1], sp[2], sp[3]),
+                                 sm_count(), Shape<T, HD>::MINB);
+  return wide ? launch<T, HD, true>(split, q, k, v, o, lse, B, Sc, H, KH, d, cache_len, offset,
+                                    window, sp, scale, s)
+              : launch<T, HD, false>(split, q, k, v, o, lse, B, Sc, H, KH, d, cache_len, offset,
+                                     window, sp, scale, s);
 }
 
+// The compiled head widths (lane layouts): 32, 64, 128, 256.
 template <typename T>
 cudaError_t dispatch(int HD, const void* q, const void* k, const void* v, void* o, float* lse,
-                     int B,
-                     int Sc, int H, int KH, int cache_len, int offset, int window, const int* sp,
-                     float scale, cudaStream_t s) {
+                     int B, int Sc, int H, int KH, int d, int cache_len, int offset, int window,
+                     const int* sp, float scale, cudaStream_t s) {
   const bool wide = aligned16(k) && aligned16(v);
-  const int split = decode_split(B * H, most_positions(Sc, window, sp[0], sp[1], sp[2], sp[3]),
-                                 sm_count());
   switch (HD) {
-    case 32: return launch_hd<T, 32>(wide, split, q, k, v, o, lse, B, Sc, H, KH, cache_len, offset, window, sp, scale, s);
-    case 64: return launch_hd<T, 64>(wide, split, q, k, v, o, lse, B, Sc, H, KH, cache_len, offset, window, sp, scale, s);
-    case 128: return launch_hd<T, 128>(wide, split, q, k, v, o, lse, B, Sc, H, KH, cache_len, offset, window, sp, scale, s);
+#define REPRO_HD(w) \
+  case w: return launch_hd<T, w>(wide, q, k, v, o, lse, B, Sc, H, KH, d, cache_len, offset, window, sp, scale, s);
+    REPRO_HD(32) REPRO_HD(64) REPRO_HD(128) REPRO_HD(256)
+#undef REPRO_HD
     default: return cudaErrorInvalidValue;
   }
 }
 
 }  // namespace
 
-// dtype: 0 = f32, 1 = bf16.  q/o (B,1,H,HD), caches (B,Sc,KH,HD), contiguous;
-// slot i holds position offset + i (offset ≥ 0, a multiple of block when
-// block > 0: a segment of a sequence-split cache); positions < cache_len
-// are valid.  block > 0 adds the sparse mask of
+// dtype: 0 = f32, 1 = bf16.  q/o (B,1,H,d), caches (B,Sc,KH,d), contiguous,
+// run at the compiled head width HD ≥ d (d a whole number of 16-byte
+// chunks); slot i holds position offset + i (offset ≥ 0, a multiple of
+// block when block > 0: a segment of a sequence-split cache); positions <
+// cache_len are valid.  block > 0 adds the sparse mask of
 // (block, sink, local, stride); block = 0 is dense.  lse, when not null,
 // (B,H) f32, gets m + log l of the scaled logits over the positions read
 // (-inf when none is).  Returns the first error of the launch, else
 // cudaGetLastError() after it.
 extern "C" int decode_attn(int dtype, const void* q, const void* k, const void* v,
-                           void* o, void* lse, int B, int Sc, int H, int KH, int HD,
+                           void* o, void* lse, int B, int Sc, int H, int KH, int HD, int d,
                            int cache_len, int offset, int window, int block, int sink,
                            int local, int stride, float scale, void* stream) {
+  const int vec = dtype == 0 ? 4 : 8;  // elements a 16-byte chunk
   if (B < 1 || Sc < 1 || KH < 1 || H % KH != 0 || offset < 0 || cache_len - offset < 1 ||
-      (block > 0 && (stride < 1 || offset % block != 0)))
+      d < vec || d > HD || d % vec != 0 || (block > 0 && (stride < 1 || offset % block != 0)))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int sp[4] = {block, sink, local, stride};
   cudaError_t e;
   if (dtype == 0) {
-    e = dispatch<float>(HD, q, k, v, o, static_cast<float*>(lse), B, Sc, H, KH, cache_len,
+    e = dispatch<float>(HD, q, k, v, o, static_cast<float*>(lse), B, Sc, H, KH, d, cache_len,
                         offset, window, sp, scale, s);
   } else if (dtype == 1) {
-    e = dispatch<__nv_bfloat16>(HD, q, k, v, o, static_cast<float*>(lse), B, Sc, H, KH,
+    e = dispatch<__nv_bfloat16>(HD, q, k, v, o, static_cast<float*>(lse), B, Sc, H, KH, d,
                                 cache_len, offset, window, sp, scale, s);
   } else {
     return (int)cudaErrorInvalidValue;
@@ -490,10 +560,13 @@ extern "C" int decode_attn(int dtype, const void* q, const void* k, const void* 
 }
 
 // The cluster size (split) the rule takes on the current device for a call
-// over this cache and pattern; it does not depend on cache_len.
-extern "C" int decode_attn_plan(int B, int Sc, int H, int window, int block, int sink,
+// over this cache and pattern at compiled head width HD; it does not
+// depend on cache_len.
+extern "C" int decode_attn_plan(int HD, int B, int Sc, int H, int window, int block, int sink,
                                 int local, int stride, int* split) {
-  if (B < 1 || Sc < 1 || H < 1 || (block > 0 && stride < 1)) return (int)cudaErrorInvalidValue;
-  *split = decode_split(B * H, most_positions(Sc, window, block, sink, local, stride), sm_count());
+  if (B < 1 || Sc < 1 || H < 1 || HD < 1 || (block > 0 && stride < 1))
+    return (int)cudaErrorInvalidValue;
+  *split = decode_split(B * H, most_positions(Sc, window, block, sink, local, stride), sm_count(),
+                        min_blocks(HD));
   return 0;
 }

@@ -6,9 +6,10 @@
 // scale d^-1/2, f32 running max m, denominator l and accumulator, causal and
 // optional sliding-window masks, GQA by index (query head h reads kv head
 // h / (H/K)), output acc / max(l, 1e-30).  The scale is the caller's (the
-// model's d^-1/2, or MLA's (nope + rope)^-1/2 of a q/k zero-padded to a
-// compiled width), and v and o may be narrower than q and k (MLA's
-// (192, 128); attn_tile.cuh's note).
+// model's d^-1/2, or MLA's (nope + rope)^-1/2), and v and o may be narrower
+// than q and k (MLA's (192, 128)).  The compiled (DK, DV) is a tile width:
+// the call's rows (dk, dv) may be narrower, the tile zero-filled past them
+// (gemma3's 240 in the 256 tile, 16 in the 32 one; attn_tile.cuh's note).
 //
 // What bounds it on the H100: at the serving prefill (B = 8, S = 128,
 // H = 12, hd = 64, f32) it reads q, k, v and writes o once — 12.6 MB, 3.8 us
@@ -70,7 +71,7 @@ __global__ void __launch_bounds__(AttnTile<DK, DV, BQ, BKV>::THREADS,
                                   AttnTile<DK, DV, BQ, BKV>::MIN_BLOCKS)
 flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
           const T* __restrict__ v, T* __restrict__ o, int Sq, int Sk, int H,
-          int KH, int causal, int window, float scale) {
+          int KH, int dk, int dv, int causal, int window, float scale) {
   extern __shared__ __align__(16) float smem[];
   const int bh = blockIdx.x, b = bh / H, h = bh % H, kvh = h / (H / KH);
   const int qt = causal ? gridDim.y - 1 - blockIdx.y : blockIdx.y;  // heavy tiles first
@@ -79,14 +80,15 @@ flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
                       causal ? min(Sk, qlast + 1) : Sk, causal, window, q0, qlast};
   const size_t qrow = ((size_t)b * Sq + q0) * H + h, kvrow = (size_t)b * Sk * KH + kvh;
   repro::attend_q_tile<T, DK, DV, BQ, BKV, ASYNC>(
-      q, k, v, o, {qrow * DK, (size_t)H * DK}, {qrow * DV, (size_t)H * DV}, rows,
-      {kvrow * DK, (size_t)KH * DK}, {kvrow * DV, (size_t)KH * DV}, q0, scale, walk, smem);
+      q, k, v, o, {qrow * dk, (size_t)H * dk}, {qrow * dv, (size_t)H * dv}, rows,
+      {kvrow * dk, (size_t)KH * dk}, {kvrow * dv, (size_t)KH * dv}, dk, dv, q0, scale, walk,
+      smem);
 }
 
 template <typename T, int DK, int DV, int BQ, bool ASYNC>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o, int B, int Sq,
-                   int Sk, int H, int KH, int causal, int window, float scale,
-                   cudaStream_t s) {
+                   int Sk, int H, int KH, int dk, int dv, int causal, int window,
+                   float scale, cudaStream_t s) {
   constexpr int BKV = repro::kv_tile_rows(DK, BQ);
   using L = AttnTile<DK, DV, BQ, BKV>;
   static const cudaError_t attr = cudaFuncSetAttribute(
@@ -96,37 +98,36 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, int B, 
   const dim3 grid(B * H, (Sq + BQ - 1) / BQ);
   flash_fwd<T, DK, DV, BQ, BKV, ASYNC><<<grid, L::THREADS, L::BYTES, s>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(o), Sq, Sk, H, KH, causal, window, scale);
+      static_cast<T*>(o), Sq, Sk, H, KH, dk, dv, causal, window, scale);
   return cudaSuccess;
 }
 
 template <typename T, int DK, int DV, bool ASYNC>
 cudaError_t pick_tile(const void* q, const void* k, const void* v, void* o, int B, int Sq,
-                      int Sk, int H, int KH, int causal, int window, float scale,
-                      cudaStream_t s) {
+                      int Sk, int H, int KH, int dk, int dv, int causal, int window,
+                      float scale, cudaStream_t s) {
   // the q-tile rule of the source note
   const long long blocks64 = (long long)((Sq + 63) / 64) * B * H;
   if (blocks64 >= 2LL * repro::sm_count())
-    return launch<T, DK, DV, 64, ASYNC>(q, k, v, o, B, Sq, Sk, H, KH, causal, window, scale, s);
-  return launch<T, DK, DV, 32, ASYNC>(q, k, v, o, B, Sq, Sk, H, KH, causal, window, scale, s);
+    return launch<T, DK, DV, 64, ASYNC>(q, k, v, o, B, Sq, Sk, H, KH, dk, dv, causal, window,
+                                        scale, s);
+  return launch<T, DK, DV, 32, ASYNC>(q, k, v, o, B, Sq, Sk, H, KH, dk, dv, causal, window,
+                                      scale, s);
 }
 
-// The (q/k, v) widths compiled: the square heads 32, 64 and 128, and MLA's
-// (192, 128) (deepseek-v2's published widths) and (96, 64) (its reduced
-// d-256 variant, q/k 80 zero-padded to 96 by the caller).
+// The (q/k, v) tile widths compiled (REPRO_ATTN_WIDTHS, attn_tile.cuh): the
+// square heads 32, 64, 128 and 256, and MLA's (192, 128) (deepseek-v2's
+// published widths) and (96, 64) (its reduced d-256 variant, q/k 80).
 template <typename T, bool ASYNC>
 cudaError_t dispatch(int DK, int DV, const void* q, const void* k, const void* v, void* o,
-                     int B, int Sq, int Sk, int H, int KH, int causal, int window,
-                     float scale, cudaStream_t s) {
-#define REPRO_WIDTHS(dk, dv)                                                            \
-  if (DK == dk && DV == dv)                                                             \
-    return pick_tile<T, dk, dv, ASYNC>(q, k, v, o, B, Sq, Sk, H, KH, causal, window, scale, s);
-  REPRO_WIDTHS(32, 32)
-  REPRO_WIDTHS(64, 64)
-  REPRO_WIDTHS(128, 128)
-  REPRO_WIDTHS(96, 64)
-  REPRO_WIDTHS(192, 128)
-#undef REPRO_WIDTHS
+                     int B, int Sq, int Sk, int H, int KH, int dk, int dv, int causal,
+                     int window, float scale, cudaStream_t s) {
+#define REPRO_WIDTH(wk, wv)                                                              \
+  if (DK == wk && DV == wv)                                                              \
+    return pick_tile<T, wk, wv, ASYNC>(q, k, v, o, B, Sq, Sk, H, KH, dk, dv, causal, window, \
+                                       scale, s);
+  REPRO_ATTN_WIDTHS(REPRO_WIDTH)
+#undef REPRO_WIDTH
   return cudaErrorInvalidValue;
 }
 
@@ -151,38 +152,38 @@ cudaError_t occupancy(int* blocks, int* smem) {
 // blocks an SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor) and bytes of
 // dynamic shared memory a block.
 extern "C" int flash_attn_occupancy(int HD, int HDV, int BQ, int* blocks, int* smem) {
-#define REPRO_WIDTHS(dk, dv)                                                  \
-  if (HD == dk && HDV == dv)                                                  \
-    return (int)(BQ == 64 ? occupancy<dk, dv, 64>(blocks, smem)               \
-                          : occupancy<dk, dv, 32>(blocks, smem));
-  REPRO_WIDTHS(32, 32)
-  REPRO_WIDTHS(64, 64)
-  REPRO_WIDTHS(128, 128)
-  REPRO_WIDTHS(96, 64)
-  REPRO_WIDTHS(192, 128)
-#undef REPRO_WIDTHS
+#define REPRO_WIDTH(wk, wv)                                                   \
+  if (HD == wk && HDV == wv)                                                  \
+    return (int)(BQ == 64 ? occupancy<wk, wv, 64>(blocks, smem)               \
+                          : occupancy<wk, wv, 32>(blocks, smem));
+  REPRO_ATTN_WIDTHS(REPRO_WIDTH)
+#undef REPRO_WIDTH
   return (int)cudaErrorInvalidValue;
 }
 
-// dtype: 0 = f32, 1 = bf16.  q (B,Sq,H,HD), k (B,Sk,KH,HD), v (B,Sk,KH,HDV),
-// o (B,Sq,H,HDV), contiguous.  Query row i sits at key position i.  Returns
+// dtype: 0 = f32, 1 = bf16.  q (B,Sq,H,dk), k (B,Sk,KH,dk), v (B,Sk,KH,dv),
+// o (B,Sq,H,dv), contiguous, run in the compiled (HD, HDV) tile (dk ≤ HD,
+// dv ≤ HDV, multiples of 4).  Query row i sits at key position i.  Returns
 // the first error of the launch, else cudaGetLastError() after it.
 extern "C" int flash_attn(int dtype, const void* q, const void* k, const void* v,
                           void* o, int B, int Sq, int Sk, int H, int KH, int HD,
-                          int HDV, int causal, int window, float scale, void* stream) {
-  if (B < 1 || Sq < 1 || Sk < 1 || KH < 1 || H % KH != 0) return (int)cudaErrorInvalidValue;
+                          int HDV, int dk, int dv, int causal, int window, float scale,
+                          void* stream) {
+  if (B < 1 || Sq < 1 || Sk < 1 || KH < 1 || H % KH != 0 || !repro::row_widths_fit(dk, dv, HD, HDV))
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bool vec = repro::aligned16(q) && repro::aligned16(k) && repro::aligned16(v) &&
                    repro::aligned16(o);
   cudaError_t e;
   if (dtype == 0 && vec) {
-    e = dispatch<float, true>(HD, HDV, q, k, v, o, B, Sq, Sk, H, KH, causal, window, scale, s);
+    e = dispatch<float, true>(HD, HDV, q, k, v, o, B, Sq, Sk, H, KH, dk, dv, causal, window,
+                              scale, s);
   } else if (dtype == 0) {
-    e = dispatch<float, false>(HD, HDV, q, k, v, o, B, Sq, Sk, H, KH, causal, window, scale,
-                               s);
+    e = dispatch<float, false>(HD, HDV, q, k, v, o, B, Sq, Sk, H, KH, dk, dv, causal, window,
+                               scale, s);
   } else if (dtype == 1) {
-    e = dispatch<__nv_bfloat16, false>(HD, HDV, q, k, v, o, B, Sq, Sk, H, KH, causal, window,
-                                       scale, s);
+    e = dispatch<__nv_bfloat16, false>(HD, HDV, q, k, v, o, B, Sq, Sk, H, KH, dk, dv, causal,
+                                       window, scale, s);
   } else {
     return (int)cudaErrorInvalidValue;
   }

@@ -8,10 +8,11 @@ in plain torch (the TPU kernel has no backward; JAX training differentiates
 its jnp attention, as XLA).
 
 v may be narrower than q and k (MLA: q/k nope + rope wide, v its own
-width).  The kernel is compiled for the (q/k, v) widths of ``WIDTHS``; a
-caller with another q/k width zero-pads q and k to ``qk_width(dk, dv)``
-and passes the scale of its unpadded width (``scale=``), so the padded dims
-add exact zeros to every dot."""
+width).  The kernel is compiled for the (q/k, v) tile widths of
+``WIDTHS``; a call runs in the tile ``instance(dk, dv)`` picks, which
+zero-fills q and k past dk and v past dv and stores dv columns (gemma3's
+heads of 240 in the 256 tile, heads of 16 in the 32 one, MLA's (80, 64) in
+(96, 64)).  A width no tile holds raises on the card, naming it."""
 from __future__ import annotations
 
 import ctypes
@@ -22,27 +23,37 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.flash_attn.ref import attention_ref
 from repro_torch.models.attention import NEG_INF, make_mask
 
-# (q/k, v) head widths the prefill kernels are compiled for: the square
-# heads and MLA's (deepseek-v2's published (192, 128); (96, 64) for its
-# reduced d-256 variant, q/k 80 padded)
-WIDTHS = ((32, 32), (64, 64), (128, 128), (96, 64), (192, 128))
+# (q/k, v) tile widths the prefill kernels are compiled for
+# (REPRO_ATTN_WIDTHS in csrc/attn_tile.cuh): the square heads and MLA's
+# (deepseek-v2's published (192, 128); (96, 64) for its reduced d-256
+# variant, q/k 80)
+WIDTHS = ((32, 32), (64, 64), (128, 128), (256, 256), (96, 64), (192, 128))
 SQUARE = tuple(w for w in WIDTHS if w[0] == w[1])   # the decode kernel's
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_ARGTYPES = ([ctypes.c_int] + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 9
+_ARGTYPES = ([ctypes.c_int] + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 11
              + [ctypes.c_float, ctypes.c_void_p])
 
 
-def qk_width(dk: int, dv: int) -> int:
-    """The compiled q/k width a (dk, dv) call runs at: the smallest one of
-    ``WIDTHS`` with value width ``dv`` that holds ``dk``; ``dk`` itself
-    when there is none (a CUDA call then raises)."""
-    fits = [w for w, v in WIDTHS if v == dv and w >= dk]
-    return min(fits) if fits else dk
+def instance(dk: int, dv: int, itemsize: int = 4, widths=WIDTHS):
+    """The compiled (DK, DV) tile a call with rows of q/k width ``dk`` and
+    v width ``dv`` (elements of ``itemsize`` bytes) runs in: the smallest
+    of ``widths`` (by DK + DV) with DK ≥ dk and DV ≥ dv.  Rows must be
+    whole 16-byte chunks and at most 256 wide; anything else raises
+    ValueError naming the widths."""
+    chunk = 16 // itemsize
+    fits = [w for w in widths if w[0] >= dk and w[1] >= dv]
+    if min(dk, dv) < chunk or dk % chunk or dv % chunk or not fits:
+        vw = f" (v {dv})" if dv != dk else ""
+        raise ValueError(
+            f"head width {dk}{vw} has no compiled tile: rows must be whole 16-byte "
+            f"chunks ({chunk} elements of {itemsize} bytes) and fit one of {widths}")
+    return min(fits, key=lambda w: (w[0] + w[1], w[0]))
 
 
 def check_operands(name, q, k, v, widths=WIDTHS):
     """Shared operand checks of the attention wrappers: q (B,S,H,dk), k
-    (B,Sk,K,dk), v (B,Sk,K,dv); on the card (dk, dv) one of ``widths``."""
+    (B,Sk,K,dk), v (B,Sk,K,dv).  On the card → the (DK, DV) tile of
+    ``widths`` that runs the call (``instance``); elsewhere None."""
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4 or k.shape[:3] != v.shape[:3]:
         raise ValueError(f"{name}: q (B,S,H,hd), k (B,Sk,K,hd), v (B,Sk,K,hdv) expected; "
                          f"got {tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
@@ -55,12 +66,14 @@ def check_operands(name, q, k, v, widths=WIDTHS):
         raise TypeError(f"{name}: q, k, v must share one dtype of {list(DTYPES)}")
     if len({t.device for t in (q, k, v)}) != 1:
         raise ValueError(f"{name}: operands on different devices")
-    if q.device.type == "cuda" and (d, dv) not in widths:
-        vw = f" (v {dv})" if dv != d else ""
-        raise ValueError(f"{name}: head width {d}{vw} not in the compiled "
-                         f"(q/k, v) widths {widths}")
     if not all(t.is_contiguous() for t in (q, k, v)):
         raise ValueError(f"{name}: operands must be contiguous")
+    if q.device.type != "cuda":
+        return None
+    try:
+        return instance(d, dv, q.element_size(), widths)
+    except ValueError as e:
+        raise ValueError(f"{name}: {e}") from None
 
 
 class FlashAttention(torch.autograd.Function):
@@ -127,8 +140,8 @@ def _launch(q, k, v, *, causal: bool, window: int, scale: float):
     out = q.new_empty(b, sq, h, dv)
     fn = _build.function("flash_attn", _ARGTYPES)
     rc = fn(DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
-            out.data_ptr(), b, sq, sk, h, kh, d, dv, int(causal), int(window),
-            scale, torch.cuda.current_stream(q.device).cuda_stream)
+            out.data_ptr(), b, sq, sk, h, kh, *instance(d, dv, q.element_size()), d, dv,
+            int(causal), int(window), scale, torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(rc, "flash_attn")
     flash_attention.launches += 1
     return out
@@ -138,9 +151,9 @@ flash_attention.launches = 0
 
 
 def occupancy(dk: int, dv: int, bq: int):
-    """(blocks an SM, dynamic shared bytes a block) of the f32 instance of
-    widths (dk, dv) with a ``bq``-row q tile (32 or 64), by the card's
-    occupancy call."""
+    """(blocks an SM, dynamic shared bytes a block) of the f32 tile of
+    widths (dk, dv) (one of ``WIDTHS``) with a ``bq``-row q tile (32 or 64),
+    by the card's occupancy call."""
     fn = _build.function("flash_attn", [ctypes.c_int] * 3 + [ctypes.c_void_p] * 2,
                          symbol="flash_attn_occupancy")
     blocks, smem = ctypes.c_int(0), ctypes.c_int(0)

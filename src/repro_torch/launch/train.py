@@ -78,12 +78,11 @@ round on that architecture's reduced config (``core/arch_round.py``,
 one round step a round.  ``--assert-fused`` turns the run into the
 arch-matrix check — it fails unless no dense merge ran inside the engine,
 each round was one round step, and the losses match the dense-merge oracle
-to ≤1e-5.  On the card the width must give head widths the attention
-kernels take (32, 64 or 128, and MLA's q/k 96 with v 64: ``--fl-dmodel
-256`` → 64, and deepseek-v2's q/k 80 padded to 96):
+to ≤1e-5.  The default ``--fl-dmodel 64`` gives heads of 16 (MLA's q/k 32
+with v 16), which the attention kernels run in their 32-wide tile:
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch llama3.2-1b \
-        --fl-clients 4 --fl-rounds 2 --assert-fused --fl-dmodel 256
+        --fl-clients 4 --fl-rounds 2 --assert-fused
 
 Started by torchrun, the FL modes (the arch round, ``--fl-clients``
 PFTT, ``--population``) shard the stacked client axis over every rank

@@ -5,13 +5,10 @@ Sequence mode (training, prefill) forms per-head k and v from the
 compressed latent and runs the attention kernels: ``flash_attention``, or
 under the block-sparse impl ``block_sparse_attention``.  q and k are nope +
 rope wide and v is ``v_head_dim`` wide (192 and 128 at deepseek-v2's
-published widths); the kernels are compiled for such pairs
-(``kernels.flash_attn.ops.WIDTHS``), and q and k are built by one
-``torch.cat`` that also appends the zero pad up to the compiled q/k width
-(80 → 96 at the reduced d-256 config), with the scale of the unpadded
-width, (nope + rope)^-1/2: the pad adds exact zeros to every q·k.  The pad
-sits outside the kernels' autograd Function, so the gradient is sliced off
-by ``cat``'s backward.
+published widths), with the scale (nope + rope)^-1/2; the kernels run
+such a pair in the smallest compiled tile that holds it
+(``kernels.flash_attn.ops.instance``: (80, 64) at the reduced d-256 config
+in the (96, 64) tile, zero-filled inside the kernel).
 
 Decode uses the *absorbed* formulation: q is projected into the kv_lora
 latent space and attention runs against the compressed cache (c_kv,
@@ -33,7 +30,7 @@ import torch
 
 from repro_torch.configs.base import MLAConfig
 from repro_torch.kernels.block_sparse_attn.ops import block_sparse_attention
-from repro_torch.kernels.flash_attn.ops import flash_attention, qk_width
+from repro_torch.kernels.flash_attn.ops import flash_attention
 from repro_torch.models.attention import NEG_INF, sparse_position_mask
 from repro_torch.models.norms import rmsnorm
 from repro_torch.models.peft import effective_weight, lora_proj
@@ -97,11 +94,8 @@ def mla_seq(x, p, cfg: MLAConfig, n_heads: int, rot, eps: float, *,
     c_kv, k_pe = _compress_kv(x, p, cfg, rot, eps, lora=lora, scale=scale)
     kv = lora_proj(c_kv, p["wkv_b"], _lf(lora, "wkv_b"), scale=scale).reshape(
         b, s, n_heads, nope + dv)
-    pad = qk_width(nope + rope, dv) - (nope + rope)
-    zeros = [q_nope.new_zeros(b, s, n_heads, pad)] if pad else []
-    q = torch.cat([q_nope, q_pe, *zeros], -1)
-    k = torch.cat([kv[..., :nope], k_pe[:, :, None].expand(b, s, n_heads, rope), *zeros],
-                  -1)
+    q = torch.cat([q_nope, q_pe], -1)
+    k = torch.cat([kv[..., :nope], k_pe[:, :, None].expand(b, s, n_heads, rope)], -1)
     v = kv[..., nope:].contiguous()
     att_scale = (nope + rope) ** -0.5
     if sparse is not None:

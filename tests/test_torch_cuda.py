@@ -147,16 +147,93 @@ def test_block_sparse_attn_kernel_mla_widths(gen, dtype, dk, dv, h, kh):
 
 
 def test_attention_kernels_refuse_uncompiled_widths(gen):
-    """A (q/k, v) pair with no instance raises naming the widths (q/k 80
-    unpadded; hd 16); the decode kernel takes square heads only."""
-    q = _rn(gen, 1, 8, 2, 80)
-    with pytest.raises(ValueError, match="head width 80 \\(v 64\\)"):
-        flash_attention(q, q, _rn(gen, 1, 8, 2, 64))
-    with pytest.raises(ValueError, match="head width 16"):
-        flash_attention(*(_rn(gen, 1, 8, 2, 16) for _ in range(3)))
-    with pytest.raises(ValueError, match="head width 96"):
-        decode_attention(_rn(gen, 1, 1, 2, 96), _rn(gen, 1, 8, 2, 96),
-                         _rn(gen, 1, 8, 2, 96), 4)
+    """A row width no compiled tile holds raises naming it, and launches
+    nothing: wider than 256, or not whole 16-byte chunks (f32 18, bf16 12,
+    v 20 in bf16); the decode kernel takes square heads only."""
+    before = (flash_attention.launches, decode_attention.launches,
+              block_sparse_attention.launches)
+    for dk, dv, dtype in ((288, 288, torch.float32), (18, 18, torch.float32),
+                          (12, 12, torch.bfloat16), (32, 20, torch.bfloat16),
+                          (264, 128, torch.float32)):
+        q = _rn(gen, 1, 16, 2, dk, dtype=dtype)
+        v = _rn(gen, 1, 16, 2, dv, dtype=dtype)
+        with pytest.raises(ValueError, match=f"head width {dk}"):
+            flash_attention(q, q, v)
+        with pytest.raises(ValueError, match=f"head width {dk}"):
+            block_sparse_attention(q, q, v, SparseAttnConfig(block_size=16, local_blocks=1,
+                                                             sink_blocks=1, stride=2))
+    for d in (288, 18):
+        with pytest.raises(ValueError, match=f"head width {d}"):
+            decode_attention(_rn(gen, 1, 1, 2, d), _rn(gen, 1, 8, 2, d), _rn(gen, 1, 8, 2, d), 4)
+    with pytest.raises(ValueError, match="one shape"):
+        decode_attention(_rn(gen, 1, 1, 2, 32), _rn(gen, 1, 8, 2, 32), _rn(gen, 1, 8, 2, 16), 4)
+    assert (flash_attention.launches, decode_attention.launches,
+            block_sparse_attention.launches) == before
+
+
+# gemma3-12b's heads of 240 (the 256 tile), the launcher's default d 64
+# (heads of 16: the 32 tile) and its MLA's (32, 16)
+ROW_WIDTHS = [(240, 240), (16, 16), (32, 16)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dk,dv", ROW_WIDTHS)
+@pytest.mark.parametrize("b,sq,h,kh,causal,window", [
+    (2, 300, 16, 8, True, 0), (2, 300, 16, 8, True, 100), (1, 77, 4, 4, False, 0),
+    # a grid that takes the 64-row q tile on a 132-SM card
+    (2, 1280, 16, 8, True, 1024)])
+def test_flash_attn_kernel_row_widths(gen, dtype, dk, dv, b, sq, h, kh, causal, window):
+    """Row widths below the compiled tile's (zero-filled inside the kernel)
+    against the plain version, with one launch a call."""
+    q, k = _rn(gen, b, sq, h, dk, dtype=dtype), _rn(gen, b, sq, kh, dk, dtype=dtype)
+    v = _rn(gen, b, sq, kh, dv, dtype=dtype)
+    before = flash_attention.launches
+    out = flash_attention(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 1 and out.shape == (b, sq, h, dv)
+    _close(out, attention_ref(q, k, v, causal=causal, window=window), TOL["flash"][dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dk,dv", ROW_WIDTHS)
+@pytest.mark.parametrize("sq,q_offset", [(1280, 0), (256, 512)])
+def test_block_sparse_attn_kernel_row_widths(gen, dtype, dk, dv, sq, q_offset):
+    """The block-sparse kernel at the row widths, gemma3-12b's pattern
+    (block 128, local 4, sink 1, stride 8), GQA 2, against the plain
+    version."""
+    sk = sq + q_offset
+    q = _rn(gen, 2, sq, 16, dk, dtype=dtype)
+    k, v = _rn(gen, 2, sk, 8, dk, dtype=dtype), _rn(gen, 2, sk, 8, dv, dtype=dtype)
+    before = block_sparse_attention.launches
+    out = block_sparse_attention(q, k, v, SERVE_SPARSE, q_offset=q_offset)
+    torch.cuda.synchronize()
+    assert block_sparse_attention.launches == before + 1
+    _close(out, block_sparse_ref(q, k, v, SERVE_SPARSE, q_offset=q_offset),
+           TOL["flash"][dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [240, 16])
+@pytest.mark.parametrize("sc,cache_len,window,sparse,lse", [
+    (1024, 1024, 1024, False, False), (1024, 300, 1024, False, True),
+    (1312, 1312, 0, False, False), (1312, 1312, 0, True, True), (1312, 1, 0, False, False)])
+def test_decode_attn_kernel_row_widths(gen, dtype, d, sc, cache_len, window, sparse, lse):
+    """The decode kernel at heads of 240 (the 256 layout: two chunks a lane
+    in f32, 4 blocks an SM) and 16 (the 32 layout), gemma3-12b's GQA 2:
+    its 1024-slot rings with the window, the global cache of 1312 plain and
+    under the sparse mask, with and without the LSE."""
+    cfg = SERVE_SPARSE if sparse else None
+    q = _rn(gen, 2, 1, 16, d, dtype=dtype)
+    kc, vc = _rn(gen, 2, sc, 8, d, dtype=dtype), _rn(gen, 2, sc, 8, d, dtype=dtype)
+    before = decode_attention.launches
+    got = decode_attention(q, kc, vc, cache_len, window=window, sparse=cfg, return_lse=lse)
+    torch.cuda.synchronize()
+    assert decode_attention.launches == before + 1
+    want = decode_ref(q, kc, vc, cache_len, window=window, sparse=cfg, return_lse=lse)
+    if lse:
+        (got, got_lse), (want, want_lse) = got, want
+        torch.testing.assert_close(got_lse, want_lse, atol=1e-4, rtol=0)
+    _close(got, want, TOL["decode"][dtype])
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -480,6 +557,17 @@ def test_decode_attn_kernel_unaligned(gen):
             block_size=32, local_blocks=2, sink_blocks=1, stride=4))):
         _close(decode_attention(q, kc, vc, cache_len, sparse=sparse),
                decode_ref(q, kc, vc, cache_len, sparse=sparse), TOL["decode"][torch.float32])
+
+
+@pytest.mark.parametrize("d", [240, 16])
+def test_decode_attn_kernel_unaligned_row_widths(gen, d):
+    """Caches 4 bytes past a 16-byte boundary at the row widths below
+    their layout's (240 at 256, 16 at 32): the element-load path, whose
+    chunks past the row read the row's first chunk."""
+    q, kc, vc = _unaligned(gen, 2, 1, 8, d), _unaligned(gen, 2, 300, 4, d), _unaligned(gen, 2, 300, 4, d)
+    for cache_len, window in ((1, 0), (257, 0), (300, 100)):
+        _close(decode_attention(q, kc, vc, cache_len, window=window),
+               decode_ref(q, kc, vc, cache_len, window=window), TOL["decode"][torch.float32])
 
 
 @pytest.mark.parametrize("arch,prompt_len,impl", [("gpt2-small", 9, "auto"),

@@ -1,8 +1,8 @@
 """deepseek-v2's multi-head latent attention in the port against the JAX
 package, on the CPU in f32 with numpy-seeded inputs: ``mla_seq`` and the
 absorbed ``mla_decode`` with nonzero factors on the four MLA targets (dense
-and block-sparse), ``effective_weight``, the zero-padded q/k attention with
-an explicit scale, ``FlashAttention``'s backward at a value width apart from
+and block-sparse), ``effective_weight``, attention zero-padded to the
+compiled tile that runs it (the kernels' zero-fill) with an explicit scale, ``FlashAttention``'s backward at a value width apart from
 the q/k width, and the reduced deepseek-v2's loss, prefill and decode.
 
 JAX's eager prefill and decode of deepseek-v2 raise on one device (ROADMAP
@@ -32,7 +32,7 @@ from repro.sharding import MeshCtx
 from repro_torch import bridge, trees
 from repro_torch.configs import MLAConfig, SparseAttnConfig, get_config
 from repro_torch.kernels.block_sparse_attn.ops import block_sparse_attention
-from repro_torch.kernels.flash_attn.ops import FlashAttention, flash_attention, qk_width
+from repro_torch.kernels.flash_attn.ops import FlashAttention, flash_attention, instance
 from repro_torch.kernels.flash_attn.ref import attention_ref
 from repro_torch.models import mla, peft
 from repro_torch.models.rope import rope_cos_sin
@@ -102,7 +102,7 @@ def test_mla_seq_and_decode_match_jax(widths, sparse, jax_bsa_substitute):
     """``mla_seq`` (causal; under the sparse pattern block-sparse) and
     ``mla_decode`` at every position of a 48-token sequence against JAX's,
     with nonzero factors on the four targets: outputs, c_kv and k_pe within
-    1e-5.  (64, 16, 64) pads q/k 80 to the compiled 96.  JAX's sparse
+    1e-5.  (64, 16, 64) runs q/k 80 in the compiled (96, 64) tile.  JAX's sparse
     ``mla_seq`` runs its block-sparse attention with v padded
     (``_j_bsa_v_padded``)."""
     jcfg, cfg, p, lora = _mla_case(widths)
@@ -123,7 +123,7 @@ def test_mla_seq_and_decode_match_jax(widths, sparse, jax_bsa_substitute):
     for got, want in ((ty, jy), (tckv, jckv), (tkpe, jkpe)):
         np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=TOL, rtol=0)
     if sparse:
-        assert qk_width(widths[0] + widths[1], widths[2]) >= widths[0] + widths[1]
+        assert instance(widths[0] + widths[1], widths[2])[0] >= widths[0] + widths[1]
     m0 = peft.dense_merge_count()
     for t in range(s):
         want = jmla.mla_decode(jnp.asarray(x[:, t:t + 1]), jp, jcfg, h, t, THETA, EPS,
@@ -160,10 +160,11 @@ def test_effective_weight_matches_jax(mask):
 @pytest.mark.parametrize("dk,dv", [(80, 64), (48, 32)])
 @pytest.mark.parametrize("kind", ["causal", "non-causal", "block-sparse"])
 def test_padded_attention_matches_dense(dk, dv, kind):
-    """q and k zero-padded to ``qk_width(dk, dv)`` with the scale of dk
-    (MLA's pad-and-scale) against JAX's ``dense_attention`` (and
-    ``block_sparse_attention``, v padded: ``_j_bsa_v_padded``) of the
-    unpadded operands, within 1e-5."""
+    """q and k zero-padded to the q/k width of the tile ``instance(dk, dv)``
+    picks and v to its v width, with the scale of dk, then the first dv
+    columns (what the kernels' zero-fill computes on the card), against
+    JAX's ``dense_attention`` (and ``block_sparse_attention``, v padded:
+    ``_j_bsa_v_padded``) of the unpadded operands, within 1e-5."""
     rng = np.random.RandomState(dk)
     b, s, h = 2, 64, 4
     q, k = (rng.randn(b, s, h, dk).astype(np.float32) for _ in range(2))
@@ -173,26 +174,27 @@ def test_padded_attention_matches_dense(dk, dv, kind):
         want = _j_bsa_v_padded(jq, jk, jv, JSparse(**SPARSE))
     else:
         want = jattn.dense_attention(jq, jk, jv, causal=kind == "causal")
-    pad = qk_width(dk, dv) - dk
-    assert pad == (16 if dk == 80 else 0)
-    tq, tk = (torch.cat([torch.from_numpy(t), torch.zeros(b, s, h, pad)], -1)
+    wk, wv = instance(dk, dv)
+    assert (wk, wv) == ((96, 64) if dk == 80 else (64, 64))
+    tq, tk = (torch.cat([torch.from_numpy(t), torch.zeros(b, s, h, wk - dk)], -1)
               for t in (q, k))
+    tv = torch.cat([torch.from_numpy(v), torch.zeros(b, s, h, wv - dv)], -1)
     if kind == "block-sparse":
-        got = block_sparse_attention(tq, tk, torch.from_numpy(v), SparseAttnConfig(**SPARSE),
+        got = block_sparse_attention(tq, tk, tv, SparseAttnConfig(**SPARSE),
                                      scale=dk ** -0.5)
     else:
-        got = flash_attention(tq, tk, torch.from_numpy(v), causal=kind == "causal",
-                              scale=dk ** -0.5)
-    assert got.shape == (b, s, h, dv)
+        got = flash_attention(tq, tk, tv, causal=kind == "causal", scale=dk ** -0.5)
+    assert got.shape == (b, s, h, wv)
+    got = got[..., :dv]
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=TOL, rtol=0)
 
 
 @pytest.mark.parametrize("causal,window", [(True, 0), (False, 0), (True, 5)])
 def test_flash_function_backward_value_width_apart(causal, window):
-    """``FlashAttention``'s backward with v narrower than q/k (80 padded to
-    96 by a ``cat`` outside the Function, scale 80^-1/2, GQA 4 on 2) against
-    ``jax.grad`` of the JAX package's dense attention on the unpadded
-    operands: dq, dk, dv within 1e-5 (the pad's gradient sliced off)."""
+    """``FlashAttention``'s backward with v narrower than q/k (q/k 80, v
+    64, as MLA passes them at the reduced d 256; scale 80^-1/2, GQA 4 on 2)
+    against ``jax.grad`` of the JAX package's dense attention: dq, dk, dv
+    within 1e-5."""
     rng = np.random.RandomState(11)
     b, s, h, kh, dk, dv = 2, 20, 4, 2, 80, 64
     q = rng.randn(b, s, h, dk).astype(np.float32)
@@ -203,9 +205,7 @@ def test_flash_function_backward_value_width_apart(causal, window):
         q, k, v, causal=causal, window=window) * jnp.asarray(g)), argnums=(0, 1, 2))(
         *map(jnp.asarray, (q, k, v)))
     tq, tk, tv = (torch.from_numpy(t).requires_grad_() for t in (q, k, v))
-    pad = qk_width(dk, dv) - dk
-    pq, pk = (torch.cat([t, t.new_zeros(*t.shape[:3], pad)], -1) for t in (tq, tk))
-    out = FlashAttention.apply(attention_ref, pq, pk, tv, causal, window, dk ** -0.5)
+    out = FlashAttention.apply(attention_ref, tq, tk, tv, causal, window, dk ** -0.5)
     (out * torch.from_numpy(g)).sum().backward()
     for got, ref in zip((tq.grad, tk.grad, tv.grad), want):
         np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=TOL, rtol=0)
@@ -299,13 +299,14 @@ def test_lm_loss_and_factor_grads_match_jax():
 
 def test_published_widths_run_the_compiled_instance():
     """At deepseek-v2's published widths q/k are 192 and v 128, a compiled
-    pair (no pad); at the reduced d 256, 80 pads to 96; at d 128 (48, 32)
-    has no instance and runs unpadded (the CPU; the card raises)."""
+    tile of their own; at the reduced d 256 (80, 64) runs in the (96, 64)
+    tile, at d 128 (48, 32) in (64, 64), at the launcher's d 64 (32, 16) in
+    (32, 32)."""
     full = get_config("deepseek-v2-236b").mla
-    assert qk_width(full.nope_head_dim + full.rope_head_dim, full.v_head_dim) == 192
-    for d, want in ((256, 96), (128, 48)):
+    assert instance(full.nope_head_dim + full.rope_head_dim, full.v_head_dim) == (192, 128)
+    for d, want in ((256, (96, 64)), (128, (64, 64)), (64, (32, 32))):
         m = get_config("deepseek-v2-236b").reduced(d_model=d).mla
-        assert qk_width(m.nope_head_dim + m.rope_head_dim, m.v_head_dim) == want
+        assert instance(m.nope_head_dim + m.rope_head_dim, m.v_head_dim) == want
     cut = dataclasses.replace(get_config("deepseek-v2-236b").reduced(d_model=64),
                               mla=MLAConfig(kv_lora_rank=16, q_lora_rank=24,
                                             rope_head_dim=8, nope_head_dim=16,

@@ -29,7 +29,7 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 sys.path.insert(0, os.path.join(ROOT, "tools"))
 sys.path.insert(0, ROOT)
 
-RULE = "int decode_split(int bh, int positions_max, int sms) {\n"
+RULE = "int decode_split(int bh, int positions_max, int sms, int minb) {\n"
 SPLITS = (1, 2, 4, 8, 16)
 # (B, Sc, H, K, hd, cache_len, window, sparse, dtype)
 ROWS = ((8, 192, 12, 12, 64, 192, 0, False, "float32"),
@@ -108,8 +108,9 @@ def main():
             fn.argtypes = ops._ARGTYPES
             out = torch.empty_like(q)
             call = (lambda fn=fn, out=out: fn(ops.DTYPES[dt], q.data_ptr(), kc.data_ptr(),
-                                              vc.data_ptr(), out.data_ptr(), b, sc, h, kh, d,
-                                              clen, window, *pattern, d ** -0.5, stream))
+                                              vc.data_ptr(), out.data_ptr(), None, b, sc, h, kh,
+                                              ops.instance(d, d, widths=ops.SQUARE)[0], d, clen,
+                                              0, window, *pattern, d ** -0.5, stream))
             assert call() == 0
             torch.cuda.synchronize()
             assert torch.allclose(out.float(), ref.float(), atol=atol, rtol=atol), split
