@@ -25,6 +25,10 @@ Phases, each reported on its own lines:
    Each ssd_chunk row prints its plan (``fused``: C·Bᵀ's tiles in the chunk
    states' launch) and the groups C·Bᵀ is formed for, and its serving-shape
    row is profiled once, so its PROFILE lines name the scan's kernels.
+   ``rank_cases``: lora_fused at ranks 64 and 128 at SERVE-LLAMA-R64's
+   prefill and decode shapes and gpt2's decode; ssd_chunk at (P, N) outside
+   its compiled pairs, (128, 128) and (64, 256), through the cover (each
+   such row prints the compiled pair and its blocks).
 4. serve   — the serving paths through the port's entry points
    (``launch/serve.py`` build/generate), each with random weights from seed
    0 and nonzero rank-8 LoRA factors from a numpy seed, f32:
@@ -40,6 +44,10 @@ Phases, each reported on its own lines:
      layers, d 2048, 32 query heads on 8 KV heads of 64, d_ff 8192 SwiGLU,
      RoPE θ 5e5, tied vocab 128256), batch 8, prompt 512, 64 decode steps,
      LoRA on wq and wv: GQA through ``flash_attn`` and ``decode_attn``;
+   * SERVE-LLAMA-R64: the same model and weights (``weights_of``) with
+     rank-64 LoRA on wq and wv (numpy seed 1), batch 8, prompt 512, 32
+     decode steps: ``lora_fused``'s x·A through its workspace in prefill
+     (M 4096, N 2048 / 512) and in the decode branch's main loop (M 8);
    * SERVE-ZOO: gemma3-12b (sliding-window ring caches: window 64, both
      rings wrap), internvl2-26b (8 projected patch positions before the
      prompt), dbrx-132b (MoE) and jamba-v0.1-52b (attention + Mamba + MoE)
@@ -69,7 +77,8 @@ Phases, each reported on its own lines:
      steps, LoRA on the four MLA targets: ``flash_attn`` at (q/k 192, v
      128), ``lora_fused`` at the MLA shapes, the absorbed decode in plain
      torch, timed apart (its share of the decode step's device time);
-   * SERVE-SPARSE-KV: gpt2-small at full width, ``impl="sparse"`` and
+   * SERVE-SPARSE-KV: gpt2-small at full width cut to 4 of its 12 layers
+     (``sparse_kv_cut``), ``impl="sparse"`` and
      ``opts={"sparse_kv_seq": 1024}``, batch 8, decoded from
      ``init_cache`` over 1024 teacher-forced tokens: ``decode_attn`` with
      its LSE over up to three slot ranges a layer a step, merged; launches
@@ -83,7 +92,8 @@ Phases, each reported on its own lines:
    logits are held to the path's tolerance.
 5. profile — torch.profiler over one prefill and 16 decode steps of each
    serving path (SERVE-SPARSE-KV: 16 decode steps at positions 1008-1023).
-6. grads   — each autograd Function (``lora_fused``'s and ``flash_attn``'s,
+6. grads   — each autograd Function (``lora_fused``'s at ranks 8 and 64,
+   ``flash_attn``'s,
    non-causal and causal, and ``ssd_chunk``'s ``SSDScan``: the kernel
    forward, a plain-torch backward) at
    the training paths' shapes, ``flash_attn``'s at MLA's (q/k 80, v 64:
@@ -113,7 +123,8 @@ Phases, each reported on its own lines:
    ``pfit_expected``; then the same runs on the CPU through the plain
    versions from the same seeds and noise streams (bytes and delays equal,
    pair accuracies and rewards within tolerance, round 0's tokens equal but
-   at f32 near-ties), and a PROFILE of a run.
+   at f32 near-ties), and a PROFILE of a run (1 round, 10 pretraining and
+   10 reward-model steps).
 10. TRAIN-PPO — one client's PPO round at gpt2-small's full width and
    depth (rollout batch 8, prompt 128, 64 sampled decode steps, then
    ``PPOTrainer.round``: prep and 2 clipped epochs, masks last-2-layers ×
@@ -291,6 +302,11 @@ SERVES = (
     # 8 KV heads of 64), RoPE θ 5e5, tied 128256-token head, 1.24 B params
     dict(tag="SERVE-LLAMA", arch="llama3.2-1b", impl="auto", batch=8,
          prompt_len=512, gen=64, rank=8, rows=1, logit_tol=1e-3),
+    # the same weights (``weights_of``: one host draw of 1.24 B parameters)
+    # with rank-64 LoRA on wq/wv: lora_fused's x·A through its workspace in
+    # prefill (M 4096), in the decode branch's main loop (M 8)
+    dict(tag="SERVE-LLAMA-R64", arch="llama3.2-1b", impl="auto", batch=8,
+         prompt_len=512, gen=32, rank=64, rows=1, logit_tol=1e-3, weights_of="SERVE-LLAMA"),
 ) + tuple(
     # the rest of the zoo at .reduced(d_model=256, repeats=2): head width
     # 64, gemma3's window 64 so its rings wrap in prefill and decode;
@@ -574,8 +590,39 @@ def kernel_cases(torch):
             flops=2 * m * k * n + 2 * m * k * 8 + 2 * m * 8 * n, main=False,
             plan=(str(dt).split(".")[1], n, k) if m <= 16 else None,
             profile=(m == 4 and n == 2048 and dt == torch.float32)))
-    return (cases + zoo_cases(torch, rn) + mla_whisper_cases(torch, rn)
-            + width_cases(torch, rn))
+    return (cases + rank_cases(torch, rn) + zoo_cases(torch, rn)
+            + mla_whisper_cases(torch, rn) + width_cases(torch, rn))
+
+
+def rank_cases(torch, rn):
+    """lora_fused above rank 32, f32: SERVE-LLAMA-R64's wq and wv at prefill
+    (M 4096, K 2048; x·A through the workspace) and decode (M 8; x·A in the
+    decode branch's main loop up to rank 64), gpt2's decode (M 8, K = N
+    768) and the rank-64 GRAD row's forward (M 2048, K = N 768), at ranks 64
+    and 128 (the workspace in both branches)."""
+    from repro_torch.kernels.lora_fused.ops import lora_matmul
+    from repro_torch.kernels.lora_fused.ref import lora_ref
+
+    cases = []
+    for r in (64, 128):
+        for m, k, n, what in ((4096, 2048, 2048, "llama prefill wq"),
+                              (4096, 2048, 512, "llama prefill wv"),
+                              (8, 2048, 2048, "llama decode wq"),
+                              (8, 2048, 512, "llama decode wv"),
+                              (8, 768, 768, "gpt2 decode"),
+                              (2048, 768, 768, "GRAD's shape")):
+            x, w = rn(m, k), rn(k, n, std=0.02)
+            a, b = rn(k, r, std=0.02), rn(r, n, std=0.05)
+            merged = w + 0.25 * (a @ b)
+            cases.append(dict(
+                name="lora_fused", label=f"M={m} K={k} N={n} r={r} ({what})", dtype="float32",
+                kernel=lambda x=x, w=w, a=a, b=b: lora_matmul(x, w, a, b, scale=0.25),
+                plain=lambda x=x, w=w, a=a, b=b: lora_ref(x, w, a, b, scale=0.25),
+                library=lambda x=x, mg=merged: torch.matmul(x, mg),
+                nbytes=(m * k + k * n + k * r + r * n + m * n) * 4,
+                flops=2 * m * k * n + 2 * m * k * r + 2 * m * r * n, main=False,
+                plan=("float32", n, k) if m <= 16 else None))
+    return cases
 
 
 def attn_case(torch, name, label, kernel, plain, q, k, v, allowed, mask=None, scale=None,
@@ -979,15 +1026,19 @@ def ssd_cases(torch, dt, dname, es, rn):
     the kernel forms it, else once per head, and the inter-chunk term only
     for chunks with a starting state (not chunk 0 without h0).  No single PyTorch call
     computes the scan."""
-    from repro_torch.kernels.ssd_chunk.ops import shared_cb, ssd_plan, ssd_scan
+    from repro_torch.kernels.ssd_chunk.ops import SHAPES, cover, shared_cb, ssd_plan, ssd_scan
     from repro_torch.kernels.ssd_chunk.ref import ssd_ref
 
     cases = []
+    # then (P, N) outside the compiled pairs, through the cover: head dims of
+    # 128 (two (64, 128) launches) and a state of 256 (two, y summed)
     for bsz, s, h, p, n, chunk, with_h0 in ((4, 512, 64, 64, 128, 256, False),
                                             (4, 300, 64, 64, 128, 256, False),
                                             (4, 512, 64, 64, 128, 256, True),
-                                            (1, 2048, 64, 64, 128, 256, False)):
-        if dt == torch.bfloat16 and (s != 512 or with_h0):
+                                            (1, 2048, 64, 64, 128, 256, False),
+                                            (4, 512, 64, 128, 128, 256, False),
+                                            (4, 512, 32, 64, 256, 256, False)):
+        if dt == torch.bfloat16 and (s != 512 or with_h0 or (p, n) not in SHAPES):
             continue
         row = rn(bsz, s, h * p + 2 * n, dtype=dt)
         row[..., h * p:] *= 0.5
@@ -1005,6 +1056,7 @@ def ssd_cases(torch, dt, dname, es, rn):
                 per_head += 2 * lc * n * p
             scores += lc * (lc + 1) // 2 * 2 * n
         groups = 1 if shared_cb(bm, cm) else h
+        pi, ni, n_p, n_n = cover(p, n, chunk=chunk, heads=h, groups=groups)
         state = bsz * h * p * n * 4
         cases.append(dict(
             name="ssd_chunk", dtype=dname,
@@ -1017,7 +1069,9 @@ def ssd_cases(torch, dt, dname, es, rn):
             nbytes=(2 * bsz * s * h * p + 2 * bsz * s * n) * es + bsz * s * h * 4 + h * 4
             + state * (2 if with_h0 else 1),
             flops=per_head * bsz * h + scores * bsz * groups,
-            ssd=f"fused={int(ssd_plan(bsz, s, h, p, n, chunk=chunk))} cb_groups={groups} ",
+            ssd=(f"fused={int(ssd_plan(bsz, s, h, p, n, chunk=chunk, groups=groups))} "
+                 f"cb_groups={groups} "
+                 + ("" if (p, n) in SHAPES else f"cover={pi}x{ni} blocks={n_p}x{n_n} ")),
             main=(s == 512 and not with_h0 and dt == torch.float32)))
     return cases
 
@@ -1089,12 +1143,12 @@ def grad_cases(torch):
         return torch.randn(*shape, generator=g, device="cuda") * std
 
     cases = []
-    for m, k in ((2048, 768), (512, 128)):
+    for m, k, r in ((2048, 768, 8), (512, 128, 8), (2048, 768, 64)):
         cases.append(dict(
-            name="lora_fused", label=f"M={m} K={k} N={k} r=8",
+            name="lora_fused", label=f"M={m} K={k} N={k} r={r}",
             kernel=lambda *t: lora_matmul(*t, scale=2.0),
             plain=lambda *t: lora_ref(*t, scale=2.0),
-            inputs=(rn(m, k), rn(k, k, std=0.05), rn(k, 8, std=0.05), rn(8, k, std=0.05)),
+            inputs=(rn(m, k), rn(k, k, std=0.05), rn(k, r, std=0.05), rn(r, k, std=0.05)),
             frozen=(1,), names=("x", "w", "a", "b")))
     for b, s, h, d, causal in ((16, 128, 12, 64, False), (8, 32, 4, 32, False),
                                (16, 39, 4, 32, True), (8, 191, 12, 64, True)):
@@ -1262,7 +1316,22 @@ def expected_launches(model, lora, impl, gen):
             "ssd_chunk": n.get("mamba", 0)}
 
 
-SERVED = {}   # a path's build, kept for a later path that serves its weights
+SERVED = {}   # a path's build, kept for the later paths that serve its weights
+
+
+def seeded_lora(torch, np, params, rank):
+    """Rank-``rank`` factors on the default targets (``init_lora``'s shapes
+    and masks) with A and B drawn from numpy seed 1, std 0.05: init_lora
+    zeros B, and the rank-r path should do real work; → (lora, scale)."""
+    from repro_torch import trees
+    from repro_torch.models import peft
+    pc = peft.PEFTConfig(lora_rank=rank)
+    rng = np.random.RandomState(1)
+    lora = trees.map_with_path(
+        lambda p, v: v if p.endswith("/mask") else torch.from_numpy(
+            (rng.randn(*v.shape) * 0.05).astype(np.float32)).to(v.device),
+        peft.init_lora(torch.Generator().manual_seed(0), params, pc))
+    return lora, peft.lora_scale(pc)
 
 
 def serve_path(torch, np, spec):
@@ -1282,21 +1351,18 @@ def serve_path(torch, np, spec):
                              "--lora-rank", str(spec["rank"])])
     cfg = (get_config(spec["arch"]).reduced(**spec["reduced"]) if spec.get("reduced")
            else CUTS[spec["cut"]]() if spec.get("cut") else None)
-    if spec.get("weights_of"):
-        built = SERVED.pop(spec["weights_of"])
-        model = Model(built[0].cfg, device=built[0].device, impl=spec["impl"])
-        params, lora, lscale, prompts, patches, frames = built[1:]
+    src = spec.get("weights_of")
+    if src:
+        model, params, prompts, patches, frames = SERVED[src]
+        if not any(s.get("weights_of") == src for s in SERVES[SERVES.index(spec) + 1:]):
+            del SERVED[src]   # its last consumer
+        model = Model(model.cfg, device=model.device, impl=spec["impl"])
     else:
-        model, params, lora, lscale, prompts, patches, frames = serve.build(
+        model, params, _, _, prompts, patches, frames = serve.build(
             args, impl=spec["impl"], cfg=cfg)
-        # init_lora zeros B: load nonzero A and B from a numpy seed so the
-        # rank-r path does real work
-        rng = np.random.RandomState(1)
-        lora = trees.map_with_path(
-            lambda p, v: v if p.endswith("/mask") else torch.from_numpy(
-                (rng.randn(*v.shape) * 0.05).astype(np.float32)).to(v.device), lora)
+    lora, lscale = seeded_lora(torch, np, params, spec["rank"])
     if any(s.get("weights_of") == tag for s in SERVES):
-        SERVED[tag] = (model, params, lora, lscale, prompts, patches, frames)
+        SERVED[tag] = (model, params, prompts, patches, frames)
     n_cache = serve.cache_len(model, prompts, args.gen)
     t_built = time.perf_counter()
 
@@ -1379,12 +1445,24 @@ def serve_path(torch, np, spec):
 
 
 SPARSE_KV_SEQ = 1024
+SPARSE_KV_LAYERS = 4     # SERVE-SPARSE-KV's depth, cut from 12 for the script's time
 SPARSE_KV_CHECK = tuple(range(0, SPARSE_KV_SEQ, 64)) + tuple(range(640, 649)) + (
     SPARSE_KV_SEQ - 1,)   # steps whose logits the CPU re-run checks
 
 
+def sparse_kv_cut():
+    """SERVE-SPARSE-KV's model: gpt2-small at full width (d 768, 12 heads of
+    64, vocab 50257), cut in depth to SPARSE_KV_LAYERS of its 12 layers
+    (every layer is the same ``attn`` layer)."""
+    from repro_torch.configs import Stage, get_config
+    cfg = get_config("gpt2-small")
+    return dataclasses.replace(cfg, stages=tuple(
+        Stage(st.pattern, SPARSE_KV_LAYERS, st.stream) for st in cfg.stages))
+
+
 def serve_sparse_kv(torch, np):
-    """SERVE-SPARSE-KV: gpt2-small at full width with ``impl="sparse"`` and
+    """SERVE-SPARSE-KV: gpt2-small at full width (``sparse_kv_cut``: 4 of
+    its 12 layers, for the script's time) with ``impl="sparse"`` and
     ``opts={"sparse_kv_seq": 1024}`` (its ``attn`` layers hold the sparse-KV
     layout: a persistent region of the sink and strided blocks, 128 slots,
     and a ring of 5 blocks, 640 slots), batch 8, rank-8 LoRA (numpy seed 1),
@@ -1405,11 +1483,9 @@ def serve_sparse_kv(torch, np):
     args = serve.parse_args(["--arch", "gpt2-small", "--batch", "8", "--prompt-len", str(seq),
                              "--gen", "0", "--lora-rank", "8"])
     opts = {"sparse_kv_seq": seq}
-    model, params, lora, lscale, toks, _, _ = serve.build(args, impl="sparse", opts=opts)
-    rng = np.random.RandomState(1)
-    lora = trees.map_with_path(
-        lambda p, v: v if p.endswith("/mask") else torch.from_numpy(
-            (rng.randn(*v.shape) * 0.05).astype(np.float32)).to(v.device), lora)
+    model, params, _, _, toks, _, _ = serve.build(args, impl="sparse", opts=opts,
+                                                  cfg=sparse_kv_cut())
+    lora, lscale = seeded_lora(torch, np, params, 8)
     cfg, b = model.cfg, args.batch
 
     def run(steps, keep=()):
@@ -1433,7 +1509,8 @@ def serve_sparse_kv(torch, np):
     launches = {n: f.launches for n, f in kernels.items()}
     n_attn, ranges = mixer_counts(cfg)["attn"], [len(sparse_kv_ranges(t, cfg.sparse_attn, seq))
                                                  for t in range(seq)]
-    expected = {"lora_fused": 24 * seq, "flash_attn": 0, "decode_attn": n_attn * sum(ranges),
+    expected = {"lora_fused": 2 * n_attn * seq, "flash_attn": 0,
+                "decode_attn": n_attn * sum(ranges),
                 "block_sparse_attn": 0, "ssd_chunk": 0}
     reps = []
     for _ in range(1 + PREFILL_REPS):
@@ -1445,7 +1522,8 @@ def serve_sparse_kv(torch, np):
     tok_s = b * seq / decode_s
     res = {"prefill_s": reps[0] / 1e3, "prefill_median_ms": sorted(reps[1:])[PREFILL_REPS // 2],
            "decode_s": decode_s}
-    print(f"{tag} gpt2-small full width (12 layers, impl sparse, sparse_kv_seq {seq}: "
+    print(f"{tag} gpt2-small full width ({cfg.n_layers} of 12 layers, impl sparse, "
+          f"sparse_kv_seq {seq}: "
           f"{cache['stages'][0][0]['k_pers'].shape[2]} persistent + "
           f"{cache['stages'][0][0]['k_ring'].shape[2]} ring slots a layer): batch {b}, "
           f"{seq} teacher-forced steps from init_cache, rank 8 f32  "
@@ -1594,9 +1672,11 @@ def train_pftt(torch):
                                             "mean_round_delay_s", "pretrain_s",
                                             "round_s", "loss_per_round")}
         out[method]["launches"] = launches
-    # the device's busy share over one whole run (pretraining and 3 rounds)
-    profile(torch, "TRAIN-PFTT pftt run_pftt",
-            lambda: run_pftt(train.pftt_config(args, verbose=False)), 1)
+    # the device's busy share over one whole run (pretraining and a round:
+    # cut from 3 rounds for the script's time; parsing the trace took 10.6 s)
+    profile(torch, "TRAIN-PFTT pftt run_pftt (1 round)",
+            lambda: run_pftt(dataclasses.replace(train.pftt_config(args, verbose=False),
+                                                  rounds=1)), 1)
     return total, out
 
 
@@ -1724,6 +1804,7 @@ def train_roberta(torch, np):
 # fig4_pfit.py's quick profile (4 rounds, 120 + 120 steps), cut to keep the
 # script inside its time: 2 rounds, 60 pretraining and 60 reward-model steps
 PFIT_QUICK = dict(rounds=2, pretrain_steps=60, rm_steps=60)
+PFIT_PROFILE = dict(rounds=1, pretrain_steps=10, rm_steps=10)   # the profiled run
 PFIT_PAIR_ACC_TOL = 0.02
 PFIT_REWARD_TOL = 0.05
 PFIT_TIE = 1e-3
@@ -1850,9 +1931,10 @@ def train_pfit(torch):
                                             "round_s", "rm_pair_acc")}
         out[method]["launches"] = launches
     # the device's busy share over a whole run (pretraining, reward models,
-    # two rounds)
-    profile(torch, "TRAIN-PFIT pfit run_pfit (1 round)",
-            lambda: run_pfit(PFITConfig(**dict(PFIT_QUICK, rounds=1))), 1)
+    # a round), cut to PFIT_PROFILE's steps for the script's time (at
+    # PFIT_QUICK's, parsing the trace took 30.3 s)
+    profile(torch, "TRAIN-PFIT pfit run_pfit (1 round, 10 + 10 steps)",
+            lambda: run_pfit(PFITConfig(**PFIT_PROFILE)), 1)
     return total, out
 
 

@@ -119,6 +119,42 @@
 // at one block an SM (168–225 registers) it was slower than 64×128 at every
 // serving shape, as the last column shows, so it is not built.
 
+// Ranks above 32.  The TPU kernel takes any rank (its (bm, r) scratch is
+// sized from A).  Up to 32 both branches run as above.  Beyond, two routes
+// were built and timed against each other at llama3.2-1b's wq / wv, r 64
+// (tools/lora_rank_sweep.py; H100 80GB HBM3 at 700 W, cold L2, median of
+// 30, two readings each; K 2048, ms; the prefill rows of (a) come from a
+// build of the tiled kernel with four rank slots a thread, removed since):
+//   (a) the main loop forms x·A for up to 64 ranks: a decode lane owns ranks
+//       q and q + 32 (twice the x·A accumulators, A loads and reduction
+//       buffer; U 4 rows in flight, 2 at MR 4); a prefill thread four rank
+//       slots (RT 4: x·A's FMAs +50 % a thread, redone in every column
+//       block; A stages and epilogue tiles 64 wide);
+//   (b) a first launch writes round_T(x·A) (M × r) into a workspace — this
+//       code at rank 0 with A in the place of W, so its own branch and rule
+//       at N = r — and the main launch forms no x·A: its epilogue reads the
+//       workspace, the decode branch XQ ranks' loads at a time per output,
+//       the prefill branch 32-rank blocks of x·A and B staged in shared
+//       memory.  x·A is formed once (2·M·K·r) but x is read twice.
+//     M × N (r 64)      (a)              (b)              torch.matmul(x, W + s·A·B)
+//     4096 × 2048 f32   1.5070 / 1.4860  1.0350 / 1.0269  0.6820 / 0.6756
+//     4096 × 512  f32   0.6228 / 0.6238  0.3843 / 0.3851  0.1943 / 0.1943
+//     8 × 2048    f32   0.0316 / 0.0317  0.0360 / 0.0371  0.0204 / 0.0204
+//     8 × 512     f32   0.0160 / 0.0160  0.0246 / 0.0236  0.0139 / 0.0139
+//     4096 × 2048 bf16  1.7374 / 1.7262  1.2839 / 1.2753  (tensor cores)
+//     4096 × 512  bf16  0.6367 / 0.6359  0.4745 / 0.4756
+//     8 × 2048    bf16  0.0374 / 0.0374  0.0401 / 0.0401
+//     8 × 512     bf16  0.0223 / 0.0222  0.0276 / 0.0274
+// So the rule (loop_ranks): the decode branch takes (a) up to rank 64 and
+// (b) above, but for M ≤ 4, (b) above 32 (64 ranks spill at MR 4:
+// SkinnyShape); the prefill branch (b) above 32.  At
+// decode (b)'s second launch costs more than (a)'s extra reads of A, which
+// every strip's cluster redoes from L2 (A is r/128 of a strip's W bytes:
+// at r 64 a call reads 1.5× the bytes its bound counts).  At prefill the
+// first launch is a 64 × 64-tile product of N = r columns, 64 blocks at M
+// 4096 (0.078 ms a call in SERVE-LLAMA-R64's profile), and the main launch
+// without x·A is faster than the rank-8 one (wq 0.95 against 0.97 ms).
+
 #include <cooperative_groups.h>
 
 #include <cstdint>
@@ -136,7 +172,15 @@ using repro::round_to;
 using repro::to_f32;
 using repro::unpack;
 
-constexpr int RMAX = 32;  // largest rank; the wrapper checks it
+constexpr int RMAX = 32;         // a rank block: the ranks of an epilogue step
+constexpr int SKINNY_LOOP = 64;  // ranks the decode branch's main loop holds at 4 < M ≤ 16
+
+// The rank rule of the source note: the largest rank a call's main loop
+// forms x·A for; a call above it takes route (b), x·A through the workspace.
+// tools/lora_rank_sweep.py times a copy in which this returns RMAX.
+int loop_ranks(int M) {
+  return M > 4 && M <= 16 ? SKINNY_LOOP : RMAX;
+}
 
 // ----------------------------------------------------------------- skinny
 constexpr int STHREADS = 256;
@@ -149,19 +193,26 @@ constexpr int XS_BYTES = 32 * 1024;     // the x slab, then the reduction buffer
 // a warp a 512-byte row segment, which is the block's strip (BN columns);
 // U rows of W are loaded by a warp before any is used.  MINB blocks an SM
 // bound the registers (80 at 3, 128 at 2) where ptxas fits them unspilled:
-// 3 at f32 MR 4, 2 at 32 accumulators a thread, else 1.
-template <typename T, int MR>
+// 3 at f32 MR 4, 2 at 32 accumulators a thread, else 1.  RC: the ranks the
+// main loop forms x·A for (lane q owns ranks q + 32·t); 0 when x·A comes
+// from the workspace.  64 ranks are held at MR 8 and 16 only: at MR 4 they
+// spill (4–40 bytes at 80 and 128 registers, whatever U or the epilogue's
+// unrolling), so M ≤ 4 takes route (b) above 32.
+template <typename T, int MR, int RC = RMAX>
 struct SkinnyShape {
   static constexpr int VEC = 16 / sizeof(T);
   static constexpr int BN = 32 * VEC;
   static constexpr int MINB = VEC == 4 && MR == 4 ? 3 : MR * VEC <= 32 ? 2 : 1;
-  static constexpr int U = MR == 4 || VEC == 8 ? 4 : 8;
+  static constexpr int U = MR == 4 || VEC == 8 || RC > RMAX ? 4 : 8;
   static constexpr int KX = XS_BYTES / (MR * 4);                 // x rows per pass
   static constexpr int MG0 = XS_BYTES / (SWARPS * BN * 4);
   static constexpr int MG = MG0 < MR ? MG0 : MR;                 // output rows per reduction step
-  static constexpr int BYTES = XS_BYTES + (MR * BN + 2 * MR * RMAX) * 4;
-  static_assert(SWARPS * MR * RMAX * 4 <= XS_BYTES && MR % MG == 0, "reduction buffer");
+  static constexpr int BYTES = XS_BYTES + (MR * BN + 2 * MR * RC) * 4;
+  static_assert(SWARPS * MR * RC * 4 <= XS_BYTES && MR % MG == 0 && RC % 32 == 0,
+                "reduction buffer");
 };
+
+constexpr int XQ = 16;  // route (b)'s epilogue: ranks whose loads are in flight together
 
 // VEC elements of one W row from column ``col`` as raw bits, zero past N or
 // when ``ok`` is false.  WIDE: one 16-byte load (N a multiple of VEC, W
@@ -185,19 +236,21 @@ __device__ __forceinline__ uint4 load_w(const T* row, int col, int N, bool ok) {
 
 // A cluster of ``split`` blocks owns one BN-column strip; block ``rank``
 // owns K rows [rank·kr, (rank+1)·kr), warp w of it the rows w, w + 8, ...
-// of that range.  Rows ≥ M of x are zero.
-template <typename T, int MR, bool WIDE>
+// of that range.  Rows ≥ M of x are zero.  RC 0: x·A is not formed here but
+// read from ``xw`` (M × R, round_T(x·A), route (b)).
+template <typename T, int MR, bool WIDE, int RC>
 __global__ void __launch_bounds__(STHREADS, SkinnyShape<T, MR>::MINB)
 lora_skinny(const T* __restrict__ x, const T* __restrict__ w,
-            const T* __restrict__ a, const T* __restrict__ b,
+            const T* __restrict__ a, const T* __restrict__ b, const T* __restrict__ xw,
             T* __restrict__ y, int M, int N, int K, int R, float scale) {
-  using S = SkinnyShape<T, MR>;
+  using S = SkinnyShape<T, MR, RC>;
   constexpr int VEC = S::VEC, BN = S::BN, U = S::U, MG = S::MG;
+  constexpr int RT = RC > 0 ? RC / 32 : 1;     // a lane's rank slots
   extern __shared__ __align__(16) unsigned char smem[];
   float* xs = reinterpret_cast<float*>(smem);  // x rows [KX][MR], then the reduction buffer
   float* blk = xs + XS_BYTES / 4;              // [MR][BN]: the block's x·W over its rows
-  float* xa_blk = blk + MR * BN;               // [MR][RMAX]: its x·A over them
-  float* xa = xa_blk + MR * RMAX;              // [MR][RMAX]: x·A over all K, rounded to T
+  float* xa_blk = blk + MR * BN;               // [MR][RC]: its x·A over them
+  float* xa = xa_blk + MR * RC;                // [MR][RC]: x·A over all K, rounded to T
 
   cg::cluster_group cluster = cg::this_cluster();
   const int split = cluster.num_blocks(), rank = cluster.block_rank();
@@ -220,15 +273,16 @@ lora_skinny(const T* __restrict__ x, const T* __restrict__ w,
     }
   }
 
-  float acc[MR][VEC], acc_a[MR];
+  float acc[MR][VEC], acc_a[RT][MR];
 #pragma unroll
   for (int m = 0; m < MR; ++m) {
-    acc_a[m] = 0.f;
+#pragma unroll
+    for (int t = 0; t < RT; ++t) acc_a[t][m] = 0.f;
 #pragma unroll
     for (int v = 0; v < VEC; ++v) acc[m][v] = 0.f;
   }
   uint4 wv[U];
-  float av[U];
+  float av[U][RT];
   // batch i0 of this warp: its rows i0 .. i0 + U - 1 (row i is p0 + warp + SWARPS·i)
   auto load = [&](int p0, int nw, int i0) {
 #pragma unroll
@@ -236,7 +290,10 @@ lora_skinny(const T* __restrict__ x, const T* __restrict__ w,
       const int k = p0 + warp + SWARPS * (i0 + u);
       const bool ok = i0 + u < nw;
       wv[u] = load_w<T, WIDE>(w + (size_t)k * N, col, N, ok);
-      av[u] = ok && lane < R ? to_f32(a[(size_t)k * R + lane]) : 0.f;
+      if constexpr (RC > 0)
+#pragma unroll
+        for (int t = 0; t < RT; ++t)
+          av[u][t] = ok && lane + 32 * t < R ? to_f32(a[(size_t)k * R + lane + 32 * t]) : 0.f;
     }
   };
 
@@ -266,7 +323,10 @@ lora_skinny(const T* __restrict__ x, const T* __restrict__ w,
             for (int e = 0; e < 4; ++e) {
 #pragma unroll
               for (int v = 0; v < VEC; ++v) acc[4 * q + e][v] = fmaf(xm[e], wf[v], acc[4 * q + e][v]);
-              acc_a[4 * q + e] = fmaf(xm[e], av[u], acc_a[4 * q + e]);
+              if constexpr (RC > 0)
+#pragma unroll
+                for (int t = 0; t < RT; ++t)
+                  acc_a[t][4 * q + e] = fmaf(xm[e], av[u][t], acc_a[t][4 * q + e]);
             }
           }
         }
@@ -278,16 +338,20 @@ lora_skinny(const T* __restrict__ x, const T* __restrict__ w,
   // x·W, MG output rows at a time through the reduction buffer.
   float* red = xs;
   __syncthreads();
-  if (lane < R)
+  if constexpr (RC > 0) {
 #pragma unroll
-    for (int m = 0; m < MR; ++m) red[(warp * MR + m) * RMAX + lane] = acc_a[m];
-  __syncthreads();
-  for (int i = tid; i < MR * R; i += STHREADS) {
-    const int j = i / R * RMAX + i % R;  // (m, q)
-    float s = 0.f;
+    for (int t = 0; t < RT; ++t)
+      if (lane + 32 * t < R)
 #pragma unroll
-    for (int g = 0; g < SWARPS; ++g) s += red[g * MR * RMAX + j];
-    xa_blk[j] = s;
+        for (int m = 0; m < MR; ++m) red[(warp * MR + m) * RC + lane + 32 * t] = acc_a[t][m];
+    __syncthreads();
+    for (int i = tid; i < MR * R; i += STHREADS) {
+      const int j = i / R * RC + i % R;  // (m, q)
+      float s = 0.f;
+#pragma unroll
+      for (int g = 0; g < SWARPS; ++g) s += red[g * MR * RC + j];
+      xa_blk[j] = s;
+    }
   }
 #pragma unroll
   for (int mg = 0; mg < MR; mg += MG) {
@@ -311,32 +375,65 @@ lora_skinny(const T* __restrict__ x, const T* __restrict__ w,
   // every block forms x·A over all K (the same value in each), then block
   // ``rank`` finishes its share of the strip's columns.
   cluster.sync();
-  for (int i = tid; i < MR * RMAX; i += STHREADS) {  // ranks ≥ r are zero
-    float part[SPLIT_MAX];
+  if constexpr (RC > 0) {
+    for (int i = tid; i < MR * RC; i += STHREADS) {  // ranks ≥ r are zero
+      float part[SPLIT_MAX];
 #pragma unroll
-    for (int r = 0; r < SPLIT_MAX; ++r)
-      part[r] = r < split && i % RMAX < R ? cluster.map_shared_rank(xa_blk, r)[i] : 0.f;
-    float s = 0.f;
+      for (int r = 0; r < SPLIT_MAX; ++r)
+        part[r] = r < split && i % RC < R ? cluster.map_shared_rank(xa_blk, r)[i] : 0.f;
+      float s = 0.f;
 #pragma unroll
-    for (int r = 0; r < SPLIT_MAX; ++r) s += part[r];
-    xa[i] = round_to<T>(s);
+      for (int r = 0; r < SPLIT_MAX; ++r) s += part[r];
+      xa[i] = round_to<T>(s);
+    }
+    __syncthreads();
   }
-  __syncthreads();
   for (int i = tid; i < MR * cw; i += STHREADS) {
     const int m = i / cw, c = c0 + i % cw, n = n0 + c;
     if (m < M && c < c1 && n < N) {
-      // every load of the output is issued before any is used
-      float bq[RMAX], part[SPLIT_MAX];
-#pragma unroll
-      for (int q = 0; q < RMAX; ++q) bq[q] = q < R ? to_f32(b[(size_t)q * N + n]) : 0.f;
-#pragma unroll
-      for (int r = 0; r < SPLIT_MAX; ++r)
-        part[r] = r < split ? cluster.map_shared_rank(blk, r)[m * BN + c] : 0.f;
       float base = 0.f, l = 0.f;
+      if constexpr (RC > 0) {
+        // every load of the output's first rank block is issued before any
+        // is used; the next blocks' B after it
+        float bq[RMAX], part[SPLIT_MAX];
 #pragma unroll
-      for (int r = 0; r < SPLIT_MAX; ++r) base += part[r];
+        for (int q = 0; q < RMAX; ++q) bq[q] = q < R ? to_f32(b[(size_t)q * N + n]) : 0.f;
 #pragma unroll
-      for (int q = 0; q < RMAX; ++q) l = fmaf(xa[m * RMAX + q], bq[q], l);
+        for (int r = 0; r < SPLIT_MAX; ++r)
+          part[r] = r < split ? cluster.map_shared_rank(blk, r)[m * BN + c] : 0.f;
+#pragma unroll
+        for (int r = 0; r < SPLIT_MAX; ++r) base += part[r];
+#pragma unroll
+        for (int q = 0; q < RMAX; ++q) l = fmaf(xa[m * RC + q], bq[q], l);
+#pragma unroll
+        for (int q0 = RMAX; q0 < RC; q0 += RMAX) {
+#pragma unroll
+          for (int q = 0; q < RMAX; ++q)
+            bq[q] = q0 + q < R ? to_f32(b[(size_t)(q0 + q) * N + n]) : 0.f;
+#pragma unroll
+          for (int q = 0; q < RMAX; ++q) l = fmaf(xa[m * RC + q0 + q], bq[q], l);
+        }
+      } else {
+        float part[SPLIT_MAX];
+#pragma unroll
+        for (int r = 0; r < SPLIT_MAX; ++r)
+          part[r] = r < split ? cluster.map_shared_rank(blk, r)[m * BN + c] : 0.f;
+#pragma unroll
+        for (int r = 0; r < SPLIT_MAX; ++r) base += part[r];
+        // x·A from the workspace (the same M × R values for every strip), XQ
+        // ranks' loads of it and of B in flight at once
+        for (int q0 = 0; q0 < R; q0 += XQ) {
+          float bq[XQ], xq[XQ];
+#pragma unroll
+          for (int q = 0; q < XQ; ++q) {
+            const bool ok = q0 + q < R;
+            bq[q] = ok ? to_f32(b[(size_t)(q0 + q) * N + n]) : 0.f;
+            xq[q] = ok ? to_f32(xw[(size_t)m * R + q0 + q]) : 0.f;
+          }
+#pragma unroll
+          for (int q = 0; q < XQ; ++q) l = fmaf(xq[q], bq[q], l);
+        }
+      }
       y[(size_t)m * N + n] = from_f32<T>(base + scale * l);
     }
   }
@@ -348,15 +445,17 @@ constexpr int TTHREADS = 256;
 constexpr int TSTAGES = 3;  // ring depth: two slices in flight while one is computed
 
 // Element layout of one ring stage and of the epilogue, per type and tile.
-// BK: the K depth of a stage.
-template <typename T, int BM, int BN, int BK>
+// BK: the K depth of a stage.  RC: the ranks of A a stage holds (0 when x·A
+// comes from the workspace); the epilogue takes EB = 32 ranks at a time.
+template <typename T, int BM, int BN, int BK, int RC>
 struct TileShape {
   static constexpr int XS = sizeof(T) == 4 ? BK + 4 : BK + 8;  // x row stride (elements)
-  static constexpr int X_ELEMS = BM * XS, W_ELEMS = BK * BN, A_ELEMS = BK * RMAX;
+  static constexpr int X_ELEMS = BM * XS, W_ELEMS = BK * BN, A_ELEMS = BK * RC;
   static constexpr int STAGE = X_ELEMS + W_ELEMS + A_ELEMS;
   static constexpr int RING_BYTES = TSTAGES * STAGE * (int)sizeof(T);
-  static constexpr int XA_STRIDE = RMAX + 1;  // epilogue: xa [BM][RMAX + 1], B [RMAX][BN], f32
-  static constexpr int EPI_BYTES = (BM * XA_STRIDE + RMAX * BN) * 4;
+  static constexpr int EB = RMAX;
+  static constexpr int XA_STRIDE = EB + 1;  // epilogue: xa [BM][EB + 1], B [EB][BN], f32
+  static constexpr int EPI_BYTES = (BM * XA_STRIDE + EB * BN) * 4;
   static constexpr int BYTES = RING_BYTES > EPI_BYTES ? RING_BYTES : EPI_BYTES;
   static constexpr int TM = BM / 16, TN = BN / 16, NJ = BN / 64;  // a thread's rows, columns, float4 groups
   static_assert((X_ELEMS * sizeof(T)) % 16 == 0 && (W_ELEMS * sizeof(T)) % 16 == 0 &&
@@ -412,10 +511,10 @@ __device__ __forceinline__ void st4(__nv_bfloat16* p, float4 v) {
 // as float2 along k (ptxas merges pairs into 16-byte reads), W as float4.
 // XA: this warp also accumulates x·A for ranks tx + 16·t from the same x
 // registers (a column ≥ r is summed but never stored).
-template <typename T, int BM, int BN, int BK, int RT, bool XA>
+template <typename T, int BM, int BN, int BK, int RC, int RT, bool XA>
 __device__ __forceinline__ void slice(const T* xs, const T* ws, const T* as, int tx, int ty,
                                       float (&acc)[BM / 16][BN / 16], float (&xa)[RT][BM / 16]) {
-  using S = TileShape<T, BM, BN, BK>;
+  using S = TileShape<T, BM, BN, BK, RC>;
   constexpr int TM = S::TM, NJ = S::NJ, XS = S::XS;
 #pragma unroll
   for (int kk = 0; kk < BK; kk += 2) {
@@ -439,7 +538,7 @@ __device__ __forceinline__ void slice(const T* xs, const T* ws, const T* as, int
       if constexpr (XA) {
 #pragma unroll
         for (int t = 0; t < RT; ++t) {
-          const float av = to_f32(as[(kk + h) * RMAX + tx + 16 * t]);
+          const float av = to_f32(as[(kk + h) * RC + tx + 16 * t]);
 #pragma unroll
           for (int i = 0; i < TM; ++i) xa[t][i] = fmaf(h ? xv[i].y : xv[i].x, av, xa[t][i]);
         }
@@ -448,15 +547,22 @@ __device__ __forceinline__ void slice(const T* xs, const T* ws, const T* as, int
   }
 }
 
+// The ranks of A a ring stage holds for RT rank slots a thread (0: none).
+__host__ __device__ constexpr int tile_rc(int RT) { return RT > 0 ? RMAX : 0; }
+
 // WIDE: 16-byte copies and stores (K, N, r multiples of 16 bytes' worth of
 // elements, pointers 16-byte aligned); otherwise element copies.  RT: rank
-// slots a thread owns (ranks tx and tx + 16), ceil(r / 16).
+// slots a thread owns (ranks tx and tx + 16), ceil(r / 16); 0: the main loop
+// forms no x·A, the epilogue reads it from ``xw`` (M × R, round_T(x·A),
+// route (b)).
 template <typename T, int BM, int BN, int BK, bool WIDE, int RT>
 __global__ void __launch_bounds__(TTHREADS, 2)
 lora_tiled(const T* __restrict__ x, const T* __restrict__ w,
-           const T* __restrict__ a, const T* __restrict__ b,
+           const T* __restrict__ a, const T* __restrict__ b, const T* __restrict__ xw,
            T* __restrict__ y, int M, int N, int K, int R, float scale) {
-  using S = TileShape<T, BM, BN, BK>;
+  constexpr int RC = tile_rc(RT);
+  constexpr int RTA = RT > 0 ? RT : 1;
+  using S = TileShape<T, BM, BN, BK, RC>;
   constexpr int TM = S::TM, TN = S::TN, NJ = S::NJ, XS = S::XS;
   constexpr int CW = WIDE ? 16 / sizeof(T) : 1;  // elements per copy
   extern __shared__ __align__(16) unsigned char smem[];
@@ -469,7 +575,7 @@ lora_tiled(const T* __restrict__ x, const T* __restrict__ w,
   const int tx = lane % 8 + 8 * (warp / 4), ty = lane / 8 + 4 * (warp % 4);
   const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
   const int nk = (K + BK - 1) / BK;
-  const bool owns_rank = 8 * (warp / 4) < R;  // warp-uniform
+  const bool owns_rank = RT > 0 && 8 * (warp / 4) < R;  // warp-uniform
 
   // The thread's copies, fixed over K (only k0 moves): x rows xr + XSTEP·l
   // at column xk, W rows wr + WSTEP·l at column wn, one A row piece.
@@ -483,8 +589,8 @@ lora_tiled(const T* __restrict__ x, const T* __restrict__ w,
   // base address and reads nothing
   const T* xg = x + (size_t)(m0 + xr) * K + xk;
   const T* wg = w + (size_t)wr * N + n0 + wn;
-  const int ach = WIDE ? R / CW : R;  // copies per A row
-  constexpr int AL = (BK * RMAX / CW + TTHREADS - 1) / TTHREADS;
+  const int ach = RT == 0 ? 0 : WIDE ? R / CW : R;  // copies per A row
+  constexpr int AL = (BK * RC / CW + TTHREADS - 1) / TTHREADS;
 
   auto load_stage = [&](int st, int k0) {
     T* xs = ring + st * S::STAGE;
@@ -517,8 +623,8 @@ lora_tiled(const T* __restrict__ x, const T* __restrict__ w,
         const int kr = c / ach, q = (c % ach) * CW;
         const bool ok = k0 + kr < K;
         const T* src = a + (size_t)(k0 + kr) * R + q;
-        if constexpr (WIDE) cp16(as + kr * RMAX + q, ok ? src : a, ok);
-        else copy_elem(as + kr * RMAX + q, ok ? src : a, ok);
+        if constexpr (WIDE) cp16(as + kr * RC + q, ok ? src : a, ok);
+        else copy_elem(as + kr * RC + q, ok ? src : a, ok);
       }
     }
   };
@@ -528,9 +634,9 @@ lora_tiled(const T* __restrict__ x, const T* __restrict__ w,
   for (int i = 0; i < TM; ++i)
 #pragma unroll
     for (int j = 0; j < TN; ++j) acc[i][j] = 0.f;
-  float xa[RT][TM];
+  float xa[RTA][TM];
 #pragma unroll
-  for (int t = 0; t < RT; ++t)
+  for (int t = 0; t < RTA; ++t)
 #pragma unroll
     for (int i = 0; i < TM; ++i) xa[t][i] = 0.f;
 
@@ -550,9 +656,9 @@ lora_tiled(const T* __restrict__ x, const T* __restrict__ w,
     const T* ws = xs + S::X_ELEMS;
     const T* as = ws + S::W_ELEMS;
     if (owns_rank)
-      slice<T, BM, BN, BK, RT, true>(xs, ws, as, tx, ty, acc, xa);
+      slice<T, BM, BN, BK, RC, RTA, true>(xs, ws, as, tx, ty, acc, xa);
     else
-      slice<T, BM, BN, BK, RT, false>(xs, ws, as, tx, ty, acc, xa);
+      slice<T, BM, BN, BK, RC, RTA, false>(xs, ws, as, tx, ty, acc, xa);
   }
 
   // epilogue, over the ring: x·A rounded to T, then the r×BN tile of B
@@ -560,36 +666,10 @@ lora_tiled(const T* __restrict__ x, const T* __restrict__ w,
   __syncthreads();
   float* xa_s = reinterpret_cast<float*>(smem);
   float* bs = xa_s + BM * S::XA_STRIDE;
-#pragma unroll
-  for (int t = 0; t < RT; ++t) {
-    const int q = tx + 16 * t;
-    if (q < R)
-#pragma unroll
-      for (int i = 0; i < TM; ++i) xa_s[(ty + 16 * i) * S::XA_STRIDE + q] = round_to<T>(xa[t][i]);
-  }
-  for (int c = tid; c < R * BN; c += TTHREADS) {
-    const int q = c / BN, gn = n0 + c % BN;
-    bs[c] = gn < N ? to_f32(b[(size_t)q * N + gn]) : 0.f;
-  }
-  __syncthreads();
-#pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    const int r = ty + 16 * i, gm = m0 + r;
-    float l[TN];
-#pragma unroll
-    for (int j = 0; j < TN; ++j) l[j] = 0.f;
-    for (int q = 0; q < R; ++q) {
-      const float xq = xa_s[r * S::XA_STRIDE + q];
-#pragma unroll
-      for (int j = 0; j < NJ; ++j) {
-        const float4 v = *reinterpret_cast<const float4*>(bs + q * BN + tx * 4 + 64 * j);
-        l[4 * j] = fmaf(xq, v.x, l[4 * j]);
-        l[4 * j + 1] = fmaf(xq, v.y, l[4 * j + 1]);
-        l[4 * j + 2] = fmaf(xq, v.z, l[4 * j + 2]);
-        l[4 * j + 3] = fmaf(xq, v.w, l[4 * j + 3]);
-      }
-    }
-    if (gm >= M) continue;
+  // row i of the thread's outputs: acc + scale·l, 16-byte stores where aligned
+  auto store = [&](int i, const float (&l)[TN]) {
+    const int gm = m0 + ty + 16 * i;
+    if (gm >= M) return;
 #pragma unroll
     for (int j = 0; j < NJ; ++j) {
       const int gn = n0 + tx * 4 + 64 * j;
@@ -607,30 +687,99 @@ lora_tiled(const T* __restrict__ x, const T* __restrict__ w,
           if (gn + u < N) out[u] = from_f32<T>(e[u]);
       }
     }
+  };
+  // l[j] += Σ_q xa[r][q]·B[q][col j] over the nq ranks staged
+  auto rank_block = [&](int r, int nq, float (&l)[TN]) {
+    for (int q = 0; q < nq; ++q) {
+      const float xq = xa_s[r * S::XA_STRIDE + q];
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) {
+        const float4 v = *reinterpret_cast<const float4*>(bs + q * BN + tx * 4 + 64 * j);
+        l[4 * j] = fmaf(xq, v.x, l[4 * j]);
+        l[4 * j + 1] = fmaf(xq, v.y, l[4 * j + 1]);
+        l[4 * j + 2] = fmaf(xq, v.z, l[4 * j + 2]);
+        l[4 * j + 3] = fmaf(xq, v.w, l[4 * j + 3]);
+      }
+    }
+  };
+  if constexpr (RT > 0) {
+#pragma unroll
+    for (int t = 0; t < RT; ++t) {
+      const int q = tx + 16 * t;
+      if (q < R)
+#pragma unroll
+        for (int i = 0; i < TM; ++i) xa_s[(ty + 16 * i) * S::XA_STRIDE + q] = round_to<T>(xa[t][i]);
+    }
+    for (int c = tid; c < R * BN; c += TTHREADS) {
+      const int q = c / BN, gn = n0 + c % BN;
+      bs[c] = gn < N ? to_f32(b[(size_t)q * N + gn]) : 0.f;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int i = 0; i < TM; ++i) {
+      float l[TN];
+#pragma unroll
+      for (int j = 0; j < TN; ++j) l[j] = 0.f;
+      rank_block(ty + 16 * i, R, l);
+      store(i, l);
+    }
+  } else {
+    // x·A from the workspace, EB ranks at a time: its BM × EB block and
+    // B's EB × BN block staged in shared memory
+    float l[TM][TN];
+#pragma unroll
+    for (int i = 0; i < TM; ++i)
+#pragma unroll
+      for (int j = 0; j < TN; ++j) l[i][j] = 0.f;
+    for (int q0 = 0; q0 < R; q0 += S::EB) {
+      const int nq = min(S::EB, R - q0);
+      if (q0) __syncthreads();  // every thread is done with the previous block
+      for (int c = tid; c < BM * S::EB; c += TTHREADS) {
+        const int r = c / S::EB, q = c % S::EB, gm = m0 + r;
+        xa_s[r * S::XA_STRIDE + q] = gm < M && q < nq ? to_f32(xw[(size_t)gm * R + q0 + q]) : 0.f;
+      }
+      for (int c = tid; c < S::EB * BN; c += TTHREADS) {
+        const int q = c / BN, gn = n0 + c % BN;
+        bs[c] = q < nq && gn < N ? to_f32(b[(size_t)(q0 + q) * N + gn]) : 0.f;
+      }
+      __syncthreads();
+#pragma unroll
+      for (int i = 0; i < TM; ++i) rank_block(ty + 16 * i, nq, l[i]);
+    }
+#pragma unroll
+    for (int i = 0; i < TM; ++i) store(i, l[i]);
   }
 }
 
 template <typename T, int BM, int BN, int BK, bool WIDE, int RT>
-cudaError_t launch_tiled(const T* x, const T* w, const T* a, const T* b, T* y,
+cudaError_t launch_tiled(const T* x, const T* w, const T* a, const T* b, const T* xw, T* y,
                          int M, int N, int K, int R, float scale, cudaStream_t s) {
-  constexpr int bytes = TileShape<T, BM, BN, BK>::BYTES;
+  constexpr int bytes = TileShape<T, BM, BN, BK, tile_rc(RT)>::BYTES;
   static const cudaError_t attr = cudaFuncSetAttribute(
       lora_tiled<T, BM, BN, BK, WIDE, RT>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (attr != cudaSuccess) return attr;
   const dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
-  lora_tiled<T, BM, BN, BK, WIDE, RT><<<grid, TTHREADS, bytes, s>>>(x, w, a, b, y, M, N, K, R, scale);
+  lora_tiled<T, BM, BN, BK, WIDE, RT><<<grid, TTHREADS, bytes, s>>>(x, w, a, b, xw, y, M, N, K, R,
+                                                                     scale);
   return cudaSuccess;
+}
+
+// The rank slots of a call: 0 when x·A comes from the workspace, else
+// ceil(r / 16), 1 or 2.
+template <typename T, int BM, int BN, int BK, bool WIDE>
+cudaError_t tiled_rt(const T* x, const T* w, const T* a, const T* b, const T* xw, T* y,
+                     int M, int N, int K, int R, float scale, cudaStream_t s) {
+  if (xw) return launch_tiled<T, BM, BN, BK, WIDE, 0>(x, w, a, b, xw, y, M, N, K, R, scale, s);
+  return R <= 16 ? launch_tiled<T, BM, BN, BK, WIDE, 1>(x, w, a, b, xw, y, M, N, K, R, scale, s)
+                 : launch_tiled<T, BM, BN, BK, WIDE, 2>(x, w, a, b, xw, y, M, N, K, R, scale, s);
 }
 
 // 16-byte copies: the tile given; element copies (ragged rows): 64×64.
 template <typename T, int BM, int BN, int BK>
-cudaError_t tiled(bool wide, const T* x, const T* w, const T* a, const T* b, T* y,
+cudaError_t tiled(bool wide, const T* x, const T* w, const T* a, const T* b, const T* xw, T* y,
                   int M, int N, int K, int R, float scale, cudaStream_t s) {
-  if (wide)
-    return R <= 16 ? launch_tiled<T, BM, BN, BK, true, 1>(x, w, a, b, y, M, N, K, R, scale, s)
-                   : launch_tiled<T, BM, BN, BK, true, 2>(x, w, a, b, y, M, N, K, R, scale, s);
-  return R <= 16 ? launch_tiled<T, 64, 64, 32, false, 1>(x, w, a, b, y, M, N, K, R, scale, s)
-                 : launch_tiled<T, 64, 64, 32, false, 2>(x, w, a, b, y, M, N, K, R, scale, s);
+  if (wide) return tiled_rt<T, BM, BN, BK, true>(x, w, a, b, xw, y, M, N, K, R, scale, s);
+  return tiled_rt<T, 64, 64, 32, false>(x, w, a, b, xw, y, M, N, K, R, scale, s);
 }
 
 int sm_count() {
@@ -653,15 +802,15 @@ int skinny_split(int strips, int K, int sms) {
   return split;
 }
 
-template <typename T, int MR, bool WIDE>
-cudaError_t launch_skinny(int split, const T* x, const T* w, const T* a, const T* b, T* y,
-                          int M, int N, int K, int R, float scale, cudaStream_t s) {
-  using S = SkinnyShape<T, MR>;
+template <typename T, int MR, bool WIDE, int RC>
+cudaError_t launch_skinny(int split, const T* x, const T* w, const T* a, const T* b, const T* xw,
+                          T* y, int M, int N, int K, int R, float scale, cudaStream_t s) {
+  using S = SkinnyShape<T, MR, RC>;
   static const cudaError_t attr = [] {
     const cudaError_t e = cudaFuncSetAttribute(
-        lora_skinny<T, MR, WIDE>, cudaFuncAttributeMaxDynamicSharedMemorySize, S::BYTES);
+        lora_skinny<T, MR, WIDE, RC>, cudaFuncAttributeMaxDynamicSharedMemorySize, S::BYTES);
     return e != cudaSuccess ? e : cudaFuncSetAttribute(
-        lora_skinny<T, MR, WIDE>, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+        lora_skinny<T, MR, WIDE, RC>, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
   }();
   if (attr != cudaSuccess) return attr;
   cudaLaunchConfig_t cfg = {};
@@ -676,67 +825,99 @@ cudaError_t launch_skinny(int split, const T* x, const T* w, const T* a, const T
   cluster[0].val.clusterDim.z = 1;
   cfg.attrs = cluster;
   cfg.numAttrs = 1;
-  return cudaLaunchKernelEx(&cfg, lora_skinny<T, MR, WIDE>, x, w, a, b, y, M, N, K, R, scale);
+  return cudaLaunchKernelEx(&cfg, lora_skinny<T, MR, WIDE, RC>, x, w, a, b, xw, y, M, N, K, R,
+                            scale);
+}
+
+// RC 0 when x·A comes from the workspace, else the ranks the main loop holds
+template <typename T, int MR, int RC>
+cudaError_t skinny_rc(bool wide, int split, const T* x, const T* w, const T* a, const T* b,
+                      const T* xw, T* y, int M, int N, int K, int R, float scale,
+                      cudaStream_t s) {
+  return wide ? launch_skinny<T, MR, true, RC>(split, x, w, a, b, xw, y, M, N, K, R, scale, s)
+              : launch_skinny<T, MR, false, RC>(split, x, w, a, b, xw, y, M, N, K, R, scale, s);
 }
 
 template <typename T, int MR>
-cudaError_t skinny(bool wide, int split, const T* x, const T* w, const T* a, const T* b, T* y,
-                   int M, int N, int K, int R, float scale, cudaStream_t s) {
-  return wide ? launch_skinny<T, MR, true>(split, x, w, a, b, y, M, N, K, R, scale, s)
-              : launch_skinny<T, MR, false>(split, x, w, a, b, y, M, N, K, R, scale, s);
+cudaError_t skinny(bool wide, int split, const T* x, const T* w, const T* a, const T* b,
+                   const T* xw, T* y, int M, int N, int K, int R, float scale, cudaStream_t s) {
+  if (xw) return skinny_rc<T, MR, 0>(wide, split, x, w, a, b, xw, y, M, N, K, R, scale, s);
+  if constexpr (MR > 4)
+    if (R > RMAX)
+      return skinny_rc<T, MR, SKINNY_LOOP>(wide, split, x, w, a, b, xw, y, M, N, K, R, scale, s);
+  return skinny_rc<T, MR, RMAX>(wide, split, x, w, a, b, xw, y, M, N, K, R, scale, s);
 }
 
+// R 0: y = x·W (route (b)'s first launch, with A as W).
 template <typename T>
-cudaError_t launch(const void* x, const void* w, const void* a, const void* b, void* y,
-                   int M, int N, int K, int R, float scale, cudaStream_t s) {
+cudaError_t launch(const void* x, const void* w, const void* a, const void* b, void* ws,
+                   void* y, int M, int N, int K, int R, float scale, cudaStream_t s) {
   const T* xp = static_cast<const T*>(x);
   const T* wp = static_cast<const T*>(w);
   const T* ap = static_cast<const T*>(a);
   const T* bp = static_cast<const T*>(b);
   T* yp = static_cast<T*>(y);
+  const T* xw = nullptr;
+  if (R > loop_ranks(M)) {
+    // route (b): round_T(x·A) into the workspace first, by this function at
+    // rank 0 with A in the place of W (its own branch and rule at N = r)
+    const cudaError_t e = launch<T>(x, a, nullptr, nullptr, nullptr, ws, M, R, K, 0, 0.f, s);
+    if (e != cudaSuccess) return e;
+    xw = static_cast<const T*>(ws);
+  }
   if (M <= 16) {
     const bool wide = N % (16 / (int)sizeof(T)) == 0 && aligned16(w);
     const int strips = (N + SkinnyShape<T, 4>::BN - 1) / SkinnyShape<T, 4>::BN;
     const int split = skinny_split(strips, K, sm_count());
-    if (M <= 4) return skinny<T, 4>(wide, split, xp, wp, ap, bp, yp, M, N, K, R, scale, s);
-    if (M <= 8) return skinny<T, 8>(wide, split, xp, wp, ap, bp, yp, M, N, K, R, scale, s);
-    return skinny<T, 16>(wide, split, xp, wp, ap, bp, yp, M, N, K, R, scale, s);
+    if (M <= 4) return skinny<T, 4>(wide, split, xp, wp, ap, bp, xw, yp, M, N, K, R, scale, s);
+    if (M <= 8) return skinny<T, 8>(wide, split, xp, wp, ap, bp, xw, yp, M, N, K, R, scale, s);
+    return skinny<T, 16>(wide, split, xp, wp, ap, bp, xw, yp, M, N, K, R, scale, s);
   }
   constexpr int vec = 16 / sizeof(T);
-  const bool wide = K % vec == 0 && N % vec == 0 && R % vec == 0 && aligned16(x) &&
-                    aligned16(w) && aligned16(a) && aligned16(y);
+  // (route (b) reads no A in this launch)
+  const bool wide = K % vec == 0 && N % vec == 0 && aligned16(x) && aligned16(w) &&
+                    aligned16(y) && (xw || (R % vec == 0 && aligned16(a)));
   // the tile rule of the source note
   const long long sms = sm_count();
   const auto blocks = [&](int bm, int bn) {
     return (long long)((M + bm - 1) / bm) * ((N + bn - 1) / bn);
   };
   if (blocks(64, 128) >= 2 * sms)
-    return tiled<T, 64, 128, 16>(wide, xp, wp, ap, bp, yp, M, N, K, R, scale, s);
+    return tiled<T, 64, 128, 16>(wide, xp, wp, ap, bp, xw, yp, M, N, K, R, scale, s);
   if (blocks(96, 64) >= sms)
-    return tiled<T, 96, 64, 16>(wide, xp, wp, ap, bp, yp, M, N, K, R, scale, s);
-  return tiled<T, 64, 64, 32>(wide, xp, wp, ap, bp, yp, M, N, K, R, scale, s);
+    return tiled<T, 96, 64, 16>(wide, xp, wp, ap, bp, xw, yp, M, N, K, R, scale, s);
+  return tiled<T, 64, 64, 32>(wide, xp, wp, ap, bp, xw, yp, M, N, K, R, scale, s);
 }
 
 }  // namespace
 
 // dtype: 0 = f32, 1 = bf16.  x (M,K), w (K,N), a (K,R), b (R,N), y (M,N),
-// all row-major and contiguous.  Returns the first error of the launch, else
-// cudaGetLastError() after it.
+// all row-major and contiguous; ws: the workspace of route (b), as many
+// elements of the dtype as lora_fused_workspace reports (null when none).
+// Returns the first error of the launch, else cudaGetLastError() after it.
 extern "C" int lora_fused(int dtype, const void* x, const void* w, const void* a,
-                          const void* b, void* y, int M, int N, int K, int R,
+                          const void* b, void* ws, void* y, int M, int N, int K, int R,
                           float scale, void* stream) {
-  if (R < 1 || R > RMAX || M < 1 || N < 1 || K < 1)
+  if (R < 1 || M < 1 || N < 1 || K < 1 || (R > loop_ranks(M) && ws == nullptr))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t e;
   if (dtype == 0) {
-    e = launch<float>(x, w, a, b, y, M, N, K, R, scale, s);
+    e = launch<float>(x, w, a, b, ws, y, M, N, K, R, scale, s);
   } else if (dtype == 1) {
-    e = launch<__nv_bfloat16>(x, w, a, b, y, M, N, K, R, scale, s);
+    e = launch<__nv_bfloat16>(x, w, a, b, ws, y, M, N, K, R, scale, s);
   } else {
     return (int)cudaErrorInvalidValue;
   }
   return e != cudaSuccess ? (int)e : (int)cudaGetLastError();
+}
+
+// The workspace a call of M rows at rank R needs, in elements of its dtype:
+// M × R when x·A goes through it (the rank rule), else 0.
+extern "C" int lora_fused_workspace(int M, int R, long long* elems) {
+  if (M < 1 || R < 1) return (int)cudaErrorInvalidValue;
+  *elems = R > loop_ranks(M) ? (long long)M * R : 0;
+  return 0;
 }
 
 // The decode branch's plan for a call with M ≤ 16: the strip width in

@@ -1,9 +1,13 @@
 """Public wrapper for the fused LoRA projection (serving and training).
 
 Model code reaches it through ``peft.lora_proj`` for every projection that
-carries factors.  A CPU (or ``meta``: the dry run's shapes) tensor takes
-the plain version (``ref.lora_ref``); a CUDA tensor launches
-``csrc/lora_fused.cu`` or raises.  When grad mode is on and an operand
+carries factors, at any rank ≥ 1.  A CPU (or ``meta``: the dry run's
+shapes) tensor takes the plain version (``ref.lora_ref``); a CUDA tensor
+launches ``csrc/lora_fused.cu`` or raises.  Where the C code's rank rule
+forms x·A outside the main loop (``lora_fused_workspace``; the source
+note), this wrapper allocates the M × r workspace its first launch writes
+round(x·A) into for its epilogue (one launch counted).  When grad mode is
+on and an operand
 requires grad, the CUDA call goes through ``LoraMatmul``:
 the kernel is its forward, and its backward is plain torch (the TPU kernel
 has no backward; JAX training differentiates the jnp projection, as XLA).
@@ -17,9 +21,8 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels.lora_fused.ref import lora_ref
 
-RANK_MAX = 32          # the kernel's shared-memory budget for the rank
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_ARGTYPES = ([ctypes.c_int] + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4
+_ARGTYPES = ([ctypes.c_int] + [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4
              + [ctypes.c_float, ctypes.c_void_p])
 
 
@@ -29,8 +32,8 @@ def _check(x, w, a, b):
     if x.shape[-1] != k or a.shape != (k, r) or b.shape != (r, n):
         raise ValueError(f"lora_matmul shapes: x {tuple(x.shape)}, w "
                          f"{tuple(w.shape)}, a {tuple(a.shape)}, b {tuple(b.shape)}")
-    if not 1 <= r <= RANK_MAX:
-        raise ValueError(f"lora_matmul: rank {r} outside 1..{RANK_MAX}")
+    if r < 1:
+        raise ValueError(f"lora_matmul: rank {r} < 1")
     if len({t.dtype for t in (x, w, a, b)}) != 1 or x.dtype not in DTYPES:
         raise TypeError("lora_matmul: x, w, a, b must share one dtype of "
                         f"{list(DTYPES)}; got {[t.dtype for t in (x, w, a, b)]}")
@@ -88,15 +91,31 @@ def lora_matmul(x, w, a, b, *, scale: float):
 
 def _launch(x, w, a, b, *, scale: float):
     k, n = w.shape
+    r = a.shape[1]
     xf = x.reshape(-1, k)
     y = torch.empty((xf.shape[0], n), dtype=x.dtype, device=x.device)
+    # freed on return while the kernels may still run: the caching allocator
+    # hands the block only to later work on this stream, which runs after them
+    elems = workspace_elems(xf.shape[0], r)
+    ws = torch.empty(elems, dtype=x.dtype, device=x.device) if elems else None
     fn = _build.function("lora_fused", _ARGTYPES)
     rc = fn(DTYPES[x.dtype], xf.data_ptr(), w.data_ptr(), a.data_ptr(),
-            b.data_ptr(), y.data_ptr(), xf.shape[0], n, k, a.shape[1],
-            float(scale), torch.cuda.current_stream(x.device).cuda_stream)
+            b.data_ptr(), None if ws is None else ws.data_ptr(), y.data_ptr(),
+            xf.shape[0], n, k, r, float(scale),
+            torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(rc, "lora_fused")
     lora_matmul.launches += 1
     return y.reshape(*x.shape[:-1], n)
 
 
 lora_matmul.launches = 0
+
+
+def workspace_elems(m: int, r: int) -> int:
+    """Elements of the workspace a call of ``m`` rows at rank ``r`` needs:
+    m × r where the C rule takes x·A through it, else 0."""
+    fn = _build.function("lora_fused", [ctypes.c_int, ctypes.c_int, ctypes.c_void_p],
+                         symbol="lora_fused_workspace")
+    elems = ctypes.c_longlong(0)
+    _build.check(fn(m, r, ctypes.byref(elems)), "lora_fused_workspace")
+    return elems.value

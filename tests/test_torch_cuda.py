@@ -18,6 +18,7 @@ from repro_torch.kernels.decode_attn.ops import decode_attention, split_plan
 from repro_torch.kernels.decode_attn.ref import decode_ref
 from repro_torch.kernels.flash_attn.ops import flash_attention
 from repro_torch.kernels.flash_attn.ref import attention_ref
+from repro_torch.kernels.lora_fused import ops as lora_ops
 from repro_torch.kernels.lora_fused.ops import lora_matmul
 from repro_torch.kernels.lora_fused.ref import lora_ref
 from repro_torch.kernels.ssd_chunk import ops as ssd_ops
@@ -72,7 +73,20 @@ def _close(out, ref, tol):
                                      (15, 768, 768, 3), (16, 2048, 8512, 32),
                                      # f32 splits on a 132-SM card: 1 (K 100
                                      # above), 2 here, 4 (N 8512), 8 (N 768)
-                                     (4, 256, 20000, 8)])
+                                     (4, 256, 20000, 8),
+                                     # ranks above 32 in both branches
+                                     # (decode at 4 < M ≤ 16 holds up to 64
+                                     # in its main loop, else the
+                                     # workspace): r 33, llama3.2-1b's wq /
+                                     # wv at r 64, r 128 and 512; N and r
+                                     # off the vector
+                                     (8, 768, 768, 33), (1024, 768, 768, 33),
+                                     (8, 2048, 2048, 64), (4096, 2048, 512, 64),
+                                     (12, 768, 768, 128), (300, 768, 768, 128),
+                                     (16, 1024, 768, 512), (600, 1024, 768, 512),
+                                     (5, 300, 70, 100), (77, 130, 200, 100),
+                                     # ranks 33–64 at M ≤ 4 (the workspace)
+                                     (4, 2048, 2048, 64), (3, 1001, 70, 40)])
 def test_lora_fused_kernel(gen, dtype, m, k, n, r):
     x, w = _rn(gen, m, k, dtype=dtype), _rn(gen, k, n, std=0.05, dtype=dtype)
     a, b = _rn(gen, k, r, std=0.05, dtype=dtype), _rn(gen, r, n, std=0.05, dtype=dtype)
@@ -83,6 +97,15 @@ def test_lora_fused_kernel(gen, dtype, m, k, n, r):
     _close(out, lora_ref(x, w, a, b, scale=2.0), TOL["lora"][dtype])
     # the split reductions run in a fixed order: a second call is bitwise equal
     assert torch.equal(lora_matmul(x, w, a, b, scale=2.0), out)
+
+
+@pytest.mark.parametrize("m,r,elems", [(1, 32, 0), (4096, 32, 0), (4, 33, 4 * 33),
+                                       (8, 64, 0), (16, 64, 0), (8, 65, 8 * 65),
+                                       (17, 33, 17 * 33), (4096, 64, 4096 * 64)])
+def test_lora_fused_workspace_rule(gen, m, r, elems):
+    """The workspace the C rank rule asks for: none up to rank 32, none at
+    4 < M ≤ 16 up to 64 (x·A in the decode loop), else M × r."""
+    assert lora_ops.workspace_elems(m, r) == elems
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -411,13 +434,22 @@ def _ssd_inputs(gen, b, s, h, p, n, dtype, h0=False, shared_bc=False):
     (2, 200, 3, 32, 32, 64, True, True),
     (2, 200, 3, 64, 64, 64, False, True),
     (2, 200, 3, 64, 128, 64, True, False),
+    # (P, N) outside the compiled pairs, through the cover: padded in one
+    # launch, split over head dims or over state blocks (y summed in f32)
+    (2, 200, 3, 48, 96, 64, True, True),         # padded into (64, 128)
+    (2, 300, 4, 128, 128, 100, True, True),      # two (64, 128) head-dim blocks
+    (2, 200, 3, 16, 64, 64, True, False),        # four (16, 16) state blocks
+    (2, 100, 2, 8, 8, 32, False, True),          # padded into (16, 16)
+    (4, 512, 32, 64, 256, 256, True, True),      # two (64, 128) state blocks
 ])
 def test_ssd_chunk_kernel(gen, dtype, b, s, h, p, n, chunk, h0, shared):
     args = _ssd_inputs(gen, b, s, h, p, n, dtype, h0=h0, shared_bc=shared)
+    _, _, n_p, n_n = ssd_ops.cover(p, n, chunk=min(chunk, s), heads=h,
+                                   groups=1 if shared else h)
     before = ssd_scan.launches
     y, hf = ssd_scan(*args[:5], chunk=chunk, h0=args[5])
     torch.cuda.synchronize()
-    assert ssd_scan.launches == before + 1
+    assert ssd_scan.launches == before + n_p * n_n
     y_r, h_r = ssd_ref(*args[:5], chunk=chunk, h0=args[5])
     atol, rtol = TOL["ssd"][dtype]
     torch.testing.assert_close(y.float(), y_r.float(), atol=atol, rtol=rtol)
@@ -646,7 +678,8 @@ def _grads(fn, *ins):
 
 
 @pytest.mark.parametrize("m,k,n,r", [(512, 128, 128, 8), (2048, 768, 768, 8),
-                                     (77, 130, 200, 16)])
+                                     (77, 130, 200, 16), (2048, 768, 768, 64),
+                                     (8, 768, 768, 64)])
 def test_lora_function_grads_on_card(gen, m, k, n, r):
     """``LoraMatmul`` on the card (kernel forward, plain backward) against
     autograd of the plain version on the card: dx, dW, dA, dB."""
@@ -702,7 +735,12 @@ def test_flash_function_grads_on_card(gen, b, s, h, kh, d, causal):
 
 
 @pytest.mark.parametrize("b,s,h,p,n,chunk,h0", [(3, 24, 32, 16, 16, 32, False),
-                                                 (2, 100, 8, 64, 128, 32, True)])
+                                                 (2, 100, 8, 64, 128, 32, True),
+                                                 # through the cover
+                                                 (2, 60, 4, 48, 96, 32, True),
+                                                 (2, 60, 4, 128, 128, 32, False),
+                                                 (2, 60, 4, 16, 64, 32, True),
+                                                 (2, 60, 4, 8, 8, 32, False)])
 def test_ssd_function_grads_on_card(gen, b, s, h, p, n, chunk, h0):
     """``SSDScan`` on the card (the kernel forward, the recomputed plain
     backward): every input gradient against autograd of ``ssd_ref`` on the

@@ -92,7 +92,7 @@ def main():
             fn.argtypes = ops._ARGTYPES
             out = torch.empty(m, n, dtype=dt, device="cuda")
             call = (lambda fn=fn, out=out: fn(ops.DTYPES[dt], x.data_ptr(), w.data_ptr(),
-                                              a.data_ptr(), b.data_ptr(), out.data_ptr(),
+                                              a.data_ptr(), b.data_ptr(), None, out.data_ptr(),
                                               m, n, k, 8, 2.0, stream))
             assert call() == 0
             torch.cuda.synchronize()
