@@ -9,7 +9,7 @@ Phases, each reported on its own lines:
    versions; exits nonzero when CUDA is unavailable.
 2. build   — compiles every CUDA source of ``src/repro_torch/csrc`` with nvcc
    (one process per source, all at once) and prints the ptxas register /
-   shared-memory report.
+   shared-memory report; fails if any instance spills.
 3. kernels — calls each kernel's wrapper on the card at the serving paths'
    shapes, in f32 and bf16, and holds it against its plain PyTorch version
    (tolerances of tests/test_kernels.py); times the kernel, the plain version
@@ -28,7 +28,10 @@ Phases, each reported on its own lines:
    ``rank_cases``: lora_fused at ranks 64 and 128 at SERVE-LLAMA-R64's
    prefill and decode shapes and gpt2's decode; ssd_chunk at (P, N) outside
    its compiled pairs, (128, 128) and (64, 256), through the cover (each
-   such row prints the compiled pair and its blocks).
+   such row prints the compiled pair and its blocks).  ``any_width_cases``:
+   the attention kernels at head widths past whole 16-byte chunks of 256
+   (18: elements; 272, 512 and MLA's (288, 272), (528, 512): sliced), each
+   row naming its plan.
 4. serve   — the serving paths through the port's entry points
    (``launch/serve.py`` build/generate), each with random weights from seed
    0 and nonzero rank-8 LoRA factors from a numpy seed, f32:
@@ -77,6 +80,10 @@ Phases, each reported on its own lines:
      steps, LoRA on the four MLA targets: ``flash_attn`` at (q/k 192, v
      128), ``lora_fused`` at the MLA shapes, the absorbed decode in plain
      torch, timed apart (its share of the decode step's device time);
+   * SERVE-WIDTHS: gpt2-small at ``.reduced(d_model=72, repeats=2)`` (4
+     heads of 18: the attention kernels' element path) and
+     ``.reduced(d_model=2048, repeats=2)`` (4 heads of 512: sliced), dense
+     and block-sparse, batch 2, prompt 128, 16 decode steps, no PROFILE;
    * SERVE-SPARSE-KV: gpt2-small at full width cut to 4 of its 12 layers
      (``sparse_kv_cut``), ``impl="sparse"`` and
      ``opts={"sparse_kv_seq": 1024}``, batch 8, decoded from
@@ -120,8 +127,9 @@ Phases, each reported on its own lines:
    prompt 16, gen 24, d 128, 4 layers, seed 0, f32): pretraining and
    reward-model seconds, seconds per round, reward per round, pair
    accuracies, mean round bytes and delay, each kernel's launches against
-   ``pfit_expected``; then the same runs on the CPU through the plain
-   versions from the same seeds and noise streams (bytes and delays equal,
+   ``pfit_expected``; then pfit's run (``PFIT_CPU_METHODS``) on the CPU
+   through the plain versions from the same seeds and noise streams (bytes
+   and delays equal,
    pair accuracies and rewards within tolerance, round 0's tokens equal but
    at f32 near-ties), and a PROFILE of a run (1 round, 10 pretraining and
    10 reward-model steps).
@@ -188,14 +196,16 @@ Phases, each reported on its own lines:
    health on and off, each timed in turns.
 14. ARCH-ROUND — the universal factored round (``core/arch_round.py``)
    through ``launch/train.py --arch X --fl-clients 4 --fl-rounds 2
-   --assert-fused`` at ``--fl-dmodel 256`` (heads of 64) and at the
+   --assert-fused`` at ``--fl-dmodel 256`` (heads of 64), at the
    launcher's default width, d 64 (heads of 16, MLA's (32, 16): the 32
-   tile), for gpt2-small, llama3.2-1b, gemma3-12b, internvl2-26b,
+   tile), and at d 72 (heads of 18, MLA's (34, 18): elements), for
+   gpt2-small, llama3.2-1b, gemma3-12b, internvl2-26b,
    dbrx-132b, jamba-v0.1-52b, mamba2-1.3b, deepseek-v2-236b (MLA with
    gradient: (80, 64) in the (96, 64) tile at d 256) and whisper-base:
    seconds a round, losses, the launcher's on-card oracle check (≤ 1e-5),
    launches against ``arch_expected``; a CPU re-run (losses within
-   1e-5).  The
+   1e-5); and at d 1088 (heads of 272, MLA's (288, 272): sliced) for
+   gpt2-small, llama3.2-1b, deepseek-v2-236b and whisper-base.  The
    grads phase has a GRAD row for ``SSDScan`` (the SSD scan's Function) at
    the jamba/mamba2 round's shape, and the kernels phase CHECK rows at
    SERVE-LLAMA's and SERVE-ZOO's shapes, at SERVE-MLA's, SERVE-WHISPER's,
@@ -332,7 +342,14 @@ SERVES = (
          prompt_len=GEMMA3_PROMPT, gen=32, rank=8, rows=1, logit_tol=1e-3, cut="gemma3"),
     dict(tag="SERVE-GEMMA3-SPARSE", arch="gemma3-12b", impl="sparse", batch=2,
          prompt_len=GEMMA3_PROMPT, gen=32, rank=8, rows=1, logit_tol=1e-3, cut="gemma3",
-         weights_of="SERVE-GEMMA3"))
+         weights_of="SERVE-GEMMA3")) + tuple(
+    # SERVE-WIDTHS: gpt2-small at .reduced(d_model=D, repeats=2), 4 heads
+    # of 18 (not whole 16-byte chunks: the element path) and of 512 (past
+    # 256: sliced), dense and block-sparse (block 16)
+    dict(tag=f"SERVE-WIDTHS d{d}{' sparse' if impl == 'sparse' else ''}", arch="gpt2-small",
+         impl=impl, batch=2, prompt_len=128, gen=16, rank=8, rows=2, logit_tol=1e-3,
+         reduced=dict(d_model=d, repeats=2), profile=False)
+    for d in (72, 2048) for impl in ("auto", "sparse"))
 TEACHER_STEPS = 8
 PREFILL_REPS = 7
 # TRAIN-PFTT: card vs CPU (see train_pftt).  TRAIN-ROBERTA: card vs CPU over
@@ -591,7 +608,8 @@ def kernel_cases(torch):
             plan=(str(dt).split(".")[1], n, k) if m <= 16 else None,
             profile=(m == 4 and n == 2048 and dt == torch.float32)))
     return (cases + rank_cases(torch, rn) + zoo_cases(torch, rn)
-            + mla_whisper_cases(torch, rn) + width_cases(torch, rn))
+            + mla_whisper_cases(torch, rn) + width_cases(torch, rn)
+            + any_width_cases(torch, rn))
 
 
 def rank_cases(torch, rn):
@@ -832,6 +850,73 @@ def width_cases(torch, rn):
             lambda q=q, k=k, v=v: flash_attention(q, k, v, causal=True),
             lambda q=q, k=k, v=v: attention_ref(q, k, v, causal=True),
             q, k, v, 16 * 17 // 2, causal=True))
+    return cases
+
+
+def any_width_cases(torch, rn):
+    """f32 rows at head widths of every plan past whole chunks of 256:
+    ``flash_attn`` causal at SERVE-WIDTHS' prefill (B 2, S 128, H 4) with
+    heads of 18 (elements), 272 and 512 (sliced) and MLA's (288, 272) and
+    (528, 512) (sliced, scale dk^-1/2); ``block_sparse_attn`` (block 16,
+    local 2, sink 1, stride 4: the reduced config's pattern) and
+    ``decode_attn`` (cache 144 of 144, SERVE-WIDTHS' last step) at heads of
+    18 and 512.  Bytes and operations count the rows' widths; the library
+    call is SDPA (the pattern as a boolean mask)."""
+    import torch.nn.functional as F
+
+    from repro_torch.configs import SparseAttnConfig
+    from repro_torch.kernels.block_sparse_attn.ops import block_sparse_attention
+    from repro_torch.kernels.block_sparse_attn.ref import block_sparse_ref
+    from repro_torch.kernels.decode_attn.ops import decode_attention, split_plan
+    from repro_torch.kernels.decode_attn.ref import decode_ref
+    from repro_torch.kernels.flash_attn.ops import flash_attention, plan
+    from repro_torch.kernels.flash_attn.ref import attention_ref
+    from repro_torch.models.attention import sparse_block_table
+
+    def how(dk, dv):
+        p = plan(dk, dv)
+        return ("elements" if not p.sliced else
+                f"sliced {p.dk_slices}x{p.dv_slices}") + f" in {p.tile}"
+
+    cases = []
+    b, s_, h = 2, 128, 4
+    for dk, dv in ((18, 18), (272, 272), (512, 512), (288, 272), (528, 512)):
+        q, k, v = rn(b, s_, h, dk), rn(b, s_, h, dk), rn(b, s_, h, dv)
+        cases.append(attn_case(
+            torch, "flash_attn",
+            f"B={b} S={s_} H={h} dk={dk} dv={dv} causal ({how(dk, dv)}; SERVE-WIDTHS)",
+            lambda q=q, k=k, v=v: flash_attention(q, k, v, causal=True),
+            lambda q=q, k=k, v=v: attention_ref(q, k, v, causal=True),
+            q, k, v, s_ * (s_ + 1) // 2, causal=True))
+    pattern = SparseAttnConfig(block_size=16, local_blocks=2, sink_blocks=1, stride=4)
+    idx, valid = sparse_block_table(s_ // 16, s_ // 16, pattern, 0)
+    allowed = torch.zeros(s_, s_, dtype=torch.bool, device="cuda")
+    for i in range(idx.shape[0]):
+        for j in idx[i][valid[i]]:
+            allowed[i * 16:(i + 1) * 16, j * 16:(j + 1) * 16] = True
+    allowed &= torch.ones(s_, s_, dtype=torch.bool, device="cuda").tril()
+    sc = 144
+    for d in (18, 512):
+        q, k, v = rn(b, s_, h, d), rn(b, s_, h, d), rn(b, s_, h, d)
+        cases.append(attn_case(
+            torch, "block_sparse_attn",
+            f"B={b} S={s_} H={h} hd={d} block=16 ({how(d, d)}; SERVE-WIDTHS sparse)",
+            lambda q=q, k=k, v=v: block_sparse_attention(q, k, v, pattern),
+            lambda q=q, k=k, v=v: block_sparse_ref(q, k, v, pattern),
+            q, k, v, int(allowed.sum()), mask=allowed))
+        q1, kv = rn(b, 1, h, d), rn(2, b, sc, h, d)
+        kc, vc = kv
+        kt, vt = (t.transpose(1, 2).contiguous() for t in (kc, vc))
+        cases.append(dict(
+            name="decode_attn", dtype="float32",
+            label=f"B={b} Sc={sc} H={h} hd={d} cache_len={sc} ({how(d, d)}; SERVE-WIDTHS)",
+            kernel=lambda q=q1, kc=kc, vc=vc: decode_attention(q, kc, vc, sc),
+            plain=lambda q=q1, kc=kc, vc=vc: decode_ref(q, kc, vc, sc),
+            library=lambda q=q1, kt=kt, vt=vt: F.scaled_dot_product_attention(
+                q.transpose(1, 2), kt, vt),
+            nbytes=(2 * b * h * d + 2 * b * sc * h * d) * 4, flops=4 * d * sc * b * h,
+            split=split_plan(b, sc, h, head_dim=d), read=read_call(kv, [(0, sc)]),
+            main=False))
     return cases
 
 
@@ -1808,6 +1893,11 @@ PFIT_PROFILE = dict(rounds=1, pretrain_steps=10, rm_steps=10)   # the profiled r
 PFIT_PAIR_ACC_TOL = 0.02
 PFIT_REWARD_TOL = 0.05
 PFIT_TIE = 1e-3
+# TRAIN-PFIT's methods re-run on the CPU, cut (PR 30, for the script's
+# time) from all four: sfl and pfl run pfit's PPO round with another
+# aggregation, and shepherd's supervised round is re-run on the CPU in
+# TRAIN-POP (c); their card runs and launch checks stay
+PFIT_CPU_METHODS = ("pfit",)
 PPO_BATCH, PPO_PROMPT, PPO_GEN = 8, 128, 64
 PPO_TOL = 1e-4
 
@@ -1865,8 +1955,9 @@ def train_pfit(torch):
     rounds, 60 pretraining and 60 reward-model steps; ``PFITConfig``
     defaults otherwise: 4 clients,
     rollout batch 16, prompt 16, gen 24, d 128, 4 layers, last-K 2, seed 0,
-    f32) on the card, launch counts checked, then the same runs on the CPU
-    through the plain versions from the same seeds and noise streams.
+    f32) on the card, launch counts checked, then the runs of
+    ``PFIT_CPU_METHODS`` on the CPU through the plain versions from the
+    same seeds and noise streams.
     Per-round bytes and delays must be equal; the reward models' pair
     accuracies within PFIT_PAIR_ACC_TOL (counts over 256 pairs: one flip is
     0.004); the reward per round within PFIT_REWARD_TOL.  Round 0's sampled
@@ -1888,9 +1979,6 @@ def train_pfit(torch):
         card_s = time.perf_counter() - t0
         launches = {n: f.launches for n, f in kernels.items()}
         expected = pfit_expected(cfg, method)
-        t0 = time.perf_counter()
-        cpu = run_pfit(dataclasses.replace(cfg, device="cpu"))
-        cpu_s = time.perf_counter() - t0
         print(f"TRAIN-PFIT {method:<8} run_s={card_s:.2f} pretrain_s={card['pretrain_s']:.3f} "
               f"rm_s={card['rm_s']:.3f} "
               f"s_per_round={sum(card['round_s']) / len(card['round_s']):.4f} "
@@ -1902,28 +1990,35 @@ def train_pfit(torch):
         print(f"TRAIN-PFIT {method:<8} launches {launches} expected {expected}", flush=True)
         if launches != expected:
             fail(f"TRAIN-PFIT {method}: kernel launches {launches} != expected {expected}")
-        same_ledger = ([(r["bytes"], r["delay_s"]) for r in card["round_records"]]
-                       == [(r["bytes"], r["delay_s"]) for r in cpu["round_records"]])
-        acc_err = max(abs(card["rm_pair_acc"][k] - cpu["rm_pair_acc"][k]) for k in ("help", "safe"))
-        reward_err = max(abs(a - b) for a, b in zip(card["reward_per_round"],
-                                                    cpu["reward_per_round"]))
-        rollout_diffs = first_differences(card["rollouts_round0"], cpu["rollouts_round0"])
-        moved = {d[0] for d in rollout_diffs}
-        eval_diffs = [d for d in first_differences(card["eval_round0"], cpu["eval_round0"])
-                      if d[0] not in moved]
-        ties_ok = all(min(d[3], d[4]) < PFIT_TIE for d in rollout_diffs + eval_diffs)
-        print(f"TRAIN-PFIT {method:<8} CPU (plain versions, {cpu_s:.1f} s): "
-              f"reward_per_round={[round(r, 5) for r in cpu['reward_per_round']]} "
-              f"reward_max_abs_err={reward_err:.2e} (tol {PFIT_REWARD_TOL}) "
-              f"rm_pair_acc={cpu['rm_pair_acc']} max_abs_err={acc_err:.4f} "
-              f"(tol {PFIT_PAIR_ACC_TOL}) bytes_and_delays_equal={same_ledger} "
-              f"round-0 rows differing (client, row, step, card gap, cpu gap): "
-              f"rollouts {rollout_diffs} eval {eval_diffs} (near-tie below {PFIT_TIE:g}: "
-              f"{ties_ok})", flush=True)
-        if (not same_ledger or acc_err > PFIT_PAIR_ACC_TOL or reward_err > PFIT_REWARD_TOL
-                or not ties_ok):
-            fail(f"TRAIN-PFIT {method}: card and CPU differ (ledger equal {same_ledger}, "
-                 f"pair acc {acc_err:.4f}, reward {reward_err:.2e}, near-ties {ties_ok})")
+        if method not in PFIT_CPU_METHODS:
+            print(f"TRAIN-PFIT {method:<8} CPU re-run cut (PFIT_CPU_METHODS)", flush=True)
+        else:
+            t0 = time.perf_counter()
+            cpu = run_pfit(dataclasses.replace(cfg, device="cpu"))
+            cpu_s = time.perf_counter() - t0
+            same_ledger = ([(r["bytes"], r["delay_s"]) for r in card["round_records"]]
+                           == [(r["bytes"], r["delay_s"]) for r in cpu["round_records"]])
+            acc_err = max(abs(card["rm_pair_acc"][k] - cpu["rm_pair_acc"][k])
+                          for k in ("help", "safe"))
+            reward_err = max(abs(a - b) for a, b in zip(card["reward_per_round"],
+                                                        cpu["reward_per_round"]))
+            rollout_diffs = first_differences(card["rollouts_round0"], cpu["rollouts_round0"])
+            moved = {d[0] for d in rollout_diffs}
+            eval_diffs = [d for d in first_differences(card["eval_round0"], cpu["eval_round0"])
+                          if d[0] not in moved]
+            ties_ok = all(min(d[3], d[4]) < PFIT_TIE for d in rollout_diffs + eval_diffs)
+            print(f"TRAIN-PFIT {method:<8} CPU (plain versions, {cpu_s:.1f} s): "
+                  f"reward_per_round={[round(r, 5) for r in cpu['reward_per_round']]} "
+                  f"reward_max_abs_err={reward_err:.2e} (tol {PFIT_REWARD_TOL}) "
+                  f"rm_pair_acc={cpu['rm_pair_acc']} max_abs_err={acc_err:.4f} "
+                  f"(tol {PFIT_PAIR_ACC_TOL}) bytes_and_delays_equal={same_ledger} "
+                  f"round-0 rows differing (client, row, step, card gap, cpu gap): "
+                  f"rollouts {rollout_diffs} eval {eval_diffs} (near-tie below {PFIT_TIE:g}: "
+                  f"{ties_ok})", flush=True)
+            if (not same_ledger or acc_err > PFIT_PAIR_ACC_TOL or reward_err > PFIT_REWARD_TOL
+                    or not ties_ok):
+                fail(f"TRAIN-PFIT {method}: card and CPU differ (ledger equal {same_ledger}, "
+                     f"pair acc {acc_err:.4f}, reward {reward_err:.2e}, near-ties {ties_ok})")
         for n in KERNELS:
             total[n] += launches[n]
         out[method] = {k: card[k] for k in ("reward_per_round", "mean_round_bytes",
@@ -3295,9 +3390,14 @@ ARCH_ROUND_ARCHS = ("gpt2-small", "llama3.2-1b", "gemma3-12b", "internvl2-26b",
                     "dbrx-132b", "jamba-v0.1-52b", "mamba2-1.3b", "deepseek-v2-236b",
                     "whisper-base")
 ARCH_ROUND_FLAGS = ["--fl-clients", "4", "--fl-rounds", "2", "--assert-fused"]
-# (d_model, its flags): heads of 64, and the launcher's default width (no
-# flag: d 64, heads of 16)
-ARCH_WIDTHS = ((256, ["--fl-dmodel", "256"]), (64, []))
+# (d_model, its flags, the archs run there): heads of 64; the launcher's
+# default width (no flag: d 64, heads of 16); d 72, heads of 18 (MLA's (34,
+# 18), SSD heads of 16: the element path); d 1088, heads of 272 (MLA's
+# (288, 272): sliced) for four archs, whose CPU re-runs cost seconds each
+ARCH_WIDTHS = ((256, ["--fl-dmodel", "256"], ARCH_ROUND_ARCHS), (64, [], ARCH_ROUND_ARCHS),
+               (72, ["--fl-dmodel", "72"], ARCH_ROUND_ARCHS),
+               (1088, ["--fl-dmodel", "1088"],
+                ("gpt2-small", "llama3.2-1b", "deepseek-v2-236b", "whisper-base")))
 ARCH_LOSS_TOL = 1e-5
 
 
@@ -3322,8 +3422,8 @@ def arch_expected(cfg, steps):
 def train_arch(torch):
     """ARCH-ROUND: ``launch/train.py --arch X --fl-clients 4 --fl-rounds 2
     --assert-fused`` at each of ``ARCH_WIDTHS`` (``--fl-dmodel 256``, heads
-    of 64; the launcher's default d 64, heads of 16) for the nine archs on
-    the card — seconds a round, loss per round, the on-card oracle error
+    of 64; the launcher's default d 64, heads of 16; d 72, heads of 18; d
+    1088, heads of 272, four archs) for its archs on the card — seconds a round, loss per round, the on-card oracle error
     (≤ 1e-5, asserted by the launcher), launches against ``arch_expected``
     — then the same on the CPU from the same init (drawn on the CPU):
     losses within ARCH_LOSS_TOL."""
@@ -3334,8 +3434,8 @@ def train_arch(torch):
     kernels = wrappers()
     total = {n: 0 for n in KERNELS}
     rows = {}
-    for d_model, width_flags in ARCH_WIDTHS:
-        for arch in ARCH_ROUND_ARCHS:
+    for d_model, width_flags, archs in ARCH_WIDTHS:
+        for arch in archs:
             t0 = time.perf_counter()
             argv = ["--arch", arch] + ARCH_ROUND_FLAGS + width_flags
             for f in kernels.values():
@@ -4276,9 +4376,14 @@ def main():
     built = _build.build_all()
     print(f"BUILD {len(built)} sources in {time.perf_counter() - t0:.1f} s "
           f"({', '.join(f'{n} {s:.1f} s' for n, s in built.items())})", flush=True)
+    spills = []
     for name in _build.sources():
         for line in ptxas_lines(_build.build_log(name)):
             print(f"PTXAS {name}: {line}")
+            if "spill" in line and " 0 bytes spill stores, 0 bytes spill loads" not in line:
+                spills.append(f"{name}: {line}")
+    if spills:
+        fail(f"ptxas spilled in {len(spills)} instances: {spills}")
     from repro_torch.kernels.flash_attn.ops import occupancy
     for dk, dv in ((256, 256), (192, 128), (96, 64)):   # one block an SM each
         for bq in (32, 64):

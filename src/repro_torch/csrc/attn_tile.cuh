@@ -67,6 +67,32 @@
 // register rule is one for every instance: the 128 registers that 512
 // threads an SM allow, or, where shared memory holds fewer blocks than
 // that, as many registers as those blocks leave.
+//
+// Any row width runs (kernels/flash_attn/ops.py plan; the C entry points'
+// ``rows`` argument, 0, 1 or 2):
+// - 0, whole 4-element chunks (16-byte chunks in f32) up to the tile's
+//   widths: the paths above (ASYNC where f32 operands are 16-byte aligned,
+//   else CHUNK: register copies of 4-element chunks).
+// - 1, rows that are not whole chunks (f32 heads of 18: rows 72 bytes apart,
+//   never 16-byte aligned past the first; bf16 rows of odd width, 2-byte
+//   aligned): ELEM, the register path with a bound per element (zeros past
+//   the row) and O stored element by element, in the square tiles only
+//   (REPRO_ATTN_SQUARE; a call runs in the smallest that holds the wider of
+//   dk and dv) and with the 32-row q tile only.
+// - 2, rows wider than 256: SLICED, in the (256, 256) tile.  The q·k dot
+//   must be whole before the softmax, so each kv tile sums it over the
+//   256-wide slices of q and k, staged in turn through Qᵀ and the one K
+//   stage (two barriers a slice; Qᵀ restaged every kv tile unless dk fits
+//   one slice); P is the same for every column of O, so v and o are cut
+//   into 256-column planes, one grid z each, every plane recomputing the
+//   same S and P from the same inputs in the same order (the planes agree
+//   exactly).  Element reads (ELEM's) copied in batches of 8 chunks (a
+//   whole K slice's 16 chunks a thread spilled the block-sparse instance at
+//   255 registers), one K and one V stage (108,032 B: two blocks an SM),
+//   the 32-row q tile.  Q and K are read once per plane, Q once more per
+//   kv tile when dk is sliced: a slow path, kept simple (chip_smoke.py
+//   CHECK lines, H100 80GB HBM3 at 700 W: heads of 512 at B 2, S 128, H 4
+//   causal take 0.102 ms, SDPA 0.042).
 #pragma once
 
 #include <cstdint>
@@ -82,20 +108,32 @@ constexpr int kv_tile_rows(int DK, int BQ) { return DK >= 96 || BQ == 32 ? 32 : 
 
 constexpr int SM_SMEM = 233472;   // shared memory an H100 SM holds (228 KB)
 
+// How a q tile reads its rows (the note above).
+constexpr int ASYNC = 0, CHUNK = 1, ELEM = 2, SLICED = 3;
+constexpr int SLICE_W = 256;      // the SLICED tile's (DK, DV) and slice width
+
 // The (q/k, v) tile widths both prefill kernels compile, X(DK, DV) each:
 // the square heads and MLA's (kernels/flash_attn/ops.py WIDTHS, the same
 // list, picks one for a call's row widths).
 #define REPRO_ATTN_WIDTHS(X) \
   X(32, 32) X(64, 64) X(128, 128) X(256, 256) X(96, 64) X(192, 128)
 
-// Row widths (dk, dv) the (DK, DV) tile runs: whole 4-element chunks, at
-// least one, at most the tile's.
-inline bool row_widths_fit(int dk, int dv, int DK, int DV) {
-  return dk >= 4 && dv >= 4 && dk <= DK && dv <= DV && dk % 4 == 0 && dv % 4 == 0;
+// The square tiles, the only ones ELEM rows run in.
+#define REPRO_ATTN_SQUARE(X) X(32, 32) X(64, 64) X(128, 128) X(256, 256)
+
+// Row widths (dk, dv) the (DK, DV) tile runs on the C entry points' ``rows``
+// path: 0, whole 4-element chunks, at least one, at most the tile's; 1,
+// any width at most a square tile's; 2, any width, in the SLICED tile.
+inline bool row_widths_fit(int rows, int dk, int dv, int DK, int DV) {
+  if (dk < 1 || dv < 1) return false;
+  if (rows == 0) return dk <= DK && dv <= DV && dk % 4 == 0 && dv % 4 == 0;
+  if (rows == 1) return dk <= DK && dv <= DV && DK == DV;
+  return rows == 2 && DK == SLICE_W && DV == SLICE_W;
 }
 
-// Tile geometry of one (DK, DV, BQ, BKV) instance; 4·BQ threads.
-template <int DK, int DV, int BQ, int BKV> struct AttnTile {
+// Tile geometry of one (DK, DV, BQ, BKV) instance with NST K and V stages;
+// 4·BQ threads.
+template <int DK, int DV, int BQ, int BKV, int NST = 2> struct AttnTile {
   static constexpr int THREADS = 4 * BQ;
   static constexpr int QS = BQ + 4;       // row stride of Qᵀ and Pᵀ (floats)
   static constexpr int KS = DK + 4;       // row stride of the K stages
@@ -104,7 +142,7 @@ template <int DK, int DV, int BQ, int BKV> struct AttnTile {
   static constexpr int VW = DV >= 64 ? 4 : 2, NC = DV / (16 * VW);  // O dims per thread: NC groups of VW
   static constexpr int Q_ELEMS = DK * QS, K_ELEMS = BKV * KS, V_ELEMS = BKV * VS,
                        P_ELEMS = BKV * QS;
-  static constexpr int BYTES = 4 * (Q_ELEMS + 2 * K_ELEMS + 2 * V_ELEMS + P_ELEMS);
+  static constexpr int BYTES = 4 * (Q_ELEMS + NST * K_ELEMS + NST * V_ELEMS + P_ELEMS);
   // copies: 16-byte chunks, CK (CV) a row of q/k (v); QL, KL, VL chunks a thread
   static constexpr int CK = DK / 4, CV = DV / 4;
   static constexpr int QL = BQ * CK / THREADS, KL = BKV * CK / THREADS, VL = BKV * CV / THREADS;
@@ -116,6 +154,10 @@ template <int DK, int DV, int BQ, int BKV> struct AttnTile {
   static_assert((BQ * CK) % THREADS == 0 && (BKV * CK) % THREADS == 0 &&
                 (BKV * CV) % THREADS == 0, "copy layout");
 };
+
+// The tile of a PATH instance: SLICED keeps one K and one V stage.
+template <int DK, int DV, int BQ, int BKV, int PATH>
+using TileOf = AttnTile<DK, DV, BQ, BKV, PATH == SLICED ? 1 : 2>;
 
 // Row and first dim of the 16-byte chunk c = tid + T·l of a tile C chunks
 // wide; where T is a multiple of C every pass keeps the thread's dims.
@@ -154,6 +196,13 @@ template <bool VEC, typename T> __device__ __forceinline__ float4 load4(const T*
   }
 }
 
+// The first n (the rest zero) of four consecutive elements as f32, element
+// loads.
+template <typename T> __device__ __forceinline__ float4 load4_upto(const T* p, int n) {
+  return make_float4(n > 0 ? to_f32(p[0]) : 0.f, n > 1 ? to_f32(p[1]) : 0.f,
+                     n > 2 ? to_f32(p[2]) : 0.f, n > 3 ? to_f32(p[3]) : 0.f);
+}
+
 // Where one operand's rows lie: row r of the tile at base + r·stride.
 struct Rows {
   size_t base, stride;
@@ -161,16 +210,22 @@ struct Rows {
 
 // Register copies of a tile (the path without cp.async): chunks l < N of
 // rows [j0, hi) of a C-chunk-wide tile, dims < w read (f32 on the way in),
-// the rest zero; then their store to shared memory at row stride S.
-template <int N, int TH, int C, typename T>
+// the rest zero (TAIL: a bound per element, any w; else w a multiple of
+// 4); then their store to shared memory at row stride S.
+template <int N, int TH, int C, bool TAIL = false, typename T>
 __device__ __forceinline__ void fetch(float4 (&r)[N], const T* p, Rows rl, int j0, int hi,
                                       int w, int tid) {
 #pragma unroll
   for (int l = 0; l < N; ++l) {
     const Chunk<TH, C> c(tid, l);
-    r[l] = j0 + c.row < hi && c.col < w
-               ? load4<false>(p + rl.base + (size_t)(j0 + c.row) * rl.stride + c.col)
-               : make_float4(0.f, 0.f, 0.f, 0.f);
+    const T* src = p + rl.base + (size_t)(j0 + c.row) * rl.stride + c.col;
+    if constexpr (TAIL) {
+      r[l] = j0 + c.row < hi && c.col < w ? load4_upto(src, w - c.col)
+                                          : make_float4(0.f, 0.f, 0.f, 0.f);
+    } else {
+      r[l] = j0 + c.row < hi && c.col < w ? load4<false>(src)
+                                          : make_float4(0.f, 0.f, 0.f, 0.f);
+    }
   }
 }
 template <int N, int TH, int C>
@@ -182,48 +237,84 @@ __device__ __forceinline__ void put(float* s, int S, const float4 (&r)[N], int t
   }
 }
 
+// SLICED's copies: fetch (TAIL) and put in batches of B chunks, so that a
+// copy holds 4·B registers beside the 64 O floats and the dots carried
+// across slices.
+template <int N, int TH, int C, int B, typename T>
+__device__ __forceinline__ void copy_tail(float* s, int S, const T* p, Rows rl, int j0, int hi,
+                                          int w, int tid) {
+  static_assert(N % B == 0, "batches");
+#pragma unroll
+  for (int l0 = 0; l0 < N; l0 += B) {
+    float4 r[B];
+#pragma unroll
+    for (int b = 0; b < B; ++b) {
+      const Chunk<TH, C> c(tid, l0 + b);
+      r[b] = j0 + c.row < hi && c.col < w
+                 ? load4_upto(p + rl.base + (size_t)(j0 + c.row) * rl.stride + c.col, w - c.col)
+                 : make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+#pragma unroll
+    for (int b = 0; b < B; ++b) {
+      const Chunk<TH, C> c(tid, l0 + b);
+      *reinterpret_cast<float4*>(s + c.row * S + c.col) = r[b];
+    }
+  }
+}
+
 // The q tile: rows [0, rows) of q at ql (key position qpos0 + r) and of o
 // at ol; kv row j of k at kl and of v at vl; rows of q and k dk wide, of v
-// and o dv wide (dk ≤ DK, dv ≤ DV, multiples of 4).  ASYNC: T is float and
-// every operand is 16-byte aligned.  Walk (block-uniform): next(j0, hi)
-// yields the kv tiles [j0, min(j0 + BKV, hi)) in order; need_mask(j0, hi)
-// says whether a tile crosses an edge; allowed(qpos, kpos) is the test
-// inside such a tile (kpos < hi is tested here).  Every thread of the block
-// calls it.
-template <typename T, int DK, int DV, int BQ, int BKV, bool ASYNC, typename Walk>
+// and o dv wide (dk ≤ DK, dv ≤ DV, multiples of 4 but under ELEM; under
+// SLICED dk any width, summed over DK-wide slices, and dv the columns left
+// from the plane's first, of which the tile takes DV).  PATH: ASYNC (T is
+// float and every operand is 16-byte aligned), CHUNK, ELEM or SLICED (the
+// note above).  Walk (block-uniform): next(j0, hi) yields the kv tiles
+// [j0, min(j0 + BKV, hi)) in order; need_mask(j0, hi) says whether a tile
+// crosses an edge; allowed(qpos, kpos) is the test inside such a tile
+// (kpos < hi is tested here).  Every thread of the block calls it.
+template <typename T, int DK, int DV, int BQ, int BKV, int PATH, typename Walk>
 __device__ __forceinline__ void attend_q_tile(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
     T* __restrict__ o, Rows ql, Rows ol, int rows, Rows kl, Rows vl, int dk, int dv,
     int qpos0, float scale, Walk& walk, float* smem) {
-  using L = AttnTile<DK, DV, BQ, BKV>;
+  using L = TileOf<DK, DV, BQ, BKV, PATH>;
+  constexpr bool VEC = PATH == ASYNC, TAIL = PATH >= ELEM, SL = PATH == SLICED;
   constexpr int QS = L::QS, KS = L::KS, VS = L::VS, KPT = L::KPT, VW = L::VW, NC = L::NC;
   constexpr int TH = L::THREADS;
+  constexpr int NST = SL ? 1 : 2;
   float* qt = smem;                            // Qᵀ [DK][QS]
-  float* kst = qt + L::Q_ELEMS;                // K stages [2][BKV][KS]
-  float* vst = kst + 2 * L::K_ELEMS;           // V stages [2][BKV][VS]
-  float* pt = vst + 2 * L::V_ELEMS;            // Pᵀ [BKV][QS]
+  float* kst = qt + L::Q_ELEMS;                // K stages [NST][BKV][KS]
+  float* vst = kst + NST * L::K_ELEMS;         // V stages [NST][BKV][VS]
+  float* pt = vst + NST * L::V_ELEMS;          // Pᵀ [BKV][QS]
 
   const int tid = threadIdx.x, lane = tid & 31;
   const int tx = lane & 15, ty = 2 * (tid >> 5) + (lane >> 4);
 
-  // Q, scaled, transposed; rows past `rows` and dims past dk are zero
+  // Q's dims [d0, d0 + DK), scaled, transposed; rows past `rows` and dims
+  // past dk are zero
+  auto load_q = [&](int d0) {
 #pragma unroll
-  for (int l = 0; l < L::QL; ++l) {
-    const Chunk<TH, L::CK> c(tid, l);
-    float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (c.row < rows && c.col < dk)
-      x = load4<ASYNC>(q + ql.base + (size_t)c.row * ql.stride + c.col);
-    qt[(c.col + 0) * QS + c.row] = x.x * scale;
-    qt[(c.col + 1) * QS + c.row] = x.y * scale;
-    qt[(c.col + 2) * QS + c.row] = x.z * scale;
-    qt[(c.col + 3) * QS + c.row] = x.w * scale;
-  }
+    for (int l = 0; l < L::QL; ++l) {
+      const Chunk<TH, L::CK> c(tid, l);
+      float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (c.row < rows && c.col < dk - d0) {
+        const T* src = q + ql.base + (size_t)c.row * ql.stride + d0 + c.col;
+        if constexpr (TAIL) x = load4_upto(src, dk - d0 - c.col);
+        else x = load4<VEC>(src);
+      }
+      qt[(c.col + 0) * QS + c.row] = x.x * scale;
+      qt[(c.col + 1) * QS + c.row] = x.y * scale;
+      qt[(c.col + 2) * QS + c.row] = x.z * scale;
+      qt[(c.col + 3) * QS + c.row] = x.w * scale;
+    }
+  };
+  if constexpr (!SL) load_q(0);
 
   // K/V copies of the tile [j0, hi) into stage st; dims past dk (dv) zero
   auto stage = [&](int st, int j0, int hi) {
     float* ks = kst + st * L::K_ELEMS;
     float* vs = vst + st * L::V_ELEMS;
-    if constexpr (ASYNC) {
+    if constexpr (VEC) {
 #pragma unroll
       for (int l = 0; l < L::KL; ++l) {
         const Chunk<TH, L::CK> c(tid, l);
@@ -242,8 +333,8 @@ __device__ __forceinline__ void attend_q_tile(
     } else if constexpr (L::KL + L::VL <= 24) {
       // K's and V's loads in flight together
       float4 kr[L::KL], vr[L::VL];
-      fetch<L::KL, TH, L::CK>(kr, k, kl, j0, hi, dk, tid);
-      fetch<L::VL, TH, L::CV>(vr, v, vl, j0, hi, dv, tid);
+      fetch<L::KL, TH, L::CK, TAIL>(kr, k, kl, j0, hi, dk, tid);
+      fetch<L::VL, TH, L::CV, TAIL>(vr, v, vl, j0, hi, dv, tid);
       put<L::KL, TH, L::CK>(ks, KS, kr, tid);
       put<L::VL, TH, L::CV>(vs, VS, vr, tid);
     } else {
@@ -251,44 +342,17 @@ __device__ __forceinline__ void attend_q_tile(
       // not 128 registers hold a copy beside the 64 O floats
       {
         float4 kr[L::KL];
-        fetch<L::KL, TH, L::CK>(kr, k, kl, j0, hi, dk, tid);
+        fetch<L::KL, TH, L::CK, TAIL>(kr, k, kl, j0, hi, dk, tid);
         put<L::KL, TH, L::CK>(ks, KS, kr, tid);
       }
       float4 vr[L::VL];
-      fetch<L::VL, TH, L::CV>(vr, v, vl, j0, hi, dv, tid);
+      fetch<L::VL, TH, L::CV, TAIL>(vr, v, vl, j0, hi, dv, tid);
       put<L::VL, TH, L::CV>(vs, VS, vr, tid);
     }
   };
 
-  float acc[4][NC * VW], m[4], lsum[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m[i] = NEG_INF;
-    lsum[i] = 0.f;
-#pragma unroll
-    for (int c = 0; c < NC * VW; ++c) acc[i][c] = 0.f;
-  }
-
-  int j0, hi, st = 0;
-  bool have = walk.next(j0, hi);
-  if (ASYNC && have) stage(0, j0, hi);
-  while (have) {
-    if constexpr (ASYNC) cp_async_wait_all();
-    else stage(st, j0, hi);
-    // tile t is in stage st; every thread is done with tile t - 1 (its
-    // stage and Pᵀ)
-    __syncthreads();
-    int nj0 = 0, nhi = 0;
-    const bool have_next = walk.next(nj0, nhi);
-    if (ASYNC && have_next) stage(st ^ 1, nj0, nhi);
-
-    const float* ks = kst + st * L::K_ELEMS;
-    const float* vs = vst + st * L::V_ELEMS;
-    float s[4][KPT];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < KPT; ++j) s[i][j] = 0.f;
+  // S += Qᵀ·K over the DK dims staged
+  auto dots = [&](float (&s)[4][KPT], const float* ks) {
 #pragma unroll
     for (int d = 0; d < DK; d += 4) {
       float qv[4][4];  // [dim][row]
@@ -310,6 +374,53 @@ __device__ __forceinline__ void attend_q_tile(
           s[i][j] = a;
         }
       }
+    }
+  };
+
+  float acc[4][NC * VW], m[4], lsum[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    m[i] = NEG_INF;
+    lsum[i] = 0.f;
+#pragma unroll
+    for (int c = 0; c < NC * VW; ++c) acc[i][c] = 0.f;
+  }
+
+  int j0, hi, st = 0;
+  bool have = walk.next(j0, hi), first = true;
+  if (VEC && have) stage(0, j0, hi);
+  while (have) {
+    float s[4][KPT];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < KPT; ++j) s[i][j] = 0.f;
+    int nj0 = 0, nhi = 0;
+    bool have_next;
+    const float* ks = kst + st * L::K_ELEMS;
+    const float* vs = vst + st * L::V_ELEMS;
+    if constexpr (SL) {
+      // slice by slice: every thread is done with the last slice's (or
+      // tile's) Qᵀ, K, V and Pᵀ before they are overwritten
+      for (int d0 = 0; d0 < dk; d0 += DK) {
+        __syncthreads();
+        if (first || dk > DK) load_q(d0);
+        copy_tail<L::KL, TH, L::CK, 8>(kst, KS, k + d0, kl, j0, hi, dk - d0, tid);
+        if (d0 == 0) copy_tail<L::VL, TH, L::CV, 8>(vst, VS, v, vl, j0, hi, dv, tid);
+        __syncthreads();
+        dots(s, kst);
+      }
+      first = false;
+      have_next = walk.next(nj0, nhi);
+    } else {
+      if constexpr (VEC) cp_async_wait_all();
+      else stage(st, j0, hi);
+      // tile t is in stage st; every thread is done with tile t - 1 (its
+      // stage and Pᵀ)
+      __syncthreads();
+      have_next = walk.next(nj0, nhi);
+      if (VEC && have_next) stage(st ^ 1, nj0, nhi);
+      dots(s, ks);
     }
     if (walk.need_mask(j0, hi)) {
 #pragma unroll
@@ -367,7 +478,7 @@ __device__ __forceinline__ void attend_q_tile(
           for (int u = 0; u < VW; ++u) acc[i][c * VW + u] = fmaf(p[i], vv[u], acc[i][c * VW + u]);
       }
     }
-    st ^= 1;
+    if constexpr (!SL) st ^= 1;
     j0 = nj0, hi = nhi, have = have_next;
   }
 
@@ -384,16 +495,17 @@ __device__ __forceinline__ void attend_q_tile(
     for (int c = 0; c < NC; ++c) {
       const int d = VW * tx + 16 * VW * c;
       if (d >= dv) continue;  // the tile's pad dims
-      if constexpr (ASYNC && VW == 4) {
+      if constexpr (VEC && VW == 4) {
         *reinterpret_cast<float4*>(orow + d) =
             make_float4(acc[i][4 * c] / den, acc[i][4 * c + 1] / den,
                         acc[i][4 * c + 2] / den, acc[i][4 * c + 3] / den);
-      } else if constexpr (ASYNC) {
+      } else if constexpr (VEC) {
         *reinterpret_cast<float2*>(orow + d) =
             make_float2(acc[i][2 * c] / den, acc[i][2 * c + 1] / den);
       } else {
 #pragma unroll
-        for (int u = 0; u < VW; ++u) orow[d + u] = from_f32<T>(acc[i][c * VW + u] / den);
+        for (int u = 0; u < VW; ++u)
+          if (!TAIL || d + u < dv) orow[d + u] = from_f32<T>(acc[i][c * VW + u] / den);
       }
     }
   }

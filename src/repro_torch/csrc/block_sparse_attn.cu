@@ -12,7 +12,9 @@
 // q_offset + row.  The scale is the caller's, and v and o may be narrower
 // than q and k (MLA's (192, 128) and (96, 64)); the call's rows (dk, dv) may
 // be narrower than the compiled tile, which is zero-filled past them
-// (gemma3's 240 in the 256 tile; attn_tile.cuh's note).
+// (gemma3's 240 in the 256 tile; attn_tile.cuh's note); rows that are not
+// whole chunks run element by element in a square tile, rows wider than 256
+// sliced in the (256, 256) one, a grid z plane for each 256 columns of v.
 //
 // What bounds it on the H100: at the serving prefill (B = 8, S = 896,
 // H = 12, hd = 64, block 128, local 4, sink 1, stride 8, f32) query block i
@@ -44,11 +46,14 @@
 // needed work, against 0.8242 for the per-row step this design replaced and
 // 0.7483 for SDPA with the pattern as a boolean mask.  The q tile forced
 // (tools/attn_qtile_sweep.py): 64 rows 0.3051, 32 rows 0.3241.
+#include <type_traits>
+
 #include "attn_tile.cuh"
 
 namespace {
 
 using repro::AttnTile;
+using repro::TileOf;
 
 template <int BKV> struct SparseWalk {
   const int* idx;      // the q block's row of the table
@@ -79,9 +84,11 @@ template <int BKV> struct SparseWalk {
   __device__ bool allowed(int qp, int kp) const { return kp <= qp; }
 };
 
-template <typename T, int DK, int DV, int BQ, int BKV, bool ASYNC>
-__global__ void __launch_bounds__(AttnTile<DK, DV, BQ, BKV>::THREADS,
-                                  AttnTile<DK, DV, BQ, BKV>::MIN_BLOCKS)
+// Grid (B·H, q tiles, planes): under SLICED plane z takes v's and o's
+// columns from z·DV.
+template <typename T, int DK, int DV, int BQ, int BKV, int PATH>
+__global__ void __launch_bounds__(TileOf<DK, DV, BQ, BKV, PATH>::THREADS,
+                                  TileOf<DK, DV, BQ, BKV, PATH>::MIN_BLOCKS)
 bsa_fwd(const T* __restrict__ q, const T* __restrict__ k,
         const T* __restrict__ v, T* __restrict__ o,
         const int* __restrict__ idx, const int* __restrict__ valid, int Sq,
@@ -98,73 +105,106 @@ bsa_fwd(const T* __restrict__ q, const T* __restrict__ k,
   SparseWalk<BKV> walk{idx + (size_t)qb * n_active, valid + (size_t)qb * n_active,
                        n_active, block, Sk, qpos0, qpos0 + rows};
   const size_t qrow = ((size_t)b * Sq + q0) * H + h, kvrow = (size_t)b * Sk * KH + kvh;
-  repro::attend_q_tile<T, DK, DV, BQ, BKV, ASYNC>(
-      q, k, v, o, {qrow * dk, (size_t)H * dk}, {qrow * dv, (size_t)H * dv}, rows,
-      {kvrow * dk, (size_t)KH * dk}, {kvrow * dv, (size_t)KH * dv}, dk, dv, qpos0, scale,
-      walk, smem);
+  const int z0 = PATH == repro::SLICED ? blockIdx.z * DV : 0;
+  repro::attend_q_tile<T, DK, DV, BQ, BKV, PATH>(
+      q, k, v, o, {qrow * dk, (size_t)H * dk}, {qrow * dv + z0, (size_t)H * dv}, rows,
+      {kvrow * dk, (size_t)KH * dk}, {kvrow * dv + z0, (size_t)KH * dv}, dk, dv - z0, qpos0,
+      scale, walk, smem);
 }
 
-template <typename T, int DK, int DV, int BQ, bool ASYNC>
+template <typename T, int DK, int DV, int BQ, int PATH>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o, const int* idx,
                    const int* valid, int B, int Sq, int Sk, int H, int KH, int dk, int dv,
                    int block, int n_active, int q_offset, float scale, cudaStream_t s) {
   constexpr int BKV = repro::kv_tile_rows(DK, BQ);
-  using L = AttnTile<DK, DV, BQ, BKV>;
+  using L = TileOf<DK, DV, BQ, BKV, PATH>;
   static const cudaError_t attr = cudaFuncSetAttribute(
-      bsa_fwd<T, DK, DV, BQ, BKV, ASYNC>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      bsa_fwd<T, DK, DV, BQ, BKV, PATH>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       L::BYTES);
   if (attr != cudaSuccess) return attr;
-  const dim3 grid(B * H, (Sq / block) * ((block + BQ - 1) / BQ));
-  bsa_fwd<T, DK, DV, BQ, BKV, ASYNC><<<grid, L::THREADS, L::BYTES, s>>>(
+  const dim3 grid(B * H, (Sq / block) * ((block + BQ - 1) / BQ),
+                  PATH == repro::SLICED ? (dv + DV - 1) / DV : 1);
+  bsa_fwd<T, DK, DV, BQ, BKV, PATH><<<grid, L::THREADS, L::BYTES, s>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<T*>(o), idx, valid, Sq, Sk, H, KH, dk, dv, block, n_active, q_offset,
       scale);
   return cudaSuccess;
 }
 
-template <typename T, int DK, int DV, bool ASYNC>
+template <typename T, int DK, int DV, int PATH>
 cudaError_t pick_tile(const void* q, const void* k, const void* v, void* o, const int* idx,
                       const int* valid, int B, int Sq, int Sk, int H, int KH, int dk, int dv,
                       int block, int n_active, int q_offset, float scale, cudaStream_t s) {
-  // the q-tile rule of the source note
+  // the q-tile rule of the source note (ELEM and SLICED: 32 rows)
   const long long blocks64 = (long long)(Sq / block) * ((block + 63) / 64) * B * H;
-  if (block > 32 && blocks64 >= 2LL * repro::sm_count())
-    return launch<T, DK, DV, 64, ASYNC>(q, k, v, o, idx, valid, B, Sq, Sk, H, KH, dk, dv,
-                                        block, n_active, q_offset, scale, s);
-  return launch<T, DK, DV, 32, ASYNC>(q, k, v, o, idx, valid, B, Sq, Sk, H, KH, dk, dv, block,
-                                      n_active, q_offset, scale, s);
+  if (PATH <= repro::CHUNK && block > 32 && blocks64 >= 2LL * repro::sm_count())
+    return launch<T, DK, DV, PATH <= repro::CHUNK ? 64 : 32, PATH>(
+        q, k, v, o, idx, valid, B, Sq, Sk, H, KH, dk, dv, block, n_active, q_offset, scale, s);
+  return launch<T, DK, DV, 32, PATH>(q, k, v, o, idx, valid, B, Sq, Sk, H, KH, dk, dv, block,
+                                     n_active, q_offset, scale, s);
 }
 
-// The (q/k, v) tile widths compiled, flash_attn.cu's (REPRO_ATTN_WIDTHS).
-template <typename T, bool ASYNC>
+// The (q/k, v) tile widths compiled, flash_attn.cu's: REPRO_ATTN_WIDTHS for
+// whole chunks, the square ones for ELEM rows, (256, 256) SLICED.
+template <typename T, int PATH>
 cudaError_t dispatch(int DK, int DV, const void* q, const void* k, const void* v, void* o,
                      const int* idx, const int* valid, int B, int Sq, int Sk, int H, int KH,
                      int dk, int dv, int block, int n_active, int q_offset, float scale,
                      cudaStream_t s) {
 #define REPRO_WIDTH(wk, wv)                                                              \
   if (DK == wk && DV == wv)                                                              \
-    return pick_tile<T, wk, wv, ASYNC>(q, k, v, o, idx, valid, B, Sq, Sk, H, KH, dk, dv, \
-                                       block, n_active, q_offset, scale, s);
-  REPRO_ATTN_WIDTHS(REPRO_WIDTH)
+    return pick_tile<T, wk, wv, PATH>(q, k, v, o, idx, valid, B, Sq, Sk, H, KH, dk, dv,  \
+                                      block, n_active, q_offset, scale, s);
+  if constexpr (PATH == repro::SLICED) {
+    REPRO_WIDTH(256, 256)
+  } else if constexpr (PATH == repro::ELEM) {
+    REPRO_ATTN_SQUARE(REPRO_WIDTH)
+  } else {
+    REPRO_ATTN_WIDTHS(REPRO_WIDTH)
+  }
 #undef REPRO_WIDTH
   return cudaErrorInvalidValue;
+}
+
+// The instance family of the call's ``rows`` path (and, for whole chunks,
+// of its type and the operands' alignment).
+template <typename T>
+cudaError_t by_rows(int rows, bool vec, int HD, int HDV, const void* q, const void* k,
+                    const void* v, void* o, const int* idx, const int* valid, int B, int Sq,
+                    int Sk, int H, int KH, int dk, int dv, int block, int n_active,
+                    int q_offset, float scale, cudaStream_t s) {
+  if (rows == 1)
+    return dispatch<T, repro::ELEM>(HD, HDV, q, k, v, o, idx, valid, B, Sq, Sk, H, KH, dk, dv,
+                                    block, n_active, q_offset, scale, s);
+  if (rows == 2)
+    return dispatch<T, repro::SLICED>(HD, HDV, q, k, v, o, idx, valid, B, Sq, Sk, H, KH, dk,
+                                      dv, block, n_active, q_offset, scale, s);
+  if constexpr (std::is_same_v<T, float>) {
+    if (vec)
+      return dispatch<T, repro::ASYNC>(HD, HDV, q, k, v, o, idx, valid, B, Sq, Sk, H, KH, dk,
+                                       dv, block, n_active, q_offset, scale, s);
+  }
+  return dispatch<T, repro::CHUNK>(HD, HDV, q, k, v, o, idx, valid, B, Sq, Sk, H, KH, dk, dv,
+                                   block, n_active, q_offset, scale, s);
 }
 
 }  // namespace
 
 // dtype: 0 = f32, 1 = bf16.  q (B,Sq,H,dk), k (B,Sk,KH,dk), v (B,Sk,KH,dv),
-// o (B,Sq,H,dv), contiguous, run in the compiled (HD, HDV) tile (dk ≤ HD,
-// dv ≤ HDV, multiples of 4); idx/valid (Sq/block, n_active) int32 on the
+// o (B,Sq,H,dv), contiguous, run in the compiled (HD, HDV) tile on the
+// ``rows`` path (flash_attn's: 0 whole 4-element chunks up to the tile's
+// widths, 1 any widths up to a square tile's, 2 any, sliced); idx/valid (Sq/block, n_active) int32 on the
 // device.  Sq and Sk are multiples of block; query row i sits at key
 // position q_offset + i.  Returns the first error of the launch, else
 // cudaGetLastError() after it.
 extern "C" int block_sparse_attn(int dtype, const void* q, const void* k,
                                  const void* v, void* o, const void* idx,
                                  const void* valid, int B, int Sq, int Sk, int H,
-                                 int KH, int HD, int HDV, int dk, int dv, int block,
-                                 int n_active, int q_offset, float scale, void* stream) {
+                                 int KH, int HD, int HDV, int rows, int dk, int dv,
+                                 int block, int n_active, int q_offset, float scale,
+                                 void* stream) {
   if (B < 1 || Sq < 1 || Sk < 1 || KH < 1 || H % KH != 0 || block < 1 ||
-      !repro::row_widths_fit(dk, dv, HD, HDV) ||
+      !repro::row_widths_fit(rows, dk, dv, HD, HDV) ||
       Sq % block != 0 || Sk % block != 0 || n_active < 1 || q_offset < 0)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -173,12 +213,12 @@ extern "C" int block_sparse_attn(int dtype, const void* q, const void* k,
   const bool vec = repro::aligned16(q) && repro::aligned16(k) && repro::aligned16(v) &&
                    repro::aligned16(o);
   cudaError_t e;
-  if (dtype == 0 && vec) {
-    e = dispatch<float, true>(HD, HDV, q, k, v, o, ip, vp, B, Sq, Sk, H, KH, dk, dv, block, n_active, q_offset, scale, s);
-  } else if (dtype == 0) {
-    e = dispatch<float, false>(HD, HDV, q, k, v, o, ip, vp, B, Sq, Sk, H, KH, dk, dv, block, n_active, q_offset, scale, s);
+  if (dtype == 0) {
+    e = by_rows<float>(rows, vec, HD, HDV, q, k, v, o, ip, vp, B, Sq, Sk, H, KH, dk, dv, block,
+                       n_active, q_offset, scale, s);
   } else if (dtype == 1) {
-    e = dispatch<__nv_bfloat16, false>(HD, HDV, q, k, v, o, ip, vp, B, Sq, Sk, H, KH, dk, dv, block, n_active, q_offset, scale, s);
+    e = by_rows<__nv_bfloat16>(rows, vec, HD, HDV, q, k, v, o, ip, vp, B, Sq, Sk, H, KH, dk,
+                               dv, block, n_active, q_offset, scale, s);
   } else {
     return (int)cudaErrorInvalidValue;
   }

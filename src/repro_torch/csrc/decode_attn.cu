@@ -91,8 +91,8 @@
 //   empty kernel under the same timer), the first DRAM round trip, and the
 //   cluster's merge.
 // - K and V loads are 16-byte vectors when both caches are 16-byte aligned
-//   (a row is a multiple of 16 bytes at every head width); otherwise element
-//   loads (the WIDE flag).  q and o go through element loads and stores.
+//   (on the whole-chunk path a row is a multiple of 16 bytes); otherwise
+//   element loads (the WIDE flag).  q and o go through element loads and stores.
 // - The compiled HD (32, 64, 128, 256) is a lane layout, not a row width:
 //   the call's rows are d ≤ HD wide, whole 16-byte chunks (d·size a
 //   multiple of 16), read at their true stride; a lane's q dims past d are
@@ -110,6 +110,20 @@
 //   loop of constant trips: one with a trip count read at run time put
 //   300 bytes of every instance in local memory), rank 0's weights once
 //   for both.
+// - Any head width runs (kernels/flash_attn/ops.py plan, the ``rows``
+//   argument).  Rows that are not whole chunks (f32 heads of 18; bf16 rows
+//   of odd width) are not 16-byte aligned from one row to the next, and
+//   the chunk a lane reads past d would be the next row's: ``rows`` 1 reads
+//   a lane's chunks element by element, each element past d zero (ELEM, at
+//   the same layouts, element loads).  Rows wider than 256 (``rows`` 2,
+//   SLICED) run at the HD 256 layout: q, f32, in shared memory (zero past
+//   d up to a whole slice), and a warp step reads one position's V chunks
+//   of its column plane (a grid y plane a 256 columns of v and o, every
+//   plane recomputing the same dots and weights) and sums the q·k dot over
+//   the 256-wide slices of K in turn, a loop of run-time trips over a
+//   lane's constant two chunks (f32) or one (bf16), element reads, no
+//   register double buffering: a slow path, kept simple.  Every plane's
+//   cluster takes part in the split rule's one-wave test.
 #include <cooperative_groups.h>
 
 #include <algorithm>
@@ -134,16 +148,24 @@ constexpr int SPLIT_MAX = 16;       // largest cluster on Hopper (non-portable a
 constexpr int MIN_POS = 32;         // fewest positions a rank is split down to
 constexpr unsigned FULL = 0xffffffffu;
 
+// How a lane reads its rows: whole 16-byte chunks, elements, or sliced
+// (the note above; the C entry point's ``rows``).
+constexpr int CHUNK_ROWS = 0, ELEM_ROWS = 1, SLICED_ROWS = 2;
+constexpr int SLICE_W = 256;        // the SLICED layout and slice width
+
 // Blocks an SM the registers are held to: 8 (64 registers a thread), or 4
-// (128) at HD 256.
-constexpr int min_blocks(int HD) { return HD > 128 ? 4 : 8; }
+// (128) at HD 256 and on the ELEM_ROWS and SLICED_ROWS paths (at 64
+// registers their bf16 element reads spilled 4 bytes).
+constexpr int min_blocks(int HD, int rows) {
+  return HD > 128 || rows != CHUNK_ROWS ? 4 : 8;
+}
 
 // Per type and head width: VEC elements per 16-byte load, CPL 16-byte
 // chunks a lane holds of a row, LPR lanes per row, RPI rows (groups) per
 // warp load, U rows a group loads per step (1 KB of K and V a warp load:
 // 2 where a lane's share of a row is 16 bytes in f32, else 1), STEP
-// positions per warp step, MINB blocks an SM.
-template <typename T, int HD>
+// positions per warp step, MINB blocks an SM (on path ROWS).
+template <typename T, int HD, int ROWS = CHUNK_ROWS>
 struct Shape {
   static constexpr int VEC = 16 / sizeof(T);
   static constexpr int CHUNKS = HD / VEC;
@@ -152,7 +174,7 @@ struct Shape {
   static constexpr int RPI = 32 / LPR;
   static constexpr int U = VEC * CPL == 4 ? 2 : 1;
   static constexpr int STEP = RPI * U;
-  static constexpr int MINB = min_blocks(HD);
+  static constexpr int MINB = min_blocks(HD, ROWS);
   static_assert(LPR >= 1 && LPR <= 32 && 32 % LPR == 0 && CHUNKS == LPR * CPL, "lane layout");
 };
 
@@ -174,26 +196,48 @@ __device__ __forceinline__ uint4 load16(const T* p, bool ok) {
   }
 }
 
+// The first n (the rest zero) of the VEC elements from ``p`` as raw bits,
+// element loads.
+template <typename T>
+__device__ __forceinline__ uint4 load_upto(const T* p, int n) {
+  constexpr int VEC = 16 / sizeof(T);
+  using Bits = std::conditional_t<sizeof(T) == 4, unsigned, unsigned short>;
+  Bits e[VEC];
+#pragma unroll
+  for (int v = 0; v < VEC; ++v) e[v] = v < n ? reinterpret_cast<const Bits*>(p)[v] : Bits(0);
+  uint4 r;
+  memcpy(&r, e, 16);
+  return r;
+}
+
 // Segments a sparse call can have: one per kv block (dense mode keeps none).
 __host__ __device__ __forceinline__ int max_segments(int Sc, int block) {
   return block > 0 ? (Sc + block - 1) / block : 0;
 }
 
-// The grid is (B·H)·split blocks, one cluster of ``split`` per (b, h).
-// Rows are d ≤ HD elements wide.  Dynamic shared memory: the segment table,
+// Ints of dynamic shared memory before SLICED's q: the segment table,
+// rounded up to 16 bytes.
+__host__ __device__ __forceinline__ int seg_ints(int Sc, int block) {
+  return (2 * max_segments(Sc, block) + 3) / 4 * 4;
+}
+
+// The grid is ((B·H)·split, planes) blocks, one cluster of ``split`` per
+// (b, h) and plane (one plane but under SLICED).  Rows are d ≤ HD elements
+// wide (any d under SLICED).  Dynamic shared memory: the segment table,
 // max_segments ints of position bases (position = base + active index) and
-// as many ends (exclusive, in active-index space).
-template <typename T, int HD, bool WIDE>
-__global__ void __launch_bounds__(THREADS, (Shape<T, HD>::MINB))
+// as many ends (exclusive, in active-index space); under SLICED then q.
+template <typename T, int HD, bool WIDE, int ROWS>
+__global__ void __launch_bounds__(THREADS, (Shape<T, HD, ROWS>::MINB))
 decode_fwd(const T* __restrict__ q, const T* __restrict__ kc,
            const T* __restrict__ vc, T* __restrict__ o, float* __restrict__ lse,
            int Sc, int H, int KH, int d,
            int cache_len, int offset, int window, int block, int sink, int local,
            int stride, float scale) {
-  using S = Shape<T, HD>;
+  using S = Shape<T, HD, ROWS>;
   constexpr int VEC = S::VEC, CPL = S::CPL, LPR = S::LPR, RPI = S::RPI, U = S::U,
                 STEP = S::STEP;
-  extern __shared__ int seg[];
+  constexpr bool SL = ROWS == SLICED_ROWS;
+  extern __shared__ __align__(16) int seg[];
   __shared__ float wm[NW], wl[NW];
   __shared__ float wacc[NW][HD];
   __shared__ float rm, rl;          // the rank's state, read by rank 0
@@ -247,16 +291,23 @@ decode_fwd(const T* __restrict__ q, const T* __restrict__ kc,
   }
 
   // q stays raw (its loads need not land before the first K and V loads
-  // go out); d^-1/2 scales each dot.  Dims past d are zero.
-  T qv[CPL][VEC];
+  // go out); d^-1/2 scales each dot.  Dims past d are zero.  SLICED: q in
+  // shared memory, f32, zero past d up to a whole slice.
+  [[maybe_unused]] T qv[CPL][VEC];
+  [[maybe_unused]] float* qs = reinterpret_cast<float*>(seg + seg_ints(Sc, block));
+  if constexpr (SL) {
+    for (int i = tid; i < (d + HD - 1) / HD * HD; i += THREADS)
+      qs[i] = i < d ? to_f32(q[(size_t)bh * d + i]) : 0.f;
+  } else {
 #pragma unroll
-  for (int c = 0; c < CPL; ++c)
+    for (int c = 0; c < CPL; ++c)
 #pragma unroll
-    for (int v = 0; v < VEC; ++v) {
-      const int dim = col + LPR * VEC * c + v;
-      qv[c][v] = dim < d ? q[(size_t)bh * d + dim] : from_f32<T>(0.f);
-    }
-  if (block > 0) __syncthreads();
+      for (int v = 0; v < VEC; ++v) {
+        const int dim = col + LPR * VEC * c + v;
+        qv[c][v] = dim < d ? q[(size_t)bh * d + dim] : from_f32<T>(0.f);
+      }
+  }
+  if (SL || block > 0) __syncthreads();
 
   // The rank's share of the active indices, and the warp's part of it.
   const int n = block > 0 ? n_active : max(hi - lo, 0);
@@ -271,10 +322,18 @@ decode_fwd(const T* __restrict__ q, const T* __restrict__ kc,
   // The lane's chunk c at kp + cofs[c].  A chunk past the row's d dims
   // reads the row's first chunk instead: its q dims are zero, so it adds
   // exact zeros to the dot, and its accumulator dims are never stored; no
-  // load waits on a test of the row width.
+  // load waits on a test of the row width.  ELEMS: the chunk's own place,
+  // its first lim[c] elements read.
   int cofs[CPL];
+  [[maybe_unused]] int lim[CPL];
 #pragma unroll
-  for (int c = 0; c < CPL; ++c) cofs[c] = col + LPR * VEC * c < d ? LPR * VEC * c : -col;
+  for (int c = 0; c < CPL; ++c) {
+    if constexpr (ROWS == ELEM_ROWS) {
+      cofs[c] = LPR * VEC * c, lim[c] = d - col - LPR * VEC * c;
+    } else {
+      cofs[c] = col + LPR * VEC * c < d ? LPR * VEC * c : -col;
+    }
+  }
   int s = 0;  // the lane's segment: its active indices only grow
   uint4 kr[U][CPL], vr[U][CPL], kn[U][CPL], vn[U][CPL];
   // step ``i0``: the group's rows i0 + grp + RPI·u, zero past w1
@@ -294,8 +353,13 @@ decode_fwd(const T* __restrict__ q, const T* __restrict__ kc,
       }
 #pragma unroll
       for (int c = 0; c < CPL; ++c) {
-        kb[u][c] = load16<T, WIDE>(kp + off + cofs[c], ok);
-        vb[u][c] = load16<T, WIDE>(vp + off + cofs[c], ok);
+        if constexpr (ROWS == ELEM_ROWS) {
+          kb[u][c] = load_upto(kp + off + cofs[c], ok ? lim[c] : 0);
+          vb[u][c] = load_upto(vp + off + cofs[c], ok ? lim[c] : 0);
+        } else {
+          kb[u][c] = load16<T, WIDE>(kp + off + cofs[c], ok);
+          vb[u][c] = load16<T, WIDE>(vp + off + cofs[c], ok);
+        }
       }
     }
   };
@@ -305,51 +369,97 @@ decode_fwd(const T* __restrict__ q, const T* __restrict__ kc,
 #pragma unroll
   for (int v = 0; v < NA; ++v) acc[v] = 0.f;
   float m = NEG_INF, l = 0.f;
-  if (w0 < w1) load(w0, kr, vr);
-  for (int i0 = w0; i0 < w1; i0 += STEP) {  // warp-uniform trips
-    if (i0 + STEP < w1) load(i0 + STEP, kn, vn);  // in flight while this step computes
-    float sc[U];
-    float cmax = NEG_INF;
+  // SLICED: plane z's columns [z0, z0 + HD) of v and o
+  const int z0 = SL ? (int)blockIdx.y * HD : 0;
+  if constexpr (SL) {
+    static_assert(HD == SLICE_W && LPR == 32 && U == 1 && STEP == 1, "sliced layout");
+    for (int t = w0; t < w1; ++t) {  // warp-uniform trips, a position a step
+      if (block > 0) while (t >= seg_end[s]) ++s;
+      const size_t off = (size_t)((block > 0 ? seg_base[s] : lo) + t) * pos_stride;
+      uint4 vb[CPL];
 #pragma unroll
-    for (int u = 0; u < U; ++u) {
+      for (int c = 0; c < CPL; ++c)
+        vb[c] = load_upto(vp + off + z0 + LPR * VEC * c, d - z0 - col - LPR * VEC * c);
       float dot = 0.f;
+#pragma unroll 2
+      for (int s0 = 0; s0 < d; s0 += HD) {
 #pragma unroll
-      for (int c = 0; c < CPL; ++c) {
-        float kf[VEC];
-        unpack(kr[u][c], kf);
+        for (int c = 0; c < CPL; ++c) {
+          const int dim = s0 + col + LPR * VEC * c;
+          float kf[VEC];
+          unpack(load_upto(kp + off + s0 + LPR * VEC * c, d - dim), kf);
 #pragma unroll
-        for (int v = 0; v < VEC; ++v) dot = fmaf(to_f32(qv[c][v]), kf[v], dot);
+          for (int v = 0; v < VEC; v += 4) {
+            const float4 qf = *reinterpret_cast<const float4*>(qs + dim + v);
+            dot = fmaf(qf.x, kf[v], dot);
+            dot = fmaf(qf.y, kf[v + 1], dot);
+            dot = fmaf(qf.z, kf[v + 2], dot);
+            dot = fmaf(qf.w, kf[v + 3], dot);
+          }
+        }
       }
 #pragma unroll
-      for (int off = LPR / 2; off > 0; off >>= 1) dot += __shfl_xor_sync(FULL, dot, off);
-      sc[u] = dot * scale;
-      if (i0 + grp + RPI * u < w1) cmax = fmaxf(cmax, sc[u]);
-    }
-    const float m_new = fmaxf(m, cmax);
-    const float corr = expf(m - m_new);
-    float psum = 0.f;
-#pragma unroll
-    for (int u = 0; u < U; ++u) {
-      sc[u] = i0 + grp + RPI * u < w1 ? expf(sc[u] - m_new) : 0.f;
-      psum += sc[u];
-    }
-    l = fmaf(l, corr, psum);
-#pragma unroll
-    for (int v = 0; v < NA; ++v) acc[v] *= corr;
-#pragma unroll
-    for (int u = 0; u < U; ++u)
+      for (int o_ = 16; o_ > 0; o_ >>= 1) dot += __shfl_xor_sync(FULL, dot, o_);
+      const float sc = dot * scale;
+      const float m_new = fmaxf(m, sc);
+      const float corr = expf(m - m_new), p = expf(sc - m_new);
+      l = fmaf(l, corr, p);
 #pragma unroll
       for (int c = 0; c < CPL; ++c) {
         float vf[VEC];
-        unpack(vr[u][c], vf);
+        unpack(vb[c], vf);
 #pragma unroll
-        for (int v = 0; v < VEC; ++v) acc[c * VEC + v] = fmaf(sc[u], vf[v], acc[c * VEC + v]);
+        for (int v = 0; v < VEC; ++v) acc[c * VEC + v] = fmaf(p, vf[v], acc[c * VEC + v] * corr);
       }
-    m = m_new;
+      m = m_new;
+    }
+  } else {
+    if (w0 < w1) load(w0, kr, vr);
+    for (int i0 = w0; i0 < w1; i0 += STEP) {  // warp-uniform trips
+      if (i0 + STEP < w1) load(i0 + STEP, kn, vn);  // in flight while this step computes
+      float sc[U];
+      float cmax = NEG_INF;
 #pragma unroll
-    for (int u = 0; u < U; ++u)
+      for (int u = 0; u < U; ++u) {
+        float dot = 0.f;
 #pragma unroll
-      for (int c = 0; c < CPL; ++c) kr[u][c] = kn[u][c], vr[u][c] = vn[u][c];
+        for (int c = 0; c < CPL; ++c) {
+          float kf[VEC];
+          unpack(kr[u][c], kf);
+#pragma unroll
+          for (int v = 0; v < VEC; ++v) dot = fmaf(to_f32(qv[c][v]), kf[v], dot);
+        }
+#pragma unroll
+        for (int off = LPR / 2; off > 0; off >>= 1) dot += __shfl_xor_sync(FULL, dot, off);
+        sc[u] = dot * scale;
+        if (i0 + grp + RPI * u < w1) cmax = fmaxf(cmax, sc[u]);
+      }
+      const float m_new = fmaxf(m, cmax);
+      const float corr = expf(m - m_new);
+      float psum = 0.f;
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        sc[u] = i0 + grp + RPI * u < w1 ? expf(sc[u] - m_new) : 0.f;
+        psum += sc[u];
+      }
+      l = fmaf(l, corr, psum);
+#pragma unroll
+      for (int v = 0; v < NA; ++v) acc[v] *= corr;
+#pragma unroll
+      for (int u = 0; u < U; ++u)
+#pragma unroll
+        for (int c = 0; c < CPL; ++c) {
+          float vf[VEC];
+          unpack(vr[u][c], vf);
+#pragma unroll
+          for (int v = 0; v < VEC; ++v) acc[c * VEC + v] = fmaf(sc[u], vf[v], acc[c * VEC + v]);
+        }
+      m = m_new;
+#pragma unroll
+      for (int u = 0; u < U; ++u)
+#pragma unroll
+        for (int c = 0; c < CPL; ++c) kr[u][c] = kn[u][c], vr[u][c] = vn[u][c];
+    }
   }
 
   // Groups of the warp meet in lanes 0 .. LPR-1, by shuffles down.
@@ -397,8 +507,9 @@ decode_fwd(const T* __restrict__ q, const T* __restrict__ kc,
   cluster.sync();
   // The ranks, in rank order, through distributed shared memory: their
   // maxima and weights first, then each dim's weighted sum; the row's d
-  // dims are stored.
-  if (rank == 0 && tid < d) {
+  // dims (SLICED: the plane's) are stored.
+  const int dout = SL ? min(HD, d - z0) : d;
+  if (rank == 0 && tid < dout) {
     float c[SPLIT_MAX];
 #pragma unroll
     for (int r = 0; r < SPLIT_MAX; ++r) c[r] = r < split ? *cluster.map_shared_rank(&rm, r) : NEG_INF;
@@ -416,14 +527,14 @@ decode_fwd(const T* __restrict__ q, const T* __restrict__ kc,
 #pragma unroll
     for (int j = 0; j < DPT; ++j) {
       const int dim = tid + THREADS * j;
-      if (dim >= d) break;
+      if (dim >= dout) break;
       float at = 0.f;
 #pragma unroll
       for (int r = 0; r < SPLIT_MAX; ++r)
         if (r < split) at = fmaf(cluster.map_shared_rank(racc, r)[dim], c[r], at);
-      o[(size_t)bh * d + dim] = from_f32<T>(at / fmaxf(lt, 1e-30f));
+      o[(size_t)bh * d + z0 + dim] = from_f32<T>(at / fmaxf(lt, 1e-30f));
     }
-    if (lse != nullptr && tid == 0) lse[bh] = mt + logf(lt);
+    if (lse != nullptr && tid == 0 && z0 == 0) lse[bh] = mt + logf(lt);
   }
   // No block leaves while rank 0 reads its shared memory.  Rank 0 arrives
   // after it has used what it read, so the arrival orders nothing (relaxed).
@@ -467,21 +578,22 @@ int decode_split(int bh, int positions_max, int sms, int minb) {
   return split;
 }
 
-template <typename T, int HD, bool WIDE>
-cudaError_t launch(int split, const void* q, const void* k, const void* v, void* o,
-                   float* lse, int B, int Sc, int H, int KH, int d, int cache_len, int offset,
-                   int window, const int* sp, float scale, cudaStream_t s) {
+template <typename T, int HD, bool WIDE, int ROWS>
+cudaError_t launch(int split, int planes, const void* q, const void* k, const void* v,
+                   void* o, float* lse, int B, int Sc, int H, int KH, int d, int cache_len,
+                   int offset, int window, const int* sp, float scale, cudaStream_t s) {
   static const cudaError_t attr = cudaFuncSetAttribute(
-      decode_fwd<T, HD, WIDE>, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+      decode_fwd<T, HD, WIDE, ROWS>, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
   if (attr != cudaSuccess) return attr;
-  const int smem = 2 * max_segments(Sc, sp[0]) * (int)sizeof(int);
+  const int smem = (ROWS == SLICED_ROWS ? seg_ints(Sc, sp[0]) + (d + HD - 1) / HD * HD
+                                   : 2 * max_segments(Sc, sp[0])) * (int)sizeof(int);
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
-        decode_fwd<T, HD, WIDE>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+        decode_fwd<T, HD, WIDE, ROWS>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (e != cudaSuccess) return e;
   }
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(B * H * split);
+  cfg.gridDim = dim3(B * H * split, planes);
   cfg.blockDim = dim3(THREADS);
   cfg.dynamicSmemBytes = smem;
   cfg.stream = s;
@@ -492,33 +604,54 @@ cudaError_t launch(int split, const void* q, const void* k, const void* v, void*
   cluster[0].val.clusterDim.z = 1;
   cfg.attrs = cluster;
   cfg.numAttrs = 1;
-  return cudaLaunchKernelEx(&cfg, decode_fwd<T, HD, WIDE>, static_cast<const T*>(q),
+  return cudaLaunchKernelEx(&cfg, decode_fwd<T, HD, WIDE, ROWS>, static_cast<const T*>(q),
                             static_cast<const T*>(k), static_cast<const T*>(v),
                             static_cast<T*>(o), lse, Sc, H, KH, d, cache_len, offset, window,
                             sp[0], sp[1], sp[2], sp[3], scale);
 }
 
-template <typename T, int HD>
+// Column planes of a call: one, or a plane a SLICE_W columns under SLICED.
+int planes_of(int rows, int d) {
+  return rows == SLICED_ROWS ? (d + SLICE_W - 1) / SLICE_W : 1;
+}
+
+template <typename T, int HD, int ROWS>
 cudaError_t launch_hd(bool wide, const void* q, const void* k, const void* v, void* o,
                       float* lse, int B, int Sc, int H, int KH, int d, int cache_len, int offset,
                       int window, const int* sp, float scale, cudaStream_t s) {
-  const int split = decode_split(B * H, most_positions(Sc, window, sp[0], sp[1], sp[2], sp[3]),
-                                 sm_count(), Shape<T, HD>::MINB);
-  return wide ? launch<T, HD, true>(split, q, k, v, o, lse, B, Sc, H, KH, d, cache_len, offset,
-                                    window, sp, scale, s)
-              : launch<T, HD, false>(split, q, k, v, o, lse, B, Sc, H, KH, d, cache_len, offset,
-                                     window, sp, scale, s);
+  const int planes = planes_of(ROWS, d);
+  const int split =
+      decode_split(B * H * planes, most_positions(Sc, window, sp[0], sp[1], sp[2], sp[3]),
+                   sm_count(), Shape<T, HD, ROWS>::MINB);
+  if constexpr (ROWS == CHUNK_ROWS) {
+    if (wide)
+      return launch<T, HD, true, ROWS>(split, planes, q, k, v, o, lse, B, Sc, H, KH, d,
+                                       cache_len, offset, window, sp, scale, s);
+  }
+  return launch<T, HD, false, ROWS>(split, planes, q, k, v, o, lse, B, Sc, H, KH, d, cache_len,
+                                    offset, window, sp, scale, s);
 }
 
-// The compiled head widths (lane layouts): 32, 64, 128, 256.
+// The compiled head widths (lane layouts): 32, 64, 128, 256 for whole
+// chunks and ELEM_ROWS, 256 SLICED_ROWS.
 template <typename T>
-cudaError_t dispatch(int HD, const void* q, const void* k, const void* v, void* o, float* lse,
-                     int B, int Sc, int H, int KH, int d, int cache_len, int offset, int window,
-                     const int* sp, float scale, cudaStream_t s) {
+cudaError_t dispatch(int HD, int rows, const void* q, const void* k, const void* v, void* o,
+                     float* lse, int B, int Sc, int H, int KH, int d, int cache_len, int offset,
+                     int window, const int* sp, float scale, cudaStream_t s) {
   const bool wide = aligned16(k) && aligned16(v);
+  if (rows == SLICED_ROWS)
+    return HD == SLICE_W ? launch_hd<T, SLICE_W, SLICED_ROWS>(false, q, k, v, o, lse, B, Sc, H,
+                                                              KH, d, cache_len, offset, window,
+                                                              sp, scale, s)
+                         : cudaErrorInvalidValue;
   switch (HD) {
-#define REPRO_HD(w) \
-  case w: return launch_hd<T, w>(wide, q, k, v, o, lse, B, Sc, H, KH, d, cache_len, offset, window, sp, scale, s);
+#define REPRO_HD(w)                                                                         \
+  case w:                                                                                   \
+    return rows == ELEM_ROWS                                                                \
+               ? launch_hd<T, w, ELEM_ROWS>(wide, q, k, v, o, lse, B, Sc, H, KH, d,         \
+                                            cache_len, offset, window, sp, scale, s)        \
+               : launch_hd<T, w, CHUNK_ROWS>(wide, q, k, v, o, lse, B, Sc, H, KH, d,        \
+                                             cache_len, offset, window, sp, scale, s);
     REPRO_HD(32) REPRO_HD(64) REPRO_HD(128) REPRO_HD(256)
 #undef REPRO_HD
     default: return cudaErrorInvalidValue;
@@ -528,31 +661,36 @@ cudaError_t dispatch(int HD, const void* q, const void* k, const void* v, void* 
 }  // namespace
 
 // dtype: 0 = f32, 1 = bf16.  q/o (B,1,H,d), caches (B,Sc,KH,d), contiguous,
-// run at the compiled head width HD ≥ d (d a whole number of 16-byte
-// chunks); slot i holds position offset + i (offset ≥ 0, a multiple of
-// block when block > 0: a segment of a sequence-split cache); positions <
-// cache_len are valid.  block > 0 adds the sparse mask of
+// run at the compiled head width HD on the ``rows`` path: 0, HD ≥ d, d a
+// whole number of 16-byte chunks; 1, HD ≥ d ≥ 1; 2, HD 256, any d ≥ 1,
+// sliced (the note above); slot i holds position offset + i (offset ≥ 0,
+// a multiple of block when block > 0: a segment of a sequence-split
+// cache); positions < cache_len are valid.  block > 0 adds the sparse mask of
 // (block, sink, local, stride); block = 0 is dense.  lse, when not null,
 // (B,H) f32, gets m + log l of the scaled logits over the positions read
 // (-inf when none is).  Returns the first error of the launch, else
 // cudaGetLastError() after it.
 extern "C" int decode_attn(int dtype, const void* q, const void* k, const void* v,
-                           void* o, void* lse, int B, int Sc, int H, int KH, int HD, int d,
-                           int cache_len, int offset, int window, int block, int sink,
+                           void* o, void* lse, int B, int Sc, int H, int KH, int HD, int rows,
+                           int d, int cache_len, int offset, int window, int block, int sink,
                            int local, int stride, float scale, void* stream) {
   const int vec = dtype == 0 ? 4 : 8;  // elements a 16-byte chunk
+  const bool fits = rows == CHUNK_ROWS    ? d >= vec && d <= HD && d % vec == 0
+                    : rows == ELEM_ROWS   ? d >= 1 && d <= HD
+                    : rows == SLICED_ROWS ? d >= 1 && HD == SLICE_W
+                                          : false;
   if (B < 1 || Sc < 1 || KH < 1 || H % KH != 0 || offset < 0 || cache_len - offset < 1 ||
-      d < vec || d > HD || d % vec != 0 || (block > 0 && (stride < 1 || offset % block != 0)))
+      !fits || (block > 0 && (stride < 1 || offset % block != 0)))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int sp[4] = {block, sink, local, stride};
   cudaError_t e;
   if (dtype == 0) {
-    e = dispatch<float>(HD, q, k, v, o, static_cast<float*>(lse), B, Sc, H, KH, d, cache_len,
-                        offset, window, sp, scale, s);
+    e = dispatch<float>(HD, rows, q, k, v, o, static_cast<float*>(lse), B, Sc, H, KH, d,
+                        cache_len, offset, window, sp, scale, s);
   } else if (dtype == 1) {
-    e = dispatch<__nv_bfloat16>(HD, q, k, v, o, static_cast<float*>(lse), B, Sc, H, KH, d,
-                                cache_len, offset, window, sp, scale, s);
+    e = dispatch<__nv_bfloat16>(HD, rows, q, k, v, o, static_cast<float*>(lse), B, Sc, H, KH,
+                                d, cache_len, offset, window, sp, scale, s);
   } else {
     return (int)cudaErrorInvalidValue;
   }
@@ -560,13 +698,13 @@ extern "C" int decode_attn(int dtype, const void* q, const void* k, const void* 
 }
 
 // The cluster size (split) the rule takes on the current device for a call
-// over this cache and pattern at compiled head width HD; it does not
-// depend on cache_len.
-extern "C" int decode_attn_plan(int HD, int B, int Sc, int H, int window, int block, int sink,
-                                int local, int stride, int* split) {
-  if (B < 1 || Sc < 1 || H < 1 || HD < 1 || (block > 0 && stride < 1))
+// over this cache and pattern at compiled head width HD on the ``rows``
+// path with ``planes`` column planes; it does not depend on cache_len.
+extern "C" int decode_attn_plan(int HD, int rows, int planes, int B, int Sc, int H, int window,
+                                int block, int sink, int local, int stride, int* split) {
+  if (B < 1 || Sc < 1 || H < 1 || HD < 1 || planes < 1 || (block > 0 && stride < 1))
     return (int)cudaErrorInvalidValue;
-  *split = decode_split(B * H, most_positions(Sc, window, block, sink, local, stride), sm_count(),
-                        min_blocks(HD));
+  *split = decode_split(B * H * planes, most_positions(Sc, window, block, sink, local, stride),
+                        sm_count(), min_blocks(HD, rows));
   return 0;
 }

@@ -10,6 +10,9 @@
 // than q and k (MLA's (192, 128)).  The compiled (DK, DV) is a tile width:
 // the call's rows (dk, dv) may be narrower, the tile zero-filled past them
 // (gemma3's 240 in the 256 tile, 16 in the 32 one; attn_tile.cuh's note).
+// Rows that are not whole chunks run element by element in a square tile,
+// rows wider than 256 sliced in the (256, 256) one, a grid z plane for
+// each 256 columns of v (attn_tile.cuh's note).
 //
 // What bounds it on the H100: at the serving prefill (B = 8, S = 128,
 // H = 12, hd = 64, f32) it reads q, k, v and writes o once — 12.6 MB, 3.8 us
@@ -43,11 +46,14 @@
 // (SDPA 0.0126).  The q tile forced (tools/attn_qtile_sweep.py): at the
 // serving shape 32 rows 0.0222, 64 rows 0.0230; at S 512 64 rows 0.1321,
 // 32 rows 0.1360.
+#include <type_traits>
+
 #include "attn_tile.cuh"
 
 namespace {
 
 using repro::AttnTile;
+using repro::TileOf;
 
 template <int BKV> struct FlashWalk {
   int j, hi, causal, window, qpos0, qlast;
@@ -66,9 +72,11 @@ template <int BKV> struct FlashWalk {
   }
 };
 
-template <typename T, int DK, int DV, int BQ, int BKV, bool ASYNC>
-__global__ void __launch_bounds__(AttnTile<DK, DV, BQ, BKV>::THREADS,
-                                  AttnTile<DK, DV, BQ, BKV>::MIN_BLOCKS)
+// Grid (B·H, q tiles, planes): under SLICED plane z takes v's and o's
+// columns from z·DV.
+template <typename T, int DK, int DV, int BQ, int BKV, int PATH>
+__global__ void __launch_bounds__(TileOf<DK, DV, BQ, BKV, PATH>::THREADS,
+                                  TileOf<DK, DV, BQ, BKV, PATH>::MIN_BLOCKS)
 flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
           const T* __restrict__ v, T* __restrict__ o, int Sq, int Sk, int H,
           int KH, int dk, int dv, int causal, int window, float scale) {
@@ -79,54 +87,62 @@ flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
   FlashWalk<BKV> walk{window > 0 ? max(0, q0 - window + 1) : 0,
                       causal ? min(Sk, qlast + 1) : Sk, causal, window, q0, qlast};
   const size_t qrow = ((size_t)b * Sq + q0) * H + h, kvrow = (size_t)b * Sk * KH + kvh;
-  repro::attend_q_tile<T, DK, DV, BQ, BKV, ASYNC>(
-      q, k, v, o, {qrow * dk, (size_t)H * dk}, {qrow * dv, (size_t)H * dv}, rows,
-      {kvrow * dk, (size_t)KH * dk}, {kvrow * dv, (size_t)KH * dv}, dk, dv, q0, scale, walk,
-      smem);
+  const int z0 = PATH == repro::SLICED ? blockIdx.z * DV : 0;
+  repro::attend_q_tile<T, DK, DV, BQ, BKV, PATH>(
+      q, k, v, o, {qrow * dk, (size_t)H * dk}, {qrow * dv + z0, (size_t)H * dv}, rows,
+      {kvrow * dk, (size_t)KH * dk}, {kvrow * dv + z0, (size_t)KH * dv}, dk, dv - z0, q0,
+      scale, walk, smem);
 }
 
-template <typename T, int DK, int DV, int BQ, bool ASYNC>
+template <typename T, int DK, int DV, int BQ, int PATH>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o, int B, int Sq,
                    int Sk, int H, int KH, int dk, int dv, int causal, int window,
                    float scale, cudaStream_t s) {
   constexpr int BKV = repro::kv_tile_rows(DK, BQ);
-  using L = AttnTile<DK, DV, BQ, BKV>;
+  using L = TileOf<DK, DV, BQ, BKV, PATH>;
   static const cudaError_t attr = cudaFuncSetAttribute(
-      flash_fwd<T, DK, DV, BQ, BKV, ASYNC>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      flash_fwd<T, DK, DV, BQ, BKV, PATH>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       L::BYTES);
   if (attr != cudaSuccess) return attr;
-  const dim3 grid(B * H, (Sq + BQ - 1) / BQ);
-  flash_fwd<T, DK, DV, BQ, BKV, ASYNC><<<grid, L::THREADS, L::BYTES, s>>>(
+  const dim3 grid(B * H, (Sq + BQ - 1) / BQ, PATH == repro::SLICED ? (dv + DV - 1) / DV : 1);
+  flash_fwd<T, DK, DV, BQ, BKV, PATH><<<grid, L::THREADS, L::BYTES, s>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<T*>(o), Sq, Sk, H, KH, dk, dv, causal, window, scale);
   return cudaSuccess;
 }
 
-template <typename T, int DK, int DV, bool ASYNC>
+template <typename T, int DK, int DV, int PATH>
 cudaError_t pick_tile(const void* q, const void* k, const void* v, void* o, int B, int Sq,
                       int Sk, int H, int KH, int dk, int dv, int causal, int window,
                       float scale, cudaStream_t s) {
-  // the q-tile rule of the source note
+  // the q-tile rule of the source note (ELEM and SLICED: 32 rows)
   const long long blocks64 = (long long)((Sq + 63) / 64) * B * H;
-  if (blocks64 >= 2LL * repro::sm_count())
-    return launch<T, DK, DV, 64, ASYNC>(q, k, v, o, B, Sq, Sk, H, KH, dk, dv, causal, window,
-                                        scale, s);
-  return launch<T, DK, DV, 32, ASYNC>(q, k, v, o, B, Sq, Sk, H, KH, dk, dv, causal, window,
-                                      scale, s);
+  if (PATH <= repro::CHUNK && blocks64 >= 2LL * repro::sm_count())
+    return launch<T, DK, DV, PATH <= repro::CHUNK ? 64 : 32, PATH>(
+        q, k, v, o, B, Sq, Sk, H, KH, dk, dv, causal, window, scale, s);
+  return launch<T, DK, DV, 32, PATH>(q, k, v, o, B, Sq, Sk, H, KH, dk, dv, causal, window,
+                                     scale, s);
 }
 
-// The (q/k, v) tile widths compiled (REPRO_ATTN_WIDTHS, attn_tile.cuh): the
-// square heads 32, 64, 128 and 256, and MLA's (192, 128) (deepseek-v2's
-// published widths) and (96, 64) (its reduced d-256 variant, q/k 80).
-template <typename T, bool ASYNC>
+// The (q/k, v) tile widths compiled (attn_tile.cuh): for whole chunks
+// (REPRO_ATTN_WIDTHS) the square heads 32, 64, 128 and 256, and MLA's (192,
+// 128) (deepseek-v2's published widths) and (96, 64) (its reduced d-256
+// variant, q/k 80); for ELEM rows the square ones; SLICED (256, 256).
+template <typename T, int PATH>
 cudaError_t dispatch(int DK, int DV, const void* q, const void* k, const void* v, void* o,
                      int B, int Sq, int Sk, int H, int KH, int dk, int dv, int causal,
                      int window, float scale, cudaStream_t s) {
 #define REPRO_WIDTH(wk, wv)                                                              \
   if (DK == wk && DV == wv)                                                              \
-    return pick_tile<T, wk, wv, ASYNC>(q, k, v, o, B, Sq, Sk, H, KH, dk, dv, causal, window, \
-                                       scale, s);
-  REPRO_ATTN_WIDTHS(REPRO_WIDTH)
+    return pick_tile<T, wk, wv, PATH>(q, k, v, o, B, Sq, Sk, H, KH, dk, dv, causal, window, \
+                                      scale, s);
+  if constexpr (PATH == repro::SLICED) {
+    REPRO_WIDTH(256, 256)
+  } else if constexpr (PATH == repro::ELEM) {
+    REPRO_ATTN_SQUARE(REPRO_WIDTH)
+  } else {
+    REPRO_ATTN_WIDTHS(REPRO_WIDTH)
+  }
 #undef REPRO_WIDTH
   return cudaErrorInvalidValue;
 }
@@ -138,12 +154,33 @@ cudaError_t occupancy(int* blocks, int* smem) {
   constexpr int BKV = repro::kv_tile_rows(DK, BQ);
   using L = AttnTile<DK, DV, BQ, BKV>;
   const cudaError_t e = cudaFuncSetAttribute(
-      flash_fwd<float, DK, DV, BQ, BKV, true>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      L::BYTES);
+      flash_fwd<float, DK, DV, BQ, BKV, repro::ASYNC>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, L::BYTES);
   if (e != cudaSuccess) return e;
   *smem = L::BYTES;
   return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      blocks, flash_fwd<float, DK, DV, BQ, BKV, true>, L::THREADS, L::BYTES);
+      blocks, flash_fwd<float, DK, DV, BQ, BKV, repro::ASYNC>, L::THREADS, L::BYTES);
+}
+
+// The instance family of the call's ``rows`` path (and, for whole chunks,
+// of its type and the operands' alignment).
+template <typename T>
+cudaError_t by_rows(int rows, bool vec, int HD, int HDV, const void* q, const void* k,
+                    const void* v, void* o, int B, int Sq, int Sk, int H, int KH, int dk,
+                    int dv, int causal, int window, float scale, cudaStream_t s) {
+  if (rows == 1)
+    return dispatch<T, repro::ELEM>(HD, HDV, q, k, v, o, B, Sq, Sk, H, KH, dk, dv, causal,
+                                    window, scale, s);
+  if (rows == 2)
+    return dispatch<T, repro::SLICED>(HD, HDV, q, k, v, o, B, Sq, Sk, H, KH, dk, dv, causal,
+                                      window, scale, s);
+  if constexpr (std::is_same_v<T, float>) {
+    if (vec)
+      return dispatch<T, repro::ASYNC>(HD, HDV, q, k, v, o, B, Sq, Sk, H, KH, dk, dv, causal,
+                                       window, scale, s);
+  }
+  return dispatch<T, repro::CHUNK>(HD, HDV, q, k, v, o, B, Sq, Sk, H, KH, dk, dv, causal,
+                                   window, scale, s);
 }
 
 }  // namespace
@@ -162,28 +199,28 @@ extern "C" int flash_attn_occupancy(int HD, int HDV, int BQ, int* blocks, int* s
 }
 
 // dtype: 0 = f32, 1 = bf16.  q (B,Sq,H,dk), k (B,Sk,KH,dk), v (B,Sk,KH,dv),
-// o (B,Sq,H,dv), contiguous, run in the compiled (HD, HDV) tile (dk ≤ HD,
-// dv ≤ HDV, multiples of 4).  Query row i sits at key position i.  Returns
-// the first error of the launch, else cudaGetLastError() after it.
+// o (B,Sq,H,dv), contiguous, run in the compiled (HD, HDV) tile on the
+// ``rows`` path (attn_tile.cuh: 0 whole 4-element chunks, dk ≤ HD, dv ≤
+// HDV; 1 any widths up to a square tile's; 2 any widths, sliced in (256,
+// 256)).  Query row i sits at key position i.  Returns the first error of
+// the launch, else cudaGetLastError() after it.
 extern "C" int flash_attn(int dtype, const void* q, const void* k, const void* v,
                           void* o, int B, int Sq, int Sk, int H, int KH, int HD,
-                          int HDV, int dk, int dv, int causal, int window, float scale,
-                          void* stream) {
-  if (B < 1 || Sq < 1 || Sk < 1 || KH < 1 || H % KH != 0 || !repro::row_widths_fit(dk, dv, HD, HDV))
+                          int HDV, int rows, int dk, int dv, int causal, int window,
+                          float scale, void* stream) {
+  if (B < 1 || Sq < 1 || Sk < 1 || KH < 1 || H % KH != 0 ||
+      !repro::row_widths_fit(rows, dk, dv, HD, HDV))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bool vec = repro::aligned16(q) && repro::aligned16(k) && repro::aligned16(v) &&
                    repro::aligned16(o);
   cudaError_t e;
-  if (dtype == 0 && vec) {
-    e = dispatch<float, true>(HD, HDV, q, k, v, o, B, Sq, Sk, H, KH, dk, dv, causal, window,
-                              scale, s);
-  } else if (dtype == 0) {
-    e = dispatch<float, false>(HD, HDV, q, k, v, o, B, Sq, Sk, H, KH, dk, dv, causal, window,
-                               scale, s);
+  if (dtype == 0) {
+    e = by_rows<float>(rows, vec, HD, HDV, q, k, v, o, B, Sq, Sk, H, KH, dk, dv, causal,
+                       window, scale, s);
   } else if (dtype == 1) {
-    e = dispatch<__nv_bfloat16, false>(HD, HDV, q, k, v, o, B, Sq, Sk, H, KH, dk, dv, causal,
-                                       window, scale, s);
+    e = by_rows<__nv_bfloat16>(rows, vec, HD, HDV, q, k, v, o, B, Sq, Sk, H, KH, dk, dv,
+                               causal, window, scale, s);
   } else {
     return (int)cudaErrorInvalidValue;
   }

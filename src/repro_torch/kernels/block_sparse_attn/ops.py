@@ -20,7 +20,7 @@ from repro_torch.kernels.block_sparse_attn.ref import block_sparse_ref
 from repro_torch.kernels.flash_attn.ops import DTYPES, check_operands
 from repro_torch.models.attention import check_sparse_lengths, sparse_block_table
 
-_ARGTYPES = ([ctypes.c_int] + [ctypes.c_void_p] * 6 + [ctypes.c_int] * 12
+_ARGTYPES = ([ctypes.c_int] + [ctypes.c_void_p] * 6 + [ctypes.c_int] * 13
              + [ctypes.c_float, ctypes.c_void_p])
 
 
@@ -37,9 +37,12 @@ def block_sparse_attention(q, k, v, cfg, *, q_offset: int = 0, scale=None):
     """q: (B, Sq, H, dk); k: (B, Sk, K, dk); v: (B, Sk, K, dv) → (B, Sq, H,
     dv).  Sq and Sk are multiples of ``cfg.block_size``; query row i sits at
     key position ``q_offset + i`` (a multiple of the block); ``scale``
-    (default dk^-1/2) multiplies q·k.  (dk, dv) runs in the tile
-    ``flash_attn.ops.instance`` picks, as ``flash_attention``."""
-    tile = check_operands("block_sparse_attention", q, k, v)
+    (default dk^-1/2) multiplies q·k.  Any (dk, dv) runs on the card, as
+    ``flash_attn.ops.plan`` says, as in ``flash_attention``: whole 16-byte
+    chunks in the smallest compiled tile, other rows element by element,
+    rows wider than 256 sliced (q·k over 256-wide slices, v and o in
+    column planes)."""
+    plan = check_operands("block_sparse_attention", q, k, v)
     if scale is None:
         scale = q.shape[-1] ** -0.5
     bs = cfg.block_size
@@ -57,7 +60,7 @@ def block_sparse_attention(q, k, v, cfg, *, q_offset: int = 0, scale=None):
     fn = _build.function("block_sparse_attn", _ARGTYPES)
     rc = fn(DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
             out.data_ptr(), idx.data_ptr(), valid.data_ptr(), b, sq, sk, h, kh,
-            *tile, d, dv, bs, idx.shape[1], int(q_offset), scale,
+            *plan.tile, plan.path, d, dv, bs, idx.shape[1], int(q_offset), scale,
             torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(rc, "block_sparse_attn")
     block_sparse_attention.launches += 1

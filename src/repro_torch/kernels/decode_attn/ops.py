@@ -19,10 +19,10 @@ import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.decode_attn.ref import decode_ref
-from repro_torch.kernels.flash_attn.ops import DTYPES, SQUARE, check_operands, instance
+from repro_torch.kernels.flash_attn.ops import DTYPES, SQUARE, check_operands, plan
 from repro_torch.models.attention import merge_by_lse, sparse_kv_decode, sparse_kv_ranges
 
-_ARGTYPES = ([ctypes.c_int] + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 13
+_ARGTYPES = ([ctypes.c_int] + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 14
              + [ctypes.c_float, ctypes.c_void_p])
 
 
@@ -41,10 +41,15 @@ def decode_attention(q, k_cache, v_cache, cache_len: int, *, window: int = 0,
     (``models.attention.merge_by_lse``).  ``offset``: slot i holds position
     offset + i (a segment of a sequence-split cache; a multiple of the
     sparse block), and cache_len counts positions, so the segment reads
-    slots below cache_len − offset.  The head width runs at the compiled
-    width ``instance(hd, hd, widths=SQUARE)`` picks (240 at 256, 16 at
-    32)."""
-    tile = check_operands("decode_attention", q, k_cache, v_cache, widths=SQUARE)
+    slots below cache_len − offset.  Any head width runs on the card, as
+    ``plan(hd, hd, itemsize, widths=SQUARE)`` says: rows of whole 16-byte
+    chunks at the smallest compiled lane layout that holds them (240 at
+    256, 16 at 32), other rows up to 256 element by element at the same
+    layouts (18 at 32), wider rows at the 256 layout with the q·k dot summed
+    over 256-wide slices and v and o in 256-column planes, one cluster
+    plane each (512: 2 × 2).  k and v share one width, as in the JAX
+    package."""
+    p = check_operands("decode_attention", q, k_cache, v_cache, widths=SQUARE)
     if q.shape[1] != 1 or v_cache.shape != k_cache.shape:
         raise ValueError(f"decode_attention: one query token and caches of one "
                          f"shape, got {tuple(q.shape)}, {tuple(k_cache.shape)}, "
@@ -68,8 +73,8 @@ def decode_attention(q, k_cache, v_cache, cache_len: int, *, window: int = 0,
     fn = _build.function("decode_attn", _ARGTYPES)
     rc = fn(DTYPES[q.dtype], q.data_ptr(), k_cache.data_ptr(),
             v_cache.data_ptr(), out.data_ptr(),
-            None if lse is None else lse.data_ptr(), b, sc, h, kh, tile[0], d, cache_len,
-            offset, int(window), *_pattern(sparse), d ** -0.5,
+            None if lse is None else lse.data_ptr(), b, sc, h, kh, p.tile[0], p.path, d,
+            cache_len, offset, int(window), *_pattern(sparse), d ** -0.5,
             torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(rc, "decode_attn")
     decode_attention.launches += 1
@@ -102,14 +107,15 @@ def sparse_kv_attention(q, cache, pos: int, cfg, seq_len: int):
 
 
 def split_plan(batch: int, cache_size: int, heads: int, *, window: int = 0,
-               sparse=None, head_dim: int = 64) -> int:
-    """The cluster size (blocks per (b, h)) the kernel's rule takes on the
-    current CUDA device for a call over a (batch, cache_size) cache with
-    ``heads`` query heads of ``head_dim``; the same for every
-    ``cache_len``."""
-    fn = _build.function("decode_attn", [ctypes.c_int] * 9 + [ctypes.c_void_p],
+               sparse=None, head_dim: int = 64, itemsize: int = 4) -> int:
+    """The cluster size (blocks per (b, h) and column plane) the kernel's
+    rule takes on the current CUDA device for a call over a (batch,
+    cache_size) cache with ``heads`` query heads of ``head_dim``
+    (``itemsize``-byte elements); the same for every ``cache_len``."""
+    fn = _build.function("decode_attn", [ctypes.c_int] * 11 + [ctypes.c_void_p],
                          symbol="decode_attn_plan")
     split = ctypes.c_int(0)
-    _build.check(fn(instance(head_dim, head_dim, widths=SQUARE)[0], batch, cache_size, heads,
+    p = plan(head_dim, head_dim, itemsize, widths=SQUARE)
+    _build.check(fn(p.tile[0], p.path, p.dv_slices, batch, cache_size, heads,
                     int(window), *_pattern(sparse), ctypes.byref(split)), "decode_attn_plan")
     return split.value

@@ -8,14 +8,26 @@ in plain torch (the TPU kernel has no backward; JAX training differentiates
 its jnp attention, as XLA).
 
 v may be narrower than q and k (MLA: q/k nope + rope wide, v its own
-width).  The kernel is compiled for the (q/k, v) tile widths of
-``WIDTHS``; a call runs in the tile ``instance(dk, dv)`` picks, which
-zero-fills q and k past dk and v past dv and stores dv columns (gemma3's
-heads of 240 in the 256 tile, heads of 16 in the 32 one, MLA's (80, 64) in
-(96, 64)).  A width no tile holds raises on the card, naming it."""
+width).  Any row widths dk, dv ≥ 1 run on the card; ``plan(dk, dv,
+itemsize)`` says how (``AttnPlan``), the same for the three attention
+kernels:
+- rows of whole 16-byte chunks up to 256 wide run in the smallest compiled
+  (q/k, v) tile of ``WIDTHS`` that holds them, zero-filled past the rows
+  (gemma3's heads of 240 in the 256 tile, heads of 16 in the 32 one, MLA's
+  (80, 64) in (96, 64)), through cp.async where the operands are 16-byte
+  aligned;
+- rows that are not whole chunks (heads of 18 in f32, odd widths in bf16)
+  are read and stored element by element, in the smallest square tile
+  that holds the wider of the two (18 in 32, MLA's (34, 18) in 64);
+- rows wider than 256 run sliced in the (256, 256) tile: the kernel sums
+  q·k over ``dk_slices`` 256-wide slices of q and k staged in turn, and
+  cuts v and o into ``dv_slices`` column planes of at most 256, one grid
+  plane each, every plane recomputing the same P (heads of 512: 2 × 2).
+Width 0 raises."""
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 
 import torch
 
@@ -28,32 +40,71 @@ from repro_torch.models.attention import NEG_INF, make_mask
 # (deepseek-v2's published (192, 128); (96, 64) for its reduced d-256
 # variant, q/k 80)
 WIDTHS = ((32, 32), (64, 64), (128, 128), (256, 256), (96, 64), (192, 128))
-SQUARE = tuple(w for w in WIDTHS if w[0] == w[1])   # the decode kernel's
+SQUARE = tuple(w for w in WIDTHS if w[0] == w[1])   # the decode kernel's; element rows'
+SLICE = 256          # the widest tile: wider rows run sliced in (SLICE, SLICE)
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_ARGTYPES = ([ctypes.c_int] + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 11
+_ARGTYPES = ([ctypes.c_int] + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 12
              + [ctypes.c_float, ctypes.c_void_p])
 
 
-def instance(dk: int, dv: int, itemsize: int = 4, widths=WIDTHS):
-    """The compiled (DK, DV) tile a call with rows of q/k width ``dk`` and
-    v width ``dv`` (elements of ``itemsize`` bytes) runs in: the smallest
-    of ``widths`` (by DK + DV) with DK ≥ dk and DV ≥ dv.  Rows must be
-    whole 16-byte chunks and at most 256 wide; anything else raises
-    ValueError naming the widths."""
-    chunk = 16 // itemsize
-    fits = [w for w in widths if w[0] >= dk and w[1] >= dv]
-    if min(dk, dv) < chunk or dk % chunk or dv % chunk or not fits:
+@dataclasses.dataclass(frozen=True)
+class AttnPlan:
+    """How the attention kernels run rows of q/k width dk and v width dv:
+    ``tile`` the compiled (DK, DV) instance; ``aligned`` whether the rows
+    are whole 16-byte chunks (the chunk path: cp.async or 16-byte loads
+    where the operands are 16-byte aligned) or are read and stored element
+    by element; ``dk_slices`` the DK-wide slices q·k is summed over inside
+    the kernel, ``dv_slices`` the column planes of at most DV that v and o
+    are cut into (one grid plane each; the decode kernel has dk = dv)."""
+    tile: tuple
+    aligned: bool
+    dk_slices: int = 1
+    dv_slices: int = 1
+
+    @property
+    def sliced(self) -> bool:
+        return self.dk_slices > 1 or self.dv_slices > 1
+
+    @property
+    def path(self) -> int:
+        """The C entry points' ``path``: 0 whole chunks, 1 elements, 2
+        sliced (element reads, in the (SLICE, SLICE) tile)."""
+        return 2 if self.sliced else 0 if self.aligned else 1
+
+    def planes(self, dv: int):
+        """The [start, end) columns of v and o each grid plane covers."""
+        w = self.tile[1]
+        return [(z * w, min(dv, (z + 1) * w)) for z in range(self.dv_slices)]
+
+
+def plan(dk: int, dv: int, itemsize: int = 4, widths=WIDTHS) -> AttnPlan:
+    """The ``AttnPlan`` of a call with rows of q/k width ``dk`` and v width
+    ``dv`` (elements of ``itemsize`` bytes) in the tiles ``widths``: rows
+    wider than SLICE run sliced in (SLICE, SLICE); rows of whole 16-byte
+    chunks in the smallest of ``widths`` (by DK + DV) with DK ≥ dk and DV ≥
+    dv; other rows element by element in the smallest square one of them.
+    A width below 1 raises ValueError naming it."""
+    if min(dk, dv) < 1:
         vw = f" (v {dv})" if dv != dk else ""
-        raise ValueError(
-            f"head width {dk}{vw} has no compiled tile: rows must be whole 16-byte "
-            f"chunks ({chunk} elements of {itemsize} bytes) and fit one of {widths}")
-    return min(fits, key=lambda w: (w[0] + w[1], w[0]))
+        raise ValueError(f"head width {dk}{vw}: rows must be at least one element wide")
+    if max(dk, dv) > SLICE:
+        return AttnPlan((SLICE, SLICE), False, -(-dk // SLICE), -(-dv // SLICE))
+    chunk = 16 // itemsize
+    aligned = dk % chunk == 0 and dv % chunk == 0
+    fits = [w for w in widths if w[0] >= dk and w[1] >= dv and (aligned or w in SQUARE)]
+    return AttnPlan(min(fits, key=lambda w: (w[0] + w[1], w[0])), aligned)
+
+
+def instance(dk: int, dv: int, itemsize: int = 4, widths=WIDTHS):
+    """The compiled (DK, DV) tile a call with rows (dk, dv) runs in:
+    ``plan(...).tile``."""
+    return plan(dk, dv, itemsize, widths).tile
 
 
 def check_operands(name, q, k, v, widths=WIDTHS):
     """Shared operand checks of the attention wrappers: q (B,S,H,dk), k
-    (B,Sk,K,dk), v (B,Sk,K,dv).  On the card → the (DK, DV) tile of
-    ``widths`` that runs the call (``instance``); elsewhere None."""
+    (B,Sk,K,dk), v (B,Sk,K,dv).  On the card → the call's ``AttnPlan`` in
+    ``widths``; elsewhere None."""
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4 or k.shape[:3] != v.shape[:3]:
         raise ValueError(f"{name}: q (B,S,H,hd), k (B,Sk,K,hd), v (B,Sk,K,hdv) expected; "
                          f"got {tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
@@ -68,12 +119,11 @@ def check_operands(name, q, k, v, widths=WIDTHS):
         raise ValueError(f"{name}: operands on different devices")
     if not all(t.is_contiguous() for t in (q, k, v)):
         raise ValueError(f"{name}: operands must be contiguous")
-    if q.device.type != "cuda":
-        return None
     try:
-        return instance(d, dv, q.element_size(), widths)
+        p = plan(d, dv, q.element_size(), widths)
     except ValueError as e:
         raise ValueError(f"{name}: {e}") from None
+    return p if q.device.type == "cuda" else None
 
 
 class FlashAttention(torch.autograd.Function):
@@ -137,10 +187,11 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
 def _launch(q, k, v, *, causal: bool, window: int, scale: float):
     b, sq, h, d = q.shape
     sk, kh, dv = k.shape[1], k.shape[2], v.shape[3]
+    p = plan(d, dv, q.element_size())
     out = q.new_empty(b, sq, h, dv)
     fn = _build.function("flash_attn", _ARGTYPES)
     rc = fn(DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
-            out.data_ptr(), b, sq, sk, h, kh, *instance(d, dv, q.element_size()), d, dv,
+            out.data_ptr(), b, sq, sk, h, kh, *p.tile, p.path, d, dv,
             int(causal), int(window), scale, torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(rc, "flash_attn")
     flash_attention.launches += 1

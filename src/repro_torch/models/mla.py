@@ -6,9 +6,9 @@ compressed latent and runs the attention kernels: ``flash_attention``, or
 under the block-sparse impl ``block_sparse_attention``.  q and k are nope +
 rope wide and v is ``v_head_dim`` wide (192 and 128 at deepseek-v2's
 published widths), with the scale (nope + rope)^-1/2; the kernels run
-such a pair in the smallest compiled tile that holds it
-(``kernels.flash_attn.ops.instance``: (80, 64) at the reduced d-256 config
-in the (96, 64) tile, zero-filled inside the kernel).
+any such pair as ``kernels.flash_attn.ops.plan`` says: (80, 64) at the
+reduced d-256 config in the (96, 64) tile, zero-filled inside the kernel;
+(34, 18) at d 72 element by element; (288, 272) at d 1088 sliced.
 
 Decode uses the *absorbed* formulation: q is projected into the kv_lora
 latent space and attention runs against the compressed cache (c_kv,

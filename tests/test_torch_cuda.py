@@ -16,6 +16,7 @@ from repro_torch.kernels.block_sparse_attn.ops import block_sparse_attention
 from repro_torch.kernels.block_sparse_attn.ref import block_sparse_ref
 from repro_torch.kernels.decode_attn.ops import decode_attention, split_plan
 from repro_torch.kernels.decode_attn.ref import decode_ref
+from repro_torch.kernels.flash_attn import ops as flash_ops
 from repro_torch.kernels.flash_attn.ops import flash_attention
 from repro_torch.kernels.flash_attn.ref import attention_ref
 from repro_torch.kernels.lora_fused import ops as lora_ops
@@ -169,27 +170,90 @@ def test_block_sparse_attn_kernel_mla_widths(gen, dtype, dk, dv, h, kh):
            block_sparse_ref(q, k, v, cfg, scale=0.08), TOL["flash"][dtype])
 
 
-def test_attention_kernels_refuse_uncompiled_widths(gen):
-    """A row width no compiled tile holds raises naming it, and launches
-    nothing: wider than 256, or not whole 16-byte chunks (f32 18, bf16 12,
-    v 20 in bf16); the decode kernel takes square heads only."""
+# Any head width (the plan of kernels/flash_attn/ops.py): widths that are
+# not whole 16-byte chunks (elements), both sides of 256 and far past it
+# (sliced), and MLA's pairs at the launcher's d 72, 1088 and 2048
+ANY_WIDTHS = [(d, d) for d in (1, 3, 18, 34, 100, 250, 260, 272, 288, 512, 528, 1000)] + [
+    (34, 18), (288, 272), (528, 512)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dk,dv", ANY_WIDTHS)
+def test_prefill_attention_kernels_any_width(gen, dtype, dk, dv):
+    """``flash_attn`` causal with GQA 2 and a window, non-causal with an
+    explicit scale, and ``block_sparse_attn`` (block 32, q offset 64) at
+    any (dk, dv) against the plain versions, one launch a call whatever
+    the plan's slices and planes."""
+    plan = flash_ops.plan(dk, dv, dtype.itemsize)
+    q, k = _rn(gen, 2, 160, 4, dk, dtype=dtype), _rn(gen, 2, 160, 2, dk, dtype=dtype)
+    v = _rn(gen, 2, 160, 2, dv, dtype=dtype)
+    tol = TOL["flash"][dtype]
+    for kw in (dict(causal=True, window=70), dict(causal=False, scale=0.07)):
+        before = flash_attention.launches
+        out = flash_attention(q, k, v, **kw)
+        torch.cuda.synchronize()
+        assert flash_attention.launches == before + 1 and out.shape == (2, 160, 4, dv)
+        _close(out, attention_ref(q, k, v, **kw), tol)
+    cfg = SparseAttnConfig(block_size=32, local_blocks=2, sink_blocks=1, stride=2)
+    kk, vv = _rn(gen, 2, 224, 2, dk, dtype=dtype), _rn(gen, 2, 224, 2, dv, dtype=dtype)
+    before = block_sparse_attention.launches
+    out = block_sparse_attention(q, kk, vv, cfg, q_offset=64)
+    torch.cuda.synchronize()
+    assert block_sparse_attention.launches == before + 1, plan
+    _close(out, block_sparse_ref(q, kk, vv, cfg, q_offset=64), tol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [d for d, dv in ANY_WIDTHS if d == dv])
+def test_decode_attention_kernel_any_width(gen, dtype, d):
+    """``decode_attn`` at any head width against the plain version, GQA 2:
+    dense, windowed with the LSE, under the sparse mask at a position
+    offset, one launch a call; the split rule's cluster for the plan."""
+    q = _rn(gen, 2, 1, 8, d, dtype=dtype)
+    kc, vc = _rn(gen, 2, 300, 4, d, dtype=dtype), _rn(gen, 2, 300, 4, d, dtype=dtype)
+    cfg = SparseAttnConfig(block_size=32, local_blocks=2, sink_blocks=1, stride=3)
+    assert 1 <= split_plan(2, 300, 8, head_dim=d, itemsize=dtype.itemsize) <= 16
+    for kw in (dict(cache_len=300), dict(cache_len=257, window=100, return_lse=True),
+               dict(cache_len=350, sparse=cfg, offset=64), dict(cache_len=1)):
+        before = decode_attention.launches
+        got = decode_attention(q, kc, vc, **kw)
+        torch.cuda.synchronize()
+        assert decode_attention.launches == before + 1
+        want = decode_ref(q, kc, vc, **kw)
+        if kw.get("return_lse"):
+            (got, got_lse), (want, want_lse) = got, want
+            torch.testing.assert_close(got_lse, want_lse, atol=1e-4, rtol=0)
+        _close(got, want, TOL["decode"][dtype])
+
+
+@pytest.mark.parametrize("d", [18, 250, 272, 1000])
+def test_attention_kernels_any_width_unaligned(gen, d):
+    """f32 operands 4 bytes past a 16-byte boundary at widths of every
+    plan: the element and sliced paths read nothing as 16-byte chunks."""
+    q, k, v = _unaligned(gen, 2, 96, 4, d), _unaligned(gen, 2, 96, 2, d), _unaligned(gen, 2, 96, 2, d)
+    _close(flash_attention(q, k, v), attention_ref(q, k, v), TOL["flash"][torch.float32])
+    cfg = SparseAttnConfig(block_size=32, local_blocks=2, sink_blocks=1, stride=2)
+    _close(block_sparse_attention(q, k, v, cfg), block_sparse_ref(q, k, v, cfg),
+           TOL["flash"][torch.float32])
+    q1 = _unaligned(gen, 2, 1, 4, d)
+    _close(decode_attention(q1, k, v, 90, window=50), decode_ref(q1, k, v, 90, window=50),
+           TOL["decode"][torch.float32])
+
+
+def test_attention_kernels_refuse_what_jax_refuses(gen):
+    """Width 0 raises naming it, and the decode kernel takes caches of one
+    shape (a v narrower than k fails in the JAX package too); nothing
+    launches."""
     before = (flash_attention.launches, decode_attention.launches,
               block_sparse_attention.launches)
-    for dk, dv, dtype in ((288, 288, torch.float32), (18, 18, torch.float32),
-                          (12, 12, torch.bfloat16), (32, 20, torch.bfloat16),
-                          (264, 128, torch.float32)):
-        q = _rn(gen, 1, 16, 2, dk, dtype=dtype)
-        v = _rn(gen, 1, 16, 2, dv, dtype=dtype)
-        with pytest.raises(ValueError, match=f"head width {dk}"):
-            flash_attention(q, q, v)
-        with pytest.raises(ValueError, match=f"head width {dk}"):
-            block_sparse_attention(q, q, v, SparseAttnConfig(block_size=16, local_blocks=1,
-                                                             sink_blocks=1, stride=2))
-    for d in (288, 18):
-        with pytest.raises(ValueError, match=f"head width {d}"):
-            decode_attention(_rn(gen, 1, 1, 2, d), _rn(gen, 1, 8, 2, d), _rn(gen, 1, 8, 2, d), 4)
+    q, v = _rn(gen, 1, 16, 2, 0), _rn(gen, 1, 16, 2, 8)
+    with pytest.raises(ValueError, match="head width 0"):
+        flash_attention(q, q, v)
+    with pytest.raises(ValueError, match="head width 0"):
+        block_sparse_attention(q, q, v, SparseAttnConfig(block_size=16, local_blocks=1,
+                                                         sink_blocks=1, stride=2))
     with pytest.raises(ValueError, match="one shape"):
-        decode_attention(_rn(gen, 1, 1, 2, 32), _rn(gen, 1, 8, 2, 32), _rn(gen, 1, 8, 2, 16), 4)
+        decode_attention(_rn(gen, 1, 1, 2, 288), _rn(gen, 1, 8, 2, 288), _rn(gen, 1, 8, 2, 272), 4)
     assert (flash_attention.launches, decode_attention.launches,
             block_sparse_attention.launches) == before
 
@@ -709,6 +773,21 @@ def test_flash_function_grads_mla_widths_on_card(gen):
 
     out, got = _grads(call(flash_attention), q, k, v)
     ref, want = _grads(call(attention_ref), q, k, v)
+    _close(out, ref, TOL["flash"][torch.float32])
+    for g_, w_ in zip(got, want):
+        _close(g_, w_, TOL["flash"][torch.float32])
+
+
+@pytest.mark.parametrize("dk,dv", [(288, 272), (528, 512), (34, 18)])
+def test_flash_function_grads_any_width_on_card(gen, dk, dv):
+    """``FlashAttention`` at MLA's pairs of the launcher's d 1088 and 2048
+    (sliced) and d 72 (elements): the kernel's forward (one launch) and
+    every input gradient against autograd of the plain version."""
+    q, k, v = _rn(gen, 2, 40, 4, dk), _rn(gen, 2, 40, 4, dk), _rn(gen, 2, 40, 4, dv)
+    before = flash_attention.launches
+    out, got = _grads(lambda *t: flash_attention(*t, causal=True, scale=dk ** -0.5), q, k, v)
+    assert flash_attention.launches == before + 1
+    ref, want = _grads(lambda *t: attention_ref(*t, causal=True, scale=dk ** -0.5), q, k, v)
     _close(out, ref, TOL["flash"][torch.float32])
     for g_, w_ in zip(got, want):
         _close(g_, w_, TOL["flash"][torch.float32])

@@ -1,7 +1,11 @@
-"""Every published head width in the port: the routing of a call's row
-widths to the attention kernels' compiled tiles, and gemma3-12b's heads of
-240 served against the JAX package on the CPU (f32, numpy-seeded LoRA,
-the JAX package's own weights carried across the bridge)."""
+"""Every head width in the port: the plan that routes a call's row widths
+to the attention kernels' compiled tiles (whole chunks, elements, or
+sliced past 256), each plan's cover in plain torch against the JAX
+package's attention, decode and block-sparse attention, gemma3-12b's heads
+of 240 and gpt2-small's heads of 18 served against the JAX package on the
+CPU (f32, numpy-seeded LoRA, the JAX package's own weights carried across
+the bridge), and the launcher's arch round at ``--fl-dmodel 72`` against
+JAX's ``run_arch_round``."""
 import dataclasses
 
 import jax
@@ -11,16 +15,26 @@ import pytest
 import torch
 from _torch_threads import one_torch_thread  # noqa: F401
 
+import repro.core.arch_round as jar
 from repro import trees as jtrees
 from repro.configs import LK as JLK
+from repro.configs import SparseAttnConfig as JSparse
 from repro.configs import Stage as JStage
 from repro.configs import get_config as jget_config
 from repro.models import Model as JModel
+from repro.models import attention as jattn
 from repro.models import peft as jpeft
 from repro.sharding import MeshCtx
 from repro_torch import bridge
-from repro_torch.configs import LK, Stage, get_config
-from repro_torch.kernels.flash_attn.ops import SQUARE, WIDTHS, instance
+from repro_torch.configs import LK, SparseAttnConfig, Stage, get_config
+from repro_torch.core import arch_round
+from repro_torch.kernels.block_sparse_attn.ops import block_sparse_attention
+from repro_torch.kernels.decode_attn.ops import decode_attention
+from repro_torch.kernels.flash_attn.ops import (SQUARE, WIDTHS, AttnPlan, flash_attention,
+                                                instance, plan)
+from repro_torch.kernels.flash_attn.ref import cover_ref
+from repro_torch.launch import train
+from repro_torch.models.attention import make_mask, sparse_block_table, sparse_position_mask
 from repro_torch.models.transformer import Model
 
 TOL = 1e-5
@@ -42,15 +56,46 @@ def test_instance_picks_the_smallest_tile(dk, dv, want):
         assert instance(dk, dv, widths=SQUARE) == want
 
 
-@pytest.mark.parametrize("dk,dv,itemsize", [
-    (260, 260, 4), (288, 288, 4), (264, 128, 4), (18, 18, 4), (34, 32, 4), (32, 2, 4),
-    (12, 12, 2), (36, 36, 2), (240, 20, 2), (0, 0, 4)])
-def test_instance_refuses_what_no_tile_holds(dk, dv, itemsize):
-    """Rows wider than 256 or not whole 16-byte chunks raise, naming the
-    width (the wrappers raise so on the card and never run the plain
-    version there)."""
+@pytest.mark.parametrize("dk,dv,itemsize,want", [
+    # rows wider than 256: sliced in (256, 256), q·k over dk slices, v in planes
+    (260, 260, 4, AttnPlan((256, 256), False, 2, 2)),
+    (288, 288, 4, AttnPlan((256, 256), False, 2, 2)),
+    (264, 128, 4, AttnPlan((256, 256), False, 2, 1)),
+    (528, 512, 4, AttnPlan((256, 256), False, 3, 2)),
+    (1000, 1000, 2, AttnPlan((256, 256), False, 4, 4)),
+    # not whole 16-byte chunks: elements, the smallest square tile
+    (18, 18, 4, AttnPlan((32, 32), False)), (34, 32, 4, AttnPlan((64, 64), False)),
+    (32, 2, 4, AttnPlan((32, 32), False)), (12, 12, 2, AttnPlan((32, 32), False)),
+    (36, 36, 2, AttnPlan((64, 64), False)), (240, 20, 2, AttnPlan((256, 256), False)),
+    (1, 1, 4, AttnPlan((32, 32), False)), (34, 18, 4, AttnPlan((64, 64), False)),
+    # whole chunks keep their tiles
+    (240, 240, 4, AttnPlan((256, 256), True)), (80, 64, 4, AttnPlan((96, 64), True))])
+def test_plan_covers_every_width(dk, dv, itemsize, want):
+    """Every width ≥ 1 has a plan: whole 16-byte chunks up to 256 run the
+    tile they ran before (the chunk path), other rows up to 256 element by
+    element in the smallest square tile holding both widths, wider rows
+    sliced; the C entry points' path number and the planes follow."""
+    got = plan(dk, dv, itemsize)
+    assert got == want and instance(dk, dv, itemsize) == want.tile
+    assert got.path == (2 if max(dk, dv) > 256 else 0 if want.aligned else 1)
+    planes = got.planes(dv)
+    assert planes[0][0] == 0 and planes[-1][1] == dv and len(planes) == got.dv_slices
+    assert all(e - a <= got.tile[1] and a == (z * got.tile[1])
+               for z, (a, e) in enumerate(planes))
+    assert got.dk_slices * got.tile[0] >= dk > (got.dk_slices - 1) * got.tile[0]
+    if dk == dv:
+        assert plan(dk, dv, itemsize, SQUARE) == want
+
+
+@pytest.mark.parametrize("dk,dv", [(0, 0), (0, 8), (8, 0)])
+def test_plan_refuses_width_zero(dk, dv):
+    """Width 0 raises, naming it (the JAX package has no such rows either);
+    the wrappers raise so on the CPU and the card alike."""
     with pytest.raises(ValueError, match=f"head width {dk}"):
-        instance(dk, dv, itemsize)
+        plan(dk, dv)
+    q, v = torch.zeros(1, 4, 2, dk), torch.zeros(1, 4, 2, dv)
+    with pytest.raises(ValueError, match=f"head width {dk}"):
+        flash_attention(q, q, v)
 
 
 def test_decode_takes_square_tiles_only():
@@ -59,6 +104,88 @@ def test_decode_takes_square_tiles_only():
     (96, 64) and (192, 128) hold no v of 96 or 192)."""
     assert instance(96, 96, widths=SQUARE) == instance(96, 96) == (128, 128)
     assert instance(192, 192, widths=SQUARE) == instance(192, 192) == (256, 256)
+
+
+# ---------------------------------------------------------------- covers
+COVER_WIDTHS = [(d, d) for d in (1, 2, 18, 34, 272, 288, 512, 528, 1000)] + [
+    (34, 18), (288, 272), (528, 512)]
+JSP = dict(block_size=16, local_blocks=2, sink_blocks=1, stride=2)
+
+
+def _rand(rng, *shape):
+    return rng.randn(*shape).astype(np.float32)
+
+
+def _j_bsa(q, k, v, cfg, q_offset):
+    """JAX's block-sparse attention, v zero-padded to q's width and the
+    output cut back where v is narrower (JAX's reshapes v with q's width:
+    ROADMAP queue 3, ``tests/test_torch_mla.py::_j_bsa_v_padded``)."""
+    dv = v.shape[-1]
+    vp = jnp.concatenate([v, jnp.zeros(v.shape[:3] + (q.shape[-1] - dv,), v.dtype)], -1)
+    return jattn.block_sparse_attention(q, k, vp, JSparse(**cfg), q_offset=q_offset)[..., :dv]
+
+
+def _sparse_allowed(sq, sk, cfg, q_offset):
+    """The block-sparse kernels' (Sq, Sk) mask: a q block's valid kv blocks,
+    causal inside them."""
+    bs = cfg.block_size
+    idx, valid = sparse_block_table(sq // bs, sk // bs, cfg, q_offset // bs)
+    allowed = torch.zeros(sq, sk, dtype=torch.bool)
+    for i in range(idx.shape[0]):
+        for j in idx[i][valid[i]]:
+            allowed[i * bs:(i + 1) * bs, j * bs:(j + 1) * bs] = True
+    qpos = torch.arange(sq)[:, None] + q_offset
+    return allowed & (torch.arange(sk)[None, :] <= qpos)
+
+
+@pytest.mark.parametrize("dk,dv", COVER_WIDTHS)
+def test_prefill_covers_match_jax(dk, dv):
+    """Each width's cover (``cover_ref``: q·k summed over the plan's dk
+    slices, v in its column planes, the same P for every plane) and the
+    wrappers' CPU path against JAX's dense attention (causal with a window
+    and GQA 2, non-causal) and block-sparse attention (block 16, q offset
+    32), numpy-seeded f32 inputs, within 1e-5."""
+    rng = np.random.RandomState(dk + 7 * dv)
+    p = plan(dk, dv)
+    q, k, v = _rand(rng, 2, 48, 4, dk), _rand(rng, 2, 48, 2, dk), _rand(rng, 2, 48, 2, dv)
+    tq, tk, tv = (torch.from_numpy(t) for t in (q, k, v))
+    for causal, window in ((True, 20), (False, 0)):
+        want = np.asarray(jattn.dense_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                                                causal=causal, window=window))
+        mask = make_mask(48, 48, causal=causal, window=window, device="cpu")
+        for got in (cover_ref(tq, tk, tv, p, mask, dk ** -0.5),
+                    flash_attention(tq, tk, tv, causal=causal, window=window)):
+            np.testing.assert_allclose(got.numpy(), want, atol=TOL, rtol=0)
+    cfg = SparseAttnConfig(**JSP)
+    kk, vv = _rand(rng, 2, 80, 2, dk), _rand(rng, 2, 80, 2, dv)
+    tkk, tvv = torch.from_numpy(kk), torch.from_numpy(vv)
+    want = np.asarray(_j_bsa(jnp.asarray(q), jnp.asarray(kk), jnp.asarray(vv), JSP, 32))
+    for got in (cover_ref(tq, tkk, tvv, p, _sparse_allowed(48, 80, cfg, 32), dk ** -0.5),
+                block_sparse_attention(tq, tkk, tvv, cfg, q_offset=32)):
+        np.testing.assert_allclose(got.numpy(), want, atol=TOL, rtol=0)
+
+
+@pytest.mark.parametrize("d", sorted({d for d, dv in COVER_WIDTHS if d == dv}))
+def test_decode_covers_match_jax(d):
+    """The decode plan's cover (square widths: k and v of one width, as in
+    JAX) and the wrapper's CPU path against JAX's ``decode_attention``,
+    GQA 2: dense, windowed, and under the sparse mask, within 1e-5."""
+    rng = np.random.RandomState(d)
+    p = plan(d, d, widths=SQUARE)
+    q, kc, vc = _rand(rng, 2, 1, 4, d), _rand(rng, 2, 80, 2, d), _rand(rng, 2, 80, 2, d)
+    tq, tk, tv = (torch.from_numpy(t) for t in (q, kc, vc))
+    pos = torch.arange(80)
+    for cache_len, window, sparse in ((70, 0, False), (70, 30, False), (75, 0, True)):
+        want = np.asarray(jattn.decode_attention(
+            jnp.asarray(q), jnp.asarray(kc), jnp.asarray(vc), cache_len, window=window,
+            sparse=JSparse(**JSP) if sparse else None))
+        cfg = SparseAttnConfig(**JSP) if sparse else None
+        allowed = (pos < cache_len) & ((pos >= cache_len - window) if window else True)
+        if sparse:
+            allowed &= sparse_position_mask(pos, cache_len, cfg)
+        for got in (cover_ref(tq, tk, tv, p, allowed, d ** -0.5),
+                    decode_attention(tq, tk, tv, cache_len, window=window, sparse=cfg)):
+            np.testing.assert_allclose(got.numpy(), want, atol=TOL, rtol=0)
 
 
 # ---------------------------------------------------------------- gemma3
@@ -70,15 +197,12 @@ def _gemma3_cut(get, lk, stage):
                                stages=(stage((lk("local", "mlp"), lk("attn", "mlp")), 1),))
 
 
-@pytest.mark.parametrize("impl", ["auto", "sparse"])
-def test_gemma3_head_width_240_serving_matches_jax(impl):
-    """Prefill of 80 tokens (the 64-slot ring wraps) and 8 teacher-forced
-    decode steps against JAX's ``prefill``/``decode_step`` with nonzero LoRA
-    on wq and wv: logits within 1e-5 at every step, and the caches after the
-    last within 1e-4 (RoPE's frequency table, below).  ``impl="sparse"`` runs the global layer block-sparse (block 16,
-    local 2, sink 1, stride 4), the local layer keeps its window."""
-    jcfg, cfg = _gemma3_cut(jget_config, JLK, JStage), _gemma3_cut(get_config, LK, Stage)
-    assert cfg.hd == jcfg.hd == 240 and dataclasses.asdict(cfg) == dataclasses.asdict(jcfg)
+def _serve_against_jax(jcfg, cfg, impl):
+    """Prefill of PROMPT tokens and STEPS teacher-forced decode steps of the
+    port against JAX's ``prefill``/``decode_step`` from JAX's weights and
+    nonzero numpy-seeded rank-4 LoRA on the default targets: logits within
+    1e-5 at every step → (port cache, JAX cache) after the last step."""
+    assert dataclasses.asdict(cfg) == dataclasses.asdict(jcfg)
     jm = JModel(jcfg, meshctx=MeshCtx.single_device(), impl=impl)
     key = jax.random.PRNGKey(0)
     jp = jm.init(key, max_seq=PROMPT + STEPS)
@@ -106,6 +230,20 @@ def test_gemma3_head_width_240_serving_matches_jax(impl):
         jlog, jc = jm.decode_step(jp, jc, jnp.asarray(nxt), lora=jl, lora_scale=scale)
         tlog, tc = m.decode_step(tp, tc, torch.from_numpy(nxt), lora=tl, lora_scale=scale)
     assert tc["pos"] == int(jc["pos"]) == cl
+    return tc, jc
+
+
+@pytest.mark.parametrize("impl", ["auto", "sparse"])
+def test_gemma3_head_width_240_serving_matches_jax(impl):
+    """Prefill of 80 tokens (the 64-slot ring wraps) and 8 teacher-forced
+    decode steps against JAX's ``prefill``/``decode_step`` with nonzero LoRA
+    on wq and wv: logits within 1e-5 at every step, and the caches after the
+    last within 1e-4 (RoPE's frequency table, below).  ``impl="sparse"`` runs the global layer block-sparse (block 16,
+    local 2, sink 1, stride 4), the local layer keeps its window."""
+    jcfg, cfg = _gemma3_cut(jget_config, JLK, JStage), _gemma3_cut(get_config, LK, Stage)
+    assert cfg.hd == jcfg.hd == 240
+    tc, jc = _serve_against_jax(jcfg, cfg, impl)
+    cl = PROMPT + STEPS
     for pi, kind in enumerate(cfg.stages[0].pattern):
         for name, buf in tc["stages"][0][pi].items():
             want = np.asarray(jc["stages"][0][pi][name])
@@ -118,3 +256,51 @@ def test_gemma3_head_width_240_serving_matches_jax(impl):
             # global layer's k and v see the local layer's output
             np.testing.assert_allclose(buf.numpy(), want, atol=1e-4, rtol=0,
                                        err_msg=f"layer {pi} {name}")
+
+
+@pytest.mark.parametrize("impl", ["auto", "sparse"])
+def test_gpt2_heads_of_18_serving_matches_jax(impl):
+    """gpt2-small at ``.reduced(d_model=72)``: 4 heads of 18, rows that are
+    not whole 16-byte chunks (the kernels' element path on the card),
+    dense and block-sparse (block 16): logits within 1e-5 of JAX's at every
+    step, the caches within 1e-5."""
+    jcfg = jget_config("gpt2-small").reduced(d_model=72, vocab=512)
+    cfg = get_config("gpt2-small").reduced(d_model=72, vocab=512)
+    assert cfg.hd == 18 and cfg.n_heads == 4
+    tc, jc = _serve_against_jax(jcfg, cfg, impl)
+    for name, buf in tc["stages"][0][0].items():
+        want = np.asarray(jc["stages"][0][0][name])
+        assert buf.shape == want.shape and buf.shape[-1] == 18
+        np.testing.assert_allclose(buf.numpy(), want, atol=TOL, rtol=0, err_msg=name)
+
+
+# ---------------------------------------------------------------- launcher
+def test_launcher_arch_round_heads_of_18_matches_jax(monkeypatch):
+    """``launch.train --arch gpt2-small --fl-clients 4 --fl-rounds 2
+    --assert-fused --fl-dmodel 72 --device cpu`` (heads of 18) from the JAX
+    package's draws (params at ``PRNGKey(0)``, each client's factors at
+    ``fold_in(key, 100 + ci)``): the launcher's fused-path checks pass and
+    its losses are within 1e-5 of JAX's ``run_arch_round`` on the same
+    config."""
+    argv = ["--arch", "gpt2-small", "--fl-clients", "4", "--fl-rounds", "2",
+            "--assert-fused", "--fl-dmodel", "72", "--device", "cpu"]
+    cfg = train.arch_round_config(train.parse_args(argv))
+    jcfg = jar.ArchRoundConfig(**{k: v for k, v in dataclasses.asdict(cfg).items()
+                                  if k != "device"})
+    mcfg = jget_config(cfg.arch).reduced(d_model=cfg.d_model, repeats=cfg.repeats)
+    assert mcfg.hd == 18
+    key = jax.random.PRNGKey(cfg.seed)
+    params = JModel(mcfg, meshctx=MeshCtx.single_device()).init(key, max_seq=cfg.seq_len)
+    pc = jpeft.PEFTConfig(lora_rank=cfg.lora_rank, lora_alpha=2.0 * cfg.lora_rank,
+                          lora_targets=jar.arch_lora_targets(mcfg))
+    flat = lambda t: {k: np.asarray(v) for k, v in jtrees.flatten(t).items()}  # noqa: E731
+    init = {"params": flat(params),
+            "lora": [flat(jpeft.init_lora(jax.random.fold_in(key, 100 + ci), params, pc))
+                     for ci in range(cfg.n_clients)]}
+    want = jar.run_arch_round(jcfg)
+    run = arch_round.run_arch_round
+    monkeypatch.setattr(arch_round, "run_arch_round",
+                        lambda c, **kw: run(c, init=init, **kw))
+    got = train.main(argv)
+    assert got["dense_merges_in_engine"] == 0 and got["oracle_loss_max_err"] <= 1e-5
+    np.testing.assert_allclose(got["loss_per_round"], want["loss_per_round"], atol=TOL, rtol=0)

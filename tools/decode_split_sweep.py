@@ -109,8 +109,8 @@ def main():
             out = torch.empty_like(q)
             call = (lambda fn=fn, out=out: fn(ops.DTYPES[dt], q.data_ptr(), kc.data_ptr(),
                                               vc.data_ptr(), out.data_ptr(), None, b, sc, h, kh,
-                                              ops.instance(d, d, widths=ops.SQUARE)[0], d, clen,
-                                              0, window, *pattern, d ** -0.5, stream))
+                                              ops.plan(d, d, widths=ops.SQUARE).tile[0], 0, d,
+                                              clen, 0, window, *pattern, d ** -0.5, stream))
             assert call() == 0
             torch.cuda.synchronize()
             assert torch.allclose(out.float(), ref.float(), atol=atol, rtol=atol), split
