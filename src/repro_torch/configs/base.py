@@ -152,6 +152,20 @@ class ModelConfig:
                    for s in self.stages for k in s.pattern)
 
     @property
+    def sub_quadratic(self) -> bool:
+        """True if every long-context mixer path is sub-quadratic: SSM
+        layers, sliding-window layers, or block-sparse attention enabled."""
+        if self.attention_free:
+            return True
+        for s in self.stages:
+            for k in s.pattern:
+                if k.mixer in ("attn", "mla", "enc", "dec") and self.sparse_attn is None:
+                    return False
+                if k.mixer == "local" and self.window <= 0:
+                    return False
+        return True
+
+    @property
     def d_inner(self) -> int:
         assert self.ssm is not None
         return self.ssm.expand * self.d_model
@@ -160,6 +174,41 @@ class ModelConfig:
     def ssm_heads(self) -> int:
         assert self.ssm is not None
         return self.d_inner // self.ssm.headdim
+
+    def param_count(self, include_embed: bool = True) -> int:
+        """The analytic parameter count (the JAX package's, for the
+        communication-cost accounting and the roofline)."""
+        from repro_torch.models.blocks import layer_param_count   # local: no cycle
+
+        total = 0
+        if include_embed:
+            total += self.vocab_size * self.d_model
+            if not self.tie_embeddings:
+                total += self.vocab_size * self.d_model
+            if self.pos == "learned":
+                total += max(self.max_position, 4096) * self.d_model
+        for s in self.stages:
+            for k in s.pattern:
+                total += layer_param_count(self, k) * s.repeats
+        total += self.d_model                                   # final norm
+        if self.n_prefix_tokens:
+            total += self.prefix_dim * self.d_model             # VLM projector
+        if self.n_classes:
+            total += self.d_model * self.n_classes
+        return total
+
+    def active_param_count(self) -> int:
+        """The MoE-aware count of parameters active per token (MODEL_FLOPS
+        = 6·N_active·D)."""
+        from repro_torch.models.blocks import layer_param_count
+
+        total = self.vocab_size * self.d_model
+        if not self.tie_embeddings:
+            total += self.vocab_size * self.d_model
+        for s in self.stages:
+            for k in s.pattern:
+                total += layer_param_count(self, k, active_only=True) * s.repeats
+        return total + self.d_model
 
     def reduced(self, d_model: int = 256, repeats: int = 1, n_experts: int = 4,
                 vocab: int = 512) -> "ModelConfig":

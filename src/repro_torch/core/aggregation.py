@@ -4,7 +4,10 @@
   on every leaf and outage/selection is a per-client weight vector —
   ``fedavg_stacked``, ``partial_fedavg_stacked``,
   ``masked_fedavg_stacked``, ``broadcast_merge_stacked``.
-* **List**: ``fedavg`` stacks per-client trees and calls the stacked core.
+* **List** (for callers holding per-client trees, as the legacy
+  per-client loop does): ``fedavg``, ``partial_fedavg``,
+  ``masked_fedavg``.  They stack their inputs and call the stacked core,
+  so both layers agree bit for bit.
 
 The per-leaf weighted mean is one ``tensordot`` over the client axis in
 f32, cast back to the leaf's dtype.  ``factored_fedavg_stacked``
@@ -150,3 +153,21 @@ def broadcast_merge_stacked(stacked_tree, global_tree, stacked_masks=None,
 
 def fedavg(client_trees: Sequence, weights: Optional[Sequence[float]] = None):
     return fedavg_stacked(trees.stack(client_trees), weights)
+
+
+def partial_fedavg(global_tree, client_trees: Sequence, pred: Callable[[str], bool],
+                   weights: Optional[Sequence[float]] = None):
+    """Aggregate only leaves whose path satisfies ``pred``; others keep the
+    global value."""
+    return partial_fedavg_stacked(global_tree, trees.stack(client_trees), pred, weights)
+
+
+def masked_fedavg(global_tree, client_trees: Sequence, masks: Sequence):
+    """Elementwise θ_g ← Σ_i m_i·θ_i / Σ_i m_i, keeping θ_g where Σm = 0.
+    ``masks`` are 1/0 float trees broadcast trailing-aligned against each
+    client's leaves (numpy rules) before stacking, so any mask rank that
+    broadcasts is taken; the stacked API takes leading-aligned (n, ...)
+    masks instead."""
+    bmasks = [trees.map_leaves(lambda m, t: torch.broadcast_to(m, t.shape), m, t)
+              for m, t in zip(masks, client_trees)]
+    return masked_fedavg_stacked(global_tree, trees.stack(client_trees), trees.stack(bmasks))

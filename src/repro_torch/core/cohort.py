@@ -74,20 +74,6 @@ from repro_torch.rlhf.ppo import PPOConfig, make_ppo_fns
 from repro_torch.rlhf.rollout import generate
 from repro_torch.sharding import CohortSharding, gather_clients, psum
 
-# Where each option the port does not run is ported: the one table the
-# engine, ``run_pftt``, ``run_pfit`` and the launchers refuse from.
-LATER = {
-    "legacy_loop": "no item: the cohort engine replaces the legacy per-client loop",
-}
-
-
-def not_ported(what: str, **options) -> None:
-    """Raise for the first set option of ``what`` that is not ported."""
-    for name, on in options.items():
-        if on:
-            raise NotImplementedError(f"{what}: {name!r} is not ported; {LATER[name]}")
-
-
 def client_view(stacked, ci: int):
     """Client ``ci``'s tree: views of the stacked leaves."""
     return trees.map_leaves(lambda leaf: leaf[ci], stacked)
@@ -96,6 +82,21 @@ def client_view(stacked, ci: int):
 def write_client(stacked, ci: int, tree) -> None:
     """Copy client ``ci``'s tree into its slot of the stacked leaves."""
     trees.map_leaves(lambda leaf, new: leaf[ci].copy_(new), stacked, tree)
+
+
+def own_copies(client_trees, agg, recv=None):
+    """The legacy per-client loop's downlink: each client's tree with the
+    aggregate merged in (where ``recv[ci]`` > 0; every client without
+    ``recv``), each from its own copy of ``agg``, so that a later in-place
+    write to one client's tree reaches no other client."""
+    return [trees.merge(t, _clone_tree(agg)) if recv is None or recv[ci] > 0 else t
+            for ci, t in enumerate(client_trees)]
+
+
+def host_batch(batch, device):
+    """One client's step batch of numpy leaves on ``device`` (the legacy
+    loop's batch: the engine's stacked row, unpadded)."""
+    return {k: torch.from_numpy(np.ascontiguousarray(v)).to(device) for k, v in batch.items()}
 
 
 class HostBatchStacker:
@@ -140,6 +141,14 @@ class HostBatchStacker:
             valid = np.arange(first.shape[2])[None] < rows[:, None]
             out["valid"] = valid.astype(np.float32).reshape(nc, ns, -1)
         return {k: torch.from_numpy(v).to(self.device) for k, v in out.items()}
+
+
+def stack_host_batches(per_client_batches, device="cpu"):
+    """[client][step] list of {name: np.ndarray} → one dict of tensors on
+    ``device`` with leading (n_clients, local_steps) axes — the engine's
+    data layout.  One-shot helper; a round loop holds a
+    ``HostBatchStacker`` instead."""
+    return HostBatchStacker(device)(per_client_batches)
 
 
 def build_cohort_eval(eval_fn: Callable, mesh=None):

@@ -19,6 +19,18 @@ methods through ``build_ppo_round`` (rollouts through the serving path:
 causal ``flash_attn`` prefill, ``decode_attn`` decode), shepherd through
 ``build_supervised_round``.
 
+The JAX package's two parity oracles run too.  ``PFITConfig(factored=
+False)`` merges shepherd's LoRA into the global inside its loss and serves
+each client's merged copy in the evaluation (no ``lora_fused`` launch).
+``PFITConfig(engine=False)`` is the legacy per-client loop: each client
+keeps its own trees; shepherd's local steps and the PPO methods' rollout,
+double reward, L2 pull and ``PPOTrainer.round`` run client by client
+through the same functions as the engine's, each upload coded against the
+client's round-input tree; the server aggregates with the list API
+(``fedavg``, ``masked_fedavg``) or, robust, the stacked mirror, and every
+client merges its own copy.  As in the JAX package the loop ignores
+``mesh`` and has no health scalars or ``gather``/``device-step`` spans.
+
 Parity with the JAX package from identical state: ``run_pfit(cfg,
 init=...)`` takes the JAX draws as numpy in place of the port's
 ``torch.Generator`` ones — the policy before pretraining, both reward
@@ -55,9 +67,6 @@ draw and pretrains the same policy and reward models, runs its rows of the
 ghost-padded cohort (rollout noise keyed by client id, never by rank), and
 gathers the rewards and bits; each rank evaluates its own real clients and
 the per-client rewards are gathered.  Only rank 0 writes telemetry.
-
-Not ported yet, and refused by name (``cohort.LATER``): the legacy
-per-client loop (``engine=False``).
 """
 from __future__ import annotations
 
@@ -71,10 +80,12 @@ import torch
 
 from repro_torch import bridge, resolve_device, synchronize, trees
 from repro_torch.comms import ChannelBudget, get_codec, payload_bits_upper_bound
-from repro_torch.comms.codec import codec_uniforms, round_noises
+from repro_torch.comms.codec import codec_uniforms, roundtrip, round_noises
 from repro_torch.configs import get_config
+from repro_torch.core.aggregation import (factored_fedavg_stacked, fedavg_stacked,
+                                          masked_fedavg, masked_fedavg_stacked)
 from repro_torch.core.cohort import (HostBatchStacker, build_cohort_eval, build_ppo_round,
-                                     build_supervised_round, not_ported)
+                                     build_supervised_round, host_batch, own_copies)
 from repro_torch.core.pftt import _comm_record
 from repro_torch.core.robust import round_extra, round_reports, robust_runtime
 from repro_torch.core.rewards import ClientPreference, DoubleReward
@@ -84,7 +95,7 @@ from repro_torch.models import peft as peft_mod
 from repro_torch.models.transformer import Model
 from repro_torch.obs import close_run, open_run
 from repro_torch.optim import adamw, value_and_grad
-from repro_torch.rlhf.ppo import PPOConfig
+from repro_torch.rlhf.ppo import PPOConfig, PPOTrainer
 from repro_torch.rlhf.reward_model import (RewardModel, reward_model_config,
                                            train_reward_model)
 from repro_torch.rlhf.rollout import generate, gumbel_stream
@@ -120,6 +131,8 @@ class PFITConfig:
     seed: int = 0
     verbose: bool = False
     engine: bool = True            # the cohort engine (False: legacy loop)
+    factored: bool = True          # shepherd's LoRA unmerged (False: the
+                                   # merged oracle in training and eval)
     uplink_codec: str = "none"
     factored_agg: bool = False
     tx_power_w: float = 0.5        # uplink transmit power (ChannelBudget)
@@ -151,6 +164,23 @@ def _method_settings(cfg: PFITConfig):
     if cfg.method == "shepherd":
         return dict(sparsity=0.0, double=False)
     raise ValueError(cfg.method)
+
+
+def _is_stage(path: str) -> bool:
+    return path.startswith("stages")
+
+
+def _shepherd_loss(model, cfg: PFITConfig, global_params, peft_cfg):
+    """``loss(lora, batch)``: shepherd's LM loss on the frozen global, the
+    LoRA unmerged or (``factored=False``) merged into the weights."""
+    lscale = peft_mod.lora_scale(peft_cfg)
+
+    def loss(lora, batch):
+        if cfg.factored:
+            return model.lm_loss(global_params, batch, lora=lora, lora_scale=lscale)
+        return model.lm_loss(peft_mod.apply_lora(global_params, lora, peft_cfg), batch)
+
+    return loss
 
 
 def _pretrain_policy(model, params, corpus, steps, lr, batch, verbose):
@@ -199,8 +229,9 @@ def run_pfit(cfg: PFITConfig, init: Optional[Dict] = None, mesh=None,
         raise ValueError(f"method {cfg.method!r} not in {METHODS}")
     if cfg.population is not None:
         return _run_pfit_population(cfg, init, mesh, client_axes)
-    not_ported("PFITConfig", legacy_loop=not cfg.engine)
-    cs = cohort_sharding(mesh, cfg.n_clients, client_axes)   # this process's rows
+    use_engine = cfg.engine
+    # this process's rows (the legacy loop ignores ``mesh``, as JAX's does)
+    cs = cohort_sharding(mesh if use_engine else None, cfg.n_clients, client_axes)
     cfg = cfg if cs.lead else dataclasses.replace(cfg, verbose=False)
     codec = get_codec(cfg.uplink_codec)
     init = init or {}
@@ -273,17 +304,23 @@ def run_pfit(cfg: PFITConfig, init: Optional[Dict] = None, mesh=None,
                                    lora_targets=("mixer/wq", "mixer/wv"))
     lscale = peft_mod.lora_scale(peft_cfg)
     global_params = params
+    shepherd = cfg.method == "shepherd"
     loras = []
-    if cfg.method == "shepherd":
+    if shepherd:
         loras = [bridge.lora_from_numpy(init["lora"][ci], mcfg, device=device)
                  if "lora" in init else peft_mod.init_lora(gen, params, peft_cfg)
                  for ci in range(cfg.n_clients)]
+    # the loop's per-client trees: shepherd's LoRA, or the PPO methods' params
+    kind = "lora" if shepherd else "params"
+    clients = [] if use_engine else [
+        {kind: t, "opt_state": opt.init(t)}
+        for t in (loras if shepherd else [params] * cfg.n_clients)]
+    shepherd_loss = _shepherd_loss(model, cfg, global_params, peft_cfg)
 
     def shepherd_local_step(lora, opt_state, batch):
-        """Supervised LoRA step on the frozen global, the factors unmerged."""
-        loss, g = value_and_grad(
-            lambda lo: model.lm_loss(global_params, batch, lora=lo, lora_scale=lscale),
-            lora)
+        """Supervised LoRA step on the frozen global (the factors unmerged,
+        or merged under ``factored=False``)."""
+        loss, g = value_and_grad(lambda lo: shepherd_loss(lo, batch), lora)
         upd, opt_state = opt.update(g, opt_state, lora)
         return trees.tree_add(lora, upd), opt_state, loss
 
@@ -332,25 +369,37 @@ def run_pfit(cfg: PFITConfig, init: Optional[Dict] = None, mesh=None,
                                        prefs[ci].alpha_safe).mean())
         return float(cs.gather(torch.stack(vals)).double().mean())
 
+    def eval_round(client_trees, record):
+        """The round's evaluation over each client's tree (shepherd's LoRA:
+        served unmerged beside the shared base, or merged into its own copy
+        under ``factored=False``; the PPO methods' params)."""
+        if not shepherd:
+            return eval_reward(client_trees, record=record)
+        if cfg.factored:
+            return eval_reward([global_params] * len(client_trees), client_trees, record=record)
+        return eval_reward([peft_mod.merge_lora(global_params, lo, peft_cfg)
+                            for lo in client_trees], record=record)
+
     # ---- the straggler-tolerant runtime (core/robust.py, wireless/faults.py)
     dl, trace, tracker = robust_runtime(cfg, channel)
     robust = tracker is not None
     min_quorum = dl.min_quorum if dl is not None else 0
 
-    # ---- observability: health rides shepherd's supervised round only
+    # ---- observability: health rides the engine's shepherd round only
     tracer, tele, health, prof = open_run(cfg.telemetry, device, write=cs.lead)
-    health = health and cfg.method == "shepherd"
+    health = health and shepherd and use_engine
 
-    # ---- the cohort engine: per-client state stacked on a client axis
-    if cfg.method == "shepherd":
+    payloads = ([tree_bytes(lo) for lo in loras] if shepherd else
+                [tree_bytes(params, nonzero_mask=client_masks[ci])
+                 for ci in range(cfg.n_clients)])
+    if use_engine and shepherd:
         round_step = build_supervised_round(shepherd_local_step, codec=codec,
                                             factored_agg=cfg.factored_agg, robust=robust,
                                             min_quorum=min_quorum, health=health, cs=cs)
         cohort_tr = cs.take(trees.stack(loras))
         cohort_opt = cs.take(trees.stack([opt.init(lo) for lo in loras]))
-        payloads = [tree_bytes(lo) for lo in loras]
         stacker = HostBatchStacker(device, rows=cs.rows)
-    else:
+    elif use_engine:
         ppo_round_step = build_ppo_round(
             model, opt, cfg.ppo, cfg.prompt_len, cfg.gen_len, quality_fn,
             lambda_regs=[p.lambda_reg for p in prefs], codec=codec, robust=robust,
@@ -358,18 +407,22 @@ def run_pfit(cfg: PFITConfig, init: Optional[Dict] = None, mesh=None,
         cohort_tr = trees.stack([params] * cs.n_local)
         cohort_opt = trees.stack([opt.init(params)] * cs.n_local)
         st_masks = cs.take(trees.stack(client_masks))
-        payloads = [tree_bytes(params, nonzero_mask=client_masks[ci])
-                    for ci in range(cfg.n_clients)]
-    # the pending-payload buffer (zeros never merge: their weight is 0) and
-    # the deadline round's scheduling sizes (exact for uncompressed uploads;
-    # a codec's worst case until a realized size replaces it)
-    pending = trees.map_leaves(torch.zeros_like, cohort_tr) if robust else None
+    else:
+        ppo = PPOTrainer(model, opt, cfg.ppo, cfg.prompt_len)
+    # the pending-payload buffer (zeros never merge: their weight is 0; the
+    # loop keeps one tree a client) and the deadline round's scheduling
+    # sizes (exact for uncompressed uploads; a codec's worst case until a
+    # realized size replaces it)
+    pending = None
+    if robust:
+        pending = (trees.map_leaves(torch.zeros_like, cohort_tr) if use_engine else
+                   [trees.map_leaves(torch.zeros_like, cl[kind]) for cl in clients])
     est_bits = None
     if dl is not None:
         est_bits = np.asarray(
             [p * 8 for p in payloads] if codec is None else
             [payload_bits_upper_bound(codec, t) for t in
-             (loras if cfg.method == "shepherd" else [params] * cfg.n_clients)],
+             (loras if shepherd else [params] * cfg.n_clients)],
             np.float64)
     codec_noise = init.get("codec_noise") or functools.partial(
         codec_uniforms, cfg.seed, device=device)
@@ -378,19 +431,18 @@ def run_pfit(cfg: PFITConfig, init: Optional[Dict] = None, mesh=None,
         """A round vector on the device: this rank's rows, ghosts ``fill``."""
         return torch.from_numpy(cs.take_vec(v, fill)).to(device)
 
-    reward_curve, train_reward, round_s, health_per_round = [], [], [], []
-    rollouts0, eval0 = [], []
-    tele.start({"mode": "cohort", "method": cfg.method, "n_clients": cfg.n_clients,
-                "rounds": cfg.rounds, "engine": True, "codec": cfg.uplink_codec})
-    for rnd in range(cfg.rounds):
-        t0 = time.perf_counter()
-        gains = channel.realize(cfg.n_clients)
-        rplan = None
+    def shepherd_batch(ci):
+        s = corpus.sample(cfg.rollout_batch, topic_probs=topic_prefs[ci],
+                          helpful_p=0.9, unsafe_p=0.05, rng=rng)
+        return {"tokens": s["tokens"][:, :-1], "labels": s["tokens"][:, 1:],
+                "mask": s["mask"][:, 1:]}
+
+    def engine_round(rnd, gains, rplan, record):
+        """One round of the cohort engine: (each client's mean rollout
+        reward or None, the clients' payload bits, the health scalars or
+        None)."""
+        nonlocal cohort_tr, cohort_opt, global_params, pending
         if robust:
-            rf = trace.round(rnd)
-            gains = gains * rf.gain_scale       # injected SNR dips
-            rplan = tracker.begin_round(rf, channel.outage_weights(gains),
-                                        gains=gains, fresh_bits=est_bits)
             # deadline mode: the pre-deadline weights and the on-time mask
             # apart (the body multiplies them and derives the quorum gate)
             ontime = rplan.ontime if dl is not None else np.ones(cfg.n_clients, np.float32)
@@ -405,12 +457,8 @@ def run_pfit(cfg: PFITConfig, init: Optional[Dict] = None, mesh=None,
                 noise_arg = (cs.local(round_noises(codec_noise, rnd, cfg.n_clients)),)
         # every client's batches or prompts and noise streams are drawn every
         # round, training or not: the host streams stay aligned
-        if cfg.method == "shepherd":
-            def shepherd_batch(ci):
-                s = corpus.sample(cfg.rollout_batch, topic_probs=topic_prefs[ci],
-                                  helpful_p=0.9, unsafe_p=0.05, rng=rng)
-                return {"tokens": s["tokens"][:, :-1], "labels": s["tokens"][:, 1:],
-                        "mask": s["mask"][:, 1:]}
+        mean_rewards = None
+        if shepherd:
             with tracer.span("gather"):
                 batches = stacker(cs.pad([[shepherd_batch(ci)
                                            for _ in range(cfg.shepherd_steps)]
@@ -437,7 +485,6 @@ def run_pfit(cfg: PFITConfig, init: Optional[Dict] = None, mesh=None,
                           for ci in cs.local(range(cfg.n_clients))]
             alphas = (cs.local([p.alpha_help for p in prefs]),
                       cs.local([p.alpha_safe for p in prefs]))
-            record = rollouts0 if rnd == 0 else None
             with tracer.span("device-step"):
                 if robust:
                     outs = ppo_round_step(cohort_tr, cohort_opt, global_params, pending,
@@ -450,11 +497,125 @@ def run_pfit(cfg: PFITConfig, init: Optional[Dict] = None, mesh=None,
                                           rollouts=record)
                     cohort_tr, cohort_opt, global_params, mean_rewards = outs[:4]
                 synchronize(device)
-            train_reward.append(float(cs.gather(mean_rewards).mean()))
+            mean_rewards = cs.gather(mean_rewards)
             bits_out = outs[-1] if codec is not None else None   # its last output
         # the engine's realized payload bits with a codec
-        bits = ([payloads[ci] * 8 for ci in range(cfg.n_clients)] if codec is None
+        bits = ([p * 8 for p in payloads] if codec is None
                 else cs.gather(bits_out).tolist())
+        return mean_rewards, bits, outs[-1] if health else None
+
+    def loop_train(rnd, rplan, record):
+        """The legacy loop's training: each client in turn on its own trees
+        — shepherd's local steps, or a rollout, the double reward less
+        ``λ_reg`` times the L2 distance of the stages to the global (both
+        before the round) and ``PPOTrainer.round`` under the client's mask —
+        then its upload coded against its round-input tree.  Returns (each
+        client's mean rollout reward or None, the clients' payload bits,
+        their uploads: None where a client did not train)."""
+        noises = None if codec is None else round_noises(codec_noise, rnd, cfg.n_clients)
+        mean_rewards = None if shepherd else torch.zeros(cfg.n_clients, device=device)
+        bits = [p * 8 for p in payloads] if codec is None else [0.0] * cfg.n_clients
+        uploads = [None] * cfg.n_clients
+        resp = torch.cat([torch.zeros(cfg.rollout_batch, cfg.prompt_len, device=device),
+                          torch.ones(cfg.rollout_batch, cfg.gen_len, device=device)], 1)
+        # every client draws its round's samples even when a fault skips its
+        # training: the host stream stays the engine's
+        draws = [[shepherd_batch(ci) for _ in range(cfg.shepherd_steps)] if shepherd else
+                 corpus.sample(cfg.rollout_batch, topic_probs=topic_prefs[ci], rng=rng)
+                 for ci in range(cfg.n_clients)]
+        for ci, cl in enumerate(clients):
+            if robust and rplan.train[ci] == 0:
+                continue
+            ref = cl[kind]                                   # the round-input tree
+            if shepherd:
+                for b in draws[ci]:
+                    cl["lora"], cl["opt_state"], _ = shepherd_local_step(
+                        cl["lora"], cl["opt_state"], host_batch(b, device))
+            else:
+                margins = None if record is None else []
+                prompts = torch.from_numpy(draws[ci]["tokens"][:, :cfg.prompt_len]).to(device)
+                toks = generate(model, cl["params"], prompts, cfg.gen_len,
+                                noise_for(rnd * 17 + ci, cfg.rollout_batch),
+                                temperature=cfg.ppo.temperature, margins=margins)
+                if record is not None:
+                    record.append((toks, torch.stack(margins, 1)))
+                with torch.no_grad():
+                    reward = quality_fn(toks, resp, prefs[ci].alpha_help, prefs[ci].alpha_safe)
+                    if prefs[ci].lambda_reg > 0:
+                        reward = reward - prefs[ci].lambda_reg * trees.tree_l2(
+                            trees.select(cl["params"], _is_stage),
+                            trees.select(global_params, _is_stage))
+                cl["params"], cl["opt_state"], _ = ppo.round(
+                    cl["params"], global_params, cl["opt_state"], toks, reward,
+                    grad_mask=client_masks[ci])
+                mean_rewards[ci] = reward.mean()
+            uploads[ci] = cl[kind]
+            if codec is not None:
+                uploads[ci], b = roundtrip(
+                    codec, cl[kind], ref=ref, noise=noises[ci],
+                    bit_weights=None if shepherd else client_masks[ci])
+                bits[ci] = float(b)
+        return mean_rewards, bits, uploads
+
+    def loop_aggregate(rplan, reports, uploads):
+        """The legacy loop's server: shepherd's (factored) FedAvg of the
+        LoRA, or the PPO methods' masked FedAvg against the global and the
+        masked broadcast; the robust round's stacked mirror (fresh uploads
+        supersede pending ones, weights ``agg_w``, ``recv`` gates the merge,
+        ``rejoin`` zeroes the optimizer) or the synchronous mean over the
+        clients out of outage.  Each client merges its own copy."""
+        nonlocal global_params, pending
+        if robust:
+            pending = [uploads[ci] if rplan.train[ci] > 0 else pending[ci]
+                       for ci in range(cfg.n_clients)]
+            send, recv = (pending if float(rplan.agg_w.sum()) > 0 else None), rplan.recv
+            weights = torch.as_tensor(rplan.agg_w, device=device)
+        else:
+            alive = [ci for ci, r in enumerate(reports) if not r.outage]
+            send, recv, weights = [uploads[ci] for ci in alive] or None, None, None
+        if send is not None and shepherd:
+            agg = (factored_fedavg_stacked if cfg.factored_agg else fedavg_stacked)(
+                trees.stack(send), weights)
+            for cl, lo in zip(clients, own_copies([cl["lora"] for cl in clients], agg, recv)):
+                cl["lora"] = lo
+        elif send is not None:
+            global_params = (masked_fedavg_stacked(global_params, trees.stack(send),
+                                                   trees.stack(client_masks), weights)
+                             if robust else
+                             masked_fedavg(global_params, send,
+                                           [client_masks[ci] for ci in alive]))
+            # clients resume from the global on their masked entries
+            for ci, cl in enumerate(clients):
+                if recv is None or recv[ci] > 0:
+                    cl["params"] = trees.map_leaves(
+                        lambda loc, glob, m: torch.where(
+                            torch.broadcast_to(m, loc.shape) > 0, glob.to(loc.dtype), loc),
+                        cl["params"], global_params, client_masks[ci])
+        if robust:
+            for ci, cl in enumerate(clients):
+                if rplan.rejoin[ci] > 0:
+                    cl["opt_state"] = trees.map_leaves(torch.zeros_like, cl["opt_state"])
+
+    reward_curve, train_reward, round_s, health_per_round = [], [], [], []
+    rollouts0, eval0 = [], []
+    tele.start({"mode": "cohort", "method": cfg.method, "n_clients": cfg.n_clients,
+                "rounds": cfg.rounds, "engine": use_engine, "codec": cfg.uplink_codec})
+    for rnd in range(cfg.rounds):
+        t0 = time.perf_counter()
+        gains = channel.realize(cfg.n_clients)
+        rplan = None
+        if robust:
+            rf = trace.round(rnd)
+            gains = gains * rf.gain_scale       # injected SNR dips
+            rplan = tracker.begin_round(rf, channel.outage_weights(gains),
+                                        gains=gains, fresh_bits=est_bits)
+        record = rollouts0 if rnd == 0 else None
+        if use_engine:
+            mean_rewards, bits, hstats = engine_round(rnd, gains, rplan, record)
+        else:
+            (mean_rewards, bits, uploads), hstats = loop_train(rnd, rplan, record), None
+        if mean_rewards is not None:
+            train_reward.append(float(mean_rewards.mean()))
         extra = None
         if robust:
             fresh = np.asarray(bits, np.float64)
@@ -466,17 +627,16 @@ def run_pfit(cfg: PFITConfig, init: Optional[Dict] = None, mesh=None,
         else:
             reports = budget.round_reports(bits, gains)
         ledger.log_round(reports, extra, round_id=rnd)
+        if not use_engine:
+            loop_aggregate(rplan, reports, uploads)
 
         record = eval0 if rnd == 0 else None
         with tracer.span("eval"):
-            if cfg.method == "shepherd":   # serve unmerged: the base shared, the factors per client
-                local = trees.unstack(cohort_tr)
-                reward_curve.append(eval_reward([global_params] * len(local), local,
-                                                record=record))
-            else:
-                reward_curve.append(eval_reward(trees.unstack(cohort_tr), record=record))
-        health_per_round.append(None if not health else
-                                {k: float(v) for k, v in outs[-1].items()})
+            reward_curve.append(eval_round(
+                trees.unstack(cohort_tr) if use_engine else [cl[kind] for cl in clients],
+                record))
+        health_per_round.append(None if hstats is None else
+                                {k: float(v) for k, v in hstats.items()})
         synchronize(device)
         round_s.append(time.perf_counter() - t0)
         if tele.enabled:
@@ -509,6 +669,7 @@ def run_pfit(cfg: PFITConfig, init: Optional[Dict] = None, mesh=None,
         "uplink_codec": cfg.uplink_codec,
         "rm_pair_acc": {"help": rmh_stats["pair_acc"], "safe": rms_stats["pair_acc"]},
         "round_records": ledger.rounds,
+        "fused_engine": use_engine,         # False: the legacy per-client loop
         "staleness": tracker.counters() if robust else None,
         "train_reward_per_round": train_reward,
         "rollouts_round0": to_np(rollouts0),
@@ -586,7 +747,6 @@ def _run_pfit_population(cfg: PFITConfig, init: Optional[Dict] = None, mesh=None
 
     peft_cfg = peft_mod.PEFTConfig(lora_rank=cfg.lora_rank,
                                    lora_targets=("mixer/wq", "mixer/wv"))
-    lscale = peft_mod.lora_scale(peft_cfg)
     opt = adamw(cfg.lr)
 
     def client_init(i):
@@ -613,10 +773,10 @@ def _run_pfit_population(cfg: PFITConfig, init: Optional[Dict] = None, mesh=None
     codec_noise = None if codec is None else (
         init.get("codec_noise") or functools.partial(codec_uniforms, cfg.seed, device=device))
 
+    shepherd_loss = _shepherd_loss(model, cfg, global_params, peft_cfg)
+
     def shepherd_local_step(lora, opt_state, batch):
-        loss, g = value_and_grad(
-            lambda lo: model.lm_loss(global_params, batch, lora=lo, lora_scale=lscale),
-            lora)
+        loss, g = value_and_grad(lambda lo: shepherd_loss(lo, batch), lora)
         upd, opt_state = opt.update(g, opt_state, lora)
         return trees.tree_add(lora, upd), opt_state, loss
 
@@ -646,8 +806,7 @@ def _run_pfit_population(cfg: PFITConfig, init: Optional[Dict] = None, mesh=None
     test_sets = CohortTestSets(data, n_eval, ("tokens", "labels", "mask"), prep=_lm_batch)
 
     def eval_client(lora, tokens, labels, mask):
-        batch = {"tokens": tokens, "labels": labels, "mask": mask}
-        return (model.lm_loss(global_params, batch, lora=lora, lora_scale=lscale),)
+        return (shepherd_loss(lora, {"tokens": tokens, "labels": labels, "mask": mask}),)
 
     eval_cohort = build_cohort_eval(eval_client, mesh=mesh)
 

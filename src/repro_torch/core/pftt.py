@@ -16,7 +16,19 @@ update is dropped that round) and is logged to a ``CommLedger`` (bytes,
 delay, energy).  Execution goes through the cohort engine
 (``core/cohort.py``), LoRA factored (``peft.lora_proj`` → ``lora_fused``);
 encoder attention runs the non-causal ``flash_attn`` kernel.
-``_merge_trainable`` is the merged-LoRA oracle the tests hold it against.
+
+The JAX package's two parity oracles run too.  ``PFTTConfig(factored=
+False)`` merges the LoRA into the weights inside every loss and eval
+(``_merge_trainable``: plain matmuls of ``W + s·A·B``, no ``lora_fused``
+launch), in the engine and in the loop alike.  ``PFTTConfig(engine=False)``
+is the legacy per-client loop: each client keeps its own trainable and
+optimizer trees, runs its steps through the same ``local_step``, and the
+server stacks the uploads it received and averages them (the list API's
+``fedavg``, or ``factored_fedavg_stacked`` under ``factored_agg``; the
+robust round at ``agg_w``), each client merging its own copy.  As
+in the JAX package, the loop writes no checkpoint, ignores ``mesh``, has
+no health scalars and no ``gather``/``device-step`` spans, and its result
+says ``"fused_engine": False``.
 
 Parity with the JAX package from identical state: JAX's PRNG streams cannot
 be reproduced in torch, so ``run_pftt(cfg, init=...)`` takes numpy trees
@@ -65,9 +77,6 @@ the ranks; accuracies, bits and losses are gathered, so every rank
 computes the same ledger and result.  Only rank 0 writes telemetry and
 checkpoints; a checkpoint holds the real cohort gathered from every rank,
 in the unsharded format, so a run resumes at any world size.
-
-Not ported yet, and refused by name (``cohort.LATER``): the legacy
-per-client loop (``engine=False``).
 """
 from __future__ import annotations
 
@@ -83,10 +92,11 @@ import torch
 from repro_torch import bridge, resolve_device, synchronize, trees
 from repro_torch.checkpoint import load_checkpoint, load_meta, save_checkpoint, save_json
 from repro_torch.comms import ChannelBudget, get_codec, payload_bits_upper_bound
-from repro_torch.comms.codec import codec_uniforms, round_noises
+from repro_torch.comms.codec import codec_uniforms, roundtrip, round_noises
 from repro_torch.configs import get_config
+from repro_torch.core.aggregation import factored_fedavg_stacked, fedavg_stacked
 from repro_torch.core.cohort import (HostBatchStacker, build_cohort_eval,
-                                     build_supervised_round, not_ported)
+                                     build_supervised_round, host_batch, own_copies)
 from repro_torch.core.robust import round_extra, round_reports, robust_runtime
 from repro_torch.data import (SPECIAL, ClassificationCorpus, batch_iterator,
                               dirichlet_partition)
@@ -122,6 +132,8 @@ class PFTTConfig:
     seed: int = 0
     verbose: bool = False
     engine: bool = True            # the cohort engine (False: legacy loop)
+    factored: bool = True          # unmerged LoRA (False: the merged oracle,
+                                   # W + s·A·B materialized per loss)
     uplink_codec: str = "none"
     factored_agg: bool = False
     tx_power_w: float = 0.5        # uplink transmit power (ChannelBudget)
@@ -194,6 +206,21 @@ def _merge_trainable(method: str, base_params, trainable, peft_cfg):
     if lora is not None:
         full = peft_mod.apply_lora(full, lora, peft_cfg)
     return full
+
+
+def _effective_fn(cfg: PFTTConfig, frozen, peft_cfg):
+    """``effective(trainable) -> (params, lora, lora_scale)`` per
+    ``cfg.factored``: the unmerged factors beside the base, or (the merged
+    oracle) the LoRA merged in, no factors, scale 1."""
+    scale = peft_mod.lora_scale(peft_cfg)
+
+    def effective(t):
+        if cfg.factored:
+            full, lora = _split_trainable(cfg.method, frozen, t)
+            return full, lora, scale
+        return _merge_trainable(cfg.method, frozen, t, peft_cfg), None, 1.0
+
+    return effective
 
 
 def _tensor_tree(flat, like, device):
@@ -297,8 +324,9 @@ def run_pftt(cfg: PFTTConfig, init: Optional[Dict] = None, mesh=None,
         raise ValueError(f"method {cfg.method!r} not in {METHODS}")
     if cfg.population is not None:
         return _run_pftt_population(cfg, init, mesh, client_axes)
-    not_ported("PFTTConfig", legacy_loop=not cfg.engine)
-    cs = cohort_sharding(mesh, cfg.n_clients, client_axes)   # this process's rows
+    use_engine = cfg.engine
+    # this process's rows (the legacy loop ignores ``mesh``, as JAX's does)
+    cs = cohort_sharding(mesh if use_engine else None, cfg.n_clients, client_axes)
     cfg = cfg if cs.lead else dataclasses.replace(cfg, verbose=False)
     codec = _codec(cfg, init)
     (model, mcfg, params, peft_cfg, corpus, gen, rng, use_lora,
@@ -318,7 +346,7 @@ def run_pftt(cfg: PFTTConfig, init: Optional[Dict] = None, mesh=None,
         client_iters.append(batch_iterator(tr, client_batch_sizes[-1],
                                            seed=cfg.seed + ci))
 
-    # ---- per-client trainable state, stacked on a leading client axis
+    # ---- per-client trainable state (the engine stacks it on a client axis)
     opt = adamw(cfg.lr, update_mask=lambda p: not p.endswith("/mask"))
     clients: List[Dict] = []
     for ci in range(cfg.n_clients):
@@ -329,13 +357,12 @@ def run_pftt(cfg: PFTTConfig, init: Optional[Dict] = None, mesh=None,
         t = _build_trainable(cfg.method, params, lora)
         clients.append({"trainable": t, "opt_state": opt.init(t)})
 
-    frozen = params
-    scale = peft_mod.lora_scale(peft_cfg)
+    effective = _effective_fn(cfg, params, peft_cfg)
 
     def local_step(trainable, opt_state, batch):
         def loss_fn(t):
-            full, lora = _split_trainable(cfg.method, frozen, t)
-            return model.cls_loss(full, batch, lora=lora, lora_scale=scale)[0]
+            full, lora, ls = effective(t)
+            return model.cls_loss(full, batch, lora=lora, lora_scale=ls)[0]
         loss, g = value_and_grad(loss_fn, trainable)
         upd, opt_state = opt.update(g, opt_state, trainable)
         return trees.tree_add(trainable, upd), opt_state, loss
@@ -356,13 +383,13 @@ def run_pftt(cfg: PFTTConfig, init: Optional[Dict] = None, mesh=None,
                                  for a in (t_toks, t_labels, t_valid))
 
     def eval_client(trainable, tokens, label, valid):
-        full, lora = _split_trainable(cfg.method, frozen, trainable)
-        hidden, _ = model.forward(full, tokens, lora=lora, lora_scale=scale)
+        full, lora, ls = effective(trainable)
+        hidden, _ = model.forward(full, tokens, lora=lora, lora_scale=ls)
         pred = (hidden[:, 0] @ full["cls_head"]).float().argmax(-1)
         correct = (pred == label).float() * valid
         return correct.sum(), valid.sum()
 
-    eval_cohort = build_cohort_eval(eval_client, mesh=mesh)
+    eval_cohort = build_cohort_eval(eval_client, mesh=cs.mesh)
 
     def eval_round_accs(stacked_trainable):
         """Per-client accuracies (clients with an empty test set dropped)."""
@@ -390,19 +417,27 @@ def run_pftt(cfg: PFTTConfig, init: Optional[Dict] = None, mesh=None,
     arrivals = tracker.arrivals if robust else None
 
     # ---- observability (repro_torch.obs): spans, JSONL round events and
-    # the health scalars the round step returns
+    # the health scalars the round step returns (the engine's only)
     tracer, tele, health, prof = open_run(cfg.telemetry, device, write=cs.lead)
-    round_step = build_supervised_round(
-        local_step, upload_pred, cs=cs, codec=codec, factored_agg=cfg.factored_agg, robust=robust,
-        min_quorum=dl.min_quorum if dl else 0, health=health)
-    cohort_tr = cs.take(trees.stack([cl["trainable"] for cl in clients]))
-    cohort_opt = cs.take(trees.stack([cl["opt_state"] for cl in clients]))
+    health = health and use_engine
     payloads = [payload_bytes(cl["trainable"]) for cl in clients]
-    stacker = HostBatchStacker(device, rows=cs.rows)
+    agg_fn = factored_fedavg_stacked if cfg.factored_agg else fedavg_stacked
+    if use_engine:
+        round_step = build_supervised_round(
+            local_step, upload_pred, cs=cs, codec=codec, factored_agg=cfg.factored_agg,
+            robust=robust, min_quorum=dl.min_quorum if dl else 0, health=health)
+        cohort_tr = cs.take(trees.stack([cl["trainable"] for cl in clients]))
+        cohort_opt = cs.take(trees.stack([cl["opt_state"] for cl in clients]))
+        stacker = HostBatchStacker(device, rows=cs.rows)
     # the pending-payload buffer: zeros of the uploaded subtree (a zero
-    # payload never merges: its weight is 0 until a real one replaces it)
-    pending = trees.map_leaves(torch.zeros_like, trees.select(cohort_tr, upload_pred)) \
-        if robust else None
+    # payload never merges: its weight is 0 until a real one replaces it);
+    # the loop keeps one tree a client
+    pending = None
+    if robust:
+        pending = (trees.map_leaves(torch.zeros_like, trees.select(cohort_tr, upload_pred))
+                   if use_engine else
+                   [trees.map_leaves(torch.zeros_like, trees.select(cl["trainable"], upload_pred))
+                    for cl in clients])
     # the continuous-time round schedules by the payload size known at
     # dispatch: exact for uncompressed uploads; a codec's fresh uploads
     # reserve the worst-case encoded size until a realized size replaces it
@@ -419,15 +454,104 @@ def run_pftt(cfg: PFTTConfig, init: Optional[Dict] = None, mesh=None,
         """A round vector on the device: this rank's rows, ghosts ``fill``."""
         return torch.from_numpy(cs.take_vec(v, fill)).to(device)
 
+    def engine_round(rnd, gains, rplan):
+        """One round of the cohort engine: (losses, the clients' payload
+        bits, the health scalars or None)."""
+        nonlocal cohort_tr, cohort_opt, pending
+        # every client's batches, in (client, step) order, every round,
+        # training or not: the host streams stay aligned
+        with tracer.span("gather"):
+            batches = stacker(cs.pad([[next(client_iters[ci]) for _ in range(cfg.local_steps)]
+                                      for ci in range(cfg.n_clients)]))
+        noise_arg = ()
+        if codec is not None:
+            with tracer.span("encode"):   # keyed by client id (a ghost: client 0's)
+                noise_arg = (cs.local(round_noises(codec_noise, rnd, cfg.n_clients)),)
+        if robust:
+            # deadline mode hands the engine the pre-deadline weights and the
+            # on-time mask apart; the body multiplies them and derives the
+            # quorum gate again, so host and device agree
+            ontime = rplan.ontime if dl is not None else np.ones(cfg.n_clients, np.float32)
+            # ghosts train and receive like real clients, never rejoin, and
+            # carry zero weight
+            with tracer.span("device-step"):
+                outs = round_step(
+                    cohort_tr, cohort_opt, pending, batches, vec(rplan.train, 1.0),
+                    vec(rplan.agg_w_pre if dl is not None else rplan.agg_w),
+                    vec(rplan.recv, 1.0), vec(rplan.rejoin), vec(ontime, 1.0), *noise_arg)
+                synchronize(device)
+            cohort_tr, cohort_opt, pending, losses = outs[:4]
+        else:
+            weights = vec(channel.outage_weights(gains))
+            with tracer.span("device-step"):
+                outs = round_step(cohort_tr, cohort_opt, batches, weights, *noise_arg)
+                synchronize(device)
+            cohort_tr, cohort_opt, losses = outs[:3]
+        # the bits follow the outputs above; the health dict comes last
+        bits = ([p * 8 for p in payloads] if codec is None
+                else [b + act_bits() for b in cs.gather(outs[4 if robust else 3]).tolist()])
+        return cs.gather(losses), bits, outs[-1] if health else None
+
+    def loop_train(rnd, rplan):
+        """The legacy loop's training: each client in turn runs its local
+        steps on its own trees and codes its upload.  Returns (losses, the
+        clients' payload bits, their uploads: None where a client did not
+        train)."""
+        noises = None if codec is None else round_noises(codec_noise, rnd, cfg.n_clients)
+        losses = torch.zeros((cfg.n_clients, cfg.local_steps), device=device)
+        bits = [p * 8 for p in payloads] if codec is None else [0.0] * cfg.n_clients
+        uploads = [None] * cfg.n_clients
+        for ci, cl in enumerate(clients):
+            # every client draws its round's batches even when a fault
+            # skips its training: the host stream stays the engine's
+            round_batches = [next(client_iters[ci]) for _ in range(cfg.local_steps)]
+            if robust and rplan.train[ci] == 0:
+                continue
+            ref = trees.select(cl["trainable"], upload_pred)   # the round-input upload
+            for si, batch in enumerate(round_batches):
+                cl["trainable"], cl["opt_state"], losses[ci, si] = local_step(
+                    cl["trainable"], cl["opt_state"], host_batch(batch, device))
+            uploads[ci] = trees.select(cl["trainable"], upload_pred)
+            if codec is not None:
+                uploads[ci], b = roundtrip(codec, uploads[ci], ref=ref, noise=noises[ci])
+                bits[ci] = float(b) + act_bits()
+        return losses, bits, uploads
+
+    def loop_aggregate(rplan, reports, uploads):
+        """The legacy loop's server: the robust round's stacked mirror
+        (fresh uploads supersede pending ones, weights ``agg_w``, ``recv``
+        gates the merge, ``rejoin`` zeroes the optimizer), or the
+        synchronous mean over the clients out of outage (``fedavg``); each
+        client merges its own copy of the aggregate."""
+        nonlocal pending
+        if robust:
+            pending = [uploads[ci] if rplan.train[ci] > 0 else pending[ci]
+                       for ci in range(cfg.n_clients)]
+            send, recv = (pending if float(rplan.agg_w.sum()) > 0 else None), rplan.recv
+            weights = torch.as_tensor(rplan.agg_w, device=device)
+        else:
+            send = [uploads[ci] for ci, r in enumerate(reports) if not r.outage] or None
+            recv = weights = None
+        if send is not None:
+            agg = agg_fn(trees.stack(send), weights)
+            for cl, t in zip(clients, own_copies([cl["trainable"] for cl in clients], agg,
+                                                 recv)):
+                cl["trainable"] = t
+        if robust:
+            for ci, cl in enumerate(clients):
+                if rplan.rejoin[ci] > 0:
+                    cl["opt_state"] = trees.map_leaves(torch.zeros_like, cl["opt_state"])
+
     accs_per_round, loss_per_round, round_s, bits_per_round = [], [], [], []
     health_per_round = []
 
-    # ---- round-level checkpoint/resume: the stacked state restores
-    # exactly; the host streams (fading draws, compute-time draws, each
-    # client's batches) are replayed to the resume point
+    # ---- round-level checkpoint/resume (the engine's, as in JAX): the
+    # stacked state restores exactly; the host streams (fading draws,
+    # compute-time draws, each client's batches) are replayed to the
+    # resume point
     ckpt_file = meta_file = None
     start_round = 0
-    if cfg.ckpt_dir:
+    if cfg.ckpt_dir and use_engine:
         ckpt_file = os.path.join(cfg.ckpt_dir, f"pftt_{cfg.method}.npz")
         meta_file = os.path.join(cfg.ckpt_dir, f"pftt_{cfg.method}.json")
         if cfg.resume and os.path.exists(ckpt_file):
@@ -458,7 +582,7 @@ def run_pftt(cfg: PFTTConfig, init: Optional[Dict] = None, mesh=None,
                         next(client_iters[ci])
 
     run_meta = {"mode": "cohort", "method": cfg.method, "n_clients": cfg.n_clients,
-                "rounds": cfg.rounds, "engine": True, "codec": cfg.uplink_codec}
+                "rounds": cfg.rounds, "engine": use_engine, "codec": cfg.uplink_codec}
     if start_round > 0:
         tele.resume(start_round, run_meta)
     else:
@@ -473,55 +597,31 @@ def run_pftt(cfg: PFTTConfig, init: Optional[Dict] = None, mesh=None,
             gains = gains * rf.gain_scale       # injected SNR dips
             rplan = tracker.begin_round(rf, channel.outage_weights(gains),
                                         gains=gains, fresh_bits=est_bits)
-        # every client's batches, in (client, step) order, every round,
-        # training or not: the host streams stay aligned
-        with tracer.span("gather"):
-            batches = stacker(cs.pad([[next(client_iters[ci]) for _ in range(cfg.local_steps)]
-                                      for ci in range(cfg.n_clients)]))
+        if use_engine:
+            losses, bits, hstats = engine_round(rnd, gains, rplan)
+        else:
+            (losses, bits, uploads), hstats = loop_train(rnd, rplan), None
+        bits_per_round.append(bits)
         extra = None
-        noise_arg = ()
-        if codec is not None:
-            with tracer.span("encode"):   # keyed by client id (a ghost: client 0's)
-                noise_arg = (cs.local(round_noises(codec_noise, rnd, cfg.n_clients)),)
         if robust:
-            # deadline mode hands the engine the pre-deadline weights and the
-            # on-time mask apart; the body multiplies them and derives the
-            # quorum gate again, so host and device agree
-            ontime = rplan.ontime if dl is not None else np.ones(cfg.n_clients, np.float32)
-            # ghosts train and receive like real clients, never rejoin, and
-            # carry zero weight
-            with tracer.span("device-step"):
-                outs = round_step(
-                    cohort_tr, cohort_opt, pending, batches, vec(rplan.train, 1.0),
-                    vec(rplan.agg_w_pre if dl is not None else rplan.agg_w),
-                    vec(rplan.recv, 1.0), vec(rplan.rejoin), vec(ontime, 1.0), *noise_arg)
-                synchronize(device)
-            cohort_tr, cohort_opt, pending, losses = outs[:4]
-            fresh = (np.asarray([p * 8 for p in payloads], np.float64) if codec is None
-                     else cs.gather(outs[4]).cpu().numpy().astype(np.float64) + act_bits())
-            bits_per_round.append(fresh.tolist())
+            fresh = np.asarray(bits, np.float64)
             charged = tracker.end_round(rplan, fresh)
             reports = round_reports(budget, rplan, charged, gains)
             extra = round_extra(rplan)
             if dl is not None and codec is not None:   # the realized encoded size
                 est_bits = np.where(np.asarray(rplan.train) > 0, fresh, est_bits)   # schedules next
         else:
-            weights = vec(channel.outage_weights(gains))
-            with tracer.span("device-step"):
-                outs = round_step(cohort_tr, cohort_opt, batches, weights, *noise_arg)
-                synchronize(device)
-            cohort_tr, cohort_opt, losses = outs[:3]
-            bits = ([payloads[ci] * 8 for ci in range(cfg.n_clients)] if codec is None
-                    else [b + act_bits() for b in cs.gather(outs[3]).tolist()])
-            bits_per_round.append(bits)
             reports = budget.round_reports(bits, gains)
         ledger.log_round(reports, extra, round_id=rnd)
+        if not use_engine:
+            loop_aggregate(rplan, reports, uploads)
         with tracer.span("eval"):
-            accs = eval_round_accs(cohort_tr)
+            accs = eval_round_accs(cohort_tr if use_engine else
+                                   trees.stack([cl["trainable"] for cl in clients]))
         accs_per_round.append(float(np.mean(accs)))
-        loss_per_round.append(float(cs.gather(losses).mean()))
-        health_per_round.append(None if not health else
-                                {k: float(v) for k, v in outs[-1].items()})
+        loss_per_round.append(float(losses.mean()))
+        health_per_round.append(None if hstats is None else
+                                {k: float(v) for k, v in hstats.items()})
         synchronize(device)
         round_s.append(time.perf_counter() - t0)
         # the round event before the checkpoint (the exactly-once contract:
@@ -570,7 +670,7 @@ def run_pftt(cfg: PFTTConfig, init: Optional[Dict] = None, mesh=None,
         "round_records": ledger.rounds,
         "uplink_codec": cfg.uplink_codec,
         "eval_dispatches_per_round": 1.0,   # one cohort-eval call a round
-        "fused_engine": True,               # the engine path (not the loop)
+        "fused_engine": use_engine,         # False: the legacy per-client loop
         "ragged_cohort": len(set(client_batch_sizes)) > 1,
         "staleness": tracker.counters() if robust else None,
         "loss_per_round": loss_per_round,
@@ -674,13 +774,12 @@ def _run_pftt_population(cfg: PFTTConfig, init: Optional[Dict] = None, mesh=None
         or functools.partial(codec_uniforms, cfg.seed, device=device))
 
     # ---- the round body: the one a cohort_size-client robust run builds
-    frozen = params
-    scale = peft_mod.lora_scale(peft_cfg)
+    effective = _effective_fn(cfg, params, peft_cfg)
 
     def local_step(trainable, opt_state, batch):
         def loss_fn(t):
-            full, lora = _split_trainable(cfg.method, frozen, t)
-            return model.cls_loss(full, batch, lora=lora, lora_scale=scale)[0]
+            full, lora, ls = effective(t)
+            return model.cls_loss(full, batch, lora=lora, lora_scale=ls)[0]
         loss, g = value_and_grad(loss_fn, trainable)
         upd, opt_state = opt.update(g, opt_state, trainable)
         return trees.tree_add(trainable, upd), opt_state, loss
@@ -708,8 +807,8 @@ def _run_pftt_population(cfg: PFTTConfig, init: Optional[Dict] = None, mesh=None
                                .reshape(-1, n_eval)).to(device)
 
     def eval_client(trainable, tokens, label, valid):
-        full, lora = _split_trainable(cfg.method, frozen, trainable)
-        hidden, _ = model.forward(full, tokens, lora=lora, lora_scale=scale)
+        full, lora, ls = effective(trainable)
+        hidden, _ = model.forward(full, tokens, lora=lora, lora_scale=ls)
         pred = (hidden[:, 0] @ full["cls_head"]).float().argmax(-1)
         correct = (pred == label).float() * valid
         return correct.sum(), valid.sum()

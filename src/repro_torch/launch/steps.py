@@ -22,9 +22,10 @@ this rank's blocks, the batch the whole one (each rank runs its rows), and
 ``model.sync_grads`` sums over the data ranks the gradients of leaves
 replicated over them before AdamW, which then updates the local blocks:
 each model rank holds the full gradient of what it stores.
-The JAX package's ``factored`` switch (False: the merged oracle,
-``peft.apply_lora``) has no counterpart: the port's steps always run the
-factors unmerged.  ``make_input_batch_shapes`` (alias ``input_specs``)
+``make_peft_step`` and ``make_fl_round_step`` take the JAX package's
+``factored`` switch: False merges the factors into the weights before the
+loss (``peft.apply_lora``, the merged oracle: plain matmuls, no
+``lora_fused`` launch).  ``make_input_batch_shapes`` (alias ``input_specs``)
 gives a batch's shapes as ``meta`` tensors, which hold no storage.
 """
 from __future__ import annotations
@@ -76,25 +77,35 @@ def make_train_step(model, lr: float = 1e-4, impl: Optional[str] = None):
     return train_step, opt
 
 
-def make_peft_loss(model, peft_cfg: peft_mod.PEFTConfig, impl: Optional[str] = None):
-    """``loss(trainable, frozen, batch)`` of the PEFT step, trainable =
-    {"adapters": subtree merged into ``frozen``, "lora": factor tree}."""
+def _lora_loss(model, peft_cfg: peft_mod.PEFTConfig, impl, factored: bool):
+    """``loss(params, lora, batch)``: the factors threaded unmerged, or
+    (``factored=False``) merged into ``params`` first."""
     scale = peft_mod.lora_scale(peft_cfg)
 
-    def loss(trainable, frozen, batch):
-        full = trees.merge(frozen, trainable["adapters"])
-        return model.lm_loss(full, batch, impl=impl, lora=trainable["lora"],
-                             lora_scale=scale)
+    def loss(params, lora, batch):
+        if factored:
+            return model.lm_loss(params, batch, impl=impl, lora=lora, lora_scale=scale)
+        return model.lm_loss(peft_mod.apply_lora(params, lora, peft_cfg), batch, impl=impl)
 
     return loss
 
 
+def make_peft_loss(model, peft_cfg: peft_mod.PEFTConfig, impl: Optional[str] = None,
+                   factored: bool = True):
+    """``loss(trainable, frozen, batch)`` of the PEFT step, trainable =
+    {"adapters": subtree merged into ``frozen``, "lora": factor tree}."""
+    loss = _lora_loss(model, peft_cfg, impl, factored)
+    return lambda trainable, frozen, batch: loss(
+        trees.merge(frozen, trainable["adapters"]), trainable["lora"], batch)
+
+
 def make_peft_step(model, peft_cfg: peft_mod.PEFTConfig, lr: float = 1e-3,
-                   impl: Optional[str] = None):
+                   impl: Optional[str] = None, factored: bool = True):
     """Paper-faithful PFTT local step over trainable = {adapters, lora}:
-    ``peft_step(trainable, frozen, opt_state, batch)``."""
+    ``peft_step(trainable, frozen, opt_state, batch)``; ``factored=False``
+    the merged oracle."""
     opt = adamw(lr)
-    loss_fn = make_peft_loss(model, peft_cfg, impl=impl)
+    loss_fn = make_peft_loss(model, peft_cfg, impl=impl, factored=factored)
 
     def peft_step(trainable, frozen, opt_state, batch):
         loss, grads = value_and_grad(
@@ -128,7 +139,7 @@ def make_serve_step(model, impl: Optional[str] = None, lora_scale: float = 1.0):
 
 
 def make_fl_round_step(model, peft_cfg: peft_mod.PEFTConfig, n_clients: int,
-                       lr: float = 1e-3, impl: Optional[str] = None):
+                       lr: float = 1e-3, impl: Optional[str] = None, factored: bool = True):
     """One federated PFTT round as one step: ``fl_round_step(trainable,
     frozen, opt_state, batch)`` with trainable = {"adapters": the shared
     subtree (no client axis), "lora": the per-client factors (leading
@@ -136,16 +147,16 @@ def make_fl_round_step(model, peft_cfg: peft_mod.PEFTConfig, n_clients: int,
     loss is the mean of the clients' losses, each client's forward run in
     turn (a loop, not ``torch.func.vmap``: the kernels' CUDA ops have no
     vmap rule), so the adapters' gradient is the mean of the clients' and
-    each client's factors get only their own."""
+    each client's factors get only their own.  ``factored=False`` merges
+    each client's factors into its own copy of the weights (the oracle)."""
     opt = adamw(lr)
-    scale = peft_mod.lora_scale(peft_cfg)
+    client_loss = _lora_loss(model, peft_cfg, impl, factored)
 
     def fl_round_step(trainable, frozen, opt_state, batch):
         def loss_fn(t):
             full = trees.merge(frozen, t["adapters"])
-            losses = [model.lm_loss(full, {k: v[ci] for k, v in batch.items()}, impl=impl,
-                                    lora=trees.map_leaves(lambda x, c=ci: x[c], t["lora"]),
-                                    lora_scale=scale)
+            losses = [client_loss(full, trees.map_leaves(lambda x, c=ci: x[c], t["lora"]),
+                                  {k: v[ci] for k, v in batch.items()})
                       for ci in range(n_clients)]
             return torch.stack(losses).mean()
         loss, grads = value_and_grad(loss_fn, trainable)

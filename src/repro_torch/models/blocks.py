@@ -11,8 +11,9 @@ attention layers), ``local`` (gemma3's sliding-window layers), ``enc`` (the
 RoBERTa and whisper encoders: the same projections, non-causal, no cache),
 ``dec`` (whisper's decoder: causal self-attention, then cross-attention of
 the decoder stream on the encoder's memory), ``mla`` (deepseek-v2's
-multi-head latent attention, ``models/mla.py``) and ``mamba`` (Mamba-2),
-with the ``mlp`` or ``moe`` ff or none, and PFTT's universal adapter after
+multi-head latent attention, ``models/mla.py``), ``mamba`` (Mamba-2) and
+``none`` (no mixer: the layer is its ff, its cache entry empty), with the
+``mlp`` or ``moe`` ff or none, and PFTT's universal adapter after
 the ff where the layer has one.  Rotary configs rotate q and k inside
 ``_qkv`` (the cache holds the rotated k; MLA rotates its rope part).
 Prefill and encoder attention run the hand-written flash kernel (with the
@@ -57,21 +58,12 @@ from repro_torch.models.mlp import mlp
 from repro_torch.models.moe import moe_ffn, moe_ffn_a2a
 from repro_torch.models.norms import apply_norm
 from repro_torch.models.parallel import ATTN_TP, decode_segment, segment_write
-from repro_torch.models.peft import adapter_fwd, lora_proj, merge_factors
+from repro_torch.models.peft import adapter_fwd, has_factors, lora_proj, merge_factors
 from repro_torch.models.rope import rotate
 from repro_torch.sharding import (Spec, all_reduce, copy_to, gather, reduce_from,
                                   shard_leaf, unshard_leaf)
 
 IMPLS = ("auto", "dense", "chunked", "sparse")
-MIXERS = ("attn", "local", "enc", "dec", "mla", "mamba")
-
-
-def check_kind(kind: LayerKind) -> None:
-    """Raise for a layer kind the port has no mixer for (``none``)."""
-    if kind.mixer not in MIXERS:
-        raise NotImplementedError(f"layer kind {kind.tag} is not ported")
-
-
 def rope_width(cfg: ModelConfig) -> int:
     """The width the rotary table of a step is made for: MLA's rope part,
     else the head."""
@@ -91,12 +83,6 @@ def _sub(lora, *keys):
             return None
         lora = lora.get(k)
     return lora
-
-
-def _has_factors(lora) -> bool:
-    if isinstance(lora, dict):
-        return "a" in lora or any(_has_factors(v) for v in lora.values())
-    return False
 
 
 def _heads(cfg: ModelConfig, tp):
@@ -150,11 +136,13 @@ def apply_layer_seq(x, lp, kind: LayerKind, cfg: ModelConfig, rot=None, *,
     ff).  ``lp``/``lora`` are one layer's (unstacked) params and factor
     subtree.  ``tp``: the layer's plan under a mesh (``collect``: the
     cache entry gets every head, for a prefill)."""
-    check_kind(kind)
+    if kind.mixer == "none":            # no mixer: the layer is its ff
+        x, aux = _ff_and_adapter(x, lp, kind, cfg, lora, lora_scale, tp)
+        return x, {}, aux
     xn = apply_norm(x, lp["norm1"], cfg.norm, cfg.norm_eps)
     mf = _sub(lora, "mixer")
     if kind.mixer == "mamba" and tp is not None and tp.mamba_sp and tp.train \
-            and not _has_factors(mf):
+            and not has_factors(mf):
         # sequence-parallel SSD (its body takes raw weights, as the JAX
         # package's: a layer with factors takes the plain mixer below)
         x = x + ssm.mamba_seq_sp(xn, lp["mixer"], cfg.ssm, cfg.d_model, cfg.norm_eps,
@@ -223,7 +211,8 @@ def apply_layer_decode(x, lp, kind: LayerKind, cache, pos: int,
     its (c_kv, k_pe) at min(pos, Sc-1), mamba overwrites its state and conv
     inputs — where the JAX package returns new buffers, and returns x.
     ``tp``: the layer's plan under a mesh, with its cache entry's specs."""
-    check_kind(kind)
+    if kind.mixer == "none":
+        return _ff_and_adapter(x, lp, kind, cfg, lora, lora_scale, tp)[0]
     if tp is not None:
         x = _mixer_decode_tp(x, lp, kind, cache, pos, cfg, rot, impl=impl, lora=lora,
                              lora_scale=lora_scale, opts=opts, tp=tp)
@@ -346,8 +335,9 @@ def layer_cache_shape(cfg: ModelConfig, kind: LayerKind, batch: int,
     layer's ring holds min(cache_len, window) positions; with ``sparse_kv``
     an ``attn`` layer of a config with a sparse pattern holds the sparse-KV
     layout of a ``cache_len``-position sequence; a ``dec`` layer also holds
-    the encoder memory's cross k/v."""
-    check_kind(kind)
+    the encoder memory's cross k/v; a ``none`` layer holds nothing."""
+    if kind.mixer == "none":
+        return {}
     kk, hd = cfg.n_kv_heads, cfg.hd
     if kind.mixer == "mamba":
         s = cfg.ssm
@@ -372,3 +362,39 @@ def layer_cache_shape(cfg: ModelConfig, kind: LayerKind, batch: int,
         cross = (batch, cfg.encoder_seq, kk, hd)
         entry.update(xk=(cross, dtype), xv=(cross, dtype))
     return entry
+
+
+def layer_param_count(cfg: ModelConfig, kind: LayerKind, active_only: bool = False) -> int:
+    """The analytic parameter count of one layer (the JAX package's
+    accounting): norms, the mixer's projections, the ff (top-k experts
+    under ``active_only``)."""
+    d = cfg.d_model
+    n = d                                                        # norm1
+    if kind.mixer in ("attn", "local", "enc", "dec"):
+        n += d * cfg.n_heads * cfg.hd * 2 + d * cfg.n_kv_heads * cfg.hd * 2
+        if kind.mixer == "dec":
+            n += d * cfg.n_heads * cfg.hd * 2 + d * cfg.n_kv_heads * cfg.hd * 2 + d
+    elif kind.mixer == "mla":
+        m = cfg.mla
+        qk = m.nope_head_dim + m.rope_head_dim
+        n += (d * m.q_lora_rank + m.q_lora_rank
+              + m.q_lora_rank * cfg.n_heads * qk
+              + d * (m.kv_lora_rank + m.rope_head_dim) + m.kv_lora_rank
+              + m.kv_lora_rank * cfg.n_heads * (m.nope_head_dim + m.v_head_dim)
+              + cfg.n_heads * m.v_head_dim * d)
+    elif kind.mixer == "mamba":
+        s = cfg.ssm
+        d_in, h = cfg.d_inner, cfg.ssm_heads
+        conv_dim = d_in + 2 * s.n_groups * s.state
+        proj_out = 2 * d_in + 2 * s.n_groups * s.state + h
+        n += d * proj_out + s.conv_width * conv_dim + conv_dim + 3 * h + d_in + d_in * d
+    mult = 3 if cfg.act in ("swiglu", "geglu") else 2
+    if kind.ff == "mlp":
+        n += d + mult * d * cfg.d_ff
+    elif kind.ff == "moe":
+        m = cfg.moe
+        e = m.top_k if active_only else m.n_experts
+        n += d + d * m.n_experts + e * mult * d * m.d_ff
+        if m.n_shared_experts:
+            n += mult * d * (m.n_shared_experts * m.d_ff)
+    return n

@@ -7,9 +7,10 @@ targeted projection runs ``y = x@W + (α/r)·(x@A)@(mask·B)`` through the
 fused ``lora_fused`` kernel (``lora_proj``), so the shared base is never
 re-materialized per client; the mask carries no gradient.
 ``apply_lora`` (merge ``W + (α/r)·mask·A·B`` and run the plain forward) is
-kept as the merged parity oracle.  PFTT's universal adapters
-(``init_adapters``) are bottleneck modules with a residual, inserted in
-every layer.  PFIT's gradient masks (``last_k_layers_mask``,
+kept as the merged parity oracle: ``PFTTConfig``/``PFITConfig(factored=
+False)`` and the step builders' ``factored=False`` run it.  PFTT's
+universal adapters (``init_adapters``) are bottleneck modules with a
+residual, inserted in every layer.  PFIT's gradient masks (``last_k_layers_mask``,
 ``head_sparsity_mask``, ``apply_grad_mask``) are trees of f32 tensors in
 broadcast shapes: (repeats, 1, …) over a stacked layer leaf, (1, …, h·hd)
 over a head-structured projection, a scalar elsewhere.
@@ -77,8 +78,25 @@ def init_lora(generator: torch.Generator, params, peft: PEFTConfig) -> Dict:
     return trees.map_with_path(make, params)
 
 
-def _is_lora_leaf(x) -> bool:
-    return isinstance(x, dict) and "a" in x
+def is_lora_leaf(x) -> bool:
+    """A {'a','b','mask'} factor dict, or ``None`` (the leaf test of a
+    factor tree, as the JAX package's ``is_leaf`` predicate)."""
+    return x is None or (isinstance(x, dict) and "a" in x)
+
+
+def has_factors(lf) -> bool:
+    """True if a factor (sub)tree holds any actual {'a','b'} leaf — a real
+    side channel, not the all-``None`` mirror ``init_lora`` leaves on
+    untargeted weights."""
+    if lf is None:
+        return False
+    if isinstance(lf, dict) and "a" in lf:
+        return lf["a"] is not None
+    if isinstance(lf, dict):
+        return any(has_factors(v) for v in lf.values())
+    if isinstance(lf, (list, tuple)):
+        return any(has_factors(v) for v in lf)
+    return False
 
 
 # Dense-merge accounting: every merge of a present factor leaf bumps this
@@ -100,7 +118,7 @@ def merge_factors(params, lora, scale: float):
     gradient, as the JAX package's ``stop_gradient``."""
     if lora is None:
         return params
-    if _is_lora_leaf(lora):
+    if is_lora_leaf(lora):
         _DENSE_MERGE_COUNT[0] += 1
         return params + scale * lora["mask"].detach() * (lora["a"] @ lora["b"])
     if isinstance(params, dict):
@@ -130,6 +148,12 @@ def apply_lora(params, lora, peft: PEFTConfig):
     return merge_factors(params, lora, lora_scale(peft))
 
 
+def merge_lora(params, lora, peft: PEFTConfig):
+    """Permanent merge (the legacy serving path, ``PFITConfig(factored=
+    False)``'s evaluation); factored serving threads the tree instead."""
+    return apply_lora(params, lora, peft)
+
+
 def lora_proj(x, w, lf, *, scale: float):
     """Factored projection ``y = x@W + scale·((x@A)@(mask·B))`` through the
     ``lora_fused`` kernel; ``lf`` None (no factors) → plain ``x@w``.  The
@@ -140,6 +164,18 @@ def lora_proj(x, w, lf, *, scale: float):
         return x @ w
     b = lf["b"] * lf["mask"].detach().to(lf["b"].dtype)   # stop-gradient
     return lora_matmul(x, w, lf["a"], b, scale=scale)
+
+
+@dataclasses.dataclass(frozen=True)
+class LoraProj:
+    """A frozen base weight with optional rank-r factors; calling it runs
+    ``lora_proj`` (the kernel on the card)."""
+    w: object
+    lf: Optional[dict] = None
+    scale: float = 1.0
+
+    def __call__(self, x):
+        return lora_proj(x, self.w, self.lf, scale=self.scale)
 
 
 def adapter_fwd(x, ap):
@@ -168,9 +204,21 @@ def init_adapters(generator: torch.Generator, params, cfg, peft: PEFTConfig):
     return dict(params, stages=stages)
 
 
+def strip_adapters(params):
+    """The params tree without the ``adapter`` entry of any layer."""
+    return dict(params, stages=[
+        dict(sp, layers=[{k: v for k, v in lp.items() if k != "adapter"}
+                         for lp in sp["layers"]])
+        for sp in params["stages"]])
+
+
 def is_adapter_path(path: str) -> bool:
     return "/adapter/" in path
 
+
+def is_lora_path(path: str) -> bool:
+    """Within a LoRA tree every path is LoRA."""
+    return True
 
 
 def last_k_layers_mask(params, cfg, k: int):

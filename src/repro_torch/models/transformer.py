@@ -74,8 +74,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch import resolve_device, trees
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import mla, moe, ssm
-from repro_torch.models.blocks import (IMPLS, apply_layer_decode,
-                                       apply_layer_seq, check_kind,
+from repro_torch.models.blocks import (IMPLS, apply_layer_decode, apply_layer_seq,
                                        layer_cache_shape, rope_width)
 from repro_torch.models.norms import apply_norm
 from repro_torch.models.parallel import (layer_plan, layer_view, plan_factors,
@@ -114,9 +113,6 @@ class Model:
     def __init__(self, cfg: ModelConfig, dtype=torch.float32, device=None,
                  impl: str = "auto", opts: Optional[dict] = None, remat: bool = False,
                  meshctx: Optional[MeshCtx] = None, policy: str = "fsdp"):
-        for stage in cfg.stages:
-            for kind in stage.pattern:
-                check_kind(kind)
         self._check_impl(impl)
         opts = dict(opts or {})
         unknown = sorted(set(opts) - set(OPTS))
@@ -188,7 +184,9 @@ class Model:
             layers = []
             for kind in stage.pattern:
                 lp = {"norm1": stacked_norm(r, d)}
-                if kind.mixer == "mamba":
+                if kind.mixer == "none":
+                    pass
+                elif kind.mixer == "mamba":
                     lp["mixer"] = ssm.init_mamba(normal, d, cfg.ssm, self.dtype,
                                                  dev, lead=(r,))
                 elif kind.mixer == "mla":

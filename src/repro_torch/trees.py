@@ -2,9 +2,12 @@
 paths as ``repro.trees.flatten`` on a JAX pytree (list entries by index,
 dict entries by key, ``None`` leaves dropped) — and the helpers the cohort
 engine builds on: ``select``/``merge`` of subtrees by path, ``stack``/
-``unstack`` along a leading client axis, ``tree_add``, ``tree_l2``."""
+``unstack`` along a leading client axis, ``tree_add``, ``tree_scale``,
+``tree_l2``, ``mask_like``, and the counts ``count_params``/``byte_size``
+(over tensors or numpy arrays)."""
 from __future__ import annotations
 
+import math
 from typing import Callable, Dict, List, Optional, Sequence
 
 import torch
@@ -90,6 +93,11 @@ def map_leaves(fn: Callable, *trees_):
     return fn(*trees_)
 
 
+def mask_like(tree, pred: Callable[[str], bool]):
+    """1.0/0.0 float mask tree by path predicate."""
+    return map_with_path(lambda p, v: float(pred(p)), tree)
+
+
 def stack(client_trees: Sequence):
     """n same-structure trees of leaf shape S → one tree of leaf shape
     (n, *S): the cohort's stacked client axis."""
@@ -104,8 +112,26 @@ def unstack(stacked, n: Optional[int] = None) -> List:
     return [map_leaves(lambda leaf, i=i: leaf[i], stacked) for i in range(n)]
 
 
+def count_params(tree) -> int:
+    """Elements over the leaves that have a shape."""
+    return sum(math.prod(x.shape) for x in flatten(tree).values() if hasattr(x, "shape"))
+
+
+def byte_size(tree) -> int:
+    """Bytes over the leaves (tensors: ``element_size``, numpy: ``itemsize``)."""
+    def nbytes(x):
+        if isinstance(x, torch.Tensor):
+            return x.numel() * x.element_size()
+        return x.size * x.dtype.itemsize if hasattr(x, "size") else 0
+    return sum(nbytes(x) for x in flatten(tree).values())
+
+
 def tree_add(a, b, scale_b: float = 1.0):
     return map_leaves(lambda x, y: x + scale_b * y, a, b)
+
+
+def tree_scale(a, s: float):
+    return map_leaves(lambda x: x * s, a)
 
 
 def tree_zeros_like(a):

@@ -306,7 +306,7 @@ def test_factored_trainable_matches_merged_oracle(round_setup, method):
     np.testing.assert_allclose([factored, merged], [want, want], atol=TOL)
 
 
-def test_cohort_eval_and_unported_options():
+def test_cohort_eval_and_unported_options(tmp_path):
     st = {"x": torch.arange(6.0).reshape(3, 2)}
     ev = cohort.build_cohort_eval(lambda t, d: (t["x"].sum() * d.sum(), d.sum()))
     a, b = ev(st, torch.ones(3, 4))
@@ -329,15 +329,17 @@ def test_cohort_eval_and_unported_options():
                                 "not initialised")):
         with pytest.raises(err, match=match):
             cohort.build_supervised_round(lambda *a: a, cs=cohort_sharding(m, 2), **opt)
-    # the legacy loop stays refused; population mode raises the JAX
-    # package's own errors before any work
+    # the legacy loop runs (with ``ckpt_dir`` it writes nothing, as JAX's
+    # loop); population mode raises the JAX package's own errors before any
+    # work
     from repro_torch.fl import PopulationConfig
     from repro_torch.wireless.scenarios import Scenario
+    for kw in (dict(engine=False), dict(ckpt_dir=str(tmp_path), factored_agg=True, engine=False)):
+        res = pftt.run_pftt(pftt.PFTTConfig(device="cpu", **dict(PFTT_KW, rounds=1), **kw))
+        assert res["fused_engine"] is False and np.isfinite(res["final_acc"])
+    assert list(tmp_path.iterdir()) == []
     pop = PopulationConfig(population=8, cohort_size=2)
-    for kw, err, match in ((dict(engine=False), NotImplementedError, "legacy"),
-                           (dict(ckpt_dir="x", factored_agg=True, engine=False),
-                            NotImplementedError, "legacy"),
-                           (dict(population=pop, engine=False), ValueError, "engine"),
+    for kw, err, match in ((dict(population=pop, engine=False), ValueError, "engine"),
                            (dict(population=PopulationConfig(
                                population=8, cohort_size=2, scenario=Scenario(n_classes=8))),
                             ValueError, "4-class")):

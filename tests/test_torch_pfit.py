@@ -124,14 +124,13 @@ def _pop():
 
 
 @pytest.mark.parametrize("option, err, match", [
-    (dict(engine=False), NotImplementedError, "legacy"),
     (dict(uplink_codec="int8", population=_pop()), ValueError, "shepherd"),
     (dict(method="sfl", factored_agg=True, population=_pop()), ValueError, "shepherd"),
     (dict(method="shepherd", population=_pop(), engine=False), ValueError, "engine"),
     (dict(method="pfl", population=_pop()), ValueError, "shepherd")])
 def test_unported_options_name_their_item(option, err, match):
-    """The legacy loop is refused by name; population mode (ported) raises
-    the JAX package's own errors for the PPO methods and the loop."""
+    """Population mode raises the JAX package's own errors for the PPO
+    methods and the loop (the loop itself runs: test_torch_oracles_pfit*)."""
     with pytest.raises(err, match=match):
         pfit.run_pfit(pfit.PFITConfig(device="cpu", **option))
 

@@ -221,17 +221,20 @@ def test_unported_kinds_name_their_slice():
     """Every mixer of the JAX package is ported: MLA (with any ff),
     whisper's cross-attention decoder, MoE, the ``local`` window, the
     encoder, an encoder-decoder stack, rotary positions and VLM prefixes
-    build, and an encoder-decoder serves from a reduced config; only a
-    ``none`` mixer is refused."""
+    build, and an encoder-decoder serves from a reduced config; a ``none``
+    mixer (the layer is its ff) builds and serves too (held against JAX in
+    ``tests/test_torch_oracles_api.py``)."""
     import dataclasses
     from repro_torch.configs import LK, Stage
     cfg = get_config("gpt2-small").reduced()
     mla_cfg = get_config("deepseek-v2-236b").reduced()
     for kind in (LK("mla", "none"), LK("mla", "mlp"), LK("mla", "moe")):
         Model(dataclasses.replace(mla_cfg, stages=(Stage((kind,), 1),)), device="cpu")
-    with pytest.raises(NotImplementedError, match="not ported"):
-        Model(dataclasses.replace(cfg, stages=(Stage((LK("none", "mlp"),), 1),)),
-              device="cpu")
+    none = Model(dataclasses.replace(cfg, stages=(Stage((LK("none", "mlp"),), 1),)),
+                 device="cpu")
+    p = none.init(torch.Generator().manual_seed(0))
+    logits, cache = none.prefill(p, torch.zeros((1, 4), dtype=torch.long), 6)
+    assert cache["stages"][0] == [{}] and torch.isfinite(logits).all()
     moe = get_config("dbrx-132b").reduced()
     for kind in (LK("attn", "moe"), LK("local", "mlp")):
         Model(dataclasses.replace(moe, stages=(Stage((kind,), 1),)), device="cpu")
