@@ -30,8 +30,9 @@ Phases, each reported on its own lines:
    its compiled pairs, (128, 128) and (64, 256), through the cover (each
    such row prints the compiled pair and its blocks).  ``any_width_cases``:
    the attention kernels at head widths past whole 16-byte chunks of 256
-   (18: elements; 272, 512 and MLA's (288, 272), (528, 512): sliced), each
-   row naming its plan.
+   (18: elements; 272, 512 and MLA's (288, 272), (528, 512): split over a
+   cluster, and heads of 512 at S 1024, past launch latency), each row
+   naming its plan.
 4. serve   — the serving paths through the port's entry points
    (``launch/serve.py`` build/generate), each with random weights from seed
    0 and nonzero rank-8 LoRA factors from a numpy seed, f32:
@@ -82,7 +83,8 @@ Phases, each reported on its own lines:
      torch, timed apart (its share of the decode step's device time);
    * SERVE-WIDTHS: gpt2-small at ``.reduced(d_model=72, repeats=2)`` (4
      heads of 18: the attention kernels' element path) and
-     ``.reduced(d_model=2048, repeats=2)`` (4 heads of 512: sliced), dense
+     ``.reduced(d_model=2048, repeats=2)`` (4 heads of 512: split over a
+     cluster in prefill, sliced in decode), dense
      and block-sparse, batch 2, prompt 128, 16 decode steps, no PROFILE;
    * SERVE-SPARSE-KV: gpt2-small at full width cut to 4 of its 12 layers
      (``sparse_kv_cut``), ``impl="sparse"`` and
@@ -214,7 +216,7 @@ Phases, each reported on its own lines:
    gradient: (80, 64) in the (96, 64) tile at d 256) and whisper-base:
    seconds a round, losses, the launcher's on-card oracle check (≤ 1e-5),
    launches against ``arch_expected``; a CPU re-run (losses within
-   1e-5); and at d 1088 (heads of 272, MLA's (288, 272): sliced) for
+   1e-5); and at d 1088 (heads of 272, MLA's (288, 272): split) for
    gpt2-small, llama3.2-1b, deepseek-v2-236b and whisper-base.  The
    grads phase has a GRAD row for ``SSDScan`` (the SSD scan's Function) at
    the jamba/mamba2 round's shape, and the kernels phase CHECK rows at
@@ -355,7 +357,8 @@ SERVES = (
          weights_of="SERVE-GEMMA3")) + tuple(
     # SERVE-WIDTHS: gpt2-small at .reduced(d_model=D, repeats=2), 4 heads
     # of 18 (not whole 16-byte chunks: the element path) and of 512 (past
-    # 256: sliced), dense and block-sparse (block 16)
+    # 256: split over a cluster; decode sliced), dense and block-sparse
+    # (block 16)
     dict(tag=f"SERVE-WIDTHS d{d}{' sparse' if impl == 'sparse' else ''}", arch="gpt2-small",
          impl=impl, batch=2, prompt_len=128, gen=16, rank=8, rows=2, logit_tol=1e-3,
          reduced=dict(d_model=d, repeats=2), profile=False)
@@ -866,8 +869,9 @@ def width_cases(torch, rn):
 def any_width_cases(torch, rn):
     """f32 rows at head widths of every plan past whole chunks of 256:
     ``flash_attn`` causal at SERVE-WIDTHS' prefill (B 2, S 128, H 4) with
-    heads of 18 (elements), 272 and 512 (sliced) and MLA's (288, 272) and
-    (528, 512) (sliced, scale dk^-1/2); ``block_sparse_attn`` (block 16,
+    heads of 18 (elements), 272 and 512 (split) and MLA's (288, 272) and
+    (528, 512) (split, scale dk^-1/2), and heads of 512 at S 1024 (past
+    launch latency); ``block_sparse_attn`` (block 16,
     local 2, sink 1, stride 4: the reduced config's pattern) and
     ``decode_attn`` (cache 144 of 144, SERVE-WIDTHS' last step) at heads of
     18 and 512.  Bytes and operations count the rows' widths; the library
@@ -883,21 +887,28 @@ def any_width_cases(torch, rn):
     from repro_torch.kernels.flash_attn.ref import attention_ref
     from repro_torch.models.attention import sparse_block_table
 
-    def how(dk, dv):
+    def how(dk, dv, decode=False):
         p = plan(dk, dv)
-        return ("elements" if not p.sliced else
-                f"sliced {p.dk_slices}x{p.dv_slices}") + f" in {p.tile}"
+        if decode and p.sliced:
+            return f"sliced {p.dk_slices}x{p.dv_slices} in {p.tile}"
+        if p.cluster is not None:
+            c = p.cluster
+            return f"split over {c.ranks} ranks of {c.tile}, " + (
+                "chunks" if p.aligned else "elements")
+        return f"elements in {p.tile}"
 
     cases = []
     b, s_, h = 2, 128, 4
-    for dk, dv in ((18, 18), (272, 272), (512, 512), (288, 272), (528, 512)):
-        q, k, v = rn(b, s_, h, dk), rn(b, s_, h, dk), rn(b, s_, h, dv)
+    for dk, dv, sq in ((18, 18, s_), (272, 272, s_), (512, 512, s_), (288, 272, s_),
+                       (528, 512, s_), (512, 512, 1024)):
+        q, k, v = rn(b, sq, h, dk), rn(b, sq, h, dk), rn(b, sq, h, dv)
         cases.append(attn_case(
             torch, "flash_attn",
-            f"B={b} S={s_} H={h} dk={dk} dv={dv} causal ({how(dk, dv)}; SERVE-WIDTHS)",
+            f"B={b} S={sq} H={h} dk={dk} dv={dv} causal ({how(dk, dv)}; "
+            + ("SERVE-WIDTHS)" if sq == s_ else "past launch latency)"),
             lambda q=q, k=k, v=v: flash_attention(q, k, v, causal=True),
             lambda q=q, k=k, v=v: attention_ref(q, k, v, causal=True),
-            q, k, v, s_ * (s_ + 1) // 2, causal=True))
+            q, k, v, sq * (sq + 1) // 2, causal=True))
     pattern = SparseAttnConfig(block_size=16, local_blocks=2, sink_blocks=1, stride=4)
     idx, valid = sparse_block_table(s_ // 16, s_ // 16, pattern, 0)
     allowed = torch.zeros(s_, s_, dtype=torch.bool, device="cuda")
@@ -919,7 +930,7 @@ def any_width_cases(torch, rn):
         kt, vt = (t.transpose(1, 2).contiguous() for t in (kc, vc))
         cases.append(dict(
             name="decode_attn", dtype="float32",
-            label=f"B={b} Sc={sc} H={h} hd={d} cache_len={sc} ({how(d, d)}; SERVE-WIDTHS)",
+            label=f"B={b} Sc={sc} H={h} hd={d} cache_len={sc} ({how(d, d, True)}; SERVE-WIDTHS)",
             kernel=lambda q=q1, kc=kc, vc=vc: decode_attention(q, kc, vc, sc),
             plain=lambda q=q1, kc=kc, vc=vc: decode_ref(q, kc, vc, sc),
             library=lambda q=q1, kt=kt, vt=vt: F.scaled_dot_product_attention(
@@ -3534,7 +3545,7 @@ ARCH_ROUND_FLAGS = ["--fl-clients", "4", "--fl-rounds", "2", "--assert-fused"]
 # (d_model, its flags, the archs run there): heads of 64; the launcher's
 # default width (no flag: d 64, heads of 16); d 72, heads of 18 (MLA's (34,
 # 18), SSD heads of 16: the element path); d 1088, heads of 272 (MLA's
-# (288, 272): sliced) for four archs, whose CPU re-runs cost seconds each
+# (288, 272): split) for four archs, whose CPU re-runs cost seconds each
 ARCH_WIDTHS = ((256, ["--fl-dmodel", "256"], ARCH_ROUND_ARCHS), (64, [], ARCH_ROUND_ARCHS),
                (72, ["--fl-dmodel", "72"], ARCH_ROUND_ARCHS),
                (1088, ["--fl-dmodel", "1088"],
@@ -4531,12 +4542,17 @@ def main():
                 spills.append(f"{name}: {line}")
     if spills:
         fail(f"ptxas spilled in {len(spills)} instances: {spills}")
-    from repro_torch.kernels.flash_attn.ops import occupancy
+    from repro_torch.kernels.flash_attn.ops import RANK_TILE, occupancy, split_occupancy
     for dk, dv in ((256, 256), (192, 128), (96, 64)):   # one block an SM each
         for bq in (32, 64):
             blocks, smem = occupancy(dk, dv, bq)
             print(f"OCCUPANCY flash_attn f32 (q/k {dk}, v {dv}) {bq}-row q tile: "
                   f"{blocks} blocks an SM, {smem} bytes of shared memory a block", flush=True)
+    for ranks in (3, 4, 5):   # the clusters of the rows past 256 run below (272, 512, 528)
+        blocks, clusters, smem = split_occupancy(ranks)
+        print(f"OCCUPANCY flash_attn f32 rows past 256 split over {ranks} ranks of "
+              f"{RANK_TILE}, 32-row q tile: {blocks} blocks an SM, {clusters} clusters at "
+              f"once, {smem} bytes of shared memory a block", flush=True)
 
     t0 = time.perf_counter()
     rows = check_kernels(torch)

@@ -17,10 +17,10 @@ import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.block_sparse_attn.ref import block_sparse_ref
-from repro_torch.kernels.flash_attn.ops import DTYPES, check_operands
+from repro_torch.kernels.flash_attn.ops import DTYPES, check_operands, workspace
 from repro_torch.models.attention import check_sparse_lengths, sparse_block_table
 
-_ARGTYPES = ([ctypes.c_int] + [ctypes.c_void_p] * 6 + [ctypes.c_int] * 13
+_ARGTYPES = ([ctypes.c_int] + [ctypes.c_void_p] * 7 + [ctypes.c_int] * 13
              + [ctypes.c_float, ctypes.c_void_p])
 
 
@@ -40,8 +40,8 @@ def block_sparse_attention(q, k, v, cfg, *, q_offset: int = 0, scale=None):
     (default dk^-1/2) multiplies q·k.  Any (dk, dv) runs on the card, as
     ``flash_attn.ops.plan`` says, as in ``flash_attention``: whole 16-byte
     chunks in the smallest compiled tile, other rows element by element,
-    rows wider than 256 sliced (q·k over 256-wide slices, v and o in
-    column planes)."""
+    rows wider than 256 split over a thread block cluster, each rank a
+    slice of q/k dims and v/o columns, one S summed in rank order."""
     plan = check_operands("block_sparse_attention", q, k, v)
     if scale is None:
         scale = q.shape[-1] ** -0.5
@@ -57,9 +57,11 @@ def block_sparse_attention(q, k, v, cfg, *, q_offset: int = 0, scale=None):
     sk, kh, dv = k.shape[1], k.shape[2], v.shape[3]
     idx, valid = device_table(sq // bs, sk // bs, cfg, q_offset // bs, q.device)
     out = q.new_empty(b, sq, h, dv)
+    work = workspace(q, dv, plan)
     fn = _build.function("block_sparse_attn", _ARGTYPES)
     rc = fn(DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
-            out.data_ptr(), idx.data_ptr(), valid.data_ptr(), b, sq, sk, h, kh,
+            out.data_ptr(), None if work is None else work.data_ptr(), idx.data_ptr(),
+            valid.data_ptr(), b, sq, sk, h, kh,
             *plan.tile, plan.path, d, dv, bs, idx.shape[1], int(q_offset), scale,
             torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(rc, "block_sparse_attn")

@@ -81,8 +81,8 @@ each round was one round step, and the losses match the dense-merge oracle
 to ≤1e-5.  The default ``--fl-dmodel 64`` gives heads of 16 (MLA's q/k 32
 with v 16), which the attention kernels run in their 32-wide tile; any
 ``--fl-dmodel`` runs on the card (72: heads of 18, read element by element;
-1088: heads of 272, q·k summed over 256-wide slices and v in 256-column
-planes; ``kernels/flash_attn/ops.py::plan``):
+1088: heads of 272, split over a cluster of three blocks, each a slice of
+q/k dims and v columns; ``kernels/flash_attn/ops.py::plan``):
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch llama3.2-1b \
         --fl-clients 4 --fl-rounds 2 --assert-fused

@@ -8,7 +8,8 @@ rope wide and v is ``v_head_dim`` wide (192 and 128 at deepseek-v2's
 published widths), with the scale (nope + rope)^-1/2; the kernels run
 any such pair as ``kernels.flash_attn.ops.plan`` says: (80, 64) at the
 reduced d-256 config in the (96, 64) tile, zero-filled inside the kernel;
-(34, 18) at d 72 element by element; (288, 272) at d 1088 sliced.
+(34, 18) at d 72 element by element; (288, 272) at d 1088 split over a
+thread block cluster.
 
 Decode uses the *absorbed* formulation: q is projected into the kv_lora
 latent space and attention runs against the compressed cache (c_kv,

@@ -25,6 +25,7 @@ from repro_torch.kernels.lora_fused.ref import lora_ref
 from repro_torch.kernels.ssd_chunk import ops as ssd_ops
 from repro_torch.kernels.ssd_chunk.ops import ssd_plan, ssd_scan
 from repro_torch.kernels.ssd_chunk.ref import ssd_ref
+from repro_torch.models.attention import make_mask, sparse_block_table
 
 pytestmark = pytest.mark.cuda
 
@@ -172,7 +173,8 @@ def test_block_sparse_attn_kernel_mla_widths(gen, dtype, dk, dv, h, kh):
 
 # Any head width (the plan of kernels/flash_attn/ops.py): widths that are
 # not whole 16-byte chunks (elements), both sides of 256 and far past it
-# (sliced), and MLA's pairs at the launcher's d 72, 1088 and 2048
+# (split; the decode kernel's slices), and MLA's pairs at the launcher's
+# d 72, 1088 and 2048
 ANY_WIDTHS = [(d, d) for d in (1, 3, 18, 34, 100, 250, 260, 272, 288, 512, 528, 1000)] + [
     (34, 18), (288, 272), (528, 512)]
 
@@ -183,7 +185,7 @@ def test_prefill_attention_kernels_any_width(gen, dtype, dk, dv):
     """``flash_attn`` causal with GQA 2 and a window, non-causal with an
     explicit scale, and ``block_sparse_attn`` (block 32, q offset 64) at
     any (dk, dv) against the plain versions, one launch a call whatever
-    the plan's slices and planes."""
+    the plan's cluster."""
     plan = flash_ops.plan(dk, dv, dtype.itemsize)
     q, k = _rn(gen, 2, 160, 4, dk, dtype=dtype), _rn(gen, 2, 160, 2, dk, dtype=dtype)
     v = _rn(gen, 2, 160, 2, dv, dtype=dtype)
@@ -229,7 +231,8 @@ def test_decode_attention_kernel_any_width(gen, dtype, d):
 @pytest.mark.parametrize("d", [18, 250, 272, 1000])
 def test_attention_kernels_any_width_unaligned(gen, d):
     """f32 operands 4 bytes past a 16-byte boundary at widths of every
-    plan: the element and sliced paths read nothing as 16-byte chunks."""
+    plan: the element path, the split and the decode kernel's slices read
+    nothing as 16-byte chunks."""
     q, k, v = _unaligned(gen, 2, 96, 4, d), _unaligned(gen, 2, 96, 2, d), _unaligned(gen, 2, 96, 2, d)
     _close(flash_attention(q, k, v), attention_ref(q, k, v), TOL["flash"][torch.float32])
     cfg = SparseAttnConfig(block_size=32, local_blocks=2, sink_blocks=1, stride=2)
@@ -256,6 +259,84 @@ def test_attention_kernels_refuse_what_jax_refuses(gen):
         decode_attention(_rn(gen, 1, 1, 2, 288), _rn(gen, 1, 8, 2, 288), _rn(gen, 1, 8, 2, 272), 4)
     assert (flash_attention.launches, decode_attention.launches,
             block_sparse_attention.launches) == before
+
+
+# The split of a row past 256 over a thread block cluster (the plan's
+# ``cluster``): ranks 3 (272, MLA's (288, 272); (260, 128) and (128, 384):
+# ranks with no v columns, with no q/k dims), 4 (512), 5 with a rank that
+# owns no v columns ((528, 512)), 8 (1024), past 8 (1040: 9, 2048: 16),
+# ranks that loop over two slices (2080; 2080 with v 128; v 2304 past q/k
+# 64: ranks with no q/k dims), and rows past 256 that are not whole chunks
+# (274 in f32, 1001 in bf16: elements)
+SPLIT_WIDTHS = [(260, 128), (128, 384), (1024, 1024), (272, 272), (288, 272), (512, 512),
+                (528, 512), (1040, 1040), (2048, 2048), (2080, 2080), (2080, 128),
+                (64, 2304), (274, 274), (1001, 1001)]
+
+
+def _plain(q, k, v, allowed, scale):
+    """The plain attention over ``allowed`` (Sq, Sk), f32 operands in f64
+    (at 2048 dims the f32 plain version's own q·k sum is off by up to
+    1e-5, half the kernel check's tolerance), bf16 ones in f32 → q's
+    dtype."""
+    b, sq, h, d = q.shape
+    kh, wide = k.shape[2], torch.float64 if q.dtype == torch.float32 else torch.float32
+    qg = q.to(wide).reshape(b, sq, kh, h // kh, d) * scale
+    logits = torch.einsum("bsKgd,btKd->bKgst", qg, k.to(wide)).masked_fill(~allowed, -1e30)
+    out = torch.einsum("bKgst,btKd->bsKgd", torch.softmax(logits, -1), v.to(wide))
+    return out.reshape(b, sq, h, v.shape[3]).to(q.dtype)
+
+
+def _sparse_allowed(sq, sk, cfg, q_offset):
+    """The block-sparse kernels' (Sq, Sk) mask: a q block's valid kv blocks,
+    causal inside them."""
+    bs = cfg.block_size
+    idx, valid = sparse_block_table(sq // bs, sk // bs, cfg, q_offset // bs)
+    allowed = torch.zeros(sq, sk, dtype=torch.bool, device="cuda")
+    for i in range(idx.shape[0]):
+        for j in idx[i][valid[i]]:
+            allowed[i * bs:(i + 1) * bs, j * bs:(j + 1) * bs] = True
+    qpos = torch.arange(sq, device="cuda")[:, None] + q_offset
+    return allowed & (torch.arange(sk, device="cuda")[None, :] <= qpos)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dk,dv", SPLIT_WIDTHS)
+def test_prefill_attention_kernels_split(gen, dtype, dk, dv):
+    """``flash_attn`` causal with GQA 2 and a window, non-causal with an
+    explicit scale, and ``block_sparse_attn`` (block 32, q offset 64) on
+    the split route against the plain arithmetic, one launch a call; the
+    ranks add the partial S in one order whatever order they run in, so the
+    same call twice gives the same bits."""
+    plan = flash_ops.plan(dk, dv, dtype.itemsize)
+    assert plan.cluster is not None and plan.cluster.ranks >= 3
+    q, k = _rn(gen, 2, 160, 4, dk, dtype=dtype), _rn(gen, 2, 160, 2, dk, dtype=dtype)
+    v = _rn(gen, 2, 160, 2, dv, dtype=dtype)
+    tol = TOL["flash"][dtype]
+    for kw in (dict(causal=True, window=70), dict(causal=False, scale=0.07)):
+        before = flash_attention.launches
+        out = flash_attention(q, k, v, **kw)
+        torch.cuda.synchronize()
+        assert flash_attention.launches == before + 1 and out.shape == (2, 160, 4, dv)
+        allowed = make_mask(160, 160, causal=kw["causal"], window=kw.get("window", 0),
+                            device="cuda")
+        _close(out, _plain(q, k, v, allowed, kw.get("scale", dk ** -0.5)), tol)
+        assert torch.equal(flash_attention(q, k, v, **kw), out)
+    cfg = SparseAttnConfig(block_size=32, local_blocks=2, sink_blocks=1, stride=2)
+    kk, vv = _rn(gen, 2, 224, 2, dk, dtype=dtype), _rn(gen, 2, 224, 2, dv, dtype=dtype)
+    before = block_sparse_attention.launches
+    out = block_sparse_attention(q, kk, vv, cfg, q_offset=64)
+    torch.cuda.synchronize()
+    assert block_sparse_attention.launches == before + 1, plan
+    _close(out, _plain(q, kk, vv, _sparse_allowed(160, 224, cfg, 64), dk ** -0.5), tol)
+    assert torch.equal(block_sparse_attention(q, kk, vv, cfg, q_offset=64), out)
+
+
+@pytest.mark.parametrize("ranks", [3, 5, 16])
+def test_split_instances_fit(gen, ranks):
+    """The f32 split instance rows past 256 run in: at least two blocks an
+    SM, and clusters of up to 16 that the card can hold."""
+    blocks, clusters, smem = flash_ops.split_occupancy(ranks)
+    assert blocks >= 2 and clusters >= 1 and 0 < smem <= 227 * 1024
 
 
 # gemma3-12b's heads of 240 (the 256 tile), the launcher's default d 64

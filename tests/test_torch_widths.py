@@ -1,6 +1,7 @@
 """Every head width in the port: the plan that routes a call's row widths
-to the attention kernels' compiled tiles (whole chunks, elements, or
-sliced past 256), each plan's cover in plain torch against the JAX
+to the attention kernels' compiled tiles (whole chunks, elements, the
+prefill kernels' split of a head over a thread block cluster, the decode
+kernel's slices past 256), each plan's cover in plain torch against the JAX
 package's attention, decode and block-sparse attention, gemma3-12b's heads
 of 240 and gpt2-small's heads of 18 served against the JAX package on the
 CPU (f32, numpy-seeded LoRA, the JAX package's own weights carried across
@@ -30,8 +31,9 @@ from repro_torch.configs import LK, SparseAttnConfig, Stage, get_config
 from repro_torch.core import arch_round
 from repro_torch.kernels.block_sparse_attn.ops import block_sparse_attention
 from repro_torch.kernels.decode_attn.ops import decode_attention
-from repro_torch.kernels.flash_attn.ops import (SQUARE, WIDTHS, AttnPlan, flash_attention,
-                                                instance, plan)
+from repro_torch.kernels.flash_attn.ops import (RANK_TILE, SPLIT_MAX, SQUARE, WIDTHS,
+                                                AttnPlan, Cluster, flash_attention, instance,
+                                                plan, workspace)
 from repro_torch.kernels.flash_attn.ref import cover_ref
 from repro_torch.launch import train
 from repro_torch.models.attention import make_mask, sparse_block_table, sparse_position_mask
@@ -56,13 +58,19 @@ def test_instance_picks_the_smallest_tile(dk, dv, want):
         assert instance(dk, dv, widths=SQUARE) == want
 
 
+R128 = (128, 128)
+
+
 @pytest.mark.parametrize("dk,dv,itemsize,want", [
-    # rows wider than 256: sliced in (256, 256), q·k over dk slices, v in planes
-    (260, 260, 4, AttnPlan((256, 256), False, 2, 2)),
-    (288, 288, 4, AttnPlan((256, 256), False, 2, 2)),
-    (264, 128, 4, AttnPlan((256, 256), False, 2, 1)),
-    (528, 512, 4, AttnPlan((256, 256), False, 3, 2)),
-    (1000, 1000, 2, AttnPlan((256, 256), False, 4, 4)),
+    # rows wider than 256: split over rank tiles of 128 (the decode kernel
+    # slices q·k over 256-wide slices and v into 256-column planes)
+    (260, 260, 4, AttnPlan((256, 256), True, 2, 2, Cluster(R128, 3))),
+    (288, 288, 4, AttnPlan((256, 256), True, 2, 2, Cluster(R128, 3))),
+    (264, 128, 4, AttnPlan((256, 256), True, 2, 1, Cluster(R128, 3))),
+    (528, 512, 4, AttnPlan((256, 256), True, 3, 2, Cluster(R128, 5))),
+    (1000, 1000, 2, AttnPlan((256, 256), True, 4, 4, Cluster(R128, 8))),
+    (1001, 1001, 2, AttnPlan((256, 256), False, 4, 4, Cluster(R128, 8))),
+    (274, 274, 4, AttnPlan((256, 256), False, 2, 2, Cluster(R128, 3))),
     # not whole 16-byte chunks: elements, the smallest square tile
     (18, 18, 4, AttnPlan((32, 32), False)), (34, 32, 4, AttnPlan((64, 64), False)),
     (32, 2, 4, AttnPlan((32, 32), False)), (12, 12, 2, AttnPlan((32, 32), False)),
@@ -74,7 +82,8 @@ def test_plan_covers_every_width(dk, dv, itemsize, want):
     """Every width ≥ 1 has a plan: whole 16-byte chunks up to 256 run the
     tile they ran before (the chunk path), other rows up to 256 element by
     element in the smallest square tile holding both widths, wider rows
-    sliced; the C entry points' path number and the planes follow."""
+    split from (256, 256) (chunk reads where whole) and sliced by the decode
+    kernel; the C entry points' path number and the decode planes follow."""
     got = plan(dk, dv, itemsize)
     assert got == want and instance(dk, dv, itemsize) == want.tile
     assert got.path == (2 if max(dk, dv) > 256 else 0 if want.aligned else 1)
@@ -85,6 +94,52 @@ def test_plan_covers_every_width(dk, dv, itemsize, want):
     assert got.dk_slices * got.tile[0] >= dk > (got.dk_slices - 1) * got.tile[0]
     if dk == dv:
         assert plan(dk, dv, itemsize, SQUARE) == want
+
+
+# (dk, dv) → (ranks, k_per, v_per): rows past 256 in ranks of (128, 128);
+# past 16 ranks of 128 a rank loops over its slices
+@pytest.mark.parametrize("dk,dv,want", [
+    (257, 257, (3, 1, 1)), (260, 128, (3, 1, 1)), (272, 272, (3, 1, 1)),
+    (288, 272, (3, 1, 1)), (512, 512, (4, 1, 1)), (528, 512, (5, 1, 1)),
+    (128, 384, (3, 1, 1)), (1024, 1024, (8, 1, 1)), (1040, 1040, (9, 1, 1)),
+    (2048, 2048, (16, 1, 1)), (2080, 2080, (9, 2, 2)), (2080, 128, (9, 2, 1)),
+    (64, 4096, (16, 1, 2)), (5000, 5000, (14, 3, 3))])
+def test_cluster_route(dk, dv, want):
+    """The prefill kernels' split of rows past 256: the rank tile, the
+    ranks and the slices a rank loops over, each rank's contiguous q/k dims
+    and v/o columns covering the rows once in rank order, at most a tile's
+    width a slice; a rank with no v columns ((528, 512): rank 4; (260, 128))
+    or no q/k dims ((128, 384), (64, 4096)); chunk reads where the rows are
+    whole; the f32 workspace only where a rank owns more than one v slice."""
+    p = plan(dk, dv)
+    c = p.cluster
+    assert c.tile == RANK_TILE and (c.ranks, c.k_per, c.v_per) == want
+    assert c.ranks <= SPLIT_MAX and c.loops == (want[1] > 1 or want[2] > 1)
+    for ranges, width, w in ((c.dims(dk), dk, c.tile[0] * c.k_per),
+                             (c.cols(dv), dv, c.tile[1] * c.v_per)):
+        assert len(ranges) == c.ranks and ranges[0][0] == 0 and ranges[-1][1] == width
+        assert all(a <= e and e - a <= w for a, e in ranges)
+        assert all(ranges[r][1] == ranges[r + 1][0] for r in range(c.ranks - 1))
+        assert max(e - a for a, e in ranges) == min(w, width)
+    assert p.aligned == (dk % 4 == 0 and dv % 4 == 0)
+    q = torch.zeros(2, 3, 4, dk)
+    work = workspace(q, dv, p)
+    assert (work is None) == (want[2] == 1)
+    if work is not None:
+        assert work.shape == (2, 3, 4, dv) and work.dtype == torch.float32
+    if dk == 528:
+        assert c.cols(dv)[4] == (512, 512) and c.dims(dk)[4] == (512, 528)
+
+
+def test_one_block_tiles_do_not_split():
+    """Every compiled tile, (32, 32) to (256, 256) with MLA's (96, 64) and
+    (192, 128), and element rows up to 256 run in one block a (batch·head,
+    q tile): no cluster; past 256 every row splits."""
+    for dk, dv in [*WIDTHS, (18, 18), (80, 64), (120, 120), (130, 120), (240, 240),
+                   (250, 250), (160, 128)]:
+        assert plan(dk, dv).cluster is None, (dk, dv)
+        assert plan(dk, dv, 2).cluster is None, (dk, dv)
+    assert all(plan(d, d).cluster is not None for d in (257, 260, 300))
 
 
 @pytest.mark.parametrize("dk,dv", [(0, 0), (0, 8), (8, 0)])
@@ -107,8 +162,8 @@ def test_decode_takes_square_tiles_only():
 
 
 # ---------------------------------------------------------------- covers
-COVER_WIDTHS = [(d, d) for d in (1, 2, 18, 34, 272, 288, 512, 528, 1000)] + [
-    (34, 18), (288, 272), (528, 512)]
+COVER_WIDTHS = [(d, d) for d in (1, 2, 18, 34, 240, 256, 272, 288, 512, 528, 1000, 2080)] + [
+    (34, 18), (288, 272), (528, 512), (192, 128)]
 JSP = dict(block_size=16, local_blocks=2, sink_blocks=1, stride=2)
 
 
@@ -140,9 +195,9 @@ def _sparse_allowed(sq, sk, cfg, q_offset):
 
 @pytest.mark.parametrize("dk,dv", COVER_WIDTHS)
 def test_prefill_covers_match_jax(dk, dv):
-    """Each width's cover (``cover_ref``: q·k summed over the plan's dk
-    slices, v in its column planes, the same P for every plane) and the
-    wrappers' CPU path against JAX's dense attention (causal with a window
+    """Each width's cover (``cover_ref``: partial q·k dots per rank of the
+    plan's cluster added in rank order, P once, each rank's v columns) and
+    the wrappers' CPU path against JAX's dense attention (causal with a window
     and GQA 2, non-causal) and block-sparse attention (block 16, q offset
     32), numpy-seeded f32 inputs, within 1e-5."""
     rng = np.random.RandomState(dk + 7 * dv)
@@ -168,7 +223,7 @@ def test_prefill_covers_match_jax(dk, dv):
 @pytest.mark.parametrize("d", sorted({d for d, dv in COVER_WIDTHS if d == dv}))
 def test_decode_covers_match_jax(d):
     """The decode plan's cover (square widths: k and v of one width, as in
-    JAX) and the wrapper's CPU path against JAX's ``decode_attention``,
+    JAX; past 256 the dot over 256-wide slices, v in 256-column planes) and the wrapper's CPU path against JAX's ``decode_attention``,
     GQA 2: dense, windowed, and under the sparse mask, within 1e-5."""
     rng = np.random.RandomState(d)
     p = plan(d, d, widths=SQUARE)
@@ -183,7 +238,7 @@ def test_decode_covers_match_jax(d):
         allowed = (pos < cache_len) & ((pos >= cache_len - window) if window else True)
         if sparse:
             allowed &= sparse_position_mask(pos, cache_len, cfg)
-        for got in (cover_ref(tq, tk, tv, p, allowed, d ** -0.5),
+        for got in (cover_ref(tq, tk, tv, p, allowed, d ** -0.5, decode=True),
                     decode_attention(tq, tk, tv, cache_len, window=window, sparse=cfg)):
             np.testing.assert_allclose(got.numpy(), want, atol=TOL, rtol=0)
 

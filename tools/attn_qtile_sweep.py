@@ -72,7 +72,7 @@ def main():
             else:
                 fn.argtypes = flash_ops._ARGTYPES
                 call = lambda fn=fn, out=out: fn(0, q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                                                 out.data_ptr(), b, s, s, h, h, d, d, 0, d,
+                                                 out.data_ptr(), None, b, s, s, h, h, d, d, 0, d,
                                                  d, int(causal), 0, d ** -0.5, stream)
             r = call()
             if fn is not None:
@@ -99,7 +99,7 @@ def main():
             else:
                 fn.argtypes = bsa_ops._ARGTYPES
                 call = lambda fn=fn, out=out: fn(0, q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                                                 out.data_ptr(), idx.data_ptr(),
+                                                 out.data_ptr(), None, idx.data_ptr(),
                                                  valid.data_ptr(), b, s, s, h, h, d, d, 0,
                                                  d, d, bs, idx.shape[1], 0, d ** -0.5, stream)
             r = call()
